@@ -1,0 +1,127 @@
+"""Stage 4: greedy decoding + scoring of a package checkpoint.
+
+Counterpart of ``ctc_pytorch_tpu/cli/test.py:26-160`` (the streaming loop):
+loads a package, rebuilds the model from it alone, decodes the test set
+batch by batch with the greedy decoder, prints per-utterance origin/decoded
+pairs, and reports CER/WER percentages and decode wall time, in the same
+lines as the JAX package.
+
+Precision: TF32 is off for matmuls and cuDNN convolutions, so an fp32
+package computes in full fp32 like the JAX reference it is held against
+(PyTorch's default would run fp32 convolutions in TF32).  bf16 packages
+are unaffected: their operands are already bf16.
+
+Usage: ``python -m ctc_pytorch_tpu_torch.cli.test --conf <yaml>
+[--package <npz>] [--device cuda|cpu]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from ctc_pytorch_tpu_torch import resolve_device
+from ctc_pytorch_tpu_torch.config import Config, load_config
+from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+from ctc_pytorch_tpu_torch.decode import GreedyDecoder
+from ctc_pytorch_tpu_torch.models import CTCModel
+from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
+from ctc_pytorch_tpu_torch.vocab import Vocab
+
+
+def evaluate(
+    cfg: Config,
+    package_path: str,
+    *,
+    device: str | torch.device = "cuda",
+    verbose: bool = True,
+    max_batches: Optional[int] = None,
+    log=print,
+) -> dict:
+    dev = resolve_device(device)
+    if cfg.decode_type != "Greedy":
+        raise NotImplementedError(
+            f"decode_type {cfg.decode_type!r} is not ported yet; use Greedy")
+    if cfg.fused_decode:
+        log("fused_decode is not ported yet: decoding with the streaming "
+            "loop (same strings)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    vocab = Vocab(cfg.vocab_file)
+    spec, model, _ = model_from_package(package_path, dev)
+    test_ds = SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg)
+    test_ds.preload(cfg.num_workers)
+    loader = SpeechDataLoader(
+        test_ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
+        mode=cfg.batch_mode,
+    )
+    decoder = GreedyDecoder(vocab.index2word)
+
+    total_cer = total_wer = 0
+    num_sentences = 0
+    start = time.time()
+    n = 0
+    with torch.inference_mode():
+        for batch in loader:
+            feats = torch.from_numpy(batch.feats).to(dev)
+            frac = torch.from_numpy(batch.input_frac).to(dev)
+            log_probs = model(feats, frac=frac)
+            input_sizes = CTCModel.input_sizes(
+                spec, frac, feats.shape[1], log_probs.shape[0])
+            decoded = decoder.decode(log_probs, input_sizes)
+            targets = [
+                decoder.scorer.to_string(
+                    batch.labels[i], int(batch.label_lengths[i])
+                )
+                for i in range(batch.batch_size)
+            ]
+            for i in range(batch.batch_size):
+                if not batch.example_mask[i]:
+                    continue
+                if verbose:
+                    log(f"{batch.utts[i]}")
+                    log(f"origin : {targets[i]}")
+                    log(f"decoded: {decoded[i]}")
+                total_cer += decoder.scorer.cer(decoded[i], targets[i])
+                total_wer += decoder.scorer.wer(decoded[i], targets[i])
+                decoder.scorer.num_word += len(targets[i].split())
+                decoder.scorer.num_char += len(targets[i])
+                num_sentences += 1
+            n += 1
+            if max_batches and n >= max_batches:
+                break
+    minutes = (time.time() - start) / 60.0
+    cer = 100.0 * total_cer / max(decoder.scorer.num_char, 1)
+    wer = 100.0 * total_wer / max(decoder.scorer.num_word, 1)
+    log(f"character error rate on test set: {cer:.4f}")
+    log(f"word error rate on test set: {wer:.4f}")
+    # sentence count, matching the reference's ``len(test_dataset)`` print
+    # (test_ctc.py:112)
+    log(f"time used for decode {num_sentences} sentences: "
+        f"{minutes:.4f} minutes")
+    return {"cer": cer, "wer": wer, "decode_minutes": minutes,
+            "batches": n}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="ctc decode + score (torch)")
+    p.add_argument("--conf", default="conf/ctc_config.yaml")
+    p.add_argument("--package", default=None,
+                   help="checkpoint package; defaults to "
+                        "<checkpoint_dir>/<exp_name>/ctc_best_model.npz")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain PyTorch path)")
+    args = p.parse_args(argv)
+    cfg = load_config(args.conf)
+    package = args.package or (
+        f"{cfg.checkpoint_dir}/{cfg.exp_name}/ctc_best_model.npz"
+    )
+    return evaluate(cfg, package, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

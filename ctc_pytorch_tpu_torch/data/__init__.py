@@ -1,0 +1,7 @@
+from ctc_pytorch_tpu_torch.data.batching import (  # noqa: F401
+    Batch,
+    BucketBatcher,
+    SpeechDataLoader,
+    collate,
+)
+from ctc_pytorch_tpu_torch.data.dataset import SpeechDataset  # noqa: F401

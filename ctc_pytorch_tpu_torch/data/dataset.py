@@ -1,0 +1,163 @@
+"""Speech dataset: scp/ark features + transcript labels, host-side numpy.
+
+Copy of ``ctc_pytorch_tpu/data/dataset.py`` (itself mirroring the
+reference ``SpeechDataset``, ``timit/utils/data_loader.py:50-117``): per
+item ``load_mat`` -> context splice -> frame skip -> zero-pad rows to a
+multiple of ``n_downsample``; labels come from ``utt unit unit ...``
+transcript lines with OOV -> UNK.
+
+Not here yet: the native one-pass ark reader (it returns the same arrays
+as the numpy path below), ``mel`` warping and the waveform mode.  The last
+two raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ctc_pytorch_tpu_torch.config import Config
+from ctc_pytorch_tpu_torch.data import kaldi_io
+from ctc_pytorch_tpu_torch.vocab import Vocab
+
+
+def skipped_len(t: int, skip: int) -> int:
+    if skip in (0, 1):
+        return t
+    return -(-t // skip)  # ceil
+
+
+def downsampled_len(t: int, n_downsample: int) -> int:
+    if n_downsample <= 1:
+        return t
+    return t + (-t) % n_downsample
+
+
+def _splice_numpy(feat: np.ndarray, left: int, right: int) -> np.ndarray:
+    """Edge-replicated context splice (tools.py:66-75 semantics), host numpy."""
+    if left == 0 and right == 0:
+        return feat
+    cols = []
+    for shift in range(-left, right + 1):
+        if shift < 0:
+            cols.append(np.vstack([np.repeat(feat[:1], -shift, 0), feat[:shift]]))
+        elif shift > 0:
+            cols.append(np.vstack([feat[shift:], np.repeat(feat[-1:], shift, 0)]))
+        else:
+            cols.append(feat)
+    return np.hstack(cols)
+
+
+def read_labels(lab_path: str | Path, vocab: Vocab) -> Dict[str, List[int]]:
+    """``utt unit unit ...`` lines -> id lists (OOV -> UNK)."""
+    labels = {}
+    for line in Path(lab_path).read_text().splitlines():
+        parts = line.strip().split(" ", 1)
+        if not parts or not parts[0]:
+            continue
+        utt = parts[0]
+        labels[utt] = vocab.encode(parts[1]) if len(parts) > 1 else []
+    return labels
+
+
+class SpeechDataset:
+    def __init__(
+        self,
+        vocab: Vocab,
+        scp_path: str | Path,
+        lab_path: str | Path,
+        opts: Config,
+        cache: bool = True,
+    ):
+        if opts.feature_type == "waveform" or opts.mel:
+            raise NotImplementedError(
+                "the waveform frontend and F_Mel warping are not ported yet; "
+                "use offline features (feature_type fbank/mfcc, mel: False)"
+            )
+        self.vocab = vocab
+        self.opts = opts
+        self.left_ctx = opts.left_ctx
+        self.right_ctx = opts.right_ctx
+        self.n_skip_frame = opts.n_skip_frame
+        self.n_downsample = opts.n_downsample
+
+        self.scp = kaldi_io.read_scp(scp_path)
+        label_dict = read_labels(lab_path, vocab)
+        missing = [u for u, _ in self.scp if u not in label_dict]
+        if missing:
+            raise ValueError(f"{len(missing)} utts missing labels, e.g. {missing[:3]}")
+        self.items: List[Tuple[str, str, List[int]]] = [
+            (utt, rx, label_dict[utt]) for utt, rx in self.scp
+        ]
+        self._cache: Optional[list] = [None] * len(self.items) if cache else None
+        self._lengths: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def raw_feature(self, idx: int) -> np.ndarray:
+        return kaldi_io.load_mat(self.items[idx][1])
+
+    def process_feature(self, feat: np.ndarray) -> np.ndarray:
+        """splice -> skip -> pad-to-downsample (data_loader.py:104-110)."""
+        feat = _splice_numpy(feat, self.left_ctx, self.right_ctx)
+        if self.n_skip_frame > 1:
+            feat = feat[:: self.n_skip_frame]
+        if self.n_downsample > 1:
+            rem = feat.shape[0] % self.n_downsample
+            if rem:
+                feat = np.vstack(
+                    [feat, np.zeros((self.n_downsample - rem, feat.shape[1]), feat.dtype)]
+                )
+        return feat.astype(np.float32)
+
+    def preload(self, workers: int = 4) -> None:
+        """Fill the cache with `workers` threads (the reference's
+        ``num_workers`` DataLoader knob, ``timit/utils/data_loader.py:148``);
+        the threads overlap file IO."""
+        if self._cache is None:
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        todo = [i for i in range(len(self)) if self._cache[i] is None]
+        if not todo:
+            return
+        with ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
+            list(pool.map(self.__getitem__, todo))
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
+        if self._cache is not None and self._cache[idx] is not None:
+            return self._cache[idx]
+        utt, _, label = self.items[idx]
+        feat = self.process_feature(self.raw_feature(idx))
+        out = (feat, np.asarray(label, np.int32), utt)
+        if self._cache is not None:
+            self._cache[idx] = out
+        return out
+
+    def _raw_rows(self, idx: int) -> int:
+        """Raw row count of one item from the ark matrix HEADER when the
+        format allows (BFM/BDM/CM) — a length scan then costs a few bytes
+        per item instead of decoding the corpus twice."""
+        rows = kaldi_io.mat_rows(self.items[idx][1])
+        if rows is not None:
+            return rows
+        return self.raw_feature(idx).shape[0]
+
+    def lengths(self) -> np.ndarray:
+        """Processed frame count per item (cheap: header peek, no payload)."""
+        if self._lengths is None:
+            lens = []
+            for i in range(len(self.items)):
+                if self._cache is not None and self._cache[i] is not None:
+                    lens.append(self._cache[i][0].shape[0])
+                else:
+                    t = skipped_len(self._raw_rows(i), self.n_skip_frame)
+                    lens.append(downsampled_len(t, self.n_downsample))
+            self._lengths = np.asarray(lens)
+        return self._lengths
+
+    def label_lengths(self) -> np.ndarray:
+        return np.asarray([len(it[2]) for it in self.items])

@@ -1,0 +1,113 @@
+"""Convolutional front-end, eval mode: Conv2d -> BatchNorm2d -> activation
+-> optional max-pool per layer, over NCHW ``(B, C, T, F)`` planes.
+
+Counterpart of ``ctc_pytorch_tpu/models/cnn.py:162-268``.  The JAX stack
+runs channels-last and swaps some strided convs for a space-to-depth
+formulation (a TPU matrix-unit trick with identical outputs); here every
+layer is a plain ``F.conv2d``.  Planes stay in ``compute_dtype`` as in JAX,
+with the conv output rounded before the bias add and BN computed in fp32
+and cast back, so bf16 rounding happens at the same points.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ctc_pytorch_tpu_torch.config import CNNConfig
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "hardtanh": lambda x: torch.clamp(x, 0.0, 20.0),  # 863's Hardtanh(0, 20)
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+class BatchNorm2d(nn.Module):
+    """Eval BatchNorm over the channel axis of NCHW planes (no ``count``,
+    ``cnn.py:45-95``); statistics in fp32, output in the plane's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.var + self.eps)
+
+        def col(v):
+            return v.view(1, -1, 1, 1)
+
+        out = (x.float() - col(self.mean)) * col(inv * self.scale) + col(self.bias)
+        return out.to(x.dtype)
+
+
+class ConvLayer(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel, batch_norm: bool):
+        super().__init__()
+        # OIHW, the torch Conv2d layout the JAX package also stores
+        self.w = nn.Parameter(torch.empty(out_ch, in_ch, kernel[0], kernel[1]))
+        self.b = nn.Parameter(torch.empty(out_ch))
+        self.bn = BatchNorm2d(out_ch) if batch_norm else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """torch Conv2d default init (kaiming uniform + bias)."""
+        bound = 1.0 / math.sqrt(self.w[0].numel())
+        with torch.no_grad():
+            self.w.uniform_(-bound, bound, generator=gen)
+            self.b.uniform_(-bound, bound, generator=gen)
+
+
+class CNNStack(nn.ModuleList):
+    """The conv layers as a list, so checkpoint paths read ``cnn.{i}.w``."""
+
+    def __init__(self, cnn: CNNConfig):
+        super().__init__(
+            ConvLayer(cnn.channel[i][0], cnn.channel[i][1], cnn.kernel_size[i],
+                      cnn.batch_norm)
+            for i in range(cnn.layers)
+        )
+        self.cfg = cnn
+        self.act = ACTIVATIONS[cnn.activation_function.lower()]
+
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
+                t_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, 1, T, F) -> (B, C_out, T', F') in ``compute_dtype``.
+
+        ``t_valid``: optional 0-d int tensor, the batch's true max input
+        frames (batchmax pad dynamics).  Each layer carries it through its
+        own conv (+pool) floor arithmetic and zeroes the time tail beyond
+        it, so the next conv sees the implicit zero padding the reference
+        sees at the edge of a batch padded to its own max
+        (``cnn.py:236-264``).  This applies in eval too."""
+        cfg = self.cfg
+        x = x.to(compute_dtype)
+        tv = t_valid
+        for i, layer in enumerate(self):
+            pad = cfg.padding[i]
+            out = F.conv2d(x, layer.w.to(compute_dtype), stride=cfg.stride[i],
+                           padding=pad)
+            out = out + layer.b.to(compute_dtype).view(1, -1, 1, 1)
+            if tv is not None:
+                tv = torch.clamp(cfg.conv_out(i, tv, 0)[0], min=1)
+            if layer.bn is not None:
+                out = layer.bn(out)
+            out = self.act(out)
+            pk = cfg.pool_at(i)
+            if pk:
+                out = F.max_pool2d(out, kernel_size=pk, stride=pk)
+                if tv is not None:
+                    tv = torch.clamp((tv - pk[0]) // pk[0] + 1, min=1)
+            if tv is not None:
+                t_idx = torch.arange(out.shape[2], device=out.device)
+                out = out * (t_idx < tv).to(out.dtype).view(1, 1, -1, 1)
+            x = out
+        return x

@@ -1,0 +1,130 @@
+"""Greedy decoding, scoring and stage 4 of the port against the JAX package."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ctc_pytorch_tpu.cli.test import evaluate as jax_evaluate
+from ctc_pytorch_tpu.config import CNNConfig as JCNNConfig
+from ctc_pytorch_tpu.config import Config as JConfig
+from ctc_pytorch_tpu.decode.greedy import GreedyDecoder as JGreedy
+from ctc_pytorch_tpu.decode.greedy import greedy_collapse as jax_collapse
+from ctc_pytorch_tpu.decode.metrics import Scorer as JScorer
+from ctc_pytorch_tpu.models.ctc_model import ModelSpec as JSpec
+from ctc_pytorch_tpu.ops.editdistance import edit_distance as jax_edit_distance
+from ctc_pytorch_tpu.train.checkpoint import save_package as jax_save_package
+from ctc_pytorch_tpu.train.state import TrainState
+from ctc_pytorch_tpu.vocab import Vocab as JVocab
+from ctc_pytorch_tpu_torch.cli.test import evaluate
+from ctc_pytorch_tpu_torch.config import Config
+from ctc_pytorch_tpu_torch.decode.greedy import GreedyDecoder, greedy_collapse
+from ctc_pytorch_tpu_torch.decode.metrics import Scorer
+from ctc_pytorch_tpu_torch.ops.editdistance import edit_distance
+from tests.test_torch_data import write_corpus
+from tests.test_torch_model import jax_weights
+
+
+def _indices(seed, b=5, t=17, c=4):
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, c, (b, t)).astype(np.int32)
+    idx[:, 3:6] = 2  # repeats
+    idx[0, 7:9] = 0  # blanks between repeats
+    lengths = np.array([t, t - 1, 5, 0, 1][:b], np.int32)
+    return idx, lengths
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_collapse_matches_jax(seed):
+    idx, lengths = _indices(seed)
+    want_tok, want_len = jax_collapse(jnp.asarray(idx), jnp.asarray(lengths))
+    got_tok, got_len = greedy_collapse(torch.from_numpy(idx),
+                                       torch.from_numpy(lengths))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+
+
+def test_greedy_decoder_strings_match_jax():
+    int2char = {0: "blank", 1: "UNK", 2: "aa", 3: "bb", 4: "cc"}
+    rng = np.random.RandomState(3)
+    lp = rng.randn(12, 4, 5).astype(np.float32)
+    lengths = np.array([12, 7, 3, 0], np.int32)
+    want = JGreedy(int2char).decode(lp, lengths)
+    got = GreedyDecoder(int2char).decode(torch.from_numpy(lp),
+                                         torch.from_numpy(lengths))
+    assert got == want
+
+
+def test_scorer_and_edit_distance_match_jax():
+    int2char = {0: "blank", 1: "UNK", 2: "aa", 3: "bb", 4: "cc"}
+    ours, ref = Scorer(int2char), JScorer(int2char)
+    rng = np.random.RandomState(4)
+    for _ in range(20):
+        a = list(rng.randint(0, 5, rng.randint(0, 9)))
+        b = list(rng.randint(0, 5, rng.randint(0, 9)))
+        assert edit_distance(a, b) == jax_edit_distance(a, b)
+        sa, sb = ours.to_string(a, remove_rep=True), ours.to_string(b)
+        assert sa == ref.to_string(a, remove_rep=True)
+        assert ours.cer(sa, sb) == ref.cer(sa, sb)
+        assert ours.wer(sa, sb) == ref.wer(sa, sb)
+
+
+def _stage4_setup(tmp_path, add_cnn):
+    dim = 7
+    write_corpus(tmp_path / "data", n_utts=11, dim=dim, frames=(12, 40))
+    cnn = (JCNNConfig(add_cnn=True, layers=2, channel=[(1, 2), (2, 2)],
+                      kernel_size=[(3, 3), (3, 3)], stride=[(1, 2), (2, 2)],
+                      padding=[(1, 1), (1, 1)])
+           if add_cnn else JCNNConfig(add_cnn=False))
+    jspec = JSpec(add_cnn=add_cnn, cnn=cnn, rnn_input_size=dim * 2,
+                  rnn_hidden_size=8, rnn_layers=2, rnn_cell="lstm",
+                  bidirectional=True, batch_norm=True,
+                  num_class=JVocab(tmp_path / "data" / "units").n_words,
+                  drop_out=0.0, compute_dtype="float32")
+    # a sharp output layer: near-flat random posteriors would let a 1e-7
+    # difference between frameworks flip an argmax
+    params, state = jax_weights(jspec, seed=1, fc_scale=10.0)
+    pkg = tmp_path / "pkg.npz"
+    jax_save_package(pkg, jspec,
+                     TrainState(jnp.zeros((), jnp.int32), params, state, ()))
+    confs = []
+    for cls in (JConfig, Config):
+        cfg = cls()
+        cfg.feature_dim = dim
+        cfg.left_ctx, cfg.right_ctx = 0, 1
+        cfg.n_skip_frame, cfg.n_downsample = 1, 2
+        cfg.batch_size, cfg.num_buckets, cfg.num_workers = 4, 2, 1
+        cfg.vocab_file = str(tmp_path / "data" / "units")
+        cfg.test_scp_path = str(tmp_path / "data" / "f.scp")
+        cfg.test_lab_path = str(tmp_path / "data" / "lab")
+        confs.append(cfg)
+    return pkg, confs
+
+
+@pytest.mark.parametrize("add_cnn", [True, False])
+def test_evaluate_on_cpu_matches_jax_evaluate(tmp_path, add_cnn):
+    pkg, (jcfg, cfg) = _stage4_setup(tmp_path, add_cnn)
+    want_lines, got_lines = [], []
+    want = jax_evaluate(jcfg, str(pkg), log=want_lines.append)
+    got = evaluate(cfg, str(pkg), device="cpu", log=got_lines.append)
+
+    def decoded(lines):
+        pairs = zip(lines[::3], lines[2::3])
+        return {u: d for u, d in pairs if d.startswith("decoded: ")}
+
+    got_lines = [ln for ln in got_lines if not ln.startswith("fused_decode")]
+    n = 3 * 11  # utt / origin / decoded per utterance
+    assert decoded(got_lines[:n]) == decoded(want_lines[:n])
+    assert len(decoded(got_lines[:n])) == 11
+    assert any(len(d.split()) > 1 for d in decoded(got_lines[:n]).values())
+    assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
+    assert got_lines[n:n + 2] == want_lines[n:n + 2]  # CER / WER lines
+
+
+def test_evaluate_rejects_unported_decoders(tmp_path):
+    pkg, (_, cfg) = _stage4_setup(tmp_path, add_cnn=False)
+    for decode_type in ("Beam", "BeamDevice"):
+        cfg.decode_type = decode_type
+        with pytest.raises(NotImplementedError):
+            evaluate(cfg, str(pkg), device="cpu")
