@@ -1,0 +1,86 @@
+"""Stage 2: acoustic model training.
+
+Counterpart of ``ctc_pytorch_tpu/cli/train.py``: ``python -m
+ctc_pytorch_tpu_torch.cli.train --conf conf/ctc_config.yaml`` — same flag,
+same YAML.  Builds vocab, datasets and loaders from the config, trains with
+the plateau scheduler and writes the best package to
+``<checkpoint_dir>/<exp_name>/ctc_best_model.npz``, which ``cli.test`` of
+either package decodes.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises.
+TF32 is off for matmuls and cuDNN convolutions, so an fp32 config trains in
+full fp32 like the JAX reference.  Batches stream from the host; the
+recipe's ``fused_epoch`` / ``device_cache`` are logged and not applied, and
+``--data-parallel`` is not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ctc_pytorch_tpu_torch import resolve_device
+from ctc_pytorch_tpu_torch.config import load_config
+from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
+from ctc_pytorch_tpu_torch.train.loop import Trainer
+from ctc_pytorch_tpu_torch.vocab import Vocab
+
+
+def build_loaders(cfg, vocab):
+    """(train_loader, dev_loader) as the JAX package's stage 2 builds them."""
+    train_ds = SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg)
+    dev_ds = SpeechDataset(vocab, cfg.valid_scp_path, cfg.valid_lab_path, cfg)
+    train_ds.preload(cfg.num_workers)
+    dev_ds.preload(cfg.num_workers)
+    train_loader = SpeechDataLoader(
+        train_ds, cfg.batch_size, shuffle=cfg.shuffle_train,
+        num_buckets=cfg.num_buckets, seed=cfg.seed, mode=cfg.batch_mode,
+    )
+    dev_loader = SpeechDataLoader(
+        dev_ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
+        seed=cfg.seed, mode=cfg.batch_mode,
+    )
+    return train_loader, dev_loader
+
+
+def train(cfg, *, device: str | torch.device = "cuda", resume=None,
+          num_epoches=None, log=print):
+    """Train ``cfg``'s model; returns ``(trainer, best package path)``."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vocab = Vocab(cfg.vocab_file)
+    train_loader, dev_loader = build_loaders(cfg, vocab)
+    # 863 configs declare num_class explicitly (blank added on top);
+    # otherwise the vocab decides
+    n_class = cfg.num_class + 1 if cfg.num_class > 0 else vocab.n_words
+    spec = ModelSpec.from_config(cfg, num_class=n_class)
+    trainer = Trainer(cfg, spec, device=dev)
+    if resume:
+        trainer.resume(resume)
+    best = trainer.fit(train_loader, dev_loader, num_epoches=num_epoches,
+                       log=log)
+    # the best-checkpoint path goes into a config snapshot in the experiment
+    # directory, not into the user's file
+    cfg.model_file = str(best)
+    cfg.to_yaml(trainer.out_dir / "config_used.yaml")
+    log(f"End training, best model saved to {best}")
+    return trainer, best
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="cnn_lstm_ctc training (torch)")
+    p.add_argument("--conf", default="conf/ctc_config.yaml")
+    p.add_argument("--resume", default=None,
+                   help="path to a resume checkpoint (.npz)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain PyTorch path)")
+    args = p.parse_args(argv)
+    cfg = load_config(args.conf)
+    return train(cfg, device=args.device, resume=args.resume)[1]
+
+
+if __name__ == "__main__":
+    main()

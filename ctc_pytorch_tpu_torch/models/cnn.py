@@ -1,5 +1,5 @@
-"""Convolutional front-end, eval mode: Conv2d -> BatchNorm2d -> activation
--> optional max-pool per layer, over NCHW ``(B, C, T, F)`` planes.
+"""Convolutional front-end: Conv2d -> BatchNorm2d -> activation -> optional
+max-pool -> dropout per layer, over NCHW ``(B, C, T, F)`` planes.
 
 Counterpart of ``ctc_pytorch_tpu/models/cnn.py:162-268``.  The JAX stack
 runs channels-last and swaps some strided convs for a space-to-depth
@@ -19,6 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctc_pytorch_tpu_torch.config import CNNConfig
+from ctc_pytorch_tpu_torch.models.layers import (
+    dropout,
+    stats_from_sums,
+    update_running,
+)
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -29,24 +34,47 @@ ACTIVATIONS = {
 
 
 class BatchNorm2d(nn.Module):
-    """Eval BatchNorm over the channel axis of NCHW planes (no ``count``,
-    ``cnn.py:45-95``); statistics in fp32, output in the plane's dtype."""
+    """BatchNorm over the channel axis of NCHW planes (no ``count``,
+    ``cnn.py:45-95``); statistics in fp32, output in the plane's dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    ``mask``: optional ``(B, 1, T, 1)`` 0/1 validity.  Train-mode statistics
+    then cover valid (row, frame) slots only, each slot counting its F
+    positions (the batchmax pad dynamics); the caller zeroes the planes."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var + self.eps)
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mean, var = self.mean, self.var
+        xf = x.float()
+        if self.training:
+            if mask is not None:
+                b, c, t, f = x.shape
+                m = mask.to(xf.dtype).expand(b, 1, t, 1)
+                # sum over F first, then the masked (B, T) slots
+                s1 = (xf.sum(3) * m[..., 0]).sum((0, 2))
+                s2 = ((xf * xf).sum(3) * m[..., 0]).sum((0, 2))
+                mean, var, unbiased = stats_from_sums(s1, s2, m.sum() * f)
+            else:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                mean = xf.mean((0, 2, 3))
+                var = xf.var((0, 2, 3), unbiased=False)
+                unbiased = var * (n / max(n - 1, 1))
+            update_running(self.mean, self.var, mean, unbiased, self.momentum)
+        inv = torch.rsqrt(var + self.eps)
 
         def col(v):
             return v.view(1, -1, 1, 1)
 
-        out = (x.float() - col(self.mean)) * col(inv * self.scale) + col(self.bias)
+        out = (xf - col(mean)) * col(inv * self.scale) + col(self.bias)
         return out.to(x.dtype)
 
 
@@ -79,7 +107,10 @@ class CNNStack(nn.ModuleList):
         self.act = ACTIVATIONS[cnn.activation_function.lower()]
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
-                t_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                t_valid: Optional[torch.Tensor] = None,
+                example_mask: Optional[torch.Tensor] = None,
+                drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, 1, T, F) -> (B, C_out, T', F') in ``compute_dtype``.
 
         ``t_valid``: optional 0-d int tensor, the batch's true max input
@@ -87,19 +118,30 @@ class CNNStack(nn.ModuleList):
         own conv (+pool) floor arithmetic and zeroes the time tail beyond
         it, so the next conv sees the implicit zero padding the reference
         sees at the edge of a batch padded to its own max
-        (``cnn.py:236-264``).  This applies in eval too."""
+        (``cnn.py:236-264``).  This applies in eval too.  In train mode
+        each BN takes its statistics over the frames below the cutoff, with
+        the repeat-padded rows of ``example_mask`` dropped, and every layer
+        ends in dropout (``cnn.py:265``)."""
         cfg = self.cfg
         x = x.to(compute_dtype)
         tv = t_valid
+        rows = None
+        if t_valid is not None and example_mask is not None:
+            rows = (example_mask > 0).view(-1, 1, 1, 1)
         for i, layer in enumerate(self):
             pad = cfg.padding[i]
             out = F.conv2d(x, layer.w.to(compute_dtype), stride=cfg.stride[i],
                            padding=pad)
             out = out + layer.b.to(compute_dtype).view(1, -1, 1, 1)
+            mask = None
             if tv is not None:
                 tv = torch.clamp(cfg.conv_out(i, tv, 0)[0], min=1)
+                t_idx = torch.arange(out.shape[2], device=out.device)
+                mask = (t_idx < tv).view(1, 1, -1, 1)
+                if rows is not None:
+                    mask = mask & rows
             if layer.bn is not None:
-                out = layer.bn(out)
+                out = layer.bn(out, mask)
             out = self.act(out)
             pk = cfg.pool_at(i)
             if pk:
@@ -109,5 +151,5 @@ class CNNStack(nn.ModuleList):
             if tv is not None:
                 t_idx = torch.arange(out.shape[2], device=out.device)
                 out = out * (t_idx < tv).to(out.dtype).view(1, 1, -1, 1)
-            x = out
+            x = dropout(out, drop_rate, generator, self.training)
         return x

@@ -1,5 +1,5 @@
-"""The CTC acoustic model, eval: optional CNN stack -> stacked BiLSTMs ->
-BN + Linear -> log-softmax.
+"""The CTC acoustic model: optional CNN stack -> stacked BiLSTMs ->
+BN + Linear -> log-softmax, in eval and in train mode.
 
 Counterpart of ``ctc_pytorch_tpu/models/ctc_model.py``.  ``ModelSpec`` is a
 copy (the checkpoint's model description); ``CTCModel`` is an
@@ -158,6 +158,7 @@ class CTCModel(nn.Module):
         fc_in = spec.dirs * spec.rnn_hidden_size
         self.fc_bn = BatchNorm(fc_in) if spec.batch_norm else None
         self.fc = Linear(fc_in, spec.num_class)
+        self.eval()  # built in eval mode; train mode is asked for explicitly
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """torch's default inits (the JAX package's ``CTCModel.init``
@@ -172,21 +173,34 @@ class CTCModel(nn.Module):
             self.fc.w.uniform_(-bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor, frac: Optional[torch.Tensor] = None,
-                example_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T, F) -> log_probs (T', B, num_class), eval mode.
+                example_mask: Optional[torch.Tensor] = None,
+                train: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, F) -> log_probs (T', B, num_class).
 
         ``frac``: the collate's ``len / T_pad`` per row; drives the
         padding-masked BN planes of the 'batchmax' and 'valid' packages
         (a no-op for 'padded').  ``example_mask``: (B,) 0/1 validity of
-        batch rows; repeat-padded rows drop out of the batchmax BN mask."""
+        batch rows; repeat-padded rows drop out of the batchmax BN mask.
+
+        ``train``: sets the module's mode for this and later calls (None
+        keeps it).  In train mode every BN normalises with batch statistics
+        and updates its running buffers in place, the BiLSTM layers run the
+        trainable kernels, and dropout at ``spec.drop_out`` is drawn from
+        ``generator`` (on ``x``'s device; required when ``spec.drop_out > 0``)."""
+        if train is not None:
+            self.train(train)
         spec = self.spec
+        drop = spec.drop_out if self.training else 0.0
         cd = spec.torch_dtype
         bmax = None
         if frac is not None and spec.pad_dynamics == "batchmax":
             _, bmax = CTCModel.batch_max_frames(frac, x.shape[1], example_mask)
 
         if self.cnn is not None:
-            out = self.cnn(x[:, None], cd, t_valid=bmax)  # (B, C, T', F')
+            out = self.cnn(x[:, None], cd, t_valid=bmax,
+                           example_mask=example_mask, drop_rate=drop,
+                           generator=generator)  # (B, C, T', F')
             b, c, t, f = out.shape
             # (B, C, T', F') -> (T', B, C*F'): C-major features, the
             # reference's reshape (model_ctc.py:153-158)
@@ -207,7 +221,7 @@ class CTCModel(nn.Module):
                 bn_mask = bn_mask & (example_mask > 0)[None, :]
             bn_mask = bn_mask.float()
 
-        out = self.rnns(out, cd, bn_mask)
+        out = self.rnns(out, cd, bn_mask, drop_rate=drop, generator=generator)
         t, b, h = out.shape
         flat = out.reshape(t * b, h)
         if self.fc_bn is not None:

@@ -1,10 +1,11 @@
-"""Shared layers: feature-axis batch-norm and the bias-free linear.
+"""Shared layers: feature-axis batch-norm, dropout and the bias-free linear.
 
 Counterpart of ``ctc_pytorch_tpu/models/layers.py:37-152``.  Parameters and
 BN running statistics keep the JAX package's names and layouts (``scale``,
 ``bias``, ``mean``, ``var``, ``count``; linear weight stored ``(in, out)``),
 so a checkpoint leaf maps onto a ``state_dict`` key by its tree path alone
-(``train/checkpoint.py``).  Only the eval path exists here.
+(``train/checkpoint.py``).  Train mode is the module's ``training`` flag; it
+updates the running statistics in place.
 """
 
 from __future__ import annotations
@@ -13,6 +14,30 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+
+class _Matmul16F32(torch.autograd.Function):
+    """``a @ b`` for 16-bit operands with fp32 sums and an fp32 result.
+
+    The gradients follow ``jnp.dot(..., preferred_element_type=float32)``:
+    the fp32 cotangent meets the other operand in fp32 and the product is
+    rounded to the operand's 16-bit dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            # one tensor-core GEMM with fp32 accumulation and result
+            return torch.mm(a, b, out_dtype=torch.float32)
+        # products of 16-bit values are exact in fp32: the same sums
+        return torch.mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        return ((g @ b.float().t()).to(a.dtype),
+                (a.float().t() @ g).to(b.dtype))
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor,
@@ -24,29 +49,71 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
     tensor cores with fp32 accumulation and an fp32 result (``out_dtype``).
     PyTorch has that GEMM only for CUDA, so on the CPU the rounded operands
     are multiplied in fp32: products of bf16 values are exact in fp32, so
-    that is the same fp32 accumulation."""
+    that is the same fp32 accumulation.  Differentiable in both operands."""
     a, b = a.to(compute_dtype), b.to(compute_dtype)
     if compute_dtype == torch.float32:
         return torch.matmul(a, b)
-    if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.matmul(a.float(), b.float())
+    out = _Matmul16F32.apply(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: torch.Tensor):
+    """Mean, biased and unbiased variance per channel from the masked sums
+    of x and x * x over ``n`` positions (0-d), ``n = max(n, 1)``
+    (``layers.py:75-98``)."""
+    n = torch.clamp(n, min=1.0)
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    return mean, var, var * (n / torch.clamp(n - 1.0, min=1.0))
+
+
+def update_running(buf_mean: torch.Tensor, buf_var: torch.Tensor,
+                   mean: torch.Tensor, unbiased: torch.Tensor,
+                   momentum: float) -> None:
+    """In-place running-statistics update (torch's BN convention: the
+    running variance takes the unbiased estimate)."""
+    with torch.no_grad():
+        buf_mean.mul_(1 - momentum).add_(momentum * mean.detach())
+        buf_var.mul_(1 - momentum).add_(momentum * unbiased.detach())
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout with the keep probability quantised to n/256, as the
+    JAX package's byte-threshold mask (``layers.py:125-133``): rate 0.2
+    keeps 205/256 and scales by 256/205, so the expectation is exact.  The
+    mask is drawn from ``generator`` (which must live on ``x``'s device);
+    train mode with a positive rate and no generator raises."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            f"dropout at rate {rate} in train mode needs a torch.Generator; "
+            "set drop_out to 0 to train without dropout")
+    thresh = min(max(int(round((1.0 - rate) * 256.0)), 1), 255)
+    bits = torch.randint(0, 256, x.shape, generator=generator, device=x.device,
+                         dtype=torch.uint8)
+    keep_q = thresh / 256.0
+    return torch.where(bits < thresh, x / keep_q, torch.zeros_like(x))
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis of ``x`` (any leading shape), eval mode.
+    """BatchNorm over the last axis of ``x`` (any leading shape).
 
-    ``mask``: optional 0/1 validity over the leading positions; invalid
-    positions are zeroed after normalisation (``layers.py:109-110``), so a
-    bias-free recurrence downstream sees exact zeros through padding.
-    The ``count`` buffer is the number of train-time updates (checkpoint
-    contract; train mode comes with the training slice).
+    ``mask``: optional 0/1 validity over the leading positions.  In train
+    mode the batch statistics cover valid positions only; invalid positions
+    are zeroed after normalisation in train and eval (``layers.py:109-110``),
+    so a bias-free recurrence downstream sees exact zeros through padding.
+    Train mode normalises with the batch's biased variance and moves the
+    running ``mean``/``var`` (unbiased) with ``momentum``; ``count`` is the
+    number of such updates (``layers.py:74-103``).
     """
 
-    def __init__(self, dim: int, with_count: bool = True, eps: float = 1e-5):
+    def __init__(self, dim: int, with_count: bool = True, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
@@ -56,8 +123,23 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        inv = torch.rsqrt(self.var + self.eps)
-        out = (x.float() - self.mean) * (inv * self.scale) + self.bias
+        mean, var = self.mean, self.var
+        if self.training:
+            flat = x.float().reshape(-1, x.shape[-1])
+            if mask is not None:
+                m = mask.reshape(-1, 1).to(flat.dtype)
+                mean, var, unbiased = stats_from_sums(
+                    (flat * m).sum(0), (flat * flat * m).sum(0), m.sum())
+            else:
+                n = flat.shape[0]
+                mean = flat.mean(0)
+                var = flat.var(0, unbiased=False)
+                unbiased = var * (n / max(n - 1, 1))
+            update_running(self.mean, self.var, mean, unbiased, self.momentum)
+            if hasattr(self, "count"):
+                self.count += 1
+        inv = torch.rsqrt(var + self.eps)
+        out = (x.float() - mean) * (inv * self.scale) + self.bias
         if mask is not None:
             out = out * mask.reshape(x.shape[:-1] + (1,)).to(out.dtype)
         return out.to(x.dtype)

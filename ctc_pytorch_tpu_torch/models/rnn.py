@@ -1,16 +1,20 @@
-"""Recurrent stack, eval: bias-free bidirectional LSTM layers with BN between.
+"""Recurrent stack: bias-free bidirectional LSTM layers with BN between.
 
 Counterpart of ``ctc_pytorch_tpu/models/rnn.py:254-511`` on the path the
-JAX package's stage 4 takes (``use_pallas_rnn``, so the eval LSTM kernel):
+JAX package takes with ``use_pallas_rnn`` (the eval LSTM kernel in stage 4,
+the trainable one in stage 2):
 
 - time-major ``(T, B, F)``; weights stored ``w_ih (F, 4H)``, ``w_hh (H, 4H)``
   per direction, gate order i, f, g, o (torch's, transposed);
 - the input projection for all steps and both directions is one matmul,
   ``gx = x @ [W_f | W_b]``, in ``compute_dtype`` with fp32 accumulation and
   the result in the stream dtype (``lstm_pallas_v2.py:169-175``);
-- the recurrence is ``ops.lstm_bidir``: the Hopper kernel for CUDA tensors,
-  its plain twin for CPU tensors.  The backward direction reverses the
-  full padded length, like the reference's unpacked ``nn.LSTM``.
+- the recurrence is ``ops.lstm_bidir`` in eval and ``ops.lstm_bidir_train``
+  (forward and backward kernels under autograd) in train mode: the Hopper
+  kernels for CUDA tensors, their plain twins for CPU tensors.  The
+  backward direction reverses the full padded length, like the reference's
+  unpacked ``nn.LSTM``;
+- in train mode each layer's output goes through dropout (``rnn.py:447``).
 
 GRU and tanh-RNN cells, unidirectional layers and the packed ``lengths``
 mode are not ported yet and raise ``NotImplementedError``.
@@ -24,8 +28,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ctc_pytorch_tpu_torch.models.layers import BatchNorm, matmul_f32
+from ctc_pytorch_tpu_torch.models.layers import BatchNorm, dropout, matmul_f32
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
+from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as lstm_train_ops
 
 
 def stream_dtype_for(compute_dtype: torch.dtype, b: int) -> torch.dtype:
@@ -62,7 +67,9 @@ class RNNLayer(nn.Module):
         self.bn = BatchNorm(input_size) if batch_norm else None
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
-                bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bn_mask: Optional[torch.Tensor] = None,
+                drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(T, B, F) -> (T, B, 2H) fp32."""
         if self.bn is not None:
             x = self.bn(x, bn_mask)
@@ -74,7 +81,11 @@ class RNNLayer(nn.Module):
         gx = (torch.matmul(x2, w_cat) if sd == compute_dtype
               else matmul_f32(x2, w_cat, compute_dtype))
         w_hh = torch.stack([self.fwd.w_hh, self.bwd.w_hh]).float()
-        return lstm_ops.lstm_bidir(gx.reshape(t_len, b, -1), w_hh)
+        gx = gx.reshape(t_len, b, -1)
+        if not self.training:
+            return lstm_ops.lstm_bidir(gx, w_hh)
+        out = lstm_train_ops.lstm_bidir_train(gx, w_hh).float()
+        return dropout(out, drop_rate, generator, True)
 
 
 class RNNStack(nn.ModuleList):
@@ -96,10 +107,12 @@ class RNNStack(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
                 bn_mask: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None,
+                drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if lengths is not None:
             raise NotImplementedError(
                 "the packed-sequence `lengths` mode is not ported yet")
         for layer in self:
-            x = layer(x, compute_dtype, bn_mask)
+            x = layer(x, compute_dtype, bn_mask, drop_rate, generator)
         return x

@@ -1,6 +1,9 @@
 """Kernels and host-side numeric helpers.
 
-``lstm_bidir``: the Hopper BiLSTM recurrence (``csrc/lstm_bidir.cu``) with
-its plain PyTorch twin.  ``editdistance``: a numpy copy of the JAX
-package's Levenshtein DP.
+``lstm_bidir``: the Hopper BiLSTM recurrence for eval (``csrc/lstm_bidir.cu``).
+``lstm_bidir_train``: the trainable recurrence, forward and backward kernels
+(``csrc/lstm_bidir_train.cu``).  ``ctc_loss``: the CTC loss over the alpha and
+beta DP kernels (``csrc/ctc_dp.cu``).  Each stands beside its plain PyTorch
+twin; ``_build`` compiles and loads the sources at first use.
+``editdistance``: a numpy copy of the JAX package's Levenshtein DP.
 """

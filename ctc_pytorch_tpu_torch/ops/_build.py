@@ -1,0 +1,105 @@
+"""Build-and-load of the package's CUDA sources, shared by the op modules.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is compiled
+with nvcc for ``sm_90a`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
+covers the source, the headers it includes and the flags, so a changed source
+rebuilds) and loaded with ctypes.  Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def device_kind(t, what: str) -> str:
+    """``"cuda"`` or ``"cpu"`` for a tensor: the ops launch their kernel for
+    the first and run the plain twin for the second; any other device raises."""
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/*.cu at first use on a CUDA machine")
+
+
+class KernelLibrary:
+    """One ``.cu`` source, its build and its loaded ``ctypes.CDLL``.
+
+    ``functions`` maps each exported name to ``(argtypes, restype)``;
+    ``headers`` are the ``csrc/`` files the source includes."""
+
+    def __init__(self, source: str, functions: Dict[str, Tuple[list, object]],
+                 headers: Sequence[str] = ()):
+        self.source = CSRC / source
+        self.headers = [CSRC / h for h in headers]
+        self.functions = functions
+        self.build_log = ""  # nvcc's output (registers, shared memory, spills)
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def output_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in (self.source, *self.headers):
+            h.update(path.read_bytes())
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"
+
+    def build_command(self, out: Path) -> list:
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def build(self) -> Path:
+        """Compile the source (once per version); the library's path."""
+        build_all([self])
+        return self.output_path()
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for name, (argtypes, restype) in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            self._lib = lib
+        return self._lib
+
+
+def build_all(libraries: Sequence[KernelLibrary]) -> None:
+    """Build the sources that have no library yet, one nvcc process each,
+    all started together."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for lib in libraries:
+        out = lib.output_path()
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        running.append((lib, out, tmp, subprocess.Popen(
+            lib.build_command(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for lib, out, tmp, proc in running:  # reap every compiler before raising
+        lib.build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {lib.source}:\n{lib.build_log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if failures:
+        raise RuntimeError("\n".join(failures))

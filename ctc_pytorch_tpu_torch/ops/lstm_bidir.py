@@ -23,69 +23,20 @@ goes through the kernel, or the call raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lstm_bidir.cu"
-BUILD_DIR = _PKG / "csrc" / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ctc_pytorch_tpu_torch.ops._build import KernelLibrary, device_kind
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+LIBRARY = KernelLibrary(
+    "lstm_bidir.cu",
+    {"lstm_bidir_forward": ([_VP] * 5 + [_CI] * 5 + [_VP], _CI),
+     "lstm_bidir_error_string": ([_CI], ctypes.c_char_p)},
+    headers=["lstm_fwd.cuh"])
 
 # kernel launches made through ``lstm_bidir``; the plain path adds nothing
 launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's output (register and shared-memory use per kernel)
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the lstm_bidir kernel is built from "
-                       "csrc/lstm_bidir.cu at first use on a CUDA machine")
-
-
-def build() -> Path:
-    """Compile ``csrc/lstm_bidir.cu`` into ``csrc/build/`` (once per source
-    version) and return the shared library's path."""
-    global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"liblstm_bidir-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_bidir_forward.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.lstm_bidir_forward.restype = ci
-        lib.lstm_bidir_error_string.argtypes = [ci]
-        lib.lstm_bidir_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def lstm_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -129,7 +80,7 @@ def lstm_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
         raise ValueError("gx and w_hh must be on the same device")
     gx = gx.contiguous()
     w_hh = w_hh.contiguous()
-    lib = _library()
+    lib = LIBRARY.load()
     with torch.cuda.device(gx.device):
         ys = torch.empty(t_len, b, 2 * h, dtype=gx.dtype, device=gx.device)
         # h double buffer, (direction, parity, H, ldh): rows padded to a
@@ -154,10 +105,6 @@ def lstm_bidir(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """(T, B, 8H) stream-dtype gates + (2, H, 4H) weights -> (T, B, 2H) fp32.
 
     CUDA tensors launch the kernel; CPU tensors run ``lstm_bidir_plain``."""
-    if gx.is_cuda:
-        ys = lstm_bidir_cuda(gx, w_hh)
-    elif gx.device.type == "cpu":
-        ys = lstm_bidir_plain(gx, w_hh)
-    else:
-        raise ValueError(f"lstm_bidir: unsupported device {gx.device}")
-    return ys.float()
+    if device_kind(gx, "lstm_bidir") == "cuda":
+        return lstm_bidir_cuda(gx, w_hh).float()
+    return lstm_bidir_plain(gx, w_hh).float()

@@ -13,8 +13,14 @@ with dots is its ``state_dict`` key in ``CTCModel``.  For the flagship:
 - model_state: ``cnn[i].bn.{mean,var}``, ``fc_bn.{count,mean,var}``,
   ``rnns[i].bn.{count,mean,var}`` (``rnns[0]`` has no BN, so no leaves).
 
-Serving needs no optimizer: ``opt_state`` leaves are read past, and
-``save_package`` writes none (``leaf_counts.opt_state = 0``).
+``opt_state`` is the JAX package's optimizer tree flattened (``state.py:32-44``:
+the hyperparameter-injected Adam, whatever clip or decay stands before it):
+``count``, ``b1``, ``b2``, ``eps``, ``eps_root``, ``learning_rate``, Adam's own
+``count``, then ``mu`` and ``nu``, each in params leaf order.  The port maps
+them onto ``torch.optim.Adam``'s ``step``, ``exp_avg`` and ``exp_avg_sq`` and
+its param group's ``lr``, so a resume package crosses frameworks both ways.
+Serving needs no optimizer: ``model_from_package`` reads past ``opt_state``,
+and ``save_package`` without an optimizer writes none.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from __future__ import annotations
 import io
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,41 +108,110 @@ def params_to_jax(spec: ModelSpec, state_dict) -> Tuple[dict, dict]:
             node = tree
             for part in parents:
                 node = node[int(part)] if isinstance(node, list) else node[part]
-            node[last] = state_dict[path].detach().cpu().numpy()
+            # a copy: the arrays must not follow later in-place updates
+            node[last] = state_dict[path].detach().cpu().numpy().copy()
     return trees
+
+
+ADAM_HYPERPARAMS = ("b1", "b2", "eps", "eps_root")  # sorted, before the lr
+
+
+def opt_state_leaves(optimizer, shapes: List[tuple]) -> List[np.ndarray]:
+    """``opt_state.{i}`` leaves from a ``torch.optim.Adam`` (or its
+    ``state_dict()``) whose parameters stand in params leaf order with the
+    given shapes."""
+    sd = optimizer if isinstance(optimizer, Mapping) else optimizer.state_dict()
+    group = sd["param_groups"][0]
+    state = sd["state"]
+    steps = {int(state[i]["step"]) for i in group["params"] if i in state}
+    if len(steps) > 1:
+        raise ValueError(f"parameters disagree on the Adam step: {steps}")
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def moments(key):
+        return [state[i][key].detach().cpu().numpy().astype(np.float32)
+                if i in state else np.zeros(shape, np.float32)
+                for i, shape in zip(group["params"], shapes)]
+
+    b1, b2 = group["betas"]
+    hyper = {"b1": b1, "b2": b2, "eps": group["eps"], "eps_root": 0.0}
+    return ([count] + [np.asarray(hyper[k], np.float32) for k in ADAM_HYPERPARAMS]
+            + [np.asarray(group["lr"], np.float32), count.copy()]
+            + moments("exp_avg") + moments("exp_avg_sq"))
+
+
+def load_opt_state(optimizer: torch.optim.Adam, leaves: List[np.ndarray]) -> None:
+    """Set ``optimizer``'s step, moments and learning rate from
+    ``opt_state.{i}`` leaves (the inverse of ``opt_state_leaves``)."""
+    params = optimizer.param_groups[0]["params"]
+    head = 3 + len(ADAM_HYPERPARAMS)
+    if len(leaves) != head + 2 * len(params):
+        raise ValueError(f"checkpoint has {len(leaves)} opt_state leaves, the "
+                         f"optimizer expects {head + 2 * len(params)}")
+    lr, count = float(leaves[head - 2]), int(leaves[head - 1])
+    mu, nu = leaves[head:head + len(params)], leaves[head + len(params):]
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.state.clear()
+    for p, m, v in zip(params, mu, nu):
+        if tuple(m.shape) != tuple(p.shape) or tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"opt_state moment of shape {m.shape} for a "
+                             f"parameter of shape {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(np.array(m)).to(p.device, p.dtype),
+            "exp_avg_sq": torch.from_numpy(np.array(v)).to(p.device, p.dtype),
+        }
 
 
 def save_package(
     path: str | Path,
     spec: ModelSpec,
-    model: CTCModel,
+    model,
     *,
+    optimizer=None,
+    step: int = 0,
     config: Optional[Config] = None,
+    scheduler_state: Optional[dict] = None,
     epoch: Optional[int] = None,
+    loss_results: Optional[list] = None,
+    dev_loss_results: Optional[list] = None,
+    dev_cer_results: Optional[list] = None,
+    training_cer_results: Optional[list] = None,
     extra: Optional[Dict[str, Any]] = None,
 ) -> None:
-    """Write ``model`` as a package the JAX ``model_from_package`` loads."""
+    """Write a package that the JAX ``model_from_package`` loads and, given
+    an ``optimizer``, its ``restore_train_state`` resumes from.
+
+    ``model`` is a ``CTCModel`` or its ``state_dict()``; ``optimizer`` a
+    ``torch.optim.Adam`` over ``ordered_params`` or its ``state_dict()``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    sd = model.state_dict()
+    sd = model if isinstance(model, Mapping) else model.state_dict()
     p_paths, s_paths = leaf_paths(spec)
     arrays: Dict[str, np.ndarray] = {}
     for name, paths in (("params", p_paths), ("model_state", s_paths)):
         for i, key in enumerate(paths):
             arrays[f"{name}.{i}"] = sd[key].detach().cpu().numpy()
+    n_opt = 0
+    if optimizer is not None:
+        opt = opt_state_leaves(optimizer,
+                               [tuple(sd[k].shape) for k in p_paths])
+        n_opt = len(opt)
+        arrays.update({f"opt_state.{i}": leaf for i, leaf in enumerate(opt)})
     manifest = {
         "spec": spec.to_dict(),
         "config": config.to_dict() if config else None,
-        "scheduler": None,
+        "scheduler": scheduler_state,
         "epoch": epoch,
-        "step": 0,
-        "loss_results": [],
-        "dev_loss_results": [],
-        "dev_cer_results": [],
-        "training_cer_results": [],
+        "step": int(step),
+        "loss_results": loss_results or [],
+        "dev_loss_results": dev_loss_results or [],
+        "dev_cer_results": dev_cer_results or [],
+        "training_cer_results": training_cer_results or [],
         "extra": extra or {},
         "leaf_counts": {"params": len(p_paths), "model_state": len(s_paths),
-                        "opt_state": 0},
+                        "opt_state": n_opt},
     }
     buf = io.BytesIO()
     np.savez(buf, manifest=np.frombuffer(
@@ -145,12 +220,14 @@ def save_package(
     path.write_bytes(buf.getvalue())
 
 
-def load_package(path: str | Path) -> Dict[str, Any]:
-    """Raw package: manifest dict + named leaf arrays (``opt_state`` skipped)."""
+def load_package(path: str | Path, with_opt_state: bool = False) -> Dict[str, Any]:
+    """Raw package: manifest dict + named leaf arrays (``opt_state`` only on
+    request: serving reads past it)."""
+    wanted = ("params.", "model_state.") + (
+        ("opt_state.",) if with_opt_state else ())
     with np.load(Path(path), allow_pickle=False) as z:
         manifest = json.loads(bytes(z["manifest"].tobytes()).decode())
-        arrays = {k: z[k] for k in z.files
-                  if k.startswith(("params.", "model_state."))}
+        arrays = {k: z[k] for k in z.files if k.startswith(wanted)}
     return {"manifest": manifest, "arrays": arrays}
 
 
@@ -160,17 +237,11 @@ def _leaves_of(arrays: Dict[str, np.ndarray], prefix: str) -> list:
     return [v for _, v in sorted(items)]
 
 
-def model_from_package(path: str | Path, device: str | torch.device = "cuda"):
-    """Rebuild ``(spec, model, manifest)`` from a package alone; the model
-    is in eval mode on ``device``."""
-    dev = resolve_device(device)
-    pkg = load_package(path)
-    spec = ModelSpec.from_dict(pkg["manifest"]["spec"])
-    model = CTCModel(spec)
-    template = model.state_dict()
+def _model_state_dict(spec: ModelSpec, template, arrays) -> Dict[str, torch.Tensor]:
+    """The package's params and model_state leaves as a ``state_dict``."""
     sd = {}
     for name, paths in zip(("params", "model_state"), leaf_paths(spec)):
-        leaves = _leaves_of(pkg["arrays"], name)
+        leaves = _leaves_of(arrays, name)
         if len(leaves) != len(paths):
             raise ValueError(
                 f"checkpoint has {len(leaves)} {name} leaves, model expects "
@@ -182,5 +253,28 @@ def model_from_package(path: str | Path, device: str | torch.device = "cuda"):
                 raise ValueError(f"leaf {name}:{key} has shape {leaf.shape}, "
                                  f"model expects {tuple(want.shape)}")
             sd[key] = torch.from_numpy(np.array(leaf)).to(want.dtype)
-    model.load_state_dict(sd)
+    return sd
+
+
+def model_from_package(path: str | Path, device: str | torch.device = "cuda"):
+    """Rebuild ``(spec, model, manifest)`` from a package alone; the model
+    is in eval mode on ``device``."""
+    dev = resolve_device(device)
+    pkg = load_package(path)
+    spec = ModelSpec.from_dict(pkg["manifest"]["spec"])
+    model = CTCModel(spec)
+    model.load_state_dict(
+        _model_state_dict(spec, model.state_dict(), pkg["arrays"]))
     return spec, model.to(dev).eval(), pkg["manifest"]
+
+
+def restore_train_state(path: str | Path, state, spec: ModelSpec) -> dict:
+    """Load params, BN state, optimizer state and step of a resume package
+    (written by either package) into ``state``, in place; the manifest."""
+    pkg = load_package(path, with_opt_state=True)
+    state.model.load_state_dict(
+        _model_state_dict(spec, state.model.state_dict(), pkg["arrays"]))
+    load_opt_state(state.optimizer, _leaves_of(pkg["arrays"], "opt_state"))
+    state.step = int(pkg["manifest"].get("step", 0))
+    return pkg["manifest"]
+

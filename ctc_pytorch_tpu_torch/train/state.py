@@ -1,0 +1,113 @@
+"""Train state: the model, its optimizer and the step count.
+
+Counterpart of ``ctc_pytorch_tpu/train/state.py``.  The optimizer is the
+reference recipe's ``torch.optim.Adam(lr, weight_decay)``: **coupled** L2 (the
+decay joins the gradient before the Adam moments, not AdamW), which is what
+the JAX package builds from ``add_decayed_weights`` + ``adam``.  With
+``grad_clip > 0`` the gradients are first scaled to that global norm (the 863
+recipe clips at 400).  The learning rate lives in the optimizer's param group,
+so it rides along in snapshots and checkpoints and the plateau scheduler
+rescales it without rebuilding the optimizer.
+
+Unlike the JAX pytree, the state is mutable: a step updates the parameters,
+the BN buffers and the Adam moments in place.  ``snapshot`` is therefore a
+deep copy on the device, and ``restore`` copies it back.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Dict, List
+
+import torch
+
+from ctc_pytorch_tpu_torch import resolve_device
+from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CTCModel
+    optimizer: torch.optim.Adam
+    grad_clip: float = 0.0
+    step: int = 0
+
+
+def ordered_params(model: CTCModel, spec: ModelSpec) -> List[torch.nn.Parameter]:
+    """The model's parameters in checkpoint leaf order, so that entry i of
+    the optimizer state belongs to leaf ``params.{i}``."""
+    from ctc_pytorch_tpu_torch.train.checkpoint import leaf_paths
+
+    named = dict(model.named_parameters())
+    return [named[p] for p in leaf_paths(spec)[0]]
+
+
+def make_optimizer(model: CTCModel, spec: ModelSpec, init_lr: float,
+                   weight_decay: float = 0.0) -> torch.optim.Adam:
+    return torch.optim.Adam(ordered_params(model, spec), lr=init_lr,
+                            weight_decay=weight_decay or 0.0)
+
+
+def create_train_state(spec: ModelSpec, init_lr: float,
+                       weight_decay: float = 0.0, grad_clip: float = 0.0,
+                       seed: int = 0,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """A freshly initialised model (torch's default inits drawn from
+    ``seed``) on ``device`` with its optimizer."""
+    dev = resolve_device(device)
+    model = CTCModel(spec)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    return TrainState(model, make_optimizer(model, spec, init_lr, weight_decay),
+                      grad_clip=grad_clip or 0.0)
+
+
+def get_lr(state: TrainState) -> float:
+    return float(state.optimizer.param_groups[0]["lr"])
+
+
+def scale_lr(state: TrainState, factor: float) -> None:
+    """Multiply the learning rate by ``factor``, in place."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = group["lr"] * factor
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """Scale the gradients so their global L2 norm is at most ``max_norm``
+    (``optax.clip_by_global_norm``: untouched below it, ``g * max / norm``
+    above), without a host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def apply_gradients(state: TrainState) -> None:
+    """One optimizer update from the gradients now on the parameters."""
+    if state.grad_clip > 0:
+        clip_by_global_norm(state.optimizer.param_groups[0]["params"],
+                            state.grad_clip)
+    state.optimizer.step()
+    state.step += 1
+
+
+def snapshot(state: TrainState) -> Dict[str, Any]:
+    """Deep copy of the model and optimizer state on the device (the
+    reference's ``copy.deepcopy`` of both state dicts,
+    ``train_ctc.py:198-199``)."""
+    return {
+        "model": {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()},
+        "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+        "step": state.step,
+    }
+
+
+def restore(state: TrainState, snap: Dict[str, Any]) -> None:
+    """Copy a snapshot back into the live state; the snapshot stays intact."""
+    state.model.load_state_dict(snap["model"])
+    state.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+    state.step = snap["step"]

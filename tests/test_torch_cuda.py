@@ -1,5 +1,6 @@
-"""The port on the card: the Hopper BiLSTM kernel against its plain twin, and
-the eval model on CUDA against the same model on the CPU.
+"""The port on the card: each Hopper kernel (eval BiLSTM, trainable BiLSTM
+forward and backward, CTC alpha and beta) against its plain twin, and the
+model on CUDA against the same model on the CPU, in eval and in a train step.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -15,7 +16,9 @@ import torch
 from ctc_pytorch_tpu_torch.config import CNNConfig
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
 from ctc_pytorch_tpu_torch.models.layers import matmul_f32
+from ctc_pytorch_tpu_torch.ops import ctc_loss as ctc_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
+from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as train_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +91,148 @@ def test_bf16_matmul_with_fp32_result_on_the_card(card):
     assert got.dtype == torch.float32 and got.shape == (2, 40, 3072)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-3,
                                rtol=1e-5)
+
+
+def _train_inputs(t, b, h, dtype, card):
+    gen = torch.Generator().manual_seed(t + b + h)
+    gx = torch.randn(t, b, 8 * h, generator=gen).to(dtype).to(card)
+    w_hh = ((torch.rand(2, h, 4 * h, generator=gen) * 2 - 1) * h ** -0.5).to(card)
+    dy = torch.randn(t, b, 2 * h, generator=gen).to(dtype).to(card)
+    return gx, w_hh, dy
+
+
+# fp32: absolute.  bf16: both sides round the same values to bf16, so an entry
+# differs by an ulp or two of its own size: each entry is held to 2 bf16 ulps
+# (2^-7 of the value each) of max(|want|, 1)
+@pytest.mark.parametrize("t,b,h,dtype,tol", [
+    (80, 128, 384, torch.bfloat16, 2.0 ** -6),
+    (100, 8, 384, torch.float32, 1e-4),  # the recipe's batch
+    (1, 1, 32, torch.float32, 1e-4),
+    (33, 5, 36, torch.float32, 1e-4),  # odd T, H not a multiple of 8
+    (6, 200, 64, torch.bfloat16, 2.0 ** -6),  # B over one 128-row tile
+    (4, 4, 528, torch.float32, 1e-4),  # widest H with w_hh resident
+    (4, 4, 600, torch.float32, 1e-4),  # w_hh read from L2
+])
+def test_train_kernels_match_plain_on_the_card(card, t, b, h, dtype, tol):
+    gx, w_hh, dy = _train_inputs(t, b, h, dtype, card)
+    fwd, bwd = train_ops.launches_fwd, train_ops.launches_bwd
+    ys, cs = train_ops.lstm_bidir_train_cuda(gx, w_hh)
+    want_ys, want_cs = train_ops.lstm_bidir_train_plain(gx, w_hh)
+    # the backward kernel gets the twin's planes, so only it is under test
+    dgx = train_ops.lstm_bidir_train_backward_cuda(gx, w_hh, want_ys, want_cs, dy)
+    want_dgx = train_ops.lstm_bidir_train_backward_plain(gx, w_hh, want_ys,
+                                                         want_cs, dy)
+    torch.cuda.synchronize()
+    assert (train_ops.launches_fwd, train_ops.launches_bwd) == (fwd + 1, bwd + 1)
+    for got, want in ((ys, want_ys), (cs, want_cs), (dgx, want_dgx)):
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            err = err / want.float().abs().clamp(min=1.0)
+        assert err.max().item() <= tol
+    dw, want_dw = train_ops.dw_hh(want_ys, dgx), train_ops.dw_hh(want_ys, want_dgx)
+    assert ((dw - want_dw).abs().max().item()
+            <= tol * max(1.0, want_dw.abs().max().item()))
+
+
+def test_lstm_train_autograd_goes_through_both_kernels(card):
+    gx, w_hh, dy = _train_inputs(12, 8, 64, torch.float32, card)
+    gx.requires_grad_(True)
+    w_hh.requires_grad_(True)
+    fwd, bwd = train_ops.launches_fwd, train_ops.launches_bwd
+    ys = train_ops.lstm_bidir_train(gx, w_hh)
+    (ys * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (train_ops.launches_fwd, train_ops.launches_bwd) == (fwd + 1, bwd + 1)
+    gx_c = gx.detach().cpu().requires_grad_(True)
+    w_c = w_hh.detach().cpu().requires_grad_(True)
+    (train_ops.lstm_bidir_train(gx_c, w_c) * dy.cpu()).sum().backward()
+    assert (gx.grad.cpu() - gx_c.grad).abs().max().item() <= 1e-4
+    assert (w_hh.grad.cpu() - w_c.grad).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("t,b,c,l", [
+    (80, 128, 41, 48),  # bench shape, S = 97
+    (100, 8, 41, 40),  # the recipe's batch
+    (1, 1, 5, 0),  # T = 1, S = 1: an empty label
+    (7, 3, 5, 2),
+    (30, 2, 50, 600),  # S = 1201: more positions than threads in a CTA
+])
+def test_ctc_kernels_match_plain_on_the_card(card, t, b, c, l):
+    gen = torch.Generator().manual_seed(t + b)
+    log_probs = torch.log_softmax(torch.randn(t, b, c, generator=gen), -1).to(card)
+    labels = torch.randint(1, c, (b, l), generator=gen).to(card)
+    in_len = torch.randint(max(1, t // 2), t + 1, (b,), generator=gen).to(card)
+    lab_len = torch.randint(0, l + 1, (b,), generator=gen).to(card)
+    _, emit, skip_in, skip_out, mask, s_len = ctc_ops.prepare(
+        log_probs, labels, lab_len)
+    a0, b0 = ctc_ops.launches_alpha, ctc_ops.launches_beta
+    alphas = ctc_ops.ctc_alpha(emit, skip_in, mask, in_len)
+    betas = ctc_ops.ctc_beta(emit, skip_out, mask, in_len, s_len)
+    torch.cuda.synchronize()
+    assert (ctc_ops.launches_alpha, ctc_ops.launches_beta) == (a0 + 1, b0 + 1)
+    for got, want in (
+            (alphas, ctc_ops.ctc_alpha_plain(emit, skip_in, mask, in_len)),
+            (betas, ctc_ops.ctc_beta_plain(emit, skip_out, mask, in_len, s_len))):
+        dead = want <= -1e29
+        assert torch.equal(got <= -1e29, dead)
+        assert torch.all(got[dead] == ctc_ops.NEG_INF)
+        assert (got - want)[~dead].abs().max().item() <= 1e-4
+
+
+def test_ctc_loss_on_the_card_matches_the_cpu(card):
+    gen = torch.Generator().manual_seed(5)
+    log_probs = torch.log_softmax(torch.randn(20, 4, 6, generator=gen), -1)
+    labels = torch.randint(1, 6, (4, 4), generator=gen)
+    labels[2] = 3  # four equal labels need seven frames: infeasible in five
+    in_len = torch.tensor([20, 17, 5, 20])
+    lab_len = torch.tensor([4, 2, 4, 0])
+    grads, losses = [], []
+    for dev in ("cpu", card):
+        x = log_probs.clone().to(dev).requires_grad_(True)
+        loss = ctc_ops.ctc_loss(x, labels.to(dev), in_len.to(dev),
+                                lab_len.to(dev), reduction="none")
+        loss.sum().backward()
+        losses.append(loss.detach().cpu())
+        grads.append(x.grad.cpu())
+    assert losses[1][2] >= 1e29 and torch.isfinite(grads[1]).all()
+    assert torch.equal(grads[1][:, 2], torch.zeros(20, 6))
+    np.testing.assert_allclose(losses[1].numpy(), losses[0].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), atol=1e-5)
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+
+    cnn = CNNConfig(add_cnn=True, layers=1, channel=[(1, 4)],
+                    kernel_size=[(3, 3)], stride=[(2, 2)], padding=[(1, 1)])
+    spec = ModelSpec(add_cnn=True, cnn=cnn, rnn_input_size=24,
+                     rnn_hidden_size=32, rnn_layers=2, rnn_cell="lstm",
+                     bidirectional=True, batch_norm=True, num_class=8,
+                     drop_out=0.0, compute_dtype="float32")
+    rng = np.random.RandomState(3)
+    batch = [torch.from_numpy(a) for a in (
+        rng.randn(4, 40, 24).astype(np.float32),
+        np.array([1.0, 0.9, 0.75, 0.75], np.float32),
+        rng.randint(1, 8, (4, 5)).astype(np.int32),
+        np.array([5, 4, 2, 2], np.int32),
+        np.array([1, 1, 1, 0], np.float32))]
+    results = []
+    for dev in ("cpu", card):
+        model = CTCModel(spec)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev)
+        state = TrainState(model, make_optimizer(model, spec, 1e-3, 5e-4))
+        counts = (train_ops.launches_fwd, train_ops.launches_bwd,
+                  ctc_ops.launches_alpha, ctc_ops.launches_beta)
+        losses = [train_step(state, spec, *(a.to(dev) for a in batch))[0].item()
+                  for _ in range(2)]
+        after = (train_ops.launches_fwd, train_ops.launches_bwd,
+                 ctc_ops.launches_alpha, ctc_ops.launches_beta)
+        launched = tuple(a - c for a, c in zip(after, counts))
+        assert launched == ((4, 4, 2, 2) if dev == card else (0, 0, 0, 0))
+        results.append((losses, {k: v.cpu() for k, v in model.state_dict().items()}))
+    (cpu_losses, cpu_sd), (gpu_losses, gpu_sd) = results
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    for k, v in cpu_sd.items():
+        np.testing.assert_allclose(gpu_sd[k].numpy(), v.numpy(), atol=1e-4, rtol=0)

@@ -25,7 +25,12 @@ def _port_files():
 
 def test_static_scan_finds_no_forbidden_import():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 25
+    names = {str(p.relative_to(ROOT)) for p in files}
+    for new in ("ops/ctc_loss.py", "ops/lstm_bidir_train.py", "ops/_build.py",
+                "train/loop.py", "train/state.py", "train/scheduler.py",
+                "train/metrics_log.py", "cli/train.py"):
+        assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -63,6 +68,7 @@ mods = [m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 import ctc_pytorch_tpu_torch.cli.test
+import ctc_pytorch_tpu_torch.cli.train
 import chip_smoke
 leaked = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in {forbidden!r})]
@@ -76,7 +82,7 @@ def test_port_imports_under_a_blocker():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) > 15
+    assert int(proc.stdout.split()[-1]) > 25
 
 
 @pytest.fixture
@@ -102,6 +108,45 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
         model_from_package(tmp_path / "missing.npz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate(Config(), str(tmp_path / "missing.npz"))
+
+
+def test_training_entry_points_raise_without_a_card(no_card, tmp_path):
+    from ctc_pytorch_tpu_torch.cli import train as cli_train
+    from ctc_pytorch_tpu_torch.config import CNNConfig, Config
+    from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
+    from ctc_pytorch_tpu_torch.train.loop import Trainer
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    cfg.checkpoint_dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.train(cfg)
+    conf = tmp_path / "conf.yaml"
+    cfg.to_yaml(conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--conf", str(conf)])
+    spec = ModelSpec(add_cnn=False, cnn=CNNConfig(), rnn_input_size=4,
+                     rnn_hidden_size=4, rnn_layers=1, rnn_cell="lstm",
+                     bidirectional=True, batch_norm=False, num_class=3,
+                     drop_out=0.0, compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(spec, 1e-3)
+    assert not list(tmp_path.glob("**/*.npz"))
+
+
+def test_kernel_modules_build_nothing_at_import():
+    from ctc_pytorch_tpu_torch.ops import _build, ctc_loss, lstm_bidir_train
+    from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
+
+    for lib in (lstm_ops.LIBRARY, lstm_bidir_train.LIBRARY, ctc_loss.LIBRARY):
+        assert lib._lib is None and lib.source.exists()
+        assert all(h.exists() for h in lib.headers)
+        assert lib.output_path().parent == _build.BUILD_DIR
+    # a header is part of the version: both LSTM sources include it
+    assert [h.name for h in lstm_ops.LIBRARY.headers] == ["lstm_fwd.cuh"]
+    assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == ["lstm_fwd.cuh"]
 
 
 def test_lstm_wrapper_has_no_fallback_for_other_devices():

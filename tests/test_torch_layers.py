@@ -35,7 +35,7 @@ def test_batchnorm_eval_matches_jax(masked):
         {k: jnp.asarray(v) for k, v in state.items()},
         jnp.asarray(x), train=False,
         mask=None if mask is None else jnp.asarray(mask))
-    bn = BatchNorm(10)
+    bn = BatchNorm(10).eval()
     bn.load_state_dict({k: torch.from_numpy(np.asarray(v))
                         for k, v in {**params, **state}.items()})
     with torch.no_grad():
@@ -47,7 +47,7 @@ def test_batchnorm_eval_matches_jax(masked):
 
 
 def test_batchnorm_keeps_the_input_dtype():
-    bn = BatchNorm(4)
+    bn = BatchNorm(4).eval()
     x = torch.randn(3, 4).to(torch.bfloat16)
     assert bn(x).dtype == torch.bfloat16
 
@@ -98,7 +98,7 @@ def test_cnn_stack_eval_matches_jax(t_valid, pooling, activation):
     tv = None if t_valid is None else jnp.asarray(t_valid, jnp.int32)
     want, _ = cnn_stack_apply(jparams, jstates, jnp.asarray(x), jcfg,
                               compute_dtype=jnp.float32, t_valid=tv)
-    stack = CNNStack(tcfg)
+    stack = CNNStack(tcfg).eval()
     stack.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     with torch.no_grad():
         got = stack(torch.from_numpy(x), torch.float32,

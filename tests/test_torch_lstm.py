@@ -102,7 +102,7 @@ def test_rnn_layer_matches_jax(with_bn):
                               compute_dtype=jnp.float32,
                               bn_mask=jnp.asarray(mask) if with_bn else None)
 
-    layer = RNNLayer(f, h, batch_norm=with_bn)
+    layer = RNNLayer(f, h, batch_norm=with_bn).eval()
     sd = {f"{d}.{w}": torch.from_numpy(params[d][w])
           for d in ("fwd", "bwd") for w in ("w_ih", "w_hh")}
     if with_bn:
