@@ -6,24 +6,34 @@ printed line; any failure ends the run with a nonzero exit and no result:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel source under ``csrc/`` with nvcc, in parallel;
-3. kernel vs plain: each of the five kernels (eval BiLSTM, trainable BiLSTM
-   forward and backward, CTC alpha and beta) against its plain PyTorch
-   version on the card, at the main paths' shapes and at edge shapes, with
-   stated tolerances;
-4. decode slice: stage 4 of the flagship TIMIT recipe at full width
+3. kernel vs plain: each of the eight kernel wrappers (eval BiLSTM, trainable
+   BiLSTM forward and backward, CTC alpha and beta, eval BiGRU, trainable BiGRU
+   forward, which launches the eval BiGRU's kernel under a count of its own,
+   and backward) against its plain PyTorch version on the card, at
+   the main paths' shapes and at edge shapes, with stated tolerances; then
+   the eight stacked-layout (v1) entry points, each through the kernels
+   against itself through the plain versions, with the launches counted;
+4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
    with random weights from a seed, through ``cli.test.evaluate``; checks
    that every BiLSTM layer went through the kernel and that, in fp32, the
    kernel path and the plain path decode identical strings and PER;
-5. training slice: stage 2 of the same recipe (batch 8, bf16) on a synthetic
-   train and dev split through ``Trainer.fit`` for one epoch and
+5. TIMIT training slice: stage 2 of the same recipe (batch 8, bf16) on a
+   synthetic train and dev split through ``Trainer.fit`` for one epoch and
    ``save_best``; checks the launch counts of the four training kernels, that
    the loss fell, that the BN counters moved and that the saved package
    decodes; then two fp32 optimizer steps through the kernels and through
    the plain twins on the card, which must agree;
-6. times at the bench shape (B=128, T=160 -> T'=80, L=48) and at the
-   recipe's batch (B=8, T=200): every kernel, its plain twin, its bound and
-   the library call for the same function, then the decode forward and the
+6. 863 slice: the 863 recipe with the GRU cell at full width (CNN 1->16
+   (11, 5) stride (2, 2) + Hardtanh(0, 20), 4 x BiGRU(256), 67 classes, bf16,
+   batch 16) on a synthetic 201-d corpus: ``Trainer.fit`` for one epoch with
+   the accuracy-keyed scheduler and ``dev_over_train``, the saved package
+   decoded by ``cli.test.evaluate``; the same checks as phases 4 and 5 on
+   the three GRU kernels and the CTC kernels;
+7. times at the bench shapes (TIMIT: B=128, T=160 -> T'=80, L=48; 863: B=128,
+   T=200 -> T'=95, L=40) and at the recipes' batches (B=8; B=16): every
+   kernel, its plain twin, its bound and the library call for the same
+   function, the stacked entry points, then each model's decode forward and
    whole train step with their device time by kernel.
 
 It prints one JSON line of per-kernel results, the card's name and power
@@ -47,6 +57,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".chip_smoke"  # synthetic corpus + packages, removed at exit
 RECIPE = ROOT / "recipes" / "timit" / "ctc_config.yaml"
+RECIPE_863 = ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf"  # rnn_type set here
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -70,8 +81,11 @@ STEP_OFF_SHARE = 1e-4
 CTC_LL_RTOL = 1e-5  # neg_ll of a few hundred nats in fp32
 N_DECODE_UTTS = 16
 N_TRAIN_UTTS, N_DEV_UTTS = 64, 16
+N_TRAIN_UTTS_863, N_DEV_UTTS_863 = 128, 32  # 8 steps and 2 dev batches of 16
 PHONES = ("aa ae ah ao aw ax ay b ch d dh dx eh el en er ey f g hh ih iy "
           "jh k l m n ng ow oy p r s sh t th uh uw v").split()
+# 65 units + blank + UNK: the 863 recipe's num_class 66 + blank = 67 outputs
+UNITS_863 = [f"u{i:02d}" for i in range(65)]
 
 
 class SmokeFailure(RuntimeError):
@@ -129,14 +143,15 @@ def device_breakdown(fn):
     return sum(us for _, us in rows), rows
 
 
-def lstm_inputs(t, b, h, dtype, seed):
-    """``(gx, w_hh, dy)`` on the card, from a seed."""
+def recurrence_inputs(t, b, h, dtype, seed, gates: int = 4):
+    """``(gx, w_hh, dy)`` of a recurrence with ``gates`` gates (4: LSTM, 3:
+    GRU) on the card, from a seed."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    gx = torch.randn(t, b, 8 * h, generator=gen).to(dtype).cuda()
+    gx = torch.randn(t, b, 2 * gates * h, generator=gen).to(dtype).cuda()
     bound = h ** -0.5
-    w_hh = (torch.rand(2, h, 4 * h, generator=gen) * 2 - 1) * bound
+    w_hh = (torch.rand(2, h, gates * h, generator=gen) * 2 - 1) * bound
     dy = torch.randn(t, b, 2 * h, generator=gen).to(dtype).cuda()
     return gx, w_hh.cuda(), dy
 
@@ -171,33 +186,79 @@ def port_ops():
     return lstm_ops, train_ops, ctc_ops
 
 
+def port_gru_ops():
+    from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
+    from ctc_pytorch_tpu_torch.ops import gru_bidir_train as gru_train_ops
+
+    return gru_ops, gru_train_ops
+
+
+NO_LAUNCHES = dict.fromkeys(
+    ("lstm_bidir", "lstm_bidir_train_fwd", "lstm_bidir_train_bwd", "ctc_alpha",
+     "ctc_beta", "gru_bidir", "gru_bidir_train_fwd", "gru_bidir_train_bwd"), 0)
+
+
 def launch_counts() -> dict:
     lstm_ops, train_ops, ctc_ops = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
     return {"lstm_bidir": lstm_ops.launches,
             "lstm_bidir_train_fwd": train_ops.launches_fwd,
             "lstm_bidir_train_bwd": train_ops.launches_bwd,
             "ctc_alpha": ctc_ops.launches_alpha,
-            "ctc_beta": ctc_ops.launches_beta}
+            "ctc_beta": ctc_ops.launches_beta,
+            "gru_bidir": gru_ops.launches,
+            "gru_bidir_train_fwd": gru_train_ops.launches_fwd,
+            "gru_bidir_train_bwd": gru_train_ops.launches_bwd}
 
 
 def zero_counts() -> None:
+    from ctc_pytorch_tpu_torch.ops import stacked
+
     lstm_ops, train_ops, ctc_ops = port_ops()
-    lstm_ops.launches = 0
+    gru_ops, gru_train_ops = port_gru_ops()
+    stacked.calls = 0
+    lstm_ops.launches = gru_ops.launches = 0
     train_ops.launches_fwd = train_ops.launches_bwd = 0
+    gru_train_ops.launches_fwd = gru_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
+
+
+def stacked_calls() -> int:
+    """Calls into the stacked-layout wrappers since ``zero_counts``."""
+    from ctc_pytorch_tpu_torch.ops import stacked
+
+    return stacked.calls
+
+
+def check_counts(counts: dict, want: dict, what: str,
+                 want_stacked_calls: int = 0) -> None:
+    """``counts`` must be ``want`` and zero for every kernel not named there,
+    and the run since ``zero_counts`` must have entered the stacked-layout
+    wrappers ``want_stacked_calls`` times: a model's path never does."""
+    want = {**NO_LAUNCHES, **want}
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    check(stacked_calls() == want_stacked_calls,
+          f"{what}: {stacked_calls()} calls into ops/stacked.py, expected "
+          f"{want_stacked_calls}")
 
 
 @contextlib.contextmanager
 def plain_twins():
-    """Inside the block the ops run their plain twins on CUDA tensors too, so a kernel path can be held against them on the card.  The
-    block must launch no kernel."""
+    """Inside the block the ops run their plain twins on CUDA tensors too, so
+    a kernel path can be held against them on the card.  The block must
+    launch no kernel."""
     lstm_ops, train_ops, ctc_ops = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
     swaps = [(lstm_ops, "lstm_bidir_cuda", lstm_ops.lstm_bidir_plain),
              (train_ops, "lstm_bidir_train_cuda", train_ops.lstm_bidir_train_plain),
              (train_ops, "lstm_bidir_train_backward_cuda",
               train_ops.lstm_bidir_train_backward_plain),
              (ctc_ops, "ctc_alpha_cuda", ctc_ops.ctc_alpha_plain),
-             (ctc_ops, "ctc_beta_cuda", ctc_ops.ctc_beta_plain)]
+             (ctc_ops, "ctc_beta_cuda", ctc_ops.ctc_beta_plain),
+             (gru_ops, "gru_bidir_cuda", gru_ops.gru_bidir_plain),
+             (gru_train_ops, "gru_bidir_train_cuda", gru_ops.gru_bidir_plain),
+             (gru_train_ops, "gru_bidir_train_backward_cuda",
+              gru_train_ops.gru_bidir_train_backward_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     before = launch_counts()
     for mod, name, twin in swaps:
@@ -243,7 +304,7 @@ def phase_lstm_eval_vs_plain() -> dict:
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (t, b, h, dt) in enumerate(cases):
-        gx, w_hh, _ = lstm_inputs(t, b, h, dt, seed=100 + i)
+        gx, w_hh, _ = recurrence_inputs(t, b, h, dt, seed=100 + i)
         got = lstm_ops.lstm_bidir_cuda(gx, w_hh)
         want = lstm_ops.lstm_bidir_plain(gx, w_hh)
         torch.cuda.synchronize()
@@ -283,7 +344,7 @@ def phase_lstm_train_vs_plain() -> dict:
     for i, (t, b, h, dt) in enumerate(cases):
         bf16 = dt == torch.bfloat16
         name = "bf16" if bf16 else "fp32"
-        gx, w_hh, dy = lstm_inputs(t, b, h, dt, seed=200 + i)
+        gx, w_hh, dy = recurrence_inputs(t, b, h, dt, seed=200 + i)
         ys, cs = train_ops.lstm_bidir_train_cuda(gx, w_hh)
         want_ys, want_cs = train_ops.lstm_bidir_train_plain(gx, w_hh)
         dgx = train_ops.lstm_bidir_train_backward_cuda(gx, w_hh, want_ys,
@@ -331,6 +392,9 @@ def phase_ctc_vs_plain() -> dict:
         (7, 3, 5, 2, "odd T"),
         (30, 2, 50, 600, "S = 1201: more positions than threads in a CTA"),
         (20, 4, 6, 4, "one infeasible utterance, one empty label"),
+        (95, 128, 67, 40, "863 bench shape, lengths below the pad"),
+        (95, 16, 67, 40, "the 863 recipe's batch"),
+        (195, 16, 67, 33, "the 863 recipe's longest bucket"),
     ]
     worst = {"alpha": 0.0, "beta": 0.0, "neg_ll_rel": 0.0, "grad": 0.0}
     for i, (t, b, c, l, what) in enumerate(cases):
@@ -398,10 +462,163 @@ def phase_ctc_vs_plain() -> dict:
     return worst
 
 
+def phase_gru_vs_plain() -> dict:
+    """The three GRU kernels against their plain twins: ys from the eval and
+    the training forward; dgx, dhhn and the dW_hh formed from them.  The
+    backward kernel is given the twin's ys, so each kernel is held on its own.
+    Tolerances as the LSTM phases.  Returns the worst error per kernel and
+    dtype."""
+    import torch
+
+    gru_ops, gru_train_ops = port_gru_ops()
+    cases = [  # (T', B, H, stream dtype)
+        (95, 128, 256, torch.bfloat16),  # 863 bench shape: odd T'
+        (95, 128, 256, torch.float32),
+        (95, 16, 256, torch.bfloat16),  # the 863 recipe's batch
+        (195, 16, 256, torch.bfloat16),  # its longest bucket
+        (1, 8, 256, torch.float32),  # T = 1
+        (1, 1, 32, torch.float32),  # T = 1, B = 1, H = 32
+        (9, 1, 32, torch.float32),  # B = 1
+        (33, 5, 36, torch.float32),  # odd T, B % 4 != 0, H % 8 != 0
+        (7, 3, 37, torch.float32),  # 3H not a multiple of 4
+        (12, 16, 32, torch.bfloat16),  # H = 32, bf16 streams
+        (6, 200, 64, torch.bfloat16),  # B over one 128-row tile
+        (4, 4, 528, torch.float32),  # widest H with w_hh resident (132 SMs)
+        (4, 4, 600, torch.float32),  # past the resident limit: w_hh from L2
+        (3, 3, 1024, torch.float32),
+    ]
+    worst = {k: {"fp32": 0.0, "bf16": 0.0} for k in ("eval", "fwd", "bwd")}
+    for i, (t, b, h, dt) in enumerate(cases):
+        bf16 = dt == torch.bfloat16
+        name = "bf16" if bf16 else "fp32"
+        gx, w_hh, dy = recurrence_inputs(t, b, h, dt, seed=400 + i, gates=3)
+        ys_eval = gru_ops.gru_bidir_cuda(gx, w_hh)
+        ys_train = gru_train_ops.gru_bidir_train_cuda(gx, w_hh)
+        want_ys = gru_ops.gru_bidir_plain(gx, w_hh)
+        dgx, dhhn = gru_train_ops.gru_bidir_train_backward_cuda(
+            gx, w_hh, want_ys, dy)
+        want_dgx, want_dhhn = gru_train_ops.gru_bidir_train_backward_plain(
+            gx, w_hh, want_ys, dy)
+        torch.cuda.synchronize()
+        dw = gru_train_ops.dw_hh(want_ys, dgx, dhhn)
+        want_dw = gru_train_ops.dw_hh(want_ys, want_dgx, want_dhhn)
+        e_eval, e_fwd = max_err(ys_eval, want_ys), max_err(ys_train, want_ys)
+        e_bwd = max(max_err(dgx, want_dgx), max_err(dhhn, want_dhhn))
+        e_dw = max_err(dw, want_dw)
+        dw_scale = max(1.0, want_dw.abs().max().item())
+        tol_f = BF16_TOL if bf16 else FP32_TOL
+        # fp32: absolute; bf16: per entry, relative to max(|want|, 1)
+        held = (max(scaled_err(dgx, want_dgx), scaled_err(dhhn, want_dhhn))
+                if bf16 else e_bwd)
+        tol_b = BF16_BWD_RTOL if bf16 else FP32_TOL
+        print(f"  gru_bidir T={t} B={b} H={h} {name}: ys eval {e_eval:.3g}, "
+              f"training forward {e_fwd:.3g} (tol {tol_f}); bwd dgx,dhhn "
+              f"{e_bwd:.3g}"
+              + (f" ({held:.3g} of max(|want|, 1))" if bf16 else "")
+              + f", dW_hh {e_dw:.3g} on a scale of {dw_scale:.3g} (tol {tol_b:.3g})")
+        for plane in (ys_eval, ys_train, dgx, dhhn, dw):
+            check(torch.isfinite(plane.float()).all().item(),
+                  "non-finite kernel output")
+        where = f"at T={t} B={b} H={h} {name}"
+        check(e_eval <= tol_f, f"GRU eval kernel disagrees with plain {where}")
+        check(e_fwd <= tol_f, f"GRU training forward disagrees with plain {where}")
+        check(held <= tol_b, f"GRU backward kernel disagrees with plain {where}")
+        check(e_dw <= tol_b * dw_scale, f"GRU dW_hh disagrees with plain {where}")
+        for key, err in (("eval", e_eval), ("fwd", e_fwd), ("bwd", e_bwd)):
+            worst[key][name] = max(worst[key][name], err)
+    return worst
+
+
+def stacked_entry_points():
+    """``{name: (function, gates, trainable, kernels it must launch)}`` of
+    ``ops/stacked.py``: the scan-level entry points take ``(gx, w_hh)``, the
+    layer-level ones ``(x, w_ih, w_hh, compute_dtype)``."""
+    from ctc_pytorch_tpu_torch.ops import stacked
+
+    eps = {}
+    for cell, gates in (("lstm", 4), ("gru", 3)):
+        for level in ("scan", "bidir"):
+            eps[f"{cell}_{level}_stacked"] = (
+                getattr(stacked, f"{cell}_{level}_stacked"), gates, False,
+                {f"{cell}_bidir": 1})
+            eps[f"{cell}_{level}_train_stacked"] = (
+                getattr(stacked, f"{cell}_{level}_train_stacked"), gates, True,
+                {f"{cell}_bidir_train_fwd": 1, f"{cell}_bidir_train_bwd": 1})
+    return eps
+
+
+def phase_stacked_vs_plain() -> dict:
+    """Each of the eight stacked-layout entry points on the card, through the
+    Hopper kernels, against the same entry point through the plain twins:
+    outputs and, for the trainable ones, every gradient.  The launch counts
+    must show the kernel of its cell and pass, once, and no other.  Returns
+    the worst error per entry point."""
+    import torch
+
+    cases = [  # (T, B, F, H, compute dtype)
+        (95, 8, 64, 256, torch.bfloat16),  # 2B = 16: bf16 streams by the v1 rule
+        (20, 5, 24, 64, torch.float32),
+        (1, 1, 8, 32, torch.float32),
+    ]
+    worst = {}
+    for name, (fn, gates, trainable, kernels) in stacked_entry_points().items():
+        worst[name] = 0.0
+        for i, (t, b, f, h, cd) in enumerate(cases):
+            bf16 = cd == torch.bfloat16
+            gen = torch.Generator().manual_seed(500 + i)
+            if "_scan_" in name:
+                sd = torch.bfloat16 if bf16 else torch.float32
+                gx, w_hh, _ = recurrence_inputs(t, 2 * b, h, sd, seed=500 + i,
+                                          gates=gates)
+                args, tail = [gx[..., :gates * h].contiguous(), w_hh], ()
+            else:
+                w_ih = (torch.rand(2, f, gates * h, generator=gen) * 2 - 1) * h ** -0.5
+                _, w_hh, _ = recurrence_inputs(1, 1, h, torch.float32, seed=500 + i,
+                                         gates=gates)
+                args = [torch.randn(t, b, f, generator=gen).cuda(), w_ih.cuda(), w_hh]
+                tail = (cd,)
+
+            def run():
+                ins = [a.detach().clone().requires_grad_(
+                    trainable and a.is_floating_point()) for a in args]
+                ys = fn(*ins, *tail)
+                if not trainable:
+                    return [ys]
+                gen_dy = torch.Generator().manual_seed(7)
+                dy = torch.randn(ys.shape, generator=gen_dy).to(ys.dtype).cuda()
+                (ys.float() * dy.float()).sum().backward()
+                return [ys.detach()] + [a.grad for a in ins]
+
+            zero_counts()
+            got = run()
+            torch.cuda.synchronize()
+            check_counts(launch_counts(), kernels,
+                         f"{name} at T={t} B={b} H={h}", want_stacked_calls=1)
+            with plain_twins():
+                want = run()
+            for g, w in zip(got, want):
+                check(torch.isfinite(g.float()).all().item(),
+                      f"{name}: non-finite output")
+                # relative to the plane's largest entry: a weight gradient
+                # is a sum over T x B products
+                err = max_err(g, w) / max(1.0, w.float().abs().max().item())
+                tol = BF16_TOL if bf16 else FP32_TOL
+                check(err <= tol, f"{name} through the kernels disagrees with "
+                      f"itself through the twins at T={t} B={b} H={h}: {err:.3g}")
+                worst[name] = max(worst[name], err)
+        print(f"  {name}: launches {kernels} per call at {len(cases)} shapes; "
+              f"worst error against the plain twins {worst[name]:.3g} "
+              f"(tol {FP32_TOL} fp32, {BF16_TOL} bf16, of the plane's largest "
+              f"entry or 1)")
+    return worst
+
+
 def write_corpus(root: Path, split: str = "test", n_utts: int = 64,
-                 seed: int = 0) -> None:
-    """One split of a synthetic TIMIT-layout corpus: 81-d fbank-like
-    ark/scp, phn_text and a 39-phone units file."""
+                 seed: int = 0, dim: int = 81, units=PHONES,
+                 feats: str = "fbank", labels: str = "phn_text") -> None:
+    """One split of a synthetic Kaldi-layout corpus: ``dim``-d random features
+    of 150-400 frames in ``<feats>.ark/.scp``, a label file and a units file.
+    The defaults are the TIMIT layout (81-d fbank, 39 phones)."""
     import numpy as np
 
     from ctc_pytorch_tpu_torch.data.kaldi_io import ArkWriter
@@ -409,87 +626,91 @@ def write_corpus(root: Path, split: str = "test", n_utts: int = 64,
     rng = np.random.RandomState(seed)
     test = root / split
     test.mkdir(parents=True, exist_ok=True)
-    (root / "units").write_text("".join(p + "\n" for p in PHONES))
+    (root / "units").write_text("".join(p + "\n" for p in units))
     lines = []
-    with ArkWriter(test / "fbank.ark", test / "fbank.scp") as w:
+    with ArkWriter(test / f"{feats}.ark", test / f"{feats}.scp") as w:
         for i in range(n_utts):
             utt = f"{split}{i % 8}_si{i:03d}"
             frames = int(rng.randint(150, 401))
-            feat = rng.randn(frames, 81).astype(np.float32)
+            feat = rng.randn(frames, dim).astype(np.float32)
             w.write(utt, feat)
             n_ph = max(1, frames // 12)
-            lines.append(utt + " " + " ".join(rng.choice(PHONES, n_ph)))
-    (test / "phn_text").write_text("\n".join(lines) + "\n")
+            lines.append(utt + " " + " ".join(rng.choice(units, n_ph)))
+    (test / labels).write_text("\n".join(lines) + "\n")
 
 
-def recipe_config():
-    """The flagship recipe with its data paths pointed at the synthetic
-    corpus under ``WORK``."""
+def recipe_config(recipe: Path = RECIPE, data: str = "data",
+                  feats: str = "fbank", labels: str = "phn_text",
+                  test_split: str = "test"):
+    """A shipped recipe with its data paths pointed at the synthetic corpus
+    under ``WORK / data``."""
     from ctc_pytorch_tpu_torch.config import load_config
 
-    cfg = load_config(RECIPE)
-    data = WORK / "data"
-    cfg.vocab_file = str(data / "units")
-    for split, name in (("train", "train"), ("valid", "dev"), ("test", "test")):
-        setattr(cfg, f"{split}_scp_path", str(data / name / "fbank.scp"))
-        setattr(cfg, f"{split}_lab_path", str(data / name / "phn_text"))
+    cfg = load_config(recipe)
+    root = WORK / data
+    cfg.vocab_file = str(root / "units")
+    for split, name in (("train", "train"), ("valid", "dev"),
+                        ("test", test_split)):
+        setattr(cfg, f"{split}_scp_path", str(root / name / f"{feats}.scp"))
+        setattr(cfg, f"{split}_lab_path", str(root / name / labels))
     cfg.checkpoint_dir = str(WORK / "checkpoint")
     return cfg
 
 
-def phase_decode_slice():
-    """Stage 4 of the flagship recipe through the port's entry points."""
+def recipe_config_863():
+    """The 863 recipe with the GRU cell (the configuration the JAX package's
+    ``bench.py`` measures) on the synthetic 201-d corpus; the recipe's test
+    set is its dev split here."""
+    cfg = recipe_config(RECIPE_863, "data863", "spectrum", "text", "dev")
+    cfg.rnn_type = "nn.GRU"
+    cfg.log_dir = ""
+    return cfg
+
+
+def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str):
+    """Stage 4 through ``cli.test.evaluate`` from packages of ``model``: the
+    compute-dtype package through the kernels (every recurrent layer must
+    launch ``eval_kernel``, nothing else may launch), then an fp32 package
+    through the kernels and through the plain twins, which must decode the
+    same strings.  Returns the launches of the first run."""
     import torch
 
     from ctc_pytorch_tpu_torch.cli.test import evaluate
-    from ctc_pytorch_tpu_torch.models import CTCModel, ModelSpec
     from ctc_pytorch_tpu_torch.train.checkpoint import save_package
-    from ctc_pytorch_tpu_torch.vocab import Vocab
 
-    lstm_ops, _, _ = port_ops()
-    write_corpus(WORK / "data", "test", N_DECODE_UTTS, seed=0)
-    cfg = recipe_config()
-    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
-    check(spec.compute_dtype == "bfloat16" and spec.rnn_layers == 4
-          and spec.rnn_hidden_size == 384 and spec.add_cnn,
-          f"recipe is not the flagship: {spec}")
-    model = CTCModel(spec)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        # random weights give near-flat posteriors where a 1e-6 difference
-        # flips an argmax; a sharper output layer makes the strings stable
-        model.fc.w.mul_(10.0)
-    pkg_bf16 = WORK / "checkpoint" / "flagship_bf16.npz"
-    pkg_fp32 = WORK / "checkpoint" / "flagship_fp32.npz"
-    save_package(pkg_bf16, spec, model, config=cfg)
+    pkg = WORK / "checkpoint" / f"{tag}_{spec.compute_dtype}.npz"
+    pkg_fp32 = WORK / "checkpoint" / f"{tag}_fp32.npz"
+    save_package(pkg, spec, model, config=cfg)
     spec32 = dataclasses.replace(spec, compute_dtype="float32")
     save_package(pkg_fp32, spec32, model, config=cfg)
 
-    def run(pkg):
+    def run(path):
         lines = []
         t0 = time.perf_counter()
-        res = evaluate(cfg, str(pkg), device="cuda", log=lines.append)
+        res = evaluate(cfg, str(path), device="cuda", log=lines.append)
         torch.cuda.synchronize()
         res["wall_s"] = time.perf_counter() - t0
         decoded = [ln for ln in lines if ln.startswith("decoded: ")]
         return res, decoded, lines
 
     zero_counts()
-    res, decoded, lines = run(pkg_bf16)
-    launches = launch_counts()["lstm_bidir"]
-    print(f"  bf16 flagship decode: {res['batches']} batches, "
+    res, decoded, lines = run(pkg)
+    counts = launch_counts()
+    print(f"  {spec.compute_dtype} {tag} decode: {res['batches']} batches, "
           f"{len(decoded)} utts, CER {res['cer']:.4f} WER {res['wer']:.4f}, "
-          f"wall {res['wall_s']:.3f} s (first call, includes data load)")
+          f"wall {res['wall_s']:.3f} s (first call, includes data load); "
+          f"launches {counts[eval_kernel]}, calls into ops/stacked.py "
+          f"{stacked_calls()}")
     print("  " + lines[-1])
-    check(len(decoded) == N_DECODE_UTTS,
-          f"decoded {len(decoded)} of {N_DECODE_UTTS} utterances")
-    check(launches == 4 * res["batches"],
-          f"kernel launches {launches} != 4 x {res['batches']} batches")
+    check(len(decoded) == n_utts, f"decoded {len(decoded)} of {n_utts} utterances")
+    check_counts(counts, {eval_kernel: spec.rnn_layers * res["batches"]},
+                 f"{tag} decode")
 
-    lstm_ops.launches = 0
+    zero_counts()
     res32, dec32, _ = run(pkg_fp32)
-    check(lstm_ops.launches == 4 * res32["batches"],
-          f"fp32 run: launches {lstm_ops.launches} != 4 x batches")
+    check_counts(launch_counts(),
+                 {eval_kernel: spec.rnn_layers * res32["batches"]},
+                 f"{tag} fp32 decode")
     with plain_twins():
         res_pl, dec_pl, _ = run(pkg_fp32)
     same = sum(a == b for a, b in zip(dec32, dec_pl))
@@ -501,6 +722,38 @@ def phase_decode_slice():
           "fp32 kernel and plain paths score differently")
     n_tok = sum(len(d.split()) - 1 for d in dec32)
     check(n_tok > 0, "every decoded string is empty")
+    return counts[eval_kernel]
+
+
+def seeded_model(spec):
+    """``spec``'s model with random weights from a seed."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.models import CTCModel
+
+    model = CTCModel(spec)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # random weights give near-flat posteriors where a 1e-6 difference
+        # flips an argmax; a sharper output layer makes the strings stable
+        model.fc.w.mul_(10.0)
+    return model
+
+
+def phase_decode_slice():
+    """Stage 4 of the flagship recipe through the port's entry points."""
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    write_corpus(WORK / "data", "test", N_DECODE_UTTS, seed=0)
+    cfg = recipe_config()
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    check(spec.compute_dtype == "bfloat16" and spec.rnn_layers == 4
+          and spec.rnn_hidden_size == 384 and spec.add_cnn
+          and spec.rnn_cell == "lstm", f"recipe is not the flagship: {spec}")
+    model = seeded_model(spec)
+    launches = decode_slice(cfg, spec, model, "lstm_bidir", N_DECODE_UTTS,
+                            "flagship")
     return launches, spec, model
 
 
@@ -513,9 +766,11 @@ def batch_tensors(batch):
         batch.example_mask))
 
 
-def phase_train_slice(spec) -> dict:
-    """Stage 2 of the flagship recipe through ``Trainer.fit``; returns the
-    kernels' launch counts over the fit."""
+def train_slice(cfg, spec, cell: str, n_test_utts: int) -> dict:
+    """Stage 2 through ``Trainer.fit`` for one epoch, the saved package
+    through ``cli.test.evaluate``, then two fp32 optimizer steps through the
+    kernels and through the plain twins.  ``cell`` names the recurrence
+    kernels the model must launch.  Returns the launch counts over the fit."""
     import torch
 
     from ctc_pytorch_tpu_torch.cli.test import evaluate
@@ -528,12 +783,6 @@ def phase_train_slice(spec) -> dict:
     )
     from ctc_pytorch_tpu_torch.vocab import Vocab
 
-    write_corpus(WORK / "data", "train", N_TRAIN_UTTS, seed=1)
-    write_corpus(WORK / "data", "dev", N_DEV_UTTS, seed=2)
-    cfg = recipe_config()
-    cfg.exp_name = "smoke_train"
-    check(cfg.batch_size == 8 and cfg.dtype == "bfloat16" and cfg.drop_out > 0,
-          "the recipe is not the flagship's batch-8 bf16 training")
     train_loader, dev_loader = build_loaders(cfg, Vocab(cfg.vocab_file))
     trainer = Trainer(cfg, spec, device="cuda")
     model = trainer.state.model
@@ -566,14 +815,24 @@ def phase_train_slice(spec) -> dict:
     for ln in lines:
         print("  " + ln)
     print(f"  Trainer.fit, 1 epoch: {steps} optimizer steps, {dev_batches} dev "
-          f"batches, wall {wall:.3f} s; launches {counts}")
+          f"batches, wall {wall:.3f} s; launches {counts}, calls into "
+          f"ops/stacked.py {stacked_calls()}")
     print(f"  loss on one train batch (train mode, no dropout): "
           f"{loss_before:.4f} before the epoch, {loss_after:.4f} after")
     check(steps >= 8, f"only {steps} optimizer steps")
-    want = {"lstm_bidir_train_fwd": 4 * steps, "lstm_bidir_train_bwd": 4 * steps,
-            "ctc_alpha": steps + dev_batches,  # the dev pass computes its loss
-            "ctc_beta": steps, "lstm_bidir": 4 * dev_batches}
-    check(counts == want, f"launches {counts}, expected {want}")
+    # eval passes compute their loss: the dev pass and, with dev_over_train,
+    # one more pass over the training set
+    eval_batches = dev_batches + (steps if cfg.dev_over_train else 0)
+    n = spec.rnn_layers
+    check_counts(counts, {f"{cell}_bidir_train_fwd": n * steps,
+                          f"{cell}_bidir_train_bwd": n * steps,
+                          "ctc_alpha": steps + eval_batches, "ctc_beta": steps,
+                          f"{cell}_bidir": n * eval_batches}, "Trainer.fit")
+    if cfg.dev_over_train:
+        check(any(ln.startswith("cer on training set is ") for ln in lines)
+              and len(trainer.histories["training_cer_results"]) == 1,
+              "dev_over_train ran no pass over the training set")
+    check(trainer.scheduler.mode == cfg.scheduler_mode, "wrong scheduler mode")
     check(math.isfinite(loss_before) and math.isfinite(loss_after),
           "non-finite loss")
     check(loss_after < loss_before, "the loss did not fall over the epoch")
@@ -587,7 +846,7 @@ def phase_train_slice(spec) -> dict:
     decoded = [ln for ln in lines if ln.startswith("decoded: ")]
     print(f"  the saved package decodes: {len(decoded)} utts in "
           f"{res['batches']} batches, PER {res['wer']:.4f}")
-    check(len(decoded) == N_DECODE_UTTS and math.isfinite(res["wer"]),
+    check(len(decoded) == n_test_utts and math.isfinite(res["wer"]),
           "the trained package does not decode")
 
     # two fp32 optimizer steps from one init: kernels against plain twins
@@ -602,9 +861,10 @@ def phase_train_slice(spec) -> dict:
 
     zero_counts()
     k_losses, k_sd = two_steps()
-    check(launch_counts() == {"lstm_bidir_train_fwd": 8, "lstm_bidir_train_bwd": 8,
-                              "ctc_alpha": 2, "ctc_beta": 2, "lstm_bidir": 0},
-          f"two fp32 steps launched {launch_counts()}")
+    check_counts(launch_counts(), {f"{cell}_bidir_train_fwd": 2 * n,
+                                   f"{cell}_bidir_train_bwd": 2 * n,
+                                   "ctc_alpha": 2, "ctc_beta": 2},
+                 "two fp32 steps")
     with plain_twins():
         p_losses, p_sd = two_steps()
     worst, worst_key, n_off, n_all = 0.0, "", 0, 0
@@ -625,23 +885,72 @@ def phase_train_slice(spec) -> dict:
     return counts
 
 
-def lstm_bound(gx, w_hh, n_planes: int, n_products: int, n_gate_planes: int = 1,
-               bf16_products: bool = False):
-    """Least time the card could take for one recurrence call: the larger of
-    its bytes (``n_gate_planes`` (T, B, 8H) and ``n_planes`` (T, B, 2H)
-    planes in the stream dtype and w_hh, each moved once) over the memory
-    rate and its (B, H) x (H, 4H)-sized products (``n_products`` per step and
-    direction) over the card's peak for their operands.  ``bf16_products``:
-    both operands are bf16 values summed in fp32 (the training kernels with
-    bf16 streams), which the tensor cores multiply; otherwise an operand is
-    fp32 (the eval kernel's h and w_hh, and everything with fp32 streams) and
-    the peak is the fp32 one."""
+def phase_train_slice(spec) -> dict:
+    """Stage 2 of the flagship recipe; the kernels' launch counts over the
+    fit."""
+    write_corpus(WORK / "data", "train", N_TRAIN_UTTS, seed=1)
+    write_corpus(WORK / "data", "dev", N_DEV_UTTS, seed=2)
+    cfg = recipe_config()
+    cfg.exp_name = "smoke_train"
+    check(cfg.batch_size == 8 and cfg.dtype == "bfloat16" and cfg.drop_out > 0
+          and cfg.scheduler_mode == "loss" and not cfg.dev_over_train,
+          "the recipe is not the flagship's batch-8 bf16 training")
+    return train_slice(cfg, spec, "lstm", N_DECODE_UTTS)
+
+
+def phase_863_slice():
+    """The 863 recipe with the GRU cell at full width: one epoch of stage 2
+    with the accuracy-keyed scheduler and ``dev_over_train``, the saved
+    package decoded, and a seeded model decoded through kernels and twins.
+    Returns ``(launch counts over the fit, decode launches, spec, model)``."""
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+
+    for split, n, seed in (("train", N_TRAIN_UTTS_863, 11),
+                           ("dev", N_DEV_UTTS_863, 12)):
+        write_corpus(WORK / "data863", split, n, seed=seed, dim=201,
+                     units=UNITS_863, feats="spectrum", labels="text")
+    cfg = recipe_config_863()
+    cfg.exp_name = "smoke_863"
+    # the class count as stage 2 takes it from an 863 config: num_class + blank
+    spec = ModelSpec.from_config(cfg, num_class=cfg.num_class + 1)
+    check(spec.rnn_cell == "gru" and spec.rnn_hidden_size == 256
+          and spec.rnn_layers == 4 and spec.num_class == 67
+          and spec.compute_dtype == "bfloat16" and spec.drop_out == 0
+          and spec.cnn.channel == [(1, 16)] and spec.cnn.kernel_size == [(11, 5)]
+          and spec.cnn.stride == [(2, 2)] and spec.cnn.padding == [(0, 0)]
+          and spec.cnn.activation_function == "hardtanh"
+          and spec.rnn_in_after_cnn == 99 * 16,
+          f"recipe is not the 863 CNN+BiGRU(256): {spec}")
+    check(cfg.batch_size == 16 and cfg.scheduler_mode == "acc"
+          and cfg.dev_over_train and cfg.grad_clip == 400
+          and cfg.weight_decay == 0.005, "not the 863 recipe's training setup")
+    counts = train_slice(cfg, spec, "gru", N_DEV_UTTS_863)
+    model = seeded_model(spec)
+    decode_launches = decode_slice(cfg, spec, model, "gru_bidir",
+                                   N_DEV_UTTS_863, "863_gru")
+    return counts, decode_launches, spec, model
+
+
+def recurrence_bound(gx, w_hh, n_planes: int, n_products: int,
+                     n_gate_planes: int = 1, bf16_products: bool = False):
+    """Least time the card could take for one recurrence call of either cell
+    (n gates, read off ``w_hh (2, H, nH)``): the larger of its bytes
+    (``n_gate_planes`` (T, B, 2nH) and ``n_planes`` (T, B, 2H) planes in the
+    stream dtype and w_hh, 2 bytes a weight where the products take it as
+    bf16, each moved once) over the memory rate and its
+    (B, H) x (H, nH)-sized products (``n_products`` per step and direction)
+    over the card's peak for their operands.  ``bf16_products``: both
+    operands are bf16 values summed in fp32 (with bf16 streams: the LSTM's
+    training kernels and all three GRU kernels), which the tensor cores
+    multiply; otherwise an operand is fp32 (the LSTM eval kernel's h and
+    w_hh, and everything with fp32 streams) and the peak is the fp32 one."""
     t, b, _ = gx.shape
-    h = w_hh.shape[1]
+    h, nh = w_hh.shape[1], w_hh.shape[2]
     es = gx.element_size()
-    bytes_moved = (n_gate_planes * gx.numel() * es + w_hh.numel() * 4
+    bytes_moved = (n_gate_planes * gx.numel() * es
+                   + w_hh.numel() * (2 if bf16_products else 4)
                    + n_planes * t * b * 2 * h * es)
-    flops = n_products * 2 * t * b * h * 4 * h * 2
+    flops = n_products * 2 * t * b * h * nh * 2
     peak = BF16_FLOP_PER_S if bf16_products else FP32_FLOP_PER_S
     by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -671,7 +980,7 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
     import torch
 
     lstm_ops, train_ops, _ = port_ops()
-    gx, w_hh, dy = lstm_inputs(t, b, h, dtype, seed=7)
+    gx, w_hh, dy = recurrence_inputs(t, b, h, dtype, seed=7)
     ys, cs = train_ops.lstm_bidir_train_cuda(gx, w_hh)
     # the training kernels round w_hh, h and dpre to the stream dtype
     bf16 = dtype == torch.bfloat16
@@ -680,13 +989,14 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
             "ms": cuda_ms(lambda: lstm_ops.lstm_bidir_cuda(gx, w_hh), reps=20),
             "plain_ms": cuda_ms(lambda: lstm_ops.lstm_bidir_plain(gx, w_hh),
                                 reps=5),
-            **lstm_bound(gx, w_hh, n_planes=1, n_products=1)},
+            **recurrence_bound(gx, w_hh, n_planes=1, n_products=1)},
         "lstm_bidir_train_fwd": {
             "ms": cuda_ms(lambda: train_ops.lstm_bidir_train_cuda(gx, w_hh),
                           reps=20),
             "plain_ms": cuda_ms(
                 lambda: train_ops.lstm_bidir_train_plain(gx, w_hh), reps=5),
-            **lstm_bound(gx, w_hh, n_planes=2, n_products=1, bf16_products=bf16)},
+            **recurrence_bound(gx, w_hh, n_planes=2, n_products=1,
+                               bf16_products=bf16)},
         "lstm_bidir_train_bwd": {
             "ms": cuda_ms(lambda: train_ops.lstm_bidir_train_backward_cuda(
                 gx, w_hh, ys, cs, dy), reps=20),
@@ -694,8 +1004,8 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
                 lambda: train_ops.lstm_bidir_train_backward_plain(
                     gx, w_hh, ys, cs, dy), reps=5),
             # gx, ys, cs, dy in, dgx out; gate recompute and dpre @ w_hh^T
-            **lstm_bound(gx, w_hh, n_planes=3, n_products=2, n_gate_planes=2,
-                         bf16_products=bf16)},
+            **recurrence_bound(gx, w_hh, n_planes=3, n_products=2,
+                               n_gate_planes=2, bf16_products=bf16)},
     }
     # library yardstick: cuDNN BiLSTM, bias-free, fp32, forward and backward;
     # it also computes the input projection (T*B, 2H) @ (2H, 8H) and its
@@ -712,14 +1022,103 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
     out["lstm_bidir_train_bwd"]["library_ms"] = cuda_ms(
         lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
         reps=20)
+    print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.LSTM")
+    return out
+
+
+def print_recurrence_times(out: dict, tag, t, b, h, dtype, library: str) -> None:
+    import torch
+
     name = "bf16" if dtype == torch.bfloat16 else "fp32"
     for k, v in out.items():
         print(f"  {k}, {tag} T'={t} B={b} H={h} {name} streams: {v['ms']:.4f} ms; "
-              f"plain {v['plain_ms']:.4f} ms; cuDNN nn.LSTM fp32 "
+              f"plain {v['plain_ms']:.4f} ms; {library} fp32 "
               f"{v['library_ms']:.4f} ms; bound {v['bound_ms']:.4f} ms by "
               f"{v['bound_by']} ({v['mbytes']:.1f} MB: {v['bytes_ms']:.4f} ms; "
               f"{v['gflop']:.2f} GFLOP at the {v['peak']}: {v['ops_ms']:.4f} ms), "
               f"{v['ms'] / v['bound_ms']:.1f}x its bound")
+
+
+def times_gru(t, b, h, dtype, tag) -> dict:
+    """Per-call times of the three GRU kernels at one shape, their plain
+    twins, bounds and the cuDNN yardstick."""
+    import torch
+
+    gru_ops, gru_train_ops = port_gru_ops()
+    gx, w_hh, dy = recurrence_inputs(t, b, h, dtype, seed=7, gates=3)
+    ys = gru_train_ops.gru_bidir_train_cuda(gx, w_hh)
+    # all three kernels round w_hh, h and the exchange operand to the stream
+    # dtype before their products
+    bf16 = dtype == torch.bfloat16
+    out = {
+        "gru_bidir": {
+            "ms": cuda_ms(lambda: gru_ops.gru_bidir_cuda(gx, w_hh), reps=20),
+            "plain_ms": cuda_ms(lambda: gru_ops.gru_bidir_plain(gx, w_hh), reps=5),
+            **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
+                               bf16_products=bf16)},
+        "gru_bidir_train_fwd": {
+            "ms": cuda_ms(lambda: gru_train_ops.gru_bidir_train_cuda(gx, w_hh),
+                          reps=20),
+            "plain_ms": cuda_ms(lambda: gru_ops.gru_bidir_plain(gx, w_hh), reps=5),
+            **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
+                               bf16_products=bf16)},
+        "gru_bidir_train_bwd": {
+            "ms": cuda_ms(lambda: gru_train_ops.gru_bidir_train_backward_cuda(
+                gx, w_hh, ys, dy), reps=20),
+            "plain_ms": cuda_ms(
+                lambda: gru_train_ops.gru_bidir_train_backward_plain(
+                    gx, w_hh, ys, dy), reps=5),
+            # gx, ys, dy in, dgx and dhhn out; gate recompute and the
+            # exchange product
+            **recurrence_bound(gx, w_hh, n_planes=3, n_products=2,
+                               n_gate_planes=2, bf16_products=bf16)},
+    }
+    # library yardstick: cuDNN BiGRU, bias-free, fp32, forward and backward;
+    # it also computes the input projection (T*B, 2H) @ (2H, 6H) and its
+    # gradients, which the kernels are given and leave to the caller
+    gru = torch.nn.GRU(2 * h, h, bias=False, bidirectional=True).cuda()
+    x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
+    dy_lib = torch.randn(t, b, 2 * h, device="cuda")
+    with torch.no_grad():
+        out["gru_bidir"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
+    out["gru_bidir_train_fwd"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
+    y_lib, _ = gru(x_lib)
+    wrt = (x_lib, *gru.parameters())
+    out["gru_bidir_train_bwd"]["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
+        reps=20)
+    print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.GRU")
+    return out
+
+
+def times_stacked(cell: str, t, b, h, dtype, tag) -> dict:
+    """The scan-level stacked entry points of one cell at one shape (``b`` is
+    the batch, so ``gx`` is ``(T, 2b, nH)``): the eval call, and the
+    trainable call forward and backward, through the kernels and through
+    the plain twins.  The re-layout copies around the kernel are in the time."""
+    import torch
+
+    eps = stacked_entry_points()
+    gates = eps[f"{cell}_scan_stacked"][1]
+    gx, w_hh, dy = recurrence_inputs(t, 2 * b, h, dtype, seed=8, gates=gates)
+    gx, dy = gx[..., :gates * h].contiguous(), dy[..., :h].contiguous()
+    out = {}
+    for name in (f"{cell}_scan_stacked", f"{cell}_scan_train_stacked"):
+        fn, _, trainable, _ = eps[name]
+
+        def call():
+            if not trainable:
+                return fn(gx, w_hh)
+            g, w = gx.detach().requires_grad_(True), w_hh.detach().requires_grad_(True)
+            return torch.autograd.grad(fn(g, w), (g, w), dy)
+
+        ms = cuda_ms(call, reps=10)
+        with plain_twins():
+            plain_ms = cuda_ms(call, reps=2, warmup=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms}
+        print(f"  {name}{' forward + backward' if trainable else ''}, {tag} "
+              f"T'={t} 2B={2 * b} H={h}: {ms:.4f} ms through the kernels, "
+              f"{plain_ms:.4f} ms through the plain twins")
     return out
 
 
@@ -795,12 +1194,12 @@ def print_breakdown(what: str, ms: float, busy_us: float, by_kernel, top: int):
         print(f"    {us / 1e3:9.4f} ms {100 * us / busy_us:5.1f}%  {name[:90]}")
 
 
-def times_model(spec, model, b, t, l, tag) -> dict:
-    """The decode forward and the whole train step at one batch shape, CUDA
-    events, with the device time by kernel."""
+def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
+    """The decode forward and the whole train step of one model (``what``
+    names it, ``cfg`` is its recipe) at one batch shape, CUDA events, with
+    the device time by kernel."""
     import torch
 
-    from ctc_pytorch_tpu_torch.config import load_config
     from ctc_pytorch_tpu_torch.train.loop import train_step
     from ctc_pytorch_tpu_torch.train.state import create_train_state
 
@@ -810,10 +1209,9 @@ def times_model(spec, model, b, t, l, tag) -> dict:
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(x, frac=frac), reps=10)
         fwd_busy, fwd_rows = device_breakdown(lambda: model(x, frac=frac))
-    print(f"  flagship decode forward, {tag} B={b} T={t} bf16: {fwd_ms:.4f} ms")
+    print(f"  {what} decode forward, {tag} B={b} T={t} bf16: {fwd_ms:.4f} ms")
     print_breakdown("forward", fwd_ms, fwd_busy, fwd_rows, top=8)
 
-    cfg = load_config(RECIPE)
     state = create_train_state(spec, cfg.init_lr, cfg.weight_decay,
                                cfg.grad_clip, seed=cfg.seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -825,7 +1223,7 @@ def times_model(spec, model, b, t, l, tag) -> dict:
 
     step_ms = cuda_ms(step, reps=10)
     step_busy, step_rows = device_breakdown(step)
-    print(f"  flagship train step, {tag} B={b} T={t} L={l} bf16, dropout "
+    print(f"  {what} train step, {tag} B={b} T={t} L={l} bf16, dropout "
           f"{spec.drop_out}: {step_ms:.4f} ms ({1e3 * b / step_ms:.1f} utts/s)")
     print_breakdown("train step", step_ms, step_busy, step_rows, top=12)
     return {"forward_ms": fwd_ms, "train_step_ms": step_ms,
@@ -842,17 +1240,19 @@ def main() -> int:
     from ctc_pytorch_tpu_torch.ops._build import build_all
 
     lstm_ops, train_ops, ctc_ops = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/6] device: {smi} | torch {torch.__version__} "
+    print(f"[1/7] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
-    libraries = [lstm_ops.LIBRARY, train_ops.LIBRARY, ctc_ops.LIBRARY]
+    libraries = [lstm_ops.LIBRARY, train_ops.LIBRARY, ctc_ops.LIBRARY,
+                 gru_ops.LIBRARY, gru_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/6] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/7] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -862,52 +1262,105 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/6] kernel vs plain on the card")
+    print("[3/7] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
+    errs_gru = phase_gru_vs_plain()
+    errs_stacked = phase_stacked_vs_plain()
 
-    print("[4/6] decode slice: flagship stage-4 greedy decode")
+    print("[4/7] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/6] training slice: flagship stage-2 trainer, one epoch")
+    print("[5/7] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print(f"[6/6] times ({smi})")
-    bench = {**times_lstm(80, 128, 384, torch.bfloat16, "bench shape"),
-             **times_ctc(80, 128, spec.num_class, 48, "bench shape")}
-    recipe = {**times_lstm(100, 8, 384, torch.float32, "recipe batch"),
-              **times_ctc(100, 8, spec.num_class, 33, "recipe batch")}
-    model_bench = times_model(spec, model, 128, 160, 48, "bench shape")
-    model_recipe = times_model(spec, model, 8, 200, 33, "recipe batch")
+    print("[6/7] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+          "dev_over_train, then stage-4 greedy decode")
+    counts_863, decode_launches_863, spec_863, model_863 = phase_863_slice()
+
+    print(f"[7/7] times ({smi})")
+    cfg, cfg_863 = recipe_config(), recipe_config_863()
+    bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
+             **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
+             **times_gru(95, 128, 256, torch.bfloat16, "863 bench shape")}
+    recipe = {**times_lstm(100, 8, 384, torch.float32, "TIMIT recipe batch"),
+              **times_ctc(100, 8, spec.num_class, 33, "TIMIT recipe batch"),
+              **times_gru(95, 16, 256, torch.bfloat16, "863 recipe batch")}
+    ctc_863 = {"bench": times_ctc(95, 128, spec_863.num_class, 40,
+                                  "863 bench shape"),
+               "recipe_batch": times_ctc(95, 16, spec_863.num_class, 40,
+                                         "863 recipe batch")}
+    entry_points = []
+    for cell, (t, b, h), (t_r, b_r, dt_r) in (
+            ("lstm", (80, 128, 384), (100, 8, torch.float32)),
+            ("gru", (95, 128, 256), (95, 16, torch.bfloat16))):
+        at_bench = times_stacked(cell, t, b, h, torch.bfloat16, "bench shape")
+        at_recipe = times_stacked(cell, t_r, b_r, h, dt_r, "recipe batch")
+        for name in at_bench:
+            entry_points.append({
+                "name": name, "source": "ctc_pytorch_tpu_torch/ops/stacked.py",
+                "max_err_vs_plain": max(errs_stacked[name], errs_stacked[
+                    name.replace("_scan_", "_bidir_")]),
+                **at_bench[name],
+                "ms_recipe_batch": at_recipe[name]["ms"],
+                "plain_ms_recipe_batch": at_recipe[name]["plain_ms"]})
+    model_bench = times_model(cfg, spec, model, 128, 160, 48, "flagship",
+                              "bench shape")
+    model_recipe = times_model(cfg, spec, model, 8, 200, 33, "flagship",
+                               "recipe batch")
+    bench_863 = times_model(cfg_863, spec_863, model_863, 128, 200, 40,
+                            "863 CNN+BiGRU(256)", "bench shape")
+    recipe_863 = times_model(cfg_863, spec_863, model_863, 16, 200, 40,
+                             "863 CNN+BiGRU(256)", "recipe batch")
 
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
+    # (name, source, TPU kernel, launches on the TIMIT paths, on the 863
+    # path, worst error fp32, bf16)
     rows = [
         ("lstm_bidir", csrc + "lstm_bidir.cu",
          tpu + "lstm_pallas_v2.py:142 lstm_bidir_pallas_v2",
-         decode_launches, errs_eval["fp32"], errs_eval["bf16"]),
+         decode_launches, 0, errs_eval["fp32"], errs_eval["bf16"]),
         ("lstm_bidir_train_fwd", csrc + "lstm_bidir_train.cu",
          tpu + "lstm_pallas_train_v2.py:438 _fwd_pallas (lstm_scan_train_v2)",
-         train_counts["lstm_bidir_train_fwd"], errs_train["fwd"]["fp32"],
+         train_counts["lstm_bidir_train_fwd"], 0, errs_train["fwd"]["fp32"],
          errs_train["fwd"]["bf16"]),
         ("lstm_bidir_train_bwd", csrc + "lstm_bidir_train.cu",
          tpu + "lstm_pallas_train_v2.py:478 _bwd_pallas (lstm_scan_train_v2)",
-         train_counts["lstm_bidir_train_bwd"], errs_train["bwd"]["fp32"],
+         train_counts["lstm_bidir_train_bwd"], 0, errs_train["bwd"]["fp32"],
          errs_train["bwd"]["bf16"]),
         ("ctc_alpha", csrc + "ctc_dp.cu",
          tpu + "ctc_pallas.py:132 ctc_alpha_pallas",
-         train_counts["ctc_alpha"], errs_ctc["alpha"], None),
+         train_counts["ctc_alpha"], counts_863["ctc_alpha"], errs_ctc["alpha"],
+         None),
         ("ctc_beta", csrc + "ctc_dp.cu",
          tpu + "ctc_pallas.py:154 ctc_beta_pallas",
-         train_counts["ctc_beta"], errs_ctc["beta"], None),
+         train_counts["ctc_beta"], counts_863["ctc_beta"], errs_ctc["beta"],
+         None),
+        ("gru_bidir", csrc + "gru_bidir.cu",
+         tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_bidir_v2 train=False)",
+         0, decode_launches_863 + counts_863["gru_bidir"],
+         errs_gru["eval"]["fp32"], errs_gru["eval"]["bf16"]),
+        ("gru_bidir_train_fwd", csrc + "gru_bidir.cu",
+         tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_scan_train_v2)",
+         0, counts_863["gru_bidir_train_fwd"], errs_gru["fwd"]["fp32"],
+         errs_gru["fwd"]["bf16"]),
+        ("gru_bidir_train_bwd", csrc + "gru_bidir_train.cu",
+         tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2)",
+         0, counts_863["gru_bidir_train_bwd"], errs_gru["bwd"]["fp32"],
+         errs_gru["bwd"]["bf16"]),
     ]
     kernels = []
-    for name, source, replaces, launches, err, err_bf16 in rows:
-        check(launches > 0, f"the main path never launched {name}")
+    for name, source, replaces, n_timit, n_863, err, err_bf16 in rows:
+        on_timit, on_863 = not name.startswith("gru"), not name.startswith("lstm")
+        check(n_timit > 0 or not on_timit,
+              f"the TIMIT paths never launched {name}")
+        check(n_863 > 0 or not on_863, f"the 863 path never launched {name}")
         at_bench, at_recipe = bench[name], recipe[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches,
+                 "replaces": replaces, "launches": n_timit + n_863,
+                 "launches_timit_paths": n_timit, "launches_863_path": n_863,
                  "max_abs_err": err,
                  **{k: at_bench[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
@@ -917,12 +1370,27 @@ def main() -> int:
                  "library_ms_recipe_batch": at_recipe["library_ms"]}
         if err_bf16 is not None:
             entry["max_abs_err_bf16"] = err_bf16
+        if name.startswith("ctc"):
+            for shape, at in ctc_863.items():
+                entry.update({f"{k}_863_{shape}": at[name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")})
         kernels.append(entry)
-    kernels[0].update(forward_ms=model_bench["forward_ms"],
-                      forward_ms_recipe_batch=model_recipe["forward_ms"])
-    kernels[1].update(train_step_ms=model_bench["train_step_ms"],
-                      train_step_ms_recipe_batch=model_recipe["train_step_ms"])
-    print(json.dumps({"kernels": kernels}))
+    by_name = {k["name"]: k for k in kernels}
+    by_name["lstm_bidir"].update(
+        forward_ms=model_bench["forward_ms"],
+        forward_ms_recipe_batch=model_recipe["forward_ms"])
+    by_name["lstm_bidir_train_fwd"].update(
+        train_step_ms=model_bench["train_step_ms"],
+        train_step_device_ms=model_bench["train_step_device_ms"],
+        train_step_ms_recipe_batch=model_recipe["train_step_ms"])
+    by_name["gru_bidir"].update(
+        forward_ms=bench_863["forward_ms"],
+        forward_ms_recipe_batch=recipe_863["forward_ms"])
+    by_name["gru_bidir_train_fwd"].update(
+        train_step_ms=bench_863["train_step_ms"],
+        train_step_device_ms=bench_863["train_step_device_ms"],
+        train_step_ms_recipe_batch=recipe_863["train_step_ms"])
+    print(json.dumps({"kernels": kernels, "entry_points": entry_points}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

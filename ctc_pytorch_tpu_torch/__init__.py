@@ -7,8 +7,9 @@ host-side modules it needs from the JAX package (config, vocab, Kaldi I/O,
 dataset, batching, scoring) are copies kept here.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Where a module holds a hand-written CUDA kernel (``ops/lstm_bidir.py``),
-a CUDA tensor goes through the kernel and a CPU tensor through its plain
+Where a module holds a hand-written CUDA kernel (``ops/lstm_bidir.py``,
+``ops/gru_bidir.py``, their ``_train`` siblings and ``ops/ctc_loss.py``), a
+CUDA tensor goes through the kernel and a CPU tensor through its plain
 PyTorch twin; asking for ``cuda`` without a card raises.
 """
 

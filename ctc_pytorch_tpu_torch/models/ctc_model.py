@@ -1,5 +1,5 @@
-"""The CTC acoustic model: optional CNN stack -> stacked BiLSTMs ->
-BN + Linear -> log-softmax, in eval and in train mode.
+"""The CTC acoustic model: optional CNN stack -> stacked BiLSTMs or BiGRUs
+-> BN + Linear -> log-softmax, in eval and in train mode.
 
 Counterpart of ``ctc_pytorch_tpu/models/ctc_model.py``.  ``ModelSpec`` is a
 copy (the checkpoint's model description); ``CTCModel`` is an
@@ -175,7 +175,8 @@ class CTCModel(nn.Module):
     def forward(self, x: torch.Tensor, frac: Optional[torch.Tensor] = None,
                 example_mask: Optional[torch.Tensor] = None,
                 train: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, F) -> log_probs (T', B, num_class).
 
         ``frac``: the collate's ``len / T_pad`` per row; drives the
@@ -185,9 +186,12 @@ class CTCModel(nn.Module):
 
         ``train``: sets the module's mode for this and later calls (None
         keeps it).  In train mode every BN normalises with batch statistics
-        and updates its running buffers in place, the BiLSTM layers run the
+        and updates its running buffers in place, the recurrent layers run the
         trainable kernels, and dropout at ``spec.drop_out`` is drawn from
-        ``generator`` (on ``x``'s device; required when ``spec.drop_out > 0``)."""
+        ``generator`` (on ``x``'s device; required when ``spec.drop_out > 0``).
+
+        ``lengths``: (B,) valid frames at the recurrent layers' input, for
+        packed-sequence semantics there (``models/rnn.py``)."""
         if train is not None:
             self.train(train)
         spec = self.spec
@@ -221,7 +225,8 @@ class CTCModel(nn.Module):
                 bn_mask = bn_mask & (example_mask > 0)[None, :]
             bn_mask = bn_mask.float()
 
-        out = self.rnns(out, cd, bn_mask, drop_rate=drop, generator=generator)
+        out = self.rnns(out, cd, bn_mask, lengths=lengths, drop_rate=drop,
+                        generator=generator)
         t, b, h = out.shape
         flat = out.reshape(t * b, h)
         if self.fc_bn is not None:

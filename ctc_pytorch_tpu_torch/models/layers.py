@@ -57,6 +57,18 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
+def matmul_stream(a: torch.Tensor, b: torch.Tensor, compute_dtype: torch.dtype,
+                  stream_dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` with operands rounded to ``compute_dtype``, fp32 sums and the
+    result in ``stream_dtype``: ``dot_general(..., preferred_element_type=
+    stream_dtype)``, the recurrent layers' input projection.  The stream dtype
+    is ``compute_dtype`` or fp32 (``models/rnn.py:stream_dtype_for``)."""
+    a, b = a.to(compute_dtype), b.to(compute_dtype)
+    if stream_dtype == compute_dtype:
+        return torch.matmul(a, b)
+    return matmul_f32(a, b, compute_dtype)
+
+
 def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: torch.Tensor):
     """Mean, biased and unbiased variance per channel from the masked sums
     of x and x * x over ``n`` positions (0-d), ``n = max(n, 1)``

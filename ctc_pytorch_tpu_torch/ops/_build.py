@@ -32,6 +32,15 @@ def device_kind(t, what: str) -> str:
     raise ValueError(f"{what}: unsupported device {t.device}")
 
 
+def acc_dtype(dtype):
+    """dtype of a recurrence's carries and gate math: fp32 for the fp32 and
+    bf16 streams (float64 streams stay float64, for numerical gradient checks
+    of the plain twins)."""
+    import torch
+
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),

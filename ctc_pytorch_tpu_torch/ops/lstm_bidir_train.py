@@ -39,7 +39,11 @@ from typing import Tuple
 
 import torch
 
-from ctc_pytorch_tpu_torch.ops._build import KernelLibrary, device_kind
+from ctc_pytorch_tpu_torch.ops._build import (
+    KernelLibrary,
+    acc_dtype as _acc_dtype,
+    device_kind,
+)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
@@ -53,12 +57,6 @@ LIBRARY = KernelLibrary(
 # plain path adds nothing
 launches_fwd = 0
 launches_bwd = 0
-
-
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Carries and gate math: fp32 for the fp32 and bf16 streams (float64
-    streams stay float64, for numerical gradient checks of the twin)."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _gates(pre: torch.Tensor):

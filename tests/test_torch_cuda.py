@@ -1,6 +1,7 @@
-"""The port on the card: each Hopper kernel (eval BiLSTM, trainable BiLSTM
-forward and backward, CTC alpha and beta) against its plain twin, and the
-model on CUDA against the same model on the CPU, in eval and in a train step.
+"""The port on the card: each Hopper kernel (eval BiLSTM and BiGRU, trainable
+BiLSTM and BiGRU forward and backward, CTC alpha and beta) against its plain
+twin, the stacked-layout entry points' launch counts, and the models on CUDA
+against the same models on the CPU, in eval and in a train step.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -17,8 +18,11 @@ from ctc_pytorch_tpu_torch.config import CNNConfig
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
 from ctc_pytorch_tpu_torch.models.layers import matmul_f32
 from ctc_pytorch_tpu_torch.ops import ctc_loss as ctc_ops
+from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
+from ctc_pytorch_tpu_torch.ops import gru_bidir_train as gru_train_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as train_ops
+from ctc_pytorch_tpu_torch.ops import stacked
 
 pytestmark = pytest.mark.cuda
 
@@ -234,5 +238,165 @@ def test_train_step_on_the_card_matches_the_cpu(card):
         results.append((losses, {k: v.cpu() for k, v in model.state_dict().items()}))
     (cpu_losses, cpu_sd), (gpu_losses, gpu_sd) = results
     np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    for k, v in cpu_sd.items():
+        np.testing.assert_allclose(gpu_sd[k].numpy(), v.numpy(), atol=1e-4, rtol=0)
+
+
+def _gru_inputs(t, b, h, dtype, card):
+    gen = torch.Generator().manual_seed(t + b + h)
+    gx = torch.randn(t, b, 6 * h, generator=gen).to(dtype).to(card)
+    w_hh = ((torch.rand(2, h, 3 * h, generator=gen) * 2 - 1) * h ** -0.5).to(card)
+    dy = torch.randn(t, b, 2 * h, generator=gen).to(dtype).to(card)
+    return gx, w_hh, dy
+
+
+# tolerances as the LSTM cases above: fp32 absolute; bf16 forward 2e-2
+# absolute, bf16 backward 2 bf16 ulps of max(|want|, 1) per entry
+@pytest.mark.parametrize("t,b,h,dtype", [
+    (95, 128, 256, torch.bfloat16),  # the 863 bench shape
+    (95, 16, 256, torch.bfloat16),  # the 863 recipe's batch
+    (95, 128, 256, torch.float32),
+    (1, 1, 32, torch.float32),
+    (33, 5, 36, torch.float32),  # odd T, B % 4 != 0, H % 8 != 0
+    (7, 3, 37, torch.float32),  # 3H not a multiple of 4
+    (6, 200, 64, torch.bfloat16),  # B over one 128-row tile
+    (4, 4, 528, torch.float32),  # widest H with w_hh resident
+    (4, 4, 600, torch.float32),  # w_hh read from L2
+    (3, 3, 1024, torch.float32),
+])
+def test_gru_kernels_match_plain_on_the_card(card, t, b, h, dtype):
+    bf16 = dtype == torch.bfloat16
+    gx, w_hh, dy = _gru_inputs(t, b, h, dtype, card)
+    counts = (gru_ops.launches, gru_train_ops.launches_fwd,
+              gru_train_ops.launches_bwd)
+    ys_eval = gru_ops.gru_bidir_cuda(gx, w_hh)
+    ys_train = gru_train_ops.gru_bidir_train_cuda(gx, w_hh)
+    want_ys = gru_ops.gru_bidir_plain(gx, w_hh)
+    # the backward kernel gets the twin's plane, so only it is under test
+    dgx, dhhn = gru_train_ops.gru_bidir_train_backward_cuda(gx, w_hh, want_ys, dy)
+    want_dgx, want_dhhn = gru_train_ops.gru_bidir_train_backward_plain(
+        gx, w_hh, want_ys, dy)
+    torch.cuda.synchronize()
+    assert (gru_ops.launches, gru_train_ops.launches_fwd,
+            gru_train_ops.launches_bwd) == tuple(c + 1 for c in counts)
+    for got in (ys_eval, ys_train):
+        assert ((got.float() - want_ys.float()).abs().max().item()
+                <= (2e-2 if bf16 else 1e-4))
+    tol = 2.0 ** -6 if bf16 else 1e-4
+    for got, want in ((dgx, want_dgx), (dhhn, want_dhhn)):
+        err = (got.float() - want.float()).abs()
+        if bf16:
+            err = err / want.float().abs().clamp(min=1.0)
+        assert err.max().item() <= tol
+    dw = gru_train_ops.dw_hh(want_ys, dgx, dhhn)
+    want_dw = gru_train_ops.dw_hh(want_ys, want_dgx, want_dhhn)
+    assert ((dw - want_dw).abs().max().item()
+            <= tol * max(1.0, want_dw.abs().max().item()))
+
+
+def test_gru_train_autograd_goes_through_both_kernels(card):
+    gx, w_hh, dy = _gru_inputs(12, 8, 64, torch.float32, card)
+    gx.requires_grad_(True)
+    w_hh.requires_grad_(True)
+    fwd, bwd = gru_train_ops.launches_fwd, gru_train_ops.launches_bwd
+    ys = gru_train_ops.gru_bidir_train(gx, w_hh)
+    (ys * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (gru_train_ops.launches_fwd, gru_train_ops.launches_bwd) == (fwd + 1,
+                                                                        bwd + 1)
+    gx_c = gx.detach().cpu().requires_grad_(True)
+    w_c = w_hh.detach().cpu().requires_grad_(True)
+    (gru_train_ops.gru_bidir_train(gx_c, w_c) * dy.cpu()).sum().backward()
+    assert (gx.grad.cpu() - gx_c.grad).abs().max().item() <= 1e-4
+    assert (w_hh.grad.cpu() - w_c.grad).abs().max().item() <= 1e-4
+
+
+def _launches():
+    return (lstm_ops.launches, train_ops.launches_fwd, train_ops.launches_bwd,
+            gru_ops.launches, gru_train_ops.launches_fwd,
+            gru_train_ops.launches_bwd)
+
+
+@pytest.mark.parametrize("name,cell,train", [
+    ("lstm_bidir_stacked", "lstm", False),
+    ("lstm_bidir_train_stacked", "lstm", True),
+    ("gru_bidir_stacked", "gru", False),
+    ("gru_bidir_train_stacked", "gru", True),
+])
+def test_stacked_entry_points_launch_the_kernels_and_match_the_cpu(
+        card, name, cell, train):
+    """Each layer-level entry point (which runs its scan-level one) launches
+    the kernel of its cell and pass, once, and no other."""
+    t, b, f, h, n = 9, 8, 12, 32, {"lstm": 4, "gru": 3}[cell]
+    rng = np.random.RandomState(7)
+    x, w_ih, w_hh = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(t, b, f), rng.randn(2, f, n * h) / np.sqrt(h),
+        rng.randn(2, h, n * h) / np.sqrt(h)))
+    fn = getattr(stacked, name)
+    results = []
+    for dev in ("cpu", card):
+        args = [a.clone().to(dev).requires_grad_(train) for a in (x, w_ih, w_hh)]
+        before = _launches()
+        ys = fn(*args, torch.float32)
+        if train:
+            ys.square().sum().backward()
+        delta = tuple(a - c for a, c in zip(_launches(), before))
+        on = 1 if dev == card else 0
+        want = {("lstm", False): (on, 0, 0, 0, 0, 0),
+                ("lstm", True): (0, on, on, 0, 0, 0),
+                ("gru", False): (0, 0, 0, on, 0, 0),
+                ("gru", True): (0, 0, 0, 0, on, on)}[(cell, train)]
+        assert delta == want
+        results.append([ys.detach().cpu()]
+                       + ([a.grad.cpu() for a in args] if train else []))
+    for got, want in zip(results[1], results[0]):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def test_863_train_step_on_the_card_matches_the_cpu(card):
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+
+    cnn = CNNConfig(add_cnn=True, layers=1, channel=[(1, 4)],
+                    kernel_size=[(11, 5)], stride=[(2, 2)], padding=[(0, 0)],
+                    activation_function="hardtanh")
+    spec = ModelSpec(add_cnn=True, cnn=cnn, rnn_input_size=24,
+                     rnn_hidden_size=32, rnn_layers=2, rnn_cell="gru",
+                     bidirectional=True, batch_norm=True, num_class=8,
+                     drop_out=0.0, compute_dtype="float32")
+    rng = np.random.RandomState(3)
+    batch = [torch.from_numpy(a) for a in (
+        rng.randn(4, 40, 24).astype(np.float32),
+        np.array([1.0, 0.9, 0.75, 0.75], np.float32),
+        rng.randint(1, 8, (4, 5)).astype(np.int32),
+        np.array([5, 4, 2, 2], np.int32),
+        np.array([1, 1, 1, 0], np.float32))]
+    lens = torch.tensor([15, 13, 11, 11])
+    results = []
+    for dev in ("cpu", card):
+        model = CTCModel(spec)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev)
+        state = TrainState(model, make_optimizer(model, spec, 1e-3, 0.005),
+                           grad_clip=400.0)
+        counts = (gru_train_ops.launches_fwd, gru_train_ops.launches_bwd,
+                  ctc_ops.launches_alpha, ctc_ops.launches_beta)
+        losses = [train_step(state, spec, *(a.to(dev) for a in batch))[0].item()
+                  for _ in range(2)]
+        after = (gru_train_ops.launches_fwd, gru_train_ops.launches_bwd,
+                 ctc_ops.launches_alpha, ctc_ops.launches_beta)
+        launched = tuple(a - c for a, c in zip(after, counts))
+        assert launched == ((4, 4, 2, 2) if dev == card else (0, 0, 0, 0))
+        with torch.no_grad():  # eval, packed `lengths` mode through the kernel
+            before = gru_ops.launches
+            packed = model(batch[0].to(dev), frac=batch[1].to(dev), train=False,
+                           lengths=lens.to(dev))
+            assert gru_ops.launches == before + (2 if dev == card else 0)
+        results.append((losses, packed.cpu(),
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (cpu_losses, cpu_packed, cpu_sd), (gpu_losses, gpu_packed, gpu_sd) = results
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    np.testing.assert_allclose(gpu_packed.numpy(), cpu_packed.numpy(), atol=1e-4)
     for k, v in cpu_sd.items():
         np.testing.assert_allclose(gpu_sd[k].numpy(), v.numpy(), atol=1e-4, rtol=0)

@@ -29,7 +29,8 @@ def test_static_scan_finds_no_forbidden_import():
     names = {str(p.relative_to(ROOT)) for p in files}
     for new in ("ops/ctc_loss.py", "ops/lstm_bidir_train.py", "ops/_build.py",
                 "train/loop.py", "train/state.py", "train/scheduler.py",
-                "train/metrics_log.py", "cli/train.py"):
+                "train/metrics_log.py", "cli/train.py", "ops/gru_bidir.py",
+                "ops/gru_bidir_train.py", "ops/stacked.py"):
         assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
@@ -147,6 +148,38 @@ def test_kernel_modules_build_nothing_at_import():
     # a header is part of the version: both LSTM sources include it
     assert [h.name for h in lstm_ops.LIBRARY.headers] == ["lstm_fwd.cuh"]
     assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == ["lstm_fwd.cuh"]
+
+
+def test_gru_kernel_modules_build_nothing_at_import():
+    from ctc_pytorch_tpu_torch.ops import _build, gru_bidir, gru_bidir_train, stacked
+
+    for lib, source in ((gru_bidir.LIBRARY, "gru_bidir.cu"),
+                        (gru_bidir_train.LIBRARY, "gru_bidir_train.cu")):
+        assert lib._lib is None and lib.source.name == source
+        assert lib.source.exists() and all(h.exists() for h in lib.headers)
+        assert lib.output_path().parent == _build.BUILD_DIR
+        # both headers are part of the version: gru_fwd.cuh includes lstm_fwd.cuh
+        assert [h.name for h in lib.headers] == ["lstm_fwd.cuh", "gru_fwd.cuh"]
+        assert '#include "gru_fwd.cuh"' in lib.source.read_text()
+    assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "gru_fwd.cuh").read_text()
+    # the trainable op's forward is the eval library's kernel
+    assert set(gru_bidir_train.LIBRARY.functions) == {
+        "gru_bidir_train_backward", "gru_bidir_train_error_string"}
+    assert not hasattr(stacked, "LIBRARY")  # wrappers: no kernel of their own
+
+
+def test_no_kernel_source_calls_a_library_for_the_recurrent_products():
+    from ctc_pytorch_tpu_torch.ops import _build
+
+    sources = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
+    assert {p.name for p in sources} >= {
+        "gru_bidir.cu", "gru_bidir_train.cu", "gru_fwd.cuh", "lstm_bidir.cu",
+        "lstm_bidir_train.cu", "lstm_fwd.cuh", "ctc_dp.cu"}
+    for path in sources:
+        text = path.read_text()
+        includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+        for banned in ("cublas", "cudnn", "cutlass", "torch/", "ATen"):
+            assert not any(banned in ln for ln in includes), (path.name, banned)
 
 
 def test_lstm_wrapper_has_no_fallback_for_other_devices():
