@@ -5,14 +5,17 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, each a
 printed line; any failure ends the run with a nonzero exit and no result:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles every kernel source under ``csrc/`` with nvcc, in parallel;
-3. kernel vs plain: each of the eight kernel wrappers (eval BiLSTM, trainable
-   BiLSTM forward and backward, CTC alpha and beta, eval BiGRU, trainable BiGRU
-   forward, which launches the eval BiGRU's kernel under a count of its own,
-   and backward) against its plain PyTorch version on the card, at
-   the main paths' shapes and at edge shapes, with stated tolerances; then
-   the eight stacked-layout (v1) entry points, each through the kernels
-   against itself through the plain versions, with the launches counted;
+2. build: compiles the seven kernel sources under ``csrc/`` with nvcc, in
+   parallel;
+3. kernel vs plain: each of the eleven kernel wrappers (eval BiLSTM,
+   trainable BiLSTM forward and backward, CTC alpha and beta, eval BiGRU,
+   trainable BiGRU forward, which launches the eval BiGRU's kernel under a
+   count of its own, and backward, and the same three for the tanh RNN)
+   against its plain PyTorch version on the card, at the main paths' shapes
+   and at edge shapes, with stated tolerances; the three recurrences of each
+   cell with one direction (ndir = 1); then the ten stacked-layout (v1) entry
+   points, each through the kernels against itself through the plain
+   versions, with the launches counted;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
    with random weights from a seed, through ``cli.test.evaluate``; checks
@@ -30,11 +33,23 @@ printed line; any failure ends the run with a nonzero exit and no result:
    the accuracy-keyed scheduler and ``dev_over_train``, the saved package
    decoded by ``cli.test.evaluate``; the same checks as phases 4 and 5 on
    the three GRU kernels and the CTC kernels;
-7. times at the bench shapes (TIMIT: B=128, T=160 -> T'=80, L=48; 863: B=128,
+7. tanh slice: the TIMIT flagship recipe with ``rnn_type: nn.RNN`` at full
+   width (CNN + 4 x BiRNN(384), bf16, batch 8): ``Trainer.fit`` for one
+   epoch, the saved package decoded, a seeded model decoded through kernels
+   and twins, two fp32 steps through kernels and twins, as phases 4 and 5;
+8. unidirectional slice: the flagship recipe with ``bidirectional: False``
+   (4 x LSTM(384), forward only) the same way: every recurrence launch of
+   this path is a one-direction launch of the LSTM kernels;
+9. times at the bench shapes (TIMIT: B=128, T=160 -> T'=80, L=48; 863: B=128,
    T=200 -> T'=95, L=40) and at the recipes' batches (B=8; B=16): every
    kernel, its plain twin, its bound and the library call for the same
-   function, the stacked entry points, then each model's decode forward and
-   whole train step with their device time by kernel.
+   function, the stacked entry points, then the flagship's, the 863 model's
+   and the tanh model's decode forward and whole train step with their
+   device time by kernel.
+
+Four model paths are driven: the flagship (phases 4 and 5), the 863 model
+(phase 6), the tanh model (phase 7) and the unidirectional flagship (phase
+8).
 
 It prints one JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -143,16 +158,19 @@ def device_breakdown(fn):
     return sum(us for _, us in rows), rows
 
 
-def recurrence_inputs(t, b, h, dtype, seed, gates: int = 4):
+def recurrence_inputs(t, b, h, dtype, seed, gates: int = 4, ndir: int = 2,
+                      scale: float = 1.0):
     """``(gx, w_hh, dy)`` of a recurrence with ``gates`` gates (4: LSTM, 3:
-    GRU) on the card, from a seed."""
+    GRU, 1: tanh) and ``ndir`` directions on the card, from a seed; ``gx``
+    scaled by ``scale``."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    gx = torch.randn(t, b, 2 * gates * h, generator=gen).to(dtype).cuda()
+    gx = scale * torch.randn(t, b, ndir * gates * h, generator=gen)
+    gx = gx.to(dtype).cuda()
     bound = h ** -0.5
-    w_hh = (torch.rand(2, h, gates * h, generator=gen) * 2 - 1) * bound
-    dy = torch.randn(t, b, 2 * h, generator=gen).to(dtype).cuda()
+    w_hh = (torch.rand(ndir, h, gates * h, generator=gen) * 2 - 1) * bound
+    dy = torch.randn(t, b, ndir * h, generator=gen).to(dtype).cuda()
     return gx, w_hh.cuda(), dy
 
 
@@ -193,14 +211,23 @@ def port_gru_ops():
     return gru_ops, gru_train_ops
 
 
+def port_rnn_ops():
+    from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
+    from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
+
+    return rnn_ops, rnn_train_ops
+
+
 NO_LAUNCHES = dict.fromkeys(
     ("lstm_bidir", "lstm_bidir_train_fwd", "lstm_bidir_train_bwd", "ctc_alpha",
-     "ctc_beta", "gru_bidir", "gru_bidir_train_fwd", "gru_bidir_train_bwd"), 0)
+     "ctc_beta", "gru_bidir", "gru_bidir_train_fwd", "gru_bidir_train_bwd",
+     "rnn_bidir", "rnn_bidir_train_fwd", "rnn_bidir_train_bwd"), 0)
 
 
 def launch_counts() -> dict:
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     return {"lstm_bidir": lstm_ops.launches,
             "lstm_bidir_train_fwd": train_ops.launches_fwd,
             "lstm_bidir_train_bwd": train_ops.launches_bwd,
@@ -208,7 +235,10 @@ def launch_counts() -> dict:
             "ctc_beta": ctc_ops.launches_beta,
             "gru_bidir": gru_ops.launches,
             "gru_bidir_train_fwd": gru_train_ops.launches_fwd,
-            "gru_bidir_train_bwd": gru_train_ops.launches_bwd}
+            "gru_bidir_train_bwd": gru_train_ops.launches_bwd,
+            "rnn_bidir": rnn_ops.launches,
+            "rnn_bidir_train_fwd": rnn_train_ops.launches_fwd,
+            "rnn_bidir_train_bwd": rnn_train_ops.launches_bwd}
 
 
 def zero_counts() -> None:
@@ -216,10 +246,12 @@ def zero_counts() -> None:
 
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     stacked.calls = 0
-    lstm_ops.launches = gru_ops.launches = 0
+    lstm_ops.launches = gru_ops.launches = rnn_ops.launches = 0
     train_ops.launches_fwd = train_ops.launches_bwd = 0
     gru_train_ops.launches_fwd = gru_train_ops.launches_bwd = 0
+    rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
 
 
@@ -249,6 +281,7 @@ def plain_twins():
     launch no kernel."""
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     swaps = [(lstm_ops, "lstm_bidir_cuda", lstm_ops.lstm_bidir_plain),
              (train_ops, "lstm_bidir_train_cuda", train_ops.lstm_bidir_train_plain),
              (train_ops, "lstm_bidir_train_backward_cuda",
@@ -258,7 +291,11 @@ def plain_twins():
              (gru_ops, "gru_bidir_cuda", gru_ops.gru_bidir_plain),
              (gru_train_ops, "gru_bidir_train_cuda", gru_ops.gru_bidir_plain),
              (gru_train_ops, "gru_bidir_train_backward_cuda",
-              gru_train_ops.gru_bidir_train_backward_plain)]
+              gru_train_ops.gru_bidir_train_backward_plain),
+             (rnn_ops, "rnn_bidir_cuda", rnn_ops.rnn_bidir_plain),
+             (rnn_train_ops, "rnn_bidir_train_cuda", rnn_ops.rnn_bidir_plain),
+             (rnn_train_ops, "rnn_bidir_train_backward_cuda",
+              rnn_train_ops.rnn_bidir_train_backward_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     before = launch_counts()
     for mod, name, twin in swaps:
@@ -529,10 +566,133 @@ def phase_gru_vs_plain() -> dict:
     return worst
 
 
+def phase_rnn_vs_plain() -> dict:
+    """The three tanh-RNN kernels against their plain twins: ys from the eval
+    and the training forward; dgx and the dW_hh formed from it.  The
+    backward kernel is given the twin's ys, so each kernel is held on its
+    own.  Tolerances as the LSTM phases.  Returns the worst error per kernel
+    and dtype."""
+    import torch
+
+    rnn_ops, rnn_train_ops = port_rnn_ops()
+    _, train_ops, _ = port_ops()
+    cases = [  # (T', B, H, stream dtype, directions, scale of gx)
+        (80, 128, 384, torch.bfloat16, 2, 1.0),  # TIMIT bench shape
+        (80, 128, 384, torch.float32, 2, 1.0),
+        (100, 8, 384, torch.float32, 2, 1.0),  # the recipe's batch, longest bucket
+        (80, 128, 384, torch.bfloat16, 2, 8.0),  # saturated: 1 - y^2 from y near 1
+        (1, 8, 384, torch.float32, 2, 1.0),  # T = 1
+        (1, 1, 37, torch.float32, 2, 1.0),  # T = 1, B = 1, H = 37
+        (33, 5, 37, torch.float32, 2, 1.0),  # odd T, B % 4 != 0, H % 8 != 0
+        (12, 16, 32, torch.bfloat16, 1, 1.0),  # one direction, bf16 streams
+        (6, 200, 64, torch.bfloat16, 2, 1.0),  # B over one 128-row tile
+        (4, 4, 1056, torch.float32, 2, 1.0),  # widest H with w_hh resident
+        (4, 4, 1064, torch.float32, 2, 1.0),  # past the resident limit: L2
+        (4, 4, 1568, torch.float32, 1, 1.0),  # one direction: widest resident
+        (4, 4, 1576, torch.float32, 1, 1.0),  # one direction, L2
+    ]
+    worst = {k: {"fp32": 0.0, "bf16": 0.0} for k in ("eval", "fwd", "bwd")}
+    for i, (t, b, h, dt, ndir, scale) in enumerate(cases):
+        bf16 = dt == torch.bfloat16
+        name = "bf16" if bf16 else "fp32"
+        gx, w_hh, dy = recurrence_inputs(t, b, h, dt, seed=450 + i, gates=1,
+                                         ndir=ndir, scale=scale)
+        ys_eval = rnn_ops.rnn_bidir_cuda(gx, w_hh)
+        ys_train = rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh)
+        want_ys = rnn_ops.rnn_bidir_plain(gx, w_hh)
+        dgx = rnn_train_ops.rnn_bidir_train_backward_cuda(w_hh, want_ys, dy)
+        want_dgx = rnn_train_ops.rnn_bidir_train_backward_plain(w_hh, want_ys, dy)
+        torch.cuda.synchronize()
+        dw = train_ops.dw_hh(want_ys, dgx, ndir)
+        want_dw = train_ops.dw_hh(want_ys, want_dgx, ndir)
+        e_eval, e_fwd = max_err(ys_eval, want_ys), max_err(ys_train, want_ys)
+        e_bwd, e_dw = max_err(dgx, want_dgx), max_err(dw, want_dw)
+        dw_scale = max(1.0, want_dw.abs().max().item())
+        tol_f = BF16_TOL if bf16 else FP32_TOL
+        held = scaled_err(dgx, want_dgx) if bf16 else e_bwd
+        tol_b = BF16_BWD_RTOL if bf16 else FP32_TOL
+        print(f"  rnn_bidir T={t} B={b} H={h} ndir={ndir} {name}"
+              + (f" gx x{scale:g}" if scale != 1.0 else "")
+              + f": ys eval {e_eval:.3g}, training forward {e_fwd:.3g} "
+              f"(tol {tol_f}); bwd dgx {e_bwd:.3g}"
+              + (f" ({held:.3g} of max(|want|, 1))" if bf16 else "")
+              + f", dW_hh {e_dw:.3g} on a scale of {dw_scale:.3g} (tol {tol_b:.3g})")
+        for plane in (ys_eval, ys_train, dgx, dw):
+            check(torch.isfinite(plane.float()).all().item(),
+                  "non-finite kernel output")
+        where = f"at T={t} B={b} H={h} ndir={ndir} {name}"
+        check(e_eval <= tol_f, f"tanh eval kernel disagrees with plain {where}")
+        check(e_fwd <= tol_f, f"tanh training forward disagrees with plain {where}")
+        check(held <= tol_b, f"tanh backward kernel disagrees with plain {where}")
+        check(e_dw <= tol_b * dw_scale, f"tanh dW_hh disagrees with plain {where}")
+        for key, err in (("eval", e_eval), ("fwd", e_fwd), ("bwd", e_bwd)):
+            worst[key][name] = max(worst[key][name], err)
+    return worst
+
+
+def phase_unidir_vs_plain() -> dict:
+    """Each cell's ops with one direction (ndir = 1), as a unidirectional
+    layer calls them: the eval op, and the trainable op forward and backward
+    (``dgx`` and ``dW_hh`` by autograd), through the kernels (one launch of
+    each) against the same calls through the plain twins, held as the
+    stacked entry points are.  The unidirectional slice's shape (the recipe's
+    batch) first.  Returns the worst error per cell."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.models.rnn import CELLS
+
+    cases = [  # (T', B, H, stream dtype)
+        (100, 8, 384, torch.float32),  # the recipe's batch, longest bucket
+        (80, 128, 384, torch.bfloat16),  # TIMIT bench shape
+        (7, 5, 37, torch.float32),  # odd T, B % 4 != 0, H % 8 != 0
+        (4, 4, 1064, torch.float32),  # past the LSTM's one-direction residency
+    ]
+    worst = {}
+    for cell, (gates, eval_op, train_op) in CELLS.items():
+        worst[cell] = 0.0
+        for i, (t, b, h, dt) in enumerate(cases):
+            gx, w_hh, dy = recurrence_inputs(t, b, h, dt, seed=480 + i,
+                                             gates=gates, ndir=1)
+
+            def run():
+                ys_eval = eval_op(gx, w_hh)
+                g, w = (a.detach().clone().requires_grad_(True)
+                        for a in (gx, w_hh))
+                ys = train_op(g, w)
+                (ys.float() * dy.float()).sum().backward()
+                return [ys_eval, ys.detach(), g.grad, w.grad]
+
+            zero_counts()
+            got = run()
+            torch.cuda.synchronize()
+            check_counts(launch_counts(), dict.fromkeys(
+                (f"{cell}_bidir", f"{cell}_bidir_train_fwd",
+                 f"{cell}_bidir_train_bwd"), 1), f"{cell} ndir=1 at T={t}")
+            with plain_twins():
+                want = run()
+            tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
+            # relative to the plane's largest entry: dW_hh is a sum over T x B
+            err = max(max_err(g, w) / max(1.0, w.float().abs().max().item())
+                      for g, w in zip(got, want))
+            print(f"  {cell} ndir=1 T={t} B={b} H={h} "
+                  f"{'bf16' if dt == torch.bfloat16 else 'fp32'}: eval ys, "
+                  f"training ys, dgx, dW_hh through the kernels against the "
+                  f"twins, worst {err:.3g} of the plane's largest entry or 1 "
+                  f"(tol {tol})")
+            check(all(torch.isfinite(x.float()).all().item() for x in got)
+                  and got[0].shape == (t, b, h),
+                  f"{cell} ndir=1: bad or non-finite kernel output")
+            check(err <= tol, f"{cell} one-direction kernels disagree with "
+                  f"plain at T={t} B={b} H={h}")
+            worst[cell] = max(worst[cell], err)
+    return worst
+
+
 def stacked_entry_points():
     """``{name: (function, gates, trainable, kernels it must launch)}`` of
     ``ops/stacked.py``: the scan-level entry points take ``(gx, w_hh)``, the
-    layer-level ones ``(x, w_ih, w_hh, compute_dtype)``."""
+    layer-level ones ``(x, w_ih, w_hh, compute_dtype)``.  The tanh cell's two
+    serve eval and training alike and run its trainable op."""
     from ctc_pytorch_tpu_torch.ops import stacked
 
     eps = {}
@@ -544,11 +704,22 @@ def stacked_entry_points():
             eps[f"{cell}_{level}_train_stacked"] = (
                 getattr(stacked, f"{cell}_{level}_train_stacked"), gates, True,
                 {f"{cell}_bidir_train_fwd": 1, f"{cell}_bidir_train_bwd": 1})
+    for name in ("rnn_scan_train_stacked", "rnn_bidir_stacked"):
+        eps[name] = (getattr(stacked, name), 1, True,
+                     {"rnn_bidir_train_fwd": 1, "rnn_bidir_train_bwd": 1})
     return eps
 
 
+# each scan-level entry point beside the layer-level one that runs it
+LAYER_OF_SCAN = {"lstm_scan_stacked": "lstm_bidir_stacked",
+                 "lstm_scan_train_stacked": "lstm_bidir_train_stacked",
+                 "gru_scan_stacked": "gru_bidir_stacked",
+                 "gru_scan_train_stacked": "gru_bidir_train_stacked",
+                 "rnn_scan_train_stacked": "rnn_bidir_stacked"}
+
+
 def phase_stacked_vs_plain() -> dict:
-    """Each of the eight stacked-layout entry points on the card, through the
+    """Each of the ten stacked-layout entry points on the card, through the
     Hopper kernels, against the same entry point through the plain twins:
     outputs and, for the trainable ones, every gradient.  The launch counts
     must show the kernel of its cell and pass, once, and no other.  Returns
@@ -931,9 +1102,61 @@ def phase_863_slice():
     return counts, decode_launches, spec, model
 
 
+def recipe_variant(rnn_type: str, bidirectional: bool, exp_name: str):
+    """The flagship recipe with its ``rnn_type`` and ``bidirectional`` keys
+    set as a user's ``--conf`` file would set them, on the synthetic TIMIT
+    corpus of phases 4 and 5; ``(cfg, spec)``."""
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    cfg = recipe_config()
+    cfg.rnn_type, cfg.bidirectional, cfg.exp_name = (rnn_type, bidirectional,
+                                                     exp_name)
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    check(spec.compute_dtype == "bfloat16" and spec.rnn_layers == 4
+          and spec.rnn_hidden_size == 384 and spec.add_cnn
+          and spec.rnn_input_size == 243
+          and spec.cnn.channel == [(1, 32), (32, 32)]
+          and spec.bidirectional == bidirectional and spec.batch_norm
+          and cfg.batch_size == 8 and cfg.drop_out > 0,
+          f"not the flagship recipe at full width: {spec}")
+    return cfg, spec
+
+
+def phase_tanh_slice():
+    """The flagship recipe with ``rnn_type: nn.RNN`` (4 x BiRNN(384), tanh,
+    bias-free) at full width: one epoch of stage 2, the saved package
+    decoded, and a seeded model decoded through kernels and twins.  Returns
+    ``(launch counts over the fit, decode launches, cfg, spec, model)``."""
+    cfg, spec = recipe_variant("nn.RNN", True, "smoke_tanh")
+    check(spec.rnn_cell == "rnn", f"rnn_type nn.RNN gave {spec.rnn_cell}")
+    counts = train_slice(cfg, spec, "rnn", N_DECODE_UTTS)
+    model = seeded_model(spec)
+    decode_launches = decode_slice(cfg, spec, model, "rnn_bidir",
+                                   N_DECODE_UTTS, "tanh")
+    return counts, decode_launches, cfg, spec, model
+
+
+def phase_unidir_slice():
+    """The flagship recipe with ``bidirectional: False`` (4 x LSTM(384),
+    forward only) at full width, as the tanh slice: every recurrence launch
+    here is a one-direction launch of the LSTM kernels, since the model has
+    no backward direction.  Returns ``(launch counts over the fit, decode
+    launches, cfg, spec, model)``."""
+    cfg, spec = recipe_variant("nn.LSTM", False, "smoke_unidir")
+    model = seeded_model(spec)
+    check(spec.rnn_cell == "lstm"
+          and all(layer.bwd is None for layer in model.rnns)
+          and model.fc.w.shape[0] == 384, "the model is not unidirectional")
+    counts = train_slice(cfg, spec, "lstm", N_DECODE_UTTS)
+    decode_launches = decode_slice(cfg, spec, model, "lstm_bidir",
+                                   N_DECODE_UTTS, "unidir")
+    return counts, decode_launches, cfg, spec, model
+
+
 def recurrence_bound(gx, w_hh, n_planes: int, n_products: int,
                      n_gate_planes: int = 1, bf16_products: bool = False):
-    """Least time the card could take for one recurrence call of either cell
+    """Least time the card could take for one recurrence call of any cell
     (n gates, read off ``w_hh (2, H, nH)``): the larger of its bytes
     (``n_gate_planes`` (T, B, 2nH) and ``n_planes`` (T, B, 2H) planes in the
     stream dtype and w_hh, 2 bytes a weight where the products take it as
@@ -941,9 +1164,10 @@ def recurrence_bound(gx, w_hh, n_planes: int, n_products: int,
     (B, H) x (H, nH)-sized products (``n_products`` per step and direction)
     over the card's peak for their operands.  ``bf16_products``: both
     operands are bf16 values summed in fp32 (with bf16 streams: the LSTM's
-    training kernels and all three GRU kernels), which the tensor cores
-    multiply; otherwise an operand is fp32 (the LSTM eval kernel's h and
-    w_hh, and everything with fp32 streams) and the peak is the fp32 one."""
+    training kernels and all three GRU and tanh kernels), which the tensor
+    cores multiply; otherwise an operand is fp32 (the LSTM eval kernel's h
+    and w_hh, and everything with fp32 streams) and the peak is the fp32
+    one."""
     t, b, _ = gx.shape
     h, nh = w_hh.shape[1], w_hh.shape[2]
     es = gx.element_size()
@@ -1091,6 +1315,58 @@ def times_gru(t, b, h, dtype, tag) -> dict:
     return out
 
 
+def times_rnn(t, b, h, dtype, tag) -> dict:
+    """Per-call times of the three tanh-RNN kernels at one shape, their plain
+    twins, bounds and the cuDNN yardstick."""
+    import torch
+
+    rnn_ops, rnn_train_ops = port_rnn_ops()
+    gx, w_hh, dy = recurrence_inputs(t, b, h, dtype, seed=7, gates=1)
+    ys = rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh)
+    # all three kernels round w_hh, h and dpre to the stream dtype before
+    # their products
+    bf16 = dtype == torch.bfloat16
+    out = {
+        "rnn_bidir": {
+            "ms": cuda_ms(lambda: rnn_ops.rnn_bidir_cuda(gx, w_hh), reps=20),
+            "plain_ms": cuda_ms(lambda: rnn_ops.rnn_bidir_plain(gx, w_hh), reps=5),
+            **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
+                               bf16_products=bf16)},
+        "rnn_bidir_train_fwd": {
+            "ms": cuda_ms(lambda: rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh),
+                          reps=20),
+            "plain_ms": cuda_ms(lambda: rnn_ops.rnn_bidir_plain(gx, w_hh), reps=5),
+            **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
+                               bf16_products=bf16)},
+        "rnn_bidir_train_bwd": {
+            "ms": cuda_ms(lambda: rnn_train_ops.rnn_bidir_train_backward_cuda(
+                w_hh, ys, dy), reps=20),
+            "plain_ms": cuda_ms(
+                lambda: rnn_train_ops.rnn_bidir_train_backward_plain(
+                    w_hh, ys, dy), reps=5),
+            # ys, dy in, dgx (gx-sized) out; one product, dpre @ w_hh^T
+            **recurrence_bound(gx, w_hh, n_planes=2, n_products=1,
+                               bf16_products=bf16)},
+    }
+    # library yardstick: cuDNN tanh BiRNN, bias-free, fp32, forward and
+    # backward; it also computes the input projection (T*B, 2H) @ (2H, 2H)
+    # and its gradients, which the kernels are given and leave to the caller
+    rnn = torch.nn.RNN(2 * h, h, nonlinearity="tanh", bias=False,
+                       bidirectional=True).cuda()
+    x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
+    dy_lib = torch.randn(t, b, 2 * h, device="cuda")
+    with torch.no_grad():
+        out["rnn_bidir"]["library_ms"] = cuda_ms(lambda: rnn(x_lib), reps=20)
+    out["rnn_bidir_train_fwd"]["library_ms"] = cuda_ms(lambda: rnn(x_lib), reps=20)
+    y_lib, _ = rnn(x_lib)
+    wrt = (x_lib, *rnn.parameters())
+    out["rnn_bidir_train_bwd"]["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
+        reps=20)
+    print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.RNN")
+    return out
+
+
 def times_stacked(cell: str, t, b, h, dtype, tag) -> dict:
     """The scan-level stacked entry points of one cell at one shape (``b`` is
     the batch, so ``gx`` is ``(T, 2b, nH)``): the eval call, and the
@@ -1099,11 +1375,13 @@ def times_stacked(cell: str, t, b, h, dtype, tag) -> dict:
     import torch
 
     eps = stacked_entry_points()
-    gates = eps[f"{cell}_scan_stacked"][1]
+    names = [n for n in (f"{cell}_scan_stacked", f"{cell}_scan_train_stacked")
+             if n in eps]
+    gates = eps[names[0]][1]
     gx, w_hh, dy = recurrence_inputs(t, 2 * b, h, dtype, seed=8, gates=gates)
     gx, dy = gx[..., :gates * h].contiguous(), dy[..., :h].contiguous()
     out = {}
-    for name in (f"{cell}_scan_stacked", f"{cell}_scan_train_stacked"):
+    for name in names:
         fn, _, trainable, _ = eps[name]
 
         def call():
@@ -1241,18 +1519,20 @@ def main() -> int:
 
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/7] device: {smi} | torch {torch.__version__} "
+    print(f"[1/9] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
     libraries = [lstm_ops.LIBRARY, train_ops.LIBRARY, ctc_ops.LIBRARY,
-                 gru_ops.LIBRARY, gru_train_ops.LIBRARY]
+                 gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
+                 rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/7] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/9] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -1262,31 +1542,45 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/7] kernel vs plain on the card")
+    print("[3/9] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
     errs_gru = phase_gru_vs_plain()
+    errs_rnn = phase_rnn_vs_plain()
+    errs_unidir = phase_unidir_vs_plain()
     errs_stacked = phase_stacked_vs_plain()
 
-    print("[4/7] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/9] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/7] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/9] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/7] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/9] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy decode")
     counts_863, decode_launches_863, spec_863, model_863 = phase_863_slice()
 
-    print(f"[7/7] times ({smi})")
+    print("[7/9] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+          "BiRNN(384), one epoch, then stage-4 greedy decode")
+    counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh = (
+        phase_tanh_slice())
+
+    print("[8/9] unidirectional slice: flagship recipe with bidirectional "
+          "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
+    counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
+        phase_unidir_slice())
+
+    print(f"[9/9] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
-             **times_gru(95, 128, 256, torch.bfloat16, "863 bench shape")}
+             **times_gru(95, 128, 256, torch.bfloat16, "863 bench shape"),
+             **times_rnn(80, 128, 384, torch.bfloat16, "TIMIT bench shape")}
     recipe = {**times_lstm(100, 8, 384, torch.float32, "TIMIT recipe batch"),
               **times_ctc(100, 8, spec.num_class, 33, "TIMIT recipe batch"),
-              **times_gru(95, 16, 256, torch.bfloat16, "863 recipe batch")}
+              **times_gru(95, 16, 256, torch.bfloat16, "863 recipe batch"),
+              **times_rnn(100, 8, 384, torch.float32, "TIMIT recipe batch")}
     ctc_863 = {"bench": times_ctc(95, 128, spec_863.num_class, 40,
                                   "863 bench shape"),
                "recipe_batch": times_ctc(95, 16, spec_863.num_class, 40,
@@ -1294,14 +1588,15 @@ def main() -> int:
     entry_points = []
     for cell, (t, b, h), (t_r, b_r, dt_r) in (
             ("lstm", (80, 128, 384), (100, 8, torch.float32)),
-            ("gru", (95, 128, 256), (95, 16, torch.bfloat16))):
+            ("gru", (95, 128, 256), (95, 16, torch.bfloat16)),
+            ("rnn", (80, 128, 384), (100, 8, torch.float32))):
         at_bench = times_stacked(cell, t, b, h, torch.bfloat16, "bench shape")
         at_recipe = times_stacked(cell, t_r, b_r, h, dt_r, "recipe batch")
         for name in at_bench:
             entry_points.append({
                 "name": name, "source": "ctc_pytorch_tpu_torch/ops/stacked.py",
-                "max_err_vs_plain": max(errs_stacked[name], errs_stacked[
-                    name.replace("_scan_", "_bidir_")]),
+                "max_err_vs_plain": max(errs_stacked[name],
+                                        errs_stacked[LAYER_OF_SCAN[name]]),
                 **at_bench[name],
                 "ms_recipe_batch": at_recipe[name]["ms"],
                 "plain_ms_recipe_batch": at_recipe[name]["plain_ms"]})
@@ -1313,55 +1608,78 @@ def main() -> int:
                             "863 CNN+BiGRU(256)", "bench shape")
     recipe_863 = times_model(cfg_863, spec_863, model_863, 16, 200, 40,
                              "863 CNN+BiGRU(256)", "recipe batch")
+    bench_tanh = times_model(cfg_tanh, spec_tanh, model_tanh, 128, 160, 48,
+                             "tanh CNN+BiRNN(384)", "bench shape")
+    recipe_tanh = times_model(cfg_tanh, spec_tanh, model_tanh, 8, 200, 33,
+                              "tanh CNN+BiRNN(384)", "recipe batch")
+    times_model(cfg_uni, spec_uni, model_uni, 128, 160, 48,
+                "unidirectional CNN+LSTM(384)", "bench shape")
 
+    # launches of every kernel on each model path: its fit and its decode
+    def path(counts, eval_kernel, decode):
+        return {**counts, eval_kernel: counts[eval_kernel] + decode}
+
+    by_path = {"timit": path(train_counts, "lstm_bidir", decode_launches),
+               "863": path(counts_863, "gru_bidir", decode_launches_863),
+               "tanh": path(counts_tanh, "rnn_bidir", decode_launches_tanh),
+               "unidir": path(counts_uni, "lstm_bidir", decode_launches_uni)}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
-    # (name, source, TPU kernel, launches on the TIMIT paths, on the 863
-    # path, worst error fp32, bf16)
+    lstm_paths, ctc_paths = ("timit", "unidir"), tuple(by_path)
+    # (name, source, TPU kernel, paths that must launch it, worst error fp32,
+    # bf16, one direction)
     rows = [
         ("lstm_bidir", csrc + "lstm_bidir.cu",
-         tpu + "lstm_pallas_v2.py:142 lstm_bidir_pallas_v2",
-         decode_launches, 0, errs_eval["fp32"], errs_eval["bf16"]),
+         tpu + "lstm_pallas_v2.py:142 lstm_bidir_pallas_v2", lstm_paths,
+         errs_eval["fp32"], errs_eval["bf16"], errs_unidir["lstm"]),
         ("lstm_bidir_train_fwd", csrc + "lstm_bidir_train.cu",
          tpu + "lstm_pallas_train_v2.py:438 _fwd_pallas (lstm_scan_train_v2)",
-         train_counts["lstm_bidir_train_fwd"], 0, errs_train["fwd"]["fp32"],
-         errs_train["fwd"]["bf16"]),
+         lstm_paths, errs_train["fwd"]["fp32"], errs_train["fwd"]["bf16"],
+         errs_unidir["lstm"]),
         ("lstm_bidir_train_bwd", csrc + "lstm_bidir_train.cu",
          tpu + "lstm_pallas_train_v2.py:478 _bwd_pallas (lstm_scan_train_v2)",
-         train_counts["lstm_bidir_train_bwd"], 0, errs_train["bwd"]["fp32"],
-         errs_train["bwd"]["bf16"]),
+         lstm_paths, errs_train["bwd"]["fp32"], errs_train["bwd"]["bf16"],
+         errs_unidir["lstm"]),
         ("ctc_alpha", csrc + "ctc_dp.cu",
-         tpu + "ctc_pallas.py:132 ctc_alpha_pallas",
-         train_counts["ctc_alpha"], counts_863["ctc_alpha"], errs_ctc["alpha"],
-         None),
+         tpu + "ctc_pallas.py:132 ctc_alpha_pallas", ctc_paths,
+         errs_ctc["alpha"], None, None),
         ("ctc_beta", csrc + "ctc_dp.cu",
-         tpu + "ctc_pallas.py:154 ctc_beta_pallas",
-         train_counts["ctc_beta"], counts_863["ctc_beta"], errs_ctc["beta"],
-         None),
+         tpu + "ctc_pallas.py:154 ctc_beta_pallas", ctc_paths,
+         errs_ctc["beta"], None, None),
         ("gru_bidir", csrc + "gru_bidir.cu",
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_bidir_v2 train=False)",
-         0, decode_launches_863 + counts_863["gru_bidir"],
-         errs_gru["eval"]["fp32"], errs_gru["eval"]["bf16"]),
+         ("863",), errs_gru["eval"]["fp32"], errs_gru["eval"]["bf16"],
+         errs_unidir["gru"]),
         ("gru_bidir_train_fwd", csrc + "gru_bidir.cu",
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_scan_train_v2)",
-         0, counts_863["gru_bidir_train_fwd"], errs_gru["fwd"]["fp32"],
-         errs_gru["fwd"]["bf16"]),
+         ("863",), errs_gru["fwd"]["fp32"], errs_gru["fwd"]["bf16"],
+         errs_unidir["gru"]),
         ("gru_bidir_train_bwd", csrc + "gru_bidir_train.cu",
          tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2)",
-         0, counts_863["gru_bidir_train_bwd"], errs_gru["bwd"]["fp32"],
-         errs_gru["bwd"]["bf16"]),
+         ("863",), errs_gru["bwd"]["fp32"], errs_gru["bwd"]["bf16"],
+         errs_unidir["gru"]),
+        ("rnn_bidir", csrc + "rnn_bidir.cu",
+         tpu + "rnn_pallas_v2.py:228 _fwd_pallas (rnn_bidir_v2 train=False)",
+         ("tanh",), errs_rnn["eval"]["fp32"], errs_rnn["eval"]["bf16"],
+         errs_unidir["rnn"]),
+        ("rnn_bidir_train_fwd", csrc + "rnn_bidir.cu",
+         tpu + "rnn_pallas_v2.py:228 _fwd_pallas (rnn_scan_v2)",
+         ("tanh",), errs_rnn["fwd"]["fp32"], errs_rnn["fwd"]["bf16"],
+         errs_unidir["rnn"]),
+        ("rnn_bidir_train_bwd", csrc + "rnn_bidir_train.cu",
+         tpu + "rnn_pallas_v2.py:258 _bwd_pallas (rnn_scan_v2)",
+         ("tanh",), errs_rnn["bwd"]["fp32"], errs_rnn["bwd"]["bf16"],
+         errs_unidir["rnn"]),
     ]
     kernels = []
-    for name, source, replaces, n_timit, n_863, err, err_bf16 in rows:
-        on_timit, on_863 = not name.startswith("gru"), not name.startswith("lstm")
-        check(n_timit > 0 or not on_timit,
-              f"the TIMIT paths never launched {name}")
-        check(n_863 > 0 or not on_863, f"the 863 path never launched {name}")
+    for name, source, replaces, paths, err, err_bf16, err_ndir1 in rows:
+        launched = {p: c[name] for p, c in by_path.items() if c[name]}
+        for p in paths:
+            check(p in launched, f"the {p} path never launched {name}")
         at_bench, at_recipe = bench[name], recipe[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": n_timit + n_863,
-                 "launches_timit_paths": n_timit, "launches_863_path": n_863,
-                 "max_abs_err": err,
+                 "replaces": replaces, "launches": sum(launched.values()),
+                 "launches_by_path": launched, "max_abs_err": err,
                  **{k: at_bench[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
                  "ms_recipe_batch": at_recipe["ms"],
@@ -1370,26 +1688,24 @@ def main() -> int:
                  "library_ms_recipe_batch": at_recipe["library_ms"]}
         if err_bf16 is not None:
             entry["max_abs_err_bf16"] = err_bf16
+        if err_ndir1 is not None:
+            entry["max_err_one_direction"] = err_ndir1
         if name.startswith("ctc"):
             for shape, at in ctc_863.items():
                 entry.update({f"{k}_863_{shape}": at[name][k] for k in (
                     "ms", "plain_ms", "bound_ms", "library_ms")})
         kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
-    by_name["lstm_bidir"].update(
-        forward_ms=model_bench["forward_ms"],
-        forward_ms_recipe_batch=model_recipe["forward_ms"])
-    by_name["lstm_bidir_train_fwd"].update(
-        train_step_ms=model_bench["train_step_ms"],
-        train_step_device_ms=model_bench["train_step_device_ms"],
-        train_step_ms_recipe_batch=model_recipe["train_step_ms"])
-    by_name["gru_bidir"].update(
-        forward_ms=bench_863["forward_ms"],
-        forward_ms_recipe_batch=recipe_863["forward_ms"])
-    by_name["gru_bidir_train_fwd"].update(
-        train_step_ms=bench_863["train_step_ms"],
-        train_step_device_ms=bench_863["train_step_device_ms"],
-        train_step_ms_recipe_batch=recipe_863["train_step_ms"])
+    for fwd, train_fwd, at_bench, at_recipe in (
+            ("lstm_bidir", "lstm_bidir_train_fwd", model_bench, model_recipe),
+            ("gru_bidir", "gru_bidir_train_fwd", bench_863, recipe_863),
+            ("rnn_bidir", "rnn_bidir_train_fwd", bench_tanh, recipe_tanh)):
+        by_name[fwd].update(forward_ms=at_bench["forward_ms"],
+                            forward_ms_recipe_batch=at_recipe["forward_ms"])
+        by_name[train_fwd].update(
+            train_step_ms=at_bench["train_step_ms"],
+            train_step_device_ms=at_bench["train_step_device_ms"],
+            train_step_ms_recipe_batch=at_recipe["train_step_ms"])
     print(json.dumps({"kernels": kernels, "entry_points": entry_points}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

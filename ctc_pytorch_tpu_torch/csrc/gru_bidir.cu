@@ -9,7 +9,8 @@
 //   forward direction's gate inputs, [3H,6H) the backward direction's;
 //   w_hh (2, H, 3H), gate order r, z, n, rounded to S by the caller; h0 = 0.
 //   Direction 0 walks t = 0..T-1, direction 1 walks t = T-1..0, and
-//   ys[t, :, d*H:(d+1)*H] = h_d(t) rounded to S.  Per step
+//   ys[t, :, d*H:(d+1)*H] = h_d(t) rounded to S; a unidirectional layer is
+//   the launch with one direction (ndir = 1).  Per step
 //     hh = round_S(h) @ w_hh          (sums in fp32)
 //     r = sigmoid(gx_r + hh_r), z = sigmoid(gx_z + hh_z)
 //     n = tanh(gx_n + r * hh_n),  h = (1 - z) * n + z * h
@@ -50,9 +51,9 @@ extern "C" {
 // See gru_forward in gru_fwd.cuh for the arguments.  Returns a cudaError_t;
 // 0 means launched.
 int gru_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
-                      void* hcarry, int T, int B, int H, int ldh, int bf16,
-                      void* stream) {
-  return (int)gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, bf16,
+                      void* hcarry, int T, int B, int H, int ldh, int ndir,
+                      int bf16, void* stream) {
+  return (int)gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, bf16,
                           stream);
 }
 

@@ -67,7 +67,8 @@ __device__ __forceinline__ void gru_bwd_item(
     const float4* wc_s, const float4* wr_s, const S* __restrict__ ys,
     const S* __restrict__ dy, S* __restrict__ dgx, S* __restrict__ dhhn,
     const float* dp_prev, float* dp_next, float* dh, float* tiles, int t,
-    int t_prev, bool first, int u0, int d, int B, int H, int K4, int ldh) {
+    int t_prev, bool first, int u0, int d, int B, int H, int K4, int ldh,
+    int ndir) {
   constexpr int kThreads = 32 * kUnits;
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
@@ -78,10 +79,11 @@ __device__ __forceinline__ void gru_bwd_item(
   const int H3 = 3 * H;
   const size_t h3 = 3 * (size_t)H;
   const bool has_prev = t_prev >= 0;
-  const S* gx_t = gx + (size_t)t * B * 2 * h3 + d * h3;
-  S* dgx_t = dgx + (size_t)t * B * 2 * h3 + d * h3;
-  const size_t plane_t = (size_t)t * B * 2 * H + (size_t)d * H;
-  const size_t plane_p = (size_t)(has_prev ? t_prev : 0) * B * 2 * H +
+  const size_t row = (size_t)ndir * H;  // lanes of a batch row of ys
+  const S* gx_t = gx + (size_t)t * B * ndir * h3 + d * h3;
+  S* dgx_t = dgx + (size_t)t * B * ndir * h3 + d * h3;
+  const size_t plane_t = (size_t)t * B * row + (size_t)d * H;
+  const size_t plane_p = (size_t)(has_prev ? t_prev : 0) * B * row +
                          (size_t)d * H;
 
   for (int r0 = 0; r0 < B; r0 += kRowTile) {
@@ -149,7 +151,7 @@ __device__ __forceinline__ void gru_bwd_item(
           const int b = r0 + r, k = k0 + kk;
           tiles[r * kLdA + kk] =
               (b < B && k < H)
-                  ? load_f(ys + plane_p + (size_t)b * 2 * H + k)
+                  ? load_f(ys + plane_p + (size_t)b * row + k)
                   : 0.f;
         }
         __syncthreads();
@@ -181,14 +183,14 @@ __device__ __forceinline__ void gru_bwd_item(
     for (int j = 0; j < kRows; ++j) {
       const int b = r0 + rq * kRows + j;
       if (!unit_ok || b >= B) continue;
-      const S* g = gx_t + (size_t)b * 2 * h3 + unit;
+      const S* g = gx_t + (size_t)b * ndir * h3 + unit;
       const float hh_n = acc[j][2];
       const float rg = sigmoid_f(load_f(g) + acc[j][0]);
       const float zg = sigmoid_f(load_f(g + H) + acc[j][1]);
       const float ng = tanhf(load_f(g + 2 * H) + rg * hh_n);
-      const size_t o_t = plane_t + (size_t)b * 2 * H + unit;
+      const size_t o_t = plane_t + (size_t)b * row + unit;
       const float hp =
-          has_prev ? load_f(ys + plane_p + (size_t)b * 2 * H + unit) : 0.f;
+          has_prev ? load_f(ys + plane_p + (size_t)b * row + unit) : 0.f;
       float* dhp = dh + (size_t)b * H + unit;
       const float dh_t = load_f(dy + o_t) + *dhp;
       const float dz = dh_t * (hp - ng);
@@ -199,7 +201,7 @@ __device__ __forceinline__ void gru_bwd_item(
       const float dpre_z = dz * zg * (1.0f - zg);
       const float dhh_n = dpre_n * rg;
       *dhp = dh_t * zg;
-      S* out = dgx_t + (size_t)b * 2 * h3 + unit;
+      S* out = dgx_t + (size_t)b * ndir * h3 + unit;
       store_f(out, dpre_r);
       store_f(out + H, dpre_z);
       store_f(out + 2 * H, dpre_n);
@@ -218,7 +220,7 @@ __global__ void __launch_bounds__(32 * kUnits)
                          const S* __restrict__ ys, const S* __restrict__ dy,
                          S* __restrict__ dgx, S* __restrict__ dhhn,
                          float* dpbuf, float* dhbuf, int T, int B, int H,
-                         int ldh) {
+                         int ldh, int ndir) {
   extern __shared__ float4 smem[];
   // kResident: wc_s [H][kUnits] (r, z, n, 0) per unit; wr_s [K4/4][kUnits],
   // four consecutive gate columns of the unit's row per entry
@@ -230,7 +232,7 @@ __global__ void __launch_bounds__(32 * kUnits)
       smem + (kResident ? (size_t)(H + K4 / 4) * kUnits : 0));  // [2][tile]
 
   const int groups = (H + kUnits - 1) / kUnits;
-  const int items = 2 * groups;
+  const int items = ndir * groups;
   const size_t h3 = 3 * (size_t)H;
 
   if constexpr (kResident) {
@@ -272,7 +274,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           gx, w_hh + (size_t)d * H * h3, wc_s, wr_s, ys, dy, dgx, dhhn,
           dp + (size_t)((s + 1) & 1) * K4 * ldh,
           dp + (size_t)(s & 1) * K4 * ldh, dhbuf + (size_t)d * B * H, tiles,
-          t, t_prev, s == 0, u0, d, B, H, K4, ldh);
+          t, t_prev, s == 0, u0, d, B, H, K4, ldh, ndir);
     }
     grid.sync();
   }
@@ -288,10 +290,10 @@ template <typename S>
 cudaError_t gru_launch_bwd(const void* gx, const void* w_hh, const void* ys,
                            const void* dy, void* dgx, void* dhhn, void* dpbuf,
                            void* dhbuf, int T, int B, int H, int ldh,
-                           cudaStream_t stream) {
+                           int ndir, cudaStream_t stream) {
   void* args[] = {&gx,    &w_hh,  &ys, &dy, &dgx, &dhhn,
-                  &dpbuf, &dhbuf, &T,  &B,  &H,   &ldh};
-  const int items = 2 * ((H + kUnits - 1) / kUnits);
+                  &dpbuf, &dhbuf, &T,  &B,  &H,   &ldh, &ndir};
+  const int items = ndir * ((H + kUnits - 1) / kUnits);
   int fits = 0;
   cudaError_t err = launch_cooperative(
       reinterpret_cast<const void*>(gru_bidir_bwd_kernel<S, true>),
@@ -308,22 +310,23 @@ cudaError_t gru_launch_bwd(const void* gx, const void* w_hh, const void* ys,
 
 extern "C" {
 
-// gx, dgx (T, B, 6H) and ys, dy, dhhn (T, B, 2H) in the stream
-// type; w_hh (2, H, 3H) fp32, rounded to the stream type by the caller; dpbuf
-// (2, 2, K4, ldh) with K4 = 3H rounded up to a multiple of 4 and ldh >= B a
-// multiple of 4, and dhbuf (2, B, H), both fp32 zeros.  Returns a
-// cudaError_t; 0 means launched.
+// gx, dgx (T, B, ndir * 3H) and ys, dy, dhhn (T, B, ndir * H) in the stream
+// type; w_hh (ndir, H, 3H) fp32, rounded to the stream type by the caller;
+// dpbuf (ndir, 2, K4, ldh) with K4 = 3H rounded up to a multiple of 4 and
+// ldh >= B a multiple of 4, and dhbuf (ndir, B, H), both fp32 zeros; ndir 1
+// or 2.  Returns a cudaError_t; 0 means launched.
 int gru_bidir_train_backward(const void* gx, const void* w_hh, const void* ys,
                              const void* dy, void* dgx, void* dhhn,
                              void* dpbuf, void* dhbuf, int T, int B, int H,
-                             int ldh, int bf16, void* stream) {
-  if (ldh < B || ldh % 4 != 0) return (int)cudaErrorInvalidValue;
+                             int ldh, int ndir, int bf16, void* stream) {
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)gru_launch_bwd<__nv_bfloat16>(gx, w_hh, ys, dy, dgx, dhhn,
-                                              dpbuf, dhbuf, T, B, H, ldh, st);
+    return (int)gru_launch_bwd<__nv_bfloat16>(
+        gx, w_hh, ys, dy, dgx, dhhn, dpbuf, dhbuf, T, B, H, ldh, ndir, st);
   return (int)gru_launch_bwd<float>(gx, w_hh, ys, dy, dgx, dhhn, dpbuf, dhbuf,
-                                    T, B, H, ldh, st);
+                                    T, B, H, ldh, ndir, st);
 }
 
 const char* gru_bidir_train_error_string(int err) {

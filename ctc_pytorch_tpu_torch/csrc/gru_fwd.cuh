@@ -4,23 +4,16 @@
 // (ctc_pytorch_tpu/ops/gru_pallas_v2.py _make_fwd_kernel, cell _gru_cell2)
 // differ only in the guard rows of the TPU's output plane, and a GRU has no
 // cell state to save, so there is no eval/train switch here.  The design
-// notes are in gru_bidir.cu.  gru_bidir_train.cu (the backward) includes
-// this file for round_to.
+// notes are in gru_bidir.cu.
 //
-// The tile staging, cp.async helpers and the cooperative launcher come from
-// lstm_fwd.cuh.
+// The tile staging, cp.async helpers, round_to and the cooperative launcher
+// come from lstm_fwd.cuh, and so does the direction count ndir.
 
 #pragma once
 
 #include "lstm_fwd.cuh"
 
 namespace {
-
-// v as the stream type holds it
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // One time step of work item (d, u0): the r, z and n gates of units
 // [u0, u0 + kUnits) of direction d for every batch row.  w_s holds those
@@ -33,7 +26,7 @@ template <typename S, bool kResident>
 __device__ __forceinline__ void gru_step_item(
     const S* __restrict__ gx, const float* __restrict__ w, const float4* w_s,
     S* __restrict__ ys, const float* h_prev, float* h_next, float* hc,
-    float* tiles, int t, int u0, int d, int B, int H, int ldh) {
+    float* tiles, int t, int u0, int d, int B, int H, int ldh, int ndir) {
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
   const int rq = tid / kUnits;  // row group, 0..31
@@ -43,8 +36,8 @@ __device__ __forceinline__ void gru_step_item(
   const int n_tiles = (H + kTileK - 1) / kTileK;
   // past-the-end units read a valid column and store nothing
   const float* w_col = w + min(unit, H - 1);
-  const S* gx_t = gx + (size_t)t * B * 2 * h3 + d * h3;
-  S* ys_t = ys + (size_t)t * B * 2 * H + (size_t)d * H;
+  const S* gx_t = gx + (size_t)t * B * ndir * h3 + d * h3;
+  S* ys_t = ys + (size_t)t * B * ndir * H + (size_t)d * H;
 
   for (int r0 = 0; r0 < B; r0 += kRowTile) {
     stage(tiles, h_prev, 0, r0, H, ldh, tid);
@@ -89,14 +82,14 @@ __device__ __forceinline__ void gru_step_item(
     for (int j = 0; j < kRows; ++j) {
       const int b = r0 + rq * kRows + j;
       if (!unit_ok || b >= B) continue;
-      const S* g = gx_t + (size_t)b * 2 * h3 + unit;
+      const S* g = gx_t + (size_t)b * ndir * h3 + unit;
       const float rg = sigmoid_f(load_f(g) + acc[j][0]);
       const float zg = sigmoid_f(load_f(g + H) + acc[j][1]);
       const float ng = tanhf(load_f(g + 2 * H) + rg * acc[j][2]);
       float* hp = hc + (size_t)b * H + unit;
       const float hn = (1.0f - zg) * ng + zg * *hp;
       *hp = hn;
-      S* y = ys_t + (size_t)b * 2 * H + unit;
+      S* y = ys_t + (size_t)b * ndir * H + unit;
       store_f(y, hn);
       h_next[(size_t)unit * ldh + b] = round_to(hn, y);
     }
@@ -110,14 +103,14 @@ template <typename S, bool kResident>
 __global__ void __launch_bounds__(32 * kUnits)
     gru_bidir_kernel(const S* __restrict__ gx, const float* __restrict__ w_hh,
                      S* __restrict__ ys, float* hbuf, float* hcarry, int T,
-                     int B, int H, int ldh) {
+                     int B, int H, int ldh, int ndir) {
   extern __shared__ float4 smem[];
   float4* w_s = smem;  // kResident: [H][kUnits], (r, z, n, 0) per unit
   float* tiles = reinterpret_cast<float*>(
       smem + (kResident ? (size_t)H * kUnits : 0));  // [2][kTileFloats]
 
   const int groups = (H + kUnits - 1) / kUnits;
-  const int items = 2 * groups;
+  const int items = ndir * groups;
   const size_t h3 = 3 * (size_t)H;
 
   if constexpr (kResident) {
@@ -145,7 +138,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           gx, w_hh + (size_t)d * H * h3, w_s, ys,
           hT + (size_t)(s & 1) * H * ldh, hT + (size_t)((s + 1) & 1) * H * ldh,
           hcarry + (size_t)d * B * H,  // [B][H], zeroed by the caller
-          tiles, d == 0 ? s : T - 1 - s, u0, d, B, H, ldh);
+          tiles, d == 0 ? s : T - 1 - s, u0, d, B, H, ldh, ndir);
     }
     grid.sync();
   }
@@ -156,10 +149,10 @@ __global__ void __launch_bounds__(32 * kUnits)
 // weights stay in L2.
 template <typename S>
 cudaError_t gru_launch(const void* gx, const void* w_hh, void* ys, void* hbuf,
-                       void* hcarry, int T, int B, int H, int ldh,
+                       void* hcarry, int T, int B, int H, int ldh, int ndir,
                        cudaStream_t stream) {
-  void* args[] = {&gx, &w_hh, &ys, &hbuf, &hcarry, &T, &B, &H, &ldh};
-  const int items = 2 * ((H + kUnits - 1) / kUnits);
+  void* args[] = {&gx, &w_hh, &ys, &hbuf, &hcarry, &T, &B, &H, &ldh, &ndir};
+  const int items = ndir * ((H + kUnits - 1) / kUnits);
   int fits = 0;
   cudaError_t err = launch_cooperative(
       reinterpret_cast<const void*>(gru_bidir_kernel<S, true>),
@@ -172,19 +165,20 @@ cudaError_t gru_launch(const void* gx, const void* w_hh, void* ys, void* hbuf,
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-// gx (T, B, 6H) and ys (T, B, 2H) in the stream type (bf16 != 0: bfloat16,
-// else float32); w_hh (2, H, 3H) fp32, already rounded to the stream type by
-// the caller; hbuf (2, 2, H, ldh) with ldh >= B a multiple of 4, and hcarry
-// (2, B, H), both fp32 zeros.
+// gx (T, B, ndir * 3H) and ys (T, B, ndir * H) in the stream type (bf16 !=
+// 0: bfloat16, else float32); w_hh (ndir, H, 3H) fp32, already rounded to
+// the stream type by the caller; hbuf (ndir, 2, H, ldh) with ldh >= B a
+// multiple of 4, and hcarry (ndir, B, H), both fp32 zeros; ndir 1 or 2.
 inline cudaError_t gru_forward(const void* gx, const void* w_hh, void* ys,
                                void* hbuf, void* hcarry, int T, int B, int H,
-                               int ldh, int bf16, void* stream) {
-  if (ldh < B || ldh % 4 != 0) return cudaErrorInvalidValue;
+                               int ldh, int ndir, int bf16, void* stream) {
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return gru_launch<__nv_bfloat16>(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh,
-                                     st);
-  return gru_launch<float>(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, st);
+                                     ndir, st);
+  return gru_launch<float>(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, st);
 }
 
 }  // namespace

@@ -8,6 +8,8 @@
 //   w_hh (2, H, 4H) fp32, gate order i, f, g, o; h0 = c0 = 0.
 //   Direction 0 walks t = 0..T-1, direction 1 walks t = T-1..0, and
 //   ys[t, :, d*H:(d+1)*H] = h_d(t) rounded to S.  Gate math, h and c are fp32.
+//   A unidirectional layer launches the same kernel with one direction
+//   (ndir = 1): gx (T, B, 4H), w_hh (1, H, 4H), ys (T, B, H).
 //
 // What bounds it: the T steps are a serial chain, and each step is a small
 // fp32 product (B, H) @ (H, 4H) per direction on CUDA cores.  At the decode
@@ -40,20 +42,21 @@
 
 extern "C" {
 
-// gx (T, B, 8H) and ys (T, B, 2H) in the stream type (bf16 != 0: bfloat16,
-// else float32); w_hh (2, H, 4H) fp32; hbuf (2, 2, H, ldh) with ldh >= B a
-// multiple of 4, and cbuf (2, B, H), both fp32 zeros.  Returns a
-// cudaError_t; 0 means launched.
+// gx (T, B, ndir * 4H) and ys (T, B, ndir * H) in the stream type (bf16 !=
+// 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; hbuf (ndir, 2, H, ldh)
+// with ldh >= B a multiple of 4, and cbuf (ndir, B, H), both fp32 zeros;
+// ndir 1 or 2.  Returns a cudaError_t; 0 means launched.
 int lstm_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
-                       void* cbuf, int T, int B, int H, int ldh, int bf16,
-                       void* stream) {
-  if (ldh < B || ldh % 4 != 0) return (int)cudaErrorInvalidValue;
+                       void* cbuf, int T, int B, int H, int ldh, int ndir,
+                       int bf16, void* stream) {
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return (int)launch<__nv_bfloat16, false>(gx, w_hh, ys, nullptr, hbuf, cbuf,
-                                             T, B, H, ldh, st);
+                                             T, B, H, ldh, ndir, st);
   return (int)launch<float, false>(gx, w_hh, ys, nullptr, hbuf, cbuf, T, B, H,
-                                   ldh, st);
+                                   ldh, ndir, st);
 }
 
 const char* lstm_bidir_error_string(int err) {

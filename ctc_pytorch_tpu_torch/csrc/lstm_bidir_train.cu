@@ -59,11 +59,6 @@ namespace {
 constexpr int kLdA = kTileK + 1;  // row stride of the phase-A tile (odd: no
                                   // bank conflicts across row groups)
 
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // One backward time step of work item (d, u0) at forward time t.
 template <typename S, bool kResident>
 __device__ __forceinline__ void bwd_item(
@@ -71,7 +66,8 @@ __device__ __forceinline__ void bwd_item(
     const float4* wc_s, const float4* wr_s, const S* __restrict__ ys,
     const S* __restrict__ cs, const S* __restrict__ dy, S* __restrict__ dgx,
     const float* dp_prev, float* dp_next, float* dh, float* dc, float* tiles,
-    int t, int t_prev, bool first, int u0, int d, int B, int H, int ldh) {
+    int t, int t_prev, bool first, int u0, int d, int B, int H, int ldh,
+    int ndir) {
   constexpr int kThreads = 32 * kUnits;
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
@@ -82,10 +78,11 @@ __device__ __forceinline__ void bwd_item(
   const int H4 = 4 * H;
   const size_t h4 = 4 * (size_t)H;
   const bool has_prev = t_prev >= 0;
-  const S* gx_t = gx + (size_t)t * B * 2 * h4 + d * h4;
-  S* dgx_t = dgx + (size_t)t * B * 2 * h4 + d * h4;
-  const size_t plane_t = (size_t)t * B * 2 * H + (size_t)d * H;
-  const size_t plane_p = (size_t)(has_prev ? t_prev : 0) * B * 2 * H +
+  const size_t row = (size_t)ndir * H;  // lanes of a batch row of ys
+  const S* gx_t = gx + (size_t)t * B * ndir * h4 + d * h4;
+  S* dgx_t = dgx + (size_t)t * B * ndir * h4 + d * h4;
+  const size_t plane_t = (size_t)t * B * row + (size_t)d * H;
+  const size_t plane_p = (size_t)(has_prev ? t_prev : 0) * B * row +
                          (size_t)d * H;
 
   for (int r0 = 0; r0 < B; r0 += kRowTile) {
@@ -143,7 +140,7 @@ __device__ __forceinline__ void bwd_item(
     for (int j = 0; j < kRows; ++j) {
       const int b = r0 + rq * kRows + j;
       const bool ok = unit_ok && b < B;
-      const S* g = gx_t + (size_t)b * 2 * h4 + unit;
+      const S* g = gx_t + (size_t)b * ndir * h4 + unit;
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[j][q] = ok ? load_f(g + q * H) : 0.f;
     }
@@ -157,7 +154,7 @@ __device__ __forceinline__ void bwd_item(
           const int b = r0 + r, k = k0 + kk;
           tiles[r * kLdA + kk] =
               (b < B && k < H)
-                  ? load_f(ys + plane_p + (size_t)b * 2 * H + k)
+                  ? load_f(ys + plane_p + (size_t)b * row + k)
                   : 0.f;
         }
         __syncthreads();
@@ -194,10 +191,10 @@ __device__ __forceinline__ void bwd_item(
       const float fg = sigmoid_f(acc[j][1]);
       const float gg = tanhf(acc[j][2]);
       const float og = sigmoid_f(acc[j][3]);
-      const size_t o_t = plane_t + (size_t)b * 2 * H + unit;
+      const size_t o_t = plane_t + (size_t)b * row + unit;
       const float c_t = load_f(cs + o_t);
       const float c_prev =
-          has_prev ? load_f(cs + plane_p + (size_t)b * 2 * H + unit) : 0.f;
+          has_prev ? load_f(cs + plane_p + (size_t)b * row + unit) : 0.f;
       const float tc = tanhf(c_t);
       float* dhp = dh + (size_t)b * H + unit;
       float* dcp = dc + (size_t)b * H + unit;
@@ -211,7 +208,7 @@ __device__ __forceinline__ void bwd_item(
           d_o * (og * (1.0f - og)),
       };
       *dcp = dct * fg;
-      S* out = dgx_t + (size_t)b * 2 * h4 + unit;
+      S* out = dgx_t + (size_t)b * ndir * h4 + unit;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         store_f(out + q * H, dpre[q]);
@@ -228,7 +225,7 @@ __global__ void __launch_bounds__(32 * kUnits)
                           const S* __restrict__ ys, const S* __restrict__ cs,
                           const S* __restrict__ dy, S* __restrict__ dgx,
                           float* dpbuf, float* dhbuf, float* dcbuf, int T,
-                          int B, int H, int ldh) {
+                          int B, int H, int ldh, int ndir) {
   extern __shared__ float4 smem[];
   // kResident: wc_s [H][kUnits] (i, f, g, o) per unit; wr_s [H][kUnits],
   // four consecutive gate columns of the unit's row per entry
@@ -238,7 +235,7 @@ __global__ void __launch_bounds__(32 * kUnits)
       smem + (kResident ? 2 * (size_t)H * kUnits : 0));  // [2][kTileFloats]
 
   const int groups = (H + kUnits - 1) / kUnits;
-  const int items = 2 * groups;
+  const int items = ndir * groups;
   const size_t h4 = 4 * (size_t)H;
 
   if constexpr (kResident) {
@@ -271,7 +268,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           gx, w_hh + (size_t)d * H * h4, wc_s, wr_s, ys, cs, dy, dgx,
           dp + (size_t)((s + 1) & 1) * h4 * ldh, dp + (size_t)(s & 1) * h4 * ldh,
           dhbuf + (size_t)d * B * H, dcbuf + (size_t)d * B * H, tiles, t,
-          t_prev, s == 0, u0, d, B, H, ldh);
+          t_prev, s == 0, u0, d, B, H, ldh, ndir);
     }
     grid.sync();
   }
@@ -286,10 +283,10 @@ template <typename S>
 cudaError_t launch_bwd(const void* gx, const void* w_hh, const void* ys,
                        const void* cs, const void* dy, void* dgx, void* dpbuf,
                        void* dhbuf, void* dcbuf, int T, int B, int H, int ldh,
-                       cudaStream_t stream) {
-  void* args[] = {&gx,    &w_hh,  &ys, &cs, &dy, &dgx, &dpbuf,
-                  &dhbuf, &dcbuf, &T,  &B,  &H,  &ldh};
-  const int items = 2 * ((H + kUnits - 1) / kUnits);
+                       int ndir, cudaStream_t stream) {
+  void* args[] = {&gx,    &w_hh,  &ys, &cs, &dy, &dgx,  &dpbuf,
+                  &dhbuf, &dcbuf, &T,  &B,  &H,  &ldh, &ndir};
+  const int items = ndir * ((H + kUnits - 1) / kUnits);
   int fits = 0;
   cudaError_t err = launch_cooperative(
       reinterpret_cast<const void*>(lstm_bidir_bwd_kernel<S, true>),
@@ -306,36 +303,40 @@ cudaError_t launch_bwd(const void* gx, const void* w_hh, const void* ys,
 
 extern "C" {
 
-// Forward.  gx (T, B, 8H), ys and cs (T, B, 2H) in the stream type (bf16 !=
-// 0: bfloat16, else float32); w_hh (2, H, 4H) fp32; hbuf (2, 2, H, ldh) with
-// ldh >= B a multiple of 4, and cbuf (2, B, H), both fp32 zeros.  Returns a
-// cudaError_t; 0 means launched.
+// Forward.  gx (T, B, ndir * 4H), ys and cs (T, B, ndir * H) in the stream
+// type (bf16 != 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; hbuf
+// (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and cbuf (ndir, B, H),
+// both fp32 zeros; ndir 1 or 2.  Returns a cudaError_t; 0 means launched.
 int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
                              void* cs, void* hbuf, void* cbuf, int T, int B,
-                             int H, int ldh, int bf16, void* stream) {
-  if (ldh < B || ldh % 4 != 0) return (int)cudaErrorInvalidValue;
+                             int H, int ldh, int ndir, int bf16,
+                             void* stream) {
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return (int)launch<__nv_bfloat16, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B,
-                                            H, ldh, st);
+                                            H, ldh, ndir, st);
   return (int)launch<float, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B, H, ldh,
-                                  st);
+                                  ndir, st);
 }
 
-// Backward.  gx, dgx (T, B, 8H) and ys, cs, dy (T, B, 2H) in the stream
-// type; w_hh as above; dpbuf (2, 2, 4H, ldh), dhbuf and dcbuf (2, B, H) fp32
-// zeros.  Returns a cudaError_t; 0 means launched.
+// Backward.  gx, dgx (T, B, ndir * 4H) and ys, cs, dy (T, B, ndir * H) in
+// the stream type; w_hh as above; dpbuf (ndir, 2, 4H, ldh), dhbuf and dcbuf
+// (ndir, B, H) fp32 zeros.  Returns a cudaError_t; 0 means launched.
 int lstm_bidir_train_backward(const void* gx, const void* w_hh, const void* ys,
                               const void* cs, const void* dy, void* dgx,
                               void* dpbuf, void* dhbuf, void* dcbuf, int T,
-                              int B, int H, int ldh, int bf16, void* stream) {
-  if (ldh < B || ldh % 4 != 0) return (int)cudaErrorInvalidValue;
+                              int B, int H, int ldh, int ndir, int bf16,
+                              void* stream) {
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return (int)launch_bwd<__nv_bfloat16>(gx, w_hh, ys, cs, dy, dgx, dpbuf,
-                                          dhbuf, dcbuf, T, B, H, ldh, st);
+                                          dhbuf, dcbuf, T, B, H, ldh, ndir, st);
   return (int)launch_bwd<float>(gx, w_hh, ys, cs, dy, dgx, dpbuf, dhbuf, dcbuf,
-                                T, B, H, ldh, st);
+                                T, B, H, ldh, ndir, st);
 }
 
 const char* lstm_bidir_train_error_string(int err) {

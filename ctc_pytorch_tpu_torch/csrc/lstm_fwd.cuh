@@ -6,6 +6,12 @@
 // step's recurrent product, as the training kernel of the JAX package does
 // (ctc_pytorch_tpu/ops/lstm_pallas_v2.py:42 _cell2 with bf16 weights).
 // The design notes are in lstm_bidir.cu.
+//
+// ndir (1 or 2) is the number of directions, here and in every recurrence
+// kernel of the package: gx is (T, B, ndir * nH) and ys (T, B, ndir * H), and
+// direction 1, when there is one, walks time backward.  A unidirectional
+// layer is the launch with ndir = 1; with ndir = 2 every index is what it
+// was with the literal 2.
 
 #pragma once
 
@@ -33,6 +39,11 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+// v as the stream type holds it
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // 16-byte global -> shared copy that bypasses L1; zero-fills when !valid.
@@ -77,7 +88,7 @@ __device__ __forceinline__ void step_item(
     const S* __restrict__ gx, const float* __restrict__ w,
     const float4* w_s, S* __restrict__ ys, S* __restrict__ cs,
     const float* h_prev, float* h_next, float* c, float* tiles, int t, int u0,
-    int d, int B, int H, int ldh) {
+    int d, int B, int H, int ldh, int ndir) {
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
   const int rq = tid / kUnits;  // row group, 0..31
@@ -87,8 +98,8 @@ __device__ __forceinline__ void step_item(
   const int n_tiles = (H + kTileK - 1) / kTileK;
   // past-the-end units read a valid column and store nothing
   const float* w_col = w + min(unit, H - 1);
-  const S* gx_t = gx + (size_t)t * B * 2 * h4 + d * h4;
-  S* ys_t = ys + (size_t)t * B * 2 * H + (size_t)d * H;
+  const S* gx_t = gx + (size_t)t * B * ndir * h4 + d * h4;
+  S* ys_t = ys + (size_t)t * B * ndir * H + (size_t)d * H;
 
   for (int r0 = 0; r0 < B; r0 += kRowTile) {
     stage(tiles, h_prev, 0, r0, H, ldh, tid);
@@ -97,7 +108,7 @@ __device__ __forceinline__ void step_item(
     for (int j = 0; j < kRows; ++j) {
       const int b = r0 + rq * kRows + j;
       const bool ok = unit_ok && b < B;
-      const S* g = gx_t + (size_t)b * 2 * h4 + unit;
+      const S* g = gx_t + (size_t)b * ndir * h4 + unit;
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[j][q] = ok ? load_f(g + q * H) : 0.f;
     }
@@ -148,7 +159,7 @@ __device__ __forceinline__ void step_item(
       const float cn = fg * *cp + ig * gg;
       *cp = cn;
       const float hn = og * tanhf(cn);
-      S* y = ys_t + (size_t)b * 2 * H + unit;
+      S* y = ys_t + (size_t)b * ndir * H + unit;
       store_f(y, hn);
       if constexpr (kTrain) {
         h_next[(size_t)unit * ldh + b] = load_f(y);
@@ -160,7 +171,8 @@ __device__ __forceinline__ void step_item(
   }
 }
 
-// Work item i = (direction i / groups, units from (i % groups) * kUnits).
+// Work item i = (direction i / groups, units from (i % groups) * kUnits),
+// over ndir * groups items.
 // With kResident the grid has one CTA per item and each CTA keeps its item's
 // weights in shared memory for the whole run; otherwise (large H) a smaller
 // co-resident grid strides over the items and reads the weights from L2.
@@ -168,14 +180,14 @@ template <typename S, bool kResident, bool kTrain>
 __global__ void __launch_bounds__(32 * kUnits)
     lstm_bidir_kernel(const S* __restrict__ gx, const float* __restrict__ w_hh,
                       S* __restrict__ ys, S* __restrict__ cs, float* hbuf,
-                      float* cbuf, int T, int B, int H, int ldh) {
+                      float* cbuf, int T, int B, int H, int ldh, int ndir) {
   extern __shared__ float4 smem[];
   float4* w_s = smem;  // kResident: [H][kUnits], (i, f, g, o) per unit
   float* tiles = reinterpret_cast<float*>(
       smem + (kResident ? (size_t)H * kUnits : 0));  // [2][kTileFloats]
 
   const int groups = (H + kUnits - 1) / kUnits;
-  const int items = 2 * groups;
+  const int items = ndir * groups;
   const size_t h4 = 4 * (size_t)H;
 
   if constexpr (kResident) {
@@ -203,7 +215,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           gx, w_hh + (size_t)d * H * h4, w_s, ys, cs,
           hT + (size_t)(s & 1) * H * ldh, hT + (size_t)((s + 1) & 1) * H * ldh,
           cbuf + (size_t)d * B * H,  // [B][H], zeroed by the caller
-          tiles, d == 0 ? s : T - 1 - s, u0, d, B, H, ldh);
+          tiles, d == 0 ? s : T - 1 - s, u0, d, B, H, ldh, ndir);
     }
     grid.sync();
   }
@@ -251,14 +263,15 @@ inline cudaError_t launch_cooperative(const void* kernel, size_t smem,
   return cudaGetLastError();
 }
 
-// Resident weights while the grid fits (H <= 4 * SMs, see lstm_bidir.cu);
-// past that the weights stay in L2.  cs is written only when kTrain.
+// Resident weights while the grid fits (H <= 4 * SMs with two directions,
+// see lstm_bidir.cu); past that the weights stay in L2.  cs is written only
+// when kTrain.
 template <typename S, bool kTrain>
 cudaError_t launch(const void* gx, const void* w_hh, void* ys, void* cs,
                    void* hbuf, void* cbuf, int T, int B, int H, int ldh,
-                   cudaStream_t stream) {
-  void* args[] = {&gx, &w_hh, &ys, &cs, &hbuf, &cbuf, &T, &B, &H, &ldh};
-  const int items = 2 * ((H + kUnits - 1) / kUnits);
+                   int ndir, cudaStream_t stream) {
+  void* args[] = {&gx, &w_hh, &ys, &cs, &hbuf, &cbuf, &T, &B, &H, &ldh, &ndir};
+  const int items = ndir * ((H + kUnits - 1) / kUnits);
   int fits = 0;
   cudaError_t err = launch_cooperative(
       reinterpret_cast<const void*>(lstm_bidir_kernel<S, true, kTrain>),

@@ -1,5 +1,6 @@
-"""The CTC acoustic model: optional CNN stack -> stacked BiLSTMs or BiGRUs
--> BN + Linear -> log-softmax, in eval and in train mode.
+"""The CTC acoustic model: optional CNN stack -> stacked LSTM, GRU or tanh-RNN
+layers, bidirectional or not -> BN + Linear -> log-softmax, in eval and in
+train mode.
 
 Counterpart of ``ctc_pytorch_tpu/models/ctc_model.py``.  ``ModelSpec`` is a
 copy (the checkpoint's model description); ``CTCModel`` is an
@@ -166,8 +167,8 @@ class CTCModel(nn.Module):
         for layer in self.cnn or ():
             layer.reset_parameters(gen)
         for layer in self.rnns:
-            layer.fwd.reset_parameters(gen)
-            layer.bwd.reset_parameters(gen)
+            for direction in layer.directions:
+                direction.reset_parameters(gen)
         bound = 1.0 / math.sqrt(self.fc.w.shape[0])
         with torch.no_grad():
             self.fc.w.uniform_(-bound, bound, generator=gen)

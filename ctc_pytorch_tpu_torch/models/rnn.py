@@ -1,37 +1,48 @@
-"""Recurrent stack: bias-free bidirectional LSTM or GRU layers with BN
-between.
+"""Recurrent stack: bias-free LSTM, GRU or tanh-RNN layers, bidirectional
+or not, with BN between.
 
 Counterpart of ``ctc_pytorch_tpu/models/rnn.py:254-511`` on the path the
 JAX package takes with ``use_pallas_rnn`` (the eval kernels in stage 4, the
 trainable ones in stage 2):
 
 - time-major ``(T, B, F)``; weights stored ``w_ih (F, nH)``, ``w_hh (H, nH)``
-  per direction, n = 4 gates in order i, f, g, o for the LSTM and n = 3 in
-  order r, z, n for the GRU (torch's, transposed);
-- the input projection for all steps and both directions is one matmul,
-  ``gx = x @ [W_f | W_b]``, in ``compute_dtype`` with fp32 accumulation and
-  the result in the stream dtype (``lstm_pallas_v2.py:169-175``,
-  ``gru_pallas_v2.py:512-517``);
-- the recurrence is ``ops.lstm_bidir`` / ``ops.gru_bidir`` in eval and
-  ``ops.lstm_bidir_train`` / ``ops.gru_bidir_train`` (forward and backward
-  kernels under autograd) in train mode: the Hopper kernels for CUDA
-  tensors, their plain twins for CPU tensors.  The backward direction
-  reverses the full padded length, like the reference's unpacked
-  ``nn.LSTM``;
+  per direction, n = 4 gates in order i, f, g, o for the LSTM, n = 3 in
+  order r, z, n for the GRU and n = 1 for the tanh cell (torch's,
+  transposed);
+- the input projection for all steps and directions is one matmul, ``gx = x
+  @ [W_f | W_b]`` (``x @ W_f`` with one direction), in ``compute_dtype`` with
+  fp32 accumulation and the result in the stream dtype
+  (``lstm_pallas_v2.py:169-175``, ``gru_pallas_v2.py:512-517``,
+  ``rnn_pallas_v2.py:353-358``);
+- the recurrence is the cell's eval op (``ops.lstm_bidir``,
+  ``ops.gru_bidir``, ``ops.rnn_bidir``) in eval and its trainable op
+  (``ops.*_bidir_train``: forward and backward kernels under autograd) in
+  train mode: the Hopper kernels for CUDA tensors, their plain twins for CPU
+  tensors.  The backward direction reverses the full padded length, like the
+  reference's unpacked ``nn.LSTM``;
+- a unidirectional layer (``bidirectional: False``) runs the same kernels
+  with one direction.  The JAX package runs it on its scan path
+  (``_scan_direction``, ``rnn.py:167-202, 437-440``), which keeps ``gx`` and
+  the carries fp32 and rounds only the product operands (h and ``w_hh``) to
+  ``compute_dtype``.  The port keeps the bidirectional layers' rule instead:
+  with bf16 streams (``compute_dtype`` bf16 and B % 16 == 0) ``gx`` and
+  ``ys`` are stored in bf16 too, and with fp32 streams no operand is
+  rounded.  In fp32 the two compute the same function; in bf16 they differ
+  by those roundings (``tests/test_torch_unidir.py`` holds the difference);
 - with ``lengths`` the layer has packed-sequence semantics, as the JAX layer
   gives its kernels (``rnn.py:280-294, 314-317, 441-446``): the cells are
   bias-free, so zeroed input rows with zero incoming state keep the state
-  exactly zero, and the backward direction arrives at each utterance's last
-  frame with zero state.  The padded rows of ``x`` are zeroed before the
-  projection and the padded rows of the output after the recurrence; the
-  kernels do not change;
+  exactly zero (``tanh(0) = 0``), and the backward direction arrives at each
+  utterance's last frame with zero state.  The padded rows of ``x`` are
+  zeroed before the projection and the padded rows of the output after the
+  recurrence; the kernels do not change.  With one direction this is the
+  JAX package's ``_scan_direction`` followed by its mask;
 - in train mode each layer's output goes through dropout (``rnn.py:447``).
 
 The JAX layer picks between its v2 kernels, its v1 (stacked-layout) kernels
-and the scan path by what fits the TPU's VMEM (``rnn.py:349-372, 383-432``);
+and the scan path by what fits the TPU's VMEM (``rnn.py:320-372, 383-432``);
 this card has no such gate, so every shape takes the one kernel of its cell
-and pass.  The tanh-RNN cell and unidirectional layers are not ported yet
-and raise ``NotImplementedError``.
+and pass.
 """
 
 from __future__ import annotations
@@ -47,11 +58,14 @@ from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
 from ctc_pytorch_tpu_torch.ops import gru_bidir_train as gru_train_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as lstm_train_ops
+from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
+from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
 
 # per cell: (gates, eval recurrence, trainable recurrence)
 CELLS = {
     "lstm": (4, lstm_ops.lstm_bidir, lstm_train_ops.lstm_bidir_train),
     "gru": (3, gru_ops.gru_bidir, gru_train_ops.gru_bidir_train),
+    "rnn": (1, rnn_ops.rnn_bidir, rnn_train_ops.rnn_bidir_train),
 }
 
 
@@ -71,7 +85,7 @@ class Direction(nn.Module):
         self.w_hh = nn.Parameter(torch.empty(hidden_size, gates * hidden_size))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """torch nn.LSTM / nn.GRU default: U(-1/sqrt(H), 1/sqrt(H))."""
+        """torch nn.LSTM / nn.GRU / nn.RNN default: U(-1/sqrt(H), 1/sqrt(H))."""
         bound = 1.0 / math.sqrt(self.w_hh.shape[0])
         with torch.no_grad():
             self.w_ih.uniform_(-bound, bound, generator=gen)
@@ -79,24 +93,32 @@ class Direction(nn.Module):
 
 
 class RNNLayer(nn.Module):
-    """BatchRNN: optional feature BN -> bidirectional LSTM or GRU."""
+    """BatchRNN: optional feature BN -> LSTM, GRU or tanh RNN, over both
+    directions (``fwd`` and ``bwd``) or the forward one alone."""
 
     def __init__(self, input_size: int, hidden_size: int, batch_norm: bool,
-                 cell: str = "lstm"):
+                 cell: str = "lstm", bidirectional: bool = True):
         super().__init__()
+        if cell not in CELLS:
+            raise ValueError(f"unknown cell {cell!r}: one of {sorted(CELLS)}")
         self.hidden_size = hidden_size
         gates, self.eval_op, self.train_op = CELLS[cell]
         self.fwd = Direction(input_size, hidden_size, gates)
-        self.bwd = Direction(input_size, hidden_size, gates)
+        self.bwd = (Direction(input_size, hidden_size, gates) if bidirectional
+                    else None)
         self.bn = BatchNorm(input_size) if batch_norm else None
+
+    @property
+    def directions(self) -> list:
+        return [self.fwd] if self.bwd is None else [self.fwd, self.bwd]
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
                 bn_mask: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(T, B, F) -> (T, B, 2H) fp32.  ``lengths`` (B,): valid frames per
-        utterance, for packed-sequence semantics."""
+        """(T, B, F) -> (T, B, dirs * H) fp32.  ``lengths`` (B,): valid frames
+        per utterance, for packed-sequence semantics."""
         if self.bn is not None:
             x = self.bn(x, bn_mask)
         t_len, b, f = x.shape
@@ -106,9 +128,10 @@ class RNNLayer(nn.Module):
                      < lengths.to(x.device)[None, :]).to(x.dtype)[..., None]
             x = x * valid
         sd = stream_dtype_for(compute_dtype, b)
-        w_cat = torch.cat([self.fwd.w_ih, self.bwd.w_ih], dim=1)
+        dirs = self.directions
+        w_cat = torch.cat([d.w_ih for d in dirs], dim=1)
         gx = matmul_stream(x.reshape(t_len * b, f), w_cat, compute_dtype, sd)
-        w_hh = torch.stack([self.fwd.w_hh, self.bwd.w_hh]).float()
+        w_hh = torch.stack([d.w_hh for d in dirs]).float()
         gx = gx.reshape(t_len, b, -1)
         out = (self.train_op(gx, w_hh).float() if self.training
                else self.eval_op(gx, w_hh))
@@ -123,14 +146,10 @@ class RNNStack(nn.ModuleList):
 
     def __init__(self, *, cell: str, input_size: int, hidden_size: int,
                  num_layers: int, bidirectional: bool, batch_norm: bool):
-        if cell not in CELLS or not bidirectional:
-            raise NotImplementedError(
-                f"only bidirectional LSTM and GRU layers are ported (got "
-                f"cell={cell!r}, bidirectional={bidirectional})"
-            )
+        dirs = 2 if bidirectional else 1
         super().__init__(
-            RNNLayer(input_size if i == 0 else 2 * hidden_size, hidden_size,
-                     batch_norm and i > 0, cell)
+            RNNLayer(input_size if i == 0 else dirs * hidden_size, hidden_size,
+                     batch_norm and i > 0, cell, bidirectional)
             for i in range(num_layers)
         )
 

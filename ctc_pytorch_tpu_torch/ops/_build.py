@@ -1,4 +1,5 @@
-"""Build-and-load of the package's CUDA sources, shared by the op modules.
+"""Build-and-load of the package's CUDA sources, and the host-side helpers
+that the op modules share.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is compiled
 with nvcc for ``sm_90a`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
@@ -39,6 +40,46 @@ def acc_dtype(dtype):
     import torch
 
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def check_recurrence(gx, w_hh, gates: int) -> Tuple[int, int, int, int]:
+    """``(T, B, H, ndir)`` of a recurrence kernel's inputs, or raise: ``gx (T,
+    B, ndir * gates * H)`` fp32 or bf16 and ``w_hh (ndir, H, gates * H)``
+    fp32 on the same device, ``ndir`` 1 or 2, T and B at least 1."""
+    import torch
+
+    t_len, b, lanes = gx.shape
+    ndir, h = w_hh.shape[0], w_hh.shape[1]
+    if gx.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gx must be float32 or bfloat16, got {gx.dtype}")
+    if (w_hh.dtype != torch.float32 or ndir not in (1, 2)
+            or tuple(w_hh.shape) != (ndir, h, gates * h)):
+        raise ValueError(f"w_hh must be fp32 (ndir in (1, 2), H, {gates}H), "
+                         f"got {w_hh.dtype} {tuple(w_hh.shape)}")
+    if lanes != ndir * gates * h or t_len < 1 or b < 1:
+        raise ValueError(f"gx must be (T>=1, B>=1, {ndir * gates * h}), got "
+                         f"{tuple(gx.shape)}")
+    if w_hh.device != gx.device:
+        raise ValueError("gx and w_hh must be on the same device")
+    return t_len, b, h, ndir
+
+
+def check_plane(name: str, plane, gx, lanes: int) -> None:
+    """Raise unless a saved or incoming plane of a backward kernel is ``(T, B,
+    lanes)`` in ``gx``'s dtype on ``gx``'s device."""
+    want = (gx.shape[0], gx.shape[1], lanes)
+    if (plane.dtype != gx.dtype or plane.device != gx.device
+            or tuple(plane.shape) != want):
+        raise ValueError(f"{name} must be {gx.dtype} {want} on {gx.device}, "
+                         f"got {plane.dtype} {tuple(plane.shape)} on "
+                         f"{plane.device}")
+
+
+def step_times(t_len: int, ndir: int, s: int) -> Tuple[int, ...]:
+    """Forward-time index of each direction at step ``s`` of a recurrence's
+    forward walk: direction 0 at ``s``, direction 1 at ``T - 1 - s``.  The
+    backward walk's step ``s`` is the forward walk's step ``T - 1 - s``."""
+    return (s, t_len - 1 - s)[:ndir]
 
 
 def nvcc() -> str:

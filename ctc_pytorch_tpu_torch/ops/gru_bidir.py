@@ -5,7 +5,9 @@ Replaces ``ctc_pytorch_tpu/ops/gru_pallas_v2.py:gru_bidir_v2(train=False)``
 ``gx (T, B, 6H)`` in the stream dtype S (lanes ``[0, 3H)`` forward, ``[3H,
 6H)`` backward, gate order r, z, n) and ``w_hh (2, H, 3H)``, it returns ``ys
 (T, B, 2H)`` fp32, the backward direction's outputs in forward-time order at
-lanes ``[H, 2H)``.  h0 = 0.
+lanes ``[H, 2H)``.  h0 = 0.  A unidirectional layer passes one direction,
+``gx (T, B, 3H)`` and ``w_hh (1, H, 3H)``, and gets ``(T, B, H)`` from the
+same kernel.
 
 Rounding points, the JAX kernel's: ``w_hh`` is rounded to S (unlike the LSTM
 eval kernel, whose weights stay fp32), each h is rounded to S for the
@@ -31,13 +33,19 @@ from typing import Tuple
 
 import torch
 
-from ctc_pytorch_tpu_torch.ops._build import KernelLibrary, acc_dtype, device_kind
+from ctc_pytorch_tpu_torch.ops._build import (
+    KernelLibrary,
+    acc_dtype,
+    check_recurrence,
+    device_kind,
+    step_times,
+)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 HEADERS = ["lstm_fwd.cuh", "gru_fwd.cuh"]
 LIBRARY = KernelLibrary(
     "gru_bidir.cu",
-    {"gru_bidir_forward": ([_VP] * 5 + [_CI] * 5 + [_VP], _CI),
+    {"gru_bidir_forward": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
      "gru_bidir_error_string": ([_CI], ctypes.c_char_p)},
     headers=HEADERS)
 
@@ -58,39 +66,30 @@ def gru_gates(pre: torch.Tensor, hh: torch.Tensor
 def gru_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a loop over time.
 
-    ``gx (T, B, 6H)`` in the stream dtype, ``w_hh (2, H, 3H)`` -> ``ys
-    (T, B, 2H)`` in the stream dtype (each h rounded once, as stored)."""
+    ``gx (T, B, ndir * 3H)`` in the stream dtype, ``w_hh (ndir, H, 3H)`` ->
+    ``ys (T, B, ndir * H)`` in the stream dtype (each h rounded once, as
+    stored)."""
     t_len, b, _ = gx.shape
-    h = w_hh.shape[1]
+    ndir, h = w_hh.shape[0], w_hh.shape[1]
     sd, acc = gx.dtype, acc_dtype(gx.dtype)
     w = w_hh.to(sd).to(acc)
-    hs = torch.zeros(2, b, h, dtype=acc, device=gx.device)
-    ys = torch.empty(t_len, b, 2 * h, dtype=sd, device=gx.device)
+    hs = torch.zeros(ndir, b, h, dtype=acc, device=gx.device)
+    ys = torch.empty(t_len, b, ndir * h, dtype=sd, device=gx.device)
     for s in range(t_len):
-        rev = t_len - 1 - s
-        pre = torch.stack([gx[s, :, :3 * h], gx[rev, :, 3 * h:]]).to(acc)
+        times = step_times(t_len, ndir, s)
+        pre = torch.stack([gx[t, :, 3 * d * h:3 * (d + 1) * h]
+                           for d, t in enumerate(times)]).to(acc)
         r, z, n = gru_gates(pre, torch.bmm(hs.to(sd).to(acc), w))
         hs = (1.0 - z) * n + z * hs
-        ys[s, :, :h] = hs[0].to(sd)
-        ys[rev, :, h:] = hs[1].to(sd)
+        for d, t in enumerate(times):
+            ys[t, :, d * h:(d + 1) * h] = hs[d].to(sd)
     return ys
 
 
-def check_inputs(gx: torch.Tensor, w_hh: torch.Tensor) -> Tuple[int, int, int]:
-    """``(T, B, H)`` of a kernel call's inputs, or raise."""
-    t_len, b, lanes = gx.shape
-    h = w_hh.shape[1]
-    if gx.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gx must be float32 or bfloat16, got {gx.dtype}")
-    if w_hh.dtype != torch.float32 or tuple(w_hh.shape) != (2, h, 3 * h):
-        raise ValueError(f"w_hh must be fp32 (2, H, 3H), got {w_hh.dtype} "
-                         f"{tuple(w_hh.shape)}")
-    if lanes != 6 * h or t_len < 1 or b < 1:
-        raise ValueError(f"gx must be (T>=1, B>=1, 6H={6 * h}), got "
-                         f"{tuple(gx.shape)}")
-    if w_hh.device != gx.device:
-        raise ValueError("gx and w_hh must be on the same device")
-    return t_len, b, h
+def check_inputs(gx: torch.Tensor, w_hh: torch.Tensor
+                 ) -> Tuple[int, int, int, int]:
+    """``(T, B, H, ndir)`` of a kernel call's inputs, or raise."""
+    return check_recurrence(gx, w_hh, 3)
 
 
 def launch_forward(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -98,21 +97,22 @@ def launch_forward(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     ``ys`` in the stream dtype.  The trainable op's forward is this kernel
     too (a GRU saves nothing but ``ys``) and keeps its own count.  Does not
     synchronise."""
-    t_len, b, h = check_inputs(gx, w_hh)
+    t_len, b, h, ndir = check_inputs(gx, w_hh)
     lib = LIBRARY.load()
     gx = gx.contiguous()
     w = w_hh.to(gx.dtype).float().contiguous()  # rounded to the stream dtype
     with torch.cuda.device(gx.device):
-        ys = torch.empty(t_len, b, 2 * h, dtype=gx.dtype, device=gx.device)
+        ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
         # h double buffer, (direction, parity, H, ldh): rows padded to a
         # multiple of 4 floats so the kernel copies them in 16-byte pieces
         ldh = -(-b // 4) * 4
-        hbuf = torch.zeros(2, 2, h, ldh, dtype=torch.float32, device=gx.device)
-        carry = torch.zeros(2, b, h, dtype=torch.float32, device=gx.device)
+        hbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
+                           device=gx.device)
+        carry = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         err = lib.gru_bidir_forward(
             gx.data_ptr(), w.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
-            carry.data_ptr(), t_len, b, h, ldh,
+            carry.data_ptr(), t_len, b, h, ldh, ndir,
             int(gx.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.gru_bidir_error_string(err).decode()
@@ -131,7 +131,8 @@ def gru_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
 
 
 def gru_bidir(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """(T, B, 6H) stream-dtype gates + (2, H, 3H) weights -> (T, B, 2H) fp32.
+    """(T, B, ndir * 3H) stream-dtype gates + (ndir, H, 3H) weights ->
+    (T, B, ndir * H) fp32.
 
     CUDA tensors launch the kernel; CPU tensors run ``gru_bidir_plain``."""
     if device_kind(gx, "gru_bidir") == "cuda":

@@ -6,7 +6,8 @@ Replaces ``ctc_pytorch_tpu/ops/gru_pallas_v2.py:gru_scan_train_v2`` (forward
 ``gru_bidir_train(gx, w_hh)`` takes the hoisted input projection ``gx (T, B,
 6H)`` in the stream dtype S (lanes ``[0, 3H)`` forward, ``[3H, 6H)`` backward
 direction, gate order r, z, n) and ``w_hh (2, H, 3H)`` fp32 and returns ``ys
-(T, B, 2H)`` in S; h0 = 0.
+(T, B, 2H)`` in S; h0 = 0.  A unidirectional layer passes one direction
+(``gx (T, B, 3H)``, ``w_hh (1, H, 3H)``) to the same kernels.
 
 The forward is the eval op's function and kernel (``ops/gru_bidir.py``,
 ``csrc/gru_bidir.cu``: a GRU saves nothing but ``ys``, and in the JAX package
@@ -39,12 +40,18 @@ from typing import Tuple
 import torch
 
 from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
-from ctc_pytorch_tpu_torch.ops._build import KernelLibrary, acc_dtype, device_kind
+from ctc_pytorch_tpu_torch.ops._build import (
+    KernelLibrary,
+    acc_dtype,
+    check_plane,
+    device_kind,
+    step_times,
+)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "gru_bidir_train.cu",
-    {"gru_bidir_train_backward": ([_VP] * 8 + [_CI] * 5 + [_VP], _CI),
+    {"gru_bidir_train_backward": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
      "gru_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
     headers=gru_ops.HEADERS)
 
@@ -54,17 +61,17 @@ launches_fwd = 0
 launches_bwd = 0
 
 
-def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor
-          ) -> torch.Tensor:
-    """``dW_hh (2, H, 3H)`` fp32 from the saved outputs and the backward's two
-    planes: direction 0 pairs ``ys[t-1]`` with step t, direction 1 ``ys[t+1]``
-    with step t; the r and z blocks come from ``dgx``, the n block from
-    ``dhhn``.  Operands in the stream dtype, sums in fp32."""
-    t_len, _, h2 = ys.shape
-    h = h2 // 2
+def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor,
+          ndir: int = 2) -> torch.Tensor:
+    """``dW_hh (ndir, H, 3H)`` fp32 from the saved outputs and the backward's
+    two planes: direction 0 pairs ``ys[t-1]`` with step t, direction 1
+    ``ys[t+1]`` with step t; the r and z blocks come from ``dgx``, the n block
+    from ``dhhn``.  Operands in the stream dtype, sums in fp32."""
+    t_len = ys.shape[0]
+    h = ys.shape[-1] // ndir
     acc = acc_dtype(ys.dtype)
     if t_len == 1:
-        return torch.zeros(2, h, 3 * h, dtype=acc, device=ys.device)
+        return torch.zeros(ndir, h, 3 * h, dtype=acc, device=ys.device)
 
     def gemm(hp, drz, dn):  # (N, H)^T @ [(N, 2H) | (N, H)]
         a = hp.reshape(-1, h).t()
@@ -73,35 +80,39 @@ def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor
             return torch.mm(a, b, out_dtype=torch.float32)
         return torch.mm(a.to(acc), b.to(acc))
 
-    return torch.stack([
-        gemm(ys[:-1, :, :h], dgx[1:, :, :2 * h], dhhn[1:, :, :h]),
-        gemm(ys[1:, :, h:], dgx[:-1, :, 3 * h:5 * h], dhhn[:-1, :, h:])])
+    pairs = [(ys[:-1, :, :h], dgx[1:, :, :2 * h], dhhn[1:, :, :h]),
+             (ys[1:, :, h:], dgx[:-1, :, 3 * h:5 * h], dhhn[:-1, :, h:])]
+    return torch.stack([gemm(*p) for p in pairs[:ndir]])
 
 
 def gru_bidir_train_backward_plain(gx, w_hh, ys, dy
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's function in plain PyTorch, written out by hand
     in the kernel's arithmetic (not autograd of the forward): ``(dgx (T, B,
-    6H), dhhn (T, B, 2H))`` in the stream dtype."""
+    ndir * 3H), dhhn (T, B, ndir * H))`` in the stream dtype."""
     t_len, b, _ = gx.shape
-    h = w_hh.shape[1]
+    ndir, h = w_hh.shape[0], w_hh.shape[1]
     sd, acc = gx.dtype, acc_dtype(gx.dtype)
     w = w_hh.to(sd).to(acc)
     wt = w.transpose(1, 2)
     zero = torch.zeros(b, h, dtype=acc, device=gx.device)
-    dh = torch.zeros(2, b, h, dtype=acc, device=gx.device)
+    dh = torch.zeros(ndir, b, h, dtype=acc, device=gx.device)
     dgx = torch.empty_like(gx)
     dhhn = torch.empty_like(ys)
-    lo, hi = slice(0, h), slice(h, 2 * h)
     for s in range(t_len):
-        t0, t1 = t_len - 1 - s, s  # direction 0 walks back, direction 1 forth
+        # direction 0 walks back, direction 1 forth; h_prev is the state the
+        # step started from, one step earlier in its own walk
+        times = step_times(t_len, ndir, t_len - 1 - s)
 
-        def at(plane, t, lanes):
-            return plane[t, :, lanes].to(acc) if 0 <= t < t_len else zero
+        def at(plane, d, t):
+            return (plane[t, :, d * h:(d + 1) * h].to(acc) if 0 <= t < t_len
+                    else zero)
 
-        h_prev = torch.stack([at(ys, t0 - 1, lo), at(ys, t1 + 1, hi)])
-        dy_t = torch.stack([at(dy, t0, lo), at(dy, t1, hi)])
-        pre = torch.stack([gx[t0, :, :3 * h], gx[t1, :, 3 * h:]]).to(acc)
+        h_prev = torch.stack([at(ys, d, t + (1 if d else -1))
+                              for d, t in enumerate(times)])
+        dy_t = torch.stack([at(dy, d, t) for d, t in enumerate(times)])
+        pre = torch.stack([gx[t, :, 3 * d * h:3 * (d + 1) * h]
+                           for d, t in enumerate(times)]).to(acc)
         hh = torch.bmm(h_prev, w)
         hh_n = hh[..., 2 * h:]
         r, z, n = gru_ops.gru_gates(pre, hh)
@@ -114,8 +125,9 @@ def gru_bidir_train_backward_plain(gx, w_hh, ys, dy
         dpre_z = dz * z * (1.0 - z)
         dhh_n = (dpre_n * r).to(sd)
         dpre = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1).to(sd)
-        dgx[t0, :, :3 * h], dgx[t1, :, 3 * h:] = dpre[0], dpre[1]
-        dhhn[t0, :, lo], dhhn[t1, :, hi] = dhh_n[0], dhh_n[1]
+        for d, t in enumerate(times):
+            dgx[t, :, 3 * d * h:3 * (d + 1) * h] = dpre[d]
+            dhhn[t, :, d * h:(d + 1) * h] = dhh_n[d]
         dhh = torch.cat([dpre[..., :2 * h], dhh_n], dim=-1).to(acc)
         dh = torch.bmm(dhh, wt) + dh_t * z
     return dgx, dhhn
@@ -135,14 +147,9 @@ def gru_bidir_train_backward_cuda(gx, w_hh, ys, dy
     """Launch the backward kernel on the current stream: ``(dgx, dhhn)`` in
     the stream dtype.  Does not synchronise."""
     global launches_bwd
-    t_len, b, h = gru_ops.check_inputs(gx, w_hh)
+    t_len, b, h, ndir = gru_ops.check_inputs(gx, w_hh)
     for name, plane in (("ys", ys), ("dy", dy)):
-        if (plane.dtype != gx.dtype or plane.device != gx.device
-                or tuple(plane.shape) != (t_len, b, 2 * h)):
-            raise ValueError(
-                f"{name} must be {gx.dtype} {(t_len, b, 2 * h)} on "
-                f"{gx.device}, got {plane.dtype} {tuple(plane.shape)} on "
-                f"{plane.device}")
+        check_plane(name, plane, gx, ndir * h)
     gx, ys, dy = (p.contiguous() for p in (gx, ys, dy))
     w = w_hh.to(gx.dtype).float().contiguous()
     lib = LIBRARY.load()
@@ -154,14 +161,14 @@ def gru_bidir_train_backward_cuda(gx, w_hh, ys, dy
         # copies)
         ldh = -(-b // 4) * 4
         k4 = -(-3 * h // 4) * 4
-        dpbuf = torch.zeros(2, 2, k4, ldh, dtype=torch.float32,
+        dpbuf = torch.zeros(ndir, 2, k4, ldh, dtype=torch.float32,
                             device=gx.device)
-        dhbuf = torch.zeros(2, b, h, dtype=torch.float32, device=gx.device)
+        dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         err = lib.gru_bidir_train_backward(
             gx.data_ptr(), w.data_ptr(), ys.data_ptr(), dy.data_ptr(),
             dgx.data_ptr(), dhhn.data_ptr(), dpbuf.data_ptr(),
-            dhbuf.data_ptr(), t_len, b, h, ldh,
+            dhbuf.data_ptr(), t_len, b, h, ldh, ndir,
             int(gx.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.gru_bidir_train_error_string(err).decode()
@@ -189,12 +196,12 @@ class _GruBidirTrain(torch.autograd.Function):
             dgx, dhhn = gru_bidir_train_backward_cuda(gx, w_hh, ys, dy)
         else:
             dgx, dhhn = gru_bidir_train_backward_plain(gx, w_hh, ys, dy)
-        return dgx, dw_hh(ys, dgx, dhhn).to(w_hh.dtype)
+        return dgx, dw_hh(ys, dgx, dhhn, w_hh.shape[0]).to(w_hh.dtype)
 
 
 def gru_bidir_train(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """(T, B, 6H) stream-dtype gates + (2, H, 3H) weights -> ``ys`` (T, B, 2H)
-    in the stream dtype, differentiable in both arguments.
+    """(T, B, ndir * 3H) stream-dtype gates + (ndir, H, 3H) weights -> ``ys``
+    (T, B, ndir * H) in the stream dtype, differentiable in both arguments.
 
     CUDA tensors launch the kernels (forward here, backward under
     ``.backward()``); CPU tensors run the plain twins."""

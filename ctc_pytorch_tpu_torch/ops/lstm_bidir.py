@@ -6,7 +6,9 @@ Given the hoisted input projection ``gx (T, B, 8H)`` in the stream dtype
 it returns ``ys (T, B, 2H)`` fp32, the backward direction's outputs in
 forward-time order at lanes ``[H, 2H)``.  h0 = c0 = 0; the recurrent
 product, gates, h and c are fp32; ``ys`` is rounded to the stream dtype and
-back, as the Pallas kernel stores it.
+back, as the Pallas kernel stores it.  A unidirectional layer passes one
+direction, ``gx (T, B, 4H)`` and ``w_hh (1, H, 4H)``, and gets ``(T, B, H)``
+from the same kernel.
 
 On this card the work is bound by operations, not bytes: at the decode
 bench shape (T=80, B=128, H=384) the fp32 recurrent product is 24.2 GFLOP
@@ -26,12 +28,17 @@ import ctypes
 
 import torch
 
-from ctc_pytorch_tpu_torch.ops._build import KernelLibrary, device_kind
+from ctc_pytorch_tpu_torch.ops._build import (
+    KernelLibrary,
+    check_recurrence,
+    device_kind,
+    step_times,
+)
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "lstm_bidir.cu",
-    {"lstm_bidir_forward": ([_VP] * 5 + [_CI] * 5 + [_VP], _CI),
+    {"lstm_bidir_forward": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
      "lstm_bidir_error_string": ([_CI], ctypes.c_char_p)},
     headers=["lstm_fwd.cuh"])
 
@@ -42,23 +49,25 @@ launches = 0
 def lstm_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a loop over time.
 
-    ``gx (T, B, 8H)`` in the stream dtype, ``w_hh (2, H, 4H)`` -> ``ys
-    (T, B, 2H)`` in the stream dtype (each h rounded once, as stored)."""
+    ``gx (T, B, ndir * 4H)`` in the stream dtype, ``w_hh (ndir, H, 4H)`` ->
+    ``ys (T, B, ndir * H)`` in the stream dtype (each h rounded once, as
+    stored)."""
     t_len, b, _ = gx.shape
-    h = w_hh.shape[1]
+    ndir, h = w_hh.shape[0], w_hh.shape[1]
     w = w_hh.float()
-    hs = torch.zeros(2, b, h, dtype=torch.float32, device=gx.device)
+    hs = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
     cs = torch.zeros_like(hs)
-    ys = torch.empty(t_len, b, 2 * h, dtype=gx.dtype, device=gx.device)
+    ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
     for s in range(t_len):
-        r = t_len - 1 - s
-        g2 = torch.stack([gx[s, :, :4 * h], gx[r, :, 4 * h:]]).float()
+        times = step_times(t_len, ndir, s)
+        g2 = torch.stack([gx[t, :, 4 * d * h:4 * (d + 1) * h]
+                          for d, t in enumerate(times)]).float()
         gates = g2 + torch.bmm(hs, w)
         i, f, g, o = gates.chunk(4, dim=-1)
         cs = torch.sigmoid(f) * cs + torch.sigmoid(i) * torch.tanh(g)
         hs = torch.sigmoid(o) * torch.tanh(cs)
-        ys[s, :, :h] = hs[0].to(gx.dtype)
-        ys[r, :, h:] = hs[1].to(gx.dtype)
+        for d, t in enumerate(times):
+            ys[t, :, d * h:(d + 1) * h] = hs[d].to(gx.dtype)
     return ys
 
 
@@ -66,33 +75,23 @@ def lstm_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream; ``ys`` in the stream dtype.
     Does not synchronise."""
     global launches
-    t_len, b, lanes = gx.shape
-    h = w_hh.shape[1]
-    if gx.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gx must be float32 or bfloat16, got {gx.dtype}")
-    if w_hh.dtype != torch.float32 or tuple(w_hh.shape) != (2, h, 4 * h):
-        raise ValueError(f"w_hh must be fp32 (2, H, 4H), got {w_hh.dtype} "
-                         f"{tuple(w_hh.shape)}")
-    if lanes != 8 * h or t_len < 1 or b < 1:
-        raise ValueError(f"gx must be (T>=1, B>=1, 8H={8 * h}), got "
-                         f"{tuple(gx.shape)}")
-    if w_hh.device != gx.device:
-        raise ValueError("gx and w_hh must be on the same device")
+    t_len, b, h, ndir = check_recurrence(gx, w_hh, 4)
     gx = gx.contiguous()
     w_hh = w_hh.contiguous()
     lib = LIBRARY.load()
     with torch.cuda.device(gx.device):
-        ys = torch.empty(t_len, b, 2 * h, dtype=gx.dtype, device=gx.device)
+        ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
         # h double buffer, (direction, parity, H, ldh): rows padded to a
         # multiple of 4 floats so the kernel copies them in 16-byte pieces
         ldh = -(-b // 4) * 4
-        hbuf = torch.zeros(2, 2, h, ldh, dtype=torch.float32, device=gx.device)
-        cbuf = torch.zeros(2, b, h, dtype=torch.float32, device=gx.device)
+        hbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
+                           device=gx.device)
+        cbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         err = lib.lstm_bidir_forward(
             gx.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
-            cbuf.data_ptr(), t_len, b, h, ldh, int(gx.dtype == torch.bfloat16),
-            stream)
+            cbuf.data_ptr(), t_len, b, h, ldh, ndir,
+            int(gx.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.lstm_bidir_error_string(err).decode()
         raise RuntimeError(f"lstm_bidir kernel launch failed ({err}: {msg}) "
@@ -102,7 +101,8 @@ def lstm_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
 
 
 def lstm_bidir(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """(T, B, 8H) stream-dtype gates + (2, H, 4H) weights -> (T, B, 2H) fp32.
+    """(T, B, ndir * 4H) stream-dtype gates + (ndir, H, 4H) weights ->
+    (T, B, ndir * H) fp32.
 
     CUDA tensors launch the kernel; CPU tensors run ``lstm_bidir_plain``."""
     if device_kind(gx, "lstm_bidir") == "cuda":

@@ -1,5 +1,5 @@
-"""The stacked-layout (v1) entry points of the LSTM and GRU recurrences, as
-layout wrappers over the Hopper kernels.
+"""The stacked-layout (v1) entry points of the LSTM, GRU and tanh-RNN
+recurrences, as layout wrappers over the Hopper kernels.
 
 The JAX package has two generations of recurrence kernels.  Its v2 kernels
 take ``gx (T, B, 2nH)`` with the directions split over lanes and reverse time
@@ -10,7 +10,10 @@ direction **already time-flipped**, and return ``(T, 2B, H)`` in the same
 arrangement.  Each function here is the counterpart of one v1 entry point: it
 re-lays its input out, runs the recurrence op of the same cell and pass (the
 Hopper kernel for CUDA tensors, or the call raises; the plain twin for CPU
-tensors) and lays the result back.
+tensors) and lays the result back.  The tanh cell has one v1 entry point per
+level for eval and training alike, as in JAX (the forward kernel is shared
+and the VJP only changes what autodiff records), so its wrappers run the
+trainable op.
 
 | here | JAX (``ctc_pytorch_tpu/ops/``) |
 |---|---|
@@ -18,6 +21,7 @@ tensors) and lays the result back.
 | ``lstm_scan_train_stacked`` / ``lstm_bidir_train_stacked`` | ``lstm_pallas_train.py:325 lstm_scan_train`` / ``:457 lstm_bidir_train`` |
 | ``gru_scan_stacked`` / ``gru_bidir_stacked`` | ``gru_pallas.py:94 gru_scan_pallas`` / ``:138 gru_bidir_pallas`` |
 | ``gru_scan_train_stacked`` / ``gru_bidir_train_stacked`` | ``gru_pallas_train.py:277 gru_scan_train`` / ``:350 gru_bidir_train`` |
+| ``rnn_scan_train_stacked`` / ``rnn_bidir_stacked`` | ``rnn_pallas.py:224 rnn_scan_train`` / ``:268 rnn_bidir_pallas`` |
 
 The model never dispatches to them.  The JAX layer falls from its v2 kernels
 to these and then to the scan path by what fits the TPU's VMEM
@@ -29,8 +33,11 @@ its own JAX function.
 Rounding: in fp32 the functions are the same.  With bf16 streams the v1
 kernels round at other points than the v2 kernels that the Hopper kernels
 follow: v1 picks the stream dtype by ``2B % 16`` (kept here), keeps ``w_hh``
-fp32 in the forward (the Hopper GRU kernels and the trainable LSTM kernel
-round it to bf16) and rounds it only in the backward.  The results then
+fp32 in the forward (the Hopper GRU and tanh kernels and the trainable LSTM
+kernel round it to bf16) and, for the LSTM and GRU, rounds it only in the
+backward.  The tanh v1 kernels keep ``w_hh`` fp32 in both passes and round
+neither h nor ``dpre`` before their products (``rnn_pallas.py:43-46,
+144-152``), where the Hopper tanh kernels round all three.  The results then
 agree with JAX's v1 to a few bf16 ulps, not bit for bit; no second kernel
 chases v1's roundings.
 """
@@ -47,6 +54,7 @@ from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
 from ctc_pytorch_tpu_torch.ops import gru_bidir_train as gru_train_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as lstm_train_ops
+from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
 
 
 # calls that reached ``_scan``, on any device (the kernels' own launch counts
@@ -105,6 +113,14 @@ def gru_scan_train_stacked(gx: torch.Tensor, w_hh: torch.Tensor
     return _scan(gru_train_ops.gru_bidir_train, gx, w_hh)
 
 
+def rnn_scan_train_stacked(gx: torch.Tensor, w_hh: torch.Tensor
+                           ) -> torch.Tensor:
+    """``gx (T, 2B, H)``, ``w_hh (2, H, H)`` -> ``(T, 2B, H)``: the tanh
+    recurrence (``rnn_scan_train``), for eval and training, differentiable in
+    both arguments, through ``ops.rnn_bidir_train``."""
+    return _scan(rnn_train_ops.rnn_bidir_train, gx, w_hh)
+
+
 def _bidir(scan: Callable, x: torch.Tensor, w_ih: torch.Tensor,
            w_hh: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """A whole layer the v1 way: project ``x`` and its time-flip, stack them
@@ -137,3 +153,12 @@ def gru_bidir_stacked(x, w_ih, w_hh, compute_dtype=torch.float32):
 def gru_bidir_train_stacked(x, w_ih, w_hh, compute_dtype=torch.float32):
     """The trainable layer (``gru_bidir_train``)."""
     return _bidir(gru_scan_train_stacked, x, w_ih, w_hh, compute_dtype)
+
+
+def rnn_bidir_stacked(x, w_ih, w_hh, compute_dtype=torch.float32, train=False):
+    """``x (T, B, F)``, ``w_ih (2, F, H)``, ``w_hh (2, H, H)`` -> ``(T, B,
+    2H)`` fp32, differentiable (``rnn_bidir_pallas``).  ``train`` is the JAX
+    signature's: that function, and this one, compute the same in both
+    modes."""
+    del train
+    return _bidir(rnn_scan_train_stacked, x, w_ih, w_hh, compute_dtype)

@@ -26,7 +26,7 @@ from ctc_pytorch_tpu_torch.train.checkpoint import (
     params_to_jax,
     save_package,
 )
-from tests.test_torch_model import jax_weights, small_jax_spec
+from tests.test_torch_model import RECIPE_VARIANTS, jax_weights, small_jax_spec
 
 RECIPE = Path(__file__).resolve().parent.parent / "recipes/timit/ctc_config.yaml"
 
@@ -48,6 +48,31 @@ def test_flagship_leaf_order_equals_tree_flatten():
     assert s_paths == _jax_paths(state)
     assert p_paths[:4] == ["cnn.0.b", "cnn.0.bn.bias", "cnn.0.bn.scale", "cnn.0.w"]
     assert "rnns.0.bn.mean" not in s_paths and "rnns.1.bn.count" in s_paths
+
+
+@pytest.mark.parametrize("variant", sorted(RECIPE_VARIANTS))
+def test_recipe_variant_leaf_order_equals_tree_flatten(variant):
+    """The flagship recipe with ``rnn_type: nn.RNN`` or ``bidirectional:
+    False``, at full width: the port's leaf order and shapes are JAX's."""
+    rnn_type, bidir = RECIPE_VARIANTS[variant]
+    jcfg, cfg = jax_load_config(RECIPE), load_config(RECIPE)
+    for c in (jcfg, cfg):
+        c.rnn_type, c.bidirectional = rnn_type, bidir
+    jspec = JSpec.from_config(jcfg, num_class=41)
+    params, state = jax.eval_shape(lambda: JModel.init(jax.random.PRNGKey(0), jspec))
+    spec = ModelSpec.from_config(cfg, num_class=41)
+    assert spec.to_dict() == jspec.to_dict()
+    p_paths, s_paths = leaf_paths(spec)
+    assert p_paths == _jax_paths(params)
+    assert s_paths == _jax_paths(state)
+    sd = CTCModel(spec).state_dict()
+    leaves = jax.tree_util.tree_leaves(params)
+    assert [tuple(sd[p].shape) for p in p_paths] == [tuple(x.shape) for x in leaves]
+    n = 1 if rnn_type == "nn.RNN" else 4
+    assert tuple(sd["rnns.0.fwd.w_hh"].shape) == (384, n * 384)
+    assert ("rnns.0.bwd.w_ih" in p_paths) == bidir
+    assert tuple(sd["fc.w"].shape) == ((2 if bidir else 1) * 384, 41)
+    assert tuple(sd["rnns.1.fwd.w_ih"].shape)[0] == (2 if bidir else 1) * 384
     # every leaf is a state_dict entry of the module, with the JAX shape
     sd = CTCModel(spec).state_dict()
     assert sorted(sd) == sorted(p_paths + s_paths)

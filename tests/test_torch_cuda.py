@@ -1,7 +1,8 @@
-"""The port on the card: each Hopper kernel (eval BiLSTM and BiGRU, trainable
-BiLSTM and BiGRU forward and backward, CTC alpha and beta) against its plain
-twin, the stacked-layout entry points' launch counts, and the models on CUDA
-against the same models on the CPU, in eval and in a train step.
+"""The port on the card: each Hopper kernel (eval LSTM, GRU and tanh RNN,
+their trainable forwards and backwards, CTC alpha and beta) against its plain
+twin, with two directions and with one, the stacked-layout entry points'
+launch counts, and the models on CUDA against the same models on the CPU, in
+eval and in a train step.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -22,6 +23,8 @@ from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
 from ctc_pytorch_tpu_torch.ops import gru_bidir_train as gru_train_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as train_ops
+from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
+from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
 from ctc_pytorch_tpu_torch.ops import stacked
 
 pytestmark = pytest.mark.cuda
@@ -314,7 +317,8 @@ def test_gru_train_autograd_goes_through_both_kernels(card):
 def _launches():
     return (lstm_ops.launches, train_ops.launches_fwd, train_ops.launches_bwd,
             gru_ops.launches, gru_train_ops.launches_fwd,
-            gru_train_ops.launches_bwd)
+            gru_train_ops.launches_bwd, rnn_ops.launches,
+            rnn_train_ops.launches_fwd, rnn_train_ops.launches_bwd)
 
 
 @pytest.mark.parametrize("name,cell,train", [
@@ -322,12 +326,13 @@ def _launches():
     ("lstm_bidir_train_stacked", "lstm", True),
     ("gru_bidir_stacked", "gru", False),
     ("gru_bidir_train_stacked", "gru", True),
+    ("rnn_bidir_stacked", "rnn", True),  # one entry point, trainable
 ])
 def test_stacked_entry_points_launch_the_kernels_and_match_the_cpu(
         card, name, cell, train):
     """Each layer-level entry point (which runs its scan-level one) launches
     the kernel of its cell and pass, once, and no other."""
-    t, b, f, h, n = 9, 8, 12, 32, {"lstm": 4, "gru": 3}[cell]
+    t, b, f, h, n = 9, 8, 12, 32, {"lstm": 4, "gru": 3, "rnn": 1}[cell]
     rng = np.random.RandomState(7)
     x, w_ih, w_hh = (torch.from_numpy(a.astype(np.float32)) for a in (
         rng.randn(t, b, f), rng.randn(2, f, n * h) / np.sqrt(h),
@@ -342,10 +347,11 @@ def test_stacked_entry_points_launch_the_kernels_and_match_the_cpu(
             ys.square().sum().backward()
         delta = tuple(a - c for a, c in zip(_launches(), before))
         on = 1 if dev == card else 0
-        want = {("lstm", False): (on, 0, 0, 0, 0, 0),
-                ("lstm", True): (0, on, on, 0, 0, 0),
-                ("gru", False): (0, 0, 0, on, 0, 0),
-                ("gru", True): (0, 0, 0, 0, on, on)}[(cell, train)]
+        want = {("lstm", False): (on, 0, 0, 0, 0, 0, 0, 0, 0),
+                ("lstm", True): (0, on, on, 0, 0, 0, 0, 0, 0),
+                ("gru", False): (0, 0, 0, on, 0, 0, 0, 0, 0),
+                ("gru", True): (0, 0, 0, 0, on, on, 0, 0, 0),
+                ("rnn", True): (0, 0, 0, 0, 0, 0, 0, on, on)}[(cell, train)]
         assert delta == want
         results.append([ys.detach().cpu()]
                        + ([a.grad.cpu() for a in args] if train else []))
@@ -393,6 +399,154 @@ def test_863_train_step_on_the_card_matches_the_cpu(card):
             packed = model(batch[0].to(dev), frac=batch[1].to(dev), train=False,
                            lengths=lens.to(dev))
             assert gru_ops.launches == before + (2 if dev == card else 0)
+        results.append((losses, packed.cpu(),
+                        {k: v.cpu() for k, v in model.state_dict().items()}))
+    (cpu_losses, cpu_packed, cpu_sd), (gpu_losses, gpu_packed, gpu_sd) = results
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    np.testing.assert_allclose(gpu_packed.numpy(), cpu_packed.numpy(), atol=1e-4)
+    for k, v in cpu_sd.items():
+        np.testing.assert_allclose(gpu_sd[k].numpy(), v.numpy(), atol=1e-4, rtol=0)
+
+
+def _rnn_inputs(t, b, h, dtype, card, ndir=2, scale=1.0):
+    gen = torch.Generator().manual_seed(t + b + h + ndir)
+    gx = (scale * torch.randn(t, b, ndir * h, generator=gen)).to(dtype).to(card)
+    w_hh = ((torch.rand(ndir, h, h, generator=gen) * 2 - 1) * h ** -0.5).to(card)
+    dy = torch.randn(t, b, ndir * h, generator=gen).to(dtype).to(card)
+    return gx, w_hh, dy
+
+
+# tolerances as the LSTM and GRU cases: fp32 absolute; bf16 forward 2e-2
+# absolute, bf16 backward 2 bf16 ulps of max(|want|, 1) per entry
+@pytest.mark.parametrize("t,b,h,dtype,ndir,scale", [
+    (80, 128, 384, torch.bfloat16, 2, 1.0),  # the TIMIT bench shape
+    (100, 8, 384, torch.float32, 2, 1.0),  # the recipe's batch
+    (80, 128, 384, torch.bfloat16, 2, 8.0),  # saturated: |h| near 1
+    (1, 1, 37, torch.float32, 2, 1.0),
+    (33, 5, 37, torch.float32, 1, 1.0),  # odd T, B % 4 != 0, H % 8 != 0
+    (6, 200, 64, torch.bfloat16, 2, 1.0),  # B over one 128-row tile
+    (4, 4, 1056, torch.float32, 2, 1.0),  # widest H with w_hh resident
+    (4, 4, 1064, torch.float32, 2, 1.0),  # w_hh read from L2
+    (4, 4, 1600, torch.float32, 1, 1.0),  # one direction past residency
+])
+def test_rnn_kernels_match_plain_on_the_card(card, t, b, h, dtype, ndir, scale):
+    bf16 = dtype == torch.bfloat16
+    gx, w_hh, dy = _rnn_inputs(t, b, h, dtype, card, ndir, scale)
+    counts = (rnn_ops.launches, rnn_train_ops.launches_fwd,
+              rnn_train_ops.launches_bwd)
+    ys_eval = rnn_ops.rnn_bidir_cuda(gx, w_hh)
+    ys_train = rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh)
+    want_ys = rnn_ops.rnn_bidir_plain(gx, w_hh)
+    # the backward kernel gets the twin's plane, so only it is under test
+    dgx = rnn_train_ops.rnn_bidir_train_backward_cuda(w_hh, want_ys, dy)
+    want_dgx = rnn_train_ops.rnn_bidir_train_backward_plain(w_hh, want_ys, dy)
+    torch.cuda.synchronize()
+    assert (rnn_ops.launches, rnn_train_ops.launches_fwd,
+            rnn_train_ops.launches_bwd) == tuple(c + 1 for c in counts)
+    for got in (ys_eval, ys_train):
+        assert ((got.float() - want_ys.float()).abs().max().item()
+                <= (2e-2 if bf16 else 1e-4))
+    tol = 2.0 ** -6 if bf16 else 1e-4
+    err = (dgx.float() - want_dgx.float()).abs()
+    if bf16:
+        err = err / want_dgx.float().abs().clamp(min=1.0)
+    assert err.max().item() <= tol
+    dw = train_ops.dw_hh(want_ys, dgx, ndir)
+    want_dw = train_ops.dw_hh(want_ys, want_dgx, ndir)
+    assert ((dw - want_dw).abs().max().item()
+            <= tol * max(1.0, want_dw.abs().max().item()))
+
+
+def test_rnn_train_autograd_goes_through_both_kernels(card):
+    gx, w_hh, dy = _rnn_inputs(12, 8, 64, torch.float32, card)
+    gx.requires_grad_(True)
+    w_hh.requires_grad_(True)
+    fwd, bwd = rnn_train_ops.launches_fwd, rnn_train_ops.launches_bwd
+    ys = rnn_train_ops.rnn_bidir_train(gx, w_hh)
+    (ys * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (rnn_train_ops.launches_fwd, rnn_train_ops.launches_bwd) == (fwd + 1,
+                                                                        bwd + 1)
+    gx_c = gx.detach().cpu().requires_grad_(True)
+    w_c = w_hh.detach().cpu().requires_grad_(True)
+    (rnn_train_ops.rnn_bidir_train(gx_c, w_c) * dy.cpu()).sum().backward()
+    assert (gx.grad.cpu() - gx_c.grad).abs().max().item() <= 1e-4
+    assert (w_hh.grad.cpu() - w_c.grad).abs().max().item() <= 1e-4
+
+
+# (eval op, trainable op, gates) per cell, for the one-direction launches
+UNIDIR = {"lstm": (lstm_ops, train_ops, 4), "gru": (gru_ops, gru_train_ops, 3),
+          "rnn": (rnn_ops, rnn_train_ops, 1)}
+
+
+@pytest.mark.parametrize("t,b,h", [(40, 8, 384), (7, 3, 37), (5, 16, 64)])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
+def test_one_direction_kernels_match_the_cpu(card, cell, t, b, h):
+    """ndir = 1: the eval op and the trainable op, forward and backward, on
+    the card against the same calls on the CPU (the plain twins)."""
+    eval_mod, train_mod, n = UNIDIR[cell]
+    gen = torch.Generator().manual_seed(t + b + h)
+    gx = torch.randn(t, b, n * h, generator=gen)
+    w_hh = (torch.rand(1, h, n * h, generator=gen) * 2 - 1) * h ** -0.5
+    dy = torch.randn(t, b, h, generator=gen)
+    eval_fn = getattr(eval_mod, f"{cell}_bidir")
+    train_fn = getattr(train_mod, f"{cell}_bidir_train")
+    results = []
+    for dev in ("cpu", card):
+        before = _launches()
+        ys_eval = eval_fn(gx.to(dev), w_hh.to(dev))
+        g, w = (a.clone().to(dev).requires_grad_(True) for a in (gx, w_hh))
+        ys = train_fn(g, w)
+        (ys * dy.to(dev)).sum().backward()
+        launched = sum(a - c for a, c in zip(_launches(), before))
+        assert launched == (3 if dev == card else 0)
+        assert ys.shape == (t, b, h)
+        results.append([x.detach().cpu() for x in (ys_eval, ys, g.grad, w.grad)])
+    for got, want in zip(results[1], results[0]):
+        assert ((got - want).abs().max().item()
+                <= 1e-4 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("cell,bidirectional", [("rnn", True), ("lstm", False)])
+def test_rnn_variant_train_step_on_the_card_matches_the_cpu(card, cell,
+                                                            bidirectional):
+    """The tanh-RNN model and the unidirectional LSTM model: two fp32 steps
+    and a packed-``lengths`` eval forward, on the card against the CPU."""
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+
+    cnn = CNNConfig(add_cnn=True, layers=1, channel=[(1, 4)],
+                    kernel_size=[(3, 3)], stride=[(2, 2)], padding=[(1, 1)])
+    spec = ModelSpec(add_cnn=True, cnn=cnn, rnn_input_size=24,
+                     rnn_hidden_size=32, rnn_layers=2, rnn_cell=cell,
+                     bidirectional=bidirectional, batch_norm=True, num_class=8,
+                     drop_out=0.0, compute_dtype="float32")
+    eval_mod, train_mod, _ = UNIDIR[cell]
+    rng = np.random.RandomState(3)
+    batch = [torch.from_numpy(a) for a in (
+        rng.randn(4, 40, 24).astype(np.float32),
+        np.array([1.0, 0.9, 0.75, 0.75], np.float32),
+        rng.randint(1, 8, (4, 5)).astype(np.int32),
+        np.array([5, 4, 2, 2], np.int32),
+        np.array([1, 1, 1, 0], np.float32))]
+    lens = torch.tensor([20, 18, 15, 15])
+    results = []
+    for dev in ("cpu", card):
+        model = CTCModel(spec)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev)
+        state = TrainState(model, make_optimizer(model, spec, 1e-3, 5e-4))
+        counts = (train_mod.launches_fwd, train_mod.launches_bwd)
+        losses = [train_step(state, spec, *(a.to(dev) for a in batch))[0].item()
+                  for _ in range(2)]
+        launched = (train_mod.launches_fwd - counts[0],
+                    train_mod.launches_bwd - counts[1])
+        assert launched == ((4, 4) if dev == card else (0, 0))
+        with torch.no_grad():
+            before = eval_mod.launches
+            packed = model(batch[0].to(dev), frac=batch[1].to(dev), train=False,
+                           lengths=lens.to(dev))
+            assert eval_mod.launches == before + (2 if dev == card else 0)
         results.append((losses, packed.cpu(),
                         {k: v.cpu() for k, v in model.state_dict().items()}))
     (cpu_losses, cpu_packed, cpu_sd), (gpu_losses, gpu_packed, gpu_sd) = results

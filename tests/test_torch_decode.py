@@ -23,7 +23,7 @@ from ctc_pytorch_tpu_torch.decode.greedy import GreedyDecoder, greedy_collapse
 from ctc_pytorch_tpu_torch.decode.metrics import Scorer
 from ctc_pytorch_tpu_torch.ops.editdistance import edit_distance
 from tests.test_torch_data import write_corpus
-from tests.test_torch_model import jax_weights
+from tests.test_torch_model import RECIPE_VARIANTS, jax_weights, variant_cell
 
 
 def _indices(seed, b=5, t=17, c=4):
@@ -70,7 +70,7 @@ def test_scorer_and_edit_distance_match_jax():
         assert ours.wer(sa, sb) == ref.wer(sa, sb)
 
 
-def _stage4_setup(tmp_path, add_cnn):
+def _stage4_setup(tmp_path, add_cnn, cell="lstm", bidirectional=True):
     dim = 7
     write_corpus(tmp_path / "data", n_utts=11, dim=dim, frames=(12, 40))
     cnn = (JCNNConfig(add_cnn=True, layers=2, channel=[(1, 2), (2, 2)],
@@ -78,8 +78,8 @@ def _stage4_setup(tmp_path, add_cnn):
                       padding=[(1, 1), (1, 1)])
            if add_cnn else JCNNConfig(add_cnn=False))
     jspec = JSpec(add_cnn=add_cnn, cnn=cnn, rnn_input_size=dim * 2,
-                  rnn_hidden_size=8, rnn_layers=2, rnn_cell="lstm",
-                  bidirectional=True, batch_norm=True,
+                  rnn_hidden_size=8, rnn_layers=2, rnn_cell=cell,
+                  bidirectional=bidirectional, batch_norm=True,
                   num_class=JVocab(tmp_path / "data" / "units").n_words,
                   drop_out=0.0, compute_dtype="float32")
     # a sharp output layer: near-flat random posteriors would let a 1e-7
@@ -104,7 +104,21 @@ def _stage4_setup(tmp_path, add_cnn):
 
 @pytest.mark.parametrize("add_cnn", [True, False])
 def test_evaluate_on_cpu_matches_jax_evaluate(tmp_path, add_cnn):
-    pkg, (jcfg, cfg) = _stage4_setup(tmp_path, add_cnn)
+    evaluate_matches_jax(*_stage4_setup(tmp_path, add_cnn))
+
+
+@pytest.mark.parametrize("variant", sorted(RECIPE_VARIANTS))
+def test_recipe_variant_evaluate_decodes_the_jax_strings(tmp_path, variant):
+    """A JAX package of the tanh-cell or the one-direction model decodes to
+    the JAX strings through the port's stage 4."""
+    cell, bidir = variant_cell(variant)
+    evaluate_matches_jax(*_stage4_setup(tmp_path, True, cell, bidir))
+
+
+def evaluate_matches_jax(pkg, confs):
+    """The port's ``evaluate(device="cpu")`` and the JAX ``evaluate`` of one
+    package over the 11-utterance test set: the same strings, CER and WER."""
+    jcfg, cfg = confs
     want_lines, got_lines = [], []
     want = jax_evaluate(jcfg, str(pkg), log=want_lines.append)
     got = evaluate(cfg, str(pkg), device="cpu", log=got_lines.append)

@@ -127,7 +127,7 @@ def test_kernel_launcher_checks_its_inputs(bad_gx, bad_w, err):
         gru_ops.check_inputs(bad_gx, bad_w)
 
 
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
 @pytest.mark.parametrize("with_bn,with_lengths", [
     (False, False), (True, False), (False, True), (True, True),
 ])
@@ -136,7 +136,7 @@ def test_rnn_layer_matches_jax(cell, with_bn, with_lengths):
     packed ``lengths`` mode: the JAX layer takes its scan path here, which
     reverses each utterance within its length; the port zeroes the padded
     rows, as the JAX layer does for its kernels.  Every row must agree."""
-    t, b, f, h, n = 7, 3, 6, 8, {"lstm": 4, "gru": 3}[cell]
+    t, b, f, h, n = 7, 3, 6, 8, {"lstm": 4, "gru": 3, "rnn": 1}[cell]
     rng = np.random.RandomState(3)
     bound = 1.0 / np.sqrt(h)
     x = rng.randn(t, b, f).astype(np.float32)
@@ -177,12 +177,19 @@ def test_rnn_layer_matches_jax(cell, with_bn, with_lengths):
 
 
 def test_stack_takes_gru_and_refuses_what_is_not_ported():
+    """Every cell of the JAX package takes one direction or two; a name that
+    is no cell raises."""
     stack = RNNStack(cell="gru", input_size=5, hidden_size=4, num_layers=2,
                      bidirectional=True, batch_norm=True)
     assert tuple(stack[0].fwd.w_ih.shape) == (5, 12)
     assert tuple(stack[1].bwd.w_hh.shape) == (4, 12)
     assert stack[0].bn is None and stack[1].bn is not None
-    for cell, bidir in (("rnn", True), ("gru", False), ("lstm", False)):
-        with pytest.raises(NotImplementedError, match="LSTM and GRU"):
-            RNNStack(cell=cell, input_size=5, hidden_size=4, num_layers=1,
+    for cell, n in (("lstm", 4), ("gru", 3), ("rnn", 1)):
+        uni = RNNStack(cell=cell, input_size=5, hidden_size=4, num_layers=2,
+                       bidirectional=False, batch_norm=False)
+        assert uni[0].bwd is None and len(uni[1].directions) == 1
+        assert tuple(uni[1].fwd.w_ih.shape) == (4, n * 4)  # one direction in
+    for bidir in (True, False):
+        with pytest.raises(ValueError, match="unknown cell"):
+            RNNStack(cell="lstmp", input_size=5, hidden_size=4, num_layers=1,
                      bidirectional=bidir, batch_norm=False)

@@ -30,7 +30,8 @@ def test_static_scan_finds_no_forbidden_import():
     for new in ("ops/ctc_loss.py", "ops/lstm_bidir_train.py", "ops/_build.py",
                 "train/loop.py", "train/state.py", "train/scheduler.py",
                 "train/metrics_log.py", "cli/train.py", "ops/gru_bidir.py",
-                "ops/gru_bidir_train.py", "ops/stacked.py"):
+                "ops/gru_bidir_train.py", "ops/stacked.py", "ops/rnn_bidir.py",
+                "ops/rnn_bidir_train.py"):
         assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
@@ -168,13 +169,31 @@ def test_gru_kernel_modules_build_nothing_at_import():
     assert not hasattr(stacked, "LIBRARY")  # wrappers: no kernel of their own
 
 
+def test_rnn_kernel_modules_build_nothing_at_import():
+    from ctc_pytorch_tpu_torch.ops import _build, rnn_bidir, rnn_bidir_train
+
+    for lib, source in ((rnn_bidir.LIBRARY, "rnn_bidir.cu"),
+                        (rnn_bidir_train.LIBRARY, "rnn_bidir_train.cu")):
+        assert lib._lib is None and lib.source.name == source
+        assert lib.source.exists() and all(h.exists() for h in lib.headers)
+        assert lib.output_path().parent == _build.BUILD_DIR
+        # both headers are part of the version: rnn_fwd.cuh includes lstm_fwd.cuh
+        assert [h.name for h in lib.headers] == ["lstm_fwd.cuh", "rnn_fwd.cuh"]
+        assert '#include "rnn_fwd.cuh"' in lib.source.read_text()
+    assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "rnn_fwd.cuh").read_text()
+    # the trainable op's forward is the eval library's kernel
+    assert set(rnn_bidir_train.LIBRARY.functions) == {
+        "rnn_bidir_train_backward", "rnn_bidir_train_error_string"}
+
+
 def test_no_kernel_source_calls_a_library_for_the_recurrent_products():
     from ctc_pytorch_tpu_torch.ops import _build
 
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {
         "gru_bidir.cu", "gru_bidir_train.cu", "gru_fwd.cuh", "lstm_bidir.cu",
-        "lstm_bidir_train.cu", "lstm_fwd.cuh", "ctc_dp.cu"}
+        "lstm_bidir_train.cu", "lstm_fwd.cuh", "ctc_dp.cu", "rnn_bidir.cu",
+        "rnn_bidir_train.cu", "rnn_fwd.cuh"}
     for path in sources:
         text = path.read_text()
         includes = [ln for ln in text.splitlines() if ln.startswith("#include")]

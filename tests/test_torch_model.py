@@ -1,6 +1,7 @@
 """The port's whole model against the JAX package, eval, from one set of
 JAX-initialised weights: log_probs at atol 1e-4 and input_sizes exactly,
-with and without the CNN, under each pad_dynamics."""
+with and without the CNN, under each pad_dynamics; and the flagship's two
+recipe overrides (the tanh cell, one direction) in eval and train mode."""
 
 import dataclasses
 
@@ -17,8 +18,19 @@ from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
 from ctc_pytorch_tpu_torch.train.checkpoint import params_from_jax
 
 
+# the flagship recipe's overrides that slice 4 ports: (rnn_type, bidirectional)
+RECIPE_VARIANTS = {"tanh": ("nn.RNN", True), "unidir": ("nn.LSTM", False)}
+
+
+def variant_cell(variant):
+    """``(rnn_cell, bidirectional)`` of a recipe variant."""
+    rnn_type, bidirectional = RECIPE_VARIANTS[variant]
+    return rnn_type[3:].lower(), bidirectional
+
+
 def small_jax_spec(add_cnn=True, pad_dynamics="batchmax", layers=2, hidden=8,
-                   feat=12, num_class=6, batch_norm=True):
+                   feat=12, num_class=6, batch_norm=True, cell="lstm",
+                   bidirectional=True):
     """A few-layer, narrow fp32 spec with the flagship's structure."""
     cnn = JCNNConfig(add_cnn=False)
     if add_cnn:
@@ -26,8 +38,9 @@ def small_jax_spec(add_cnn=True, pad_dynamics="batchmax", layers=2, hidden=8,
                          kernel_size=[(3, 3), (3, 3)], stride=[(1, 2), (2, 2)],
                          padding=[(1, 1), (1, 1)], batch_norm=batch_norm)
     return JSpec(add_cnn=add_cnn, cnn=cnn, rnn_input_size=feat,
-                 rnn_hidden_size=hidden, rnn_layers=layers, rnn_cell="lstm",
-                 bidirectional=True, batch_norm=batch_norm, num_class=num_class,
+                 rnn_hidden_size=hidden, rnn_layers=layers, rnn_cell=cell,
+                 bidirectional=bidirectional, batch_norm=batch_norm,
+                 num_class=num_class,
                  drop_out=0.0, compute_dtype="float32",
                  pad_dynamics=pad_dynamics)
 
@@ -125,9 +138,58 @@ def test_spec_from_dict_matches_jax(legacy):
 
 
 def test_other_cells_are_not_ported():
-    for cell, bidir in (("rnn", True), ("lstm", False), ("gru", False)):
+    """Every cell and direction count of the JAX package builds; a cell name
+    the JAX package has not either raises."""
+    for cell in ("lstm", "gru", "rnn"):
+        for bidir in (True, False):
+            spec = ModelSpec.from_dict(
+                {**small_jax_spec().to_dict(), "rnn_cell": cell,
+                 "bidirectional": bidir})
+            model = CTCModel(spec)
+            assert model.fc.w.shape[0] == (2 if bidir else 1) * 8
+    for bidir in (True, False):
         spec = ModelSpec.from_dict(
-            {**small_jax_spec().to_dict(), "rnn_cell": cell,
+            {**small_jax_spec().to_dict(), "rnn_cell": "lstmp",
              "bidirectional": bidir})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="unknown cell"):
             CTCModel(spec)
+
+
+@pytest.mark.parametrize("with_lengths", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("variant", sorted(RECIPE_VARIANTS))
+def test_recipe_variant_log_probs_and_bn_state_match_jax(variant, train,
+                                                         with_lengths):
+    """The flagship's structure with the tanh cell or one direction: log
+    probs and the new BN state from one JAX init, in eval and in train mode
+    (batch statistics, running-stat updates), with and without ``lengths``."""
+    cell, bidir = variant_cell(variant)
+    jspec = small_jax_spec(cell=cell, bidirectional=bidir)
+    params, state = jax_weights(jspec, seed=7)
+    spec, model = port_model(jspec, params, state)
+    x = np.random.RandomState(5).randn(3, 16, 12).astype(np.float32)
+    t_out = spec.output_time_len(16)
+    lens = (FRAC * t_out).astype(np.int32) if with_lengths else None
+    want, want_state = JModel.apply(
+        jspec, jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, state), jnp.asarray(x), train=train,
+        frac=jnp.asarray(FRAC), example_mask=jnp.asarray(EXAMPLE_MASK),
+        lengths=None if lens is None else jnp.asarray(lens))
+    with torch.set_grad_enabled(train):
+        got = model(torch.from_numpy(x), frac=torch.from_numpy(FRAC),
+                    example_mask=torch.from_numpy(EXAMPLE_MASK), train=train,
+                    lengths=None if lens is None else torch.from_numpy(lens))
+    assert got.shape == want.shape == (t_out, 3, 6)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    from ctc_pytorch_tpu_torch.train.checkpoint import params_to_jax
+
+    _, got_state = params_to_jax(spec, model.state_dict())
+    g_leaves, g_def = jax.tree_util.tree_flatten(got_state)
+    w_leaves, w_def = jax.tree_util.tree_flatten(want_state)
+    assert g_def == w_def
+    for g, w in zip(g_leaves, w_leaves):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-4, rtol=0)
+    assert model.training == train
+    assert all(len(layer.directions) == (2 if bidir else 1)
+               for layer in model.rnns)

@@ -1,14 +1,19 @@
-"""The eight stacked-layout (v1) entry points of ``ops/stacked.py``, each
+"""The ten stacked-layout (v1) entry points of ``ops/stacked.py``, each
 against its own JAX function run in interpret mode: the Pallas kernels of
-``lstm_pallas.py``, ``lstm_pallas_train.py``, ``gru_pallas.py`` and
-``gru_pallas_train.py``.
+``lstm_pallas.py``, ``lstm_pallas_train.py``, ``gru_pallas.py``,
+``gru_pallas_train.py`` and ``rnn_pallas.py`` (whose two entry points serve
+eval and training alike, so they stand in both the eval and the trainable
+cases).
 
 fp32: the same function, held to 1e-5 absolute (gradients of weights relative
 to their largest entry).  bf16 streams (v1 turns them on when 2B % 16 == 0,
 here B = 8): the port runs the recurrences of the lane-layout kernels, which
-round ``w_hh`` to bf16 where v1 keeps it fp32 in the forward, so results agree
-to a few bf16 ulps and not bit for bit: 3e-2 absolute on outputs and ``dx``,
-3e-2 of the largest entry on weight gradients."""
+round ``w_hh`` to bf16 where v1 keeps it fp32 in the forward (and, for the
+tanh cell, round h and ``dpre`` where v1 does not), so results agree to a few
+bf16 ulps and not bit for bit: 3e-2 absolute on outputs and ``dx``, 3e-2 of
+the largest entry on weight gradients."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,11 +25,13 @@ from ctc_pytorch_tpu.ops.gru_pallas import gru_bidir_pallas, gru_scan_pallas
 from ctc_pytorch_tpu.ops.gru_pallas_train import gru_bidir_train, gru_scan_train
 from ctc_pytorch_tpu.ops.lstm_pallas import lstm_bidir_pallas, lstm_scan_pallas
 from ctc_pytorch_tpu.ops.lstm_pallas_train import lstm_bidir_train, lstm_scan_train
+from ctc_pytorch_tpu.ops.rnn_pallas import rnn_bidir_pallas, rnn_scan_train
 from ctc_pytorch_tpu_torch.ops import gru_bidir, gru_bidir_train as gru_train
 from ctc_pytorch_tpu_torch.ops import lstm_bidir, lstm_bidir_train as lstm_train
+from ctc_pytorch_tpu_torch.ops import rnn_bidir, rnn_bidir_train as rnn_train
 from ctc_pytorch_tpu_torch.ops import stacked
 
-GATES = {"lstm": 4, "gru": 3}
+GATES = {"lstm": 4, "gru": 3, "rnn": 1}
 
 
 def _inputs(cell, t, b, f, h, seed):
@@ -53,21 +60,28 @@ SCAN_EVAL = {
              lambda gx, w, c: lstm_scan_pallas(gx, w, chunk=c, interpret=True)),
     "gru": (stacked.gru_scan_stacked,
             lambda gx, w, c: gru_scan_pallas(gx, w, chunk=c, interpret=True)),
+    "rnn": (stacked.rnn_scan_train_stacked,
+            lambda gx, w, c: rnn_scan_train(gx, w, c, c, True)),
 }
 SCAN_TRAIN = {
     "lstm": (stacked.lstm_scan_train_stacked,
              lambda gx, w, c: lstm_scan_train(gx, w, c, max(c // 2, 1), True)),
     "gru": (stacked.gru_scan_train_stacked,
             lambda gx, w, c: gru_scan_train(gx, w, c, max(c // 2, 1), True)),
+    "rnn": (stacked.rnn_scan_train_stacked,
+            lambda gx, w, c: rnn_scan_train(gx, w, c, max(c // 2, 1), True)),
 }
 BIDIR_EVAL = {"lstm": (stacked.lstm_bidir_stacked, lstm_bidir_pallas),
-              "gru": (stacked.gru_bidir_stacked, gru_bidir_pallas)}
+              "gru": (stacked.gru_bidir_stacked, gru_bidir_pallas),
+              "rnn": (stacked.rnn_bidir_stacked, rnn_bidir_pallas)}
 BIDIR_TRAIN = {"lstm": (stacked.lstm_bidir_train_stacked, lstm_bidir_train),
-               "gru": (stacked.gru_bidir_train_stacked, gru_bidir_train)}
+               "gru": (stacked.gru_bidir_train_stacked, gru_bidir_train),
+               "rnn": (functools.partial(stacked.rnn_bidir_stacked, train=True),
+                       functools.partial(rnn_bidir_pallas, train=True))}
 
 
 @pytest.mark.parametrize("t,b,h,chunk", [(9, 3, 8, 4), (1, 1, 4, 1), (6, 2, 16, 2)])
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
 def test_scan_entry_point_matches_its_pallas_kernel(cell, t, b, h, chunk):
     d = _inputs(cell, t, b, 3, h, seed=t + h)
     port, ref = SCAN_EVAL[cell]
@@ -78,7 +92,7 @@ def test_scan_entry_point_matches_its_pallas_kernel(cell, t, b, h, chunk):
 
 
 @pytest.mark.parametrize("t,b,h,chunk", [(7, 3, 8, 2), (1, 2, 4, 1), (6, 2, 16, 4)])
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
 def test_trainable_scan_entry_point_matches_its_pallas_kernels(cell, t, b, h, chunk):
     d = _inputs(cell, t, b, 3, h, seed=t + b)
     port, ref = SCAN_TRAIN[cell]
@@ -100,7 +114,7 @@ def test_trainable_scan_entry_point_matches_its_pallas_kernels(cell, t, b, h, ch
 
 
 @pytest.mark.parametrize("cd,b,tol", [("float32", 3, 1e-5), ("bfloat16", 8, 3e-2)])
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
 def test_layer_entry_point_matches_its_pallas_kernel(cell, cd, b, tol):
     t, f, h = 9, 5, 16
     d = _inputs(cell, t, b, f, h, seed=b)
@@ -116,7 +130,7 @@ def test_layer_entry_point_matches_its_pallas_kernel(cell, cd, b, tol):
 
 
 @pytest.mark.parametrize("cd,b,tol", [("float32", 3, 1e-5), ("bfloat16", 8, 3e-2)])
-@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
 def test_trainable_layer_entry_point_matches_its_pallas_kernels(cell, cd, b, tol):
     t, f, h = 6, 5, 16
     d = _inputs(cell, t, b, f, h, seed=10 + b)
@@ -153,20 +167,24 @@ def test_layouts_are_inverse_and_flip_the_second_half():
 def test_entry_points_run_the_ops_of_the_lane_layout_and_count_nothing_on_cpu():
     """Each wrapper goes through the op whose kernel it launches on the card
     (checked there by the launch counts); on the CPU no count moves."""
-    before = (lstm_bidir.launches, lstm_train.launches_fwd, lstm_train.launches_bwd,
-              gru_bidir.launches, gru_train.launches_fwd, gru_train.launches_bwd)
-    for cell in ("lstm", "gru"):
+    def counts():
+        return (lstm_bidir.launches, lstm_train.launches_fwd,
+                lstm_train.launches_bwd, gru_bidir.launches,
+                gru_train.launches_fwd, gru_train.launches_bwd,
+                rnn_bidir.launches, rnn_train.launches_fwd, rnn_train.launches_bwd)
+
+    before = counts()
+    for cell in ("lstm", "gru", "rnn"):
         d = _inputs(cell, 3, 2, 3, 4, seed=0)
         gx, w = torch.tensor(d["gx"]), torch.tensor(d["w_hh"])
-        want = {"lstm": lstm_bidir.lstm_bidir, "gru": gru_bidir.gru_bidir}[cell](
+        want = {"lstm": lstm_bidir.lstm_bidir, "gru": gru_bidir.gru_bidir,
+                "rnn": rnn_bidir.rnn_bidir}[cell](
             stacked.lanes_from_stacked(gx), w)
         assert torch.equal(SCAN_EVAL[cell][0](gx, w),
                            stacked.stacked_from_lanes(want))
         assert torch.equal(SCAN_TRAIN[cell][0](gx, w),
                            stacked.stacked_from_lanes(want))
-    assert before == (lstm_bidir.launches, lstm_train.launches_fwd,
-                      lstm_train.launches_bwd, gru_bidir.launches,
-                      gru_train.launches_fwd, gru_train.launches_bwd)
+    assert before == counts()
     with pytest.raises(ValueError, match="unsupported device"):
         stacked.gru_scan_stacked(torch.zeros(2, 2, 12, device="meta"),
                                  torch.zeros(2, 4, 12, device="meta"))
@@ -177,15 +195,14 @@ def test_calls_count_every_entry_point_and_no_model_forward():
     level, and a model's forward never comes through the wrappers."""
     from ctc_pytorch_tpu_torch.models.rnn import RNNStack
 
-    for cell in ("lstm", "gru"):
+    for cell in ("lstm", "gru", "rnn"):
         d = _inputs(cell, 3, 2, 3, 4, seed=1)
         gx, w = torch.tensor(d["gx"]), torch.tensor(d["w_hh"])
         x, w_ih = torch.tensor(d["x"]), torch.tensor(d["w_ih"])
         for fn, args in ((SCAN_EVAL[cell][0], (gx, w)),
                          (SCAN_TRAIN[cell][0], (gx, w)),
-                         (getattr(stacked, f"{cell}_bidir_stacked"), (x, w_ih, w)),
-                         (getattr(stacked, f"{cell}_bidir_train_stacked"),
-                          (x, w_ih, w))):
+                         (BIDIR_EVAL[cell][0], (x, w_ih, w)),
+                         (BIDIR_TRAIN[cell][0], (x, w_ih, w))):
             before = stacked.calls
             fn(*args)
             assert stacked.calls == before + 1

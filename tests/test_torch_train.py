@@ -1,7 +1,9 @@
 """The port's training slice against the JAX package on the CPU, from one
 init and the same batches (numpy seed), in fp32 with ``drop_out: 0``:
 train-mode BN, three optimizer steps, the ``Trainer`` with a forced rollback
-and LR decay, and resume packages crossing the frameworks both ways.
+and LR decay, and resume packages crossing the frameworks both ways; the
+steps, the ``Trainer`` and the packages also for the flagship's two recipe
+overrides, the tanh cell and one direction.
 
 Tolerance 1e-4 absolute unless stated: both sides do the same fp32 math in
 another summation order, and Adam's ``g / (|g| + eps)`` amplifies rounding
@@ -52,7 +54,7 @@ from ctc_pytorch_tpu_torch.train.state import (
     snapshot,
 )
 from ctc_pytorch_tpu_torch.vocab import Vocab
-from tests.test_torch_model import jax_weights
+from tests.test_torch_model import RECIPE_VARIANTS, jax_weights, variant_cell
 
 TOL = 1e-4
 
@@ -143,15 +145,15 @@ def test_dropout_keeps_n_over_256_and_is_unbiased():
 # three optimizer steps
 # ---------------------------------------------------------------------------
 
-def small_spec(pad_dynamics, add_cnn=True):
+def small_spec(pad_dynamics, add_cnn=True, cell="lstm", bidirectional=True):
     cnn = JCNNConfig(add_cnn=False)
     if add_cnn:
         cnn = JCNNConfig(add_cnn=True, layers=1, channel=[(1, 2)],
                          kernel_size=[(3, 3)], stride=[(2, 2)],
                          padding=[(1, 1)], batch_norm=True)
     return JSpec(add_cnn=add_cnn, cnn=cnn, rnn_input_size=8,
-                 rnn_hidden_size=16, rnn_layers=2, rnn_cell="lstm",
-                 bidirectional=True, batch_norm=True, num_class=6,
+                 rnn_hidden_size=16, rnn_layers=2, rnn_cell=cell,
+                 bidirectional=bidirectional, batch_norm=True, num_class=6,
                  drop_out=0.0, compute_dtype="float32",
                  pad_dynamics=pad_dynamics)
 
@@ -193,7 +195,20 @@ def assert_state_matches(spec, state, jstate, tol=TOL):
     ("batchmax", 0.0), ("padded", 0.5), ("valid", 0.0),
 ])
 def test_three_train_steps_match_jax(pad_dynamics, grad_clip):
-    jspec = small_spec(pad_dynamics)
+    three_steps_match_jax(small_spec(pad_dynamics), grad_clip)
+
+
+@pytest.mark.parametrize("variant", sorted(RECIPE_VARIANTS))
+def test_recipe_variant_three_train_steps_match_jax(variant):
+    cell, bidir = variant_cell(variant)
+    three_steps_match_jax(small_spec("batchmax", cell=cell, bidirectional=bidir),
+                          0.0)
+
+
+def three_steps_match_jax(jspec, grad_clip):
+    """Three fp32 steps of the port and of the JAX package from one init on
+    the same batches: loss and sizes each step, then params, BN state and
+    Adam moments."""
     params, mstate = jax_weights(jspec, seed=4)
     lr, wd = 1e-3, 5e-4
     tx = jax_make_optimizer(lr, wd, grad_clip)
@@ -291,10 +306,18 @@ def tiny_config(cls, root):
 
 @pytest.fixture
 def trainers(tmp_path):
+    return make_trainers(tmp_path)
+
+
+def make_trainers(tmp_path, rnn_type="nn.LSTM", bidirectional=True):
+    """A port and a JAX ``Trainer`` on one tiny corpus, from one init, and
+    their loaders: ``(trainer, (train, dev), jtrainer, (jtrain, jdev))``."""
     (tmp_path / "units").write_text("".join(p + "\n" for p in PHONES))
     write_split(tmp_path, "train", 8, seed=0)
     write_split(tmp_path, "dev", 4, seed=1)
     cfg, jcfg = tiny_config(Config, tmp_path), tiny_config(JConfig, tmp_path)
+    for c in (cfg, jcfg):
+        c.rnn_type, c.bidirectional = rnn_type, bidirectional
     vocab, jvocab = Vocab(cfg.vocab_file), JVocab(jcfg.vocab_file)
     spec = ModelSpec.from_config(cfg, num_class=vocab.n_words)
     jspec = JSpec.from_config(jcfg, num_class=jvocab.n_words)
@@ -424,3 +447,40 @@ def test_cli_trains_on_the_cpu_and_its_package_decodes(trainers, tmp_path):
     res = cli_test.evaluate(cli_train.load_config(conf), str(best),
                             device="cpu", verbose=False, log=lambda *_: None)
     assert res["batches"] == 1 and np.isfinite(res["wer"])
+
+
+@pytest.mark.parametrize("variant", sorted(RECIPE_VARIANTS))
+def test_recipe_variant_trainer_and_packages_cross_both_ways(tmp_path, variant):
+    """``Trainer.fit`` of the tanh-cell and the one-direction model makes the
+    JAX trainer's epoch; best and resume packages load on the other side."""
+    rnn_type, bidir = RECIPE_VARIANTS[variant]
+    trainer, (tr, dv), jtrainer, (jtr, jdv) = make_trainers(
+        tmp_path, rnn_type, bidir)
+    assert trainer.spec.rnn_cell == variant_cell(variant)[0]
+    assert trainer.spec.bidirectional == bidir
+    quiet = lambda *_: None  # noqa: E731
+    best = trainer.fit(tr, dv, num_epoches=2, log=quiet)
+    jbest = jtrainer.fit(jtr, jdv, num_epoches=2, log=quiet)
+    got, want = records(trainer), records(jtrainer)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("lr", "train_loss", "dev_loss", "train_acc", "dev_acc"):
+            assert g[k] == pytest.approx(w[k], abs=TOL), (k, g, w)
+    assert_state_matches(trainer.spec, trainer.state, jtrainer.state)
+
+    _, jparams, jmstate, jman = jckpt.model_from_package(best)
+    _, wparams, wmstate, wman = jckpt.model_from_package(jbest)
+    assert jman["leaf_counts"] == wman["leaf_counts"]
+    for g, w in zip(jax.tree_util.tree_leaves((jparams, jmstate)),
+                    jax.tree_util.tree_leaves((wparams, wmstate))):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=TOL, rtol=0)
+
+    restored, man = jckpt.restore_train_state(trainer.save_resume_checkpoint(),
+                                              jtrainer.state)
+    assert man["step"] == trainer.state.step == 4
+    assert_state_matches(trainer.spec, trainer.state, restored, tol=0)
+    fresh = Trainer(trainer.cfg, trainer.spec, device="cpu",
+                    out_dir=str(tmp_path / "resumed"))
+    fresh.resume(jtrainer.save_resume_checkpoint())
+    assert fresh.epoch == 2 and fresh.state.step == 4
+    assert_state_matches(fresh.spec, fresh.state, jtrainer.state, tol=0)
