@@ -12,10 +12,12 @@ printed line; any failure ends the run with a nonzero exit and no result:
    trainable BiGRU forward, which launches the eval BiGRU's kernel under a
    count of its own, and backward, and the same three for the tanh RNN)
    against its plain PyTorch version on the card, at the main paths' shapes
-   and at edge shapes, with stated tolerances; the three recurrences of each
-   cell with one direction (ndir = 1); then the ten stacked-layout (v1) entry
-   points, each through the kernels against itself through the plain
-   versions, with the launches counted;
+   and at edge shapes, with stated tolerances; the LSTM's and GRU's backward
+   pre-pass, serial kernel and whole backward against their twins on both
+   branches of the serial kernel, with the branch the launcher reports; the
+   three recurrences of each cell with one direction (ndir = 1); then the
+   ten stacked-layout (v1) entry points, each through the kernels against
+   itself through the plain versions, with the launches counted;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
    with random weights from a seed, through ``cli.test.evaluate``; checks
@@ -43,9 +45,10 @@ printed line; any failure ends the run with a nonzero exit and no result:
 9. times at the bench shapes (TIMIT: B=128, T=160 -> T'=80, L=48; 863: B=128,
    T=200 -> T'=95, L=40) and at the recipes' batches (B=8; B=16): every
    kernel, its plain twin, its bound and the library call for the same
-   function, the stacked entry points, then the flagship's, the 863 model's
-   and the tanh model's decode forward and whole train step with their
-   device time by kernel.
+   function (the LSTM and GRU backwards: pre-pass, serial kernel and both,
+   in rounds with cuDNN's backward in fp32 and bf16), the stacked entry
+   points, then the flagship's, the 863 model's and the tanh model's decode
+   forward and whole train step with their device time by kernel.
 
 Four model paths are driven: the flagship (phases 4 and 5), the 863 model
 (phase 6), the tanh model (phase 7) and the unidirectional flagship (phase
@@ -219,9 +222,11 @@ def port_rnn_ops():
 
 
 NO_LAUNCHES = dict.fromkeys(
-    ("lstm_bidir", "lstm_bidir_train_fwd", "lstm_bidir_train_bwd", "ctc_alpha",
-     "ctc_beta", "gru_bidir", "gru_bidir_train_fwd", "gru_bidir_train_bwd",
-     "rnn_bidir", "rnn_bidir_train_fwd", "rnn_bidir_train_bwd"), 0)
+    ("lstm_bidir", "lstm_bidir_train_fwd", "lstm_bidir_train_bwd_prepass",
+     "lstm_bidir_train_bwd", "ctc_alpha", "ctc_beta", "gru_bidir",
+     "gru_bidir_train_fwd", "gru_bidir_train_bwd_prepass",
+     "gru_bidir_train_bwd", "rnn_bidir", "rnn_bidir_train_fwd",
+     "rnn_bidir_train_bwd"), 0)
 
 
 def launch_counts() -> dict:
@@ -230,11 +235,13 @@ def launch_counts() -> dict:
     rnn_ops, rnn_train_ops = port_rnn_ops()
     return {"lstm_bidir": lstm_ops.launches,
             "lstm_bidir_train_fwd": train_ops.launches_fwd,
+            "lstm_bidir_train_bwd_prepass": train_ops.launches_bwd_prepass,
             "lstm_bidir_train_bwd": train_ops.launches_bwd,
             "ctc_alpha": ctc_ops.launches_alpha,
             "ctc_beta": ctc_ops.launches_beta,
             "gru_bidir": gru_ops.launches,
             "gru_bidir_train_fwd": gru_train_ops.launches_fwd,
+            "gru_bidir_train_bwd_prepass": gru_train_ops.launches_bwd_prepass,
             "gru_bidir_train_bwd": gru_train_ops.launches_bwd,
             "rnn_bidir": rnn_ops.launches,
             "rnn_bidir_train_fwd": rnn_train_ops.launches_fwd,
@@ -249,8 +256,9 @@ def zero_counts() -> None:
     rnn_ops, rnn_train_ops = port_rnn_ops()
     stacked.calls = 0
     lstm_ops.launches = gru_ops.launches = rnn_ops.launches = 0
-    train_ops.launches_fwd = train_ops.launches_bwd = 0
-    gru_train_ops.launches_fwd = gru_train_ops.launches_bwd = 0
+    for mod in (train_ops, gru_train_ops):
+        mod.launches_fwd = mod.launches_bwd_prepass = mod.launches_bwd = 0
+        mod.launches_bwd_branch.update(dict.fromkeys(mod.launches_bwd_branch, 0))
     rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
 
@@ -266,8 +274,12 @@ def check_counts(counts: dict, want: dict, what: str,
                  want_stacked_calls: int = 0) -> None:
     """``counts`` must be ``want`` and zero for every kernel not named there,
     and the run since ``zero_counts`` must have entered the stacked-layout
-    wrappers ``want_stacked_calls`` times: a model's path never does."""
+    wrappers ``want_stacked_calls`` times: a model's path never does.  The
+    LSTM's and GRU's backward launch one pre-pass per serial launch, so
+    ``want`` names only the serial count."""
     want = {**NO_LAUNCHES, **want}
+    for cell in ("lstm", "gru"):
+        want[f"{cell}_bidir_train_bwd_prepass"] = want[f"{cell}_bidir_train_bwd"]
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     check(stacked_calls() == want_stacked_calls,
           f"{what}: {stacked_calls()} calls into ops/stacked.py, expected "
@@ -563,6 +575,102 @@ def phase_gru_vs_plain() -> dict:
         check(e_dw <= tol_b * dw_scale, f"GRU dW_hh disagrees with plain {where}")
         for key, err in (("eval", e_eval), ("fwd", e_fwd), ("bwd", e_bwd)):
             worst[key][name] = max(worst[key][name], err)
+    return worst
+
+
+# The LSTM's and GRU's hoisted backward: (cell, T', B, H, stream dtype,
+# directions, the serial branch the launcher must report).  The cluster
+# branch (16 or 32 batch rows a cluster) takes bf16 streams up to H = 416
+# (LSTM) and 480 (GRU); fp32 streams and wider H take the grid branch.  The
+# card's pytest cases (tests/test_torch_cuda.py) run the same list.
+HOIST_CASES = [
+    ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
+    ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
+    ("lstm", 100, 8, 384, "fp32", 2, "grid"),  # TIMIT recipe batch
+    ("gru", 95, 16, 256, "bf16", 2, "cluster"),  # 863 recipe batch
+    ("gru", 195, 16, 256, "bf16", 2, "cluster"),  # its longest bucket
+    ("lstm", 80, 128, 384, "fp32", 2, "grid"),
+    ("lstm", 1, 16, 64, "bf16", 2, "cluster"),  # T = 1
+    ("gru", 1, 1, 32, "fp32", 2, "grid"),  # T = 1, B = 1
+    ("lstm", 9, 1, 64, "bf16", 2, "cluster"),  # B = 1
+    ("gru", 9, 1, 64, "bf16", 2, "cluster"),
+    ("lstm", 12, 17, 48, "fp32", 2, "grid"),  # B = 17
+    ("gru", 12, 17, 48, "bf16", 2, "cluster"),
+    ("lstm", 10, 20, 37, "bf16", 2, "cluster"),  # H % 8 != 0
+    ("gru", 10, 20, 44, "bf16", 2, "cluster"),  # H % 8 == 4
+    ("lstm", 10, 20, 37, "fp32", 1, "grid"),  # one direction
+    ("gru", 12, 16, 64, "bf16", 1, "cluster"),
+    ("lstm", 6, 200, 64, "bf16", 2, "cluster"),  # 13 row slices
+    ("lstm", 6, 16, 416, "bf16", 2, "cluster"),  # widest cluster H
+    ("lstm", 6, 16, 424, "bf16", 2, "grid"),
+    ("gru", 6, 16, 480, "bf16", 2, "cluster"),
+    ("gru", 6, 16, 488, "bf16", 2, "grid"),
+]
+
+
+def phase_hoist_vs_plain() -> dict:
+    """The LSTM's and GRU's backward in its two launches: the pre-pass
+    kernel's planes against its twin's (fp32 sums in another order: FP32_TOL
+    in both stream dtypes), the serial kernel on the twin's planes against
+    the serial twin, and the whole backward against the whole twin (the
+    backward tolerances), with the branch the launcher reported.  Returns
+    the worst error per cell, kernel and dtype."""
+    import torch
+
+    _, train_ops, _ = port_ops()
+    _, gru_train_ops = port_gru_ops()
+    worst = {f"{cell}_{k}": {"fp32": 0.0, "bf16": 0.0}
+             for cell in ("lstm", "gru") for k in ("prepass", "serial", "bwd")}
+    for i, (cell, t, b, h, name, ndir, branch) in enumerate(HOIST_CASES):
+        bf16 = name == "bf16"
+        gates, mod = (4, train_ops) if cell == "lstm" else (3, gru_train_ops)
+        gx, w_hh, dy = recurrence_inputs(
+            t, b, h, torch.bfloat16 if bf16 else torch.float32, seed=520 + i,
+            gates=gates, ndir=ndir)
+        if cell == "lstm":
+            saved = train_ops.lstm_bidir_train_plain(gx, w_hh)
+        else:
+            saved = (port_gru_ops()[0].gru_bidir_plain(gx, w_hh),)
+        fn = {k: getattr(mod, f"{cell}_bidir_train_{k}") for k in (
+            "bwd_prepass_cuda", "bwd_prepass_plain", "bwd_serial_cuda",
+            "bwd_serial_plain", "backward_cuda", "backward_plain")}
+        before = dict(mod.launches_bwd_branch)
+        planes = fn["bwd_prepass_cuda"](gx, w_hh, *saved)
+        want_planes = fn["bwd_prepass_plain"](gx, w_hh, *saved)
+        serial = fn["bwd_serial_cuda"](want_planes, w_hh, dy)
+        want_serial = fn["bwd_serial_plain"](want_planes, w_hh, dy)
+        whole = fn["backward_cuda"](gx, w_hh, *saved, dy)
+        want_whole = fn["backward_plain"](gx, w_hh, *saved, dy)
+        torch.cuda.synchronize()
+        took = [k for k, v in mod.launches_bwd_branch.items() if v != before[k]]
+        errs = {"prepass": max_err(planes, want_planes)}
+        held = {"prepass": errs["prepass"]}
+        for key, got, want in (("serial", serial, want_serial),
+                               ("bwd", whole, want_whole)):
+            pairs = [(got, want)] if cell == "lstm" else list(zip(got, want))
+            errs[key] = max(max_err(g, w) for g, w in pairs)
+            held[key] = (max(scaled_err(g, w) for g, w in pairs) if bf16
+                         else errs[key])
+            check(all(torch.isfinite(g.float()).all().item() for g, _ in pairs),
+                  "non-finite kernel output")
+        tol_b = BF16_BWD_RTOL if bf16 else FP32_TOL
+        print(f"  {cell} backward T={t} B={b} H={h} ndir={ndir} {name}: branch "
+              f"{'+'.join(took)} (want {branch}); pre-pass planes "
+              f"{errs['prepass']:.3g} (tol {FP32_TOL}); serial kernel "
+              f"{errs['serial']:.3g}, pre-pass + serial {errs['bwd']:.3g}"
+              + (f" ({held['serial']:.3g}, {held['bwd']:.3g} of max(|want|, 1))"
+                 if bf16 else "") + f" (tol {tol_b:.3g})")
+        where = f"at T={t} B={b} H={h} ndir={ndir} {name}"
+        check(len(took) == 1 and took[0].startswith(branch),
+              f"{cell} backward took {took}, not {branch}, {where}")
+        check(torch.isfinite(planes).all().item(), "non-finite pre-pass planes")
+        check(held["prepass"] <= FP32_TOL,
+              f"{cell} pre-pass kernel disagrees with plain {where}")
+        check(held["serial"] <= tol_b,
+              f"{cell} serial kernel disagrees with plain {where}")
+        check(held["bwd"] <= tol_b, f"{cell} backward disagrees with plain {where}")
+        for key, err in errs.items():
+            worst[f"{cell}_{key}"][name] = max(worst[f"{cell}_{key}"][name], err)
     return worst
 
 
@@ -1198,6 +1306,82 @@ def ctc_bound(emit):
             "gflop": flops / 1e9, "mbytes": bytes_moved / 1e6}
 
 
+def prepass_bound(gx, w_hh, n_saved: int, n_planes: int, bf16: bool) -> dict:
+    """Least time for one backward pre-pass: gx and ``n_saved`` saved (T, B,
+    ndir H) planes read in the stream dtype, w_hh, and ``n_planes`` fp32
+    (ndir, T, B, H) factor planes written, over the memory rate; its one
+    (T B, H) x (H, nH) product per direction over the peak for its operands
+    (bf16 tensor cores with bf16 streams)."""
+    t, b, _ = gx.shape
+    ndir, h, nh = w_hh.shape
+    es = gx.element_size()
+    bytes_moved = (gx.numel() * es + n_saved * t * b * ndir * h * es
+                   + w_hh.numel() * es + n_planes * ndir * t * b * h * 4)
+    flops = 2 * ndir * t * b * h * nh
+    peak = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "bytes_ms": by_bytes * 1e3, "ops_ms": by_ops * 1e3,
+            "peak": ("bf16 tensor-core peak, 989 TFLOP/s" if bf16
+                     else "fp32 peak, 67 TFLOP/s"),
+            "gflop": flops / 1e9, "mbytes": bytes_moved / 1e6}
+
+
+ROUNDS = 3  # turns of kernel and library backward timings in one run
+
+
+def backward_vs_library(cell_cls, t, b, h, kernel_fn, tag) -> dict:
+    """The kernels' whole backward (``kernel_fn``) and cuDNN's backward of
+    ``cell_cls`` (bias-free, bidirectional, input 2H, so it also forms the
+    input projection's gradients, which the kernels leave to the caller) in
+    fp32 and in bf16, timed in turns ``ROUNDS`` times: the medians, and each
+    round's time."""
+    import torch
+
+    lib = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        mod = cell_cls(2 * h, h, bias=False, bidirectional=True).cuda().to(dt)
+        x = torch.randn(t, b, 2 * h, device="cuda", dtype=dt, requires_grad=True)
+        y, _ = mod(x)
+        dy = torch.randn_like(y)
+        wrt = (x, *mod.parameters())
+        lib[name] = (lambda y=y, wrt=wrt, dy=dy:
+                     torch.autograd.grad(y, wrt, dy, retain_graph=True))
+    rounds = {"kernel": [], "fp32": [], "bf16": []}
+    for _ in range(ROUNDS):
+        rounds["kernel"].append(cuda_ms(kernel_fn, reps=20))
+        for name, fn in lib.items():
+            rounds[name].append(cuda_ms(fn, reps=20))
+    med = {k: statistics.median(v) for k, v in rounds.items()}
+    print(f"  {tag}: backward in {ROUNDS} turns, median [min, max] ms: "
+          + "; ".join(f"{label} {med[k]:.4f} [{min(rounds[k]):.4f}, "
+                      f"{max(rounds[k]):.4f}]" for k, label in (
+                          ("kernel", "pre-pass + serial kernels"),
+                          ("fp32", f"cuDNN {cell_cls.__name__} fp32"),
+                          ("bf16", f"cuDNN {cell_cls.__name__} bf16")))
+          + f"; cuDNN fp32 / kernels {med['fp32'] / med['kernel']:.2f}x, "
+          f"bf16 / kernels {med['bf16'] / med['kernel']:.2f}x")
+    return {"ms": med["kernel"], "ms_rounds": rounds["kernel"],
+            "library_ms": med["fp32"], "library_ms_rounds": rounds["fp32"],
+            "library_ms_bf16": med["bf16"],
+            "library_ms_bf16_rounds": rounds["bf16"]}
+
+
+def print_hoist_times(out: dict, cell: str, tag, t, b, h, dtype,
+                      branch: str) -> None:
+    import torch
+
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    pre, bwd = out[f"{cell}_bidir_train_bwd_prepass"], out[f"{cell}_bidir_train_bwd"]
+    print(f"  {cell} backward, {tag} T'={t} B={b} H={h} {name} streams, serial "
+          f"branch {branch}: pre-pass {pre['ms']:.4f} ms (plain "
+          f"{pre['plain_ms']:.4f} ms; bound {pre['bound_ms']:.4f} ms by "
+          f"{pre['bound_by']}: {pre['mbytes']:.1f} MB, {pre['gflop']:.2f} GFLOP); "
+          f"serial kernel {bwd['serial_ms']:.4f} ms ({1e3 * bwd['serial_ms'] / t:.2f} "
+          f"us a step); pre-pass + serial {bwd['ms']:.4f} ms")
+
+
 def times_lstm(t, b, h, dtype, tag) -> dict:
     """Per-call times of the three recurrence kernels at one shape, their
     plain twins, bounds and the cuDNN yardstick."""
@@ -1221,9 +1405,15 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
                 lambda: train_ops.lstm_bidir_train_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=2, n_products=1,
                                bf16_products=bf16)},
+        "lstm_bidir_train_bwd_prepass": {
+            "ms": cuda_ms(lambda: train_ops.lstm_bidir_train_bwd_prepass_cuda(
+                gx, w_hh, ys, cs), reps=20),
+            "plain_ms": cuda_ms(
+                lambda: train_ops.lstm_bidir_train_bwd_prepass_plain(
+                    gx, w_hh, ys, cs), reps=5),
+            "library_ms": None,  # no one library call forms these planes
+            **prepass_bound(gx, w_hh, n_saved=2, n_planes=6, bf16=bf16)},
         "lstm_bidir_train_bwd": {
-            "ms": cuda_ms(lambda: train_ops.lstm_bidir_train_backward_cuda(
-                gx, w_hh, ys, cs, dy), reps=20),
             "plain_ms": cuda_ms(
                 lambda: train_ops.lstm_bidir_train_backward_plain(
                     gx, w_hh, ys, cs, dy), reps=5),
@@ -1231,22 +1421,30 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
             **recurrence_bound(gx, w_hh, n_planes=3, n_products=2,
                                n_gate_planes=2, bf16_products=bf16)},
     }
+    planes = train_ops.lstm_bidir_train_bwd_prepass_cuda(gx, w_hh, ys, cs)
+    before = dict(train_ops.launches_bwd_branch)
+    out["lstm_bidir_train_bwd"]["serial_ms"] = cuda_ms(
+        lambda: train_ops.lstm_bidir_train_bwd_serial_cuda(planes, w_hh, dy),
+        reps=20)
+    branch = [k for k, v in train_ops.launches_bwd_branch.items() if v != before[k]]
+    out["lstm_bidir_train_bwd"]["branch"] = "+".join(branch)
     # library yardstick: cuDNN BiLSTM, bias-free, fp32, forward and backward;
     # it also computes the input projection (T*B, 2H) @ (2H, 8H) and its
     # gradients, which the kernels are given and leave to the caller
     lstm = torch.nn.LSTM(2 * h, h, bias=False, bidirectional=True).cuda()
     x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
-    dy_lib = torch.randn(t, b, 2 * h, device="cuda")
     with torch.no_grad():
         out["lstm_bidir"]["library_ms"] = cuda_ms(lambda: lstm(x_lib), reps=20)
     out["lstm_bidir_train_fwd"]["library_ms"] = cuda_ms(
         lambda: lstm(x_lib), reps=20)
-    y_lib, _ = lstm(x_lib)
-    wrt = (x_lib, *lstm.parameters())
-    out["lstm_bidir_train_bwd"]["library_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
-        reps=20)
-    print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.LSTM")
+    out["lstm_bidir_train_bwd"].update(backward_vs_library(
+        torch.nn.LSTM, t, b, h,
+        lambda: train_ops.lstm_bidir_train_backward_cuda(gx, w_hh, ys, cs, dy),
+        f"lstm, {tag}"))
+    print_recurrence_times({k: v for k, v in out.items() if "prepass" not in k},
+                           tag, t, b, h, dtype, "cuDNN nn.LSTM")
+    print_hoist_times(out, "lstm", tag, t, b, h, dtype,
+                      out["lstm_bidir_train_bwd"]["branch"])
     return out
 
 
@@ -1286,9 +1484,15 @@ def times_gru(t, b, h, dtype, tag) -> dict:
             "plain_ms": cuda_ms(lambda: gru_ops.gru_bidir_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
                                bf16_products=bf16)},
+        "gru_bidir_train_bwd_prepass": {
+            "ms": cuda_ms(lambda: gru_train_ops.gru_bidir_train_bwd_prepass_cuda(
+                gx, w_hh, ys), reps=20),
+            "plain_ms": cuda_ms(
+                lambda: gru_train_ops.gru_bidir_train_bwd_prepass_plain(
+                    gx, w_hh, ys), reps=5),
+            "library_ms": None,  # no one library call forms these planes
+            **prepass_bound(gx, w_hh, n_saved=1, n_planes=5, bf16=bf16)},
         "gru_bidir_train_bwd": {
-            "ms": cuda_ms(lambda: gru_train_ops.gru_bidir_train_backward_cuda(
-                gx, w_hh, ys, dy), reps=20),
             "plain_ms": cuda_ms(
                 lambda: gru_train_ops.gru_bidir_train_backward_plain(
                     gx, w_hh, ys, dy), reps=5),
@@ -1297,21 +1501,30 @@ def times_gru(t, b, h, dtype, tag) -> dict:
             **recurrence_bound(gx, w_hh, n_planes=3, n_products=2,
                                n_gate_planes=2, bf16_products=bf16)},
     }
+    planes = gru_train_ops.gru_bidir_train_bwd_prepass_cuda(gx, w_hh, ys)
+    before = dict(gru_train_ops.launches_bwd_branch)
+    out["gru_bidir_train_bwd"]["serial_ms"] = cuda_ms(
+        lambda: gru_train_ops.gru_bidir_train_bwd_serial_cuda(planes, w_hh, dy),
+        reps=20)
+    branch = [k for k, v in gru_train_ops.launches_bwd_branch.items()
+              if v != before[k]]
+    out["gru_bidir_train_bwd"]["branch"] = "+".join(branch)
     # library yardstick: cuDNN BiGRU, bias-free, fp32, forward and backward;
     # it also computes the input projection (T*B, 2H) @ (2H, 6H) and its
     # gradients, which the kernels are given and leave to the caller
     gru = torch.nn.GRU(2 * h, h, bias=False, bidirectional=True).cuda()
     x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
-    dy_lib = torch.randn(t, b, 2 * h, device="cuda")
     with torch.no_grad():
         out["gru_bidir"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
     out["gru_bidir_train_fwd"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
-    y_lib, _ = gru(x_lib)
-    wrt = (x_lib, *gru.parameters())
-    out["gru_bidir_train_bwd"]["library_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
-        reps=20)
-    print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.GRU")
+    out["gru_bidir_train_bwd"].update(backward_vs_library(
+        torch.nn.GRU, t, b, h,
+        lambda: gru_train_ops.gru_bidir_train_backward_cuda(gx, w_hh, ys, dy),
+        f"gru, {tag}"))
+    print_recurrence_times({k: v for k, v in out.items() if "prepass" not in k},
+                           tag, t, b, h, dtype, "cuDNN nn.GRU")
+    print_hoist_times(out, "gru", tag, t, b, h, dtype,
+                      out["gru_bidir_train_bwd"]["branch"])
     return out
 
 
@@ -1547,6 +1760,7 @@ def main() -> int:
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
     errs_gru = phase_gru_vs_plain()
+    errs_hoist = phase_hoist_vs_plain()
     errs_rnn = phase_rnn_vs_plain()
     errs_unidir = phase_unidir_vs_plain()
     errs_stacked = phase_stacked_vs_plain()
@@ -1636,9 +1850,14 @@ def main() -> int:
          tpu + "lstm_pallas_train_v2.py:438 _fwd_pallas (lstm_scan_train_v2)",
          lstm_paths, errs_train["fwd"]["fp32"], errs_train["fwd"]["bf16"],
          errs_unidir["lstm"]),
+        ("lstm_bidir_train_bwd_prepass", csrc + "bwd_hoist.cuh",
+         tpu + "lstm_pallas_train_v2.py:203 _lstm_prepass (in _bwd_pallas, "
+         "call :478)", lstm_paths, errs_hoist["lstm_prepass"]["fp32"],
+         errs_hoist["lstm_prepass"]["bf16"], errs_unidir["lstm"]),
         ("lstm_bidir_train_bwd", csrc + "lstm_bidir_train.cu",
          tpu + "lstm_pallas_train_v2.py:478 _bwd_pallas (lstm_scan_train_v2)",
-         lstm_paths, errs_train["bwd"]["fp32"], errs_train["bwd"]["bf16"],
+         lstm_paths, max(errs_train["bwd"]["fp32"], errs_hoist["lstm_bwd"]["fp32"]),
+         max(errs_train["bwd"]["bf16"], errs_hoist["lstm_bwd"]["bf16"]),
          errs_unidir["lstm"]),
         ("ctc_alpha", csrc + "ctc_dp.cu",
          tpu + "ctc_pallas.py:132 ctc_alpha_pallas", ctc_paths,
@@ -1654,9 +1873,14 @@ def main() -> int:
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_scan_train_v2)",
          ("863",), errs_gru["fwd"]["fp32"], errs_gru["fwd"]["bf16"],
          errs_unidir["gru"]),
+        ("gru_bidir_train_bwd_prepass", csrc + "bwd_hoist.cuh",
+         tpu + "gru_pallas_v2.py:239 pre-pass of _make_bwd_kernel (in "
+         "_bwd_pallas, call :382)", ("863",), errs_hoist["gru_prepass"]["fp32"],
+         errs_hoist["gru_prepass"]["bf16"], errs_unidir["gru"]),
         ("gru_bidir_train_bwd", csrc + "gru_bidir_train.cu",
          tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2)",
-         ("863",), errs_gru["bwd"]["fp32"], errs_gru["bwd"]["bf16"],
+         ("863",), max(errs_gru["bwd"]["fp32"], errs_hoist["gru_bwd"]["fp32"]),
+         max(errs_gru["bwd"]["bf16"], errs_hoist["gru_bwd"]["bf16"]),
          errs_unidir["gru"]),
         ("rnn_bidir", csrc + "rnn_bidir.cu",
          tpu + "rnn_pallas_v2.py:228 _fwd_pallas (rnn_bidir_v2 train=False)",
@@ -1686,6 +1910,13 @@ def main() -> int:
                  "plain_ms_recipe_batch": at_recipe["plain_ms"],
                  "bound_ms_recipe_batch": at_recipe["bound_ms"],
                  "library_ms_recipe_batch": at_recipe["library_ms"]}
+        # the backwards: the serial kernel alone, its branch, cuDNN in bf16,
+        # every turn of the timings
+        for key in ("serial_ms", "branch", "ms_rounds", "library_ms_rounds",
+                    "library_ms_bf16", "library_ms_bf16_rounds"):
+            if key in at_bench:
+                entry[key] = at_bench[key]
+                entry[f"{key}_recipe_batch"] = at_recipe[key]
         if err_bf16 is not None:
             entry["max_abs_err_bf16"] = err_bf16
         if err_ndir1 is not None:

@@ -1,0 +1,1031 @@
+// The hoisted backward of the LSTM and GRU recurrences for Hopper (sm_90a),
+// shared by lstm_bidir_train.cu and gru_bidir_train.cu: the gate pre-pass
+// kernel and the cluster kernel of the serial chain.
+//
+// Port of the hoisted backward of the JAX package
+// (ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:_lstm_prepass and its step,
+// gru_pallas_v2.py:_make_bwd_kernel's pre-pass and step).  Everything in a
+// backward step that waits on no carry -- the recompute product h_prev @
+// w_hh, the transcendentals and the gate Jacobians -- is one fully parallel
+// launch over (t, b, direction) that folds them into fp32 factor planes,
+// (ndir, T, P, B, Hp) with Hp = H rounded up to a multiple of 4:
+//   LSTM, P = 6:  A = o(1 - tc^2), Gi = g i(1 - i), Gf = c_prev f(1 - f),
+//                 Gg = i(1 - g^2), Go = tc o(1 - o), F = f
+//   GRU,  P = 5:  P_r = p_n hh_n r(1 - r), P_z = (h_prev - n) z(1 - z),
+//                 P_n = p_n = (1 - z)(1 - n^2), P_hn = p_n r, Z = z
+// indexed by forward time.  h_prev(t) is the saved row of ys at t - 1 for
+// direction 0 and t + 1 for direction 1, zero outside.  The serial chain
+// then keeps only the carry-dependent multiplies and dh = round_S(dpre) @
+// w_hh^T (the GRU adds dh_t Z).
+//
+// Pre-pass: a (T B, H) x (H, nH) product per direction, gx and the saved
+// planes in, the planes out.  A CTA owns 64 (t, b) rows and 16 hidden units
+// with all their gate columns, so the epilogue finds every gate of a (row,
+// unit) pair in one thread's registers; the epilogue's inputs (gx, cs or
+// ys) are loaded before the product, and each thread stores two adjacent
+// units of a plane at once.  bf16 streams: mma.sync m16n8k16 on ldmatrix
+// fragments, bf16 operands (the saved ys and w_hh^T rounded to bf16), fp32
+// sums; fp32 streams: fp32 FMA on CUDA cores (fp32 parity, no TF32).  Its
+// bound is the bytes: 24 GFLOP but 286 MB at T=80, B=128, H=384 (189 MB of
+// them the planes it writes, read once more by the serial kernel).
+//
+// Serial chain, bf16 streams, the cluster branch: one thread-block cluster
+// of CL <= 8 CTAs per (direction, slice of 16 or 32 batch rows); the
+// recurrence couples only the hidden units of one batch row in one
+// direction, so clusters never meet and the launch is not cooperative.  CTA
+// r owns Uc units (Uc = ceil(H / 8) rounded up to 4) and all their gate
+// columns, and keeps resident in shared memory the rows of w_hh that its
+// columns meet: ws[unit'][q Uc + u] = w_hh[unit', q H + r Uc + u] for every
+// unit', bf16.  Per step a CTA forms dpre for its (row, unit) pairs and
+// multiplies its rounded dpre slice with ws on the tensor cores: the partial
+// dh of ALL units from its own gate columns (a split of the contraction, so
+// dpre never leaves the CTA).  It writes each peer's share of that partial
+// (rows x Uc units, fp32) into the peer's shared memory (distributed shared
+// memory, st.shared::cluster of 4 floats), and each CTA sums the CL
+// partials it received, in rank order, into dh.  A split of the units
+// instead (each CTA gathering every peer's bf16 dpre) would need the whole
+// rows x 4H dpre beside 147 KB of weights at H = 384, and moves more bytes.
+//
+// What a step costs (tools/probe_bwd_steps.py on an H100: clock64 stamps
+// of one thread, LSTM H = 384, 16 rows, ~10k cycles): the product (~2.6k),
+// the DSMEM writes (~2.4k for 24 KB, about 10 bytes a clock per SM), the
+// receive sum (~1.2k) and the cluster barriers (~2.1k: the release arrive
+// ~1.2k, the waits and the read arrive ~0.9k).  The design keeps the
+// barrier count at one round trip and a half a step: one receive buffer,
+// and a relaxed "read" arrive that lets peers refill it while this CTA
+// forms dpre; the release arrive that publishes the data is not held up by
+// global stores, which come after it; the next step's planes and dy are
+// loaded during the product.  Only 15 clusters of 8 one-CTA-per-SM blocks
+// fit on a 132-SM H100 at once, so where 16-row clusters would run in two
+// waves (B = 128 with two directions) the launcher takes 32-row clusters
+// (two m16 tiles sharing each weight fragment).  The launcher's choice is
+// asked of the CUDA runtime once per device and shape (cluster_branch).
+// The branch takes bf16 streams while its shared memory fits (LSTM H <= 416,
+// GRU H <= 480) and a cluster of CL CTAs can be placed.
+//
+// Everything else -- fp32 streams (their resident fp32 weights do not fit a
+// cluster of 8 at H = 384) and H past the bound -- takes the grid branch:
+// the persistent cooperative grid kernel of each source, reading the same
+// planes.  The launcher reports which branch it took.
+
+#pragma once
+
+#include <array>
+#include <cstdint>
+#include <map>
+#include <mutex>
+
+#include "lstm_fwd.cuh"
+
+namespace {
+
+constexpr int kPreRows = 64;   // (t, b) rows of a pre-pass tile
+constexpr int kPreUnits = 16;  // hidden units of a pre-pass tile
+constexpr int kPreK = 32;      // k depth of a staged pre-pass tile
+constexpr int kPreLd = kPreK + 8;  // bf16 row stride: conflict-free fragments
+constexpr int kSlice = 16;         // batch rows of a cluster (one mma M tile)
+constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kMaxNtw = 8;         // step-product n-tiles per warp (H <= 512)
+constexpr int kClusterThreads = 256;
+
+struct LstmCell {
+  static constexpr int kGates = 4;
+  static constexpr int kPlanes = 6;
+};
+struct GruCell {
+  static constexpr int kGates = 3;
+  static constexpr int kPlanes = 5;
+};
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// d += a * b, one m16n8k16 tile: bf16 operands, fp32 sums.  Not volatile:
+// it only computes, so the compiler may interleave it with the loads.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes each, 16-byte aligned).
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const unsigned short* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// The A fragment of rows [0, 16) x k [k0, k0 + 16) of a row-major bf16 tile
+// with row stride ld.
+__device__ __forceinline__ void ldsm_a(unsigned* a, const unsigned short* tile,
+                                       int ld, int k0, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  ldsm_x4(a, tile + (8 * (mi & 1) + r) * ld + k0 + 8 * (mi >> 1));
+}
+
+// The B fragments (b0, b1 of n-tile n0 / 8, then of the next) of rows
+// [n0, n0 + 16) x k [k0, k0 + 16) of an n-major bf16 tile with row stride ld.
+__device__ __forceinline__ void ldsm_b2(unsigned* b, const unsigned short* tile,
+                                        int ld, int n0, int k0, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  ldsm_x4(b, tile + (size_t)(n0 + 8 * (mi >> 1) + r) * ld + k0 + 8 * (mi & 1));
+}
+
+// h_prev(t)'s time index in direction d, or -1 outside [0, T)
+__device__ __forceinline__ int prev_time(int t, int d, int T) {
+  const int tp = d == 0 ? t - 1 : t + 1;
+  return tp < T ? tp : -1;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 pre-pass epilogue: one (t, b, unit) of direction d with its G
+// recurrent products hh; writes the P planes of that entry.  (The bf16
+// pre-pass works on pairs of units: emit_pair below.)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void emit_planes(
+    LstmCell, const float* __restrict__ gx, const float* __restrict__ ys,
+    const float* __restrict__ cs, float* __restrict__ planes, const float* hh,
+    int t, int b, int unit, int d, int T, int B, int H, int Hp, int ndir) {
+  const size_t h4 = 4 * (size_t)H;
+  const float* g = gx + ((size_t)t * B + b) * ndir * h4 + d * h4 + unit;
+  const float ig = sigmoid_f(load_f(g) + hh[0]);
+  const float fg = sigmoid_f(load_f(g + H) + hh[1]);
+  const float gg = tanhf(load_f(g + 2 * H) + hh[2]);
+  const float og = sigmoid_f(load_f(g + 3 * H) + hh[3]);
+  const size_t row = (size_t)ndir * H;
+  const int tp = prev_time(t, d, T);
+  const float c_t = load_f(cs + ((size_t)t * B + b) * row + d * H + unit);
+  const float c_prev =
+      tp >= 0 ? load_f(cs + ((size_t)tp * B + b) * row + d * H + unit) : 0.f;
+  const float tc = tanhf(c_t);
+  const size_t ps = (size_t)B * Hp;
+  float* out = planes + (((size_t)d * T + t) * LstmCell::kPlanes * B + b) * Hp +
+               unit;
+  out[0] = og * (1.0f - tc * tc);
+  out[ps] = gg * (ig * (1.0f - ig));
+  out[2 * ps] = c_prev * (fg * (1.0f - fg));
+  out[3 * ps] = ig * (1.0f - gg * gg);
+  out[4 * ps] = tc * (og * (1.0f - og));
+  out[5 * ps] = fg;
+}
+
+__device__ __forceinline__ void emit_planes(
+    GruCell, const float* __restrict__ gx, const float* __restrict__ ys,
+    const float* __restrict__, float* __restrict__ planes, const float* hh, int t,
+    int b, int unit, int d, int T, int B, int H, int Hp, int ndir) {
+  const size_t h3 = 3 * (size_t)H;
+  const float* g = gx + ((size_t)t * B + b) * ndir * h3 + d * h3 + unit;
+  const float rg = sigmoid_f(load_f(g) + hh[0]);
+  const float zg = sigmoid_f(load_f(g + H) + hh[1]);
+  const float hh_n = hh[2];
+  const float ng = tanhf(load_f(g + 2 * H) + rg * hh_n);
+  const int tp = prev_time(t, d, T);
+  const float hp =
+      tp >= 0 ? load_f(ys + ((size_t)tp * B + b) * ndir * H + d * H + unit)
+              : 0.f;
+  const float p_n = (1.0f - zg) * (1.0f - ng * ng);
+  const size_t ps = (size_t)B * Hp;
+  float* out = planes + (((size_t)d * T + t) * GruCell::kPlanes * B + b) * Hp +
+               unit;
+  out[0] = p_n * hh_n * (rg * (1.0f - rg));
+  out[ps] = (hp - ng) * (zg * (1.0f - zg));
+  out[2 * ps] = p_n;
+  out[3 * ps] = p_n * rg;
+  out[4 * ps] = zg;
+}
+
+// 8 consecutive bf16 of a row as raw bits, zero past n valid entries; one
+// 16-byte load when vec (the row and k are 16-byte aligned).
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int n,
+                                       bool vec) {
+  if (vec && n >= 8) return *reinterpret_cast<const uint4*>(p);
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  unsigned short v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = j < n ? q[j] : 0;
+  return make_uint4(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16,
+                    v[4] | (unsigned)v[5] << 16, v[6] | (unsigned)v[7] << 16);
+}
+
+// 2 consecutive bf16 as raw bits, zero past n valid entries; one 4-byte load
+// when vec.
+__device__ __forceinline__ unsigned load2(const __nv_bfloat16* p, int n,
+                                          bool vec) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  if (vec && n >= 2) return *reinterpret_cast<const unsigned*>(q);
+  return (n > 0 ? q[0] : 0u) | (n > 1 ? (unsigned)q[1] << 16 : 0u);
+}
+__device__ __forceinline__ float lo_f(unsigned v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v & 0xffff)));
+}
+__device__ __forceinline__ float hi_f(unsigned v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v >> 16)));
+}
+
+// ---------------------------------------------------------------------------
+// pre-pass kernel, bf16 streams: tensor cores
+// ---------------------------------------------------------------------------
+
+// What the epilogue of one (row, unit pair) reads besides the products: the
+// gate inputs of both units and, per cell, c_t and c_prev (LSTM) or h_prev
+// (GRU), as packed bf16 pairs; loaded before the product so that their
+// latency hides behind it.
+template <class Cell>
+struct PairInputs {
+  unsigned gx[Cell::kGates];
+  unsigned extra[2];
+};
+
+// The planes of two adjacent units (unit, unit + 1) of one (t, b) from
+// their products hh[q][e]; stored as float2 (rows of the planes are padded
+// to a multiple of 4, so unit + 1 < Hp).
+__device__ __forceinline__ void emit_pair(LstmCell, const PairInputs<LstmCell>& in,
+                                          const float (*hh)[2], float* out,
+                                          size_t ps) {
+  float v[LstmCell::kPlanes][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    auto pick = [&](unsigned x) { return e ? hi_f(x) : lo_f(x); };
+    const float ig = sigmoid_f(pick(in.gx[0]) + hh[0][e]);
+    const float fg = sigmoid_f(pick(in.gx[1]) + hh[1][e]);
+    const float gg = tanhf(pick(in.gx[2]) + hh[2][e]);
+    const float og = sigmoid_f(pick(in.gx[3]) + hh[3][e]);
+    const float tc = tanhf(pick(in.extra[0]));
+    const float c_prev = pick(in.extra[1]);
+    v[0][e] = og * (1.0f - tc * tc);
+    v[1][e] = gg * (ig * (1.0f - ig));
+    v[2][e] = c_prev * (fg * (1.0f - fg));
+    v[3][e] = ig * (1.0f - gg * gg);
+    v[4][e] = tc * (og * (1.0f - og));
+    v[5][e] = fg;
+  }
+#pragma unroll
+  for (int p = 0; p < LstmCell::kPlanes; ++p)
+    *reinterpret_cast<float2*>(out + p * ps) = make_float2(v[p][0], v[p][1]);
+}
+
+__device__ __forceinline__ void emit_pair(GruCell, const PairInputs<GruCell>& in,
+                                          const float (*hh)[2], float* out,
+                                          size_t ps) {
+  float v[GruCell::kPlanes][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    auto pick = [&](unsigned x) { return e ? hi_f(x) : lo_f(x); };
+    const float rg = sigmoid_f(pick(in.gx[0]) + hh[0][e]);
+    const float zg = sigmoid_f(pick(in.gx[1]) + hh[1][e]);
+    const float hh_n = hh[2][e];
+    const float ng = tanhf(pick(in.gx[2]) + rg * hh_n);
+    const float hp = pick(in.extra[0]);
+    const float p_n = (1.0f - zg) * (1.0f - ng * ng);
+    v[0][e] = p_n * hh_n * (rg * (1.0f - rg));
+    v[1][e] = (hp - ng) * (zg * (1.0f - zg));
+    v[2][e] = p_n;
+    v[3][e] = p_n * rg;
+    v[4][e] = zg;
+  }
+#pragma unroll
+  for (int p = 0; p < GruCell::kPlanes; ++p)
+    *reinterpret_cast<float2*>(out + p * ps) = make_float2(v[p][0], v[p][1]);
+}
+
+// CTA (m-tile, unit group, direction), 4 warps; warp w owns tile rows
+// [16 w, 16 w + 16) and every column: column j of the tile is gate j / 16 of
+// unit u0 + j % 16.  wt is w_hh^T (ndir, G H, H) bf16, the transposed
+// weights rounded to bf16, so both operands stage as 16-byte rows.
+template <class Cell>
+__global__ void __launch_bounds__(128, 4)
+    prepass_mma_kernel(const __nv_bfloat16* __restrict__ gx,
+                       const __nv_bfloat16* __restrict__ wt,
+                       const __nv_bfloat16* __restrict__ ys,
+                       const __nv_bfloat16* __restrict__ cs,
+                       float* __restrict__ planes, int T, int B, int H, int Hp,
+                       int ndir, int vec8, int vec2) {
+  constexpr int G = Cell::kGates;
+  constexpr bool kLstm = G == LstmCell::kGates;
+  constexpr int kCols = G * kPreUnits;
+  constexpr int kNt = kCols / 8;                       // n-tiles of a warp
+  constexpr int kBChunks = (kCols * kPreK / 8 + 127) / 128;  // per thread
+  __shared__ __align__(16) unsigned short as[2][kPreRows][kPreLd];
+  __shared__ __align__(16) unsigned short bs[2][kCols][kPreLd];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int d = blockIdx.z;
+  const int u0 = blockIdx.y * kPreUnits;
+  const int m0 = blockIdx.x * kPreRows;
+  const int M = T * B;
+  const size_t gh = (size_t)G * H;
+  const size_t lanes = (size_t)ndir * H;
+  const int n_kt = (H + kPreK - 1) / kPreK;
+
+  // the epilogue's inputs: rows g, g + 8 of the warp, unit pairs s
+  PairInputs<Cell> pin[2][2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int m = m0 + 16 * warp + g + 8 * ri;
+    const int t = m < M ? m / B : 0, b = m < M ? m % B : 0;
+    const int tp = prev_time(t, d, T);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int unit = u0 + 8 * s + 2 * c;
+      const int n = m < M ? H - unit : 0;  // valid units from here
+      const __nv_bfloat16* gp = gx + ((size_t)t * B + b) * ndir * gh + d * gh + unit;
+#pragma unroll
+      for (int q = 0; q < G; ++q) pin[ri][s].gx[q] = load2(gp + (size_t)q * H, n, vec2);
+      const size_t o_t = ((size_t)t * B + b) * lanes + (size_t)d * H + unit;
+      const size_t o_p = ((size_t)(tp < 0 ? 0 : tp) * B + b) * lanes + (size_t)d * H + unit;
+      if constexpr (kLstm) {
+        pin[ri][s].extra[0] = load2(cs + o_t, n, vec2);
+        pin[ri][s].extra[1] = load2(cs + o_p, tp < 0 ? 0 : n, vec2);
+      } else {
+        pin[ri][s].extra[0] = load2(ys + o_p, tp < 0 ? 0 : n, vec2);
+        pin[ri][s].extra[1] = 0;
+      }
+    }
+  }
+
+  uint4 ra[2], rb[kBChunks];
+  auto fetch = [&](int kt) {
+    const int k0 = kt * kPreK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + i * 128;
+      const int r = e >> 2, k = k0 + 8 * (e & 3);
+      const int m = m0 + r;
+      int tp = -1, b = 0;
+      if (m < M) {
+        b = m % B;
+        tp = prev_time(m / B, d, T);
+      }
+      ra[i] = tp >= 0 && k < H
+                  ? load8(ys + ((size_t)tp * B + b) * lanes + (size_t)d * H + k,
+                          H - k, vec8)
+                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBChunks; ++i) {
+      const int e = tid + i * 128;
+      const int j = e >> 2, k = k0 + 8 * (e & 3);
+      const int unit = u0 + j % kPreUnits;
+      rb[i] = e < kCols * 4 && unit < H && k < H
+                  ? load8(wt + ((size_t)d * gh + (size_t)(j / kPreUnits) * H +
+                                unit) * H + k,
+                          H - k, vec8)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + i * 128;
+      *reinterpret_cast<uint4*>(&as[buf][e >> 2][8 * (e & 3)]) = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kBChunks; ++i) {
+      const int e = tid + i * 128;
+      if (e < kCols * 4)
+        *reinterpret_cast<uint4*>(&bs[buf][e >> 2][8 * (e & 3)]) = rb[i];
+    }
+  };
+
+  float acc[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  fetch(0);
+  put(0);
+  __syncthreads();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) fetch(kt + 1);
+#pragma unroll
+    for (int ks = 0; ks < kPreK / 16; ++ks) {
+      unsigned a[4], bf[kNt / 2][4];
+      ldsm_a(a, &as[buf][16 * warp][0], kPreLd, 16 * ks, lane);
+#pragma unroll
+      for (int n = 0; n < kNt / 2; ++n)
+        ldsm_b2(bf[n], &bs[buf][0][0], kPreLd, 16 * n, 16 * ks, lane);
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+        mma_bf16(acc[n], a, bf[n / 2][2 * (n & 1)], bf[n / 2][2 * (n & 1) + 1]);
+    }
+    if (kt + 1 < n_kt) put(buf ^ 1);
+    __syncthreads();
+  }
+
+  // thread's entries: rows g, g + 8 of the warp's 16; unit pairs 8 s + 2 c;
+  // gate q of unit half s is n-tile 2 q + s
+  const size_t ps = (size_t)B * Hp;
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int m = m0 + 16 * warp + g + 8 * ri;
+    if (m >= M) continue;
+    const int t = m / B, b = m % B;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int unit = u0 + 8 * s + 2 * c;
+      if (unit >= H) continue;
+      float hh[G][2];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        hh[q][0] = acc[2 * q + s][2 * ri];
+        hh[q][1] = acc[2 * q + s][2 * ri + 1];
+      }
+      emit_pair(Cell{}, pin[ri][s], hh,
+                planes + (((size_t)d * T + t) * Cell::kPlanes * B + b) * Hp + unit,
+                ps);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pre-pass kernel, fp32 streams: CUDA cores
+// ---------------------------------------------------------------------------
+
+// CTA (m-tile, unit group, direction), 256 threads; thread (unit u, row
+// group rq) sums rows [4 rq, 4 rq + 4) of the tile for all G gates of u.
+template <class Cell>
+__global__ void __launch_bounds__(256)
+    prepass_fma_kernel(const float* __restrict__ gx,
+                       const float* __restrict__ w,
+                       const float* __restrict__ ys,
+                       const float* __restrict__ cs,
+                       float* __restrict__ planes, int T, int B, int H, int Hp,
+                       int ndir) {
+  constexpr int G = Cell::kGates;
+  constexpr int kCols = G * kPreUnits;
+  __shared__ float as[kPreRows][kPreK + 1];
+  __shared__ float bs[kPreK][kCols];
+  const int tid = threadIdx.x;
+  const int u = tid % kPreUnits, rq = tid / kPreUnits;  // rq in 0..15
+  const int d = blockIdx.z;
+  const int u0 = blockIdx.y * kPreUnits;
+  const int m0 = blockIdx.x * kPreRows;
+  const int M = T * B;
+  const size_t gh = (size_t)G * H;
+
+  float acc[4][G];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < G; ++q) acc[j][q] = 0.f;
+  for (int k0 = 0; k0 < H; k0 += kPreK) {
+    for (int e = tid; e < kPreRows * kPreK; e += 256) {
+      const int r = e / kPreK, kk = e % kPreK;
+      const int m = m0 + r, k = k0 + kk;
+      int tp = -1, b = 0;
+      if (m < M) {
+        b = m % B;
+        tp = prev_time(m / B, d, T);
+      }
+      as[r][kk] = tp >= 0 && k < H
+                      ? ys[((size_t)tp * B + b) * ndir * H + (size_t)d * H + k]
+                      : 0.f;
+    }
+    for (int e = tid; e < kPreK * kCols; e += 256) {
+      const int j = e % kCols, kk = e / kCols;
+      const int unit = u0 + j % kPreUnits, k = k0 + kk;
+      bs[kk][j] = unit < H && k < H
+                      ? w[((size_t)d * H + k) * gh +
+                          (size_t)(j / kPreUnits) * H + unit]
+                      : 0.f;
+    }
+    __syncthreads();
+    const int kn = min(kPreK, H - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float bv[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) bv[q] = bs[kk][q * kPreUnits + u];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float av = as[4 * rq + j][kk];
+#pragma unroll
+        for (int q = 0; q < G; ++q) acc[j][q] = fmaf(av, bv[q], acc[j][q]);
+      }
+    }
+    __syncthreads();
+  }
+  const int unit = u0 + u;
+  if (unit >= H) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int m = m0 + 4 * rq + j;
+    if (m < M)
+      emit_planes(Cell{}, gx, ys, cs, planes, acc[j], m / B, m % B, unit, d,
+                  T, B, H, Hp, ndir);
+  }
+}
+
+// Launch the pre-pass of one cell on the stream.  w: with bf16 streams
+// w_hh^T (ndir, G H, H) bf16, else w_hh (ndir, H, G H) fp32, rounded to the
+// stream type; cs is unused by the GRU.
+template <class Cell>
+cudaError_t launch_prepass(const void* gx, const void* w, const void* ys,
+                           const void* cs, void* planes, int T, int B, int H,
+                           int Hp, int ndir, int bf16, cudaStream_t stream) {
+  const dim3 grid((T * B + kPreRows - 1) / kPreRows,
+                  (H + kPreUnits - 1) / kPreUnits, ndir);
+  if (bf16) {
+    auto aligned = [](const void* p, int n) {
+      return reinterpret_cast<uintptr_t>(p) % n == 0;
+    };
+    // 16-byte rows of ys and w^T, 4-byte pairs of gx, cs and ys, where every
+    // row start is so aligned
+    const int vec8 = H % 8 == 0 && aligned(ys, 16) && aligned(w, 16);
+    const int vec2 = H % 2 == 0 && aligned(gx, 4) && aligned(ys, 4) &&
+                     (cs == nullptr || aligned(cs, 4));
+    prepass_mma_kernel<Cell><<<grid, 128, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(gx),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(ys),
+        static_cast<const __nv_bfloat16*>(cs), static_cast<float*>(planes), T,
+        B, H, Hp, ndir, vec8, vec2);
+  } else {
+    prepass_fma_kernel<Cell><<<grid, 256, 0, stream>>>(
+        static_cast<const float*>(gx), static_cast<const float*>(w),
+        static_cast<const float*>(ys), static_cast<const float*>(cs),
+        static_cast<float*>(planes), T, B, H, Hp, ndir);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// serial chain, cluster branch (bf16 streams)
+// ---------------------------------------------------------------------------
+
+// The cluster's shape for H and kM x 16 batch rows: Uc units per CTA (a
+// multiple of 4), CL CTAs, the contraction depth Kp (G Uc rounded up to 16)
+// and the shared memory: the resident weights, the dpre slice and one
+// receive buffer.
+struct ClusterShape {
+  int uc, cl, kp, nt;
+  size_t smem;
+};
+
+inline ClusterShape cluster_shape(int gates, int H, int km) {
+  ClusterShape s;
+  s.uc = ((H + kMaxCluster - 1) / kMaxCluster + 3) / 4 * 4;
+  s.cl = (H + s.uc - 1) / s.uc;
+  s.kp = (gates * s.uc + 15) / 16 * 16;
+  s.nt = (H + 7) / 8;
+  const size_t ldk = s.kp + 8;
+  s.smem = ((size_t)8 * s.nt + kSlice * km) * ldk * 2 +
+           (size_t)s.cl * kSlice * km * s.uc * sizeof(float);
+  return s;
+}
+
+// dpre of 4 units of one (row, quad) pair from the carry-free planes pl
+// (plane-major, 4 units each), dy and dh; updates the cell's own carry.
+__device__ __forceinline__ void cell_step(LstmCell, const float (*pl)[4],
+                                          const float* dyv, const float* dh,
+                                          float* carry, float (*dpre)[4],
+                                          float*) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float dh_t = dyv[e] + dh[e];
+    const float dct = carry[e] + dh_t * pl[0][e];
+    dpre[0][e] = dct * pl[1][e];
+    dpre[1][e] = dct * pl[2][e];
+    dpre[2][e] = dct * pl[3][e];
+    dpre[3][e] = dh_t * pl[4][e];
+    carry[e] = dct * pl[5][e];  // dc
+  }
+}
+
+// GRU: dpre = dh_t [P_r, P_z, P_n], dhh_n = dh_t P_hn (written to dhhn), the
+// carry is dh_t Z, added to the next step's product.  dpre[2] is what enters
+// the product: dhh_n, not dpre_n.
+__device__ __forceinline__ void cell_step(GruCell, const float (*pl)[4],
+                                          const float* dyv, const float* dh,
+                                          float* carry, float (*dpre)[4],
+                                          float* dpre_n) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float dh_t = dyv[e] + (dh[e] + carry[e]);
+    dpre[0][e] = dh_t * pl[0][e];
+    dpre[1][e] = dh_t * pl[1][e];
+    dpre_n[e] = dh_t * pl[2][e];
+    dpre[2][e] = dh_t * pl[3][e];
+    carry[e] = dh_t * pl[4][e];
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// Arrive without ordering memory; the operand makes the arrive wait for the
+// shared-memory loads that produced it, so the caller's reads are done.
+__device__ __forceinline__ void cluster_arrive_after(float v) {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::"f"(v)
+               : "memory");
+}
+
+// Four floats into the shared memory of CTA `rank` of the cluster, at the
+// address that p has in this CTA's.
+__device__ __forceinline__ void st_cluster4(float* p, int rank, float4 v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(a), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// 4 floats as 4 packed bf16
+__device__ __forceinline__ uint2 pack4_bf16(const float* v) {
+  return make_uint2(bf16_bits(v[0]) | (unsigned)bf16_bits(v[1]) << 16,
+                    bf16_bits(v[2]) | (unsigned)bf16_bits(v[3]) << 16);
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the first n of 4 packed bf16 at p: one 8-byte store when vec
+__device__ __forceinline__ void store4_bf16(__nv_bfloat16* p, uint2 w, int n,
+                                            bool vec) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<uint2*>(p) = w;
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+  const unsigned short h[4] = {(unsigned short)(w.x & 0xffff),
+                               (unsigned short)(w.x >> 16),
+                               (unsigned short)(w.y & 0xffff),
+                               (unsigned short)(w.y >> 16)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n) q[e] = h[e];
+}
+
+// Phase stamps of the serial step, for tools/probe_bwd_steps.py: built with
+// BWD_STEP_STAMPS defined, thread 0 of the first CTA adds the clock64()
+// cycles since the stamp before to bwd_step_cycles[i] at stamp i.  The
+// package's build leaves them out.
+#ifdef BWD_STEP_STAMPS
+__device__ long long bwd_step_cycles[16];
+#define BWD_STAMP_START                                                   \
+  const bool stamp_ = threadIdx.x == 0 && blockIdx.x == 0 &&             \
+                      blockIdx.y == 0 && blockIdx.z == 0;                 \
+  long long last_ = clock64();
+#define BWD_STAMP(i)                                                      \
+  if (stamp_) {                                                           \
+    const long long now_ = clock64();                                     \
+    bwd_step_cycles[i] += now_ - last_;                                   \
+    last_ = now_;                                                         \
+  }
+#else
+#define BWD_STAMP_START
+#define BWD_STAMP(i)
+#endif
+
+// Cluster (direction blockIdx.z, rows [16 kM blockIdx.y, +16 kM)), CTA rank
+// blockIdx.x; see the header.  w is w_hh (ndir, H, G H) fp32 with bf16
+// values; dy, dgx (and the GRU's dhhn) bf16.  vec4: dy, dgx and dhhn rows
+// are 8-byte aligned at every 4th unit (H % 4 == 0).
+//
+// Per step, with one receive buffer: wait for the data of the step before,
+// sum it into dh, arrive at "read" (the buffer may be refilled once every
+// CTA has), form dpre, load the next step's planes, multiply, wait at
+// "read", write the peers' shares, arrive with the data, and only then store
+// dgx (global stores before a release arrive would hold it up).  The
+// cluster's one hardware barrier alternates between the two.
+template <class Cell, int kM>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    bwd_cluster_kernel(const float* __restrict__ planes,
+                       const float* __restrict__ w,
+                       const __nv_bfloat16* __restrict__ dy,
+                       __nv_bfloat16* __restrict__ dgx,
+                       __nv_bfloat16* __restrict__ dhhn, int T, int B, int H,
+                       int Hp, int ndir, int uc, int kp, int vec4) {
+  constexpr int G = Cell::kGates;
+  constexpr int P = Cell::kPlanes;
+  constexpr bool kGru = P == GruCell::kPlanes;
+  constexpr int kRowsC = kSlice * kM;  // batch rows of the cluster
+  extern __shared__ float4 hoist_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int d = blockIdx.z, r0 = blockIdx.y * kRowsC;
+  const int nt = (H + 7) / 8;
+  const int ldk = kp + 8;
+  const int own0 = rank * uc;
+  const size_t gh = (size_t)G * H;
+  unsigned short* ws = reinterpret_cast<unsigned short*>(hoist_smem);
+  unsigned short* as = ws + (size_t)8 * nt * ldk;               // [kRowsC][ldk]
+  float* recv = reinterpret_cast<float*>(as + kRowsC * ldk);  // [cl][kRowsC][uc]
+
+  // resident: the rows of w_hh that this CTA's gate columns meet
+#pragma unroll 4
+  for (int idx = tid; idx < 8 * nt * kp; idx += kClusterThreads) {
+    const int n = idx / kp, k = idx % kp;
+    const int q = k / uc, unit = own0 + k % uc;
+    float v = 0.f;
+    if (n < H && q < G && unit < H)
+      v = w[((size_t)d * H + n) * gh + (size_t)q * H + unit];
+    ws[(size_t)n * ldk + k] = bf16_bits(v);
+  }
+  for (int idx = tid; idx < kRowsC * ldk; idx += kClusterThreads) as[idx] = 0;
+
+  // element-wise work: (row, 4-unit quad) pairs, kM per thread
+  const int nq = uc / 4;
+  const size_t ps = (size_t)B * Hp;
+  const size_t lanes = (size_t)ndir * H;
+  int row[kM], b[kM], u[kM];
+  bool active[kM], live[kM];
+#pragma unroll
+  for (int j = 0; j < kM; ++j) {
+    const int pi = tid + j * kClusterThreads;
+    active[j] = pi < kRowsC * nq;
+    row[j] = active[j] ? pi / nq : 0;
+    u[j] = own0 + 4 * (active[j] ? pi % nq : 0);
+    b[j] = r0 + row[j];
+    live[j] = active[j] && b[j] < B && u[j] < Hp;
+  }
+
+  float nx_pl[kM][P][4], nx_dy[kM][4];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < kM; ++j) {
+      if (!live[j]) continue;
+      const float* src =
+          planes + (((size_t)d * T + t) * P * B + b[j]) * Hp + u[j];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(src + p * ps);
+        nx_pl[j][p][0] = v.x, nx_pl[j][p][1] = v.y, nx_pl[j][p][2] = v.z,
+        nx_pl[j][p][3] = v.w;
+      }
+      const __nv_bfloat16* dsrc =
+          dy + ((size_t)t * B + b[j]) * lanes + d * H + u[j];
+      if (vec4 && u[j] + 4 <= H) {
+        const uint2 v = *reinterpret_cast<const uint2*>(dsrc);
+        nx_dy[j][0] = lo_f(v.x), nx_dy[j][1] = hi_f(v.x);
+        nx_dy[j][2] = lo_f(v.y), nx_dy[j][3] = hi_f(v.y);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          nx_dy[j][e] = u[j] + e < H ? __bfloat162float(dsrc[e]) : 0.f;
+      }
+    }
+  };
+
+  float carry[kM][4];
+#pragma unroll
+  for (int j = 0; j < kM; ++j) carry[j][0] = carry[j][1] = carry[j][2] = carry[j][3] = 0.f;
+  fetch(d == 0 ? T - 1 : 0);
+  cluster.sync();  // every CTA of the cluster runs and holds its weights
+  BWD_STAMP_START
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d == 0 ? T - 1 - s : s;
+    const bool more = s + 1 < T;
+    float dh[kM][4];
+#pragma unroll
+    for (int j = 0; j < kM; ++j) dh[j][0] = dh[j][1] = dh[j][2] = dh[j][3] = 0.f;
+    if (s > 0) {
+      cluster_wait();  // the partials of step s - 1 are in recv
+      BWD_STAMP(0)  // wait for the data
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        if (!active[j]) continue;
+        const float* src = recv + row[j] * uc + (u[j] - own0);
+#pragma unroll
+        for (int p = 0; p < kMaxCluster; ++p) {
+          if (p < cl) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(src + p * kRowsC * uc);
+            dh[j][0] += v.x, dh[j][1] += v.y, dh[j][2] += v.z, dh[j][3] += v.w;
+          }
+        }
+      }
+    }
+    BWD_STAMP(1)  // the receive sum
+    // "read": recv may be refilled
+    if (more) cluster_arrive_after(dh[0][0] + dh[kM - 1][3]);
+    BWD_STAMP(2)  // the read arrive
+
+    uint2 out[kM][G + kGru];  // dgx (and dhhn), stored after the exchange
+#pragma unroll
+    for (int j = 0; j < kM; ++j) {
+      if (!active[j]) continue;
+      float dpre[G][4], dpre_n[4];
+      cell_step(Cell{}, nx_pl[j], nx_dy[j], dh[j], carry[j], dpre, dpre_n);
+      const int n = b[j] < B ? min(4, H - u[j]) : 0;  // units to store
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const uint2 w = pack4_bf16(dpre[q]);
+        *reinterpret_cast<uint2*>(as + row[j] * ldk + q * uc + (u[j] - own0)) =
+            n >= 4 ? w
+                   : make_uint2((n > 0 ? w.x & 0xffff : 0) | (n > 1 ? w.x & 0xffff0000u : 0),
+                                (n > 2 ? w.y & 0xffff : 0) | (n > 3 ? w.y & 0xffff0000u : 0));
+        out[j][q] = kGru && q == 2 ? pack4_bf16(dpre_n) : w;
+      }
+      if constexpr (kGru) out[j][G] = pack4_bf16(dpre[2]);
+    }
+    BWD_STAMP(3)  // the element-wise step
+    auto store_out = [&]() {
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        if (!active[j]) continue;
+        const int n = b[j] < B ? min(4, H - u[j]) : 0;
+        __nv_bfloat16* o = dgx + ((size_t)t * B + b[j]) * ndir * gh + d * gh + u[j];
+#pragma unroll
+        for (int q = 0; q < G; ++q) store4_bf16(o + (size_t)q * H, out[j][q], n, vec4);
+        if constexpr (kGru)
+          store4_bf16(dhhn + ((size_t)t * B + b[j]) * lanes + d * H + u[j],
+                      out[j][G], n, vec4);
+      }
+    };
+    if (!more) {
+      store_out();
+      break;
+    }
+    fetch(d == 0 ? t - 1 : t + 1);
+    BWD_STAMP(4)  // the next step's loads issued
+    __syncthreads();  // the CTA's dpre slice is in as
+    BWD_STAMP(5)  // the CTA's barrier
+
+    // partial dh of every unit from this CTA's gate columns: warp w owns
+    // n-tiles [w ntw, w ntw + ntw) of every m-tile
+    const int ntw = (nt + 7) / 8;
+    const int j0 = warp * ntw;
+    const int cnt = min(ntw, nt - j0);
+    float acc[kM][kMaxNtw][4];
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int i = 0; i < kMaxNtw; ++i)
+        acc[mi][i][0] = acc[mi][i][1] = acc[mi][i][2] = acc[mi][i][3] = 0.f;
+    if (cnt > 0) {
+      for (int ks = 0; ks < kp / 16; ++ks) {
+        unsigned a[kM][4], bf[kMaxNtw / 2][4];
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi)
+          ldsm_a(a[mi], as + 16 * mi * ldk, ldk, 16 * ks, lane);
+#pragma unroll
+        for (int ip = 0; ip < kMaxNtw / 2; ++ip)
+          if (2 * ip < cnt)
+            ldsm_b2(bf[ip], ws, ldk, 8 * (j0 + 2 * ip), 16 * ks, lane);
+#pragma unroll
+        for (int i = 0; i < kMaxNtw; ++i)
+          if (i < cnt)
+#pragma unroll
+            for (int mi = 0; mi < kM; ++mi)
+              mma_bf16(acc[mi][i], a[mi], bf[i / 2][2 * (i & 1)],
+                       bf[i / 2][2 * (i & 1) + 1]);
+      }
+    }
+    BWD_STAMP(6)  // the product
+    cluster_wait();  // every CTA has read recv
+    BWD_STAMP(7)  // wait for the reads
+    // each peer's share into its shared memory, this CTA's slot: lanes c and
+    // c ^ 1 trade halves so that each writes 4 adjacent units of one row
+    float* slot = recv + rank * kRowsC * uc;
+    const bool odd = c & 1;
+#pragma unroll
+    for (int i = 0; i < kMaxNtw; ++i) {
+      if (i < cnt) {
+        const int n0 = 8 * (j0 + i) + 4 * (c >> 1);  // 4 units of the pair
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          const float* v = acc[mi][i];
+          const float x0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+          const float x1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+          if (n0 < H) {
+            const int peer = n0 / uc, off = n0 % uc;
+            const int r = 16 * mi + g + (odd ? 8 : 0);
+            st_cluster4(slot + r * uc + off, peer,
+                        odd ? make_float4(x0, x1, v[2], v[3])
+                            : make_float4(v[0], v[1], x0, x1));
+          }
+        }
+      }
+    }
+    BWD_STAMP(8)  // the DSMEM stores
+    cluster_arrive();  // the data of step s
+    BWD_STAMP(9)  // the data arrive
+    store_out();
+    BWD_STAMP(10)  // the global stores
+  }
+}
+
+constexpr int kMaxSmem = 232448;  // an H100 CTA's shared memory, opt-in
+
+// The launch of bwd_cluster_kernel<Cell, kM> for the shape; attr holds its
+// cluster dimension.
+template <class Cell, int kM>
+cudaLaunchConfig_t cluster_launch(const ClusterShape& cs, int B, int ndir,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs.cl, (B + kSlice * kM - 1) / (kSlice * kM), ndir);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = cs.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs.cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of bwd_cluster_kernel<Cell, kM> that the current device
+// holds at once at this shape, 0 where its shared memory does not fit.
+// Raises the kernel's dynamic shared memory limit to the card's maximum,
+// so that no launch needs the attribute call.
+template <class Cell, int kM>
+cudaError_t cluster_capacity(const ClusterShape& cs, int B, int ndir,
+                             int* capacity) {
+  *capacity = 0;
+  if (cs.smem > kMaxSmem) return cudaSuccess;
+  auto kernel = bwd_cluster_kernel<Cell, kM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_launch<Cell, kM>(cs, B, ndir, 0, attr);
+  return cudaOccupancyMaxActiveClusters(
+      capacity, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+// The serial chain's branch for the shape on the current device: 1 or 2
+// the cluster branch with 16 or 32 batch rows a cluster, 0 the grid branch.
+// The cluster branch takes bf16 streams where its shared memory fits and a
+// cluster can be placed; 32 rows where the 16-row clusters would not all
+// fit on the card at once and the 32-row ones do.  Asked of the runtime once
+// per (device, B, H, ndir) and kept: every training step asks again.
+template <class Cell>
+cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
+  *branch = 0;
+  const ClusterShape cs1 = cluster_shape(Cell::kGates, H, 1);
+  if (!bf16 || cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::array<int, 4>, int> known;
+  const std::array<int, 4> key = {device, B, H, ndir};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    *branch = hit->second;
+    return cudaSuccess;
+  }
+  int cap1 = 0, cap2 = 0;
+  err = cluster_capacity<Cell, 1>(cs1, B, ndir, &cap1);
+  if (err != cudaSuccess) return err;
+  int taken = cap1 >= 1 ? 1 : 0;
+  const int need1 = ndir * ((B + kSlice - 1) / kSlice);
+  const int need2 = ndir * ((B + 2 * kSlice - 1) / (2 * kSlice));
+  if (need1 > cap1 && need2 < need1) {
+    err = cluster_capacity<Cell, 2>(cluster_shape(Cell::kGates, H, 2), B, ndir,
+                                    &cap2);
+    if (err != cudaSuccess) return err;
+    if (cap2 >= 1 && (need2 <= cap2 || cap1 < 1)) taken = 2;
+  }
+  known[key] = taken;
+  *branch = taken;
+  return cudaSuccess;
+}
+
+// Launch the cluster branch with 16 kM batch rows a cluster (cluster_branch
+// chose it for the shape).
+template <class Cell, int kM>
+cudaError_t launch_cluster(const void* planes, const void* w, const void* dy,
+                           void* dgx, void* dhhn, int T, int B, int H, int Hp,
+                           int ndir, cudaStream_t stream) {
+  const ClusterShape cs = cluster_shape(Cell::kGates, H, kM);
+  // dy, dgx, dhhn in 8-byte pieces of 4 units where every row start is
+  // so aligned
+  auto aligned8 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 8 == 0;
+  };
+  const int vec4 = H % 4 == 0 && aligned8(dy) && aligned8(dgx) &&
+                   (dhhn == nullptr || aligned8(dhhn));
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_launch<Cell, kM>(cs, B, ndir, stream, attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, bwd_cluster_kernel<Cell, kM>, static_cast<const float*>(planes),
+      static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<__nv_bfloat16*>(dgx), static_cast<__nv_bfloat16*>(dhhn), T,
+      B, H, Hp, ndir, cs.uc, cs.kp, vec4);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace

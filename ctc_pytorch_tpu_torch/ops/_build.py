@@ -23,6 +23,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+# the serial backward kernels' branches, as their launchers number them: the
+# cooperative grid, and clusters of 16 or of 32 batch rows
+BRANCHES = ("grid", "cluster16", "cluster32")
+
+
 def device_kind(t, what: str) -> str:
     """``"cuda"`` or ``"cpu"`` for a tensor: the ops launch their kernel for
     the first and run the plain twin for the second; any other device raises."""
@@ -75,11 +80,83 @@ def check_plane(name: str, plane, gx, lanes: int) -> None:
                          f"{plane.device}")
 
 
+def check_serial(planes, w_hh, dy, n_planes: int, gates: int
+                 ) -> Tuple[int, int, int, int]:
+    """``(ndir, T, B, H)`` of a serial backward kernel's inputs, or raise:
+    the pre-pass planes ``(ndir, T, n_planes, B, H)`` fp32, ``w_hh (ndir, H,
+    gates * H)`` fp32 and ``dy (T, B, ndir * H)`` fp32 or bf16, on one
+    device."""
+    import torch
+
+    ndir, t_len, n, b, h = planes.shape
+    if (planes.dtype != torch.float32 or n != n_planes
+            or w_hh.dtype != torch.float32
+            or tuple(w_hh.shape) != (ndir, h, gates * h)
+            or dy.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(dy.shape) != (t_len, b, ndir * h)
+            or not planes.device == w_hh.device == dy.device):
+        raise ValueError(
+            f"want planes fp32 (ndir, T, {n_planes}, B, H), w_hh fp32 (ndir, "
+            f"H, {gates}H) and dy (T, B, ndir * H) on one device, got "
+            f"{tuple(planes.shape)}, {tuple(w_hh.shape)}, {tuple(dy.shape)}")
+    return ndir, t_len, b, h
+
+
 def step_times(t_len: int, ndir: int, s: int) -> Tuple[int, ...]:
     """Forward-time index of each direction at step ``s`` of a recurrence's
     forward walk: direction 0 at ``s``, direction 1 at ``T - 1 - s``.  The
     backward walk's step ``s`` is the forward walk's step ``T - 1 - s``."""
     return (s, t_len - 1 - s)[:ndir]
+
+
+def per_direction(plane, ndir: int):
+    """``(ndir, T, B, lanes)`` view of a ``(T, B, ndir * lanes)`` plane."""
+    t_len, b, lanes = plane.shape
+    return plane.reshape(t_len, b, ndir, lanes // ndir).permute(2, 0, 1, 3)
+
+
+def shifted(plane, ndir: int, acc):
+    """``(ndir, T, B, H)`` in ``acc`` of a ``(T, B, ndir * H)`` plane one step
+    earlier in each direction's forward walk: ``plane[t - 1]`` for direction
+    0, ``plane[t + 1]`` for direction 1, zero outside (h_prev and c_prev of
+    step t)."""
+    import torch
+
+    src = per_direction(plane, ndir).to(acc)
+    out = torch.zeros_like(src)
+    out[0, 1:] = src[0, :-1]
+    if ndir == 2:
+        out[1, :-1] = src[1, 1:]
+    return out
+
+
+def prepass_weights(w_hh, dtype):
+    """The backward pre-pass kernels' weight operand: with bf16 streams
+    ``w_hh^T (ndir, nH, H)`` in bf16 (its rows stage as the product's B
+    operand), else ``w_hh (ndir, H, nH)`` fp32; rounded to the stream dtype
+    either way."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return w_hh.to(dtype).transpose(1, 2).contiguous()
+    return w_hh.to(dtype).float().contiguous()
+
+
+def padded_planes(planes) -> Tuple[object, int]:
+    """``(buffer, Hp)``: the backward's factor planes ``(ndir, T, P, B, H)``
+    fp32 as the serial kernels read them, contiguous with rows of ``Hp`` (H
+    rounded up to a multiple of 4, for 16-byte loads); copied unless they
+    are already so."""
+    import torch
+
+    h = planes.shape[-1]
+    hp = -(-h // 4) * 4
+    if hp == h and planes.is_contiguous():
+        return planes, hp
+    buf = torch.zeros(*planes.shape[:-1], hp, dtype=torch.float32,
+                      device=planes.device)
+    buf[..., :h] = planes
+    return buf, hp
 
 
 def nvcc() -> str:

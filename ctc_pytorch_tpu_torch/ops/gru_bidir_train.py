@@ -12,21 +12,27 @@ direction, gate order r, z, n) and ``w_hh (2, H, 3H)`` fp32 and returns ``ys
 The forward is the eval op's function and kernel (``ops/gru_bidir.py``,
 ``csrc/gru_bidir.cu``: a GRU saves nothing but ``ys``, and in the JAX package
 too one ``_fwd_pallas`` serves both), with a launch count of its own.  The
-backward recomputes the gates from ``gx`` and ``h_prev @ w_hh`` with
-``h_prev`` read from the saved ``ys`` (in S, used both in the product and in
-``dz = dh_t * (h_prev - n)``), carries ``dh`` in fp32 and emits two planes in
-S: ``dgx (T, B, 6H) = [dpre_r | dpre_z | dpre_n]`` per direction and ``dhhn
-(T, B, 2H) = dpre_n * r``, the gradient of the n gate's recurrent branch
-(the n gate sees ``r * (h W_n)``).  ``[dpre_r, dpre_z, dhh_n]`` is rounded to
-S before ``@ w_hh^T``; ``dh_t * z`` is added in fp32.  ``dW_hh = [hp^T dpre_r
-| hp^T dpre_z | hp^T dhh_n]`` is formed here, outside the kernel, as plain
-GEMMs (as the JAX package forms it outside Pallas); the input projection and
-its gradients belong to the caller's ``torch.matmul``.
+backward is the hoisted form of the JAX kernel, in two launches: a gate
+pre-pass over every (t, b, direction) at once (``hh = h_prev @ w_hh`` with
+``h_prev`` read from the saved ``ys``, in S, used both in the product and in
+``P_z``; the gates and their Jacobians folded into five fp32 factor planes
+``[P_r | P_z | P_n | P_hn | Z]``), then the serial chain over those planes,
+which carries ``dh`` in fp32 and emits two planes in S: ``dgx (T, B, 6H) =
+[dpre_r | dpre_z | dpre_n]`` per direction and ``dhhn (T, B, 2H) = dpre_n *
+r``, the gradient of the n gate's recurrent branch (the n gate sees ``r * (h
+W_n)``).  ``[dpre_r, dpre_z, dhh_n]`` is rounded to S before ``@ w_hh^T``;
+``dh_t * z`` is added in fp32.  ``dW_hh = [hp^T dpre_r | hp^T dpre_z | hp^T
+dhh_n]`` is formed here, outside the kernels, as plain GEMMs (as the JAX
+package forms it outside Pallas); the input projection and its gradients
+belong to the caller's ``torch.matmul``.
 
-The kernels do their products on CUDA cores in fp32 and meet at one grid
-barrier per time step; that serial chain, not the card's limits, sets their
-time (``csrc/gru_bidir_train.cu`` counts the limits).  Any T >= 1, B >= 1 and
-H run, with no padding.
+The serial chain has two branches, which the launcher chooses by shape and
+reports (``launches_bwd_branch``): with bf16 streams and H <= 480 a
+thread-block cluster per (direction, 16 or 32 batch rows) runs its step
+product on the tensor cores and exchanges it in distributed shared memory;
+every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
+(``csrc/bwd_hoist.cuh``, ``csrc/gru_bidir_train.cu`` count the limits).  Any
+T >= 1, B >= 1 and H run, with no padding of the caller's tensors.
 
 CPU tensors take the plain twins; a CUDA tensor launches the kernels or the
 call raises.
@@ -41,24 +47,38 @@ import torch
 
 from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
 from ctc_pytorch_tpu_torch.ops._build import (
+    BRANCHES,
     KernelLibrary,
     acc_dtype,
     check_plane,
+    check_serial,
     device_kind,
+    padded_planes,
+    prepass_weights,
+    per_direction,
+    shifted,
     step_times,
 )
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "gru_bidir_train.cu",
-    {"gru_bidir_train_backward": ([_VP] * 8 + [_CI] * 6 + [_VP], _CI),
+    {"gru_bidir_train_bwd_prepass": ([_VP] * 4 + [_CI] * 6 + [_VP], _CI),
+     "gru_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "gru_bidir_train_backward": (
+         [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "gru_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=gru_ops.HEADERS)
+    headers=[*gru_ops.HEADERS, "bwd_hoist.cuh"])
 
-# kernel launches made through ``gru_bidir_train`` and its backward; the
-# plain path adds nothing
+PLANES = 5  # the pre-pass planes [P_r | P_z | P_n | P_hn | Z]
+
+# kernel launches made through ``gru_bidir_train`` and its backward (one
+# pre-pass and one serial launch per backward); the plain path adds nothing
 launches_fwd = 0
+launches_bwd_prepass = 0
 launches_bwd = 0
+# serial launches by the branch the launcher reported
+launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
 
 
 def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor,
@@ -85,52 +105,64 @@ def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor,
     return torch.stack([gemm(*p) for p in pairs[:ndir]])
 
 
-def gru_bidir_train_backward_plain(gx, w_hh, ys, dy
-                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernel's function in plain PyTorch, written out by hand
-    in the kernel's arithmetic (not autograd of the forward): ``(dgx (T, B,
-    ndir * 3H), dhhn (T, B, ndir * H))`` in the stream dtype."""
-    t_len, b, _ = gx.shape
+def gru_bidir_train_bwd_prepass_plain(gx, w_hh, ys) -> torch.Tensor:
+    """The pre-pass kernel's function in plain PyTorch: the carry-free
+    factor planes ``(ndir, T, 5, B, H)`` in the carries' dtype, ``[P_r | P_z
+    | P_n | P_hn | Z]`` of every step, indexed by forward time (the JAX
+    pre-pass stores them in step order)."""
     ndir, h = w_hh.shape[0], w_hh.shape[1]
-    sd, acc = gx.dtype, acc_dtype(gx.dtype)
-    w = w_hh.to(sd).to(acc)
-    wt = w.transpose(1, 2)
-    zero = torch.zeros(b, h, dtype=acc, device=gx.device)
-    dh = torch.zeros(ndir, b, h, dtype=acc, device=gx.device)
-    dgx = torch.empty_like(gx)
-    dhhn = torch.empty_like(ys)
+    acc = acc_dtype(gx.dtype)
+    w = w_hh.to(gx.dtype).to(acc)
+    h_prev = shifted(ys, ndir, acc)
+    hh = torch.matmul(h_prev, w[:, None])
+    hh_n = hh[..., 2 * h:]
+    r, z, n = gru_ops.gru_gates(per_direction(gx, ndir).to(acc), hh)
+    p_n = (1.0 - z) * (1.0 - n * n)
+    return torch.stack([
+        p_n * hh_n * (r * (1.0 - r)),      # P_r: dpre_r = dh_t P_r
+        (h_prev - n) * (z * (1.0 - z)),    # P_z: dpre_z = dh_t P_z
+        p_n,                               # P_n: dpre_n = dh_t P_n
+        p_n * r,                           # P_hn: dhh_n = dh_t P_hn
+        z,                                 # Z: dh_prev gets dh_t Z
+    ], dim=2)
+
+
+def gru_bidir_train_bwd_serial_plain(planes, w_hh, dy
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The serial kernel's function in plain PyTorch, over the pre-pass
+    planes: ``(dgx (T, B, ndir * 3H), dhhn (T, B, ndir * H))`` in ``dy``'s
+    dtype, rounded where the kernel rounds (``[dpre_r, dpre_z, dhh_n]``
+    before ``@ w_hh^T``)."""
+    ndir, t_len, _, b, h = planes.shape
+    sd, acc = dy.dtype, planes.dtype
+    wt = w_hh.to(sd).to(acc).transpose(1, 2)
+    dy_d = per_direction(dy, ndir)
+    dh = torch.zeros(ndir, b, h, dtype=acc, device=dy.device)
+    dgx = torch.empty(t_len, b, ndir * 3 * h, dtype=sd, device=dy.device)
+    dhhn = torch.empty(t_len, b, ndir * h, dtype=sd, device=dy.device)
     for s in range(t_len):
-        # direction 0 walks back, direction 1 forth; h_prev is the state the
-        # step started from, one step earlier in its own walk
+        # direction 0 walks back, direction 1 forth
         times = step_times(t_len, ndir, t_len - 1 - s)
-
-        def at(plane, d, t):
-            return (plane[t, :, d * h:(d + 1) * h].to(acc) if 0 <= t < t_len
-                    else zero)
-
-        h_prev = torch.stack([at(ys, d, t + (1 if d else -1))
-                              for d, t in enumerate(times)])
-        dy_t = torch.stack([at(dy, d, t) for d, t in enumerate(times)])
-        pre = torch.stack([gx[t, :, 3 * d * h:3 * (d + 1) * h]
-                           for d, t in enumerate(times)]).to(acc)
-        hh = torch.bmm(h_prev, w)
-        hh_n = hh[..., 2 * h:]
-        r, z, n = gru_ops.gru_gates(pre, hh)
-        dh_t = dy_t + dh
-        dz = dh_t * (h_prev - n)
-        dn = dh_t * (1.0 - z)
-        dpre_n = dn * (1.0 - n * n)
-        dr = dpre_n * hh_n
-        dpre_r = dr * r * (1.0 - r)
-        dpre_z = dz * z * (1.0 - z)
-        dhh_n = (dpre_n * r).to(sd)
-        dpre = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1).to(sd)
+        p_r, p_z, p_n, p_hn, z = torch.stack(
+            [planes[d, t] for d, t in enumerate(times)]).unbind(1)
+        dh_t = torch.stack([dy_d[d, t] for d, t in enumerate(times)]).to(acc) + dh
+        dpre = torch.cat([dh_t * p_r, dh_t * p_z, dh_t * p_n], dim=-1).to(sd)
+        dhh_n = (dh_t * p_hn).to(sd)
         for d, t in enumerate(times):
             dgx[t, :, 3 * d * h:3 * (d + 1) * h] = dpre[d]
             dhhn[t, :, d * h:(d + 1) * h] = dhh_n[d]
         dhh = torch.cat([dpre[..., :2 * h], dhh_n], dim=-1).to(acc)
         dh = torch.bmm(dhh, wt) + dh_t * z
     return dgx, dhhn
+
+
+def gru_bidir_train_backward_plain(gx, w_hh, ys, dy
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's function in plain PyTorch, written out by hand in the
+    kernels' hoisted arithmetic (not autograd of the forward): ``(dgx (T, B,
+    ndir * 3H), dhhn (T, B, ndir * H))`` in the stream dtype."""
+    return gru_bidir_train_bwd_serial_plain(
+        gru_bidir_train_bwd_prepass_plain(gx, w_hh, ys), w_hh, dy)
 
 
 def gru_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -142,40 +174,102 @@ def gru_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return ys
 
 
+def _raise(lib, err: int, what: str, t_len: int, b: int, h: int) -> None:
+    msg = lib.gru_bidir_train_error_string(err).decode()
+    raise RuntimeError(f"{what} kernel launch failed ({err}: {msg}) at "
+                       f"T={t_len} B={b} H={h}")
+
+
+def _launch_prepass(lib, gx, w_hh, ys, ndir, h) -> torch.Tensor:
+    w = prepass_weights(w_hh, gx.dtype)
+    global launches_bwd_prepass
+    t_len, b = gx.shape[:2]
+    hp = -(-h // 4) * 4  # rows padded for the serial kernel's 16-byte loads
+    planes = torch.empty(ndir, t_len, PLANES, b, hp, dtype=torch.float32,
+                         device=gx.device)
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    err = lib.gru_bidir_train_bwd_prepass(
+        gx.data_ptr(), w.data_ptr(), ys.data_ptr(), planes.data_ptr(), t_len,
+        b, h, hp, ndir, int(gx.dtype == torch.bfloat16), stream)
+    if err != 0:
+        _raise(lib, err, "gru_bidir_train backward pre-pass", t_len, b, h)
+    launches_bwd_prepass += 1
+    return planes
+
+
+def _launch_serial(lib, planes, hp, w, dy, ndir, h
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    global launches_bwd
+    t_len, b = dy.shape[:2]
+    bf16 = int(dy.dtype == torch.bfloat16)
+    dgx = torch.empty(t_len, b, ndir * 3 * h, dtype=dy.dtype, device=dy.device)
+    dhhn = torch.empty_like(dy)
+    branch = ctypes.c_int(-1)
+    err = lib.gru_bidir_train_bwd_branch(b, h, ndir, bf16, ctypes.byref(branch))
+    if err != 0:
+        _raise(lib, err, "gru_bidir_train backward branch", t_len, b, h)
+    ldh = -(-b // 4) * 4
+    scratch = []
+    if branch.value == 0:
+        # the grid branch's: exchange double buffer, (direction, parity, K4,
+        # ldh): 3H rows padded to a multiple of 4, row length to a multiple
+        # of 4 floats (16-byte copies); the dh scratch
+        k4 = -(-3 * h // 4) * 4
+        scratch = [torch.zeros(ndir, 2, k4, ldh, dtype=torch.float32,
+                               device=dy.device),
+                   torch.zeros(ndir, b, h, dtype=torch.float32, device=dy.device)]
+    ptrs = [x.data_ptr() for x in scratch] or [None] * 2
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    err = lib.gru_bidir_train_backward(
+        planes.data_ptr(), w.data_ptr(), dy.data_ptr(), dgx.data_ptr(),
+        dhhn.data_ptr(), *ptrs, t_len, b, h, hp, ldh, ndir, bf16, stream,
+        ctypes.byref(branch))
+    if err != 0:
+        _raise(lib, err, "gru_bidir_train backward", t_len, b, h)
+    launches_bwd += 1
+    launches_bwd_branch[BRANCHES[branch.value]] += 1
+    return dgx, dhhn
+
+
+def gru_bidir_train_bwd_prepass_cuda(gx, w_hh, ys) -> torch.Tensor:
+    """Launch the pre-pass kernel on the current stream: the planes ``(ndir,
+    T, 5, B, H)`` fp32 (a view of the padded buffer the serial kernel
+    reads).  Does not synchronise."""
+    t_len, b, h, ndir = gru_ops.check_inputs(gx, w_hh)
+    check_plane("ys", ys, gx, ndir * h)
+    gx, ys = gx.contiguous(), ys.contiguous()
+    with torch.cuda.device(gx.device):
+        planes = _launch_prepass(LIBRARY.load(), gx, w_hh, ys, ndir, h)
+    return planes[..., :h]
+
+
+def gru_bidir_train_bwd_serial_cuda(planes, w_hh, dy
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the serial kernel on the current stream over the planes
+    ``(ndir, T, 5, B, H)`` fp32: ``(dgx, dhhn)`` in ``dy``'s dtype.  Does not
+    synchronise."""
+    ndir, _, _, h = check_serial(planes, w_hh, dy, PLANES, 3)
+    buf, hp = padded_planes(planes)
+    w = w_hh.to(dy.dtype).float().contiguous()
+    with torch.cuda.device(dy.device):
+        return _launch_serial(LIBRARY.load(), buf, hp, w, dy.contiguous(),
+                              ndir, h)
+
+
 def gru_bidir_train_backward_cuda(gx, w_hh, ys, dy
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel on the current stream: ``(dgx, dhhn)`` in
-    the stream dtype.  Does not synchronise."""
-    global launches_bwd
+    """Launch the backward on the current stream, the pre-pass and then the
+    serial kernel: ``(dgx, dhhn)`` in the stream dtype.  Does not
+    synchronise."""
     t_len, b, h, ndir = gru_ops.check_inputs(gx, w_hh)
     for name, plane in (("ys", ys), ("dy", dy)):
         check_plane(name, plane, gx, ndir * h)
     gx, ys, dy = (p.contiguous() for p in (gx, ys, dy))
-    w = w_hh.to(gx.dtype).float().contiguous()
+    w = w_hh.to(gx.dtype).float().contiguous()  # rounded to the stream dtype
     lib = LIBRARY.load()
     with torch.cuda.device(gx.device):
-        dgx = torch.empty_like(gx)
-        dhhn = torch.empty_like(ys)
-        # exchange double buffer, (direction, parity, K4, ldh): 3H rows padded
-        # to a multiple of 4, row length to a multiple of 4 floats (16-byte
-        # copies)
-        ldh = -(-b // 4) * 4
-        k4 = -(-3 * h // 4) * 4
-        dpbuf = torch.zeros(ndir, 2, k4, ldh, dtype=torch.float32,
-                            device=gx.device)
-        dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = lib.gru_bidir_train_backward(
-            gx.data_ptr(), w.data_ptr(), ys.data_ptr(), dy.data_ptr(),
-            dgx.data_ptr(), dhhn.data_ptr(), dpbuf.data_ptr(),
-            dhbuf.data_ptr(), t_len, b, h, ldh, ndir,
-            int(gx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.gru_bidir_train_error_string(err).decode()
-        raise RuntimeError(f"gru_bidir_train backward kernel launch failed "
-                           f"({err}: {msg}) at T={t_len} B={b} H={h}")
-    launches_bwd += 1
-    return dgx, dhhn
+        planes = _launch_prepass(lib, gx, w_hh, ys, ndir, h)
+        return _launch_serial(lib, planes, planes.shape[-1], w, dy, ndir, h)
 
 
 class _GruBidirTrain(torch.autograd.Function):

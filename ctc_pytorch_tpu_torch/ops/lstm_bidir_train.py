@@ -16,19 +16,26 @@ cell states ``cs`` and ``dgx`` are stored in bf16, and ``dpre`` is rounded to
 bf16 before ``dpre @ w_hh^T``.  Carries (h, c, dh, dc), gate math and sums are
 fp32.  With fp32 streams everything is fp32.
 
-The backward kernel recomputes the gates from ``gx + h_prev @ w_hh`` with
-``h_prev`` read from the saved ``ys``, carries ``(dh, dc)`` and emits ``dgx``.
-``dW_hh`` is formed here, outside the kernel, as two plain GEMMs of shifted
-``ys`` against ``dgx`` (as the JAX package forms it outside Pallas); the input
-projection and its gradients belong to the caller's ``torch.matmul``.
+The backward is the hoisted form of the JAX kernel, in two launches: a gate
+pre-pass over every (t, b, direction) at once (``h_prev @ w_hh`` with
+``h_prev`` read from the saved ``ys``, the gates and their Jacobians folded
+with ``cs`` into six fp32 factor planes ``[A | Gi | Gf | Gg | Go | F]``), then
+the serial chain over those planes, which carries ``(dh, dc)`` and emits
+``dgx``.  ``dW_hh`` is formed here, outside the kernels, as two plain GEMMs of
+shifted ``ys`` against ``dgx`` (as the JAX package forms it outside Pallas);
+the input projection and its gradients belong to the caller's
+``torch.matmul``.
 
-The kernels do their products on CUDA cores in fp32 and meet at one grid
-barrier per time step; that serial chain of T steps, not the card's limits,
-sets their time.  With bf16 streams the products' operands are bf16 values,
-which the tensor cores could multiply, so the card's limit for the work is
-then its bytes; with fp32 streams it is the fp32 operations
-(``csrc/lstm_bidir_train.cu`` counts both).  Any T >= 1, B >= 1 and H run,
-with no padding.
+The serial chain has two branches, which the launcher chooses by shape and
+reports (``launches_bwd_branch``): with bf16 streams and H <= 416 a
+thread-block cluster per (direction, 16 or 32 batch rows) runs its step
+product on the tensor cores and exchanges it in distributed shared memory;
+every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
+(``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The forward keeps
+one grid barrier per time step.  With bf16 streams the products' operands
+are bf16 values, so the card's limit for the work is its bytes; with fp32
+streams it is the fp32 operations.  Any T >= 1, B >= 1 and H run, with no
+padding of the caller's tensors.
 
 CPU tensors take the plain twins; a CUDA tensor launches the kernels or the
 call raises.
@@ -45,8 +52,14 @@ from ctc_pytorch_tpu_torch.ops._build import (
     KernelLibrary,
     acc_dtype as _acc_dtype,
     check_plane,
+    BRANCHES,
     check_recurrence,
+    check_serial,
     device_kind,
+    padded_planes,
+    prepass_weights,
+    per_direction,
+    shifted,
     step_times,
 )
 
@@ -54,14 +67,22 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "lstm_bidir_train.cu",
     {"lstm_bidir_train_forward": ([_VP] * 6 + [_CI] * 6 + [_VP], _CI),
-     "lstm_bidir_train_backward": ([_VP] * 9 + [_CI] * 6 + [_VP], _CI),
+     "lstm_bidir_train_bwd_prepass": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
+     "lstm_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "lstm_bidir_train_backward": (
+         [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh"])
 
-# kernel launches made through ``lstm_bidir_train`` and its backward; the
-# plain path adds nothing
+PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
+
+# kernel launches made through ``lstm_bidir_train`` and its backward (one
+# pre-pass and one serial launch per backward); the plain path adds nothing
 launches_fwd = 0
+launches_bwd_prepass = 0
 launches_bwd = 0
+# serial launches by the branch the launcher reported
+launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
 
 
 def _gates(pre: torch.Tensor):
@@ -122,53 +143,61 @@ def lstm_bidir_train_plain(gx: torch.Tensor, w_hh: torch.Tensor
     return ys, cs
 
 
-def lstm_bidir_train_backward_plain(gx, w_hh, ys, cs, dy) -> torch.Tensor:
-    """The backward kernel's function in plain PyTorch, written out by hand
-    in the kernel's arithmetic (not autograd of the forward): ``dgx (T, B,
-    ndir * 4H)`` in the stream dtype."""
-    t_len, b, _ = gx.shape
-    ndir, h = w_hh.shape[0], w_hh.shape[1]
-    sd, acc = gx.dtype, _acc_dtype(gx.dtype)
-    w = w_hh.to(sd).to(acc)
-    wt = w.transpose(1, 2)
-    zero = torch.zeros(b, h, dtype=acc, device=gx.device)
-    dh = torch.zeros(ndir, b, h, dtype=acc, device=gx.device)
+def lstm_bidir_train_bwd_prepass_plain(gx, w_hh, ys, cs) -> torch.Tensor:
+    """The pre-pass kernel's function in plain PyTorch: the carry-free
+    factor planes ``(ndir, T, 6, B, H)`` in the carries' dtype, ``[A | Gi |
+    Gf | Gg | Go | F]`` of every step, indexed by forward time (the JAX
+    ``_lstm_prepass``, which stores them in step order)."""
+    ndir = w_hh.shape[0]
+    acc = _acc_dtype(gx.dtype)
+    w = w_hh.to(gx.dtype).to(acc)
+    h_prev, c_prev = shifted(ys, ndir, acc), shifted(cs, ndir, acc)
+    pre = per_direction(gx, ndir).to(acc) + torch.matmul(h_prev, w[:, None])
+    i, f, g, o = _gates(pre)
+    tc = torch.tanh(per_direction(cs, ndir).to(acc))
+    return torch.stack([
+        o * (1.0 - tc * tc),        # A: dct = dc + dh_t A
+        g * (i * (1.0 - i)),        # Gi: dpre_i = dct Gi
+        c_prev * (f * (1.0 - f)),   # Gf: dpre_f = dct Gf
+        i * (1.0 - g * g),          # Gg: dpre_g = dct Gg
+        tc * (o * (1.0 - o)),       # Go: dpre_o = dh_t Go
+        f,                          # F: dc_prev = dct F
+    ], dim=2)
+
+
+def lstm_bidir_train_bwd_serial_plain(planes, w_hh, dy) -> torch.Tensor:
+    """The serial kernel's function in plain PyTorch, over the pre-pass
+    planes: ``dgx (T, B, ndir * 4H)`` in ``dy``'s dtype, rounded where the
+    kernel rounds (``dpre`` before ``@ w_hh^T``)."""
+    ndir, t_len, _, b, h = planes.shape
+    sd, acc = dy.dtype, planes.dtype
+    wt = w_hh.to(sd).to(acc).transpose(1, 2)
+    dy_d = per_direction(dy, ndir)
+    dh = torch.zeros(ndir, b, h, dtype=acc, device=dy.device)
     dc = torch.zeros_like(dh)
-    dgx = torch.empty_like(gx)
+    dgx = torch.empty(t_len, b, ndir * 4 * h, dtype=sd, device=dy.device)
     for s in range(t_len):
-        # direction 0 walks back, direction 1 forth; each steps from t to
-        # t_prev, the step before it in its own walk
+        # direction 0 walks back, direction 1 forth
         times = step_times(t_len, ndir, t_len - 1 - s)
-        walk = (-1, 1)
-
-        def at(plane, d, t):
-            return (plane[t, :, d * h:(d + 1) * h].to(acc) if 0 <= t < t_len
-                    else zero)
-
-        def per_dir(plane, shift=0):
-            return torch.stack([at(plane, d, t + shift * walk[d])
-                                for d, t in enumerate(times)])
-
-        h_prev, c_prev = per_dir(ys, 1), per_dir(cs, 1)
-        c_t, dy_t = per_dir(cs), per_dir(dy)
-        pre = torch.stack([gx[t, :, 4 * d * h:4 * (d + 1) * h]
-                           for d, t in enumerate(times)]).to(acc)
-        i, f, g, o = _gates(pre + torch.bmm(h_prev, w))
-        tc = torch.tanh(c_t)
-        dh_t = dy_t + dh
-        d_o = dh_t * tc
-        dct = dc + dh_t * o * (1.0 - tc * tc)
-        dpre = torch.cat([
-            dct * g * (i * (1.0 - i)),
-            dct * c_prev * (f * (1.0 - f)),
-            dct * i * (1.0 - g * g),
-            d_o * (o * (1.0 - o)),
-        ], dim=-1).to(sd)
+        a, gi, gf, gg, go, f = torch.stack(
+            [planes[d, t] for d, t in enumerate(times)]).unbind(1)
+        dh_t = torch.stack([dy_d[d, t] for d, t in enumerate(times)]).to(acc) + dh
+        dct = dc + dh_t * a
+        dpre = torch.cat([dct * gi, dct * gf, dct * gg, dh_t * go],
+                         dim=-1).to(sd)
         for d, t in enumerate(times):
             dgx[t, :, 4 * d * h:4 * (d + 1) * h] = dpre[d]
         dh = torch.bmm(dpre.to(acc), wt)
         dc = dct * f
     return dgx
+
+
+def lstm_bidir_train_backward_plain(gx, w_hh, ys, cs, dy) -> torch.Tensor:
+    """The backward's function in plain PyTorch, written out by hand in the
+    kernels' hoisted arithmetic (not autograd of the forward): ``dgx (T, B,
+    ndir * 4H)`` in the stream dtype."""
+    return lstm_bidir_train_bwd_serial_plain(
+        lstm_bidir_train_bwd_prepass_plain(gx, w_hh, ys, cs), w_hh, dy)
 
 
 # ---------------------------------------------------------------------------
@@ -210,34 +239,90 @@ def lstm_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor
     return ys, cs
 
 
-def lstm_bidir_train_backward_cuda(gx, w_hh, ys, cs, dy) -> torch.Tensor:
-    """Launch the backward kernel on the current stream: ``dgx`` in the
-    stream dtype.  Does not synchronise."""
+def _launch_prepass(lib, gx, w_hh, ys, cs, ndir, h) -> torch.Tensor:
+    w = prepass_weights(w_hh, gx.dtype)
+    global launches_bwd_prepass
+    t_len, b = gx.shape[:2]
+    hp = -(-h // 4) * 4  # rows padded for the serial kernel's 16-byte loads
+    planes = torch.empty(ndir, t_len, PLANES, b, hp, dtype=torch.float32,
+                         device=gx.device)
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    err = lib.lstm_bidir_train_bwd_prepass(
+        gx.data_ptr(), w.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+        planes.data_ptr(), t_len, b, h, hp, ndir,
+        int(gx.dtype == torch.bfloat16), stream)
+    if err != 0:
+        _raise(lib, err, "lstm_bidir_train backward pre-pass", t_len, b, h)
+    launches_bwd_prepass += 1
+    return planes
+
+
+def _launch_serial(lib, planes, hp, w, dy, ndir, h) -> torch.Tensor:
     global launches_bwd
+    t_len, b = dy.shape[:2]
+    bf16 = int(dy.dtype == torch.bfloat16)
+    dgx = torch.empty(t_len, b, ndir * 4 * h, dtype=dy.dtype, device=dy.device)
+    branch = ctypes.c_int(-1)
+    err = lib.lstm_bidir_train_bwd_branch(b, h, ndir, bf16, ctypes.byref(branch))
+    if err != 0:
+        _raise(lib, err, "lstm_bidir_train backward branch", t_len, b, h)
+    ldh = -(-b // 4) * 4
+    scratch = []
+    if branch.value == 0:
+        # the grid branch's: dpre double buffer, (direction, parity, 4H,
+        # ldh), as hbuf above; the dh and dc scratch
+        dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=dy.device)
+        scratch = [torch.zeros(ndir, 2, 4 * h, ldh, dtype=torch.float32,
+                               device=dy.device), dhbuf, torch.zeros_like(dhbuf)]
+    ptrs = [x.data_ptr() for x in scratch] or [None] * 3
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    err = lib.lstm_bidir_train_backward(
+        planes.data_ptr(), w.data_ptr(), dy.data_ptr(), dgx.data_ptr(), *ptrs,
+        t_len, b, h, hp, ldh, ndir, bf16, stream, ctypes.byref(branch))
+    if err != 0:
+        _raise(lib, err, "lstm_bidir_train backward", t_len, b, h)
+    launches_bwd += 1
+    launches_bwd_branch[BRANCHES[branch.value]] += 1
+    return dgx
+
+
+def lstm_bidir_train_bwd_prepass_cuda(gx, w_hh, ys, cs) -> torch.Tensor:
+    """Launch the pre-pass kernel on the current stream: the planes ``(ndir,
+    T, 6, B, H)`` fp32 (a view of the padded buffer the serial kernel
+    reads).  Does not synchronise."""
+    t_len, b, h, ndir = check_recurrence(gx, w_hh, 4)
+    for name, plane in (("ys", ys), ("cs", cs)):
+        check_plane(name, plane, gx, ndir * h)
+    gx, ys, cs = (p.contiguous() for p in (gx, ys, cs))
+    with torch.cuda.device(gx.device):
+        planes = _launch_prepass(LIBRARY.load(), gx, w_hh, ys, cs, ndir, h)
+    return planes[..., :h]
+
+
+def lstm_bidir_train_bwd_serial_cuda(planes, w_hh, dy) -> torch.Tensor:
+    """Launch the serial kernel on the current stream over the planes
+    ``(ndir, T, 6, B, H)`` fp32: ``dgx`` in ``dy``'s dtype.  Does not
+    synchronise."""
+    ndir, t_len, b, h = check_serial(planes, w_hh, dy, PLANES, 4)
+    buf, hp = padded_planes(planes)
+    w = w_hh.to(dy.dtype).float().contiguous()
+    with torch.cuda.device(dy.device):
+        return _launch_serial(LIBRARY.load(), buf, hp, w, dy.contiguous(),
+                              ndir, h)
+
+
+def lstm_bidir_train_backward_cuda(gx, w_hh, ys, cs, dy) -> torch.Tensor:
+    """Launch the backward on the current stream, the pre-pass and then the
+    serial kernel: ``dgx`` in the stream dtype.  Does not synchronise."""
     t_len, b, h, ndir = check_recurrence(gx, w_hh, 4)
     for name, plane in (("ys", ys), ("cs", cs), ("dy", dy)):
         check_plane(name, plane, gx, ndir * h)
     gx, ys, cs, dy = (p.contiguous() for p in (gx, ys, cs, dy))
-    w = w_hh.to(gx.dtype).float().contiguous()
+    w = w_hh.to(gx.dtype).float().contiguous()  # rounded to the stream dtype
     lib = LIBRARY.load()
     with torch.cuda.device(gx.device):
-        dgx = torch.empty_like(gx)
-        # dpre double buffer, (direction, parity, 4H, ldh), as hbuf above
-        ldh = -(-b // 4) * 4
-        dpbuf = torch.zeros(ndir, 2, 4 * h, ldh, dtype=torch.float32,
-                            device=gx.device)
-        dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
-        dcbuf = torch.zeros_like(dhbuf)
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = lib.lstm_bidir_train_backward(
-            gx.data_ptr(), w.data_ptr(), ys.data_ptr(), cs.data_ptr(),
-            dy.data_ptr(), dgx.data_ptr(), dpbuf.data_ptr(), dhbuf.data_ptr(),
-            dcbuf.data_ptr(), t_len, b, h, ldh, ndir,
-            int(gx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        _raise(lib, err, "lstm_bidir_train backward", t_len, b, h)
-    launches_bwd += 1
-    return dgx
+        planes = _launch_prepass(lib, gx, w_hh, ys, cs, ndir, h)
+        return _launch_serial(lib, planes, planes.shape[-1], w, dy, ndir, h)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port on the card: each Hopper kernel (eval LSTM, GRU and tanh RNN,
-their trainable forwards and backwards, CTC alpha and beta) against its plain
-twin, with two directions and with one, the stacked-layout entry points'
-launch counts, and the models on CUDA against the same models on the CPU, in
-eval and in a train step.
+their trainable forwards and backwards, the LSTM's and GRU's backward
+pre-pass and serial chain on both of its branches, CTC alpha and beta)
+against its plain twin, with two directions and with one, the stacked-layout
+entry points' launch counts, and the models on CUDA against the same models
+on the CPU, in eval and in a train step.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -10,6 +11,9 @@ the JAX-only ``tests/conftest.py``:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +30,11 @@ from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as train_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
 from ctc_pytorch_tpu_torch.ops import stacked
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from chip_smoke import HOIST_CASES  # noqa: E402  the shapes phase 3 holds
 
 pytestmark = pytest.mark.cuda
 
@@ -554,3 +563,60 @@ def test_rnn_variant_train_step_on_the_card_matches_the_cpu(card, cell,
     np.testing.assert_allclose(gpu_packed.numpy(), cpu_packed.numpy(), atol=1e-4)
     for k, v in cpu_sd.items():
         np.testing.assert_allclose(gpu_sd[k].numpy(), v.numpy(), atol=1e-4, rtol=0)
+
+
+def _held(got, want, bf16):
+    """fp32: the largest absolute error; bf16: in units of max(|want|, 1)."""
+    err = (got.float() - want.float()).abs()
+    return (err / want.float().abs().clamp(min=1.0) if bf16 else err).max().item()
+
+
+@pytest.mark.parametrize("cell,t,b,h,dtype,ndir,branch", HOIST_CASES)
+def test_hoisted_backward_kernels_match_plain_on_the_card(card, cell, t, b, h,
+                                                          dtype, ndir, branch):
+    """The pre-pass kernel against its twin (planes, fp32 sums in another
+    order: 1e-4), the serial kernel on the twin's planes against the serial
+    twin and the whole backward against the whole twin (tolerances as the
+    backward cases above), and the branch the launcher reported, at
+    ``chip_smoke.py``'s shapes."""
+    bf16 = dtype == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    gates = 4 if cell == "lstm" else 3
+    mod = train_ops if cell == "lstm" else gru_train_ops
+    gen = torch.Generator().manual_seed(t + b + h + ndir)
+    gx = torch.randn(t, b, ndir * gates * h, generator=gen).to(dtype).to(card)
+    w_hh = ((torch.rand(ndir, h, gates * h, generator=gen) * 2 - 1)
+            * h ** -0.5).to(card)
+    dy = torch.randn(t, b, ndir * h, generator=gen).to(dtype).to(card)
+    if cell == "lstm":
+        saved = train_ops.lstm_bidir_train_plain(gx, w_hh)
+    else:
+        saved = (gru_ops.gru_bidir_plain(gx, w_hh),)
+    counts = (mod.launches_bwd_prepass, mod.launches_bwd,
+              dict(mod.launches_bwd_branch))
+    planes = getattr(mod, f"{cell}_bidir_train_bwd_prepass_cuda")(gx, w_hh, *saved)
+    want_planes = getattr(mod, f"{cell}_bidir_train_bwd_prepass_plain")(
+        gx, w_hh, *saved)
+    got_serial = getattr(mod, f"{cell}_bidir_train_bwd_serial_cuda")(
+        want_planes, w_hh, dy)
+    want_serial = getattr(mod, f"{cell}_bidir_train_bwd_serial_plain")(
+        want_planes, w_hh, dy)
+    got = getattr(mod, f"{cell}_bidir_train_backward_cuda")(gx, w_hh, *saved, dy)
+    want = getattr(mod, f"{cell}_bidir_train_backward_plain")(gx, w_hh, *saved, dy)
+    torch.cuda.synchronize()
+    assert mod.launches_bwd_prepass == counts[0] + 2
+    assert mod.launches_bwd == counts[1] + 2
+    # both serial launches took the one branch expected (a cluster branch of
+    # 16 or 32 rows, as the card's capacity for clusters decides)
+    delta = {k: v - counts[2][k] for k, v in mod.launches_bwd_branch.items()}
+    took = [k for k, v in delta.items() if v]
+    assert sum(delta.values()) == 2 and len(took) == 1
+    assert took[0].startswith(branch)
+    assert planes.shape == want_planes.shape == (ndir, t, mod.PLANES, b, h)
+    assert (planes - want_planes).abs().max().item() <= 1e-4
+    tol = 2.0 ** -6 if bf16 else 1e-4
+    for g_out, w_out in ((got_serial, want_serial), (got, want)):
+        for g_plane, w_plane in zip(*(
+                (x,) if cell == "lstm" else x for x in (g_out, w_out))):
+            assert torch.isfinite(g_plane.float()).all()
+            assert _held(g_plane, w_plane, bf16) <= tol

@@ -150,3 +150,82 @@ def test_wrapper_has_no_fallback_for_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.gru_bidir_train(gx, torch.zeros(2, 4, 12, device="meta"))
     assert ops.launches_fwd == 0 and ops.launches_bwd == 0
+
+
+def _jax_gru_planes(gx, w_hh, ys):
+    """The JAX package's pre-pass formulas (``gru_pallas_v2.py``, the
+    hoisted branch of ``_make_bwd_kernel``) in jnp over forward time: the
+    five planes ``(2, T, 5, B, H)``."""
+    t, b, _ = gx.shape
+    h = w_hh.shape[1]
+    zero = jnp.zeros((1, b, h), jnp.float32)
+    hp = jnp.stack([jnp.concatenate([zero, ys[:-1, :, :h]]),
+                    jnp.concatenate([ys[1:, :, h:], zero])])
+    hh = jax.lax.dot_general(
+        hp.reshape(2, t * b, h), w_hh, (((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.float32).reshape(2, t, b, 3 * h)
+    gxa = jnp.stack([gx[..., :3 * h], gx[..., 3 * h:]])
+    r = jax.nn.sigmoid(gxa[..., :h] + hh[..., :h])
+    z = jax.nn.sigmoid(gxa[..., h:2 * h] + hh[..., h:2 * h])
+    hh_n = hh[..., 2 * h:]
+    n = jnp.tanh(gxa[..., 2 * h:] + r * hh_n)
+    p_n = (1.0 - z) * (1.0 - n * n)
+    return jnp.stack([p_n * hh_n * (r * (1.0 - r)), (hp - n) * (z * (1.0 - z)),
+                      p_n, p_n * r, z], axis=2)
+
+
+@pytest.mark.parametrize("t,b,h", [(5, 3, 16), (1, 2, 8), (4, 1, 13)])
+def test_prepass_planes_match_the_jax_formulas(t, b, h):
+    rng = np.random.RandomState(t + b + h)
+    gx = rng.randn(t, b, 6 * h).astype(np.float32)
+    w_hh = ((rng.rand(2, h, 3 * h) * 2 - 1) / np.sqrt(h)).astype(np.float32)
+    tg, tw = torch.tensor(gx), torch.tensor(w_hh)
+    ys = eval_ops.gru_bidir_plain(tg, tw)
+    planes = ops.gru_bidir_train_bwd_prepass_plain(tg, tw, ys)
+    want = _jax_gru_planes(jnp.asarray(gx), jnp.asarray(w_hh),
+                           jnp.asarray(ys.numpy()))
+    assert planes.shape == (2, t, ops.PLANES, b, h)
+    np.testing.assert_allclose(planes.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+# (T, B, H, chunk of the Pallas kernel, directions, stream dtype, tolerance)
+@pytest.mark.parametrize("t,b,h,chunk,ndir,cd,tol", [
+    (6, 4, 16, 1, 2, "float32", 1e-5),
+    (6, 4, 16, 2, 2, "float32", 1e-5),
+    (1, 2, 16, 1, 2, "float32", 1e-5),  # T = 1
+    (5, 1, 16, 1, 2, "float32", 1e-5),  # B = 1
+    (6, 3, 13, 2, 2, "float32", 1e-5),  # odd H
+    (6, 4, 16, 2, 1, "float32", 1e-5),  # one direction
+    (4, 16, 16, 1, 2, "bfloat16", 2e-2),
+])
+def test_hoisted_backward_twin_matches_the_pallas_vjp(t, b, h, chunk, ndir,
+                                                       cd, tol):
+    """Pre-pass twin + serial twin against the VJP of ``gru_scan_train_v2``
+    (interpret mode): dgx, and dW_hh, which is formed from dhhn; with one
+    direction, against direction 0 of it."""
+    rng = np.random.RandomState(10 * t + b + h)
+    gx = rng.randn(t, b, 6 * h).astype(np.float32)
+    w_hh = ((rng.rand(2, h, 3 * h) * 2 - 1) / np.sqrt(h)).astype(np.float32)
+    dy = rng.randn(t, b, 2 * h).astype(np.float32)
+    sd = jnp.dtype(cd)
+
+    def jax_loss(gx, w):
+        ys = gru_scan_train_v2(gx, w, chunk, True)[1:t + 1]
+        return jnp.sum(ys.astype(jnp.float32) * dy)
+
+    want_dgx, want_dw = (np.asarray(a, dtype=np.float32) for a in jax.grad(
+        jax_loss, argnums=(0, 1))(jnp.asarray(gx).astype(sd), jnp.asarray(w_hh)))
+    tdt = getattr(torch, cd)
+    tg, tw = torch.tensor(gx).to(tdt), torch.tensor(w_hh)
+    td = torch.tensor(dy).to(tdt)
+    if ndir == 1:
+        tg, tw, td = tg[..., :3 * h], tw[:1], td[..., :h]
+        want_dgx, want_dw = want_dgx[..., :3 * h], want_dw[:1]
+    ys = eval_ops.gru_bidir_plain(tg, tw)
+    dgx, dhhn = ops.gru_bidir_train_backward_plain(tg, tw, ys, td)
+    assert dgx.dtype == dhhn.dtype == tdt and dhhn.shape == (t, b, ndir * h)
+    np.testing.assert_allclose(dgx.float().numpy(), want_dgx, rtol=0, atol=tol)
+    dw = ops.dw_hh(ys, dgx, dhhn, ndir).numpy()
+    np.testing.assert_allclose(dw, want_dw, rtol=0,
+                               atol=tol * max(1.0, np.abs(want_dw).max()))

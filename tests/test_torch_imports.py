@@ -146,26 +146,36 @@ def test_kernel_modules_build_nothing_at_import():
         assert lib._lib is None and lib.source.exists()
         assert all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
-    # a header is part of the version: both LSTM sources include it
+    # a header is part of the version: both LSTM sources include
+    # lstm_fwd.cuh, the training source also the hoisted backward's header
     assert [h.name for h in lstm_ops.LIBRARY.headers] == ["lstm_fwd.cuh"]
-    assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == ["lstm_fwd.cuh"]
+    assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == [
+        "lstm_fwd.cuh", "bwd_hoist.cuh"]
+    assert '#include "bwd_hoist.cuh"' in lstm_bidir_train.LIBRARY.source.read_text()
 
 
 def test_gru_kernel_modules_build_nothing_at_import():
     from ctc_pytorch_tpu_torch.ops import _build, gru_bidir, gru_bidir_train, stacked
 
-    for lib, source in ((gru_bidir.LIBRARY, "gru_bidir.cu"),
-                        (gru_bidir_train.LIBRARY, "gru_bidir_train.cu")):
+    # the headers are part of the version: gru_fwd.cuh includes
+    # lstm_fwd.cuh; the backward also includes bwd_hoist.cuh
+    for lib, source, headers in (
+            (gru_bidir.LIBRARY, "gru_bidir.cu", ["lstm_fwd.cuh", "gru_fwd.cuh"]),
+            (gru_bidir_train.LIBRARY, "gru_bidir_train.cu",
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"])):
         assert lib._lib is None and lib.source.name == source
         assert lib.source.exists() and all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
-        # both headers are part of the version: gru_fwd.cuh includes lstm_fwd.cuh
-        assert [h.name for h in lib.headers] == ["lstm_fwd.cuh", "gru_fwd.cuh"]
+        assert [h.name for h in lib.headers] == headers
         assert '#include "gru_fwd.cuh"' in lib.source.read_text()
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "gru_fwd.cuh").read_text()
-    # the trainable op's forward is the eval library's kernel
+    assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "bwd_hoist.cuh").read_text()
+    # the trainable op's forward is the eval library's kernel; the backward
+    # is a pre-pass and a serial launch, whose branch the library names first
     assert set(gru_bidir_train.LIBRARY.functions) == {
-        "gru_bidir_train_backward", "gru_bidir_train_error_string"}
+        "gru_bidir_train_bwd_prepass", "gru_bidir_train_bwd_branch",
+        "gru_bidir_train_backward",
+        "gru_bidir_train_error_string"}
     assert not hasattr(stacked, "LIBRARY")  # wrappers: no kernel of their own
 
 
@@ -191,7 +201,8 @@ def test_no_kernel_source_calls_a_library_for_the_recurrent_products():
 
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {
-        "gru_bidir.cu", "gru_bidir_train.cu", "gru_fwd.cuh", "lstm_bidir.cu",
+        "bwd_hoist.cuh", "gru_bidir.cu", "gru_bidir_train.cu", "gru_fwd.cuh",
+        "lstm_bidir.cu",
         "lstm_bidir_train.cu", "lstm_fwd.cuh", "ctc_dp.cu", "rnn_bidir.cu",
         "rnn_bidir_train.cu", "rnn_fwd.cuh"}
     for path in sources:

@@ -124,3 +124,81 @@ def test_wrapper_has_no_fallback_for_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.lstm_bidir_train(gx, torch.zeros(2, 4, 16, device="meta"))
     assert ops.launches_fwd == 0 and ops.launches_bwd == 0
+
+
+def _jax_lstm_planes(gx, w_hh, ys, cs):
+    """The JAX package's pre-pass formulas (``_lstm_prepass``) written in jnp
+    over forward time: the six planes ``(2, T, 6, B, H)``."""
+    t, b, _ = gx.shape
+    h = w_hh.shape[1]
+    zero = jnp.zeros((1, b, h), jnp.float32)
+    hp = jnp.stack([jnp.concatenate([zero, ys[:-1, :, :h]]),
+                    jnp.concatenate([ys[1:, :, h:], zero])])
+    cpv = jnp.stack([jnp.concatenate([zero, cs[:-1, :, :h]]),
+                     jnp.concatenate([cs[1:, :, h:], zero])])
+    ct = jnp.stack([cs[..., :h], cs[..., h:]])
+    hh = jax.lax.dot_general(
+        hp.reshape(2, t * b, h), w_hh, (((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.float32).reshape(2, t, b, 4 * h)
+    gates = jnp.stack([gx[..., :4 * h], gx[..., 4 * h:]]) + hh
+    i = jax.nn.sigmoid(gates[..., :h])
+    f = jax.nn.sigmoid(gates[..., h:2 * h])
+    g = jnp.tanh(gates[..., 2 * h:3 * h])
+    o = jax.nn.sigmoid(gates[..., 3 * h:])
+    tc = jnp.tanh(ct)
+    return jnp.stack([o * (1.0 - tc * tc), g * (i * (1.0 - i)),
+                      cpv * (f * (1.0 - f)), i * (1.0 - g * g),
+                      tc * (o * (1.0 - o)), f], axis=2)
+
+
+@pytest.mark.parametrize("t,b,h", [(5, 3, 16), (1, 2, 8), (4, 1, 13)])
+def test_prepass_planes_match_the_jax_formulas(t, b, h):
+    rng = np.random.RandomState(t + b + h)
+    gx = rng.randn(t, b, 8 * h).astype(np.float32)
+    w_hh = ((rng.rand(2, h, 4 * h) * 2 - 1) / np.sqrt(h)).astype(np.float32)
+    tg, tw = torch.tensor(gx), torch.tensor(w_hh)
+    ys, cs = ops.lstm_bidir_train_plain(tg, tw)
+    planes = ops.lstm_bidir_train_bwd_prepass_plain(tg, tw, ys, cs)
+    want = _jax_lstm_planes(jnp.asarray(gx), jnp.asarray(w_hh),
+                            jnp.asarray(ys.numpy()), jnp.asarray(cs.numpy()))
+    assert planes.shape == (2, t, ops.PLANES, b, h)
+    np.testing.assert_allclose(planes.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+# (T, B, H, chunk of the Pallas kernel, directions, stream dtype, tolerance)
+@pytest.mark.parametrize("t,b,h,chunk,ndir,cd,tol", [
+    (6, 4, 16, 1, 2, "float32", 1e-5),
+    (6, 4, 16, 2, 2, "float32", 1e-5),
+    (1, 2, 16, 1, 2, "float32", 1e-5),  # T = 1
+    (5, 1, 16, 1, 2, "float32", 1e-5),  # B = 1
+    (6, 3, 13, 2, 2, "float32", 1e-5),  # odd H
+    (6, 4, 16, 2, 1, "float32", 1e-5),  # one direction
+    (4, 16, 16, 1, 2, "bfloat16", 2e-2),
+])
+def test_hoisted_backward_twin_matches_the_pallas_vjp(t, b, h, chunk, ndir,
+                                                       cd, tol):
+    """Pre-pass twin + serial twin against the VJP of ``lstm_scan_train_v2``
+    (interpret mode); with one direction, against direction 0 of it."""
+    rng = np.random.RandomState(10 * t + b + h)
+    gx = rng.randn(t, b, 8 * h).astype(np.float32)
+    w_hh = ((rng.rand(2, h, 4 * h) * 2 - 1) / np.sqrt(h)).astype(np.float32)
+    dy = rng.randn(t, b, 2 * h).astype(np.float32)
+    sd = jnp.dtype(cd)
+
+    def jax_loss(gx):
+        ys = lstm_scan_train_v2(gx, jnp.asarray(w_hh), chunk, True)[1:t + 1]
+        return jnp.sum(ys.astype(jnp.float32) * dy)
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(gx).astype(sd)),
+                      dtype=np.float32)
+    tdt = getattr(torch, cd)
+    tg, tw = torch.tensor(gx).to(tdt), torch.tensor(w_hh)
+    td = torch.tensor(dy).to(tdt)
+    if ndir == 1:
+        tg, tw, td = tg[..., :4 * h], tw[:1], td[..., :h]
+        want = want[..., :4 * h]
+    ys, cs = ops.lstm_bidir_train_plain(tg, tw)
+    dgx = ops.lstm_bidir_train_backward_plain(tg, tw, ys, cs, td)
+    assert dgx.dtype == tdt and dgx.shape == (t, b, ndir * 4 * h)
+    np.testing.assert_allclose(dgx.float().numpy(), want, rtol=0, atol=tol)
