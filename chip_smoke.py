@@ -259,6 +259,8 @@ def zero_counts() -> None:
     for mod in (train_ops, gru_train_ops):
         mod.launches_fwd = mod.launches_bwd_prepass = mod.launches_bwd = 0
         mod.launches_bwd_branch.update(dict.fromkeys(mod.launches_bwd_branch, 0))
+    for by in fwd_branch_counts().values():
+        by.update(dict.fromkeys(by, 0))
     rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
 
@@ -674,6 +676,129 @@ def phase_hoist_vs_plain() -> dict:
     return worst
 
 
+# The LSTM's and GRU's forwards on their branches: (kernel, T', B, H, stream
+# dtype, directions, the branch the library must report, by prefix).
+# "lstm_eval" is the eval op (fp32 products at every stream dtype),
+# "lstm_train" the training forward, "gru" the GRU's eval op and training
+# forward (one kernel).  Bounds (csrc/fwd_cluster.cuh): the fp32 cluster
+# holds H <= 309 with 8 CTAs and H <= 416 with 16; the bf16 cluster LSTM H
+# <= 432 (32 rows: 384), GRU H <= 496 (32 rows: 448); a branch is taken only
+# where all its clusters fit at once (15 clusters of 8 one-CTA-per-SM
+# blocks).  The card's pytest cases (tests/test_torch_cuda.py) run the same
+# list.
+FWD_CASES = [
+    ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
+    ("lstm_train", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
+    ("lstm_eval", 80, 128, 384, "bf16", 2, "grid"),  # TIMIT bench shape
+    ("lstm_train", 80, 128, 384, "bf16", 2, "cluster32"),
+    ("gru", 95, 16, 256, "bf16", 2, "cluster16"),  # 863 recipe batch
+    ("gru", 195, 16, 256, "bf16", 2, "cluster16"),  # its longest bucket
+    ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
+    ("lstm_train", 80, 128, 384, "fp32", 2, "grid"),
+    ("gru", 95, 128, 256, "fp32", 2, "grid"),
+    ("lstm_eval", 1, 8, 384, "fp32", 2, "cluster16_fp32"),  # T = 1
+    ("lstm_train", 1, 16, 64, "bf16", 2, "cluster16"),
+    ("lstm_eval", 9, 1, 384, "fp32", 1, "cluster16_fp32"),  # B = 1, one direction
+    ("lstm_train", 9, 1, 64, "bf16", 2, "cluster16"),
+    ("gru", 1, 1, 32, "fp32", 2, "cluster16_fp32"),
+    ("lstm_train", 12, 17, 48, "fp32", 2, "cluster16_fp32"),  # B = 17
+    ("gru", 12, 17, 48, "bf16", 2, "cluster16"),
+    ("lstm_train", 10, 20, 37, "bf16", 2, "cluster16"),  # odd H
+    ("lstm_train", 10, 20, 37, "fp32", 1, "cluster16_fp32"),
+    ("gru", 33, 5, 36, "fp32", 2, "cluster16_fp32"),
+    ("gru", 7, 3, 37, "bf16", 2, "cluster16"),
+    ("lstm_eval", 6, 48, 64, "bf16", 2, "cluster16_fp32"),  # B >= 32
+    ("lstm_train", 12, 48, 384, "bf16", 1, "cluster16"),
+    ("gru", 12, 48, 256, "bf16", 1, "cluster16"),
+    ("lstm_train", 6, 200, 64, "bf16", 2, "cluster"),  # 13 row slices
+    ("lstm_eval", 12, 17, 309, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
+    ("lstm_eval", 12, 17, 310, "bf16", 2, "cluster16_fp32"),  # 16 CTAs
+    ("lstm_eval", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
+    ("lstm_eval", 6, 8, 417, "fp32", 2, "grid"),
+    ("lstm_train", 6, 16, 432, "bf16", 2, "cluster16"),
+    ("lstm_train", 6, 16, 433, "bf16", 2, "grid"),
+    ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),  # 32 rows: H <= 384
+    ("gru", 6, 16, 496, "bf16", 2, "cluster16"),
+    ("gru", 6, 16, 497, "bf16", 1, "grid"),
+    ("gru", 6, 128, 448, "bf16", 2, "cluster32"),
+    ("gru", 6, 128, 449, "bf16", 2, "grid"),
+    ("gru", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
+    ("gru", 4, 4, 528, "fp32", 2, "grid"),
+]
+
+
+def fwd_branch_counts() -> dict:
+    """The forward launches of each LSTM and GRU op by branch."""
+    lstm_ops, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    return {"lstm_bidir": lstm_ops.launches_fwd_branch,
+            "lstm_bidir_train_fwd": train_ops.launches_fwd_branch,
+            "gru_bidir": gru_ops.launches_fwd_branch,
+            "gru_bidir_train_fwd": gru_train_ops.launches_fwd_branch}
+
+
+def check_cluster_branches(what: str) -> dict:
+    """Every LSTM and GRU forward launch since ``zero_counts`` took a cluster
+    branch; the launches by op and branch."""
+    took = {op: {k: v for k, v in by.items() if v}
+            for op, by in fwd_branch_counts().items() if any(by.values())}
+    check(all(k.startswith("cluster") for by in took.values() for k in by),
+          f"{what}: a forward launch took the grid branch: {took}")
+    return took
+
+
+def phase_fwd_vs_plain() -> dict:
+    """Each LSTM and GRU forward kernel against its plain twin on every
+    branch of FWD_CASES, with the branch the library reported: ys (and the
+    LSTM training forward's cs, as tight) within FP32_TOL, or BF16_TOL with
+    bf16 streams.  Returns the worst error per kernel and dtype."""
+    import torch
+
+    lstm_ops, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    worst = {k: {"fp32": 0.0, "bf16": 0.0}
+             for k in ("lstm_eval", "lstm_train", "gru_eval", "gru_train")}
+    for i, (kernel, t, b, h, name, ndir, branch) in enumerate(FWD_CASES):
+        bf16 = name == "bf16"
+        gates = 3 if kernel == "gru" else 4
+        gx, w_hh, _ = recurrence_inputs(
+            t, b, h, torch.bfloat16 if bf16 else torch.float32, seed=600 + i,
+            gates=gates, ndir=ndir)
+        for by in fwd_branch_counts().values():
+            by.update(dict.fromkeys(by, 0))
+        if kernel == "lstm_eval":
+            runs = [("lstm_eval", lstm_ops, lstm_ops.lstm_bidir_cuda(gx, w_hh),
+                     lstm_ops.lstm_bidir_plain(gx, w_hh))]
+        elif kernel == "lstm_train":
+            runs = [("lstm_train", train_ops,
+                     train_ops.lstm_bidir_train_cuda(gx, w_hh),
+                     train_ops.lstm_bidir_train_plain(gx, w_hh))]
+        else:
+            want = gru_ops.gru_bidir_plain(gx, w_hh)
+            runs = [("gru_eval", gru_ops, gru_ops.gru_bidir_cuda(gx, w_hh), want),
+                    ("gru_train", gru_train_ops,
+                     gru_train_ops.gru_bidir_train_cuda(gx, w_hh), want)]
+        torch.cuda.synchronize()
+        tol = BF16_TOL if bf16 else FP32_TOL
+        where = f"at T={t} B={b} H={h} ndir={ndir} {name}"
+        for key, mod, got, want in runs:
+            took = [k for k, v in mod.launches_fwd_branch.items() if v]
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            print(f"  {key} forward T={t} B={b} H={h} ndir={ndir} {name}: "
+                  f"branch {'+'.join(took)} (want {branch}); "
+                  f"{'ys, cs' if len(got) == 2 else 'ys'} max_abs_err "
+                  f"{err:.3g} (tol {tol})")
+            check(all(torch.isfinite(g.float()).all().item() for g in got),
+                  f"non-finite {key} forward output {where}")
+            check(len(took) == 1 and took[0].startswith(branch),
+                  f"{key} forward took {took}, not {branch}, {where}")
+            check(err <= tol, f"{key} forward disagrees with plain {where}")
+            worst[key][name] = max(worst[key][name], err)
+    return worst
+
+
 def phase_rnn_vs_plain() -> dict:
     """The three tanh-RNN kernels against their plain twins: ys from the eval
     and the training forward; dgx and the dW_hh formed from it.  The
@@ -975,11 +1100,12 @@ def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str):
     zero_counts()
     res, decoded, lines = run(pkg)
     counts = launch_counts()
+    branches = check_cluster_branches(f"{tag} decode")
     print(f"  {spec.compute_dtype} {tag} decode: {res['batches']} batches, "
           f"{len(decoded)} utts, CER {res['cer']:.4f} WER {res['wer']:.4f}, "
           f"wall {res['wall_s']:.3f} s (first call, includes data load); "
-          f"launches {counts[eval_kernel]}, calls into ops/stacked.py "
-          f"{stacked_calls()}")
+          f"launches {counts[eval_kernel]}, forward branches {branches}, "
+          f"calls into ops/stacked.py {stacked_calls()}")
     print("  " + lines[-1])
     check(len(decoded) == n_utts, f"decoded {len(decoded)} of {n_utts} utterances")
     check_counts(counts, {eval_kernel: spec.rnn_layers * res["batches"]},
@@ -990,6 +1116,7 @@ def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str):
     check_counts(launch_counts(),
                  {eval_kernel: spec.rnn_layers * res32["batches"]},
                  f"{tag} fp32 decode")
+    check_cluster_branches(f"{tag} fp32 decode")
     with plain_twins():
         res_pl, dec_pl, _ = run(pkg_fp32)
     same = sum(a == b for a, b in zip(dec32, dec_pl))
@@ -1089,13 +1216,14 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    branches = check_cluster_branches("Trainer.fit")
     steps, dev_batches = trainer.state.step, len(dev_loader)
     loss_after = probe_loss()
     for ln in lines:
         print("  " + ln)
     print(f"  Trainer.fit, 1 epoch: {steps} optimizer steps, {dev_batches} dev "
-          f"batches, wall {wall:.3f} s; launches {counts}, calls into "
-          f"ops/stacked.py {stacked_calls()}")
+          f"batches, wall {wall:.3f} s; launches {counts}, forward branches "
+          f"{branches}, calls into ops/stacked.py {stacked_calls()}")
     print(f"  loss on one train batch (train mode, no dropout): "
           f"{loss_before:.4f} before the epoch, {loss_after:.4f} after")
     check(steps >= 8, f"only {steps} optimizer steps")
@@ -1144,6 +1272,7 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int) -> dict:
                                    f"{cell}_bidir_train_bwd": 2 * n,
                                    "ctc_alpha": 2, "ctc_beta": 2},
                  "two fp32 steps")
+    check_cluster_branches("two fp32 steps")
     with plain_twins():
         p_losses, p_sd = two_steps()
     worst, worst_key, n_off, n_all = 0.0, "", 0, 0
@@ -1368,6 +1497,46 @@ def backward_vs_library(cell_cls, t, b, h, kernel_fn, tag) -> dict:
             "library_ms_bf16_rounds": rounds["bf16"]}
 
 
+def forward_vs_library(cell_cls, t, b, h, kernel_fn, counts: dict, tag,
+                       train: bool) -> dict:
+    """One forward kernel (``kernel_fn``) and cuDNN's forward of
+    ``cell_cls`` (bias-free, bidirectional, input 2H, so it also forms the
+    input projection, which the kernels are given) in fp32 and in bf16,
+    timed in turns ``ROUNDS`` times; cuDNN in training mode (keeping what its
+    backward needs) for a training forward, under ``no_grad`` otherwise.
+    ``counts`` is the op's launches by branch: the branch the timed launches
+    took."""
+    import torch
+
+    lib = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        mod = cell_cls(2 * h, h, bias=False, bidirectional=True).cuda().to(dt)
+        x = torch.randn(t, b, 2 * h, device="cuda", dtype=dt, requires_grad=train)
+        lib[name] = lambda mod=mod, x=x: mod(x)
+    before = dict(counts)
+    rounds = {"kernel": [], "fp32": [], "bf16": []}
+    with torch.set_grad_enabled(train):
+        for _ in range(ROUNDS):
+            rounds["kernel"].append(cuda_ms(kernel_fn, reps=20))
+            for name, fn in lib.items():
+                rounds[name].append(cuda_ms(fn, reps=20))
+    took = [k for k, v in counts.items() if v != before[k]]
+    med = {k: statistics.median(v) for k, v in rounds.items()}
+    print(f"  {tag}: forward in {ROUNDS} turns, median [min, max] ms: "
+          + "; ".join(f"{label} {med[k]:.4f} [{min(rounds[k]):.4f}, "
+                      f"{max(rounds[k]):.4f}]" for k, label in (
+                          ("kernel", f"kernel ({'+'.join(took)} branch)"),
+                          ("fp32", f"cuDNN {cell_cls.__name__} fp32"),
+                          ("bf16", f"cuDNN {cell_cls.__name__} bf16")))
+          + f"; cuDNN fp32 / kernel {med['fp32'] / med['kernel']:.2f}x, "
+          f"bf16 / kernel {med['bf16'] / med['kernel']:.2f}x")
+    return {"ms": med["kernel"], "ms_rounds": rounds["kernel"],
+            "branch": "+".join(took),
+            "library_ms": med["fp32"], "library_ms_rounds": rounds["fp32"],
+            "library_ms_bf16": med["bf16"],
+            "library_ms_bf16_rounds": rounds["bf16"]}
+
+
 def print_hoist_times(out: dict, cell: str, tag, t, b, h, dtype,
                       branch: str) -> None:
     import torch
@@ -1394,13 +1563,19 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
     bf16 = dtype == torch.bfloat16
     out = {
         "lstm_bidir": {
-            "ms": cuda_ms(lambda: lstm_ops.lstm_bidir_cuda(gx, w_hh), reps=20),
+            **forward_vs_library(
+                torch.nn.LSTM, t, b, h,
+                lambda: lstm_ops.lstm_bidir_cuda(gx, w_hh),
+                lstm_ops.launches_fwd_branch, f"lstm_bidir, {tag}", False),
             "plain_ms": cuda_ms(lambda: lstm_ops.lstm_bidir_plain(gx, w_hh),
                                 reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1)},
         "lstm_bidir_train_fwd": {
-            "ms": cuda_ms(lambda: train_ops.lstm_bidir_train_cuda(gx, w_hh),
-                          reps=20),
+            **forward_vs_library(
+                torch.nn.LSTM, t, b, h,
+                lambda: train_ops.lstm_bidir_train_cuda(gx, w_hh),
+                train_ops.launches_fwd_branch, f"lstm_bidir_train_fwd, {tag}",
+                True),
             "plain_ms": cuda_ms(
                 lambda: train_ops.lstm_bidir_train_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=2, n_products=1,
@@ -1428,15 +1603,9 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
         reps=20)
     branch = [k for k, v in train_ops.launches_bwd_branch.items() if v != before[k]]
     out["lstm_bidir_train_bwd"]["branch"] = "+".join(branch)
-    # library yardstick: cuDNN BiLSTM, bias-free, fp32, forward and backward;
-    # it also computes the input projection (T*B, 2H) @ (2H, 8H) and its
-    # gradients, which the kernels are given and leave to the caller
-    lstm = torch.nn.LSTM(2 * h, h, bias=False, bidirectional=True).cuda()
-    x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
-    with torch.no_grad():
-        out["lstm_bidir"]["library_ms"] = cuda_ms(lambda: lstm(x_lib), reps=20)
-    out["lstm_bidir_train_fwd"]["library_ms"] = cuda_ms(
-        lambda: lstm(x_lib), reps=20)
+    # library yardstick of the backward: cuDNN BiLSTM, bias-free; it also
+    # computes the input projection's gradients, which the kernels leave to
+    # the caller
     out["lstm_bidir_train_bwd"].update(backward_vs_library(
         torch.nn.LSTM, t, b, h,
         lambda: train_ops.lstm_bidir_train_backward_cuda(gx, w_hh, ys, cs, dy),
@@ -1458,7 +1627,8 @@ def print_recurrence_times(out: dict, tag, t, b, h, dtype, library: str) -> None
               f"{v['library_ms']:.4f} ms; bound {v['bound_ms']:.4f} ms by "
               f"{v['bound_by']} ({v['mbytes']:.1f} MB: {v['bytes_ms']:.4f} ms; "
               f"{v['gflop']:.2f} GFLOP at the {v['peak']}: {v['ops_ms']:.4f} ms), "
-              f"{v['ms'] / v['bound_ms']:.1f}x its bound")
+              f"{v['ms'] / v['bound_ms']:.1f}x its bound"
+              + (f"; branch {v['branch']}" if "branch" in v else ""))
 
 
 def times_gru(t, b, h, dtype, tag) -> dict:
@@ -1474,13 +1644,18 @@ def times_gru(t, b, h, dtype, tag) -> dict:
     bf16 = dtype == torch.bfloat16
     out = {
         "gru_bidir": {
-            "ms": cuda_ms(lambda: gru_ops.gru_bidir_cuda(gx, w_hh), reps=20),
+            **forward_vs_library(
+                torch.nn.GRU, t, b, h, lambda: gru_ops.gru_bidir_cuda(gx, w_hh),
+                gru_ops.launches_fwd_branch, f"gru_bidir, {tag}", False),
             "plain_ms": cuda_ms(lambda: gru_ops.gru_bidir_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
                                bf16_products=bf16)},
         "gru_bidir_train_fwd": {
-            "ms": cuda_ms(lambda: gru_train_ops.gru_bidir_train_cuda(gx, w_hh),
-                          reps=20),
+            **forward_vs_library(
+                torch.nn.GRU, t, b, h,
+                lambda: gru_train_ops.gru_bidir_train_cuda(gx, w_hh),
+                gru_train_ops.launches_fwd_branch,
+                f"gru_bidir_train_fwd, {tag}", True),
             "plain_ms": cuda_ms(lambda: gru_ops.gru_bidir_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
                                bf16_products=bf16)},
@@ -1509,14 +1684,9 @@ def times_gru(t, b, h, dtype, tag) -> dict:
     branch = [k for k, v in gru_train_ops.launches_bwd_branch.items()
               if v != before[k]]
     out["gru_bidir_train_bwd"]["branch"] = "+".join(branch)
-    # library yardstick: cuDNN BiGRU, bias-free, fp32, forward and backward;
-    # it also computes the input projection (T*B, 2H) @ (2H, 6H) and its
-    # gradients, which the kernels are given and leave to the caller
-    gru = torch.nn.GRU(2 * h, h, bias=False, bidirectional=True).cuda()
-    x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
-    with torch.no_grad():
-        out["gru_bidir"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
-    out["gru_bidir_train_fwd"]["library_ms"] = cuda_ms(lambda: gru(x_lib), reps=20)
+    # library yardstick of the backward: cuDNN BiGRU, bias-free; it also
+    # computes the input projection's gradients, which the kernels leave to
+    # the caller
     out["gru_bidir_train_bwd"].update(backward_vs_library(
         torch.nn.GRU, t, b, h,
         lambda: gru_train_ops.gru_bidir_train_backward_cuda(gx, w_hh, ys, dy),
@@ -1760,6 +1930,7 @@ def main() -> int:
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
     errs_gru = phase_gru_vs_plain()
+    errs_fwd = phase_fwd_vs_plain()
     errs_hoist = phase_hoist_vs_plain()
     errs_rnn = phase_rnn_vs_plain()
     errs_unidir = phase_unidir_vs_plain()
@@ -1842,13 +2013,18 @@ def main() -> int:
     lstm_paths, ctc_paths = ("timit", "unidir"), tuple(by_path)
     # (name, source, TPU kernel, paths that must launch it, worst error fp32,
     # bf16, one direction)
+    fwd = csrc + "fwd_cluster.cuh"  # the main paths' forward branches
     rows = [
-        ("lstm_bidir", csrc + "lstm_bidir.cu",
+        ("lstm_bidir", fwd,
          tpu + "lstm_pallas_v2.py:142 lstm_bidir_pallas_v2", lstm_paths,
-         errs_eval["fp32"], errs_eval["bf16"], errs_unidir["lstm"]),
-        ("lstm_bidir_train_fwd", csrc + "lstm_bidir_train.cu",
+         max(errs_eval["fp32"], errs_fwd["lstm_eval"]["fp32"]),
+         max(errs_eval["bf16"], errs_fwd["lstm_eval"]["bf16"]),
+         errs_unidir["lstm"]),
+        ("lstm_bidir_train_fwd", fwd,
          tpu + "lstm_pallas_train_v2.py:438 _fwd_pallas (lstm_scan_train_v2)",
-         lstm_paths, errs_train["fwd"]["fp32"], errs_train["fwd"]["bf16"],
+         lstm_paths, max(errs_train["fwd"]["fp32"],
+                              errs_fwd["lstm_train"]["fp32"]),
+         max(errs_train["fwd"]["bf16"], errs_fwd["lstm_train"]["bf16"]),
          errs_unidir["lstm"]),
         ("lstm_bidir_train_bwd_prepass", csrc + "bwd_hoist.cuh",
          tpu + "lstm_pallas_train_v2.py:203 _lstm_prepass (in _bwd_pallas, "
@@ -1865,13 +2041,15 @@ def main() -> int:
         ("ctc_beta", csrc + "ctc_dp.cu",
          tpu + "ctc_pallas.py:154 ctc_beta_pallas", ctc_paths,
          errs_ctc["beta"], None, None),
-        ("gru_bidir", csrc + "gru_bidir.cu",
+        ("gru_bidir", fwd,
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_bidir_v2 train=False)",
-         ("863",), errs_gru["eval"]["fp32"], errs_gru["eval"]["bf16"],
+         ("863",), max(errs_gru["eval"]["fp32"], errs_fwd["gru_eval"]["fp32"]),
+         max(errs_gru["eval"]["bf16"], errs_fwd["gru_eval"]["bf16"]),
          errs_unidir["gru"]),
-        ("gru_bidir_train_fwd", csrc + "gru_bidir.cu",
+        ("gru_bidir_train_fwd", fwd,
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_scan_train_v2)",
-         ("863",), errs_gru["fwd"]["fp32"], errs_gru["fwd"]["bf16"],
+         ("863",), max(errs_gru["fwd"]["fp32"], errs_fwd["gru_train"]["fp32"]),
+         max(errs_gru["fwd"]["bf16"], errs_fwd["gru_train"]["bf16"]),
          errs_unidir["gru"]),
         ("gru_bidir_train_bwd_prepass", csrc + "bwd_hoist.cuh",
          tpu + "gru_pallas_v2.py:239 pre-pass of _make_bwd_kernel (in "

@@ -9,9 +9,13 @@ either package decodes.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises.
 TF32 is off for matmuls and cuDNN convolutions, so an fp32 config trains in
-full fp32 like the JAX reference.  Batches stream from the host; the
-recipe's ``fused_epoch`` / ``device_cache`` are logged and not applied, and
-``--data-parallel`` is not ported.
+full fp32 like the JAX reference.  Batches stream from the host.  Where the
+JAX stage 2 would cache the dataset on the device (``device_cache`` on and
+the cache within ``device_cache_max_gb``), the loaders are
+``GroupedLoader``s, so that ``fused_epoch`` visits the batches in the JAX
+fused path's order; the cache itself and ``--data-parallel`` are not
+ported.  With ``log_dir`` set, the log also goes to
+``<log_dir>/<exp_name>.log``, as in the JAX stage 2.
 """
 
 from __future__ import annotations
@@ -22,14 +26,21 @@ import torch
 
 from ctc_pytorch_tpu_torch import resolve_device
 from ctc_pytorch_tpu_torch.config import load_config
-from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+from ctc_pytorch_tpu_torch.data import (
+    GroupedLoader,
+    SpeechDataLoader,
+    SpeechDataset,
+    estimate_bytes,
+)
 from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
 from ctc_pytorch_tpu_torch.train.loop import Trainer
+from ctc_pytorch_tpu_torch.utils import init_file_logger
 from ctc_pytorch_tpu_torch.vocab import Vocab
 
 
-def build_loaders(cfg, vocab):
-    """(train_loader, dev_loader) as the JAX package's stage 2 builds them."""
+def build_loaders(cfg, vocab, log=print):
+    """(train_loader, dev_loader) as the JAX package's stage 2 builds them:
+    ``GroupedLoader``s where it would build its device cache."""
     train_ds = SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg)
     dev_ds = SpeechDataset(vocab, cfg.valid_scp_path, cfg.valid_lab_path, cfg)
     train_ds.preload(cfg.num_workers)
@@ -42,6 +53,19 @@ def build_loaders(cfg, vocab):
         dev_ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
         seed=cfg.seed, mode=cfg.batch_mode,
     )
+    if not cfg.device_cache:
+        return train_loader, dev_loader
+    # the JAX stage 2's budget check, from host-side bucket shapes
+    est = estimate_bytes(train_loader) + estimate_bytes(dev_loader)
+    if est <= cfg.device_cache_max_gb * (1 << 30):
+        return GroupedLoader(train_loader), GroupedLoader(dev_loader)
+    if est >= 1 << 62:
+        log("WARNING: device cache disabled: num_buckets=0 (reference-exact "
+            "per-batch shapes) is not cacheable; the streaming order is used")
+    else:
+        log(f"WARNING: device cache disabled: estimated {est / (1 << 30):.2f} "
+            f"GB exceeds device_cache_max_gb={cfg.device_cache_max_gb}; the "
+            "streaming order is used")
     return train_loader, dev_loader
 
 
@@ -52,7 +76,7 @@ def train(cfg, *, device: str | torch.device = "cuda", resume=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     vocab = Vocab(cfg.vocab_file)
-    train_loader, dev_loader = build_loaders(cfg, vocab)
+    train_loader, dev_loader = build_loaders(cfg, vocab, log)
     # 863 configs declare num_class explicitly (blank added on top);
     # otherwise the vocab decides
     n_class = cfg.num_class + 1 if cfg.num_class > 0 else vocab.n_words
@@ -79,7 +103,10 @@ def main(argv=None):
                    help="cuda (default) or cpu (the plain PyTorch path)")
     args = p.parse_args(argv)
     cfg = load_config(args.conf)
-    return train(cfg, device=args.device, resume=args.resume)[1]
+    log = print
+    if cfg.log_dir:
+        log = init_file_logger(cfg.log_dir, cfg.exp_name).info
+    return train(cfg, device=args.device, resume=args.resume, log=log)[1]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 // Bidirectional GRU forward recurrence, for eval and decode and for the
-// forward of training, one cooperative launch per layer, for Hopper (sm_90a).
+// forward of training, one launch per layer, for Hopper (sm_90a): a cluster
+// branch (fwd_cluster.cuh) and the grid branch below.
 //
 // Replaces ctc_pytorch_tpu/ops/gru_pallas_v2.py:_fwd_pallas (the Pallas
 // kernel _make_fwd_kernel, cell _gru_cell2), which gru_bidir_v2(train=False)
@@ -26,7 +27,7 @@
 // operations, ~0.14 ms at 67 TFLOP/s.  The kernel is far above both: the
 // barriers and the L2 round trips inside each step set its time.
 //
-// Design: the LSTM eval kernel's (lstm_bidir.cu), with three gates.  One
+// Grid branch: the LSTM eval kernel's (lstm_bidir.cu), with three gates.  One
 // persistent cooperative grid; CTA (d, g) owns 8 hidden units of direction d
 // and keeps the matching r, z and n columns of w_hh[d] in shared memory for
 // the whole run.  Each thread owns one hidden unit and 4 batch rows and
@@ -40,21 +41,52 @@
 // 2*ceil(H/8) CTAs are co-resident while H <= 4 * SMs (528 on a 132-SM
 // H100): 64 CTAs at H = 256.  Past that a co-resident grid strides over the
 // (d, g) items and reads w_hh from L2, so any H runs.
-// Tensor cores (wgmma), TMA and more CTAs per direction at small H are later
-// work.  The device code lives in gru_fwd.cuh; the trainable op's forward
-// launches this same entry.
+// That grid is now the branch for the shapes that no cluster holds: the
+// cluster branch of fwd_cluster.cuh (a thread-block cluster per direction
+// and 16 or 32 batch rows, w_hh resident across it, h exchanged in
+// distributed shared memory, one cluster barrier a step; the products on
+// the tensor cores with bf16 streams) takes the rest.  The grid's device
+// code lives in gru_fwd.cuh; the trainable op's forward launches this same
+// entry.
 
-#include "gru_fwd.cuh"
+#include "fwd_cluster.cuh"
 
 extern "C" {
 
-// See gru_forward in gru_fwd.cuh for the arguments.  Returns a cudaError_t;
-// 0 means launched.
+// The forward's branch for this shape on the current device: *branch 0 the
+// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
+// (FwdBranch).  Returns a cudaError_t.
+int gru_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
+  return (int)(bf16 ? fwd_branch<GruCell, __nv_bfloat16, true>(B, H, ndir, branch)
+                    : fwd_branch<GruCell, float, true>(B, H, ndir, branch));
+}
+
+// See gru_forward in gru_fwd.cuh for the arguments; hbuf and hcarry are
+// for the grid branch only (else null).  *branch: the branch launched, as
+// gru_bidir_fwd_branch numbers them.  Returns a cudaError_t; 0 means
+// launched.
 int gru_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
                       void* hcarry, int T, int B, int H, int ldh, int ndir,
-                      int bf16, void* stream) {
-  return (int)gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, bf16,
-                          stream);
+                      int bf16, void* stream, int* branch) {
+  *branch = -1;
+  if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
+    return (int)cudaErrorInvalidValue;
+  int plan = 0;
+  cudaError_t err = (cudaError_t)gru_bidir_fwd_branch(B, H, ndir, bf16, &plan);
+  if (err != cudaSuccess) return (int)err;
+  if (plan == kFwdGrid) {
+    if (!hbuf || !hcarry) return (int)cudaErrorInvalidValue;
+    err = gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, bf16,
+                      stream);
+  } else {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    err = bf16 ? launch_fwd_cluster<GruCell, __nv_bfloat16, true>(
+                     plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st)
+               : launch_fwd_cluster<GruCell, float, true>(
+                     plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st);
+  }
+  if (err == cudaSuccess) *branch = plan;
+  return (int)err;
 }
 
 const char* gru_bidir_error_string(int err) {

@@ -1,5 +1,6 @@
-// Bidirectional LSTM recurrence for eval and decode, one cooperative launch
-// per layer, for Hopper (sm_90a).
+// Bidirectional LSTM recurrence for eval and decode, one launch per layer,
+// for Hopper (sm_90a): a cluster branch (fwd_cluster.cuh) and the grid
+// branch below.
 //
 // Replaces ctc_pytorch_tpu/ops/lstm_pallas_v2.py:lstm_bidir_pallas_v2 (the
 // Pallas kernel _make_kernel at :61, cell _cell2 at :42).  Same function:
@@ -19,7 +20,7 @@
 // grid-wide barriers and the L2 round trips inside each step add a latency
 // floor on top.
 //
-// Design: one persistent cooperative grid.  CTA (d, g) owns U hidden units
+// Grid branch: one persistent cooperative grid.  CTA (d, g) owns U hidden units
 // of direction d and keeps the matching 4*U columns of w_hh[d] in shared
 // memory for the whole run, so the weights are read from device memory
 // once.  Each thread owns one hidden unit and kRows batch rows and computes
@@ -35,28 +36,68 @@
 // H <= 4 * SMs (528 on a 132-SM H100).  Past that a co-resident grid of one
 // CTA per SM strides over the (d, g) items and reads w_hh from L2 instead,
 // so any H runs.
-// Tensor cores (wgmma), TMA and cluster-resident weights are later work.
-// The device code lives in lstm_fwd.cuh, which the training forward shares.
+// That grid is now the branch for the shapes that no cluster holds: the
+// cluster branch of fwd_cluster.cuh (a thread-block cluster per direction
+// and 16 batch rows, the weights resident across it, h exchanged in
+// distributed shared memory, one cluster barrier a step) takes every shape
+// whose clusters all fit on the card at once (H <= 416: the recipe's B = 8
+// at H = 384, not B = 128, whose 16 clusters of 16 CTAs keep the grid).
+// The grid's device code lives in lstm_fwd.cuh, which the training forward
+// shares.
 
-#include "lstm_fwd.cuh"
+#include "fwd_cluster.cuh"
+
+namespace {
+
+// The eval forward's branch: the fp32-product cluster kernel (kRound =
+// false: h enters the product in fp32) or the grid.
+template <typename S>
+cudaError_t eval_branch(int B, int H, int ndir, int* branch) {
+  return fwd_branch<LstmCell, S, false>(B, H, ndir, branch);
+}
+
+}  // namespace
 
 extern "C" {
 
+// The forward's branch for this shape on the current device: *branch 0 the
+// grid, 3 the fp32 cluster (FwdBranch).  Returns a cudaError_t.
+int lstm_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
+  return (int)(bf16 ? eval_branch<__nv_bfloat16>(B, H, ndir, branch)
+                    : eval_branch<float>(B, H, ndir, branch));
+}
+
 // gx (T, B, ndir * 4H) and ys (T, B, ndir * H) in the stream type (bf16 !=
-// 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; hbuf (ndir, 2, H, ldh)
-// with ldh >= B a multiple of 4, and cbuf (ndir, B, H), both fp32 zeros;
-// ndir 1 or 2.  Returns a cudaError_t; 0 means launched.
+// 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; for the grid branch
+// only (else null) hbuf (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and
+// cbuf (ndir, B, H), both fp32 zeros; ndir 1 or 2.  *branch: the branch
+// launched, as lstm_bidir_fwd_branch numbers them.  Returns a cudaError_t;
+// 0 means launched.
 int lstm_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
                        void* cbuf, int T, int B, int H, int ldh, int ndir,
-                       int bf16, void* stream) {
+                       int bf16, void* stream, int* branch) {
+  *branch = -1;
   if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
     return (int)cudaErrorInvalidValue;
+  int plan = 0;
+  cudaError_t err = bf16 ? eval_branch<__nv_bfloat16>(B, H, ndir, &plan)
+                         : eval_branch<float>(B, H, ndir, &plan);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)launch<__nv_bfloat16, false>(gx, w_hh, ys, nullptr, hbuf, cbuf,
-                                             T, B, H, ldh, ndir, st);
-  return (int)launch<float, false>(gx, w_hh, ys, nullptr, hbuf, cbuf, T, B, H,
-                                   ldh, ndir, st);
+  if (plan == kFwdGrid) {
+    if (!hbuf || !cbuf) return (int)cudaErrorInvalidValue;
+    err = bf16 ? launch<__nv_bfloat16, false>(gx, w_hh, ys, nullptr, hbuf,
+                                               cbuf, T, B, H, ldh, ndir, st)
+               : launch<float, false>(gx, w_hh, ys, nullptr, hbuf, cbuf, T, B,
+                                      H, ldh, ndir, st);
+  } else {
+    err = bf16 ? launch_fwd_cluster<LstmCell, __nv_bfloat16, false>(
+                     plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st)
+               : launch_fwd_cluster<LstmCell, float, false>(
+                     plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st);
+  }
+  if (err == cudaSuccess) *branch = plan;
+  return (int)err;
 }
 
 const char* lstm_bidir_error_string(int err) {

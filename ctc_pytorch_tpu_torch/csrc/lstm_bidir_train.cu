@@ -7,12 +7,15 @@
 // pallas_call (_bwd_pallas, kernel _make_bwd_kernel, the hoisted form:
 // _lstm_prepass and its step).
 //
-// Forward: lstm_fwd.cuh with kTrain = true.  gx (T, B, 8H) in the stream
-// type S, w_hh (2, H, 4H) fp32 (already rounded to S by the caller) ->
-// ys (T, B, 2H) and the cell states cs (T, B, 2H), both in S.  The carries
-// are fp32; with bf16 streams h enters the next step's product as ys holds
-// it.  Same design as the eval kernel (lstm_bidir.cu), plus one more
-// (T, B, 2H) plane written.
+// Forward: gx (T, B, 8H) in the stream type S, w_hh (2, H, 4H) fp32
+// (already rounded to S by the caller) -> ys (T, B, 2H) and the cell states
+// cs (T, B, 2H), both in S.  The carries are fp32; with bf16 streams h
+// enters the next step's product as ys holds it.  Two branches, chosen by
+// the launcher and reported: the cluster branch of fwd_cluster.cuh (bf16
+// streams: the tensor-core kernel, 16 or 32 batch rows a cluster; fp32
+// streams: the fp32 kernel, 16 rows a cluster of up to 16 CTAs), and the
+// grid kernel of lstm_fwd.cuh with kTrain = true for the shapes no cluster
+// holds (the eval kernel's design, lstm_bidir.cu, plus one more plane).
 //
 // Backward: the hoisted form of the JAX kernel (_lstm_prepass and its
 // step), in two launches; bwd_hoist.cuh holds the design notes and the two
@@ -56,6 +59,7 @@
 // the JAX package does.
 
 #include "bwd_hoist.cuh"
+#include "fwd_cluster.cuh"
 
 namespace {
 
@@ -239,22 +243,48 @@ cudaError_t launch_bwd(const void* planes, const void* w_hh, const void* dy,
 
 extern "C" {
 
+// The forward's branch for this shape on the current device: *branch 0
+// the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
+// (FwdBranch).  Returns a cudaError_t.
+int lstm_bidir_train_fwd_branch(int B, int H, int ndir, int bf16,
+                                int* branch) {
+  return (int)(bf16
+                   ? fwd_branch<LstmCell, __nv_bfloat16, true>(B, H, ndir, branch)
+                   : fwd_branch<LstmCell, float, true>(B, H, ndir, branch));
+}
+
 // Forward.  gx (T, B, ndir * 4H), ys and cs (T, B, ndir * H) in the stream
-// type (bf16 != 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; hbuf
-// (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and cbuf (ndir, B, H),
-// both fp32 zeros; ndir 1 or 2.  Returns a cudaError_t; 0 means launched.
+// type (bf16 != 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; for
+// the grid branch only (else null) hbuf (ndir, 2, H, ldh) with ldh >= B a
+// multiple of 4, and cbuf (ndir, B, H), both fp32 zeros; ndir 1 or 2.
+// *branch: the branch launched, as lstm_bidir_train_fwd_branch numbers
+// them.  Returns a cudaError_t; 0 means launched.
 int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
                              void* cs, void* hbuf, void* cbuf, int T, int B,
                              int H, int ldh, int ndir, int bf16,
-                             void* stream) {
+                             void* stream, int* branch) {
+  *branch = -1;
   if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
     return (int)cudaErrorInvalidValue;
+  int plan = 0;
+  cudaError_t err = (cudaError_t)lstm_bidir_train_fwd_branch(B, H, ndir, bf16,
+                                                             &plan);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)launch<__nv_bfloat16, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B,
-                                            H, ldh, ndir, st);
-  return (int)launch<float, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B, H, ldh,
-                                  ndir, st);
+  if (plan == kFwdGrid) {
+    if (!hbuf || !cbuf) return (int)cudaErrorInvalidValue;
+    err = bf16 ? launch<__nv_bfloat16, true>(gx, w_hh, ys, cs, hbuf, cbuf, T,
+                                              B, H, ldh, ndir, st)
+               : launch<float, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B, H,
+                                     ldh, ndir, st);
+  } else {
+    err = bf16 ? launch_fwd_cluster<LstmCell, __nv_bfloat16, true>(
+                     plan, gx, w_hh, ys, cs, T, B, H, ndir, st)
+               : launch_fwd_cluster<LstmCell, float, true>(
+                     plan, gx, w_hh, ys, cs, T, B, H, ndir, st);
+  }
+  if (err == cudaSuccess) *branch = plan;
+  return (int)err;
 }
 
 // Backward pre-pass.  gx (T, B, ndir * 4H), ys and cs (T, B, ndir * H) in

@@ -1,5 +1,7 @@
 """Static-shape bucketed batching (copy of ``ctc_pytorch_tpu/data/batching.py``
-up to ``SpeechDataLoader``; the device-side loaders are not ported yet).
+up to ``SpeechDataLoader``, plus the batch order of its device cache's fused
+epochs, ``GroupedLoader``; the device-side loaders themselves are not ported
+yet).
 
 Replaces the reference's variable-length collate (``create_input``,
 ``timit/utils/data_loader.py:119-151``): utterances are grouped into a small
@@ -282,7 +284,12 @@ class SpeechDataLoader:
         return batch
 
     def __iter__(self) -> Iterator[Batch]:
-        """Assemble batches one step ahead on a background thread (the
+        """The epoch's batches in the batcher's order (``iter_plan``)."""
+        return self.iter_plan(self.batcher.epoch_batches(self.epoch))
+
+    def iter_plan(self, plan) -> Iterator[Batch]:
+        """Assemble the batches of ``plan``, ``(indices, t_pad, l_pad)``
+        triples, one step ahead on a background thread (the
         reference uses torch DataLoader worker processes for the same
         overlap, ``timit/steps/train_ctc.py:91-92``).
 
@@ -308,9 +315,7 @@ class SpeechDataLoader:
 
         def producer():
             try:
-                for indices, t_pad, l_pad in self.batcher.epoch_batches(
-                    self.epoch
-                ):
+                for indices, t_pad, l_pad in plan:
                     if not _put(self._make_batch(indices, t_pad, l_pad)):
                         return
                 _put(sentinel)
@@ -332,3 +337,82 @@ class SpeechDataLoader:
             stop.set()
             thread.join()
 
+
+
+def estimate_bytes(loader: SpeechDataLoader) -> int:
+    """Bytes a device cache of ``loader``'s dataset would take: fp32 feature
+    planes padded to their bucket, labels and lengths (copy of the JAX
+    ``DeviceCachedLoader.estimate_bytes``, which stage 2 checks against
+    ``device_cache_max_gb`` before it takes the fused path).  ``num_buckets
+    = 0`` cannot be cached: ``1 << 62``."""
+    batcher = loader.batcher
+    if batcher._assignment is None:
+        return 1 << 62
+    dim = loader.dataset[0][0].shape[1]
+    if batcher.mode == "quantized":
+        m = len(batcher.lengths)
+        return m * (batcher.boundaries[-1] * dim * 4 + batcher.label_pad * 4 + 8)
+    tot = 0
+    for b_idx, bound in enumerate(batcher.boundaries):
+        m = int(np.sum(batcher._assignment == b_idx))
+        tot += m * (bound * dim * 4 + batcher.label_pad * 4 + 8)
+    return tot
+
+
+class GroupedLoader:
+    """A ``SpeechDataLoader`` that also knows the order in which the JAX
+    package's fused epochs visit its batches.
+
+    The JAX stage 2 with ``fused_epoch`` over a device cache
+    (``DeviceCachedLoader.epoch_groups``) runs the epoch's batches grouped by
+    static shape ``(bucket, t_pad, B)``, groups in order of first appearance
+    and batches in their order within a group; with ``fused_dispatch:
+    "epoch"`` the groups go in ``t_pad`` order (a stable sort, so groups of
+    equal ``t_pad`` keep their order).  The batches are the same as the
+    streaming order's, so only the visiting order differs.  Iterating this
+    loader gives the streaming order, as iterating the JAX cache does;
+    ``grouped`` gives the fused order.  Host-only: the batches are made by
+    the wrapped loader.
+    """
+
+    def __init__(self, loader: SpeechDataLoader):
+        if loader.batcher._assignment is None:
+            raise ValueError("GroupedLoader needs bucketed (static-shape) "
+                             "batches; num_buckets=0 has no groups")
+        self.loader = loader
+        self.batcher = loader.batcher
+        self.batch_size = loader.batch_size
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    @property
+    def epoch(self) -> int:
+        return self.loader.epoch
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[Batch]:
+        return iter(self.loader)
+
+    def epoch_plan(self, epoch: int, dispatch: str = "group") -> list:
+        """The fused path's ``(indices, t_pad, l_pad)`` of ``epoch``, in its
+        visiting order for ``fused_dispatch`` ``dispatch``."""
+        batcher = self.batcher
+        groups: dict = {}
+        for indices, t_pad, l_pad in batcher.epoch_batches(epoch):
+            n = max(len(indices), self.batch_size
+                    if self.loader.pad_to_full_batch else 0)
+            b_idx = (0 if batcher.mode == "quantized"
+                     else int(batcher._assignment[indices[0]]))
+            groups.setdefault((b_idx, int(t_pad), n), []).append(
+                (indices, t_pad, l_pad))
+        keys = list(groups)
+        if dispatch == "epoch":
+            keys.sort(key=lambda k: k[1])
+        return [b for k in keys for b in groups[k]]
+
+    def grouped(self, dispatch: str = "group") -> Iterator[Batch]:
+        """The current epoch's batches in the fused path's order."""
+        return self.loader.iter_plan(self.epoch_plan(self.epoch, dispatch))

@@ -26,6 +26,44 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # the serial backward kernels' branches, as their launchers number them: the
 # cooperative grid, and clusters of 16 or of 32 batch rows
 BRANCHES = ("grid", "cluster16", "cluster32")
+# the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch): the
+# cooperative grid, the bf16 tensor-core clusters of 16 or 32 batch rows,
+# and the fp32 cluster of 16 rows
+FWD_BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
+
+
+def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
+                   ndir: int, scratch_shapes) -> str:
+    """Launch the forward entry ``<prefix>_forward`` of a recurrence library
+    on the current stream with ``outs`` (``ys``, and the LSTM training
+    forward's ``cs``): asks ``<prefix>_fwd_branch`` first and makes the
+    grid branch's zeroed fp32 scratch (``scratch_shapes``, after the h
+    double buffer ``(ndir, 2, H, ldh)``) only for it.  Returns the branch
+    launched (``FWD_BRANCHES``); raises if the launch failed."""
+    import torch
+
+    bf16 = int(gx.dtype == torch.bfloat16)
+    branch = ctypes.c_int(-1)
+    err = getattr(lib, f"{prefix}_fwd_branch")(b, h, ndir, bf16,
+                                               ctypes.byref(branch))
+    ldh = -(-b // 4) * 4  # rows of the grid's h buffer, 16-byte pieces
+    ptrs = [None, None]
+    if err == 0 and branch.value == 0:
+        scratch = [torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
+                               device=gx.device)]
+        scratch += [torch.zeros(*s, dtype=torch.float32, device=gx.device)
+                    for s in scratch_shapes]
+        ptrs = [x.data_ptr() for x in scratch]
+    if err == 0:
+        stream = torch.cuda.current_stream(gx.device).cuda_stream
+        err = getattr(lib, f"{prefix}_forward")(
+            gx.data_ptr(), w.data_ptr(), *[o.data_ptr() for o in outs], *ptrs,
+            t_len, b, h, ldh, ndir, bf16, stream, ctypes.byref(branch))
+    if err != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{prefix} forward kernel launch failed ({err}: "
+                           f"{msg}) at T={t_len} B={b} H={h}")
+    return FWD_BRANCHES[branch.value]
 
 
 def device_kind(t, what: str) -> str:

@@ -26,8 +26,10 @@ dhh_n]`` is formed here, outside the kernels, as plain GEMMs (as the JAX
 package forms it outside Pallas); the input projection and its gradients
 belong to the caller's ``torch.matmul``.
 
-The serial chain has two branches, which the launcher chooses by shape and
-reports (``launches_bwd_branch``): with bf16 streams and H <= 480 a
+The forward's branches are the eval op's, counted here by the branch the
+library reported (``launches_fwd_branch``).  The serial chain has two
+branches, which the launcher chooses by shape and reports
+(``launches_bwd_branch``): with bf16 streams and H <= 480 a
 thread-block cluster per (direction, 16 or 32 batch rows) runs its step
 product on the tensor cores and exchanges it in distributed shared memory;
 every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
@@ -48,6 +50,7 @@ import torch
 from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
 from ctc_pytorch_tpu_torch.ops._build import (
     BRANCHES,
+    FWD_BRANCHES,
     KernelLibrary,
     acc_dtype,
     check_plane,
@@ -68,7 +71,7 @@ LIBRARY = KernelLibrary(
      "gru_bidir_train_backward": (
          [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "gru_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=[*gru_ops.HEADERS, "bwd_hoist.cuh"])
+    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"])
 
 PLANES = 5  # the pre-pass planes [P_r | P_z | P_n | P_hn | Z]
 
@@ -77,7 +80,8 @@ PLANES = 5  # the pre-pass planes [P_r | P_z | P_n | P_hn | Z]
 launches_fwd = 0
 launches_bwd_prepass = 0
 launches_bwd = 0
-# serial launches by the branch the launcher reported
+# forward and serial launches by the branch the launcher reported
+launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
 
 
@@ -169,8 +173,9 @@ def gru_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel (the eval op's) on the current stream:
     ``ys`` in the stream dtype.  Does not synchronise."""
     global launches_fwd
-    ys = gru_ops.launch_forward(gx, w_hh)
+    ys, branch = gru_ops.launch_forward(gx, w_hh)
     launches_fwd += 1
+    launches_fwd_branch[branch] += 1
     return ys
 
 

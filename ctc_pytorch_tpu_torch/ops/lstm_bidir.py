@@ -13,10 +13,13 @@ from the same kernel.
 On this card the work is bound by operations, not bytes: at the decode
 bench shape (T=80, B=128, H=384) the fp32 recurrent product is 24.2 GFLOP
 per layer, ~0.36 ms at 67 TFLOP/s, against ~25 us for the ~83 MB of gx, ys
-and w_hh.  The kernel (``csrc/lstm_bidir.cu``) is one cooperative launch
-that keeps ``w_hh`` resident in shared memory across the run (in L2 past
-H = 4 x SMs, 528 on an H100) and meets at one grid barrier per time step;
-its header says more.  Any T >= 1, B >= 1 and H run, with no padding.
+and w_hh.  The kernel has two branches, which the library chooses by shape
+and reports (``launches_fwd_branch``): a thread-block cluster per direction
+and 16 batch rows with ``w_hh`` resident across it and h exchanged in
+distributed shared memory (``csrc/fwd_cluster.cuh``, H <= 416, while every
+cluster fits on the card at once), and for every other shape one
+cooperative grid with a grid barrier per time step (``csrc/lstm_bidir.cu``).
+Any T >= 1, B >= 1 and H run, with no padding.
 
 ``lstm_bidir`` takes the plain version for CPU tensors only.  A CUDA tensor
 goes through the kernel, or the call raises.
@@ -29,21 +32,27 @@ import ctypes
 import torch
 
 from ctc_pytorch_tpu_torch.ops._build import (
+    FWD_BRANCHES,
     KernelLibrary,
     check_recurrence,
     device_kind,
+    launch_forward,
     step_times,
 )
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "lstm_bidir.cu",
-    {"lstm_bidir_forward": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
+    {"lstm_bidir_fwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "lstm_bidir_forward": (
+         [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"])
 
 # kernel launches made through ``lstm_bidir``; the plain path adds nothing
 launches = 0
+# the same launches by the branch the library reported
+launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 
 
 def lstm_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -81,22 +90,11 @@ def lstm_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     lib = LIBRARY.load()
     with torch.cuda.device(gx.device):
         ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
-        # h double buffer, (direction, parity, H, ldh): rows padded to a
-        # multiple of 4 floats so the kernel copies them in 16-byte pieces
-        ldh = -(-b // 4) * 4
-        hbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
-                           device=gx.device)
-        cbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = lib.lstm_bidir_forward(
-            gx.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
-            cbuf.data_ptr(), t_len, b, h, ldh, ndir,
-            int(gx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.lstm_bidir_error_string(err).decode()
-        raise RuntimeError(f"lstm_bidir kernel launch failed ({err}: {msg}) "
-                           f"at T={t_len} B={b} H={h}")
+        # the grid branch's c scratch, (direction, B, H)
+        branch = launch_forward(lib, "lstm_bidir", gx, w_hh, [ys], t_len, b,
+                                h, ndir, [(ndir, b, h)])
     launches += 1
+    launches_fwd_branch[branch] += 1
     return ys
 
 

@@ -31,8 +31,13 @@ reports (``launches_bwd_branch``): with bf16 streams and H <= 416 a
 thread-block cluster per (direction, 16 or 32 batch rows) runs its step
 product on the tensor cores and exchanges it in distributed shared memory;
 every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
-(``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The forward keeps
-one grid barrier per time step.  With bf16 streams the products' operands
+(``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The forward has
+branches of its own, chosen and reported the same way
+(``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
+batch rows with ``w_hh`` resident across it and h exchanged in distributed
+shared memory, its step product on the tensor cores with bf16 streams and
+on CUDA cores in fp32 with fp32 streams (``csrc/fwd_cluster.cuh``), or the
+cooperative grid where no cluster holds the shape.  With bf16 streams the products' operands
 are bf16 values, so the card's limit for the work is its bytes; with fp32
 streams it is the fp32 operations.  Any T >= 1, B >= 1 and H run, with no
 padding of the caller's tensors.
@@ -49,6 +54,7 @@ from typing import Tuple
 import torch
 
 from ctc_pytorch_tpu_torch.ops._build import (
+    FWD_BRANCHES,
     KernelLibrary,
     acc_dtype as _acc_dtype,
     check_plane,
@@ -56,6 +62,7 @@ from ctc_pytorch_tpu_torch.ops._build import (
     check_recurrence,
     check_serial,
     device_kind,
+    launch_forward,
     padded_planes,
     prepass_weights,
     per_direction,
@@ -66,13 +73,15 @@ from ctc_pytorch_tpu_torch.ops._build import (
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "lstm_bidir_train.cu",
-    {"lstm_bidir_train_forward": ([_VP] * 6 + [_CI] * 6 + [_VP], _CI),
+    {"lstm_bidir_train_fwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "lstm_bidir_train_forward": (
+         [_VP] * 6 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_bwd_prepass": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
      "lstm_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_backward": (
          [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "bwd_hoist.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"])
 
 PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
 
@@ -81,7 +90,8 @@ PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
 launches_fwd = 0
 launches_bwd_prepass = 0
 launches_bwd = 0
-# serial launches by the branch the launcher reported
+# forward and serial launches by the branch the launcher reported
+launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
 
 
@@ -222,20 +232,11 @@ def lstm_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor
     with torch.cuda.device(gx.device):
         ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
         cs = torch.empty_like(ys)
-        # h double buffer, (direction, parity, H, ldh): rows padded to a
-        # multiple of 4 floats so the kernel copies them in 16-byte pieces
-        ldh = -(-b // 4) * 4
-        hbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
-                           device=gx.device)
-        cbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=gx.device)
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = lib.lstm_bidir_train_forward(
-            gx.data_ptr(), w.data_ptr(), ys.data_ptr(), cs.data_ptr(),
-            hbuf.data_ptr(), cbuf.data_ptr(), t_len, b, h, ldh, ndir,
-            int(gx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        _raise(lib, err, "lstm_bidir_train forward", t_len, b, h)
+        # the grid branch's c scratch, (direction, B, H)
+        branch = launch_forward(lib, "lstm_bidir_train", gx, w, [ys, cs],
+                                t_len, b, h, ndir, [(ndir, b, h)])
     launches_fwd += 1
+    launches_fwd_branch[branch] += 1
     return ys, cs
 
 

@@ -15,9 +15,11 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py`` (``make_step_fns``,
   best-dev-accuracy state kept for the final package.
 
 The recipe's ``fused_epoch`` and ``device_cache`` (one program per epoch over
-a device-resident dataset) are not ported: batches stream from the host, one
-step each.  Data parallelism, the waveform frontend and ``profile`` are not
-ported either.
+a device-resident dataset) are ported as far as the batch order: over a
+``GroupedLoader`` (which ``cli/train.py`` builds where the JAX stage 2 would
+build its device cache) the epoch visits the batches grouped by shape, in the
+JAX fused path's order, still one step each from the host (no CUDA graphs).
+Data parallelism, the waveform frontend and ``profile`` are not ported.
 """
 
 from __future__ import annotations
@@ -168,6 +170,9 @@ class Trainer:
                  out_dir: Optional[str] = None):
         if cfg.profile:
             raise NotImplementedError("profile: tracing is not ported yet")
+        if cfg.fused_dispatch not in ("group", "epoch"):
+            raise ValueError(f"fused_dispatch must be 'group' or 'epoch', "
+                             f"got {cfg.fused_dispatch!r}")
         self.cfg = cfg
         self.spec = spec
         self.device = resolve_device(device)
@@ -194,7 +199,14 @@ class Trainer:
         self.epoch = 0
         self._decay_next = False
 
+    def _grouped(self, loader) -> bool:
+        """Whether the epochs over ``loader`` take the fused path's batch
+        order: ``fused_epoch`` on and a loader that knows it."""
+        return self.cfg.fused_epoch and hasattr(loader, "grouped")
+
     def _run(self, loader, *, training: bool, compute_wer: bool, log):
+        if self._grouped(loader):
+            loader = loader.grouped(self.cfg.fused_dispatch)
         return run_epoch(
             self.epoch, self.state, self.spec, loader, training=training,
             generator=self.dropout_generator if training else None,
@@ -214,10 +226,16 @@ class Trainer:
             log(f"Start training epoch: {self.epoch}, learning_rate: {lr:.5f}")
             t0 = time.time()
             train_loader.set_epoch(self.epoch)
-            if self.epoch == 1 and (cfg.fused_epoch or cfg.device_cache):
-                log("fused_epoch and device_cache are not ported yet: "
-                    "training with the streaming loop, one step per batch "
-                    "(same per-batch math)")
+            if self.epoch == 1 and cfg.fused_epoch:
+                if self._grouped(train_loader):
+                    log("fused_epoch: the batches go grouped by shape in the "
+                        "JAX fused path's order (fused_dispatch "
+                        f"{cfg.fused_dispatch!r}), one step each; CUDA graphs "
+                        "are not ported")
+                else:
+                    log("fused_epoch requested but running the streaming "
+                        f"order: {type(train_loader).__name__} has no grouped "
+                        "order (a GroupedLoader is required)")
             train_acc, train_loss = self._run(
                 train_loader, training=True, compute_wer=compute_wer, log=log)
             if cfg.dev_over_train:

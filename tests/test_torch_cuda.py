@@ -1,6 +1,7 @@
 """The port on the card: each Hopper kernel (eval LSTM, GRU and tanh RNN,
-their trainable forwards and backwards, the LSTM's and GRU's backward
-pre-pass and serial chain on both of its branches, CTC alpha and beta)
+their trainable forwards and backwards, the LSTM's and GRU's forwards on
+each of their branches, the LSTM's and GRU's backward pre-pass and serial
+chain on both of its branches, CTC alpha and beta)
 against its plain twin, with two directions and with one, the stacked-layout
 entry points' launch counts, and the models on CUDA against the same models
 on the CPU, in eval and in a train step.
@@ -34,7 +35,7 @@ from ctc_pytorch_tpu_torch.ops import stacked
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
-from chip_smoke import HOIST_CASES  # noqa: E402  the shapes phase 3 holds
+from chip_smoke import FWD_CASES, HOIST_CASES  # noqa: E402  phase 3's shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -620,3 +621,38 @@ def test_hoisted_backward_kernels_match_plain_on_the_card(card, cell, t, b, h,
                 (x,) if cell == "lstm" else x for x in (g_out, w_out))):
             assert torch.isfinite(g_plane.float()).all()
             assert _held(g_plane, w_plane, bf16) <= tol
+
+
+@pytest.mark.parametrize("kernel,t,b,h,dtype,ndir,branch", FWD_CASES)
+def test_forward_kernels_match_plain_on_each_branch(card, kernel, t, b, h,
+                                                    dtype, ndir, branch):
+    """Each LSTM and GRU forward kernel against its twin at ``chip_smoke.py``'s
+    shapes, with the branch the library reported: ys (and cs) within 1e-4,
+    2e-2 with bf16 streams."""
+    bf16 = dtype == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    gates = 3 if kernel == "gru" else 4
+    gen = torch.Generator().manual_seed(t + b + h + ndir)
+    gx = torch.randn(t, b, ndir * gates * h, generator=gen).to(dtype).to(card)
+    w_hh = ((torch.rand(ndir, h, gates * h, generator=gen) * 2 - 1)
+            * h ** -0.5).to(card)
+    if kernel == "lstm_eval":
+        runs = [(lstm_ops, lstm_ops.lstm_bidir_cuda, lstm_ops.lstm_bidir_plain)]
+    elif kernel == "lstm_train":
+        runs = [(train_ops, train_ops.lstm_bidir_train_cuda,
+                 train_ops.lstm_bidir_train_plain)]
+    else:
+        runs = [(gru_ops, gru_ops.gru_bidir_cuda, gru_ops.gru_bidir_plain),
+                (gru_train_ops, gru_train_ops.gru_bidir_train_cuda,
+                 gru_ops.gru_bidir_plain)]
+    tol = 2e-2 if bf16 else 1e-4
+    for mod, fn, twin in runs:
+        before = dict(mod.launches_fwd_branch)
+        got, want = fn(gx, w_hh), twin(gx, w_hh)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in mod.launches_fwd_branch.items()}
+        took = [k for k, v in delta.items() if v]
+        assert sum(delta.values()) == 1 and took[0].startswith(branch)
+        for g, w in zip(*((x,) if torch.is_tensor(x) else x for x in (got, want))):
+            assert torch.isfinite(g.float()).all()
+            assert (g.float() - w.float()).abs().max().item() <= tol

@@ -146,28 +146,46 @@ def test_kernel_modules_build_nothing_at_import():
         assert lib._lib is None and lib.source.exists()
         assert all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
-    # a header is part of the version: both LSTM sources include
-    # lstm_fwd.cuh, the training source also the hoisted backward's header
-    assert [h.name for h in lstm_ops.LIBRARY.headers] == ["lstm_fwd.cuh"]
-    assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == [
-        "lstm_fwd.cuh", "bwd_hoist.cuh"]
+    # a header is part of the version: both LSTM sources include the
+    # forward's cluster header, which includes lstm_fwd.cuh (the grid), the
+    # hoisted backward's header and gru_fwd.cuh
+    fwd = ["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"]
+    assert [h.name for h in lstm_ops.LIBRARY.headers] == fwd
+    assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == fwd
+    for lib in (lstm_ops.LIBRARY, lstm_bidir_train.LIBRARY):
+        assert '#include "fwd_cluster.cuh"' in lib.source.read_text()
     assert '#include "bwd_hoist.cuh"' in lstm_bidir_train.LIBRARY.source.read_text()
+    cluster = (_build.CSRC / "fwd_cluster.cuh").read_text()
+    for inc in ("bwd_hoist.cuh", "gru_fwd.cuh"):
+        assert f'#include "{inc}"' in cluster
+    # the forward entries name their branch first and report it
+    for lib, prefix in ((lstm_ops.LIBRARY, "lstm_bidir"),
+                        (lstm_bidir_train.LIBRARY, "lstm_bidir_train")):
+        assert {f"{prefix}_fwd_branch", f"{prefix}_forward"} <= set(lib.functions)
+    assert _build.FWD_BRANCHES == ("grid", "cluster16", "cluster32",
+                                   "cluster16_fp32")
 
 
 def test_gru_kernel_modules_build_nothing_at_import():
     from ctc_pytorch_tpu_torch.ops import _build, gru_bidir, gru_bidir_train, stacked
 
     # the headers are part of the version: gru_fwd.cuh includes
-    # lstm_fwd.cuh; the backward also includes bwd_hoist.cuh
-    for lib, source, headers in (
-            (gru_bidir.LIBRARY, "gru_bidir.cu", ["lstm_fwd.cuh", "gru_fwd.cuh"]),
+    # lstm_fwd.cuh; the forward's source includes the cluster header (which
+    # includes gru_fwd.cuh and bwd_hoist.cuh), the backward's gru_fwd.cuh
+    # and bwd_hoist.cuh
+    for lib, source, headers, inc in (
+            (gru_bidir.LIBRARY, "gru_bidir.cu",
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_cluster.cuh"],
+             "fwd_cluster.cuh"),
             (gru_bidir_train.LIBRARY, "gru_bidir_train.cu",
-             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"])):
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"], "gru_fwd.cuh")):
         assert lib._lib is None and lib.source.name == source
         assert lib.source.exists() and all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
         assert [h.name for h in lib.headers] == headers
-        assert '#include "gru_fwd.cuh"' in lib.source.read_text()
+        assert f'#include "{inc}"' in lib.source.read_text()
+    assert {"gru_bidir_fwd_branch", "gru_bidir_forward"} <= set(
+        gru_bidir.LIBRARY.functions)
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "gru_fwd.cuh").read_text()
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "bwd_hoist.cuh").read_text()
     # the trainable op's forward is the eval library's kernel; the backward
@@ -201,8 +219,8 @@ def test_no_kernel_source_calls_a_library_for_the_recurrent_products():
 
     sources = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
     assert {p.name for p in sources} >= {
-        "bwd_hoist.cuh", "gru_bidir.cu", "gru_bidir_train.cu", "gru_fwd.cuh",
-        "lstm_bidir.cu",
+        "bwd_hoist.cuh", "fwd_cluster.cuh", "gru_bidir.cu", "gru_bidir_train.cu",
+        "gru_fwd.cuh", "lstm_bidir.cu",
         "lstm_bidir_train.cu", "lstm_fwd.cuh", "ctc_dp.cu", "rnn_bidir.cu",
         "rnn_bidir_train.cu", "rnn_fwd.cuh"}
     for path in sources:

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Phase stamps of the LSTM and GRU backward's serial kernel
-(``bwd_cluster_kernel`` in ``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) on
-one GPU: the cycles a step spends in each phase, at the bench and recipe
-shapes with bf16 streams, and the clusters the card holds at once.
+"""Phase stamps of the LSTM and GRU recurrences' cluster kernels on one GPU:
+the backward's serial kernel (``bwd_cluster_kernel`` in
+``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) at the bench and recipe shapes
+with bf16 streams, and the forward's (``fwd_mma_kernel``, ``fwd_fma_kernel``
+in ``csrc/fwd_cluster.cuh``) at the main paths' and bench shapes: the cycles
+a step spends in each phase, and the clusters the card holds at once.
 
     python3 tools/probe_bwd_steps.py
 
-Builds the header with ``BWD_STEP_STAMPS`` defined (thread 0 of the first
-CTA adds ``clock64()`` deltas between the kernel's phases) and the small main
-below into the git-ignored ``csrc/build/probes/`` with nvcc for sm_90a, and
-runs it.  The stamps cost cycles of their own; the package's build leaves
-them out.
+Builds the headers with ``BWD_STEP_STAMPS`` and ``FWD_STEP_STAMPS`` defined
+(thread 0 of the first CTA adds ``clock64()`` deltas between the kernels'
+phases) and the small main below into the git-ignored
+``csrc/build/probes/`` with nvcc for sm_90a, and runs it.  The stamps cost
+cycles of their own; the package's build leaves them out.
 """
 
 import subprocess
@@ -25,10 +27,60 @@ from ctc_pytorch_tpu_torch.ops._build import BUILD_DIR, CSRC, nvcc  # noqa: E402
 PHASES = ["wait for the data", "receive sum", "read arrive", "element-wise",
           "loads issued", "CTA barrier", "product", "wait for the reads",
           "DSMEM stores", "data arrive", "global stores"]
+FWD_PHASES = ["product", "gate math", "DSMEM stores", "release arrive",
+              "loads and global stores issued", "wait"]
 
 MAIN = r"""
-#include "bwd_hoist.cuh"
+#include "fwd_cluster.cuh"
 #include <cstdio>
+#include <type_traits>
+
+// one forward launch on the branch the launcher picks, with its stamps
+template <class Cell, typename S, bool kRound>
+void run_fwd(int T, int B, int H, const char* what) {
+  const int G = Cell::kGates, ndir = 2;
+  const size_t n_gx = (size_t)T * B * ndir * G * H, n_y = (size_t)T * B * ndir * H;
+  void *gx, *ys, *cs;
+  float* w;
+  cudaMalloc(&gx, n_gx * sizeof(S));
+  cudaMalloc(&ys, n_y * sizeof(S));
+  cudaMalloc(&cs, n_y * sizeof(S));
+  cudaMalloc(&w, (size_t)ndir * H * G * H * 4);
+  cudaMemset(gx, 0, n_gx * sizeof(S));
+  cudaMemset(w, 0, (size_t)ndir * H * G * H * 4);
+  int branch = 0;
+  fwd_branch<Cell, S, kRound>(B, H, ndir, &branch);
+  if (branch == kFwdGrid) {
+    printf("%s: grid branch, no stamps\n", what);
+    return;
+  }
+  void* c = std::is_same<Cell, LstmCell>::value && kRound ? cs : nullptr;
+  for (int rep = 0; rep < 2; ++rep) {
+    long long zero[8] = {0};
+    cudaMemcpyToSymbol(fwd_step_cycles, zero, sizeof(zero));
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    cudaEventRecord(a);
+    const cudaError_t err = launch_fwd_cluster<Cell, S, kRound>(
+        branch, gx, w, ys, c, T, B, H, ndir, 0);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, a, b);
+    long long acc[8];
+    cudaMemcpyFromSymbol(acc, fwd_step_cycles, sizeof(acc));
+    long long total = 0;
+    printf("%s: branch %d, %.4f ms, %.2f us a step; cycles a step by phase:",
+           what, branch, ms, 1e3 * ms / T);
+    for (int i = 0; i < 6; ++i) {
+      printf(" %lld", acc[i] / T);
+      total += acc[i];
+    }
+    printf(" | total %lld (%s)\n", total / T,
+           cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+  }
+}
 
 template <class Cell>
 void run(int T, int B, int H, const char* what) {
@@ -92,6 +144,13 @@ int main() {
   run<LstmCell>(80, 128, 384, "lstm T=80 B=128 H=384");
   run<GruCell>(95, 16, 256, "gru T=95 B=16 H=256");
   run<GruCell>(95, 128, 256, "gru T=95 B=128 H=256");
+  printf("forward\n");
+  run_fwd<LstmCell, float, false>(100, 8, 384, "lstm eval T=100 B=8 H=384 fp32");
+  run_fwd<LstmCell, float, true>(100, 8, 384, "lstm train T=100 B=8 H=384 fp32");
+  run_fwd<LstmCell, __nv_bfloat16, true>(80, 128, 384,
+                                         "lstm train T=80 B=128 H=384 bf16");
+  run_fwd<GruCell, __nv_bfloat16, true>(95, 16, 256, "gru T=95 B=16 H=256 bf16");
+  run_fwd<GruCell, __nv_bfloat16, true>(95, 128, 256, "gru T=95 B=128 H=256 bf16");
   return 0;
 }
 """
@@ -103,9 +162,10 @@ def main() -> int:
     cu, exe = out / "step_stamps.cu", out / "step_stamps"
     cu.write_text(MAIN)
     subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                    "-std=c++17", "-DBWD_STEP_STAMPS", f"-I{CSRC}", "-o",
-                    str(exe), str(cu)], check=True)
-    print("phases:", ", ".join(PHASES))
+                    "-std=c++17", "-DBWD_STEP_STAMPS", "-DFWD_STEP_STAMPS",
+                    f"-I{CSRC}", "-o", str(exe), str(cu)], check=True)
+    print("backward phases:", ", ".join(PHASES))
+    print("forward phases:", ", ".join(FWD_PHASES))
     subprocess.run([str(exe)], check=True)
     return 0
 
