@@ -12,10 +12,13 @@ printed line; any failure ends the run with a nonzero exit and no result:
    trainable BiGRU forward, which launches the eval BiGRU's kernel under a
    count of its own, and backward, and the same three for the tanh RNN)
    against its plain PyTorch version on the card, at the main paths' shapes
-   and at edge shapes, with stated tolerances; the LSTM's and GRU's backward
-   pre-pass, serial kernel and whole backward against their twins on both
-   branches of the serial kernel, with the branch the launcher reports; the
-   three recurrences of each cell with one direction (ndir = 1); then the
+   and at edge shapes, with stated tolerances; the LSTM's and GRU's forwards
+   on every branch (``FWD_CASES``); the LSTM's and GRU's backward pre-pass,
+   serial kernel and whole backward against their twins on both branches of
+   the serial kernel (``HOIST_CASES``); the tanh cell's forward and backward
+   on every branch (``RNN_CASES``), each with the branch the launcher
+   reports; the three recurrences of each cell with one direction (ndir =
+   1); then the
    ten stacked-layout (v1) entry points, each through the kernels against
    itself through the plain versions, with the launches counted;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
@@ -39,14 +42,16 @@ printed line; any failure ends the run with a nonzero exit and no result:
    width (CNN + 4 x BiRNN(384), bf16, batch 8): ``Trainer.fit`` for one
    epoch, the saved package decoded, a seeded model decoded through kernels
    and twins, two fp32 steps through kernels and twins, as phases 4 and 5;
+   every tanh launch, forward and backward, on a cluster branch;
 8. unidirectional slice: the flagship recipe with ``bidirectional: False``
    (4 x LSTM(384), forward only) the same way: every recurrence launch of
    this path is a one-direction launch of the LSTM kernels;
 9. times at the bench shapes (TIMIT: B=128, T=160 -> T'=80, L=48; 863: B=128,
    T=200 -> T'=95, L=40) and at the recipes' batches (B=8; B=16): every
    kernel, its plain twin, its bound and the library call for the same
-   function (the LSTM and GRU backwards: pre-pass, serial kernel and both,
-   in rounds with cuDNN's backward in fp32 and bf16), the stacked entry
+   function (the recurrences' forwards and backwards in rounds with cuDNN's
+   in fp32 and bf16; the LSTM and GRU backwards as pre-pass, serial kernel
+   and both), with the branch each recurrence kernel took, the stacked entry
    points, then the flagship's, the 863 model's and the tanh model's decode
    forward and whole train step with their device time by kernel.
 
@@ -259,7 +264,7 @@ def zero_counts() -> None:
     for mod in (train_ops, gru_train_ops):
         mod.launches_fwd = mod.launches_bwd_prepass = mod.launches_bwd = 0
         mod.launches_bwd_branch.update(dict.fromkeys(mod.launches_bwd_branch, 0))
-    for by in fwd_branch_counts().values():
+    for by in cluster_branch_counts().values():
         by.update(dict.fromkeys(by, 0))
     rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
@@ -727,23 +732,29 @@ FWD_CASES = [
 ]
 
 
-def fwd_branch_counts() -> dict:
-    """The forward launches of each LSTM and GRU op by branch."""
+def cluster_branch_counts() -> dict:
+    """The launches by branch of each forward op and of the tanh backward,
+    which takes the forward's branches (``FWD_BRANCHES``)."""
     lstm_ops, train_ops, _ = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     return {"lstm_bidir": lstm_ops.launches_fwd_branch,
             "lstm_bidir_train_fwd": train_ops.launches_fwd_branch,
             "gru_bidir": gru_ops.launches_fwd_branch,
-            "gru_bidir_train_fwd": gru_train_ops.launches_fwd_branch}
+            "gru_bidir_train_fwd": gru_train_ops.launches_fwd_branch,
+            "rnn_bidir": rnn_ops.launches_fwd_branch,
+            "rnn_bidir_train_fwd": rnn_train_ops.launches_fwd_branch,
+            "rnn_bidir_train_bwd": rnn_train_ops.launches_bwd_branch}
 
 
 def check_cluster_branches(what: str) -> dict:
-    """Every LSTM and GRU forward launch since ``zero_counts`` took a cluster
-    branch; the launches by op and branch."""
+    """Every forward launch (LSTM, GRU, tanh) and every tanh backward launch
+    since ``zero_counts`` took a cluster branch; the launches by op and
+    branch."""
     took = {op: {k: v for k, v in by.items() if v}
-            for op, by in fwd_branch_counts().items() if any(by.values())}
+            for op, by in cluster_branch_counts().items() if any(by.values())}
     check(all(k.startswith("cluster") for by in took.values() for k in by),
-          f"{what}: a forward launch took the grid branch: {took}")
+          f"{what}: a launch took the grid branch: {took}")
     return took
 
 
@@ -764,7 +775,7 @@ def phase_fwd_vs_plain() -> dict:
         gx, w_hh, _ = recurrence_inputs(
             t, b, h, torch.bfloat16 if bf16 else torch.float32, seed=600 + i,
             gates=gates, ndir=ndir)
-        for by in fwd_branch_counts().values():
+        for by in cluster_branch_counts().values():
             by.update(dict.fromkeys(by, 0))
         if kernel == "lstm_eval":
             runs = [("lstm_eval", lstm_ops, lstm_ops.lstm_bidir_cuda(gx, w_hh),
@@ -799,66 +810,138 @@ def phase_fwd_vs_plain() -> dict:
     return worst
 
 
+# The tanh cell's kernels on their branches: (kernel, T', B, H, stream
+# dtype, directions, the branch the library must report, by prefix, scale of
+# gx).  "fwd" is the eval op and the training forward (one kernel), "bwd"
+# the backward.  Bounds (csrc/fwd_cluster.cuh): the bf16 cluster holds H <=
+# 512 with 16 and with 32 rows, the fp32 cluster H <= 558 with 8 CTAs and H
+# <= 726 with 16; a branch is taken only where all its clusters fit at once.
+# Past the bounds the grid, whose w_hh is resident up to H = 1056 with two
+# directions and 1568 with one, in L2 beyond.  The card's pytest cases
+# (tests/test_torch_cuda.py) run the same list.
+RNN_CASES = [
+    ("fwd", 80, 128, 384, "bf16", 2, "cluster16", 1.0),  # TIMIT bench shape
+    ("bwd", 80, 128, 384, "bf16", 2, "cluster16", 1.0),
+    ("fwd", 100, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),  # recipe batch
+    ("bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 80, 128, 384, "fp32", 2, "grid", 1.0),  # 16 clusters of 8 CTAs
+    ("bwd", 80, 128, 384, "fp32", 2, "grid", 1.0),
+    # saturated: 1 - y^2 from y near 1
+    ("fwd", 80, 128, 384, "bf16", 2, "cluster16", 8.0),
+    ("bwd", 80, 128, 384, "bf16", 2, "cluster16", 8.0),
+    ("fwd", 1, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),  # T = 1
+    ("bwd", 1, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 1, 1, 37, "fp32", 2, "cluster16_fp32", 1.0),  # T = 1, B = 1
+    ("bwd", 1, 1, 37, "fp32", 2, "cluster16_fp32", 1.0),
+    # odd T, B % 4 != 0, H % 8 != 0
+    ("fwd", 33, 5, 37, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 33, 5, 37, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 7, 3, 37, "bf16", 2, "cluster16", 1.0),
+    ("bwd", 7, 3, 37, "bf16", 2, "cluster16", 1.0),
+    ("fwd", 12, 16, 32, "bf16", 1, "cluster16", 1.0),  # one direction
+    ("bwd", 12, 16, 32, "bf16", 1, "cluster16", 1.0),
+    ("fwd", 9, 17, 64, "fp32", 1, "cluster16_fp32", 1.0),  # B = 17
+    ("bwd", 9, 17, 64, "fp32", 1, "cluster16_fp32", 1.0),
+    ("fwd", 6, 200, 64, "bf16", 2, "cluster16", 1.0),  # 13 row slices
+    ("bwd", 6, 200, 64, "bf16", 2, "cluster16", 1.0),
+    ("fwd", 5, 48, 96, "fp32", 2, "cluster16_fp32", 1.0),  # B >= 32
+    ("bwd", 5, 48, 96, "fp32", 2, "cluster16_fp32", 1.0),
+    # the bounds: bf16 H <= 512 (16 and 32 rows), fp32 H <= 558 (8 CTAs)
+    # and H <= 726 (16 CTAs)
+    ("fwd", 6, 16, 512, "bf16", 2, "cluster16", 1.0),
+    ("bwd", 6, 16, 512, "bf16", 2, "cluster16", 1.0),
+    ("fwd", 6, 16, 513, "bf16", 2, "grid", 1.0),
+    ("bwd", 6, 16, 513, "bf16", 1, "grid", 1.0),
+    ("fwd", 6, 224, 512, "bf16", 2, "cluster16", 1.0),  # 28 clusters
+    ("bwd", 6, 224, 512, "bf16", 2, "cluster16", 1.0),
+    ("fwd", 6, 224, 513, "bf16", 2, "grid", 1.0),
+    # 60 clusters of 16 rows do not fit at once, 30 of 32 rows do
+    ("fwd", 6, 480, 384, "bf16", 2, "cluster32", 1.0),
+    ("bwd", 6, 480, 384, "bf16", 2, "cluster32", 1.0),
+    ("fwd", 6, 8, 558, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 6, 8, 558, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 6, 8, 559, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 6, 8, 559, "fp32", 1, "cluster16_fp32", 1.0),
+    ("fwd", 4, 8, 726, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 4, 8, 726, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 4, 8, 727, "fp32", 2, "grid", 1.0),
+    ("bwd", 4, 8, 727, "fp32", 2, "grid", 1.0),
+    # the grid: w_hh resident, then in L2, with two directions and one
+    ("fwd", 4, 4, 1056, "fp32", 2, "grid", 1.0),
+    ("bwd", 4, 4, 1056, "fp32", 2, "grid", 1.0),
+    ("fwd", 4, 4, 1064, "fp32", 2, "grid", 1.0),
+    ("bwd", 4, 4, 1064, "fp32", 2, "grid", 1.0),
+    ("fwd", 4, 4, 1568, "fp32", 1, "grid", 1.0),
+    ("bwd", 4, 4, 1568, "fp32", 1, "grid", 1.0),
+    ("fwd", 4, 4, 1576, "fp32", 1, "grid", 1.0),
+    ("bwd", 4, 4, 1576, "fp32", 1, "grid", 1.0),
+]
+
+
 def phase_rnn_vs_plain() -> dict:
-    """The three tanh-RNN kernels against their plain twins: ys from the eval
-    and the training forward; dgx and the dW_hh formed from it.  The
-    backward kernel is given the twin's ys, so each kernel is held on its
-    own.  Tolerances as the LSTM phases.  Returns the worst error per kernel
-    and dtype."""
+    """The tanh-RNN kernels against their plain twins on every branch of
+    RNN_CASES, with the branch the library reported: ys from the eval and
+    the training forward; dgx and the dW_hh formed from it.  The backward
+    kernel is given the twin's ys, so each kernel is held on its own.
+    Tolerances as the LSTM phases.  Returns the worst error per kernel and
+    dtype."""
     import torch
 
     rnn_ops, rnn_train_ops = port_rnn_ops()
     _, train_ops, _ = port_ops()
-    cases = [  # (T', B, H, stream dtype, directions, scale of gx)
-        (80, 128, 384, torch.bfloat16, 2, 1.0),  # TIMIT bench shape
-        (80, 128, 384, torch.float32, 2, 1.0),
-        (100, 8, 384, torch.float32, 2, 1.0),  # the recipe's batch, longest bucket
-        (80, 128, 384, torch.bfloat16, 2, 8.0),  # saturated: 1 - y^2 from y near 1
-        (1, 8, 384, torch.float32, 2, 1.0),  # T = 1
-        (1, 1, 37, torch.float32, 2, 1.0),  # T = 1, B = 1, H = 37
-        (33, 5, 37, torch.float32, 2, 1.0),  # odd T, B % 4 != 0, H % 8 != 0
-        (12, 16, 32, torch.bfloat16, 1, 1.0),  # one direction, bf16 streams
-        (6, 200, 64, torch.bfloat16, 2, 1.0),  # B over one 128-row tile
-        (4, 4, 1056, torch.float32, 2, 1.0),  # widest H with w_hh resident
-        (4, 4, 1064, torch.float32, 2, 1.0),  # past the resident limit: L2
-        (4, 4, 1568, torch.float32, 1, 1.0),  # one direction: widest resident
-        (4, 4, 1576, torch.float32, 1, 1.0),  # one direction, L2
-    ]
     worst = {k: {"fp32": 0.0, "bf16": 0.0} for k in ("eval", "fwd", "bwd")}
-    for i, (t, b, h, dt, ndir, scale) in enumerate(cases):
-        bf16 = dt == torch.bfloat16
-        name = "bf16" if bf16 else "fp32"
-        gx, w_hh, dy = recurrence_inputs(t, b, h, dt, seed=450 + i, gates=1,
-                                         ndir=ndir, scale=scale)
-        ys_eval = rnn_ops.rnn_bidir_cuda(gx, w_hh)
-        ys_train = rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh)
+    for i, (kernel, t, b, h, name, ndir, branch, scale) in enumerate(RNN_CASES):
+        bf16 = name == "bf16"
+        gx, w_hh, dy = recurrence_inputs(
+            t, b, h, torch.bfloat16 if bf16 else torch.float32, seed=450 + i,
+            gates=1, ndir=ndir, scale=scale)
+        for by in cluster_branch_counts().values():
+            by.update(dict.fromkeys(by, 0))
         want_ys = rnn_ops.rnn_bidir_plain(gx, w_hh)
-        dgx = rnn_train_ops.rnn_bidir_train_backward_cuda(w_hh, want_ys, dy)
-        want_dgx = rnn_train_ops.rnn_bidir_train_backward_plain(w_hh, want_ys, dy)
+        where = f"at T={t} B={b} H={h} ndir={ndir} {name}" + (
+            f" gx x{scale:g}" if scale != 1.0 else "")
+        if kernel == "fwd":
+            runs = [("eval", rnn_ops.launches_fwd_branch,
+                     rnn_ops.rnn_bidir_cuda(gx, w_hh), want_ys),
+                    ("fwd", rnn_train_ops.launches_fwd_branch,
+                     rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh), want_ys)]
+        else:
+            runs = [("bwd", rnn_train_ops.launches_bwd_branch,
+                     rnn_train_ops.rnn_bidir_train_backward_cuda(w_hh, want_ys, dy),
+                     rnn_train_ops.rnn_bidir_train_backward_plain(
+                         w_hh, want_ys, dy))]
         torch.cuda.synchronize()
-        dw = train_ops.dw_hh(want_ys, dgx, ndir)
-        want_dw = train_ops.dw_hh(want_ys, want_dgx, ndir)
-        e_eval, e_fwd = max_err(ys_eval, want_ys), max_err(ys_train, want_ys)
-        e_bwd, e_dw = max_err(dgx, want_dgx), max_err(dw, want_dw)
-        dw_scale = max(1.0, want_dw.abs().max().item())
-        tol_f = BF16_TOL if bf16 else FP32_TOL
-        held = scaled_err(dgx, want_dgx) if bf16 else e_bwd
-        tol_b = BF16_BWD_RTOL if bf16 else FP32_TOL
-        print(f"  rnn_bidir T={t} B={b} H={h} ndir={ndir} {name}"
-              + (f" gx x{scale:g}" if scale != 1.0 else "")
-              + f": ys eval {e_eval:.3g}, training forward {e_fwd:.3g} "
-              f"(tol {tol_f}); bwd dgx {e_bwd:.3g}"
-              + (f" ({held:.3g} of max(|want|, 1))" if bf16 else "")
-              + f", dW_hh {e_dw:.3g} on a scale of {dw_scale:.3g} (tol {tol_b:.3g})")
-        for plane in (ys_eval, ys_train, dgx, dw):
-            check(torch.isfinite(plane.float()).all().item(),
-                  "non-finite kernel output")
-        where = f"at T={t} B={b} H={h} ndir={ndir} {name}"
-        check(e_eval <= tol_f, f"tanh eval kernel disagrees with plain {where}")
-        check(e_fwd <= tol_f, f"tanh training forward disagrees with plain {where}")
-        check(held <= tol_b, f"tanh backward kernel disagrees with plain {where}")
-        check(e_dw <= tol_b * dw_scale, f"tanh dW_hh disagrees with plain {where}")
-        for key, err in (("eval", e_eval), ("fwd", e_fwd), ("bwd", e_bwd)):
+        for key, counts, got, want in runs:
+            took = [k for k, v in counts.items() if v]
+            err = max_err(got, want)
+            check(torch.isfinite(got.float()).all().item(),
+                  f"non-finite tanh {key} kernel output {where}")
+            check(len(took) == 1 and took[0].startswith(branch),
+                  f"tanh {key} kernel took {took}, not {branch}, {where}")
+            if key != "bwd":
+                tol = BF16_TOL if bf16 else FP32_TOL
+                print(f"  rnn_bidir {key} T={t} B={b} H={h} ndir={ndir} {name}"
+                      + (f" gx x{scale:g}" if scale != 1.0 else "")
+                      + f": branch {took[0]} (want {branch}); ys max_abs_err "
+                      f"{err:.3g} (tol {tol})")
+                check(err <= tol, f"tanh {key} kernel disagrees with plain {where}")
+            else:
+                dw = train_ops.dw_hh(want_ys, got, ndir)
+                want_dw = train_ops.dw_hh(want_ys, want, ndir)
+                e_dw = max_err(dw, want_dw)
+                dw_scale = max(1.0, want_dw.abs().max().item())
+                held = scaled_err(got, want) if bf16 else err
+                tol = BF16_BWD_RTOL if bf16 else FP32_TOL
+                print(f"  rnn_bidir bwd T={t} B={b} H={h} ndir={ndir} {name}"
+                      + (f" gx x{scale:g}" if scale != 1.0 else "")
+                      + f": branch {took[0]} (want {branch}); dgx {err:.3g}"
+                      + (f" ({held:.3g} of max(|want|, 1))" if bf16 else "")
+                      + f", dW_hh {e_dw:.3g} on a scale of {dw_scale:.3g} "
+                      f"(tol {tol:.3g})")
+                check(torch.isfinite(dw).all().item(), "non-finite dW_hh")
+                check(held <= tol, f"tanh backward kernel disagrees with plain {where}")
+                check(e_dw <= tol * dw_scale,
+                      f"tanh dW_hh disagrees with plain {where}")
             worst[key][name] = max(worst[key][name], err)
     return worst
 
@@ -1071,12 +1154,14 @@ def recipe_config_863():
     return cfg
 
 
-def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str):
+def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str,
+                 branches_out: dict = None):
     """Stage 4 through ``cli.test.evaluate`` from packages of ``model``: the
     compute-dtype package through the kernels (every recurrent layer must
     launch ``eval_kernel``, nothing else may launch), then an fp32 package
     through the kernels and through the plain twins, which must decode the
-    same strings.  Returns the launches of the first run."""
+    same strings.  Returns the launches of the first run; its launches by
+    op and branch go to ``branches_out["decode"]``."""
     import torch
 
     from ctc_pytorch_tpu_torch.cli.test import evaluate
@@ -1101,6 +1186,8 @@ def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str):
     res, decoded, lines = run(pkg)
     counts = launch_counts()
     branches = check_cluster_branches(f"{tag} decode")
+    if branches_out is not None:
+        branches_out["decode"] = branches
     print(f"  {spec.compute_dtype} {tag} decode: {res['batches']} batches, "
           f"{len(decoded)} utts, CER {res['cer']:.4f} WER {res['wer']:.4f}, "
           f"wall {res['wall_s']:.3f} s (first call, includes data load); "
@@ -1172,11 +1259,13 @@ def batch_tensors(batch):
         batch.example_mask))
 
 
-def train_slice(cfg, spec, cell: str, n_test_utts: int) -> dict:
+def train_slice(cfg, spec, cell: str, n_test_utts: int,
+                branches_out: dict = None) -> dict:
     """Stage 2 through ``Trainer.fit`` for one epoch, the saved package
     through ``cli.test.evaluate``, then two fp32 optimizer steps through the
     kernels and through the plain twins.  ``cell`` names the recurrence
-    kernels the model must launch.  Returns the launch counts over the fit."""
+    kernels the model must launch.  Returns the launch counts over the fit;
+    its launches by op and branch go to ``branches_out["fit"]``."""
     import torch
 
     from ctc_pytorch_tpu_torch.cli.test import evaluate
@@ -1217,6 +1306,8 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int) -> dict:
     wall = time.perf_counter() - t0
     counts = launch_counts()
     branches = check_cluster_branches("Trainer.fit")
+    if branches_out is not None:
+        branches_out["fit"] = branches
     steps, dev_batches = trainer.state.step, len(dev_loader)
     loss_after = probe_loss()
     for ln in lines:
@@ -1363,15 +1454,37 @@ def recipe_variant(rnn_type: str, bidirectional: bool, exp_name: str):
 def phase_tanh_slice():
     """The flagship recipe with ``rnn_type: nn.RNN`` (4 x BiRNN(384), tanh,
     bias-free) at full width: one epoch of stage 2, the saved package
-    decoded, and a seeded model decoded through kernels and twins.  Returns
-    ``(launch counts over the fit, decode launches, cfg, spec, model)``."""
+    decoded, and a seeded model decoded through kernels and twins; every
+    tanh launch of the fit and the decode (forward and backward) must take a
+    cluster branch.  Returns ``(launch counts over the fit, decode launches,
+    cfg, spec, model, launches by op and branch of the fit and the
+    decode)``."""
     cfg, spec = recipe_variant("nn.RNN", True, "smoke_tanh")
     check(spec.rnn_cell == "rnn", f"rnn_type nn.RNN gave {spec.rnn_cell}")
-    counts = train_slice(cfg, spec, "rnn", N_DECODE_UTTS)
+    branches = {}
+    counts = train_slice(cfg, spec, "rnn", N_DECODE_UTTS, branches)
     model = seeded_model(spec)
     decode_launches = decode_slice(cfg, spec, model, "rnn_bidir",
-                                   N_DECODE_UTTS, "tanh")
-    return counts, decode_launches, cfg, spec, model
+                                   N_DECODE_UTTS, "tanh", branches)
+    took = merged_branches(branches)
+    print(f"  tanh path, the fit and the decode: launches by branch {took}")
+    check(set(took) == {"rnn_bidir", "rnn_bidir_train_fwd", "rnn_bidir_train_bwd"}
+          and sum(took["rnn_bidir"].values()) == counts["rnn_bidir"] + decode_launches
+          and sum(took["rnn_bidir_train_fwd"].values()) == counts["rnn_bidir_train_fwd"]
+          and sum(took["rnn_bidir_train_bwd"].values()) == counts["rnn_bidir_train_bwd"],
+          f"tanh path: launches by branch {took} against counts {counts}")
+    return counts, decode_launches, cfg, spec, model, took
+
+
+def merged_branches(runs: dict) -> dict:
+    """``{op: {branch: launches}}`` summed over the runs of ``runs`` (each
+    as ``check_cluster_branches`` returns it)."""
+    out: dict = {}
+    for by_op in runs.values():
+        for op, by in by_op.items():
+            for k, v in by.items():
+                out.setdefault(op, {})[k] = out.get(op, {}).get(k, 0) + v
+    return out
 
 
 def phase_unidir_slice():
@@ -1460,12 +1573,13 @@ def prepass_bound(gx, w_hh, n_saved: int, n_planes: int, bf16: bool) -> dict:
 ROUNDS = 3  # turns of kernel and library backward timings in one run
 
 
-def backward_vs_library(cell_cls, t, b, h, kernel_fn, tag) -> dict:
-    """The kernels' whole backward (``kernel_fn``) and cuDNN's backward of
-    ``cell_cls`` (bias-free, bidirectional, input 2H, so it also forms the
-    input projection's gradients, which the kernels leave to the caller) in
-    fp32 and in bf16, timed in turns ``ROUNDS`` times: the medians, and each
-    round's time."""
+def backward_vs_library(cell_cls, t, b, h, kernel_fn, tag,
+                        what: str = "pre-pass + serial kernels") -> dict:
+    """The kernels' whole backward (``kernel_fn``, printed as ``what``) and
+    cuDNN's backward of ``cell_cls`` (bias-free, bidirectional, input 2H, so
+    it also forms the input projection's gradients, which the kernels leave
+    to the caller) in fp32 and in bf16, timed in turns ``ROUNDS`` times: the
+    medians, and each round's time."""
     import torch
 
     lib = {}
@@ -1486,7 +1600,7 @@ def backward_vs_library(cell_cls, t, b, h, kernel_fn, tag) -> dict:
     print(f"  {tag}: backward in {ROUNDS} turns, median [min, max] ms: "
           + "; ".join(f"{label} {med[k]:.4f} [{min(rounds[k]):.4f}, "
                       f"{max(rounds[k]):.4f}]" for k, label in (
-                          ("kernel", "pre-pass + serial kernels"),
+                          ("kernel", what),
                           ("fp32", f"cuDNN {cell_cls.__name__} fp32"),
                           ("bf16", f"cuDNN {cell_cls.__name__} bf16")))
           + f"; cuDNN fp32 / kernels {med['fp32'] / med['kernel']:.2f}x, "
@@ -1700,7 +1814,8 @@ def times_gru(t, b, h, dtype, tag) -> dict:
 
 def times_rnn(t, b, h, dtype, tag) -> dict:
     """Per-call times of the three tanh-RNN kernels at one shape, their plain
-    twins, bounds and the cuDNN yardstick."""
+    twins, bounds and the cuDNN yardstick (``nn.RNN``, tanh, in fp32 and
+    bf16, in turns), with the branch each kernel took."""
     import torch
 
     rnn_ops, rnn_train_ops = port_rnn_ops()
@@ -1711,19 +1826,22 @@ def times_rnn(t, b, h, dtype, tag) -> dict:
     bf16 = dtype == torch.bfloat16
     out = {
         "rnn_bidir": {
-            "ms": cuda_ms(lambda: rnn_ops.rnn_bidir_cuda(gx, w_hh), reps=20),
+            **forward_vs_library(
+                torch.nn.RNN, t, b, h, lambda: rnn_ops.rnn_bidir_cuda(gx, w_hh),
+                rnn_ops.launches_fwd_branch, f"rnn_bidir, {tag}", False),
             "plain_ms": cuda_ms(lambda: rnn_ops.rnn_bidir_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
                                bf16_products=bf16)},
         "rnn_bidir_train_fwd": {
-            "ms": cuda_ms(lambda: rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh),
-                          reps=20),
+            **forward_vs_library(
+                torch.nn.RNN, t, b, h,
+                lambda: rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh),
+                rnn_train_ops.launches_fwd_branch,
+                f"rnn_bidir_train_fwd, {tag}", True),
             "plain_ms": cuda_ms(lambda: rnn_ops.rnn_bidir_plain(gx, w_hh), reps=5),
             **recurrence_bound(gx, w_hh, n_planes=1, n_products=1,
                                bf16_products=bf16)},
         "rnn_bidir_train_bwd": {
-            "ms": cuda_ms(lambda: rnn_train_ops.rnn_bidir_train_backward_cuda(
-                w_hh, ys, dy), reps=20),
             "plain_ms": cuda_ms(
                 lambda: rnn_train_ops.rnn_bidir_train_backward_plain(
                     w_hh, ys, dy), reps=5),
@@ -1731,21 +1849,16 @@ def times_rnn(t, b, h, dtype, tag) -> dict:
             **recurrence_bound(gx, w_hh, n_planes=2, n_products=1,
                                bf16_products=bf16)},
     }
-    # library yardstick: cuDNN tanh BiRNN, bias-free, fp32, forward and
-    # backward; it also computes the input projection (T*B, 2H) @ (2H, 2H)
-    # and its gradients, which the kernels are given and leave to the caller
-    rnn = torch.nn.RNN(2 * h, h, nonlinearity="tanh", bias=False,
-                       bidirectional=True).cuda()
-    x_lib = torch.randn(t, b, 2 * h, device="cuda", requires_grad=True)
-    dy_lib = torch.randn(t, b, 2 * h, device="cuda")
-    with torch.no_grad():
-        out["rnn_bidir"]["library_ms"] = cuda_ms(lambda: rnn(x_lib), reps=20)
-    out["rnn_bidir_train_fwd"]["library_ms"] = cuda_ms(lambda: rnn(x_lib), reps=20)
-    y_lib, _ = rnn(x_lib)
-    wrt = (x_lib, *rnn.parameters())
-    out["rnn_bidir_train_bwd"]["library_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(y_lib, wrt, dy_lib, retain_graph=True),
-        reps=20)
+    before = dict(rnn_train_ops.launches_bwd_branch)
+    # library yardstick of the backward: cuDNN's tanh BiRNN, bias-free; it
+    # also computes the input projection's gradients, which the kernel
+    # leaves to the caller
+    out["rnn_bidir_train_bwd"].update(backward_vs_library(
+        torch.nn.RNN, t, b, h,
+        lambda: rnn_train_ops.rnn_bidir_train_backward_cuda(w_hh, ys, dy),
+        f"rnn, {tag}", "backward kernel"))
+    out["rnn_bidir_train_bwd"]["branch"] = "+".join(
+        k for k, v in rnn_train_ops.launches_bwd_branch.items() if v != before[k])
     print_recurrence_times(out, tag, t, b, h, dtype, "cuDNN nn.RNN")
     return out
 
@@ -1948,8 +2061,8 @@ def main() -> int:
 
     print("[7/9] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
-    counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh = (
-        phase_tanh_slice())
+    (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
+     branches_tanh) = phase_tanh_slice()
 
     print("[8/9] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
@@ -2060,15 +2173,15 @@ def main() -> int:
          ("863",), max(errs_gru["bwd"]["fp32"], errs_hoist["gru_bwd"]["fp32"]),
          max(errs_gru["bwd"]["bf16"], errs_hoist["gru_bwd"]["bf16"]),
          errs_unidir["gru"]),
-        ("rnn_bidir", csrc + "rnn_bidir.cu",
+        ("rnn_bidir", fwd,
          tpu + "rnn_pallas_v2.py:228 _fwd_pallas (rnn_bidir_v2 train=False)",
          ("tanh",), errs_rnn["eval"]["fp32"], errs_rnn["eval"]["bf16"],
          errs_unidir["rnn"]),
-        ("rnn_bidir_train_fwd", csrc + "rnn_bidir.cu",
+        ("rnn_bidir_train_fwd", fwd,
          tpu + "rnn_pallas_v2.py:228 _fwd_pallas (rnn_scan_v2)",
          ("tanh",), errs_rnn["fwd"]["fp32"], errs_rnn["fwd"]["bf16"],
          errs_unidir["rnn"]),
-        ("rnn_bidir_train_bwd", csrc + "rnn_bidir_train.cu",
+        ("rnn_bidir_train_bwd", fwd,
          tpu + "rnn_pallas_v2.py:258 _bwd_pallas (rnn_scan_v2)",
          ("tanh",), errs_rnn["bwd"]["fp32"], errs_rnn["bwd"]["bf16"],
          errs_unidir["rnn"]),
@@ -2099,6 +2212,8 @@ def main() -> int:
             entry["max_abs_err_bf16"] = err_bf16
         if err_ndir1 is not None:
             entry["max_err_one_direction"] = err_ndir1
+        if name in branches_tanh:  # the tanh path's launches by branch
+            entry["launches_by_branch"] = branches_tanh[name]
         if name.startswith("ctc"):
             for shape, at in ctc_863.items():
                 entry.update({f"{k}_863_{shape}": at[name][k] for k in (

@@ -1,21 +1,35 @@
-// The cluster branches of the LSTM and GRU forward recurrences for Hopper
-// (sm_90a), shared by lstm_bidir.cu (eval), lstm_bidir_train.cu (training
-// forward) and gru_bidir.cu (eval and training forward).
+// The cluster branches of the LSTM, GRU and tanh forward recurrences and of
+// the tanh backward for Hopper (sm_90a), shared by lstm_bidir.cu (eval),
+// lstm_bidir_train.cu (training forward), gru_bidir.cu (eval and training
+// forward), rnn_bidir.cu (the tanh forward, eval and training) and
+// rnn_bidir_train.cu (the tanh backward).
 //
-// Replaces, with the grid kernels of lstm_fwd.cuh and gru_fwd.cuh as the
-// branch for the shapes that no cluster holds:
+// Replaces, with the grid kernels of lstm_fwd.cuh, gru_fwd.cuh, rnn_fwd.cuh
+// and rnn_bidir_train.cu as the branch for the shapes that no cluster holds:
 //   ctc_pytorch_tpu/ops/lstm_pallas_v2.py:142 lstm_bidir_pallas_v2 (the
 //     pallas_call at :177, cell _cell2);
 //   ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:438, the forward
 //     pallas_call of lstm_scan_train_v2;
 //   ctc_pytorch_tpu/ops/gru_pallas_v2.py:352, the forward pallas_call
-//     shared by gru_bidir_v2 and gru_scan_train_v2.
+//     shared by gru_bidir_v2 and gru_scan_train_v2;
+//   ctc_pytorch_tpu/ops/rnn_pallas_v2.py:228 (_fwd_pallas, shared by
+//     rnn_bidir_v2 and rnn_scan_v2) and :258 (_bwd_pallas, the backward of
+//     rnn_scan_v2, VJP :296-315).
 // The function is the grid kernels' (lstm_bidir.cu, lstm_bidir_train.cu,
-// gru_bidir.cu say it), rounding where they round: the LSTM eval forward
-// multiplies fp32 h by fp32 w_hh at every stream dtype; the LSTM training
-// forward and the GRU round w_hh (the caller does) and the h that enters
+// gru_bidir.cu, rnn_bidir.cu, rnn_bidir_train.cu say it), rounding where
+// they round: the LSTM eval forward multiplies fp32 h by fp32 w_hh at every
+// stream dtype; the LSTM training forward, the GRU and the tanh cell round
+// w_hh (the caller does) and the h (the tanh backward: dpre) that enters
 // the product to the stream type S.  Gate math and the carries (c, the
 // GRU's h) are fp32.
+//
+// The tanh cell (TanhCell: h = tanh(gx + hh), no carry) runs on the same
+// kernels, and so does its backward (TanhBwdCell), which has the forward's
+// shape exactly: dpre = (dy + round_S(dpre') @ w_hh^T) (1 - y^2) is a value
+// exchanged every step that feeds a (B, H) x (H, H) product.  Its policy:
+// the resident weights are rows of w_hh, the step reads two planes (dy in
+// the place of gx, and the saved ys), stores dgx in S where the forward
+// stores ys, and direction 0 walks time from T - 1 down (step_time).
 //
 // What bounds it: the T steps are a serial chain, and a step is a (B, H) x
 // (H, G H) product per direction, 19 MFLOP at B = 8, H = 384: latency, not
@@ -37,7 +51,8 @@
 // the next step's gx is loaded while the step's barrier completes; ys (and
 // the training forward's cs) are stored after the release arrive.
 //
-// Two cluster kernels, by the type of the product's operands:
+// Three cluster kernels, by the type of the product's operands and the
+// gate count:
 //   fwd_mma_kernel (branches cluster16, cluster32), bf16 operands: the LSTM
 //     training forward and the GRU on bf16 streams.  mma.sync m16n8k16 on
 //     ldmatrix fragments, fp32 sums; warp w owns unit block w (8 units) and
@@ -46,9 +61,12 @@
 //     tiles sharing each weight fragment); 32 where the 16-row clusters
 //     would not all be resident at once (the card holds 15 clusters of 8
 //     one-CTA-per-SM blocks).  Resident: G Uc x H bf16, Uc = ceil(H / 8)
-//     rounded up to 8, CL <= 8: 147 KB at LSTM H = 384, 49 KB at GRU H = 256.
-//     Bound: the weights and the h buffers within 227 KB: LSTM H <= 432
-//     (32 rows: H <= 384), GRU H <= 496 (32 rows: H <= 448).
+//     rounded up to 8, CL <= 8: 147 KB at LSTM H = 384, 49 KB at GRU H = 256,
+//     37.6 KB at tanh H = 384 (Uc = 48, CL = 8; 63 KB a CTA with the h
+//     buffers of 16 rows, 88 KB with 32).  Bound: the weights and the h
+//     buffers within 227 KB: LSTM H <= 432 (32 rows: H <= 384), GRU H <= 496
+//     (32 rows: H <= 448); tanh H <= 512 with 16 and with 32 rows, where
+//     the 8 warps of 8 units (Uc <= 64) and not the shared memory end it.
 //   fwd_fma_kernel (branch cluster16_fp32), fp32 operands: the LSTM eval
 //     forward at every stream dtype and every forward on fp32 streams (the
 //     flagship recipe's batch of 8).  fp32 FMA on CUDA cores (no TF32).  At
@@ -62,6 +80,19 @@
 //     pair are summed by shuffles, and each slice then does the gate math
 //     of one row and the stores to some of the peers.
 //     16 rows a cluster.  Bound: H <= 309 at CL = 8, H <= 416 at CL = 16.
+//   fma1_kernel (branch cluster16_fp32), fp32 operands of the one-gate
+//     cell (the tanh forward and backward on fp32 streams, the recipe's
+//     batch of 8).  fwd_fma_kernel's float4 per (k, unit) would hold one
+//     gate and three zeros: three quarters of the resident memory and of
+//     the product wasted, and H = 384 pushed to a cluster of 16.  Here a
+//     float4 holds four adjacent units (Uc a multiple of 4), as the grid
+//     kernel's w_s[k * kUnits + u]: fp32 w_hh at H = 384 is 74 KB a CTA in
+//     a portable cluster of 8 (120 KB with the h buffers), and a thread
+//     (4 units, 4-row group, k slice) does 16 FMAs a k as the gated
+//     kernel does; the k slices then reduce-scatter their 16 sums.  16
+//     rows a cluster.  Bound: resident w_hh (4 H Uc bytes) and the h
+//     buffers (128 H) within 227 KB: H <= 558 at CL = 8, H <= 726 at
+//     CL = 16.
 // What a step costs: tools/probe_bwd_steps.py stamps each phase (PERF.md
 // §7 has the cycles).  The fp32 kernel's step is about 60% product; the
 // bf16 kernel's is a third product and a third gate math at 32 rows, a
@@ -147,9 +178,36 @@ __device__ __forceinline__ float sigmoid_rcp(float x) {
   return __frcp_rn(1.0f + expf(-x));
 }
 
+// The one-gate (tanh) cell: h = tanh(gi + hh), with no carry of its own.
+struct TanhCell {
+  static constexpr int kGates = 1;
+};
+// The same cell's backward, run on the forward's kernels backward in time:
+// the product is dpre_{t+-1} @ w_hh^T (the resident weights are rows of
+// w_hh), the step dpre = (dy + dh) (1 - y^2) reads two planes, dy (in the
+// place of gx) and the saved ys, and stores dpre (dgx) where the forward
+// stores ys; the value exchanged is dpre as the stream type holds it.
+struct TanhBwdCell {
+  static constexpr int kGates = 1;
+};
+
+// whether a cell walks time backward (direction 0 from t = T - 1 down)
+template <class Cell>
+constexpr bool kBackward = std::is_same<Cell, TanhBwdCell>::value;
+// the planes a step reads for each (row, unit): the G gate inputs, and the
+// saved ys beside dy for the backward
+template <class Cell>
+constexpr int kInPlanes = Cell::kGates + (kBackward<Cell> ? 1 : 0);
+
+// forward time of step s of direction d
+template <class Cell>
+__device__ __forceinline__ int step_time(int s, int d, int T) {
+  return (d == 0) != kBackward<Cell> ? s : T - 1 - s;
+}
+
 // The gates of one (row, unit) from the sums hh of its G products and its
-// gate inputs gi: updates the carry (LSTM c, GRU h, fp32) and returns h_t;
-// *c_out gets the LSTM's c_t.
+// inputs gi (kInPlanes): updates the carry (LSTM c, GRU h, fp32) and
+// returns h_t (the tanh backward: dpre); *c_out gets the LSTM's c_t.
 __device__ __forceinline__ float cell_fwd(LstmCell, const float* hh,
                                           const float* gi, float* carry,
                                           float* c_out) {
@@ -172,6 +230,19 @@ __device__ __forceinline__ float cell_fwd(GruCell, const float* hh,
   *carry = hn;
   *c_out = 0.f;
   return hn;
+}
+__device__ __forceinline__ float cell_fwd(TanhCell, const float* hh,
+                                          const float* gi, float*,
+                                          float* c_out) {
+  *c_out = 0.f;
+  return tanhf(gi[0] + hh[0]);
+}
+// gi: dy, then the saved y
+__device__ __forceinline__ float cell_fwd(TanhBwdCell, const float* hh,
+                                          const float* gi, float*,
+                                          float* c_out) {
+  *c_out = 0.f;
+  return (gi[0] + hh[0]) * (1.0f - gi[1] * gi[1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -199,15 +270,19 @@ inline MmaShape mma_shape(int gates, int H, int km) {
 
 // Cluster (direction blockIdx.z, rows [16 kM blockIdx.y, +16 kM)), CTA rank
 // blockIdx.x; see the header.  w is w_hh (ndir, H, G H) fp32 holding bf16
-// values; gx, ys and cs (LSTM; null for the GRU) bf16.  vec2: gx, ys and cs
-// rows are 4-byte aligned at every even unit (H even).
+// values; gx, ys and cs (LSTM; null for the GRU and the tanh cell) bf16.
+// The tanh backward (TanhBwdCell) reads dy as gx and the saved ys as y_in
+// (null for every forward cell) and stores dgx as ys.  vec2: gx, y_in, ys
+// and cs rows are 4-byte aligned at every even unit (H even).
 template <class Cell, int kM>
 __global__ void __launch_bounds__(256, 1)
     fwd_mma_kernel(const __nv_bfloat16* __restrict__ gx,
+                   const __nv_bfloat16* __restrict__ y_in,
                    const float* __restrict__ w, __nv_bfloat16* __restrict__ ys,
                    __nv_bfloat16* __restrict__ cs, int T, int B, int H,
                    int ndir, int uc, int ldk, int vec2) {
   constexpr int G = Cell::kGates;
+  constexpr int NI = kInPlanes<Cell>;
   constexpr int kRowsC = 16 * kM;
   extern __shared__ float4 fwd_smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -226,21 +301,32 @@ __global__ void __launch_bounds__(256, 1)
 
   // resident: column n = q uc + u of this CTA is gate q of unit own0 + u;
   // read along n (coalesced), zero past H in both dimensions, kLoadDepth
-  // loads in flight a thread
+  // loads in flight a thread.  The backward's column n is row own0 + n of
+  // w_hh (a column of w_hh^T), read along k.
   for (int idx0 = tid; idx0 < N * ldk; idx0 += kLoadDepth * nthreads) {
     float v[kLoadDepth];
 #pragma unroll
     for (int i = 0; i < kLoadDepth; ++i) {
-      const int idx = idx0 + i * nthreads, k = idx / N, n = idx % N;
-      const int unit = own0 + n % uc;
-      v[i] = idx < N * ldk && k < H && unit < H
-                 ? w[((size_t)d * H + k) * gh + (size_t)(n / uc) * H + unit]
-                 : 0.f;
+      const int idx = idx0 + i * nthreads;
+      if constexpr (kBackward<Cell>) {
+        const int n = idx / ldk, k = idx % ldk, unit = own0 + n;
+        v[i] = idx < N * ldk && k < H && unit < H
+                   ? w[((size_t)d * H + unit) * H + k]
+                   : 0.f;
+      } else {
+        const int k = idx / N, n = idx % N;
+        const int unit = own0 + n % uc;
+        v[i] = idx < N * ldk && k < H && unit < H
+                   ? w[((size_t)d * H + k) * gh + (size_t)(n / uc) * H + unit]
+                   : 0.f;
+      }
     }
 #pragma unroll
     for (int i = 0; i < kLoadDepth; ++i) {
       const int idx = idx0 + i * nthreads;
-      if (idx < N * ldk) ws[(size_t)(idx % N) * ldk + idx / N] = bf16_bits(v[i]);
+      if (idx >= N * ldk) continue;
+      ws[kBackward<Cell> ? idx : (size_t)(idx % N) * ldk + idx / N] =
+          bf16_bits(v[i]);
     }
   }
   for (int idx = tid; idx < 2 * kRowsC * ldk; idx += nthreads) hb[idx] = 0;
@@ -255,7 +341,7 @@ __global__ void __launch_bounds__(256, 1)
   // clamped address; their gate math is never stored nor exchanged) so that
   // all of them are in flight at once, unpacked where they are used
   float carry[kM][2][2];
-  unsigned nx[kM][2][G];
+  unsigned nx[kM][2][NI];
 #pragma unroll
   for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
@@ -267,24 +353,27 @@ __global__ void __launch_bounds__(256, 1)
       for (int e = 0; e < 2; ++e) {
         const int b = r0 + 16 * mi + g + 8 * e;
         const bool ok = b < B && nu > 0;
-        const __nv_bfloat16* p = gx + ((size_t)t * B + (ok ? b : 0)) * ndir * gh +
-                                 d * gh + (ok ? unit0 : 0);
+        const size_t o = ((size_t)t * B + (ok ? b : 0)) * ndir * gh + d * gh +
+                         (ok ? unit0 : 0);
+        const __nv_bfloat16* p = gx + o;
 #pragma unroll
-        for (int q = 0; q < G; ++q) {
+        for (int q = 0; q < NI; ++q) {
+          // plane G (the backward's saved y) has gx's layout, as G = 1
+          const __nv_bfloat16* pq = q < G ? p + (size_t)q * H : y_in + o;
           if (vec2) {
-            nx[mi][e][q] = *reinterpret_cast<const unsigned*>(p + (size_t)q * H);
+            nx[mi][e][q] = *reinterpret_cast<const unsigned*>(pq);
           } else {
-            nx[mi][e][q] = load2(p + (size_t)q * H, ok ? nu : 0, false);
+            nx[mi][e][q] = load2(pq, ok ? nu : 0, false);
           }
         }
       }
   };
-  fetch(d == 0 ? 0 : T - 1);
+  fetch(step_time<Cell>(0, d, T));
   cluster.sync();  // every CTA of the cluster runs and holds its weights
   FWD_STAMP_START
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? s : T - 1 - s;
+    const int t = step_time<Cell>(s, d, T);
     const unsigned short* hcur = hb + (size_t)(s & 1) * kRowsC * ldk;
     unsigned short* hnxt = hb + (size_t)((s + 1) & 1) * kRowsC * ldk;
 
@@ -331,12 +420,13 @@ __global__ void __launch_bounds__(256, 1)
         float hv[2], cv[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float hh[G], gi[G];
+          float hh[G], gi[NI];
 #pragma unroll
-          for (int q = 0; q < G; ++q) {
+          for (int q = 0; q < G; ++q)
             hh[q] = acc[mi][0][q][2 * e + j] + acc[mi][1][q][2 * e + j];
+#pragma unroll
+          for (int q = 0; q < NI; ++q)
             gi[q] = j ? hi_f(nx[mi][e][q]) : lo_f(nx[mi][e][q]);
-          }
           hv[j] = cell_fwd(Cell{}, hh, gi, &carry[mi][e][j], &cv[j]);
         }
         hout[mi][e] = pack2_bf16(hv[0], hv[1], nu);
@@ -355,7 +445,7 @@ __global__ void __launch_bounds__(256, 1)
     FWD_STAMP(2)  // the DSMEM stores
     cluster_arrive();  // h_t is written
     FWD_STAMP(3)  // the release arrive
-    if (s + 1 < T) fetch(d == 0 ? t + 1 : t - 1);
+    if (s + 1 < T) fetch(step_time<Cell>(s + 1, d, T));
 #pragma unroll
     for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
@@ -604,6 +694,212 @@ __global__ void __launch_bounds__(kFmaThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// fp32 products of the one-gate cell: four adjacent units to a float4
+// ---------------------------------------------------------------------------
+
+// The shape of a one-gate fp32 cluster for H: Uc units a CTA (a multiple of
+// 4), CL CTAs (8 where the shared memory fits, else 16) and the shared
+// memory: the resident weights [H][Uc / 4] float4 (four adjacent units) and
+// the h double buffer [2][H][16] fp32.  smem > kMaxSmem when neither fits.
+inline FmaShape fma1_shape(int H) {
+  FmaShape s{0, 0, 0};
+  for (int cl : {kMaxCluster, kMaxClusterNP}) {
+    s.uc = ((H + cl - 1) / cl + 3) / 4 * 4;
+    s.cl = (H + s.uc - 1) / s.uc;
+    s.smem = (size_t)H * s.uc * sizeof(float) +
+             2 * (size_t)H * kFmaRows * sizeof(float);
+    if (s.smem <= (size_t)kMaxSmem) break;
+  }
+  return s;
+}
+
+// The k slices of an item of the one-gate fp32 kernel for B rows and Uc
+// units a CTA: the most (a power of two up to 16) that kFmaThreads threads
+// hold for the (quad, 4-row group) items of a full slice; 0 when the items
+// alone outnumber the threads.
+inline int fma1_slices(int B, int uc) {
+  const int rows = B < kFmaRows ? B : kFmaRows;
+  const int items = uc / 4 * ((rows + 3) / 4);
+  if (items > kFmaThreads) return 0;
+  int ksn = 1;
+  while (ksn < 16 && items * ksn * 2 <= kFmaThreads) ksn *= 2;
+  return ksn;
+}
+
+// two floats into the shared memory of CTA `rank` of the cluster
+__device__ __forceinline__ void st_cluster2(float* p, int rank, float a,
+                                            float b) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(s), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// Cluster (direction blockIdx.z, rows [16 blockIdx.y, +16)), CTA rank
+// blockIdx.x, of the one-gate cell on fp32 streams: TanhCell (in = gx, out
+// = ys) or TanhBwdCell (in = dy, y_in = the saved ys, out = dgx, walking
+// time backward).  The layout is fwd_fma_kernel's with the float4 of a k
+// row holding four adjacent units (Uc / 4 quads) in the place of the G
+// gates of one unit: thread (item = (quad, 4-row group), k slice) sums its
+// 4 rows x 4 units over its k slice with fma_product.  The KSN slices of an
+// item then halve the 16 sums between them at each of log2(KSN) shuffle
+// rounds (a reduce-scatter: 16 - 16 / KSN shuffles where a butterfly all-
+// reduce takes 16 log2(KSN)), so each lane ends with M = 16 / KSN finished
+// sums, unit-major (one unit's rows adjacent): it does their step, stores
+// them and writes them into every peer's h buffer, a float4 (M >= 4), a
+// float2 or a float a peer.
+template <class Cell, int KSN>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+    fma1_kernel(const float* __restrict__ in, const float* __restrict__ y_in,
+                const float* __restrict__ w, float* __restrict__ out, int T,
+                int B, int H, int ndir, int uc) {
+  static_assert(Cell::kGates == 1, "one gate");
+  constexpr int NI = kInPlanes<Cell>;
+  constexpr int M = 16 / KSN;    // finished sums a lane
+  constexpr int kPer = 32 / KSN;  // items a warp
+  extern __shared__ float4 fwd_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int d = blockIdx.z, r0 = blockIdx.y * kFmaRows;
+  const int own0 = rank * uc, nq = uc / 4;
+  float4* w_s = fwd_smem;  // [H][nq]
+  float* hT = reinterpret_cast<float*>(w_s + (size_t)H * nq);  // [2][H][16]
+
+  // resident, as floats w_f[k][u] = w(k, own0 + u): the forward's w_hh[d]
+  // read along the units, the backward's w_hh[d]^T read along k (a row of
+  // w_hh); kLoadDepth loads in flight a thread
+  float* w_f = reinterpret_cast<float*>(w_s);
+  const float* wd = w + (size_t)d * H * H;
+  for (int idx0 = tid; idx0 < H * uc; idx0 += kLoadDepth * kFmaThreads) {
+    float v[kLoadDepth];
+#pragma unroll
+    for (int i = 0; i < kLoadDepth; ++i) {
+      const int idx = idx0 + i * kFmaThreads;
+      const int k = kBackward<Cell> ? idx % H : idx / uc;
+      const int unit = own0 + (kBackward<Cell> ? idx / H : idx % uc);
+      v[i] = idx < H * uc && unit < H
+                 ? wd[kBackward<Cell> ? (size_t)unit * H + k
+                                      : (size_t)k * H + unit]
+                 : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLoadDepth; ++i) {
+      const int idx = idx0 + i * kFmaThreads;
+      if (idx >= H * uc) continue;
+      w_f[kBackward<Cell> ? (size_t)(idx % H) * uc + idx / H : (size_t)idx] = v[i];
+    }
+  }
+  for (int idx = tid; idx < 2 * H * kFmaRows; idx += kFmaThreads) hT[idx] = 0.f;
+
+  // thread (item, k slice ks): a warp holds kPer items (quads fastest, so
+  // that a shared-memory wavefront reads adjacent quads of one k row) and
+  // the KSN slices of each, kPer lanes apart
+  const int nrows = min(kFmaRows, B - r0);
+  const int items = nq * ((nrows + 3) / 4);
+  const int ks = lane / kPer, item = (tid >> 5) * kPer + lane % kPer;
+  const bool active = item < items;
+  const int qd = active ? item % nq : 0, rg = active ? item / nq : 0;
+  // sum o = 4 c + j is unit 4 qd + c, row 4 rg + j; this lane finishes
+  // o0 .. o0 + M - 1 (round r keeps the upper half where bit r of ks is set)
+  int o0 = 0;
+#pragma unroll
+  for (int r = 0; (1 << r) < KSN; ++r) o0 += ((ks >> r) & 1) * (8 >> r);
+  const int unit0 = own0 + 4 * qd + o0 / 4;  // the lane's first unit
+  const int row0 = r0 + 4 * rg;
+  auto mine = [&](int i) {  // sum o0 + i inside H and B
+    return active && unit0 + i / 4 < H && row0 + (o0 + i) % 4 < B;
+  };
+  const size_t lanes = (size_t)ndir * H;
+  auto offset = [&](int t, int i) {  // clamped where not mine
+    return mine(i) ? ((size_t)t * B + row0 + (o0 + i) % 4) * lanes +
+                         (size_t)d * H + unit0 + i / 4
+                   : (size_t)0;
+  };
+
+  float nx[M][NI];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const size_t o = offset(t, i);
+      nx[i][0] = in[o];
+      if constexpr (NI > 1) nx[i][1] = y_in[o];
+    }
+  };
+  fetch(step_time<Cell>(0, d, T));
+  cluster.sync();  // every CTA of the cluster runs and holds its weights
+  FWD_STAMP_START
+
+  for (int s = 0; s < T; ++s) {
+    const int t = step_time<Cell>(s, d, T);
+    const float* hcur = hT + (size_t)(s & 1) * H * kFmaRows;
+    float* hnxt = hT + (size_t)((s + 1) & 1) * H * kFmaRows;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    fma_product<KSN>(acc, w_s, hcur, nq, qd, rg, ks, active ? H : 0);
+    float v[16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[4 * c + j] = acc[j][c];
+#pragma unroll
+    for (int r = 0; (1 << r) < KSN; ++r) {
+      const int half = 8 >> r;
+      const bool upper = (ks >> r) & 1;
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float send = upper ? v[i] : v[i + half];
+        const float keep = upper ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kPer << r);
+      }
+    }
+    FWD_STAMP(0)  // the product and the reduce-scatter
+
+    float hv[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      float unused;
+      hv[i] = mine(i) ? cell_fwd(Cell{}, &v[i], nx[i], &unused, &unused) : 0.f;
+    }
+    FWD_STAMP(1)  // the step
+    if (active) {
+      float* dst = hnxt + (size_t)unit0 * kFmaRows + 4 * rg + o0 % 4;
+#pragma unroll
+      for (int c = 0; c < (M >= 4 ? M / 4 : 1); ++c) {
+        if (unit0 + c >= H) break;
+        for (int p = 0; p < cl; ++p) {
+          if constexpr (M >= 4) {
+            st_cluster4(dst + c * kFmaRows, p,
+                        make_float4(hv[4 * c], hv[4 * c + 1], hv[4 * c + 2],
+                                    hv[4 * c + 3]));
+          } else if constexpr (M == 2) {
+            st_cluster2(dst, p, hv[0], hv[1]);
+          } else {
+            st_cluster_b32(dst, p, __float_as_uint(hv[0]));
+          }
+        }
+      }
+    }
+    FWD_STAMP(2)  // the DSMEM stores
+    cluster_arrive();  // this step's values are written
+    FWD_STAMP(3)  // the release arrive
+    if (s + 1 < T) fetch(step_time<Cell>(s + 1, d, T));
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (mine(i)) out[offset(t, i)] = hv[i];
+    FWD_STAMP(4)  // the next loads and the global stores issued
+    cluster_wait();  // every CTA's values are here, and the last were read
+    FWD_STAMP(5)  // the wait
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launcher
 // ---------------------------------------------------------------------------
 
@@ -657,12 +953,26 @@ inline cudaError_t fwd_clusters_fit(const void* kernel, int cl, int slices,
 template <typename S>
 constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
 
+// the one-gate fp32 kernel with ksn k slices (fma1_slices)
+template <class Cell>
+const void* fma1_kernel_for(int ksn) {
+  switch (ksn) {
+    case 1: return reinterpret_cast<const void*>(fma1_kernel<Cell, 1>);
+    case 2: return reinterpret_cast<const void*>(fma1_kernel<Cell, 2>);
+    case 4: return reinterpret_cast<const void*>(fma1_kernel<Cell, 4>);
+    case 8: return reinterpret_cast<const void*>(fma1_kernel<Cell, 8>);
+    default: return reinterpret_cast<const void*>(fma1_kernel<Cell, 16>);
+  }
+}
+
 // The forward's branch for the shape on the current device (FwdBranch).
 // Products on bf16 operands (kRound with bf16 streams) take the mma
 // kernel, 16 rows a cluster where all clusters fit, else 32; fp32 products
-// take the fma kernel where all its 16-row clusters fit; every other shape
-// the grid.  Asked of the runtime once per (device, B, H, ndir, kernel) and
-// kept: every layer of every step asks again.
+// take the fma kernel (fma1_kernel for the one-gate cells) where all its
+// 16-row clusters fit; every other shape the grid.  The tanh backward
+// (TanhBwdCell) asks for its branch here too.  Asked of the runtime once
+// per (device, B, H, ndir, kernel) and kept: every layer of every step asks
+// again.
 template <class Cell, typename S, bool kRound>
 cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
   *branch = kFwdGrid;
@@ -699,6 +1009,17 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
         if (fit) taken = kFwdMma32;
       }
     }
+  } else if constexpr (Cell::kGates == 1) {
+    static_assert(!kIsBf16<S> && kRound, "one gate, fp32 streams");
+    const FmaShape f = fma1_shape(H);
+    const int ksn = fma1_slices(B, f.uc);
+    if (ksn > 0) {
+      err = fwd_clusters_fit(fma1_kernel_for<Cell>(ksn), f.cl,
+                             (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads,
+                             f.smem, &fit);
+      if (err != cudaSuccess) return err;
+      if (fit) taken = kFwdFma16;
+    }
   } else {
     const FmaShape f = fma_shape(H);
     if (4 * f.uc <= kFmaThreads) {
@@ -715,11 +1036,14 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
 }
 
 // Launch the cluster branch `branch` (not the grid) that fwd_branch chose.
-// cs: the LSTM training forward's cell states, else null.
+// cs: the LSTM training forward's cell states, else null.  The tanh
+// backward (TanhBwdCell) passes dy as gx, dgx as ys and the saved ys as
+// y_in.
 template <class Cell, typename S, bool kRound>
 cudaError_t launch_fwd_cluster(int branch, const void* gx, const void* w,
                                void* ys, void* cs, int T, int B, int H,
-                               int ndir, cudaStream_t stream) {
+                               int ndir, cudaStream_t stream,
+                               const void* y_in = nullptr) {
   cudaLaunchAttribute attr[1];
   cudaError_t err = cudaErrorInvalidValue;
   if constexpr (kRound && kIsBf16<S>) {
@@ -727,22 +1051,35 @@ cudaError_t launch_fwd_cluster(int branch, const void* gx, const void* w,
       return reinterpret_cast<uintptr_t>(p) % 4 == 0;
     };
     const int vec2 = H % 2 == 0 && aligned4(gx) && aligned4(ys) &&
-                     (cs == nullptr || aligned4(cs));
+                     (cs == nullptr || aligned4(cs)) &&
+                     (y_in == nullptr || aligned4(y_in));
     const int km = branch == kFwdMma32 ? 2 : 1;
     const MmaShape m = mma_shape(Cell::kGates, H, km);
     const cudaLaunchConfig_t cfg = fwd_cluster_launch(
         m.cl, (B + 16 * km - 1) / (16 * km), ndir, m.threads, m.smem, stream,
         attr);
     const auto* g = static_cast<const __nv_bfloat16*>(gx);
+    const auto* yi = static_cast<const __nv_bfloat16*>(y_in);
     auto* y = static_cast<__nv_bfloat16*>(ys);
     auto* c = static_cast<__nv_bfloat16*>(cs);
     const auto* wf = static_cast<const float*>(w);
     if (branch == kFwdMma16)
-      err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel<Cell, 1>, g, wf, y, c, T,
-                               B, H, ndir, m.uc, m.ldk, vec2);
+      err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel<Cell, 1>, g, yi, wf, y, c,
+                               T, B, H, ndir, m.uc, m.ldk, vec2);
     else if (branch == kFwdMma32)
-      err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel<Cell, 2>, g, wf, y, c, T,
-                               B, H, ndir, m.uc, m.ldk, vec2);
+      err = cudaLaunchKernelEx(&cfg, fwd_mma_kernel<Cell, 2>, g, yi, wf, y, c,
+                               T, B, H, ndir, m.uc, m.ldk, vec2);
+  } else if constexpr (Cell::kGates == 1) {
+    if (branch != kFwdFma16) return cudaErrorInvalidValue;
+    const FmaShape f = fma1_shape(H);
+    const int ksn = fma1_slices(B, f.uc);
+    if (ksn == 0) return cudaErrorInvalidValue;
+    const cudaLaunchConfig_t cfg =
+        fwd_cluster_launch(f.cl, (B + kFmaRows - 1) / kFmaRows, ndir,
+                           kFmaThreads, f.smem, stream, attr);
+    int uc = f.uc;
+    void* args[] = {&gx, &y_in, &w, &ys, &T, &B, &H, &ndir, &uc};
+    err = cudaLaunchKernelExC(&cfg, fma1_kernel_for<Cell>(ksn), args);
   } else {
     if (branch != kFwdFma16) return cudaErrorInvalidValue;
     const FmaShape f = fma_shape(H);

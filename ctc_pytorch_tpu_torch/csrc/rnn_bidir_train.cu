@@ -1,4 +1,4 @@
-// Trainable tanh-RNN recurrence for Hopper (sm_90a): the backward kernel.
+// Trainable tanh-RNN recurrence for Hopper (sm_90a): the backward kernels.
 //
 // Replaces the backward pallas_call of
 // ctc_pytorch_tpu/ops/rnn_pallas_v2.py:rnn_scan_v2 (_bwd_pallas, kernel
@@ -16,18 +16,30 @@
 // stored output.  dh_{t-1} contracts over all H units, so every CTA needs
 // every CTA's dpre of this step.
 //
-// What bounds it: as the forward, the serial chain of T steps with a
-// grid-wide barrier each, fp32 products on CUDA cores.  The card's limits
-// are far below: one (B, H) x (H, H) product per step and direction, 6.04
-// GFLOP at T'=80, B=128, H=384, and ys, dy in, dgx out, ~47.8 MB with bf16
-// streams.  With bf16 streams both operands of the product are bf16 values
-// (tensor cores: ~0.006 ms), so the limit is the bytes, ~0.014 ms at
+// What bounds it: the serial chain of T steps, as the forward.  The card's
+// limits are far below: one (B, H) x (H, H) product per step and direction,
+// 6.04 GFLOP at T'=80, B=128, H=384, and ys, dy in, dgx out, ~47.8 MB with
+// bf16 streams.  With bf16 streams both operands of the product are bf16
+// values (tensor cores: ~0.006 ms), so the limit is the bytes, ~0.014 ms at
 // 3.35 TB/s; with fp32 streams it is the fp32 operations at 67 TFLOP/s.
 //
-// Design: the forward's (rnn_fwd.cuh), whose product this step has the shape
-// of: h @ w becomes dpre @ w^T.  CTA (d, g) owns 8 hidden units of direction
-// d and keeps their 8 rows of w_hh[d] (columns of w_hh^T) in shared memory;
-// each thread owns one unit and 4 batch rows.  Per step:
+// The step has the forward's shape exactly: a value exchanged every step
+// (dpre, as h) feeds a (B, H) x (H, H) product, and the per-(row, unit)
+// step reads planes in place.  So the cluster branches are the forward's
+// kernels of fwd_cluster.cuh with the backward cell (TanhBwdCell): the
+// resident weights are rows of w_hh (columns of w_hh^T), the step reads dy
+// and ys (two planes in place of gx), stores dgx in S and exchanges dpre as
+// S holds it, and time runs the other way.  bf16 streams: fwd_mma_kernel,
+// the tensor cores (H <= 512); fp32 streams: fma1_kernel (H <= 558 with 8
+// CTAs, H <= 726 with 16); only where every cluster of the launch is
+// resident at once.  There is nothing to hoist (the LSTM's and GRU's
+// pre-pass of bwd_hoist.cuh): 1 - y^2 is one multiply on a saved plane.
+//
+// Grid branch, every other shape: the grid forward's design (rnn_fwd.cuh),
+// whose product this step has the shape of: h @ w becomes dpre @ w^T.  CTA
+// (d, g) owns 8 hidden units of direction d and keeps their 8 rows of
+// w_hh[d] (columns of w_hh^T) in shared memory; each thread owns one unit
+// and 4 batch rows.  Per step:
 //   phase B  dh for the owned units: the product over the previous step's
 //            round_S(dpre), which all CTAs wrote transposed, (H, ldh), into a
 //            global double buffer (L2), streamed through shared memory with
@@ -38,6 +50,7 @@
 // dW_hh is formed outside from shifted ys against dgx (plain GEMMs), as the
 // JAX package does.
 
+#include "fwd_cluster.cuh"
 #include "rnn_fwd.cuh"
 
 namespace {
@@ -128,21 +141,47 @@ cudaError_t rnn_launch_bwd(const void* w_hh, const void* ys, const void* dy,
 
 extern "C" {
 
+// The backward's branch for this shape on the current device: *branch 0 the
+// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
+// (FwdBranch).  Returns a cudaError_t.
+int rnn_bidir_train_bwd_branch(int B, int H, int ndir, int bf16, int* branch) {
+  return (int)(bf16 ? fwd_branch<TanhBwdCell, __nv_bfloat16, true>(B, H, ndir,
+                                                                    branch)
+                    : fwd_branch<TanhBwdCell, float, true>(B, H, ndir, branch));
+}
+
 // ys, dy and dgx (T, B, ndir * H) in the stream type (bf16 != 0: bfloat16,
 // else float32); w_hh (ndir, H, H) fp32, rounded to the stream type by the
-// caller; dpbuf (ndir, 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4;
-// ndir 1 or 2.  Returns a cudaError_t; 0 means launched.
+// caller; ndir 1 or 2.  dpbuf, for the grid branch only (else null): (ndir,
+// 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4.  *branch: the branch
+// launched, as rnn_bidir_train_bwd_branch numbers them.  Returns a
+// cudaError_t; 0 means launched.
 int rnn_bidir_train_backward(const void* w_hh, const void* ys, const void* dy,
                              void* dgx, void* dpbuf, int T, int B, int H,
-                             int ldh, int ndir, int bf16, void* stream) {
+                             int ldh, int ndir, int bf16, void* stream,
+                             int* branch) {
+  *branch = -1;
   if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
     return (int)cudaErrorInvalidValue;
+  int plan = 0;
+  cudaError_t err =
+      (cudaError_t)rnn_bidir_train_bwd_branch(B, H, ndir, bf16, &plan);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)rnn_launch_bwd<__nv_bfloat16>(w_hh, ys, dy, dgx, dpbuf, T, B,
-                                              H, ldh, ndir, st);
-  return (int)rnn_launch_bwd<float>(w_hh, ys, dy, dgx, dpbuf, T, B, H, ldh,
-                                    ndir, st);
+  if (plan == kFwdGrid) {
+    if (!dpbuf) return (int)cudaErrorInvalidValue;
+    err = bf16 ? rnn_launch_bwd<__nv_bfloat16>(w_hh, ys, dy, dgx, dpbuf, T, B,
+                                               H, ldh, ndir, st)
+               : rnn_launch_bwd<float>(w_hh, ys, dy, dgx, dpbuf, T, B, H, ldh,
+                                       ndir, st);
+  } else {
+    err = bf16 ? launch_fwd_cluster<TanhBwdCell, __nv_bfloat16, true>(
+                     plan, dy, w_hh, dgx, nullptr, T, B, H, ndir, st, ys)
+               : launch_fwd_cluster<TanhBwdCell, float, true>(
+                     plan, dy, w_hh, dgx, nullptr, T, B, H, ndir, st, ys);
+  }
+  if (err == cudaSuccess) *branch = plan;
+  return (int)err;
 }
 
 const char* rnn_bidir_train_error_string(int err) {

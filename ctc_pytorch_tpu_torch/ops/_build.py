@@ -26,9 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # the serial backward kernels' branches, as their launchers number them: the
 # cooperative grid, and clusters of 16 or of 32 batch rows
 BRANCHES = ("grid", "cluster16", "cluster32")
-# the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch): the
-# cooperative grid, the bf16 tensor-core clusters of 16 or 32 batch rows,
-# and the fp32 cluster of 16 rows
+# the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch), which the
+# tanh cell's backward takes too: the cooperative grid, the bf16
+# tensor-core clusters of 16 or 32 batch rows, and the fp32 cluster of 16
+# rows
 FWD_BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
 
 
@@ -47,7 +48,7 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
     err = getattr(lib, f"{prefix}_fwd_branch")(b, h, ndir, bf16,
                                                ctypes.byref(branch))
     ldh = -(-b // 4) * 4  # rows of the grid's h buffer, 16-byte pieces
-    ptrs = [None, None]
+    ptrs = [None] * (1 + len(scratch_shapes))
     if err == 0 and branch.value == 0:
         scratch = [torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
                                device=gx.device)]

@@ -15,10 +15,14 @@ fp32, and ``ys`` is stored rounded to S.  h enters the cell only through the
 product, so the rounded h is all the recurrence carries.
 
 On this card the work is bound by its bytes with bf16 streams and by fp32
-operations with fp32 streams; ``csrc/rnn_bidir.cu`` counts both and says what
-the kernel, one cooperative launch with ``w_hh`` resident in shared memory
-and a grid barrier per time step, does instead.  Any T >= 1, B >= 1 and H
-run, with no padding.
+operations with fp32 streams; ``csrc/rnn_bidir.cu`` counts both.  The kernel
+has two branches, which the library chooses by shape and reports
+(``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
+batch rows with ``w_hh`` resident across it and h exchanged in distributed
+shared memory (``csrc/fwd_cluster.cuh``: the step product on the tensor
+cores with bf16 streams, fp32 FMA with fp32 streams), or one cooperative
+grid with a grid barrier per time step where no cluster holds the shape.
+Any T >= 1, B >= 1 and H run, with no padding.
 
 ``rnn_bidir`` takes the plain version for CPU tensors only.  A CUDA tensor
 goes through the kernel, or the call raises.
@@ -32,23 +36,31 @@ from typing import Tuple
 import torch
 
 from ctc_pytorch_tpu_torch.ops._build import (
+    FWD_BRANCHES,
     KernelLibrary,
     acc_dtype,
     check_recurrence,
     device_kind,
+    launch_forward as _launch,
     step_times,
 )
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-HEADERS = ["lstm_fwd.cuh", "rnn_fwd.cuh"]
+# every csrc/ header the tanh sources include
+HEADERS = ["lstm_fwd.cuh", "rnn_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh",
+           "fwd_cluster.cuh"]
 LIBRARY = KernelLibrary(
     "rnn_bidir.cu",
-    {"rnn_bidir_forward": ([_VP] * 4 + [_CI] * 6 + [_VP], _CI),
+    {"rnn_bidir_fwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "rnn_bidir_forward": (
+         [_VP] * 4 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_error_string": ([_CI], ctypes.c_char_p)},
     headers=HEADERS)
 
 # kernel launches made through ``rnn_bidir``; the plain path adds nothing
 launches = 0
+# the same launches by the branch the library reported
+launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 
 
 def rnn_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -79,39 +91,30 @@ def check_inputs(gx: torch.Tensor, w_hh: torch.Tensor
     return check_recurrence(gx, w_hh, 1)
 
 
-def launch_forward(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def launch_forward(gx: torch.Tensor, w_hh: torch.Tensor
+                   ) -> Tuple[torch.Tensor, str]:
     """Launch the forward kernel on the current stream, counting nothing:
-    ``ys`` in the stream dtype.  The trainable op's forward is this kernel
-    too (the cell saves nothing but ``ys``) and keeps its own count.  Does
-    not synchronise."""
+    ``(ys in the stream dtype, the branch launched)``.  The trainable op's
+    forward is this kernel too (the cell saves nothing but ``ys``) and keeps
+    its own counts.  Does not synchronise."""
     t_len, b, h, ndir = check_inputs(gx, w_hh)
     lib = LIBRARY.load()
     gx = gx.contiguous()
     w = w_hh.to(gx.dtype).float().contiguous()  # rounded to the stream dtype
     with torch.cuda.device(gx.device):
         ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
-        # h double buffer, (direction, parity, H, ldh): rows padded to a
-        # multiple of 4 floats so the kernel copies them in 16-byte pieces
-        ldh = -(-b // 4) * 4
-        hbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
-                           device=gx.device)
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = lib.rnn_bidir_forward(
-            gx.data_ptr(), w.data_ptr(), ys.data_ptr(), hbuf.data_ptr(),
-            t_len, b, h, ldh, ndir, int(gx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.rnn_bidir_error_string(err).decode()
-        raise RuntimeError(f"rnn_bidir forward kernel launch failed ({err}: "
-                           f"{msg}) at T={t_len} B={b} H={h} ndir={ndir}")
-    return ys
+        # the grid branch needs only its h double buffer
+        branch = _launch(lib, "rnn_bidir", gx, w, [ys], t_len, b, h, ndir, [])
+    return ys, branch
 
 
 def rnn_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream; ``ys`` in the stream dtype.
     Does not synchronise."""
     global launches
-    ys = launch_forward(gx, w_hh)
+    ys, branch = launch_forward(gx, w_hh)
     launches += 1
+    launches_fwd_branch[branch] += 1
     return ys
 
 

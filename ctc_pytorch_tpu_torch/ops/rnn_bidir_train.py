@@ -25,10 +25,16 @@ formed here, outside the kernel, as plain GEMMs (the LSTM op's ``dw_hh`` with
 one gate); the input projection and its gradients belong to the caller's
 ``torch.matmul``.
 
-The kernels do their products on CUDA cores in fp32 and meet at one grid
-barrier per time step; that serial chain, not the card's limits, sets their
-time (``csrc/rnn_bidir_train.cu`` counts the limits).  Any T >= 1, B >= 1
-and H run, with no padding.
+The backward kernel has the forward's shape (a value exchanged every step
+feeds a (B, H) x (H, H) product) and the forward's branches, which the
+library chooses by shape and reports (``launches_bwd_branch``, as the
+forward's ``launches_fwd_branch``): the forward's cluster kernels
+(``csrc/fwd_cluster.cuh``) run backward in time on the rows of ``w_hh``,
+with the tensor cores on bf16 streams and fp32 FMA on fp32 streams, or one
+cooperative grid with a grid barrier per time step where no cluster holds
+the shape.  The serial chain, not the card's limits, sets their time
+(``csrc/rnn_bidir_train.cu`` counts the limits).  Any T >= 1, B >= 1 and H
+run, with no padding.
 
 CPU tensors take the plain twins; a CUDA tensor launches the kernels or the
 call raises.
@@ -42,6 +48,7 @@ import torch
 
 from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
 from ctc_pytorch_tpu_torch.ops._build import (
+    FWD_BRANCHES,
     KernelLibrary,
     acc_dtype,
     check_plane,
@@ -53,7 +60,9 @@ from ctc_pytorch_tpu_torch.ops.lstm_bidir_train import dw_hh
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "rnn_bidir_train.cu",
-    {"rnn_bidir_train_backward": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
+    {"rnn_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "rnn_bidir_train_backward": (
+         [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
     headers=rnn_ops.HEADERS)
 
@@ -61,6 +70,9 @@ LIBRARY = KernelLibrary(
 # plain path adds nothing
 launches_fwd = 0
 launches_bwd = 0
+# the same launches by the branch the library reported
+launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
+launches_bwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 
 
 def rnn_bidir_train_backward_plain(w_hh: torch.Tensor, ys: torch.Tensor,
@@ -94,8 +106,9 @@ def rnn_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel (the eval op's) on the current stream:
     ``ys`` in the stream dtype.  Does not synchronise."""
     global launches_fwd
-    ys = rnn_ops.launch_forward(gx, w_hh)
+    ys, branch = rnn_ops.launch_forward(gx, w_hh)
     launches_fwd += 1
+    launches_fwd_branch[branch] += 1
     return ys
 
 
@@ -108,25 +121,34 @@ def rnn_bidir_train_backward_cuda(w_hh: torch.Tensor, ys: torch.Tensor,
     check_plane("dy", dy, ys, ndir * h)
     ys, dy = ys.contiguous(), dy.contiguous()
     w = w_hh.to(ys.dtype).float().contiguous()  # rounded to the stream dtype
+    bf16 = int(ys.dtype == torch.bfloat16)
     lib = LIBRARY.load()
+    branch = ctypes.c_int(-1)
     with torch.cuda.device(ys.device):
+        err = lib.rnn_bidir_train_bwd_branch(b, h, ndir, bf16,
+                                             ctypes.byref(branch))
         dgx = torch.empty_like(ys)
-        # dpre exchange double buffer, (direction, parity, H, ldh): rows
-        # padded to a multiple of 4 floats (16-byte copies)
         ldh = -(-b // 4) * 4
-        dpbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
-                            device=ys.device)
-        stream = torch.cuda.current_stream(ys.device).cuda_stream
-        err = lib.rnn_bidir_train_backward(
-            w.data_ptr(), ys.data_ptr(), dy.data_ptr(), dgx.data_ptr(),
-            dpbuf.data_ptr(), t_len, b, h, ldh, ndir,
-            int(ys.dtype == torch.bfloat16), stream)
+        dpbuf = None
+        if err == 0 and branch.value == 0:
+            # the grid branch's dpre exchange double buffer, (direction,
+            # parity, H, ldh): rows padded to a multiple of 4 floats
+            # (16-byte copies)
+            dpbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
+                                device=ys.device)
+        if err == 0:
+            stream = torch.cuda.current_stream(ys.device).cuda_stream
+            err = lib.rnn_bidir_train_backward(
+                w.data_ptr(), ys.data_ptr(), dy.data_ptr(), dgx.data_ptr(),
+                None if dpbuf is None else dpbuf.data_ptr(), t_len, b, h, ldh,
+                ndir, bf16, stream, ctypes.byref(branch))
     if err != 0:
         msg = lib.rnn_bidir_train_error_string(err).decode()
         raise RuntimeError(f"rnn_bidir_train backward kernel launch failed "
                            f"({err}: {msg}) at T={t_len} B={b} H={h} "
                            f"ndir={ndir}")
     launches_bwd += 1
+    launches_bwd_branch[FWD_BRANCHES[branch.value]] += 1
     return dgx
 
 

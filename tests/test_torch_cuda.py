@@ -35,7 +35,7 @@ from ctc_pytorch_tpu_torch.ops import stacked
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_CASES, HOIST_CASES  # noqa: E402  phase 3's shapes
+from chip_smoke import FWD_CASES, HOIST_CASES, RNN_CASES  # noqa: E402  phase 3's shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -656,3 +656,39 @@ def test_forward_kernels_match_plain_on_each_branch(card, kernel, t, b, h,
         for g, w in zip(*((x,) if torch.is_tensor(x) else x for x in (got, want))):
             assert torch.isfinite(g.float()).all()
             assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kernel,t,b,h,dtype,ndir,branch,scale", RNN_CASES)
+def test_rnn_kernels_match_plain_on_each_branch(card, kernel, t, b, h, dtype,
+                                                ndir, branch, scale):
+    """The tanh cell's forward (the eval op and the training forward) or
+    backward against its twin at ``chip_smoke.py``'s shapes, with the branch
+    the library reported: ys within 1e-4, 2e-2 with bf16 streams; dgx within
+    1e-4, 2 bf16 ulps of max(|want|, 1) with bf16 streams."""
+    bf16 = dtype == "bf16"
+    gx, w_hh, dy = _rnn_inputs(t, b, h, torch.bfloat16 if bf16 else torch.float32,
+                               card, ndir, scale)
+    want_ys = rnn_ops.rnn_bidir_plain(gx, w_hh)
+    if kernel == "fwd":
+        runs = [(rnn_ops.launches_fwd_branch,
+                 lambda: rnn_ops.rnn_bidir_cuda(gx, w_hh), want_ys),
+                (rnn_train_ops.launches_fwd_branch,
+                 lambda: rnn_train_ops.rnn_bidir_train_cuda(gx, w_hh), want_ys)]
+    else:
+        runs = [(rnn_train_ops.launches_bwd_branch,
+                 lambda: rnn_train_ops.rnn_bidir_train_backward_cuda(
+                     w_hh, want_ys, dy),
+                 rnn_train_ops.rnn_bidir_train_backward_plain(w_hh, want_ys, dy))]
+    for counts, fn, want in runs:
+        before = dict(counts)
+        got = fn()
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts.items()}
+        took = [k for k, v in delta.items() if v]
+        assert sum(delta.values()) == 1 and took[0].startswith(branch)
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs()
+        if kernel == "bwd" and bf16:
+            err = err / want.float().abs().clamp(min=1.0)
+        tol = (2e-2 if kernel == "fwd" else 2.0 ** -6) if bf16 else 1e-4
+        assert err.max().item() <= tol

@@ -205,13 +205,34 @@ def test_rnn_kernel_modules_build_nothing_at_import():
         assert lib._lib is None and lib.source.name == source
         assert lib.source.exists() and all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
-        # both headers are part of the version: rnn_fwd.cuh includes lstm_fwd.cuh
-        assert [h.name for h in lib.headers] == ["lstm_fwd.cuh", "rnn_fwd.cuh"]
+        # every csrc/ header the source reaches is part of the version: the
+        # grid branch's rnn_fwd.cuh (over lstm_fwd.cuh) and the cluster
+        # branches' fwd_cluster.cuh (over bwd_hoist.cuh and gru_fwd.cuh)
+        assert {h.name for h in lib.headers} == included(lib.source) == {
+            "lstm_fwd.cuh", "rnn_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh",
+            "fwd_cluster.cuh"}
         assert '#include "rnn_fwd.cuh"' in lib.source.read_text()
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "rnn_fwd.cuh").read_text()
-    # the trainable op's forward is the eval library's kernel
+    # the trainable op's forward is the eval library's kernel; its own
+    # library has the backward and the backward's branch
     assert set(rnn_bidir_train.LIBRARY.functions) == {
-        "rnn_bidir_train_backward", "rnn_bidir_train_error_string"}
+        "rnn_bidir_train_bwd_branch", "rnn_bidir_train_backward",
+        "rnn_bidir_train_error_string"}
+    assert set(rnn_bidir.LIBRARY.functions) == {
+        "rnn_bidir_fwd_branch", "rnn_bidir_forward", "rnn_bidir_error_string"}
+
+
+def included(source):
+    """Names of the csrc/ headers that ``source`` includes, transitively."""
+    import re
+
+    seen, todo = set(), [source]
+    while todo:
+        for name in re.findall(r'#include "([^"]+)"', todo.pop().read_text()):
+            if name not in seen:
+                seen.add(name)
+                todo.append(source.parent / name)
+    return seen
 
 
 def test_no_kernel_source_calls_a_library_for_the_recurrent_products():

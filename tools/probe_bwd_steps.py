@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Phase stamps of the LSTM and GRU recurrences' cluster kernels on one GPU:
-the backward's serial kernel (``bwd_cluster_kernel`` in
+"""Phase stamps of the recurrences' cluster kernels on one GPU: the LSTM's
+and GRU's backward serial kernel (``bwd_cluster_kernel`` in
 ``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) at the bench and recipe shapes
-with bf16 streams, and the forward's (``fwd_mma_kernel``, ``fwd_fma_kernel``
-in ``csrc/fwd_cluster.cuh``) at the main paths' and bench shapes: the cycles
-a step spends in each phase, and the clusters the card holds at once.
+with bf16 streams, and the forward kernels (``fwd_mma_kernel``,
+``fwd_fma_kernel``, ``fma1_kernel`` in ``csrc/fwd_cluster.cuh``) at the main
+paths' and bench shapes, for the LSTM, the GRU and the tanh cell forward
+and backward: the cycles a step spends in each phase, and the clusters the
+card holds at once.
 
     python3 tools/probe_bwd_steps.py
 
@@ -27,6 +29,7 @@ from ctc_pytorch_tpu_torch.ops._build import BUILD_DIR, CSRC, nvcc  # noqa: E402
 PHASES = ["wait for the data", "receive sum", "read arrive", "element-wise",
           "loads issued", "CTA barrier", "product", "wait for the reads",
           "DSMEM stores", "data arrive", "global stores"]
+# (fma1_kernel: the product with its reduce-scatter, then the tanh step)
 FWD_PHASES = ["product", "gate math", "DSMEM stores", "release arrive",
               "loads and global stores issued", "wait"]
 
@@ -47,6 +50,7 @@ void run_fwd(int T, int B, int H, const char* what) {
   cudaMalloc(&cs, n_y * sizeof(S));
   cudaMalloc(&w, (size_t)ndir * H * G * H * 4);
   cudaMemset(gx, 0, n_gx * sizeof(S));
+  cudaMemset(cs, 0, n_y * sizeof(S));
   cudaMemset(w, 0, (size_t)ndir * H * G * H * 4);
   int branch = 0;
   fwd_branch<Cell, S, kRound>(B, H, ndir, &branch);
@@ -55,6 +59,8 @@ void run_fwd(int T, int B, int H, const char* what) {
     return;
   }
   void* c = std::is_same<Cell, LstmCell>::value && kRound ? cs : nullptr;
+  // the tanh backward reads a saved ys plane beside dy (gx here)
+  const void* y_in = kBackward<Cell> ? cs : nullptr;
   for (int rep = 0; rep < 2; ++rep) {
     long long zero[8] = {0};
     cudaMemcpyToSymbol(fwd_step_cycles, zero, sizeof(zero));
@@ -63,7 +69,7 @@ void run_fwd(int T, int B, int H, const char* what) {
     cudaEventCreate(&b);
     cudaEventRecord(a);
     const cudaError_t err = launch_fwd_cluster<Cell, S, kRound>(
-        branch, gx, w, ys, c, T, B, H, ndir, 0);
+        branch, gx, w, ys, c, T, B, H, ndir, 0, y_in);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     float ms = 0.f;
@@ -151,6 +157,13 @@ int main() {
                                          "lstm train T=80 B=128 H=384 bf16");
   run_fwd<GruCell, __nv_bfloat16, true>(95, 16, 256, "gru T=95 B=16 H=256 bf16");
   run_fwd<GruCell, __nv_bfloat16, true>(95, 128, 256, "gru T=95 B=128 H=256 bf16");
+  printf("tanh forward and backward\n");
+  run_fwd<TanhCell, float, true>(100, 8, 384, "tanh fwd T=100 B=8 H=384 fp32");
+  run_fwd<TanhBwdCell, float, true>(100, 8, 384, "tanh bwd T=100 B=8 H=384 fp32");
+  run_fwd<TanhCell, __nv_bfloat16, true>(80, 128, 384,
+                                         "tanh fwd T=80 B=128 H=384 bf16");
+  run_fwd<TanhBwdCell, __nv_bfloat16, true>(80, 128, 384,
+                                            "tanh bwd T=80 B=128 H=384 bf16");
   return 0;
 }
 """
