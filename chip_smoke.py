@@ -20,18 +20,26 @@ printed line; any failure ends the run with a nonzero exit and no result:
    reports; the three recurrences of each cell with one direction (ndir =
    1); then the
    ten stacked-layout (v1) entry points, each through the kernels against
-   itself through the plain versions, with the launches counted;
+   itself through the plain versions, with the launches counted; then every
+   recurrence branch and the CTC kernels captured in a CUDA graph through
+   the port's ``train/graphs.py`` and replayed (``GRAPH_CASES``): the
+   replay equal to the eager call bit for bit, its launches counted once;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
-   with random weights from a seed, through ``cli.test.evaluate``; checks
-   that every BiLSTM layer went through the kernel and that, in fp32, the
-   kernel path and the plain path decode identical strings and PER;
+   with random weights from a seed, through ``cli.test.evaluate``, which
+   takes the fused stage 4 (one captured graph replay a batch over the
+   device cache); checks that every BiLSTM layer went through the kernel
+   and that, in fp32, the kernel path and the plain path decode identical
+   strings and PER;
 5. TIMIT training slice: stage 2 of the same recipe (batch 8, bf16) on a
-   synthetic train and dev split through ``Trainer.fit`` for one epoch and
-   ``save_best``; checks the launch counts of the four training kernels, that
-   the loss fell, that the BN counters moved and that the saved package
-   decodes; then two fp32 optimizer steps through the kernels and through
-   the plain twins on the card, which must agree;
+   synthetic train and dev split through ``build_loaders`` (a device cache)
+   and ``Trainer.fit`` for one epoch and ``save_best``: the recipe's fused
+   epoch, every train, dev and ``dev_over_train`` batch one graph replay;
+   checks the launch counts of the four training kernels (each replay
+   counts what its capture launched), the replays, that the loss fell, that
+   the BN counters moved and that the saved package decodes; then two fp32
+   optimizer steps through the kernels and through the plain twins on the
+   card, which must agree;
 6. 863 slice: the 863 recipe with the GRU cell at full width (CNN 1->16
    (11, 5) stride (2, 2) + Hardtanh(0, 20), 4 x BiGRU(256), 67 classes, bf16,
    batch 16) on a synthetic 201-d corpus: ``Trainer.fit`` for one epoch with
@@ -53,7 +61,16 @@ printed line; any failure ends the run with a nonzero exit and no result:
    in fp32 and bf16; the LSTM and GRU backwards as pre-pass, serial kernel
    and both), with the branch each recurrence kernel took, the stacked entry
    points, then the flagship's, the 863 model's and the tanh model's decode
-   forward and whole train step with their device time by kernel.
+   forward and whole train step with their device time by kernel;
+10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
+    at B=16 (bf16 streams), one epoch and its dev pass at ``drop_out: 0``
+    from one seeded state through the eager ``run_epoch`` and the graphed
+    ``run_epoch_single`` (same batches, same order, deterministic
+    algorithms): per-batch losses, token counts, parameters, and the fused
+    and streaming decodes' strings; then each path's epoch wall time,
+    utterances a second, the card's busy share (``torch.profiler``), the
+    graphs' capture time and pool bytes, and a prefetching train pass
+    against the plain host loader.
 
 Four model paths are driven: the flagship (phases 4 and 5), the 863 model
 (phase 6), the tanh model (phase 7) and the unidirectional flagship (phase
@@ -946,6 +963,177 @@ def phase_rnn_vs_plain() -> dict:
     return worst
 
 
+# Each recurrence kernel on each of its branches, and the CTC DPs, captured
+# in a CUDA graph through the port's ``train/graphs.py`` and replayed: (op,
+# T', B, H, stream dtype, directions, the branch the launcher must report,
+# by prefix).  The shapes are the main paths' (the recipes' batches with
+# fp32 and bf16 streams, the bench shape) and edge cases of FWD_CASES,
+# HOIST_CASES and RNN_CASES, so that every branch is captured at least once.
+# The card's pytest cases (tests/test_torch_cuda.py) run the same list.
+GRAPH_CASES = [
+    ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
+    ("lstm_eval", 80, 128, 384, "bf16", 2, "grid"),  # TIMIT bench shape
+    ("lstm_train", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
+    ("lstm_train", 80, 128, 384, "bf16", 2, "cluster32"),
+    ("lstm_train", 12, 48, 384, "bf16", 1, "cluster16"),
+    ("lstm_train", 80, 128, 384, "fp32", 2, "grid"),
+    ("lstm_bwd", 100, 8, 384, "fp32", 2, "grid"),  # TIMIT recipe
+    ("lstm_bwd", 80, 128, 384, "bf16", 2, "cluster32"),
+    ("lstm_bwd", 6, 16, 416, "bf16", 2, "cluster16"),
+    ("gru_eval", 95, 16, 256, "bf16", 2, "cluster16"),  # 863 recipe batch
+    ("gru_train", 95, 16, 256, "bf16", 2, "cluster16"),
+    ("gru_train", 6, 128, 448, "bf16", 2, "cluster32"),
+    ("gru_train", 33, 5, 36, "fp32", 2, "cluster16_fp32"),
+    ("gru_train", 95, 128, 256, "fp32", 2, "grid"),
+    ("gru_bwd", 95, 16, 256, "bf16", 2, "cluster16"),
+    ("gru_bwd", 95, 128, 256, "bf16", 2, "cluster"),
+    ("gru_bwd", 95, 128, 256, "fp32", 2, "grid"),
+    ("rnn_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # tanh recipe
+    ("rnn_train", 80, 128, 384, "bf16", 2, "cluster16"),
+    ("rnn_train", 80, 128, 384, "fp32", 2, "grid"),
+    ("rnn_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
+    ("rnn_bwd", 80, 128, 384, "bf16", 2, "cluster16"),
+    ("rnn_bwd", 80, 128, 384, "fp32", 2, "grid"),
+]
+# op -> (kernel rows of the result line, op module, branch counter)
+GRAPH_OPS = {
+    "lstm_eval": (("lstm_bidir",), "lstm_bidir", "launches_fwd_branch"),
+    "lstm_train": (("lstm_bidir_train_fwd",), "lstm_bidir_train",
+                   "launches_fwd_branch"),
+    "lstm_bwd": (("lstm_bidir_train_bwd_prepass", "lstm_bidir_train_bwd"),
+                 "lstm_bidir_train", "launches_bwd_branch"),
+    "gru_eval": (("gru_bidir",), "gru_bidir", "launches_fwd_branch"),
+    "gru_train": (("gru_bidir_train_fwd",), "gru_bidir_train",
+                  "launches_fwd_branch"),
+    "gru_bwd": (("gru_bidir_train_bwd_prepass", "gru_bidir_train_bwd"),
+                "gru_bidir_train", "launches_bwd_branch"),
+    "rnn_eval": (("rnn_bidir",), "rnn_bidir", "launches_fwd_branch"),
+    "rnn_train": (("rnn_bidir_train_fwd",), "rnn_bidir_train",
+                  "launches_fwd_branch"),
+    "rnn_bwd": (("rnn_bidir_train_bwd",), "rnn_bidir_train",
+                "launches_bwd_branch"),
+}
+
+
+def graph_case_call(op: str, t, b, h, name: str, ndir: int, seed: int):
+    """The kernel call of one GRAPH_CASES entry on fixed inputs on the card,
+    returning a tuple of tensors."""
+    import torch
+
+    lstm_ops, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
+    cell = op.split("_")[0]
+    gates = {"lstm": 4, "gru": 3, "rnn": 1}[cell]
+    gx, w, dy = recurrence_inputs(
+        t, b, h, torch.bfloat16 if name == "bf16" else torch.float32, seed,
+        gates=gates, ndir=ndir)
+    calls = {
+        "lstm_eval": lambda: lstm_ops.lstm_bidir_cuda(gx, w),
+        "lstm_train": lambda: train_ops.lstm_bidir_train_cuda(gx, w),
+        "gru_eval": lambda: gru_ops.gru_bidir_cuda(gx, w),
+        "gru_train": lambda: gru_train_ops.gru_bidir_train_cuda(gx, w),
+        "rnn_eval": lambda: rnn_ops.rnn_bidir_cuda(gx, w),
+        "rnn_train": lambda: rnn_train_ops.rnn_bidir_train_cuda(gx, w),
+    }
+    if op == "lstm_bwd":
+        ys, cs = train_ops.lstm_bidir_train_plain(gx, w)
+        calls[op] = lambda: train_ops.lstm_bidir_train_backward_cuda(
+            gx, w, ys, cs, dy)
+    elif op == "gru_bwd":
+        ys = gru_ops.gru_bidir_plain(gx, w)
+        calls[op] = lambda: gru_train_ops.gru_bidir_train_backward_cuda(
+            gx, w, ys, dy)
+    elif op == "rnn_bwd":
+        ys = rnn_ops.rnn_bidir_plain(gx, w)
+        calls[op] = lambda: rnn_train_ops.rnn_bidir_train_backward_cuda(
+            w, ys, dy)
+
+    def call():
+        out = calls[op]()
+        return out if isinstance(out, tuple) else (out,)
+
+    return call
+
+
+def captured_vs_eager(call):
+    """``call()`` eagerly, then captured through the port's ``StepGraphs``
+    and replayed once: ``(largest difference of the replay's outputs from
+    the eager call's, launches of the eager call, launches the capture
+    left, launches of the replay)``, the launches as
+    ``ops/launch_counts.diff`` gives them."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.ops import launch_counts
+    from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
+
+    before = launch_counts.read()
+    eager = call()
+    torch.cuda.synchronize()
+    eager_counts = launch_counts.diff(launch_counts.read(), before)
+    before = launch_counts.read()
+    cap = StepGraphs().capture("case", call, {})
+    left = launch_counts.diff(launch_counts.read(), before)
+    replayed = cap.replay()
+    torch.cuda.synchronize()
+    replay_counts = launch_counts.diff(launch_counts.read(), before)
+    err = max(max_err(a, b) for a, b in zip(eager, replayed))
+    check(all(torch.isfinite(x.float()).all().item() for x in replayed),
+          "non-finite replay output")
+    return err, eager_counts, left, replay_counts
+
+
+def graph_case(case, seed: int) -> tuple:
+    """One GRAPH_CASES entry: the replay must equal the eager call bit for
+    bit (the same kernel on the same inputs), count the eager call's
+    launches, and take the expected branch; ``(kernel rows, branch)``."""
+    op, t, b, h, name, ndir, branch = case
+    rows, mod, counter = GRAPH_OPS[op]
+    err, eager, left, replay = captured_vs_eager(
+        graph_case_call(op, t, b, h, name, ndir, seed))
+    took = sorted(eager.get((mod, counter), {}))
+    where = f"{op} T={t} B={b} H={h} ndir={ndir} {name}"
+    print(f"  graph {where}: branch {'+'.join(took)} (want {branch}); "
+          f"replay vs eager max_abs_err {err:.3g} (tol 0); launches of the "
+          f"replay {replay == eager} equal to the eager call's")
+    check(len(took) == 1 and took[0].startswith(branch),
+          f"{where} took {took}, not {branch}")
+    check(err == 0.0, f"{where}: the replay differs from the eager call")
+    check(not left, f"{where}: the capture left launch counts {left}")
+    check(replay == eager, f"{where}: replay counted {replay}, eager {eager}")
+    return rows, took[0]
+
+
+def phase_graphs_vs_eager() -> dict:
+    """Every recurrence branch (GRAPH_CASES) and the CTC alpha and beta
+    kernels captured in a CUDA graph, replayed and held against the eager
+    call; ``{kernel row: sorted branches replayed}``."""
+    from ctc_pytorch_tpu_torch.ops.ctc_loss import prepare
+
+    _, _, ctc_ops = port_ops()
+    out: dict = {}
+    for i, case in enumerate(GRAPH_CASES):
+        rows, branch = graph_case(case, seed=700 + i)
+        for row in rows:
+            out.setdefault(row, set()).add(branch)
+    for t, b, l in ((100, 8, 33), (95, 16, 40), (80, 128, 48)):
+        lp, lab, il, ll = ctc_inputs(t, b, 62, l, seed=790 + t)
+        _, emit, s_in, s_out, pm, sl = prepare(lp, lab, ll)
+        for row, call in (
+                ("ctc_alpha", lambda: (ctc_ops.ctc_alpha_cuda(emit, s_in, pm,
+                                                             il),)),
+                ("ctc_beta", lambda: (ctc_ops.ctc_beta_cuda(emit, s_out, pm, il,
+                                                           sl),))):
+            err, eager, left, replay = captured_vs_eager(call)
+            print(f"  graph {row} T={t} B={b} L={l}: replay vs eager "
+                  f"max_abs_err {err:.3g} (tol 0)")
+            check(err == 0.0 and not left and replay == eager and eager,
+                  f"{row} at T={t} B={b}: replay {err}, counts {replay} vs "
+                  f"{eager}, capture left {left}")
+            out.setdefault(row, set()).add("one kernel")
+    return {k: sorted(v) for k, v in out.items()}
+
+
 def phase_unidir_vs_plain() -> dict:
     """Each cell's ops with one direction (ndir = 1), as a unidirectional
     layer calls them: the eval op, and the trainable op forward and backward
@@ -1190,10 +1378,15 @@ def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str,
         branches_out["decode"] = branches
     print(f"  {spec.compute_dtype} {tag} decode: {res['batches']} batches, "
           f"{len(decoded)} utts, CER {res['cer']:.4f} WER {res['wer']:.4f}, "
-          f"wall {res['wall_s']:.3f} s (first call, includes data load); "
-          f"launches {counts[eval_kernel]}, forward branches {branches}, "
-          f"calls into ops/stacked.py {stacked_calls()}")
+          f"wall {res['wall_s']:.3f} s (first call, includes data load and "
+          f"capture); launches {counts[eval_kernel]}, forward branches "
+          f"{branches}, calls into ops/stacked.py {stacked_calls()}")
+    print(f"  fused stage 4: {res.get('graphs')} captured graphs in "
+          f"{res.get('capture_seconds', 0):.3f} s, graph pool "
+          f"{res.get('pool_bytes')} bytes")
     print("  " + lines[-1])
+    check(res.get("fused") and res["graphs"] >= 1,
+          f"{tag} decode did not take the fused stage 4")
     check(len(decoded) == n_utts, f"decoded {len(decoded)} of {n_utts} utterances")
     check_counts(counts, {eval_kernel: spec.rnn_layers * res["batches"]},
                  f"{tag} decode")
@@ -1251,10 +1444,11 @@ def phase_decode_slice():
 
 
 def batch_tensors(batch):
-    """A host ``Batch`` as the train step's tensors on the card."""
+    """A ``Batch`` (host arrays, or tensors from the device loaders) as the
+    train step's tensors on the card."""
     import torch
 
-    return tuple(torch.from_numpy(a).cuda() for a in (
+    return tuple(torch.as_tensor(a).cuda() for a in (
         batch.feats, batch.input_frac, batch.labels, batch.label_lengths,
         batch.example_mask))
 
@@ -1278,7 +1472,13 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
     )
     from ctc_pytorch_tpu_torch.vocab import Vocab
 
-    train_loader, dev_loader = build_loaders(cfg, Vocab(cfg.vocab_file))
+    from ctc_pytorch_tpu_torch.data import DeviceCachedLoader
+
+    train_loader, dev_loader = build_loaders(cfg, Vocab(cfg.vocab_file),
+                                             device="cuda")
+    check(isinstance(train_loader, DeviceCachedLoader)
+          and isinstance(dev_loader, DeviceCachedLoader),
+          "stage 2 built no device cache for a corpus within its budget")
     trainer = Trainer(cfg, spec, device="cuda")
     model = trainer.state.model
     train_loader.set_epoch(1)
@@ -1312,15 +1512,29 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
     loss_after = probe_loss()
     for ln in lines:
         print("  " + ln)
+    graphs = trainer.graphs()
     print(f"  Trainer.fit, 1 epoch: {steps} optimizer steps, {dev_batches} dev "
-          f"batches, wall {wall:.3f} s; launches {counts}, forward branches "
-          f"{branches}, calls into ops/stacked.py {stacked_calls()}")
+          f"batches, wall {wall:.3f} s (with the captures); launches {counts}, "
+          f"forward branches {branches}, calls into ops/stacked.py "
+          f"{stacked_calls()}")
+    print(f"  fused epoch (fused_dispatch {cfg.fused_dispatch!r}): "
+          f"{graphs.replays()} graph replays, {len(graphs)} captured graphs in "
+          f"{graphs.capture_seconds:.3f} s, graph pool {graphs.pool_bytes()} "
+          f"bytes")
     print(f"  loss on one train batch (train mode, no dropout): "
           f"{loss_before:.4f} before the epoch, {loss_after:.4f} after")
     check(steps >= 8, f"only {steps} optimizer steps")
     # eval passes compute their loss: the dev pass and, with dev_over_train,
     # one more pass over the training set
     eval_batches = dev_batches + (steps if cfg.dev_over_train else 0)
+    # every pass ran from graphs: one replay a batch, no eager step
+    check(any(ln.startswith("fused_epoch: the epochs run over the device "
+                            "cache") and "one captured CUDA graph replay per "
+              "batch" in ln for ln in lines),
+          "Trainer.fit did not take the fused path")
+    check(graphs.replays() == steps + eval_batches,
+          f"{graphs.replays()} graph replays for {steps} steps and "
+          f"{eval_batches} eval batches")
     n = spec.rnn_layers
     check_counts(counts, {f"{cell}_bidir_train_fwd": n * steps,
                           f"{cell}_bidir_train_bwd": n * steps,
@@ -1502,6 +1716,236 @@ def phase_unidir_slice():
     decode_launches = decode_slice(cfg, spec, model, "lstm_bidir",
                                    N_DECODE_UTTS, "unidir")
     return counts, decode_launches, cfg, spec, model
+
+
+def busy_us(prof) -> float:
+    """Microseconds in which the card ran anything (kernels, copies, sets)
+    in a ``torch.profiler`` trace: the union of its device intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(fn) -> float:
+    """Host seconds of ``fn()``, synchronised at both ends."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - t0
+
+
+def busy_share(fn, wall_s: float) -> float:
+    """The card's busy share of one run of ``fn`` (``torch.profiler``'s
+    device intervals over ``wall_s``, the run's time without the
+    profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return busy_us(prof) / 1e6 / wall_s
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms inside the block (``scatter_add_``
+    without atomics, deterministic cuDNN convolutions), ops that have none
+    warning instead of raising; prints the warnings once."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for msg in sorted({str(w.message).splitlines()[0][:160] for w in caught}):
+        print(f"    deterministic mode: {msg}")
+
+
+def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
+                             device: str = "cuda") -> dict:
+    """One training epoch with its dev pass of ``cfg``'s model at full width
+    and ``drop_out: 0``, from one seeded state, through the eager streaming
+    ``run_epoch`` over a ``GroupedLoader`` and through the graphed
+    ``run_epoch_single`` over a ``DeviceCachedLoader``: the same batches in
+    the same order (the recipe's ``fused_dispatch: "epoch"`` order).  Both
+    run under PyTorch's deterministic algorithms, so that what differs is
+    the graphs alone (``scatter_add_`` in the CTC gradient and cuDNN's
+    weight gradient otherwise add in a varying order, which bf16 weights
+    then round apart).  Per-batch losses within STEP_LOSS_RTOL, token errors
+    and tokens exactly, the parameters within phase 5's rule per step; the
+    fused greedy decode of the graphed run's model gives the streaming
+    decode's strings.  Then the times, in the default modes, on new graphs:
+    an epoch on both paths (the fused one with its captures), a second
+    (wall, utterances a second), the second again under ``torch.profiler``
+    for the card's busy share, and a train pass through a
+    ``PrefetchLoader`` against the plain host loader, in the turns plain,
+    prefetch, prefetch, plain.  ``device="cpu"`` rehearses the phase at a
+    small size (the runners then run eagerly)."""
+    import numpy as np
+
+    from ctc_pytorch_tpu_torch.cli.test import evaluate
+    from ctc_pytorch_tpu_torch.cli.train import build_loaders
+    from ctc_pytorch_tpu_torch.data import GroupedLoader, PrefetchLoader
+    from ctc_pytorch_tpu_torch.train.checkpoint import save_package
+    from ctc_pytorch_tpu_torch.train.loop import (
+        make_epoch_fns,
+        make_fused_fns,
+        run_epoch,
+        run_epoch_single,
+    )
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    cfg = dataclasses.replace(cfg, drop_out=0.0)
+    spec = dataclasses.replace(spec, drop_out=0.0)
+    check(cfg.fused_epoch and cfg.fused_dispatch == "epoch",
+          f"{what}: the recipe does not run fused epochs in t_pad order")
+    cache_tr, cache_dv = build_loaders(cfg, Vocab(cfg.vocab_file),
+                                       log=lambda *_: None, device=device)
+    host_tr, host_dv = cache_tr.loader, cache_dv.loader
+    n_utts = len(host_tr.dataset) + len(host_dv.dataset)
+    quiet = lambda *_: None  # noqa: E731
+
+    def fresh():
+        return create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                                  cfg.grad_clip, seed=cfg.seed, device=device)
+
+    stream_state, fused_state = fresh(), fresh()
+
+    def streaming(epoch, rec_tr=None, rec_dv=None, loader=None):
+        host_tr.set_epoch(epoch)
+        run_epoch(epoch, stream_state, spec,
+                  loader or GroupedLoader(host_tr).grouped("epoch"),
+                  training=True, print_every=1 << 30, log=quiet, record=rec_tr)
+        if loader is None:
+            run_epoch(epoch, stream_state, spec,
+                      GroupedLoader(host_dv).grouped("epoch"), training=False,
+                      log=quiet, record=rec_dv)
+
+    def fused(epoch_fns, epoch, rec_tr=None, rec_dv=None):
+        cache_tr.set_epoch(epoch)
+        run_epoch_single(epoch, epoch_fns, fused_state, cache_tr,
+                         training=True, log=quiet, record=rec_tr)
+        run_epoch_single(epoch, epoch_fns, fused_state, cache_dv,
+                         training=False, log=quiet, record=rec_dv)
+
+    recs = {k: {} for k in ("s_tr", "s_dv", "f_tr", "f_dv")}
+    checked_fns = make_epoch_fns(make_fused_fns(spec))
+    with deterministic():
+        streaming(1, recs["s_tr"], recs["s_dv"])
+        fused(checked_fns, 1, recs["f_tr"], recs["f_dv"])
+        sync()
+    steps = len(recs["s_tr"]["losses"])
+    for split in ("tr", "dv"):
+        got, want = recs[f"f_{split}"], recs[f"s_{split}"]
+        rel = np.abs(np.subtract(got["losses"], want["losses"])) / np.abs(
+            want["losses"])
+        print(f"  {what} {'train' if split == 'tr' else 'dev'} pass: "
+              f"{len(got['losses'])} batches, per-batch losses graphed vs "
+              f"eager rel {rel.max():.3g} (tol {STEP_LOSS_RTOL}; "
+              f"{int((rel == 0).sum())} equal bit for bit); token errors "
+              f"{got['errs']} vs {want['errs']}, tokens {got['toks']} vs "
+              f"{want['toks']}")
+        check(len(got["losses"]) == len(want["losses"]) > 0
+              and rel.max() <= STEP_LOSS_RTOL,
+              f"{what}: graphed and eager per-batch losses differ")
+        check(got["errs"] == want["errs"] and got["toks"] == want["toks"],
+              f"{what}: graphed and eager token counts differ")
+    check(device == "cpu" or checked_fns[0].graphs.replays()
+          == steps + len(recs["s_dv"]["losses"]),
+          f"{what}: {checked_fns[0].graphs.replays()} replays for {steps} "
+          f"steps and {len(recs['s_dv']['losses'])} dev batches")
+    worst, n_off, n_all = 0.0, 0, 0
+    f_sd = fused_state.model.state_dict()
+    for k, v in stream_state.model.state_dict().items():
+        diff = (f_sd[k].float() - v.float()).abs()
+        n_off += int((diff > STEP_TOL).sum())
+        n_all += diff.numel()
+        worst = max(worst, diff.max().item())
+    print(f"  {what} after the epoch ({steps} steps): {n_off} of {n_all} "
+          f"parameter and BN entries differ by more than {STEP_TOL}, largest "
+          f"difference {worst:.3g} (tol {2.01 * steps * cfg.init_lr:.3g})")
+    check(fused_state.step == stream_state.step == steps,
+          f"{what}: step counts {fused_state.step}, {stream_state.step}")
+    check(n_off <= STEP_OFF_SHARE * n_all
+          and worst <= 2.01 * steps * cfg.init_lr,
+          f"{what}: graphed and eager parameters differ")
+
+    # the fused and the streaming stage 4 of the graphed run's model
+    pkg = WORK / "checkpoint" / f"phase10_{spec.rnn_cell}.npz"
+    save_package(pkg, spec, fused_state.model, config=cfg)
+    decoded = {}
+    for fused_decode in (True, False):
+        lines = []
+        res = evaluate(dataclasses.replace(cfg, fused_decode=fused_decode),
+                       str(pkg), device=device, log=lines.append)
+        check(bool(res.get("fused")) == fused_decode, "wrong stage-4 path")
+        decoded[fused_decode] = dict(zip(lines[0:-3:3], lines[2:-3:3]))
+    same = sum(decoded[True].get(u) == d for u, d in decoded[False].items())
+    print(f"  {what} stage 4, fused vs streaming: {same}/{len(decoded[False])} "
+          "strings equal")
+    check(decoded[True] == decoded[False] and same > 0,
+          f"{what}: the fused and the streaming decode differ")
+
+    # the times, in the default modes, on graphs captured in them
+    epoch_fns = make_epoch_fns(make_fused_fns(spec))
+    graphs = epoch_fns[0].graphs
+    first = {"streaming": timed(lambda: streaming(2)),
+             "fused": timed(lambda: fused(epoch_fns, 2))}
+    wall = {"streaming": timed(lambda: streaming(3)),
+            "fused": timed(lambda: fused(epoch_fns, 3))}
+    busy = {"streaming": busy_share(lambda: streaming(3), wall["streaming"]),
+            "fused": busy_share(lambda: fused(epoch_fns, 3), wall["fused"])}
+    # the host loaders' train pass, plain and prefetched, in turns
+    pre = PrefetchLoader(host_tr, device)
+    turns = [("plain", host_tr), ("prefetch", pre), ("prefetch", pre),
+             ("plain", host_tr)]
+    pass_s = {"plain": [], "prefetch": []}
+    for name, loader in turns:
+        pass_s[name].append(timed(lambda: streaming(4, loader=loader)))
+    out = {
+        "what": what, "batch": cfg.batch_size, "train_steps": steps,
+        "dev_batches": len(recs["s_dv"]["losses"]), "utterances": n_utts,
+        "first_epoch_wall_s": first, "epoch_wall_s": wall,
+        "utts_per_s": {k: n_utts / v for k, v in wall.items()},
+        "busy_share": busy, "graphs": len(graphs),
+        "capture_s": graphs.capture_seconds,
+        "pool_bytes": graphs.pool_bytes() if device == "cuda" else 0,
+        "train_pass_s": pass_s, "card": smi,
+    }
+    print(f"  {what} B={cfg.batch_size}, one epoch = {steps} steps + "
+          f"{out['dev_batches']} dev batches ({n_utts} utterances) ({smi}):")
+    for k in ("streaming", "fused"):
+        print(f"    {k}: first epoch {first[k]:.4f} s, next {wall[k]:.4f} s "
+              f"({out['utts_per_s'][k]:.1f} utts/s), card busy "
+              f"{100 * busy[k]:.1f}% of it (torch.profiler)")
+    print(f"    graphs: {len(graphs)} captured in {graphs.capture_seconds:.3f}"
+          f" s (in the fused first epoch), pool {out['pool_bytes']} bytes")
+    print(f"    train pass, streaming from the host: plain "
+          f"{pass_s['plain']} s, prefetched {pass_s['prefetch']} s")
+    return out
 
 
 def recurrence_bound(gx, w_hh, n_planes: int, n_products: int,
@@ -2020,7 +2464,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/9] device: {smi} | torch {torch.__version__} "
+    print(f"[1/10] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -2028,7 +2472,7 @@ def main() -> int:
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/9] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/10] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -2038,7 +2482,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/9] kernel vs plain on the card")
+    print("[3/10] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -2048,28 +2492,29 @@ def main() -> int:
     errs_rnn = phase_rnn_vs_plain()
     errs_unidir = phase_unidir_vs_plain()
     errs_stacked = phase_stacked_vs_plain()
+    graph_branches = phase_graphs_vs_eager()
 
-    print("[4/9] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/10] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/9] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/10] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/9] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/10] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy decode")
     counts_863, decode_launches_863, spec_863, model_863 = phase_863_slice()
 
-    print("[7/9] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/10] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/9] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/10] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/9] times ({smi})")
+    print(f"[9/10] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -2112,6 +2557,12 @@ def main() -> int:
                               "tanh CNN+BiRNN(384)", "recipe batch")
     times_model(cfg_uni, spec_uni, model_uni, 128, 160, 48,
                 "unidirectional CNN+LSTM(384)", "bench shape")
+
+    print(f"[10/10] fused vs streaming: one epoch at drop_out 0 through the "
+          f"eager run_epoch and the graphed run_epoch_single ({smi})")
+    fused_vs_streaming = [
+        phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
+        phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -2214,6 +2665,8 @@ def main() -> int:
             entry["max_err_one_direction"] = err_ndir1
         if name in branches_tanh:  # the tanh path's launches by branch
             entry["launches_by_branch"] = branches_tanh[name]
+        # the branches phase 3 captured and replayed against the eager call
+        entry["graph_replayed_branches"] = graph_branches[name]
         if name.startswith("ctc"):
             for shape, at in ctc_863.items():
                 entry.update({f"{k}_863_{shape}": at[name][k] for k in (
@@ -2230,7 +2683,8 @@ def main() -> int:
             train_step_ms=at_bench["train_step_ms"],
             train_step_device_ms=at_bench["train_step_device_ms"],
             train_step_ms_recipe_batch=at_recipe["train_step_ms"])
-    print(json.dumps({"kernels": kernels, "entry_points": entry_points}))
+    print(json.dumps({"kernels": kernels, "entry_points": entry_points,
+                      "fused_vs_streaming": fused_vs_streaming}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,15 @@
 """Stage 4: greedy decoding + scoring of a package checkpoint.
 
-Counterpart of ``ctc_pytorch_tpu/cli/test.py:26-160`` (the streaming loop):
-loads a package, rebuilds the model from it alone, decodes the test set
-batch by batch with the greedy decoder, prints per-utterance origin/decoded
-pairs, and reports CER/WER percentages and decode wall time, in the same
-lines as the JAX package.
+Counterpart of ``ctc_pytorch_tpu/cli/test.py``: loads a package, rebuilds
+the model from it alone, decodes the test set with the greedy decoder,
+prints per-utterance origin/decoded pairs, and reports CER/WER percentages
+and decode wall time, in the same lines as the JAX package.  With
+``fused_decode`` (the default) and a test set whose device cache fits
+``device_cache_max_gb``, the set is cached on the device and decoded one
+captured CUDA graph replay a batch (``_evaluate_fused``,
+``decode/fused.py``), as the JAX package decodes it one jitted scan a
+group; otherwise batch by batch from the host (the streaming loop).  Both
+give the same strings; the fused path prints the utterances group by group.
 
 Precision: TF32 is off for matmuls and cuDNN convolutions, so an fp32
 package computes in full fp32 like the JAX reference it is held against
@@ -25,8 +30,14 @@ import torch
 
 from ctc_pytorch_tpu_torch import resolve_device
 from ctc_pytorch_tpu_torch.config import Config, load_config
-from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+from ctc_pytorch_tpu_torch.data import (
+    DeviceCachedLoader,
+    SpeechDataLoader,
+    SpeechDataset,
+    estimate_bytes,
+)
 from ctc_pytorch_tpu_torch.decode import GreedyDecoder
+from ctc_pytorch_tpu_torch.decode.fused import make_fused_decode_fn
 from ctc_pytorch_tpu_torch.models import CTCModel
 from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
 from ctc_pytorch_tpu_torch.vocab import Vocab
@@ -45,9 +56,6 @@ def evaluate(
     if cfg.decode_type != "Greedy":
         raise NotImplementedError(
             f"decode_type {cfg.decode_type!r} is not ported yet; use Greedy")
-    if cfg.fused_decode:
-        log("fused_decode is not ported yet: decoding with the streaming "
-            "loop (same strings)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -60,6 +68,12 @@ def evaluate(
         mode=cfg.batch_mode,
     )
     decoder = GreedyDecoder(vocab.index2word)
+    # the fused stage 4 where the JAX package takes it (cli/test.py:86-105)
+    if (cfg.fused_decode and max_batches is None
+            and loader.batcher._assignment is not None
+            and estimate_bytes(loader) <= cfg.device_cache_max_gb * (1 << 30)):
+        return _evaluate_fused(spec, model, decoder, loader, dev,
+                               verbose=verbose, log=log)
 
     total_cer = total_wer = 0
     num_sentences = 0
@@ -105,6 +119,60 @@ def evaluate(
         f"{minutes:.4f} minutes")
     return {"cer": cer, "wer": wer, "decode_minutes": minutes,
             "batches": n}
+
+
+def _evaluate_fused(spec, model, decoder, loader, dev, *,
+                    verbose: bool = True, log=print) -> dict:
+    """Stage 4 over a ``DeviceCachedLoader`` of the test set, one captured
+    graph per group shape (``decode/fused.py``) and one fetch of the tokens
+    per group (counterpart of the JAX ``_evaluate_fused``,
+    ``cli/test.py:163-240``).  Strings, CER/WER and the printed lines are
+    the streaming loop's; the utterances come group by group."""
+    start = time.time()
+    cached = DeviceCachedLoader(loader, dev)
+    fused = make_fused_decode_fn(spec, model, blank=decoder.blank_index)
+    scorer = decoder.scorer
+    total_cer = total_wer = 0
+    num_sentences = n_batches = 0
+    label_host: dict = {}  # bucket plane -> its labels and lengths on the host
+    for arrs, pos, mask, t_pad, idx in cached.epoch_groups(
+            0, with_indices=True):
+        tokens, lens = fused(arrs, pos, t_pad)
+        tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+        n_batches += pos.shape[0]
+        key = arrs["feats"].data_ptr()
+        if key not in label_host:
+            label_host[key] = (arrs["labels"].cpu().numpy(),
+                               arrs["lab_len"].cpu().numpy())
+        labels, lab_lens = label_host[key]
+        for bi in range(pos.shape[0]):
+            for i in range(pos.shape[1]):
+                if not mask[bi, i]:
+                    continue
+                row = pos[bi, i]
+                target = scorer.to_string(labels[row], int(lab_lens[row]))
+                hyp = scorer.to_string(tokens[bi, i], int(lens[bi, i]))
+                if verbose:
+                    log(f"{cached._utts[int(idx[bi, i])]}")
+                    log(f"origin : {target}")
+                    log(f"decoded: {hyp}")
+                total_cer += scorer.cer(hyp, target)
+                total_wer += scorer.wer(hyp, target)
+                scorer.num_word += len(target.split())
+                scorer.num_char += len(target)
+                num_sentences += 1
+    minutes = (time.time() - start) / 60.0
+    cer = 100.0 * total_cer / max(scorer.num_char, 1)
+    wer = 100.0 * total_wer / max(scorer.num_word, 1)
+    log(f"character error rate on test set: {cer:.4f}")
+    log(f"word error rate on test set: {wer:.4f}")
+    log(f"time used for decode {num_sentences} sentences: "
+        f"{minutes:.4f} minutes")
+    graphs = fused.graphs
+    return {"cer": cer, "wer": wer, "decode_minutes": minutes,
+            "batches": n_batches, "fused": True, "graphs": len(graphs),
+            "capture_seconds": graphs.capture_seconds,
+            "pool_bytes": graphs.pool_bytes() if dev.type == "cuda" else 0}
 
 
 def main(argv=None):

@@ -9,13 +9,14 @@ either package decodes.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises.
 TF32 is off for matmuls and cuDNN convolutions, so an fp32 config trains in
-full fp32 like the JAX reference.  Batches stream from the host.  Where the
-JAX stage 2 would cache the dataset on the device (``device_cache`` on and
-the cache within ``device_cache_max_gb``), the loaders are
-``GroupedLoader``s, so that ``fused_epoch`` visits the batches in the JAX
-fused path's order; the cache itself and ``--data-parallel`` are not
-ported.  With ``log_dir`` set, the log also goes to
-``<log_dir>/<exp_name>.log``, as in the JAX stage 2.
+full fp32 like the JAX reference.  Where the JAX stage 2 caches the dataset
+on the device (``device_cache`` on and the cache within
+``device_cache_max_gb``), the loaders are ``DeviceCachedLoader``s, and with
+``fused_epoch`` the trainer runs its passes from captured CUDA graphs over
+them; where it streams from the host with ``host_prefetch``, they are
+``PrefetchLoader``s.  ``--data-parallel`` is not ported.  With ``log_dir``
+set, the log also goes to ``<log_dir>/<exp_name>.log``, as in the JAX
+stage 2.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 from ctc_pytorch_tpu_torch import resolve_device
 from ctc_pytorch_tpu_torch.config import load_config
 from ctc_pytorch_tpu_torch.data import (
-    GroupedLoader,
+    DeviceCachedLoader,
+    PrefetchLoader,
     SpeechDataLoader,
     SpeechDataset,
     estimate_bytes,
@@ -38,9 +40,13 @@ from ctc_pytorch_tpu_torch.utils import init_file_logger
 from ctc_pytorch_tpu_torch.vocab import Vocab
 
 
-def build_loaders(cfg, vocab, log=print):
-    """(train_loader, dev_loader) as the JAX package's stage 2 builds them:
-    ``GroupedLoader``s where it would build its device cache."""
+def build_loaders(cfg, vocab, log=print,
+                  device: str | torch.device = "cuda"):
+    """(train_loader, dev_loader) as the JAX package's stage 2 builds them
+    (``ctc_pytorch_tpu/cli/train.py:73-103``): ``DeviceCachedLoader``s on
+    ``device`` where the cache fits its budget, else ``PrefetchLoader``s
+    with ``host_prefetch``, else the host loaders."""
+    dev = resolve_device(device)
     train_ds = SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg)
     dev_ds = SpeechDataset(vocab, cfg.valid_scp_path, cfg.valid_lab_path, cfg)
     train_ds.preload(cfg.num_workers)
@@ -53,19 +59,26 @@ def build_loaders(cfg, vocab, log=print):
         dev_ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
         seed=cfg.seed, mode=cfg.batch_mode,
     )
-    if not cfg.device_cache:
-        return train_loader, dev_loader
-    # the JAX stage 2's budget check, from host-side bucket shapes
-    est = estimate_bytes(train_loader) + estimate_bytes(dev_loader)
-    if est <= cfg.device_cache_max_gb * (1 << 30):
-        return GroupedLoader(train_loader), GroupedLoader(dev_loader)
-    if est >= 1 << 62:
-        log("WARNING: device cache disabled: num_buckets=0 (reference-exact "
-            "per-batch shapes) is not cacheable; the streaming order is used")
-    else:
-        log(f"WARNING: device cache disabled: estimated {est / (1 << 30):.2f} "
-            f"GB exceeds device_cache_max_gb={cfg.device_cache_max_gb}; the "
-            "streaming order is used")
+    if cfg.device_cache:
+        # the budget check from host-side bucket shapes, before anything is
+        # uploaded
+        est = estimate_bytes(train_loader) + estimate_bytes(dev_loader)
+        if est <= cfg.device_cache_max_gb * (1 << 30):
+            return (DeviceCachedLoader(train_loader, dev),
+                    DeviceCachedLoader(dev_loader, dev))
+        if est >= 1 << 62:
+            log("WARNING: device cache disabled: num_buckets=0 "
+                "(reference-exact per-batch shapes) is not cacheable; "
+                "falling back to host streaming")
+        else:
+            log(f"WARNING: device cache disabled: estimated "
+                f"{est / (1 << 30):.2f} GB exceeds device_cache_max_gb="
+                f"{cfg.device_cache_max_gb}; falling back to host streaming")
+    if cfg.host_prefetch:
+        # whenever batches stream from the host: the cache off by config or
+        # over its budget
+        return (PrefetchLoader(train_loader, dev),
+                PrefetchLoader(dev_loader, dev))
     return train_loader, dev_loader
 
 
@@ -76,7 +89,7 @@ def train(cfg, *, device: str | torch.device = "cuda", resume=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     vocab = Vocab(cfg.vocab_file)
-    train_loader, dev_loader = build_loaders(cfg, vocab, log)
+    train_loader, dev_loader = build_loaders(cfg, vocab, log, dev)
     # 863 configs declare num_class explicitly (blank added on top);
     # otherwise the vocab decides
     n_class = cfg.num_class + 1 if cfg.num_class > 0 else vocab.n_words

@@ -1,7 +1,9 @@
 from ctc_pytorch_tpu_torch.data.batching import (  # noqa: F401
     Batch,
     BucketBatcher,
+    DeviceCachedLoader,
     GroupedLoader,
+    PrefetchLoader,
     SpeechDataLoader,
     collate,
     estimate_bytes,

@@ -1,7 +1,8 @@
 """Static-shape bucketed batching (copy of ``ctc_pytorch_tpu/data/batching.py``
-up to ``SpeechDataLoader``, plus the batch order of its device cache's fused
-epochs, ``GroupedLoader``; the device-side loaders themselves are not ported
-yet).
+up to ``SpeechDataLoader``), the batch order of the device cache's fused
+epochs (``GroupedLoader``), and the two device-side loaders: the
+device-resident dataset cache (``DeviceCachedLoader``) and the prefetching
+host loader (``PrefetchLoader``).
 
 Replaces the reference's variable-length collate (``create_input``,
 ``timit/utils/data_loader.py:119-151``): utterances are grouped into a small
@@ -341,9 +342,10 @@ class SpeechDataLoader:
 
 def estimate_bytes(loader: SpeechDataLoader) -> int:
     """Bytes a device cache of ``loader``'s dataset would take: fp32 feature
-    planes padded to their bucket, labels and lengths (copy of the JAX
+    planes padded to their bucket, labels and lengths (the JAX
     ``DeviceCachedLoader.estimate_bytes``, which stage 2 checks against
-    ``device_cache_max_gb`` before it takes the fused path).  ``num_buckets
+    ``device_cache_max_gb`` before it takes the fused path), computed from
+    the host-side bucket shapes without uploading anything.  ``num_buckets
     = 0`` cannot be cached: ``1 << 62``."""
     batcher = loader.batcher
     if batcher._assignment is None:
@@ -372,13 +374,14 @@ class GroupedLoader:
     streaming order's, so only the visiting order differs.  Iterating this
     loader gives the streaming order, as iterating the JAX cache does;
     ``grouped`` gives the fused order.  Host-only: the batches are made by
-    the wrapped loader.
+    the wrapped loader.  ``DeviceCachedLoader`` adds the device cache.
     """
 
     def __init__(self, loader: SpeechDataLoader):
         if loader.batcher._assignment is None:
-            raise ValueError("GroupedLoader needs bucketed (static-shape) "
-                             "batches; num_buckets=0 has no groups")
+            raise ValueError(f"{type(self).__name__} needs bucketed "
+                             "(static-shape) batches; num_buckets=0 has no "
+                             "groups")
         self.loader = loader
         self.batcher = loader.batcher
         self.batch_size = loader.batch_size
@@ -396,9 +399,9 @@ class GroupedLoader:
     def __iter__(self) -> Iterator[Batch]:
         return iter(self.loader)
 
-    def epoch_plan(self, epoch: int, dispatch: str = "group") -> list:
-        """The fused path's ``(indices, t_pad, l_pad)`` of ``epoch``, in its
-        visiting order for ``fused_dispatch`` ``dispatch``."""
+    def _groups(self, epoch: int) -> dict:
+        """``{(bucket, t_pad, B): [(indices, t_pad, l_pad), ...]}`` of the
+        epoch's batches, groups in order of first appearance."""
         batcher = self.batcher
         groups: dict = {}
         for indices, t_pad, l_pad in batcher.epoch_batches(epoch):
@@ -408,6 +411,12 @@ class GroupedLoader:
                      else int(batcher._assignment[indices[0]]))
             groups.setdefault((b_idx, int(t_pad), n), []).append(
                 (indices, t_pad, l_pad))
+        return groups
+
+    def epoch_plan(self, epoch: int, dispatch: str = "group") -> list:
+        """The fused path's ``(indices, t_pad, l_pad)`` of ``epoch``, in its
+        visiting order for ``fused_dispatch`` ``dispatch``."""
+        groups = self._groups(epoch)
         keys = list(groups)
         if dispatch == "epoch":
             keys.sort(key=lambda k: k[1])
@@ -416,3 +425,215 @@ class GroupedLoader:
     def grouped(self, dispatch: str = "group") -> Iterator[Batch]:
         """The current epoch's batches in the fused path's order."""
         return self.loader.iter_plan(self.epoch_plan(self.epoch, dispatch))
+
+
+def gather_rows(arrs: dict, pos, t_pad: int):
+    """``(feats, frac, in_len, labels, label_lens)`` of the rows ``pos`` (a
+    device index tensor) of a cached bucket plane ``arrs``, the features
+    sliced to ``t_pad`` frames and ``frac = in_len / t_pad`` in fp32 (the
+    collate's ``input_frac``, ``train_ctc.py:46``).  Static shapes and no
+    host read: the fused runners gather inside their CUDA graphs."""
+    import torch
+
+    in_len = arrs["in_len"].index_select(0, pos)
+    return (arrs["feats"][:, :t_pad].index_select(0, pos),
+            in_len.to(torch.float32) / t_pad, in_len,
+            arrs["labels"].index_select(0, pos),
+            arrs["lab_len"].index_select(0, pos))
+
+
+def _padded(indices, batch_size: int, pad: bool):
+    """``(idx, mask)``: the batch's dataset indices, repeat-padded to
+    ``batch_size`` rows when ``pad``, and its example mask."""
+    idx = np.asarray(indices)
+    n_real = len(idx)
+    if pad and n_real < batch_size:
+        idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - n_real)])
+    mask = np.ones((len(idx),), np.float32)
+    mask[n_real:] = 0.0
+    return idx, mask
+
+
+class DeviceCachedLoader(GroupedLoader):
+    """Device-resident dataset cache over a ``SpeechDataLoader``
+    (counterpart of ``ctc_pytorch_tpu/data/batching.py:394-611``).
+
+    Every bucket's padded planes are uploaded once, at construction, as
+    torch tensors on ``device``: ``feats`` fp32 ``(n, t_pad, F)``,
+    ``labels`` int32 ``(n, L)``, ``in_len`` and ``lab_len`` int32 ``(n,)``,
+    with the plane's ``t_pad``.  In ``quantized`` batch mode one plane at the
+    top boundary holds every utterance, and a batch slices it down to its
+    own ``t_pad``.  Each epoch's batches are gathers over the same per-epoch
+    shuffle the host loader makes (``BucketBatcher.epoch_batches`` drives
+    both), so the batches are the host loader's.  Check ``estimate_bytes``
+    against the budget before constructing: construction uploads the whole
+    dataset.
+
+    ``epoch_groups`` gives the fused runners (``train/loop.py``,
+    ``decode/fused.py``) the batches grouped by static shape; iterating the
+    loader gathers each batch on the device in the streaming order.  As a
+    ``GroupedLoader`` it also gives the host-made batches in the fused order
+    (``grouped``).
+    """
+
+    estimate_bytes = staticmethod(estimate_bytes)
+
+    def __init__(self, loader: SpeechDataLoader,
+                 device: str | "torch.device" = "cuda"):
+        import torch
+
+        from ctc_pytorch_tpu_torch import resolve_device
+
+        super().__init__(loader)
+        self.device = dev = resolve_device(device)
+        self.pad_to_full_batch = loader.pad_to_full_batch
+        ds = loader.dataset
+        batcher = loader.batcher
+        self._utts = [ds.items[i][0] for i in range(len(ds))]
+        n = len(ds)
+
+        def upload(members, t_pad: int) -> dict:
+            host = collate([ds[int(i)] for i in members], t_pad,
+                           batcher.label_pad)
+            put = {k: torch.from_numpy(v).to(dev) for k, v in (
+                ("feats", host.feats), ("labels", host.labels),
+                ("in_len", host.input_lengths),
+                ("lab_len", host.label_lengths))}
+            put["t_pad"] = t_pad
+            return put
+
+        self._bucket_arrays: dict = {}
+        if batcher.mode == "quantized":
+            self._bucket_of = np.zeros(n, np.int64)
+            self._pos_in_bucket = np.arange(n)
+            self._bucket_arrays[0] = upload(range(n), batcher.boundaries[-1])
+        else:
+            self._bucket_of = batcher._assignment
+            self._pos_in_bucket = np.zeros(n, np.int64)
+            for b_idx, bound in enumerate(batcher.boundaries):
+                members = np.nonzero(self._bucket_of == b_idx)[0]
+                if len(members) == 0:
+                    continue
+                self._pos_in_bucket[members] = np.arange(len(members))
+                self._bucket_arrays[b_idx] = upload(members, bound)
+
+    def total_bytes(self) -> int:
+        return sum(arrs[k].numel() * arrs[k].element_size()
+                   for arrs in self._bucket_arrays.values()
+                   for k in ("feats", "labels", "in_len", "lab_len"))
+
+    def epoch_groups(self, epoch: int, with_indices: bool = False):
+        """The epoch's batches grouped by static shape, for the fused
+        runners: ``(arrs, pos, mask, t_pad)`` per group, where ``arrs`` is
+        the bucket's dict of device planes, ``pos`` an ``(n_batches, B)``
+        int32 matrix of row positions into them and ``mask`` the matching
+        ``(n_batches, B)`` float32 example masks (numpy, as the JAX method
+        gives them).  The batches are ``__iter__``'s; only the order
+        differs: grouped by ``(bucket, t_pad, B)`` in order of first
+        appearance, the order within a group kept.  ``with_indices=True``
+        appends the ``(n_batches, B)`` int64 dataset indices, so that a
+        consumer can name the utterances (the fused stage-4 decode)."""
+        for (b_idx, tp, _), batches in self._groups(epoch).items():
+            poss, masks, idxs = [], [], []
+            for indices, _, _ in batches:
+                idx, mask = _padded(indices, self.batch_size,
+                                    self.pad_to_full_batch)
+                poss.append(self._pos_in_bucket[idx])
+                masks.append(mask)
+                idxs.append(idx)
+            out = (self._bucket_arrays[b_idx],
+                   np.stack(poss).astype(np.int32),
+                   np.stack(masks).astype(np.float32), tp)
+            if with_indices:
+                out = out + (np.stack(idxs).astype(np.int64),)
+            yield out
+
+    def __iter__(self) -> Iterator[Batch]:
+        """The epoch's batches in the streaming order, each gathered on the
+        device: a ``Batch`` of device tensors (the mask too)."""
+        import torch
+
+        for indices, t_pad, _ in self.batcher.epoch_batches(self.epoch):
+            idx, mask = _padded(indices, self.batch_size,
+                                self.pad_to_full_batch)
+            arrs = self._bucket_arrays[int(self._bucket_of[idx[0]])]
+            pos = torch.from_numpy(self._pos_in_bucket[idx]).to(self.device)
+            feats, frac, in_len, labels, lab_len = gather_rows(
+                arrs, pos, t_pad or arrs["t_pad"])
+            yield Batch(feats=feats, input_frac=frac, input_lengths=in_len,
+                        labels=labels, label_lengths=lab_len,
+                        utts=[self._utts[int(i)] for i in idx],
+                        example_mask=torch.from_numpy(mask).to(self.device))
+
+
+class PrefetchLoader:
+    """Host-to-device prefetch over a ``SpeechDataLoader`` (counterpart of
+    ``ctc_pytorch_tpu/data/batching.py:334-392``), for a dataset too big for
+    the device cache.
+
+    The copies of batches N+1 .. N+``depth`` are issued before batch N is
+    yielded, so that they overlap step N.  Each batch is copied from pinned
+    host memory with ``non_blocking`` copies on a side stream, and an event
+    recorded after its copies; when the batch is yielded, the caller's
+    stream waits for that event alone, so step N waits only for its own
+    batch.  All copies are issued on the calling thread (the wrapped
+    loader's thread only collates host arrays).  Yields ``Batch``es of
+    device tensors (the example mask too).  On the CPU the batches are
+    converted to tensors, with nothing to overlap.
+    """
+
+    FIELDS = ("feats", "input_frac", "input_lengths", "labels",
+              "label_lengths", "example_mask")
+
+    def __init__(self, loader: SpeechDataLoader,
+                 device: str | "torch.device" = "cuda", depth: int = 2):
+        from ctc_pytorch_tpu_torch import resolve_device
+
+        self.loader = loader
+        self.depth = depth
+        self.batch_size = loader.batch_size
+        self.device = resolve_device(device)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[Batch]:
+        import dataclasses
+        from collections import deque
+
+        import torch
+
+        if self.device.type != "cuda":
+            for b in self.loader:
+                yield dataclasses.replace(b, **{
+                    k: torch.from_numpy(getattr(b, k)) for k in self.FIELDS})
+            return
+        copy_stream = torch.cuda.Stream(self.device)
+        pending: deque = deque()
+
+        def put(b: Batch):
+            with torch.cuda.stream(copy_stream):
+                moved = {k: torch.from_numpy(getattr(b, k)).pin_memory().to(
+                    self.device, non_blocking=True) for k in self.FIELDS}
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            return dataclasses.replace(b, **moved), done
+
+        def ready(b: Batch, done) -> Batch:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for k in self.FIELDS:
+                # the copy stream made these; keep them from its reuse until
+                # the caller's stream is done with them
+                getattr(b, k).record_stream(stream)
+            return b
+
+        for b in self.loader:
+            pending.append(put(b))
+            if len(pending) > self.depth:
+                yield ready(*pending.popleft())
+        while pending:
+            yield ready(*pending.popleft())

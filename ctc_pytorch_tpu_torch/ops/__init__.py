@@ -11,5 +11,7 @@ two.  ``ctc_loss``: the CTC loss over the alpha and beta DP kernels
 (``csrc/ctc_dp.cu``).  Each stands beside its plain PyTorch twin; ``_build``
 compiles and loads the sources at first use.  ``stacked``: the JAX package's
 stacked-layout (v1) recurrence entry points as layout wrappers over those
-kernels.  ``editdistance``: a numpy copy of the JAX package's Levenshtein DP.
+kernels.  ``editdistance``: a numpy copy of the JAX package's Levenshtein DP
+and its batched form on the device.  ``launch_counts``: the kernels' launch
+counters as one record, which captured CUDA graphs add to at each replay.
 """

@@ -1,12 +1,14 @@
 """Levenshtein edit distance (copy of ``ctc_pytorch_tpu/ops/editdistance.py``
 ``edit_distance``), matching the pure-python DP in
-``timit/utils/ctcDecoder.py:131-149`` (unit costs for ins/del/sub)."""
+``timit/utils/ctcDecoder.py:131-149`` (unit costs for ins/del/sub), and its
+batched form on the device (``padded_edit_distance_device``)."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
@@ -30,3 +32,39 @@ def edit_distance(ref: Sequence, hyp: Sequence) -> int:
                 cur[j] = cur[j - 1] + 1
         prev, cur = cur, prev
     return int(prev[m])
+
+
+def padded_edit_distance_device(refs: torch.Tensor, ref_lens: torch.Tensor,
+                                hyps: torch.Tensor, hyp_lens: torch.Tensor
+                                ) -> torch.Tensor:
+    """(B,) int32 edit distances of padded ``refs (B, N)`` and ``hyps (B,
+    M)`` with their lengths, on their device: the counterpart of the JAX
+    ``padded_edit_distance_device`` (``editdistance.py:93-129``).
+
+    Static shapes and no host read, so a CUDA graph can hold it.  The DP
+    sweeps the ref axis, all rows of the batch at once.  A row is kept
+    shifted, ``P[j] = D[i, j] - j``, where the insertion recurrence
+    ``D[i, j] = min(D[i, j], D[i, j-1] + 1)`` is a running minimum
+    (``cummin``): four ops a ref token.  Every row is kept, and each
+    utterance reads its distance from row ``ref_len``, column
+    ``min(hyp_len, M)``."""
+    b, n_max = refs.shape
+    m_max = hyps.shape[1]
+    dev = refs.device
+    i32 = torch.int32
+    # neq[i, b, j] - 1: the substitution cost minus the column shift
+    neq = (hyps.to(i32)[None] != refs.to(i32).T[:, :, None]).to(i32) - 1
+    q = torch.empty(n_max + 1, b, m_max + 1, dtype=i32, device=dev)
+    q[:, :, 0] = torch.arange(n_max + 1, dtype=i32, device=dev)[:, None]
+    rows = torch.empty_like(q)
+    rows[0] = 0  # D[0, j] = j
+    idx = torch.empty(b, m_max + 1, dtype=torch.int64, device=dev)
+    for i in range(1, n_max + 1):
+        prev = rows[i - 1]
+        # substitution from (i-1, j-1), deletion from (i-1, j)
+        torch.minimum(prev[:, :-1] + neq[i - 1], prev[:, 1:] + 1,
+                      out=q[i, :, 1:])
+        torch.cummin(q[i], dim=1, out=(rows[i], idx))
+    cols = torch.clamp(hyp_lens.to(torch.int64), max=m_max)
+    last = rows[ref_lens.to(torch.int64), torch.arange(b, device=dev), cols]
+    return last + cols.to(i32)

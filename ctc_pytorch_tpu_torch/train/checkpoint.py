@@ -136,13 +136,17 @@ def opt_state_leaves(optimizer, shapes: List[tuple]) -> List[np.ndarray]:
     b1, b2 = group["betas"]
     hyper = {"b1": b1, "b2": b2, "eps": group["eps"], "eps_root": 0.0}
     return ([count] + [np.asarray(hyper[k], np.float32) for k in ADAM_HYPERPARAMS]
-            + [np.asarray(group["lr"], np.float32), count.copy()]
+            + [np.asarray(float(group["lr"]), np.float32), count.copy()]
             + moments("exp_avg") + moments("exp_avg_sq"))
 
 
 def load_opt_state(optimizer: torch.optim.Adam, leaves: List[np.ndarray]) -> None:
     """Set ``optimizer``'s step, moments and learning rate from
-    ``opt_state.{i}`` leaves (the inverse of ``opt_state_leaves``)."""
+    ``opt_state.{i}`` leaves (the inverse of ``opt_state_leaves``), copied
+    into the tensors the optimizer holds (``train/state.py``: a captured
+    graph keeps stepping the state it was captured over)."""
+    from ctc_pytorch_tpu_torch.train.state import init_optimizer_state, set_lr
+
     params = optimizer.param_groups[0]["params"]
     head = 3 + len(ADAM_HYPERPARAMS)
     if len(leaves) != head + 2 * len(params):
@@ -150,18 +154,18 @@ def load_opt_state(optimizer: torch.optim.Adam, leaves: List[np.ndarray]) -> Non
                          f"optimizer expects {head + 2 * len(params)}")
     lr, count = float(leaves[head - 2]), int(leaves[head - 1])
     mu, nu = leaves[head:head + len(params)], leaves[head + len(params):]
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.state.clear()
     for p, m, v in zip(params, mu, nu):
         if tuple(m.shape) != tuple(p.shape) or tuple(v.shape) != tuple(p.shape):
             raise ValueError(f"opt_state moment of shape {m.shape} for a "
                              f"parameter of shape {tuple(p.shape)}")
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": torch.from_numpy(np.array(m)).to(p.device, p.dtype),
-            "exp_avg_sq": torch.from_numpy(np.array(v)).to(p.device, p.dtype),
-        }
+    set_lr(optimizer, lr)
+    init_optimizer_state(optimizer)
+    with torch.no_grad():
+        for p, m, v in zip(params, mu, nu):
+            live = optimizer.state[p]
+            live["step"].fill_(float(count))
+            live["exp_avg"].copy_(torch.from_numpy(np.array(m)))
+            live["exp_avg_sq"].copy_(torch.from_numpy(np.array(v)))
 
 
 def save_package(

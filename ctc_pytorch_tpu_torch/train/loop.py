@@ -1,7 +1,7 @@
-"""Training loop: the train and eval steps and the reference's epoch loop.
+"""Training loop: the train and eval steps, the reference's epoch loop and
+its fused form over a device-resident dataset.
 
-Counterpart of ``ctc_pytorch_tpu/train/loop.py`` (``make_step_fns``,
-``run_epoch``, ``Trainer``), streaming path:
+Counterpart of ``ctc_pytorch_tpu/train/loop.py``:
 
 - ``train_step``: forward in train mode (bf16 matmuls, fp32 loss) -> CTC loss
   -> backward -> optional global-norm clip -> Adam update, all in place;
@@ -9,34 +9,50 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py`` (``make_step_fns``,
   ``CTCModel.input_sizes``;
 - ``loss = CTCLoss(sum) / batch`` as a masked mean over real examples
   (``example_mask`` drops the repeat-padded rows of a ragged last batch);
-- per-step training token errors from the greedy collapse on the device and
-  the edit distance on the host;
+- per-step training token errors from the greedy collapse and the edit
+  distance on the device (``device_token_errors``), summed there and
+  fetched only where the host prints;
+- ``run_epoch``, the streaming epoch: batches from the host, one eager step
+  each;
+- the fused epoch (the recipes' ``fused_epoch``) over a
+  ``DeviceCachedLoader``: ``make_fused_fns`` / ``run_epoch_fused`` (one
+  fetch and one log line per group of same-shape batches, ``fused_dispatch:
+  "group"``) and ``make_epoch_fns`` / ``run_epoch_single`` (groups in
+  ``t_pad`` order, one fetch per epoch, ``"epoch"``).  Where the JAX package
+  runs a group or an epoch as one jitted ``lax.scan``, the port captures one
+  CUDA graph per static step shape ``(bucket plane, t_pad, B)``
+  (``train/graphs.py``) that gathers its batch from the cache through a
+  static ``pos`` buffer, runs the whole step and adds to the device counters
+  of errors and tokens; the host loop is "copy the next ``pos`` row, replay".
+  No program is keyed by a group's length, so groups are not padded to
+  powers of two (the JAX ``_pad_group``).  ``fused_pregather`` is accepted
+  and changes nothing: the gathers run inside the graph either way.  On CPU
+  tensors the runners run the same step eagerly;
 - the plateau scheduler with device-side snapshots and rollback, and the
   best-dev-accuracy state kept for the final package.
 
-The recipe's ``fused_epoch`` and ``device_cache`` (one program per epoch over
-a device-resident dataset) are ported as far as the batch order: over a
-``GroupedLoader`` (which ``cli/train.py`` builds where the JAX stage 2 would
-build its device cache) the epoch visits the batches grouped by shape, in the
-JAX fused path's order, still one step each from the host (no CUDA graphs).
 Data parallelism, the waveform frontend and ``profile`` are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ctc_pytorch_tpu_torch import resolve_device
 from ctc_pytorch_tpu_torch.config import Config
+from ctc_pytorch_tpu_torch.data.batching import gather_rows
 from ctc_pytorch_tpu_torch.decode.greedy import greedy_collapse
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
 from ctc_pytorch_tpu_torch.ops.ctc_loss import ctc_loss
-from ctc_pytorch_tpu_torch.ops.editdistance import edit_distance
+from ctc_pytorch_tpu_torch.ops.editdistance import padded_edit_distance_device
 from ctc_pytorch_tpu_torch.train import checkpoint as ckpt
+from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
 from ctc_pytorch_tpu_torch.train.metrics_log import MetricsLogger
 from ctc_pytorch_tpu_torch.train.scheduler import PlateauScheduler
 from ctc_pytorch_tpu_torch.train.state import (
@@ -89,19 +105,25 @@ def eval_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
     return loss, torch.argmax(log_probs, dim=-1).T, input_sizes, log_probs
 
 
-def token_errors(greedy_idx, input_sizes, batch) -> Tuple[int, int]:
-    """(edit-distance sum, reference-token sum) over the batch's real rows:
-    greedy collapse on the device, Levenshtein on the host."""
+@torch.no_grad()
+def device_token_errors(greedy_idx, input_sizes, labels, label_lens, mask
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(edit-distance sum, reference-token sum)`` over the batch's real
+    rows, as 0-d int64 tensors on the device: greedy collapse, edit distance
+    and masked sums with no host fetch (the JAX ``_device_token_errors``,
+    ``train/loop.py:573-587``)."""
     tokens, lens = greedy_collapse(greedy_idx, input_sizes)
-    tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
-    errs = toks = 0
-    for i in range(batch.batch_size):
-        if not batch.example_mask[i]:
-            continue
-        n = int(batch.label_lengths[i])
-        errs += edit_distance(batch.labels[i, :n], tokens[i, :int(lens[i])])
-        toks += n
-    return errs, toks
+    dists = padded_edit_distance_device(labels, label_lens, tokens, lens)
+    keep = mask > 0
+    zero = torch.zeros((), dtype=torch.int64, device=dists.device)
+    return (torch.where(keep, dists.to(torch.int64), zero).sum(),
+            torch.where(keep, label_lens.to(torch.int64), zero).sum())
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """A batch field (numpy from the host loader, a tensor from the device
+    loaders) as a tensor on ``dev``."""
+    return (x if isinstance(x, torch.Tensor) else torch.from_numpy(x)).to(dev)
 
 
 def run_epoch(
@@ -115,22 +137,25 @@ def run_epoch(
     print_every: int = 50,
     compute_wer: bool = True,
     log=print,
+    record: Optional[dict] = None,
 ) -> Tuple[float, float]:
-    """One pass; returns (accuracy = 1 - wer, average loss) like
-    ``run_epoch`` (``train_ctc.py:26-69``).  Losses stay on the device and
-    are fetched only at print points and at the end."""
+    """One streaming pass, one eager step per batch; returns (accuracy = 1 -
+    wer, average loss) like ``run_epoch`` (``train_ctc.py:26-69``).  Losses
+    and token errors stay on the device and are fetched only at print
+    points and at the end.  ``record``, where given, receives the pass's
+    per-batch losses in visiting order and its error and token counts
+    (``_epoch_done``), for parity checks between the epoch runners."""
     dev = next(state.model.parameters()).device
     device_losses = []
     cur_start = 0
     fetched_sum = 0.0
-    total_errs = total_tokens = 0
+    total_errs = torch.zeros((), dtype=torch.int64, device=dev)
+    total_tokens = torch.zeros((), dtype=torch.int64, device=dev)
     n_batches = 0
     for i, batch in enumerate(loader):
-        feats = torch.from_numpy(batch.feats).to(dev)
-        frac = torch.from_numpy(batch.input_frac).to(dev)
-        labels = torch.from_numpy(batch.labels).to(dev)
-        label_lens = torch.from_numpy(batch.label_lengths).to(dev)
-        mask = torch.from_numpy(batch.example_mask).to(dev)
+        feats, frac, labels, label_lens, mask = (_on(x, dev) for x in (
+            batch.feats, batch.input_frac, batch.labels, batch.label_lengths,
+            batch.example_mask))
         if training:
             loss, greedy_idx, input_sizes = train_step(
                 state, spec, feats, frac, labels, label_lens, mask, generator)
@@ -140,7 +165,8 @@ def run_epoch(
         device_losses.append(loss)
         n_batches += 1
         if compute_wer:
-            errs, toks = token_errors(greedy_idx, input_sizes, batch)
+            errs, toks = device_token_errors(greedy_idx, input_sizes, labels,
+                                             label_lens, mask)
             total_errs += errs
             total_tokens += toks
         if training and (i + 1) % print_every == 0:
@@ -150,20 +176,261 @@ def run_epoch(
                 f"Epoch = {epoch_id}, step = {i + 1}, "
                 f"cur_loss = {sum(vals) / max(len(vals), 1):.4f}, "
                 f"total_loss = {fetched_sum / (i + 1):.4f}, "
-                f"total_wer = {total_errs / (total_tokens + 1e-9):.4f}"
+                f"total_wer = {int(total_errs) / (int(total_tokens) + 1e-9):.4f}"
             )
             cur_start = len(device_losses)
     total_loss = fetched_sum + sum(float(v) for v in device_losses[cur_start:])
-    avg_loss = total_loss / max(n_batches, 1)
-    acc = 1.0 - total_errs / (total_tokens + 1e-9)
+    if record is not None:
+        record["losses"] = [float(v) for v in device_losses]
+    return _epoch_done(epoch_id, training, total_loss, n_batches,
+                       int(total_errs), int(total_tokens), log, record)
+
+
+def _epoch_done(epoch_id: int, training: bool, loss_sum: float,
+                n_batches: int, errs: int, toks: int, log,
+                record: Optional[dict] = None) -> Tuple[float, float]:
+    if record is not None:
+        record.update(errs=errs, toks=toks)
+    avg_loss = loss_sum / max(n_batches, 1)
+    acc = 1.0 - errs / (toks + 1e-9)
     tag = "Train" if training else "Valid"
     log(f"Epoch {epoch_id} {tag} done, total_loss: {avg_loss:.4f}, "
         f"total_wer: {1.0 - acc:.4f}")
     return acc, avg_loss
 
 
+# ---------------------------------------------------------------------------
+# fused epochs over a device-resident cache
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _restoring(state: Optional[TrainState],
+               generator: Optional[torch.Generator], tensors=()):
+    """Put the train state (if given), the dropout generator (if given) and
+    ``tensors`` back as they were: around a warm-up step that must leave no
+    trace."""
+    snap = snapshot(state) if state is not None else None
+    gen_state = generator.get_state() if generator is not None else None
+    saved = [t.clone() for t in tensors]
+    yield
+    if snap is not None:
+        restore(state, snap)
+    if generator is not None:
+        generator.set_state(gen_state)
+    for t, v in zip(tensors, saved):
+        t.copy_(v)
+
+
+def make_fused_fns(spec: ModelSpec,
+                   generator: Optional[torch.Generator] = None):
+    """Per-group runners over a device-resident cache, ``(fused_train,
+    fused_eval)`` (counterpart of the JAX ``make_fused_fns``,
+    ``train/loop.py:168-373``).
+
+    ``fused_train(state, arrs, pos, mask, t_pad, compute_wer)`` runs the
+    group's batches, the rows ``pos[i]`` of the bucket plane ``arrs`` with
+    example masks ``mask[i]`` (numpy ``(n, B)``, as ``epoch_groups`` gives
+    them), one optimizer step each, in order, and returns ``(losses (n,),
+    errs, toks)`` on the device, unfetched; ``fused_eval(state, arrs, pos,
+    mask, t_pad, compute_wer)`` the same in eval mode without updates.
+    ``state.step`` advances once a training batch.  Dropout draws from
+    ``generator``.
+
+    On the card each step shape ``(train or eval, compute_wer, bucket
+    plane, t_pad, B)`` is captured once, at its first use, into a CUDA
+    graph of the shared ``StepGraphs`` (``fused_train.graphs``), and every
+    batch is one replay.  The warm-up before a capture runs the step for
+    real; a snapshot and a restore of the state (training) and of the error
+    and token counters undo it.  The step's ``zero_grad(set_to_none=True)``
+    runs first in the capture, so its backward writes fresh gradients, from
+    the graphs' pool, at every replay.  The graph holds the state's tensors, which
+    the rest of the trainer only ever writes in place (``train/state.py``).
+    On the CPU the same step runs eagerly."""
+    graphs = StepGraphs([generator])
+    acc: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def run(state, arrs, pos, mask, t_pad: int, compute_wer: bool,
+            training: bool):
+        dev = arrs["feats"].device
+        if dev not in acc:  # made outside every capture: read across graphs
+            acc[dev] = (torch.zeros((), dtype=torch.int64, device=dev),
+                        torch.zeros((), dtype=torch.int64, device=dev))
+        errs, toks = acc[dev]
+        errs.zero_()
+        toks.zero_()
+        n, b = pos.shape
+        pos_d = torch.from_numpy(np.asarray(pos, np.int64)).to(dev)
+        mask_d = torch.from_numpy(np.asarray(mask, np.float32)).to(dev)
+        losses = torch.empty(n, dtype=torch.float32, device=dev)
+
+        def step(inputs):
+            feats, frac, _, labels, lab_len = gather_rows(
+                arrs, inputs["pos"], t_pad)
+            m = inputs["mask"]
+            if training:
+                loss, greedy_idx, sizes = train_step(
+                    state, spec, feats, frac, labels, lab_len, m, generator)
+            else:
+                loss, greedy_idx, sizes, _ = eval_step(
+                    state, spec, feats, frac, labels, lab_len, m)
+            if compute_wer:
+                e, t = device_token_errors(greedy_idx, sizes, labels, lab_len,
+                                           m)
+                errs.add_(e)
+                toks.add_(t)
+            return (loss,)
+
+        if dev.type != "cuda":
+            for i in range(n):
+                (loss,) = step({"pos": pos_d[i], "mask": mask_d[i]})
+                losses[i] = loss
+            return losses, errs.clone(), toks.clone()
+
+        key = (training, compute_wer, id(state.model),
+               arrs["feats"].data_ptr(), int(t_pad), b)
+        cap = graphs.get(key)
+        for i in range(n):
+            if cap is None:
+                # the static buffers, and what the graph reads besides
+                # them, live as long as it does
+                inputs = {"pos": pos_d[i].clone(), "mask": mask_d[i].clone(),
+                          "arrs": arrs, "model": state.model}
+                step0 = state.step
+                cap = graphs.capture(
+                    key, lambda: step(inputs), inputs,
+                    lambda: _restoring(state if training else None,
+                                       generator if training else None,
+                                       (errs, toks)))
+                state.step = step0
+            else:
+                cap.inputs["pos"].copy_(pos_d[i])
+                cap.inputs["mask"].copy_(mask_d[i])
+            (loss,) = cap.replay()
+            losses[i].copy_(loss)
+            if training:
+                state.step += 1
+        return losses, errs.clone(), toks.clone()
+
+    def fused_train(state, arrs, pos, mask, t_pad: int,
+                    compute_wer: bool = True):
+        return run(state, arrs, pos, mask, t_pad, compute_wer, True)
+
+    def fused_eval(state, arrs, pos, mask, t_pad: int,
+                   compute_wer: bool = True):
+        return run(state, arrs, pos, mask, t_pad, compute_wer, False)
+
+    fused_train.graphs = fused_eval.graphs = graphs
+    return fused_train, fused_eval
+
+
+def make_epoch_fns(fused_fns):
+    """Whole-epoch twins of ``make_fused_fns``' runners, ``(epoch_train,
+    epoch_eval)`` (counterpart of the JAX ``make_epoch_fns``,
+    ``train/loop.py:376-438``): ``epoch_train(state, groups, compute_wer)``
+    runs every group of ``groups`` (``(arrs, pos, mask, t_pad)`` each) in
+    the order given, on the same captured graphs, and returns ``(per-group
+    losses, errs, toks)`` on the device, with nothing fetched between the
+    groups; ``epoch_eval`` the same in eval mode."""
+    fused_train, fused_eval = fused_fns
+
+    def chain(fn, state, groups, compute_wer: bool):
+        outs, errs, toks = [], 0, 0
+        for arrs, pos, mask, t_pad in groups:
+            losses, e, t = fn(state, arrs, pos, mask, t_pad, compute_wer)
+            outs.append(losses)
+            errs, toks = e + errs, t + toks
+        return outs, errs, toks
+
+    def epoch_train(state, groups, compute_wer: bool = True):
+        return chain(fused_train, state, groups, compute_wer)
+
+    def epoch_eval(state, groups, compute_wer: bool = True):
+        return chain(fused_eval, state, groups, compute_wer)
+
+    epoch_train.graphs = epoch_eval.graphs = fused_train.graphs
+    return epoch_train, epoch_eval
+
+
+def run_epoch_fused(epoch_id: int, fused_fns, state: TrainState, loader, *,
+                    training: bool, compute_wer: bool = True, log=print,
+                    record: Optional[dict] = None) -> Tuple[float, float]:
+    """``run_epoch`` over a ``DeviceCachedLoader``, one group of same-shape
+    batches at a time (``epoch_groups``); the same return contract
+    (counterpart of the JAX ``run_epoch_fused``, ``train/loop.py:458-505``).
+    Each group's losses and counts are fetched once, and progress is logged
+    once a group.  ``record`` as ``run_epoch``'s."""
+    fused_train, fused_eval = fused_fns
+    loss_sum = 0.0
+    n_batches = errs = toks = 0
+    every = []
+    for arrs, pos, mask, t_pad in loader.epoch_groups(loader.epoch):
+        fn = fused_train if training else fused_eval
+        losses, e, t = fn(state, arrs, pos, mask, t_pad, compute_wer)
+        vals = losses.cpu().numpy()
+        every += vals.tolist()
+        loss_sum += float(vals.sum())
+        n_batches += len(vals)
+        errs += int(e)
+        toks += int(t)
+        if training:
+            log(
+                f"Epoch = {epoch_id}, step = {n_batches}, "
+                f"cur_loss = {float(vals.mean()):.4f}, "
+                f"total_loss = {loss_sum / n_batches:.4f}, "
+                f"total_wer = {errs / (toks + 1e-9):.4f}"
+            )
+    if record is not None:
+        record["losses"] = every
+    return _epoch_done(epoch_id, training, loss_sum, n_batches, errs, toks,
+                       log, record)
+
+
+def run_epoch_single(epoch_id: int, epoch_fns, state: TrainState, loader, *,
+                     training: bool, compute_wer: bool = True, log=print,
+                     record: Optional[dict] = None) -> Tuple[float, float]:
+    """``run_epoch_fused`` through ``make_epoch_fns``: the groups in
+    ``t_pad`` order (a stable sort), one fetch for the whole epoch and the
+    epoch's summary as its only progress line (counterpart of the JAX
+    ``run_epoch_single``, ``train/loop.py:508-570``).  ``record`` as
+    ``run_epoch``'s."""
+    epoch_train, epoch_eval = epoch_fns
+    groups = sorted(loader.epoch_groups(loader.epoch), key=lambda g: g[3])
+    if record is not None:
+        record["losses"] = []
+    if not groups:
+        return _epoch_done(epoch_id, training, 0.0, 0, 0, 0, log, record)
+    fn = epoch_train if training else epoch_eval
+    losses, errs, toks = fn(state, groups, compute_wer)
+    # one fetch: the fp32 losses and the counts, exact in fp64
+    flat = torch.cat([x.double() for x in losses]
+                     + [torch.stack([errs, toks]).double()]).cpu().numpy()
+    loss_sum, n_batches = 0.0, 0
+    for vals in np.split(flat[:-2].astype(np.float32),
+                         np.cumsum([len(x) for x in losses])[:-1]):
+        loss_sum += float(vals.sum())
+        n_batches += len(vals)
+        if record is not None:
+            record["losses"] += vals.tolist()
+    errs, toks = int(flat[-2]), int(flat[-1])
+    if training:
+        log(
+            f"Epoch = {epoch_id}, step = {n_batches}, "
+            f"total_loss = {loss_sum / max(n_batches, 1):.4f}, "
+            f"total_wer = {errs / (toks + 1e-9):.4f}"
+        )
+    return _epoch_done(epoch_id, training, loss_sum, n_batches, errs, toks,
+                       log, record)
+
+
 class Trainer:
-    """The whole training run, with plateau scheduling and checkpointing."""
+    """The whole training run, with plateau scheduling and checkpointing.
+
+    With ``fused_epoch`` the train pass, the dev pass and the
+    ``dev_over_train`` pass over a ``DeviceCachedLoader`` take the fused
+    runners (``run_epoch_single`` under ``fused_dispatch: "epoch"``, else
+    ``run_epoch_fused``): on the card, one graph replay per batch.  Any
+    other loader streams its batches in its own order, as the JAX trainer
+    streams where it has no cache."""
 
     def __init__(self, cfg: Config, spec: ModelSpec,
                  device: str | torch.device = "cuda",
@@ -182,6 +449,13 @@ class Trainer:
         # dropout masks: one stream on the model's device, apart from the init
         self.dropout_generator = torch.Generator(device=self.device)
         self.dropout_generator.manual_seed(cfg.seed + 1)
+        # the fused runners and their graphs (built even for "epoch", which
+        # chains the same per-group runners)
+        self.fused_fns = (make_fused_fns(spec, self.dropout_generator)
+                          if cfg.fused_epoch else None)
+        self.epoch_fns = (make_epoch_fns(self.fused_fns)
+                          if cfg.fused_epoch and cfg.fused_dispatch == "epoch"
+                          else None)
         self.scheduler = PlateauScheduler(
             end_adjust_acc=cfg.end_adjust_acc, lr_decay=cfg.lr_decay,
             mode=cfg.scheduler_mode,
@@ -199,18 +473,41 @@ class Trainer:
         self.epoch = 0
         self._decay_next = False
 
-    def _grouped(self, loader) -> bool:
-        """Whether the epochs over ``loader`` take the fused path's batch
-        order: ``fused_epoch`` on and a loader that knows it."""
-        return self.cfg.fused_epoch and hasattr(loader, "grouped")
+    def _fused(self, loader) -> bool:
+        """Whether the passes over ``loader`` take the fused runners."""
+        return self.fused_fns is not None and hasattr(loader, "epoch_groups")
+
+    def graphs(self) -> Optional[StepGraphs]:
+        """The fused runners' captured graphs (None without ``fused_epoch``)."""
+        return None if self.fused_fns is None else self.fused_fns[0].graphs
 
     def _run(self, loader, *, training: bool, compute_wer: bool, log):
-        if self._grouped(loader):
-            loader = loader.grouped(self.cfg.fused_dispatch)
+        if self._fused(loader):
+            if self.epoch_fns is not None:
+                return run_epoch_single(
+                    self.epoch, self.epoch_fns, self.state, loader,
+                    training=training, compute_wer=compute_wer, log=log)
+            return run_epoch_fused(
+                self.epoch, self.fused_fns, self.state, loader,
+                training=training, compute_wer=compute_wer, log=log)
         return run_epoch(
             self.epoch, self.state, self.spec, loader, training=training,
             generator=self.dropout_generator if training else None,
             print_every=self.cfg.verbose_step, compute_wer=compute_wer, log=log)
+
+    def _log_path(self, loader, log) -> None:
+        """The first epoch's line on the path ``fused_epoch`` takes."""
+        if self._fused(loader):
+            how = ("one captured CUDA graph replay per batch"
+                   if self.device.type == "cuda"
+                   else "one eager step per batch on the CPU")
+            log("fused_epoch: the epochs run over the device cache in the JAX "
+                f"fused path's order (fused_dispatch "
+                f"{self.cfg.fused_dispatch!r}), {how}")
+        else:
+            log("fused_epoch requested but running the streaming order: "
+                f"{type(loader).__name__} has no epoch_groups (a "
+                "DeviceCachedLoader is required)")
 
     def fit(self, train_loader, dev_loader, num_epoches: Optional[int] = None,
             compute_wer: bool = True, log=print) -> Path:
@@ -227,15 +524,7 @@ class Trainer:
             t0 = time.time()
             train_loader.set_epoch(self.epoch)
             if self.epoch == 1 and cfg.fused_epoch:
-                if self._grouped(train_loader):
-                    log("fused_epoch: the batches go grouped by shape in the "
-                        "JAX fused path's order (fused_dispatch "
-                        f"{cfg.fused_dispatch!r}), one step each; CUDA graphs "
-                        "are not ported")
-                else:
-                    log("fused_epoch requested but running the streaming "
-                        f"order: {type(train_loader).__name__} has no grouped "
-                        "order (a GroupedLoader is required)")
+                self._log_path(train_loader, log)
             train_acc, train_loss = self._run(
                 train_loader, training=True, compute_wer=compute_wer, log=log)
             if cfg.dev_over_train:

@@ -45,8 +45,43 @@ def ordered_params(model: CTCModel, spec: ModelSpec) -> List[torch.nn.Parameter]
 
 def make_optimizer(model: CTCModel, spec: ModelSpec, init_lr: float,
                    weight_decay: float = 0.0) -> torch.optim.Adam:
-    return torch.optim.Adam(ordered_params(model, spec), lr=init_lr,
-                            weight_decay=weight_decay or 0.0)
+    """Adam over the model's parameters (on one device), with the learning
+    rate a 0-d fp32 tensor beside them and its state made up front;
+    ``capturable`` on the card."""
+    params = ordered_params(model, spec)
+    dev = params[0].device
+    opt = torch.optim.Adam(
+        params, lr=torch.tensor(float(init_lr), dtype=torch.float32, device=dev),
+        weight_decay=weight_decay or 0.0, capturable=dev.type == "cuda",
+        foreach=False if dev.type == "cpu" else None)
+    init_optimizer_state(opt)
+    return opt
+
+
+def init_optimizer_state(optimizer: torch.optim.Adam) -> None:
+    """Zero moments and a zero step for every parameter that has no Adam
+    state yet (what Adam would make lazily at its first step), so that the
+    tensors a graph captures exist before it and stay the same ones."""
+    group = optimizer.param_groups[0]
+    for p in group["params"]:
+        if optimizer.state.get(p):
+            continue
+        step_dev = p.device if group["capturable"] else torch.device("cpu")
+        optimizer.state[p] = {
+            "step": torch.zeros((), dtype=torch.float32, device=step_dev),
+            "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(p,
+                                           memory_format=torch.preserve_format),
+        }
+
+
+def set_lr(optimizer: torch.optim.Adam, lr) -> None:
+    """Write the learning rate into every param group, in place."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
 
 def create_train_state(spec: ModelSpec, init_lr: float,
@@ -70,7 +105,10 @@ def get_lr(state: TrainState) -> float:
 def scale_lr(state: TrainState, factor: float) -> None:
     """Multiply the learning rate by ``factor``, in place."""
     for group in state.optimizer.param_groups:
-        group["lr"] = group["lr"] * factor
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].mul_(factor)
+        else:
+            group["lr"] = group["lr"] * factor
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
@@ -107,7 +145,17 @@ def snapshot(state: TrainState) -> Dict[str, Any]:
 
 
 def restore(state: TrainState, snap: Dict[str, Any]) -> None:
-    """Copy a snapshot back into the live state; the snapshot stays intact."""
-    state.model.load_state_dict(snap["model"])
-    state.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+    """Copy a snapshot back into the live state, into the tensors that hold
+    it now (``load_state_dict`` copies the model's in place; the optimizer's
+    would replace its tensors, so they are copied here); the snapshot stays
+    intact."""
+    with torch.no_grad():
+        state.model.load_state_dict(snap["model"])
+        opt = state.optimizer
+        saved = snap["optimizer"]
+        set_lr(opt, saved["param_groups"][0]["lr"])
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            live = opt.state[p]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                live[key].copy_(saved["state"][i][key])
     state.step = snap["step"]

@@ -4,7 +4,10 @@ each of their branches, the LSTM's and GRU's backward pre-pass and serial
 chain on both of its branches, CTC alpha and beta)
 against its plain twin, with two directions and with one, the stacked-layout
 entry points' launch counts, and the models on CUDA against the same models
-on the CPU, in eval and in a train step.
+on the CPU, in eval and in a train step; each kernel branch and the CTC
+kernels replayed from a captured CUDA graph against the eager call, a
+graphed epoch against the eager one, and a graphed ``Trainer`` run with a
+rollback and an LR decay against the same run on the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -35,7 +38,13 @@ from ctc_pytorch_tpu_torch.ops import stacked
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_CASES, HOIST_CASES, RNN_CASES  # noqa: E402  phase 3's shapes
+import chip_smoke  # noqa: E402
+from chip_smoke import (  # noqa: E402  phase 3's shapes
+    FWD_CASES,
+    GRAPH_CASES,
+    HOIST_CASES,
+    RNN_CASES,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -692,3 +701,105 @@ def test_rnn_kernels_match_plain_on_each_branch(card, kernel, t, b, h, dtype,
             err = err / want.float().abs().clamp(min=1.0)
         tol = (2e-2 if kernel == "fwd" else 2.0 ** -6) if bf16 else 1e-4
         assert err.max().item() <= tol
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_kernel_replays_in_a_captured_graph(card, case):
+    """Each recurrence kernel on each branch, captured through the port's
+    ``train/graphs.py`` and replayed: the replay equals the eager call bit
+    for bit, counts its launches once, and the branch is the listed one."""
+    chip_smoke.graph_case(case, seed=700 + GRAPH_CASES.index(case))
+
+
+@pytest.mark.parametrize("t,b,l", [(100, 8, 33), (95, 16, 40)])
+def test_ctc_kernels_replay_in_a_captured_graph(card, t, b, l):
+    lp, lab, il, ll = chip_smoke.ctc_inputs(t, b, 62, l, seed=t)
+    _, emit, s_in, s_out, pm, sl = ctc_ops.prepare(lp, lab, ll)
+    for call in (lambda: (ctc_ops.ctc_alpha_cuda(emit, s_in, pm, il),),
+                 lambda: (ctc_ops.ctc_beta_cuda(emit, s_out, pm, il, sl),)):
+        err, eager, left, replay = chip_smoke.captured_vs_eager(call)
+        assert err == 0.0 and not left and replay == eager and eager
+
+
+def tiny_recipe(root, split_sizes=(("train", 24), ("dev", 8), ("test", 8))):
+    """A tiny fp32 config (BiLSTM(16) x 2, 8-d features skipped by 4 to
+    38-100 frames, batch 4, three buckets, fused epochs in ``t_pad`` order)
+    on a synthetic corpus under ``root``: ``(cfg, spec)``.  The CPU tests
+    use it too."""
+    from ctc_pytorch_tpu_torch.config import Config
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    for i, (split, n) in enumerate(split_sizes):
+        chip_smoke.write_corpus(root, split, n, seed=i, dim=8)
+    cfg = Config()
+    cfg.exp_name, cfg.checkpoint_dir = "tiny", str(root / "checkpoint")
+    cfg.vocab_file = str(root / "units")
+    for key, split in (("train", "train"), ("valid", "dev"), ("test", "test")):
+        setattr(cfg, f"{key}_scp_path", str(root / split / "fbank.scp"))
+        setattr(cfg, f"{key}_lab_path", str(root / split / "phn_text"))
+    cfg.left_ctx = cfg.right_ctx = 0
+    cfg.n_skip_frame, cfg.n_downsample = 4, 1
+    cfg.feature_dim = cfg.rnn_input_size = 8
+    cfg.rnn_hidden_size, cfg.rnn_layers = 16, 2
+    cfg.drop_out, cfg.dtype = 0.0, "float32"
+    cfg.batch_size, cfg.num_buckets = 4, 3
+    cfg.init_lr, cfg.weight_decay = 1e-3, 5e-4
+    cfg.fused_epoch, cfg.device_cache, cfg.fused_dispatch = True, True, "epoch"
+    cfg.save_every = 0
+    return cfg, ModelSpec.from_config(cfg,
+                                      num_class=Vocab(cfg.vocab_file).n_words)
+
+
+def test_graphed_epoch_matches_the_eager_epoch(card, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s phase 10 at a small size: one epoch and its dev
+    pass through the graphed ``run_epoch_single`` and the eager
+    ``run_epoch``, the same batches in the same order (losses, token counts,
+    parameters, the fused and the streaming decode's strings)."""
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    cfg, spec = tiny_recipe(tmp_path / "data")
+    out = chip_smoke.phase_fused_vs_streaming(cfg, spec, "tiny", "card")
+    assert out["graphs"] >= 2 and out["pool_bytes"] > 0
+
+
+def test_graphed_trainer_rollback_and_decay_act_on_the_live_state(card,
+                                                                  tmp_path):
+    """``Trainer.fit`` from captured graphs on the card and eagerly on the
+    CPU, from one init, with a forced rollback and LR decay after epoch 2:
+    the same decisions, losses within 1e-4 and final parameters within 1e-4
+    (fp32, kernels against their twins), so the rollback and the decay
+    reached the tensors the graphs hold."""
+    from ctc_pytorch_tpu_torch.cli.train import build_loaders
+    from ctc_pytorch_tpu_torch.data import DeviceCachedLoader
+    from ctc_pytorch_tpu_torch.train.loop import Trainer
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    cfg, spec = tiny_recipe(tmp_path / "data")
+    trainers, loaders = {}, {}
+    for dev in ("cpu", "cuda"):
+        loaders[dev] = build_loaders(cfg, Vocab(cfg.vocab_file), device=dev)
+        assert isinstance(loaders[dev][0], DeviceCachedLoader)
+        trainers[dev] = Trainer(cfg, spec, device=dev,
+                                out_dir=str(tmp_path / dev))
+    # one init: the CPU trainer's
+    trainers["cuda"].state.model.load_state_dict(
+        trainers["cpu"].state.model.state_dict())
+    for dev, trainer in trainers.items():
+        for last, best in ((1, None), (2, -1000.0), (3, 1000.0)):
+            if best is not None:
+                trainer.scheduler.loss_best = best
+                trainer.scheduler.loss_best_true = best
+            trainer.fit(*loaders[dev], num_epoches=last, log=lambda *_: None)
+    cpu, gpu = trainers["cpu"], trainers["cuda"]
+    tr, dv = loaders["cuda"]
+    graphs = gpu.graphs()
+    # every pass from graphs, the rolled-back epoch's too
+    assert len(graphs) >= 2 and graphs.replays() == 3 * (len(tr) + len(dv))
+    assert gpu.state.step == cpu.state.step == 2 * len(tr)
+    for key in ("loss_results", "dev_loss_results"):
+        np.testing.assert_allclose(gpu.histories[key], cpu.histories[key],
+                                   rtol=1e-4)
+    for k, v in cpu.state.model.state_dict().items():
+        np.testing.assert_allclose(gpu.state.model.state_dict()[k].cpu().numpy(),
+                                   v.numpy(), atol=1e-4, rtol=0)
+    lr = gpu.state.optimizer.param_groups[0]["lr"]
+    assert lr.is_cuda and float(lr) == pytest.approx(0.5e-3)

@@ -23,6 +23,7 @@ from ctc_pytorch_tpu_torch.cli import train as cli_train
 from ctc_pytorch_tpu_torch.config import Config
 from ctc_pytorch_tpu_torch.data import (
     GroupedLoader,
+    PrefetchLoader,
     SpeechDataLoader,
     SpeechDataset,
     estimate_bytes,
@@ -105,7 +106,7 @@ def test_fused_epochs_visit_the_jax_order_and_give_its_losses(tmp_path, dispatch
     cfg = fused_config(Config, tmp_path, dispatch)
     jcfg = fused_config(JConfig, tmp_path, dispatch)
     vocab = Vocab(cfg.vocab_file)
-    tr, dv = cli_train.build_loaders(cfg, vocab)
+    tr, dv = cli_train.build_loaders(cfg, vocab, device="cpu")
     assert isinstance(tr, GroupedLoader) and isinstance(dv, GroupedLoader)
     jtr, jdv = jax_loaders(jcfg)
 
@@ -134,8 +135,9 @@ def test_fused_epochs_visit_the_jax_order_and_give_its_losses(tmp_path, dispatch
     lines = []
     trainer.fit(tr, dv, num_epoches=2, log=lines.append)
     jtrainer.fit(jtr, jdv, num_epoches=2, log=lambda *a, **k: None)
-    assert any(ln.startswith("fused_epoch: the batches go grouped by shape")
-               and "CUDA graphs are not ported" in ln for ln in lines)
+    assert any(ln.startswith("fused_epoch: the epochs run over the device "
+                             "cache in the JAX fused path's order")
+               and "one eager step per batch on the CPU" in ln for ln in lines)
     for key in ("loss_results", "dev_loss_results"):
         np.testing.assert_allclose(trainer.histories[key],
                                    jtrainer.histories[key], rtol=RTOL)
@@ -148,7 +150,7 @@ def test_grouped_plan_is_the_device_cache_order(tmp_path, mode):
     corpus(tmp_path, n_train=40)
     cfg = fused_config(Config, tmp_path, mode=mode)
     jcfg = fused_config(JConfig, tmp_path, mode=mode)
-    tr, _ = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file))
+    tr, _ = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file), device="cpu")
     jtr, _ = jax_loaders(jcfg)
     assert estimate_bytes(tr.loader) == DeviceCachedLoader.estimate_bytes(jtr.loader)
     for epoch in (1, 2, 3):
@@ -167,11 +169,18 @@ def test_build_loaders_streams_past_the_cache_budget(tmp_path):
     cfg = fused_config(Config, tmp_path)
     cfg.device_cache_max_gb = 1e-9
     lines = []
-    tr, dv = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file), lines.append)
-    assert type(tr) is SpeechDataLoader and type(dv) is SpeechDataLoader
+    tr, dv = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file), lines.append,
+                                     device="cpu")
+    # past the budget the batches stream from the host, prefetched as the
+    # JAX stage 2 prefetches them (host_prefetch), or plain without it
+    assert type(tr) is PrefetchLoader and type(dv) is PrefetchLoader
+    assert type(tr.loader) is SpeechDataLoader
     assert any("exceeds device_cache_max_gb" in ln for ln in lines)
-    cfg.device_cache = False
-    tr, _ = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file))
+    cfg.host_prefetch = False
+    tr, _ = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file), device="cpu")
+    assert type(tr) is SpeechDataLoader
+    cfg.device_cache, cfg.device_cache_max_gb = False, 6.0
+    tr, _ = cli_train.build_loaders(cfg, Vocab(cfg.vocab_file), device="cpu")
     assert type(tr) is SpeechDataLoader
     # the streaming order's Trainer says that it is not the fused order
     cfg.device_cache_max_gb = 1e-9
