@@ -45,7 +45,9 @@ printed line; any failure ends the run with a nonzero exit and no result:
    batch 16) on a synthetic 201-d corpus: ``Trainer.fit`` for one epoch with
    the accuracy-keyed scheduler and ``dev_over_train``, the saved package
    decoded by ``cli.test.evaluate``; the same checks as phases 4 and 5 on
-   the three GRU kernels and the CTC kernels;
+   the three GRU kernels and the CTC kernels; then the seeded package
+   beam-decoded at width 20 without an LM (BASELINE config 4) as phase 11
+   decodes its package;
 7. tanh slice: the TIMIT flagship recipe with ``rnn_type: nn.RNN`` at full
    width (CNN + 4 x BiRNN(384), bf16, batch 8): ``Trainer.fit`` for one
    epoch, the saved package decoded, a seeded model decoded through kernels
@@ -70,11 +72,25 @@ printed line; any failure ends the run with a nonzero exit and no result:
     and streaming decodes' strings; then each path's epoch wall time,
     utterances a second, the card's busy share (``torch.profiler``), the
     graphs' capture time and pool bytes, and a prefetching train pass
-    against the plain host loader.
+    against the plain host loader;
+11. mfcc_39 slice: ``recipes/timit/mfcc_39_config.yaml`` as shipped (39-d
+    MFCC, no CNN, 4 x BiLSTM(256), 41 classes, bf16, batch 8) on a synthetic
+    39-d corpus: stage 3 (``cli.train_lm``) on its transcripts, one fused
+    epoch through ``Trainer.fit`` with phase 5's checks, then stage 4 of the
+    saved package with the recipe's ``Beam`` (width 20, the bigram LM at
+    0.1) on the host, ``BeamDevice`` from graphs and ``BeamDevice``
+    streaming: the two ``BeamDevice`` runs must decode the same strings, and
+    ``Beam`` (which sums in double) those of the batched search run in
+    float64 on the card (``BeamDevice`` sums in float32, as in the JAX
+    package: how many strings it shares with ``Beam`` is printed); an fp32
+    package through kernels and twins with ``BeamDevice`` (the same
+    strings); the batched search on the card against the same call on the
+    CPU (the same tokens); and the beam decodes' times against the greedy
+    one's.
 
-Four model paths are driven: the flagship (phases 4 and 5), the 863 model
-(phase 6), the tanh model (phase 7) and the unidirectional flagship (phase
-8).
+Five model paths are driven: the flagship (phases 4 and 5), the 863 model
+(phase 6), the tanh model (phase 7), the unidirectional flagship (phase 8)
+and the mfcc_39 model (phase 11).
 
 It prints one JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -98,6 +114,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".chip_smoke"  # synthetic corpus + packages, removed at exit
 RECIPE = ROOT / "recipes" / "timit" / "ctc_config.yaml"
 RECIPE_863 = ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf"  # rnn_type set here
+RECIPE_MFCC = ROOT / "recipes" / "timit" / "mfcc_39_config.yaml"
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1611,11 +1628,15 @@ def phase_train_slice(spec) -> dict:
     return train_slice(cfg, spec, "lstm", N_DECODE_UTTS)
 
 
-def phase_863_slice():
+def phase_863_slice(smi: str):
     """The 863 recipe with the GRU cell at full width: one epoch of stage 2
     with the accuracy-keyed scheduler and ``dev_over_train``, the saved
-    package decoded, and a seeded model decoded through kernels and twins.
-    Returns ``(launch counts over the fit, decode launches, spec, model)``."""
+    package decoded, and a seeded model decoded through kernels and twins;
+    then the seeded package decoded with the beam decoders at width 20
+    without an LM (``beam_decodes_agree``) and the fused ``BeamDevice``
+    replay timed.  Returns
+    ``(launch counts over the fit, decode launches, spec, model, the beam
+    decodes' times)``."""
     from ctc_pytorch_tpu_torch.models import ModelSpec
 
     for split, n, seed in (("train", N_TRAIN_UTTS_863, 11),
@@ -1641,7 +1662,15 @@ def phase_863_slice():
     model = seeded_model(spec)
     decode_launches = decode_slice(cfg, spec, model, "gru_bidir",
                                    N_DEV_UTTS_863, "863_gru")
-    return counts, decode_launches, spec, model
+    # the batched beam decode of BASELINE config 4: width 20, no LM; a
+    # capacity of the longest T' (200 at most) keeps BeamDevice exact
+    cfg_beam = dataclasses.replace(cfg, beam_width=20, lm_path="",
+                                   beam_max_len=200)
+    pkg = WORK / "checkpoint" / f"863_gru_{spec.compute_dtype}.npz"
+    beam = beam_decodes_agree(cfg_beam, pkg, N_DEV_UTTS_863, "gru_bidir",
+                              spec.rnn_layers, "863", smi)
+    beam.update(beam_device_times(cfg_beam, pkg, smi), device=smi)
+    return counts, decode_launches + beam["launches"], spec, model, beam
 
 
 def recipe_variant(rnn_type: str, bidirectional: bool, exp_name: str):
@@ -1716,6 +1745,383 @@ def phase_unidir_slice():
     decode_launches = decode_slice(cfg, spec, model, "lstm_bidir",
                                    N_DECODE_UTTS, "unidir")
     return counts, decode_launches, cfg, spec, model
+
+
+def stage4_run(cfg, package, decode_type: str, fused: bool = True, **keys):
+    """Stage 4 of ``package`` through ``cli.test.evaluate`` on the card with
+    ``decode_type`` (and any other config ``keys``): ``(result with its wall
+    seconds, {utterance: decoded line}, the launches since the call
+    began)``."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.cli.test import evaluate
+
+    run_cfg = dataclasses.replace(cfg, decode_type=decode_type,
+                                  fused_decode=fused, **keys)
+    lines = []
+    zero_counts()
+    t0 = time.perf_counter()
+    res = evaluate(run_cfg, str(package), device="cuda", log=lines.append)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    decoded = {u: d for u, d in zip(lines[0::3], lines[2::3])
+               if d.startswith("decoded: ")}
+    return res, decoded, counts
+
+
+def beam_decodes_agree(cfg, package, n_utts: int, eval_kernel: str, layers: int,
+                       what: str, smi: str) -> dict:
+    """Stage 4 of ``package`` with the greedy decoder (fused) and with the
+    three beam decoders: ``Beam`` on the host, ``BeamDevice`` from graphs
+    over the device cache and ``BeamDevice`` streaming.  The two
+    ``BeamDevice`` runs must give the same strings, CER and WER.  ``Beam``
+    sums its scores in double and ``BeamDevice`` in float32, as in the JAX
+    package, so where float32 rounding ties two prefixes they may keep
+    different ones: ``Beam``'s strings must be those of the batched search
+    run in float64 on the card, and how many of them the float32 search
+    gives is printed.  Every run launches ``eval_kernel`` ``layers`` times a
+    batch and no other kernel.  ``BeamDevice`` keeps ``beam_max_len`` tokens
+    a hypothesis and drops the longer ones (with a warning), where ``Beam``
+    has no bound: ``cfg``'s capacity must exceed every hypothesis, which is
+    checked.  Returns each run's wall time and the launches of all four."""
+    from ctc_pytorch_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()  # the host search's library, built before the timed runs
+    print(f"  native beam search built and loaded in "
+          f"{time.perf_counter() - t0:.3f} s")
+    runs, launched = {}, 0
+    for name, decode_type, fused in (("greedy fused", "Greedy", True),
+                                     ("Beam", "Beam", True),
+                                     ("BeamDevice fused", "BeamDevice", True),
+                                     ("BeamDevice streaming", "BeamDevice",
+                                      False)):
+        res, decoded, counts = stage4_run(cfg, package, decode_type, fused)
+        check(len(decoded) == n_utts,
+              f"{what} {name}: decoded {len(decoded)} of {n_utts} utterances")
+        check(bool(res.get("fused")) == (fused and decode_type != "Beam"),
+              f"{what} {name}: took the wrong stage-4 path")
+        check_counts(counts, {eval_kernel: layers * res["batches"]},
+                     f"{what} {name}")
+        launched += counts[eval_kernel]
+        runs[name] = (res, decoded)
+        extra = (f", {res['graphs']} graphs captured in "
+                 f"{res['capture_seconds']:.3f} s, pool {res['pool_bytes']} "
+                 f"bytes" if res.get("fused") else "")
+        print(f"  {what} stage 4 {name}: {n_utts} utts in {res['batches']} "
+              f"batches, wall {res['wall_s']:.4f} s "
+              f"({n_utts / res['wall_s']:.1f} utts/s){extra}; CER "
+              f"{res['cer']:.4f} WER {res['wer']:.4f} ({smi})")
+    beam = runs["Beam"]
+    tokens = [len(d.split()) - 1 for d in beam[1].values()]
+    print(f"  {what} Beam hypotheses: {sum(tokens)} tokens, the longest "
+          f"{max(tokens)} (BeamDevice capacity {cfg.beam_max_len})")
+    check(max(tokens) < cfg.beam_max_len,
+          f"{what}: a hypothesis of {max(tokens)} tokens does not fit "
+          f"beam_max_len {cfg.beam_max_len}")
+    check(sum(tokens) > 0, f"{what}: every beam hypothesis is empty")
+    fused, streamed = runs["BeamDevice fused"], runs["BeamDevice streaming"]
+    same = sum(fused[1][u] == d for u, d in streamed[1].items())
+    print(f"  {what} BeamDevice fused vs streaming: {same}/{n_utts} strings "
+          f"equal, CER {fused[0]['cer']:.4f} vs {streamed[0]['cer']:.4f}")
+    check(fused[1] == streamed[1] and fused[0]["cer"] == streamed[0]["cer"]
+          and fused[0]["wer"] == streamed[0]["wer"],
+          f"{what}: fused and streaming BeamDevice decode differently")
+    # Beam sums in double on the host, BeamDevice in float32 (as in the JAX
+    # package): the batched search in float64 must give Beam's strings, and
+    # the float32 search may part from them only where float32 rounding
+    # ties two prefixes
+    decoded64 = float64_search_strings(cfg, package)
+    same64 = sum(decoded64.get(u) == d for u, d in beam[1].items())
+    same32 = sum(fused[1][u] == d for u, d in beam[1].items())
+    print(f"  {what} Beam (host, double) vs the batched search in float64 on "
+          f"the card: {same64}/{n_utts} strings equal; vs BeamDevice (float32): "
+          f"{same32}/{n_utts}, CER {beam[0]['cer']:.4f} vs "
+          f"{fused[0]['cer']:.4f}, WER {beam[0]['wer']:.4f} vs "
+          f"{fused[0]['wer']:.4f}")
+    check(decoded64 == beam[1],
+          f"{what}: Beam and the float64 batched search decode differently")
+    check(not any(d.startswith("decoded:  ") for d in beam[1].values()),
+          f"{what}: a beam string has a leading space")
+    return {"launches": launched,
+            "wall_s": {k: r["wall_s"] for k, (r, _) in runs.items()},
+            "utts": n_utts, "beamdevice_equal_beam": same32,
+            "float64_equal_beam": same64,
+            "capture_s": {k: r["capture_seconds"] for k, (r, _) in runs.items()
+                          if r.get("fused")},
+            "pool_bytes": {k: r["pool_bytes"] for k, (r, _) in runs.items()
+                           if r.get("fused")}}
+
+
+def float64_search_strings(cfg, package) -> dict:
+    """``{utterance: decoded line}`` of ``package``'s test set: the
+    streaming stage 4's forward on the card, the probabilities made on the
+    host as ``Beam`` makes them, then the batched search in float64 on the
+    card."""
+    import numpy as np
+    import torch
+
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+    from ctc_pytorch_tpu_torch.decode import BeamDecoder
+    from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+    from ctc_pytorch_tpu_torch.models import CTCModel
+    from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    vocab = Vocab(cfg.vocab_file)
+    spec, model, _ = model_from_package(package, "cuda")
+    decoder = BeamDecoder(vocab.index2word, beam_width=cfg.beam_width,
+                          lm_path=cfg.lm_path or None, lm_alpha=cfg.lm_alpha)
+    lm = decoder.lm_on(torch.device("cuda"))
+    ds = SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg)
+    out = {}
+    with torch.inference_mode():
+        for batch in SpeechDataLoader(ds, cfg.batch_size, shuffle=False,
+                                      num_buckets=cfg.num_buckets,
+                                      mode=cfg.batch_mode):
+            feats = torch.from_numpy(batch.feats).cuda()
+            frac = torch.from_numpy(batch.input_frac).cuda()
+            log_probs = model(feats, frac=frac)
+            sizes = CTCModel.input_sizes(spec, frac, feats.shape[1],
+                                         log_probs.shape[0])
+            probs = np.exp(log_probs.float().cpu().numpy()).transpose(1, 0, 2)
+            seqs, lens, _ = batched_beam_search(
+                torch.from_numpy(probs).double().cuda(), sizes,
+                beam_width=decoder.beam_width, max_len=cfg.beam_max_len,
+                lm_table=lm, lm_alpha=decoder.lm_alpha)
+            seqs, lens = seqs.cpu().numpy(), lens.cpu().numpy()
+            for i, utt in enumerate(batch.utts):
+                if batch.example_mask[i]:
+                    out[utt] = f"decoded: {decoder.string(seqs[i], lens[i])}"
+    return out
+
+
+def beam_device_times(cfg, package, smi: str) -> dict:
+    """The fused ``BeamDevice`` decode of one test batch, timed: the
+    replay of its captured graph (forward and search) against the greedy
+    graph's (forward, argmax and collapse), the kernels a replay holds (one
+    eager search under ``torch.profiler``, per frame), the capture's time and
+    pool bytes; and the host ``Beam`` search of the same batch, ms an
+    utterance (with the log-probs' copy to the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_pytorch_tpu_torch.data import (
+        DeviceCachedLoader,
+        SpeechDataLoader,
+        SpeechDataset,
+    )
+    from ctc_pytorch_tpu_torch.decode import BeamDecoder
+    from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+    from ctc_pytorch_tpu_torch.decode.fused import make_fused_decode_fn
+    from ctc_pytorch_tpu_torch.models import CTCModel
+    from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    vocab = Vocab(cfg.vocab_file)
+    spec, model, _ = model_from_package(package, "cuda")
+    ds = SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg)
+    ds.preload(cfg.num_workers)
+    cached = DeviceCachedLoader(SpeechDataLoader(
+        ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
+        mode=cfg.batch_mode), "cuda")
+    decoder = BeamDecoder(vocab.index2word, beam_width=cfg.beam_width,
+                          lm_path=cfg.lm_path or None, lm_alpha=cfg.lm_alpha)
+    lm = decoder.lm_on(torch.device("cuda"))
+    # the longest group: its first batch
+    arrs, pos, _, t_pad = max(cached.epoch_groups(0), key=lambda g: g[3])
+    pos = pos[:1]
+    out = {"t_pad": int(t_pad)}
+    graphs = {}
+    for mode in ("greedy", "beam"):
+        fused = make_fused_decode_fn(
+            spec, model, mode=mode, beam_width=decoder.beam_width,
+            beam_max_len=cfg.beam_max_len, lm_table=lm,
+            lm_alpha=decoder.lm_alpha)
+        fused(arrs, pos, t_pad)  # captures
+        cap = next(iter(fused.graphs.graphs.values()))
+        graphs[mode] = fused.graphs
+        out[f"{mode}_replay_ms"] = cuda_ms(cap.graph.replay, reps=5)
+    out["capture_s"] = graphs["beam"].capture_seconds
+    out["pool_bytes"] = graphs["beam"].pool_bytes()
+
+    feats, frac = (t.cuda() for t in gather_batch(arrs, pos[0], t_pad))
+    with torch.no_grad():
+        log_probs = model(feats, frac=frac, train=False)
+        sizes = CTCModel.input_sizes(spec, frac, t_pad, log_probs.shape[0])
+    probs = torch.exp(log_probs).transpose(0, 1)
+
+    def search():
+        return batched_beam_search(
+            probs, sizes, beam_width=decoder.beam_width,
+            max_len=cfg.beam_max_len, lm_table=lm, lm_alpha=decoder.lm_alpha)
+
+    search()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        search()
+        torch.cuda.synchronize()
+    kernels = sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    t_out = log_probs.shape[0]
+    out.update(kernels_per_replay=kernels, frames=t_out,
+               kernels_per_frame=kernels / t_out,
+               eager_search_ms=cuda_ms(search, reps=3))
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decoder.decode(log_probs, sizes)
+        host.append(time.perf_counter() - t0)
+    n_valid = int(sizes.shape[0])
+    out["beam_host_ms_per_utt"] = statistics.median(host) * 1e3 / n_valid
+    out["frames_per_utt"] = float(sizes.float().mean())
+    print(f"  BeamDevice at T'={t_out}, B={n_valid}, width "
+          f"{decoder.beam_width}, beam_max_len {cfg.beam_max_len}: graph "
+          f"replay {out['beam_replay_ms']:.3f} ms (forward, search) against "
+          f"{out['greedy_replay_ms']:.3f} ms greedy (forward, collapse); "
+          f"{kernels} kernels a search ({kernels / t_out:.1f} a frame x "
+          f"{t_out} frames); eager search {out['eager_search_ms']:.3f} ms; "
+          f"capture {out['capture_s']:.3f} s, pool {out['pool_bytes']} bytes "
+          f"({smi})")
+    print(f"  Beam on the host, the same batch: "
+          f"{out['beam_host_ms_per_utt']:.3f} ms an utterance of "
+          f"{out['frames_per_utt']:.1f} frames on average, with the copy of "
+          f"the log-probs ({smi})")
+    return out
+
+
+def gather_batch(arrs, pos, t_pad: int):
+    """``(feats, frac)`` of the cached rows ``pos``."""
+    from ctc_pytorch_tpu_torch.data.batching import gather_rows
+
+    import torch
+
+    return gather_rows(arrs, torch.as_tensor(pos).cuda(), t_pad)[:2]
+
+
+def phase_mfcc39_slice(smi: str) -> dict:
+    """The ``mfcc_39`` recipe as shipped (39-d MFCC, no CNN, 4 x
+    BiLSTM(256), 41 classes, bf16, batch 8, fused epoch dispatched once an
+    epoch, ``Beam`` width 20 with the bigram LM at 0.1) on a synthetic
+    39-d corpus: stage 3 on the training transcripts; one epoch of stage 2
+    through ``build_loaders`` and ``Trainer.fit`` (train_slice's checks:
+    the LSTM and CTC kernels' launches, graph replays, the loss falling, two
+    fp32 steps through kernels and twins); stage 4 of the saved package
+    with ``Beam``, fused ``BeamDevice`` and streaming ``BeamDevice``
+    (``beam_decodes_agree``), an fp32 package through kernels and twins
+    with ``BeamDevice`` (equal strings), the batched search on the card
+    against the CPU on the same probabilities, and the times.  Returns the fit's launch counts,
+    the stage-4 launches of the eval kernel and the times."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.cli import train_lm
+    from ctc_pytorch_tpu_torch.decode import BeamDecoder
+    from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+    from ctc_pytorch_tpu_torch.models import CTCModel, ModelSpec
+    from ctc_pytorch_tpu_torch.train.checkpoint import (
+        model_from_package,
+        save_package,
+    )
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    root = WORK / "data_mfcc"
+    for split, n, seed in (("train", N_TRAIN_UTTS, 21), ("dev", N_DEV_UTTS, 22),
+                           ("test", N_DECODE_UTTS, 23)):
+        write_corpus(root, split, n, seed=seed, dim=39, feats="mfcc")
+    cfg = recipe_config(RECIPE_MFCC, "data_mfcc", "mfcc")
+    cfg.exp_name = "smoke_mfcc39"
+    cfg.lm_path = str(root / "lm_phone_bg.arpa")
+    # a model after one epoch on random features emits a label at most
+    # frames: a capacity of T' (at most 400 frames, no downsampling) keeps
+    # BeamDevice exact where the default 96 would truncate
+    cfg.beam_max_len = 400
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    check(not spec.add_cnn and spec.rnn_cell == "lstm" and spec.bidirectional
+          and spec.rnn_hidden_size == 256 and spec.rnn_layers == 4
+          and spec.rnn_input_size == 39 and spec.num_class == 41
+          and spec.compute_dtype == "bfloat16" and spec.drop_out == 0.2,
+          f"recipe is not the mfcc_39 4 x BiLSTM(256): {spec}")
+    check(cfg.batch_size == 8 and cfg.n_downsample == 1 and cfg.n_skip_frame == 1
+          and cfg.fused_epoch and cfg.fused_dispatch == "epoch"
+          and cfg.decode_type == "Beam" and cfg.beam_width == 20
+          and cfg.lm_alpha == 0.1, "not the mfcc_39 recipe's stages 2 and 4")
+
+    t0 = time.perf_counter()
+    arpa = train_lm.main([str(root)])
+    check(arpa == Path(cfg.lm_path) and arpa.stat().st_size > 0,
+          f"stage 3 wrote {arpa}, not {cfg.lm_path}")
+    print(f"  stage 3: {arpa.name}, {arpa.stat().st_size} bytes in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    counts = train_slice(cfg, spec, "lstm", N_DECODE_UTTS)
+    best = WORK / "checkpoint" / cfg.exp_name / "ctc_best_model.npz"
+    check(best.exists(), f"no package at {best}")
+    agree = beam_decodes_agree(cfg, best, N_DECODE_UTTS, "lstm_bidir",
+                               spec.rnn_layers, "mfcc_39", smi)
+    times = beam_device_times(cfg, best, smi)
+
+    # fp32: BeamDevice through the kernels and through the twins
+    spec_b, model, _ = model_from_package(best, "cuda")
+    spec32 = dataclasses.replace(spec_b, compute_dtype="float32")
+    pkg32 = WORK / "checkpoint" / "mfcc39_fp32.npz"
+    save_package(pkg32, spec32, model, config=cfg)
+    res_k, dec_k, counts_k = stage4_run(cfg, pkg32, "BeamDevice")
+    check_counts(counts_k, {"lstm_bidir": spec.rnn_layers * res_k["batches"]},
+                 "mfcc_39 fp32 BeamDevice")
+    check_cluster_branches("mfcc_39 fp32 BeamDevice")
+    zero_counts()  # stage4_run zeroes them, and the twins must launch none
+    with plain_twins():
+        res_p, dec_p, _ = stage4_run(cfg, pkg32, "BeamDevice")
+    same = sum(dec_k[u] == d for u, d in dec_p.items())
+    print(f"  fp32 BeamDevice, kernels vs plain twins on the card: "
+          f"{same}/{len(dec_k)} strings equal, WER {res_k['wer']:.4f} vs "
+          f"{res_p['wer']:.4f}")
+    check(dec_k == dec_p and len(dec_k) == N_DECODE_UTTS,
+          "fp32 kernel and plain paths beam-decode differently")
+
+    # the batched search on the card and on the CPU, same inputs
+    vocab = Vocab(cfg.vocab_file)
+    decoder = BeamDecoder(vocab.index2word, beam_width=cfg.beam_width,
+                          lm_path=cfg.lm_path, lm_alpha=cfg.lm_alpha)
+    spec32, model32, _ = model_from_package(pkg32, "cuda")
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+
+    ds = SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg)
+    batch = next(iter(SpeechDataLoader(ds, cfg.batch_size, shuffle=False,
+                                       num_buckets=cfg.num_buckets,
+                                       mode=cfg.batch_mode)))
+    feats = torch.from_numpy(batch.feats).cuda()
+    frac = torch.from_numpy(batch.input_frac).cuda()
+    with torch.no_grad():
+        log_probs = model32(feats, frac=frac, train=False)
+    sizes = CTCModel.input_sizes(spec32, frac, feats.shape[1],
+                                 log_probs.shape[0])
+    probs = torch.exp(log_probs).transpose(0, 1).contiguous()
+    kw = dict(beam_width=cfg.beam_width, max_len=cfg.beam_max_len,
+              lm_alpha=cfg.lm_alpha)
+    on_card = batched_beam_search(probs, sizes,
+                                  lm_table=decoder.lm_on(probs.device), **kw)
+    on_cpu = batched_beam_search(probs.cpu(), sizes.cpu(),
+                                 lm_table=decoder.lm_on(torch.device("cpu")),
+                                 **kw)
+    rel = ((on_card[2].cpu() - on_cpu[2]).abs() / on_cpu[2].abs()).max().item()
+    n_tok = int(on_cpu[1].sum())
+    print(f"  batched_beam_search on the card vs the CPU (B={probs.shape[0]}, "
+          f"T'={probs.shape[1]}, C={probs.shape[2]}, width {cfg.beam_width}, "
+          f"LM): tokens equal {torch.equal(on_card[0].cpu(), on_cpu[0])}, "
+          f"lengths equal {torch.equal(on_card[1].cpu(), on_cpu[1])} "
+          f"({n_tok} tokens), scores rel {rel:.3g} (tol 1e-5)")
+    check(torch.equal(on_card[0].cpu(), on_cpu[0])
+          and torch.equal(on_card[1].cpu(), on_cpu[1]) and rel <= 1e-5,
+          "batched_beam_search differs between the card and the CPU")
+    # the model's forward and train step at the recipe's batch, the corpus's
+    # longest utterance (400 frames, T' = 400) and 33 labels
+    step = times_model(cfg, spec, seeded_model(spec), 8, 400, 33,
+                       "mfcc_39 4 x BiLSTM(256)", "recipe batch")
+    return {"counts": counts, "decode_launches": agree["launches"],
+            "spec": spec, "beam": {**agree, **times, "device": smi},
+            "model": {**step, "device": smi}}
 
 
 def busy_us(prof) -> float:
@@ -2464,7 +2870,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/10] device: {smi} | torch {torch.__version__} "
+    print(f"[1/11] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -2472,7 +2878,7 @@ def main() -> int:
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/10] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/11] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -2482,7 +2888,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/10] kernel vs plain on the card")
+    print("[3/11] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -2494,27 +2900,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/10] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/11] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/10] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/11] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/10] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
-          "dev_over_train, then stage-4 greedy decode")
-    counts_863, decode_launches_863, spec_863, model_863 = phase_863_slice()
+    print("[6/11] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+          "dev_over_train, then stage-4 greedy and beam decodes")
+    counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
+        phase_863_slice(smi))
 
-    print("[7/10] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/11] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/10] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/11] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/10] times ({smi})")
+    print(f"[9/11] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -2558,11 +2965,15 @@ def main() -> int:
     times_model(cfg_uni, spec_uni, model_uni, 128, 160, 48,
                 "unidirectional CNN+LSTM(384)", "bench shape")
 
-    print(f"[10/10] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/11] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
+
+    print(f"[11/11] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+          f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
+    mfcc = phase_mfcc39_slice(smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -2571,10 +2982,12 @@ def main() -> int:
     by_path = {"timit": path(train_counts, "lstm_bidir", decode_launches),
                "863": path(counts_863, "gru_bidir", decode_launches_863),
                "tanh": path(counts_tanh, "rnn_bidir", decode_launches_tanh),
-               "unidir": path(counts_uni, "lstm_bidir", decode_launches_uni)}
+               "unidir": path(counts_uni, "lstm_bidir", decode_launches_uni),
+               "mfcc39": path(mfcc["counts"], "lstm_bidir",
+                              mfcc["decode_launches"])}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
-    lstm_paths, ctc_paths = ("timit", "unidir"), tuple(by_path)
+    lstm_paths, ctc_paths = ("timit", "unidir", "mfcc39"), tuple(by_path)
     # (name, source, TPU kernel, paths that must launch it, worst error fp32,
     # bf16, one direction)
     fwd = csrc + "fwd_cluster.cuh"  # the main paths' forward branches
@@ -2684,7 +3097,10 @@ def main() -> int:
             train_step_device_ms=at_bench["train_step_device_ms"],
             train_step_ms_recipe_batch=at_recipe["train_step_ms"])
     print(json.dumps({"kernels": kernels, "entry_points": entry_points,
-                      "fused_vs_streaming": fused_vs_streaming}))
+                      "fused_vs_streaming": fused_vs_streaming,
+                      "beam_decode": {"mfcc39": mfcc["beam"],
+                                      "863": beam_863},
+                      "mfcc39_model": mfcc["model"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

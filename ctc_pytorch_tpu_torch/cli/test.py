@@ -1,15 +1,27 @@
-"""Stage 4: greedy decoding + scoring of a package checkpoint.
+"""Stage 4: decoding and scoring of a package checkpoint.
 
 Counterpart of ``ctc_pytorch_tpu/cli/test.py``: loads a package, rebuilds
-the model from it alone, decodes the test set with the greedy decoder,
-prints per-utterance origin/decoded pairs, and reports CER/WER percentages
-and decode wall time, in the same lines as the JAX package.  With
-``fused_decode`` (the default) and a test set whose device cache fits
-``device_cache_max_gb``, the set is cached on the device and decoded one
-captured CUDA graph replay a batch (``_evaluate_fused``,
-``decode/fused.py``), as the JAX package decodes it one jitted scan a
-group; otherwise batch by batch from the host (the streaming loop).  Both
-give the same strings; the fused path prints the utterances group by group.
+the model from it alone, decodes the test set with the ``decode_type`` of
+the config, prints per-utterance origin/decoded pairs, and reports CER/WER
+percentages and decode wall time, in the same lines as the JAX package.
+The decoders:
+
+- ``Greedy``: argmax and collapse on the device (``decode/greedy.py``);
+- ``Beam``: the prefix beam search with the bigram LM of ``lm_path`` on the
+  host, one copy of a batch's log-probs, then the C++ search per utterance
+  (``decode/beam.py``; ``beam_use_native: False`` runs the numpy search);
+- ``BeamDevice``: the same search batched on the device
+  (``decode/beam_device.py``), ``beam_max_len`` tokens a hypothesis.
+
+With ``fused_decode`` (the default), ``Greedy`` or ``BeamDevice``, and a
+test set whose device cache fits ``device_cache_max_gb``, the set is cached
+on the device and decoded one captured CUDA graph replay a batch
+(``_evaluate_fused``, ``decode/fused.py``), as the JAX package decodes it
+one jitted scan a group; otherwise batch by batch from the host (the
+streaming loop; ``Beam`` always streams, as in the JAX package).  Both give
+the same strings; the fused path prints the utterances group by group.
+Beam strings join their units with no leading space, greedy ones with one
+before each unit (the reference's quirk).
 
 Precision: TF32 is off for matmuls and cuDNN convolutions, so an fp32
 package computes in full fp32 like the JAX reference it is held against
@@ -36,7 +48,8 @@ from ctc_pytorch_tpu_torch.data import (
     SpeechDataset,
     estimate_bytes,
 )
-from ctc_pytorch_tpu_torch.decode import GreedyDecoder
+from ctc_pytorch_tpu_torch.decode import BeamDecoder, GreedyDecoder
+from ctc_pytorch_tpu_torch.decode.beam import warn_capacity
 from ctc_pytorch_tpu_torch.decode.fused import make_fused_decode_fn
 from ctc_pytorch_tpu_torch.models import CTCModel
 from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
@@ -53,9 +66,8 @@ def evaluate(
     log=print,
 ) -> dict:
     dev = resolve_device(device)
-    if cfg.decode_type != "Greedy":
-        raise NotImplementedError(
-            f"decode_type {cfg.decode_type!r} is not ported yet; use Greedy")
+    if cfg.decode_type not in ("Greedy", "Beam", "BeamDevice"):
+        raise ValueError(f"unknown decode_type: {cfg.decode_type!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -67,12 +79,19 @@ def evaluate(
         test_ds, cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets,
         mode=cfg.batch_mode,
     )
-    decoder = GreedyDecoder(vocab.index2word)
+    if cfg.decode_type == "Greedy":
+        decoder = GreedyDecoder(vocab.index2word)
+    else:
+        decoder = BeamDecoder(
+            vocab.index2word, beam_width=cfg.beam_width,
+            lm_path=cfg.lm_path, lm_alpha=cfg.lm_alpha,
+        )
     # the fused stage 4 where the JAX package takes it (cli/test.py:86-105)
-    if (cfg.fused_decode and max_batches is None
+    if (cfg.fused_decode and cfg.decode_type in ("Greedy", "BeamDevice")
+            and max_batches is None
             and loader.batcher._assignment is not None
             and estimate_bytes(loader) <= cfg.device_cache_max_gb * (1 << 30)):
-        return _evaluate_fused(spec, model, decoder, loader, dev,
+        return _evaluate_fused(cfg, spec, model, decoder, loader, dev,
                                verbose=verbose, log=log)
 
     total_cer = total_wer = 0
@@ -86,7 +105,14 @@ def evaluate(
             log_probs = model(feats, frac=frac)
             input_sizes = CTCModel.input_sizes(
                 spec, frac, feats.shape[1], log_probs.shape[0])
-            decoded = decoder.decode(log_probs, input_sizes)
+            if cfg.decode_type == "Greedy":
+                decoded = decoder.decode(log_probs, input_sizes)
+            elif cfg.decode_type == "BeamDevice":
+                decoded = decoder.decode_on_device(
+                    log_probs, input_sizes, max_len=cfg.beam_max_len)
+            else:
+                decoded = decoder.decode(log_probs, input_sizes,
+                                         use_native=cfg.beam_use_native)
             targets = [
                 decoder.scorer.to_string(
                     batch.labels[i], int(batch.label_lengths[i])
@@ -121,7 +147,7 @@ def evaluate(
             "batches": n}
 
 
-def _evaluate_fused(spec, model, decoder, loader, dev, *,
+def _evaluate_fused(cfg, spec, model, decoder, loader, dev, *,
                     verbose: bool = True, log=print) -> dict:
     """Stage 4 over a ``DeviceCachedLoader`` of the test set, one captured
     graph per group shape (``decode/fused.py``) and one fetch of the tokens
@@ -130,8 +156,19 @@ def _evaluate_fused(spec, model, decoder, loader, dev, *,
     the streaming loop's; the utterances come group by group."""
     start = time.time()
     cached = DeviceCachedLoader(loader, dev)
-    fused = make_fused_decode_fn(spec, model, blank=decoder.blank_index)
     scorer = decoder.scorer
+    beam = cfg.decode_type == "BeamDevice"
+    if beam:
+        fused = make_fused_decode_fn(
+            spec, model, mode="beam", blank=decoder.blank_index,
+            beam_width=decoder.beam_width, beam_max_len=cfg.beam_max_len,
+            lm_table=decoder.lm_on(dev), lm_alpha=decoder.lm_alpha)
+        # without to_string's leading space, as the streaming path
+        hyp_str = decoder.string
+    else:
+        fused = make_fused_decode_fn(spec, model, blank=decoder.blank_index)
+        hyp_str = scorer.to_string
+    hit_capacity = 0
     total_cer = total_wer = 0
     num_sentences = n_batches = 0
     label_host: dict = {}  # bucket plane -> its labels and lengths on the host
@@ -140,6 +177,8 @@ def _evaluate_fused(spec, model, decoder, loader, dev, *,
         tokens, lens = fused(arrs, pos, t_pad)
         tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
         n_batches += pos.shape[0]
+        if beam:
+            hit_capacity += int((lens >= cfg.beam_max_len).sum())
         key = arrs["feats"].data_ptr()
         if key not in label_host:
             label_host[key] = (arrs["labels"].cpu().numpy(),
@@ -151,7 +190,7 @@ def _evaluate_fused(spec, model, decoder, loader, dev, *,
                     continue
                 row = pos[bi, i]
                 target = scorer.to_string(labels[row], int(lab_lens[row]))
-                hyp = scorer.to_string(tokens[bi, i], int(lens[bi, i]))
+                hyp = hyp_str(tokens[bi, i], int(lens[bi, i]))
                 if verbose:
                     log(f"{cached._utts[int(idx[bi, i])]}")
                     log(f"origin : {target}")
@@ -161,6 +200,7 @@ def _evaluate_fused(spec, model, decoder, loader, dev, *,
                 scorer.num_word += len(target.split())
                 scorer.num_char += len(target)
                 num_sentences += 1
+    warn_capacity(hit_capacity, cfg.beam_max_len)
     minutes = (time.time() - start) / 60.0
     cer = 100.0 * total_cer / max(scorer.num_char, 1)
     wer = 100.0 * total_wer / max(scorer.num_word, 1)

@@ -803,3 +803,62 @@ def test_graphed_trainer_rollback_and_decay_act_on_the_live_state(card,
                                    v.numpy(), atol=1e-4, rtol=0)
     lr = gpu.state.optimizer.param_groups[0]["lr"]
     assert lr.is_cuda and float(lr) == pytest.approx(0.5e-3)
+
+
+def _beam_inputs(seed, b=8, t=160, c=41, with_lm=True):
+    """Peaked probabilities (B, T, C), lengths and a random bigram table."""
+    rng = np.random.RandomState(seed)
+    probs = rng.dirichlet(np.full(c, 0.3), size=(b, t)).astype(np.float32)
+    lengths = rng.randint(t // 2, t + 1, b).astype(np.int32)
+    table = (np.log(rng.dirichlet(np.ones(c + 1), c + 1)).astype(np.float32)
+             if with_lm else None)
+    return probs, lengths, table
+
+
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_batched_beam_search_on_the_card_matches_the_cpu(card, with_lm):
+    """The batched search (torch ops) on the card and on the CPU, the same
+    inputs at the recipe's width 20 and capacity 96: the same tokens and
+    lengths, scores within rtol 1e-5."""
+    from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+
+    probs, lengths, table = _beam_inputs(11, with_lm=with_lm)
+    kw = dict(beam_width=20, max_len=96, lm_alpha=0.1)
+    out = {}
+    for dev in ("cpu", card):
+        out[str(dev)] = batched_beam_search(
+            torch.from_numpy(probs).to(dev), torch.from_numpy(lengths).to(dev),
+            lm_table=None if table is None else torch.from_numpy(table).to(dev),
+            **kw)
+    cpu, gpu = out["cpu"], [x.cpu() for x in out[str(card)]]
+    assert torch.equal(gpu[0], cpu[0]) and torch.equal(gpu[1], cpu[1])
+    assert int(cpu[1].sum()) > 0
+    np.testing.assert_allclose(gpu[2].numpy(), cpu[2].numpy(), rtol=1e-5)
+
+
+def test_batched_beam_search_replays_in_a_captured_graph(card):
+    """The search captured through ``train/graphs.py`` (no host sync in it)
+    and replayed on new inputs copied into its buffers: the eager call's
+    results bit for bit."""
+    from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+    from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
+
+    probs, lengths, table = _beam_inputs(12, t=60)
+    lm = torch.from_numpy(table).to(card)
+    inputs = {"probs": torch.from_numpy(probs).to(card),
+              "lengths": torch.from_numpy(lengths).to(card)}
+
+    def step():
+        return batched_beam_search(inputs["probs"], inputs["lengths"],
+                                   beam_width=20, max_len=96, lm_table=lm,
+                                   lm_alpha=0.1)
+
+    cap = StepGraphs().capture("beam", step, inputs)
+    for seed in (13, 14):
+        probs, lengths, _ = _beam_inputs(seed, t=60)
+        inputs["probs"].copy_(torch.from_numpy(probs))
+        inputs["lengths"].copy_(torch.from_numpy(lengths))
+        got = [x.clone() for x in cap.replay()]
+        want = step()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -1,4 +1,5 @@
-"""Greedy decoding, scoring and stage 4 of the port against the JAX package."""
+"""Greedy and beam decoding, scoring and stage 4 of the port against the JAX
+package."""
 
 import jax
 import jax.numpy as jnp
@@ -6,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from ctc_pytorch_tpu.cli import train_lm as jax_train_lm
 from ctc_pytorch_tpu.cli.test import evaluate as jax_evaluate
 from ctc_pytorch_tpu.config import CNNConfig as JCNNConfig
 from ctc_pytorch_tpu.config import Config as JConfig
@@ -17,6 +19,7 @@ from ctc_pytorch_tpu.ops.editdistance import edit_distance as jax_edit_distance
 from ctc_pytorch_tpu.train.checkpoint import save_package as jax_save_package
 from ctc_pytorch_tpu.train.state import TrainState
 from ctc_pytorch_tpu.vocab import Vocab as JVocab
+from ctc_pytorch_tpu_torch.cli import train_lm
 from ctc_pytorch_tpu_torch.cli.test import evaluate
 from ctc_pytorch_tpu_torch.config import Config
 from ctc_pytorch_tpu_torch.decode.greedy import GreedyDecoder, greedy_collapse
@@ -70,7 +73,8 @@ def test_scorer_and_edit_distance_match_jax():
         assert ours.wer(sa, sb) == ref.wer(sa, sb)
 
 
-def _stage4_setup(tmp_path, add_cnn, cell="lstm", bidirectional=True):
+def _stage4_setup(tmp_path, add_cnn, cell="lstm", bidirectional=True,
+                  fc_scale=10.0):
     dim = 7
     write_corpus(tmp_path / "data", n_utts=11, dim=dim, frames=(12, 40))
     cnn = (JCNNConfig(add_cnn=True, layers=2, channel=[(1, 2), (2, 2)],
@@ -84,7 +88,7 @@ def _stage4_setup(tmp_path, add_cnn, cell="lstm", bidirectional=True):
                   drop_out=0.0, compute_dtype="float32")
     # a sharp output layer: near-flat random posteriors would let a 1e-7
     # difference between frameworks flip an argmax
-    params, state = jax_weights(jspec, seed=1, fc_scale=10.0)
+    params, state = jax_weights(jspec, seed=1, fc_scale=fc_scale)
     pkg = tmp_path / "pkg.npz"
     jax_save_package(pkg, jspec,
                      TrainState(jnp.zeros((), jnp.int32), params, state, ()))
@@ -115,10 +119,15 @@ def test_recipe_variant_evaluate_decodes_the_jax_strings(tmp_path, variant):
     evaluate_matches_jax(*_stage4_setup(tmp_path, True, cell, bidir))
 
 
-def evaluate_matches_jax(pkg, confs):
+def evaluate_matches_jax(pkg, confs, decode_type="Greedy"):
     """The port's ``evaluate(device="cpu")`` and the JAX ``evaluate`` of one
-    package over the 11-utterance test set: the same strings, CER and WER."""
+    package over the 11-utterance test set with ``decode_type``: the same
+    strings, CER and WER, and the same printed lines.  The fused and the
+    streaming paths print the utterances in other orders, so the lines are
+    compared per utterance."""
     jcfg, cfg = confs
+    for c in confs:
+        c.decode_type = decode_type
     want_lines, got_lines = [], []
     want = jax_evaluate(jcfg, str(pkg), log=want_lines.append)
     got = evaluate(cfg, str(pkg), device="cpu", log=got_lines.append)
@@ -127,18 +136,62 @@ def evaluate_matches_jax(pkg, confs):
         pairs = zip(lines[::3], lines[2::3])
         return {u: d for u, d in pairs if d.startswith("decoded: ")}
 
+    def utterances(lines):
+        return {tuple(lines[i:i + 3]) for i in range(0, len(lines), 3)}
+
     got_lines = [ln for ln in got_lines if not ln.startswith("fused_decode")]
     n = 3 * 11  # utt / origin / decoded per utterance
     assert decoded(got_lines[:n]) == decoded(want_lines[:n])
+    assert utterances(got_lines[:n]) == utterances(want_lines[:n])
     assert len(decoded(got_lines[:n])) == 11
     assert any(len(d.split()) > 1 for d in decoded(got_lines[:n]).values())
     assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
     assert got_lines[n:n + 2] == want_lines[n:n + 2]  # CER / WER lines
+    return got, got_lines[:n]
 
 
-def test_evaluate_rejects_unported_decoders(tmp_path):
+def _beam_setup(tmp_path, fused):
+    """``_stage4_setup`` with a bigram LM made by both packages' stage 3
+    from the test transcripts (which must write the same bytes), the JAX
+    package's under the name the configs read.  A softer output layer than
+    the greedy tests' leaves the search more than one label to keep."""
+    pkg, confs = _stage4_setup(tmp_path, add_cnn=True, fc_scale=0.5)
+    data = tmp_path / "data"
+    jax_train_lm.main([str(data), "--text", "lab", "--out", "lm_jax.arpa"])
+    train_lm.main([str(data), "--text", "lab", "--out", "lm.arpa"])
+    assert (data / "lm.arpa").read_bytes() == (data / "lm_jax.arpa").read_bytes()
+    for c in confs:
+        c.lm_path = str(data / "lm_jax.arpa")
+        c.lm_alpha = 0.5
+        c.beam_width = 8
+        c.fused_decode = fused
+    return pkg, confs
+
+
+@pytest.mark.parametrize("decode_type,fused", [
+    ("Beam", True),  # streams from the host whatever fused_decode says
+    ("BeamDevice", True),
+    ("BeamDevice", False),
+])
+def test_beam_evaluate_on_cpu_matches_jax_evaluate(tmp_path, decode_type,
+                                                   fused):
+    """Stage 4 with the beam decoders and an LM from stage 3: the port's
+    strings, scores and lines are the JAX package's.  The port takes the
+    fused path for ``BeamDevice`` with ``fused_decode`` and streams
+    otherwise; the JAX package, which sees the tests' eight virtual CPU
+    devices, streams ``BeamDevice`` sharded over a mesh (its fused group
+    decoder is held in ``tests/test_torch_fused_decode.py``).  Beam strings
+    have no leading space."""
+    pkg, confs = _beam_setup(tmp_path, fused)
+    got, lines = evaluate_matches_jax(pkg, confs, decode_type)
+    assert bool(got.get("fused")) == (decode_type == "BeamDevice" and fused)
+    hyps = [ln[len("decoded: "):] for ln in lines[2::3]]
+    assert all(not h.startswith(" ") for h in hyps)
+    assert max(len(h.split()) for h in hyps) >= 3
+
+
+def test_evaluate_rejects_an_unknown_decoder(tmp_path):
     pkg, (_, cfg) = _stage4_setup(tmp_path, add_cnn=False)
-    for decode_type in ("Beam", "BeamDevice"):
-        cfg.decode_type = decode_type
-        with pytest.raises(NotImplementedError):
-            evaluate(cfg, str(pkg), device="cpu")
+    cfg.decode_type = "beam"
+    with pytest.raises(ValueError, match="unknown decode_type"):
+        evaluate(cfg, str(pkg), device="cpu")

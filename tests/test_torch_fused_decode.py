@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from ctc_pytorch_tpu.cli.test import evaluate as jax_evaluate
 from ctc_pytorch_tpu.data import SpeechDataLoader as JLoader
@@ -29,19 +30,30 @@ from ctc_pytorch_tpu_torch.vocab import Vocab
 from tests.test_torch_decode import _stage4_setup
 
 
-def stage4(tmp_path, add_cnn):
+def stage4(tmp_path, add_cnn, fc_scale=10.0):
     """``_stage4_setup`` with length-bucketed batches: two bucket planes, so
     two groups of batches."""
-    pkg, confs = _stage4_setup(tmp_path, add_cnn)
+    pkg, confs = _stage4_setup(tmp_path, add_cnn, fc_scale=fc_scale)
     for cfg in confs:
         cfg.batch_mode = "bucket"
     return pkg, confs
 
 
-def test_group_decoder_matches_jax(tmp_path):
-    pkg, (jcfg, cfg) = stage4(tmp_path, add_cnn=True)
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_group_decoder_matches_jax(tmp_path, mode):
+    """The group decoder's tokens and lengths are the JAX one's, greedy and
+    beam (width 6, a random bigram table, ``beam_max_len`` 4, which some
+    hypotheses fill; a softer output layer, so that the search keeps more
+    than one label)."""
+    pkg, (jcfg, cfg) = stage4(tmp_path, add_cnn=True,
+                              fc_scale=10.0 if mode == "greedy" else 0.5)
     spec, model, _ = model_from_package(pkg, "cpu")
     jspec, params, mstate, _ = jax_package(pkg)
+    n_class = spec.num_class
+    table = np.log(np.random.RandomState(5).dirichlet(
+        np.ones(n_class + 1), n_class + 1)).astype(np.float32)
+    beam = dict(beam_width=6, beam_max_len=4, lm_alpha=0.3)
+    kw = {} if mode == "greedy" else beam
 
     def loader(ds_cls, loader_cls, vocab_cls, c):
         ds = ds_cls(vocab_cls(c.vocab_file), c.test_scp_path, c.test_lab_path,
@@ -52,21 +64,27 @@ def test_group_decoder_matches_jax(tmp_path):
     cache = DeviceCachedLoader(loader(SpeechDataset, SpeechDataLoader, Vocab,
                                       cfg), "cpu")
     jcache = JCache(loader(JDataset, JLoader, JVocab, jcfg))
-    fused = make_fused_decode_fn(spec, model)
-    jfused = jax_fused_fn(jspec, params, mstate, mode="greedy")
-    n_groups = 0
+    fused = make_fused_decode_fn(
+        spec, model, mode=mode, **kw,
+        **({} if mode == "greedy" else {"lm_table": torch.from_numpy(table)}))
+    jfused = jax_fused_fn(
+        jspec, params, mstate, mode=mode, **kw,
+        **({} if mode == "greedy" else {"lm_table": table}))
+    n_groups = longest = 0
     for (arrs, pos, _, t_pad), (jarrs, jpos, _, jt) in zip(
             cache.epoch_groups(0), jcache.epoch_groups(0)):
         tokens, lens = fused(arrs, pos, t_pad)
         jtokens, jlens = jfused(jarrs, jpos, jt)
         np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
         np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
+        longest = max(longest, int(lens.max()))
         assert lens.numpy().sum() > 0
         n_groups += 1
     assert n_groups >= 2
+    assert longest == (1 if mode == "greedy" else beam["beam_max_len"])
     assert len(fused.graphs) == 0  # the CPU runs the step eagerly
-    with pytest.raises(NotImplementedError, match="beam"):
-        make_fused_decode_fn(spec, model, mode="beam")
+    with pytest.raises(ValueError, match="mode"):
+        make_fused_decode_fn(spec, model, mode="Beam")
 
 
 @pytest.mark.parametrize("add_cnn", [True, False])

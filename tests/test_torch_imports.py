@@ -31,7 +31,9 @@ def test_static_scan_finds_no_forbidden_import():
                 "train/loop.py", "train/state.py", "train/scheduler.py",
                 "train/metrics_log.py", "cli/train.py", "ops/gru_bidir.py",
                 "ops/gru_bidir_train.py", "ops/stacked.py", "ops/rnn_bidir.py",
-                "ops/rnn_bidir_train.py"):
+                "ops/rnn_bidir_train.py", "decode/beam.py",
+                "decode/beam_device.py", "decode/ngram_lm.py",
+                "cli/train_lm.py", "native/__init__.py"):
         assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
@@ -249,6 +251,25 @@ def test_no_kernel_source_calls_a_library_for_the_recurrent_products():
         includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
         for banned in ("cublas", "cudnn", "cutlass", "torch/", "ATen"):
             assert not any(banned in ln for ln in includes), (path.name, banned)
+
+
+def test_native_search_builds_its_own_library_and_nothing_at_import():
+    """The port's host beam search compiles its own copy of the C++ source
+    into its git-ignored build directory; it never loads the JAX package's
+    library."""
+    from ctc_pytorch_tpu_torch import native
+
+    assert native.SOURCE == PORT / "native" / "ctc_native.cpp"
+    assert native.library_path().parent == PORT / "native" / "build"
+    assert "ctc_pytorch_tpu_torch/native/build/" in (
+        ROOT / ".gitignore").read_text().splitlines()
+    for path in _port_files():  # the JAX package's library's name
+        assert "libctc_native.so" not in path.read_text(), path
+    code = ("import ctc_pytorch_tpu_torch.native as n, "
+            "ctc_pytorch_tpu_torch.decode.beam; assert n._lib is None")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_lstm_wrapper_has_no_fallback_for_other_devices():
