@@ -8,11 +8,14 @@ printed line; any failure ends the run with a nonzero exit and no result:
 2. build: compiles the seven kernel sources under ``csrc/`` with nvcc, in
    parallel;
 3. kernel vs plain: each of the eleven kernel wrappers (eval BiLSTM,
-   trainable BiLSTM forward and backward, CTC alpha and beta, eval BiGRU,
-   trainable BiGRU forward, which launches the eval BiGRU's kernel under a
-   count of its own, and backward, and the same three for the tanh RNN)
-   against its plain PyTorch version on the card, at the main paths' shapes
-   and at edge shapes, with stated tolerances; the LSTM's and GRU's forwards
+   trainable BiLSTM forward and backward, the CTC loss's forward and
+   backward, eval BiGRU, trainable BiGRU forward, which launches the eval
+   BiGRU's kernel under a count of its own, and backward, and the same three
+   for the tanh RNN) against its plain PyTorch version on the card, at the
+   main paths' shapes and at edge shapes, with stated tolerances (the CTC
+   kernels at ``CTC_CASES``: the alpha table, the beta table through the
+   backward's debug output, neg_ll, the gradient, two backward calls bit
+   for bit, the branch taken); the LSTM's and GRU's forwards
    on every branch (``FWD_CASES``); the LSTM's and GRU's backward pre-pass,
    serial kernel and whole backward against their twins on both branches of
    the serial kernel (``HOIST_CASES``); the tanh cell's forward and backward
@@ -22,8 +25,9 @@ printed line; any failure ends the run with a nonzero exit and no result:
    ten stacked-layout (v1) entry points, each through the kernels against
    itself through the plain versions, with the launches counted; then every
    recurrence branch and the CTC kernels captured in a CUDA graph through
-   the port's ``train/graphs.py`` and replayed (``GRAPH_CASES``): the
-   replay equal to the eager call bit for bit, its launches counted once;
+   the port's ``train/graphs.py`` and replayed (``GRAPH_CASES``,
+   ``CTC_GRAPH_CASES``): the replay equal to the eager call bit for bit, its
+   launches counted once;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
    with random weights from a seed, through ``cli.test.evaluate``, which
@@ -61,9 +65,13 @@ printed line; any failure ends the run with a nonzero exit and no result:
    kernel, its plain twin, its bound and the library call for the same
    function (the recurrences' forwards and backwards in rounds with cuDNN's
    in fp32 and bf16; the LSTM and GRU backwards as pre-pass, serial kernel
-   and both), with the branch each recurrence kernel took, the stacked entry
-   points, then the flagship's, the 863 model's and the tanh model's decode
-   forward and whole train step with their device time by kernel;
+   and both; the CTC kernels also at mfcc_39's T'=400, B=8 with their
+   latency bound, and the whole loss's wall and device time against
+   ``F.ctc_loss``'s, with the device kernels of one call by name), with the
+   branch each kernel took, the stacked entry points, then the flagship's,
+   the 863 model's and the tanh model's decode forward and whole train step
+   with their device time by kernel, and the CTC loss's share of the
+   flagship's B=8 step on the device;
 10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
     at B=16 (bf16 streams), one epoch and its dev pass at ``drop_out: 0``
     from one seeded state through the eager ``run_epoch`` and the graphed
@@ -180,22 +188,49 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn):
-    """Device time of one ``fn()`` by kernel name, from ``torch.profiler``:
-    (total microseconds, [(name, microseconds)] largest first)."""
+def graph_ms(fn, n: int = 20) -> float:
+    """Device milliseconds of one ``fn()``: ``n`` calls captured in one CUDA
+    graph, its replay timed with CUDA events (median of 5), over ``n``; the
+    host's launch cost is out of the measure."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, reps=5, warmup=1) / n
+
+
+def device_breakdown(fn):
+    """Device time of one ``fn()`` by kernel name, from ``torch.profiler``:
+    (total microseconds, [(name, microseconds)] largest first).  A first
+    call runs in the profiler's warm-up cycle, which can miss the first
+    kernels of its window; the second is the one recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    for _ in range(2):  # a process's first session can record no kernel
+        recorded: list = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.extend(p.events())) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for ev in recorded:  # the step markers are not kernels
+            if (ev.device_type == DeviceType.CUDA
+                    and not ev.name.startswith("ProfilerStep")):
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us())
+        if by_name:
+            break
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(us for _, us in rows), rows
 
@@ -302,6 +337,8 @@ def zero_counts() -> None:
         by.update(dict.fromkeys(by, 0))
     rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
+    for by in (ctc_ops.launches_fwd_branch, ctc_ops.launches_bwd_branch):
+        by.update(dict.fromkeys(by, 0))
 
 
 def stacked_calls() -> int:
@@ -339,8 +376,8 @@ def plain_twins():
              (train_ops, "lstm_bidir_train_cuda", train_ops.lstm_bidir_train_plain),
              (train_ops, "lstm_bidir_train_backward_cuda",
               train_ops.lstm_bidir_train_backward_plain),
-             (ctc_ops, "ctc_alpha_cuda", ctc_ops.ctc_alpha_plain),
-             (ctc_ops, "ctc_beta_cuda", ctc_ops.ctc_beta_plain),
+             (ctc_ops, "ctc_fwd_cuda", ctc_ops.ctc_fwd_plain),
+             (ctc_ops, "ctc_bwd_cuda", ctc_ops.ctc_bwd_plain),
              (gru_ops, "gru_bidir_cuda", gru_ops.gru_bidir_plain),
              (gru_train_ops, "gru_bidir_train_cuda", gru_ops.gru_bidir_plain),
              (gru_train_ops, "gru_bidir_train_backward_cuda",
@@ -467,89 +504,192 @@ def phase_lstm_train_vs_plain() -> dict:
     return worst
 
 
-def phase_ctc_vs_plain() -> dict:
-    """Alpha and beta kernels against their plain twins (tables: the same
-    cells dead, pinned to NEG_INF, live cells within FP32_TOL), then neg_ll
-    and the gradient through ``ctc_loss`` on the kernels against the same
-    call on the twins."""
+# Phase 3's CTC shapes: (T', B, classes, L, blank, what).  The main paths'
+# shapes, edge shapes, a blank other than 0, and rows that make the ring of
+# ``csrc/ctc_dp.cu`` hold one frame a slot or not even that (read from
+# device memory).
+CTC_CASES = [
+    (80, 128, 41, 48, 0, "bench shape, lengths below the pad"),
+    (100, 8, 41, 33, 0, "the recipe's batch"),
+    (1, 1, 5, 0, 0, "T = 1, S = 1: an empty label"),
+    (7, 3, 5, 2, 0, "odd T"),
+    (30, 2, 50, 600, 0, "S = 1201: four positions a thread"),
+    (25, 2, 50, 300, 0, "S = 601: two positions a thread"),
+    (20, 4, 6, 4, 0, "one infeasible utterance, one empty label"),
+    (95, 128, 67, 40, 0, "863 bench shape, lengths below the pad"),
+    (95, 16, 67, 40, 0, "the 863 recipe's batch"),
+    (195, 16, 67, 33, 0, "the 863 recipe's longest bucket"),
+    (400, 8, 41, 33, 0, "the mfcc_39 recipe's longest batch"),
+    (60, 8, 41, 20, 40, "blank = C - 1, repeated labels"),
+    (300, 4, 5000, 20, 0, "one frame a ring slot"),
+    (40, 3, 30000, 12, 0, "rows wider than the ring"),
+    (20, 2, 30000, 600, 7, "S = 1201, rows wider than the ring, blank = 7"),
+    (64, 2, 50, 1600, 0, "S = 3201, widest rows: no room for gradient warps"),
+    (64, 2, 50, 14527, 0, "S = 29055, widest rows: the old kernels' widest"),
+]
+
+
+def ctc_branch(width: int) -> str:
+    """The branch ``csrc/ctc_dp.cu`` takes for ring rows of ``width`` floats
+    (C forward, C + S backward): unstaged when not one frame a slot fits the
+    ring's 96 KB in 4 slots."""
+    return "staged" if 4 * 4 * width <= 96 * 1024 else "unstaged"
+
+
+def ctc_case_inputs(t, b, c, l, blank, what, seed):
+    """``(log_probs, labels, input_lengths, label_lengths)`` of one
+    CTC_CASES entry on the card: ``ctc_inputs``, the labels moved off
+    ``blank``, and the edits that ``what`` names."""
+    import torch
+
+    log_probs, labels, in_len, lab_len = ctc_inputs(t, b, c, l, seed)
+    labels = labels - 1  # [1, C) -> [0, C) without blank; neighbours differ
+    labels = labels + (labels >= blank).to(labels.dtype)
+    if "infeasible" in what:
+        labels[2] = 3  # four equal labels need seven frames, it has five
+        in_len = torch.tensor([20, 17, 5, 20], dtype=torch.int32).cuda()
+        lab_len = torch.tensor([4, 2, 4, 0], dtype=torch.int32).cuda()
+    if "widest" in what:  # one utterance that fits its frames, one that not
+        in_len[:] = t
+        lab_len[:] = torch.tensor([t // 2, l], dtype=lab_len.dtype)
+    if "repeated" in what:  # a run of three, and a class three times apart
+        labels[1, 3:6] = labels[1, 2]
+        labels[2, 9] = labels[2, 4] = labels[2, 0]
+        lab_len[1:3] = l
+    # padded label slots hold 0, as the recipes' batches do
+    pad = torch.arange(l, device="cuda")[None, :] >= lab_len[:, None]
+    labels = torch.where(pad, torch.zeros_like(labels), labels)
+    return log_probs, labels.to(torch.int32), in_len, lab_len
+
+
+def hold_table(key, got, want, what) -> float:
+    """A kernel's DP table against the twin's, every cell: the same cells
+    dead, pinned to NEG_INF, live cells within FP32_TOL; the largest live
+    error."""
     import torch
 
     _, _, ctc_ops = port_ops()
-    cases = [  # (T', B, classes, L, what)
-        (80, 128, 41, 48, "bench shape, lengths below the pad"),
-        (100, 8, 41, 33, "the recipe's batch"),
-        (1, 1, 5, 0, "T = 1, S = 1: an empty label"),
-        (7, 3, 5, 2, "odd T"),
-        (30, 2, 50, 600, "S = 1201: more positions than threads in a CTA"),
-        (20, 4, 6, 4, "one infeasible utterance, one empty label"),
-        (95, 128, 67, 40, "863 bench shape, lengths below the pad"),
-        (95, 16, 67, 40, "the 863 recipe's batch"),
-        (195, 16, 67, 33, "the 863 recipe's longest bucket"),
-    ]
+    dead = want <= ctc_ops.NEG_INF / 2
+    check(torch.equal(got <= ctc_ops.NEG_INF / 2, dead),
+          f"ctc_{key}: other cells dead than in the plain table ({what})")
+    check(torch.all(got[dead] == ctc_ops.NEG_INF).item(),
+          f"ctc_{key}: a dead cell is not pinned to NEG_INF ({what})")
+    live = ~dead
+    err = max_err(got[live], want[live]) if live.any() else 0.0
+    check(err <= FP32_TOL, f"ctc_{key} disagrees with plain ({what})")
+    return err
+
+
+def phase_ctc_vs_plain() -> dict:
+    """``ctc_case`` at every CTC_CASES entry; the worst errors and the
+    branches taken."""
     worst = {"alpha": 0.0, "beta": 0.0, "neg_ll_rel": 0.0, "grad": 0.0}
-    for i, (t, b, c, l, what) in enumerate(cases):
-        log_probs, labels, in_len, lab_len = ctc_inputs(t, b, c, l, seed=300 + i)
-        infeasible = None
-        if "infeasible" in what:
-            labels[2] = 3  # four equal labels need seven frames, it has five
-            in_len = torch.tensor([20, 17, 5, 20], dtype=torch.int32).cuda()
-            lab_len = torch.tensor([4, 2, 4, 0], dtype=torch.int32).cuda()
-            infeasible = 2
-        _, emit, skip_in, skip_out, mask, s_len = ctc_ops.prepare(
-            log_probs, labels, lab_len)
-        alphas = ctc_ops.ctc_alpha_cuda(emit, skip_in, mask, in_len)
-        betas = ctc_ops.ctc_beta_cuda(emit, skip_out, mask, in_len, s_len)
-        torch.cuda.synchronize()
-        errs = {}
-        # beta rows past an utterance's last frame are don't-care
-        valid = (torch.arange(t, device="cuda")[:, None] < in_len[None, :])[..., None]
-        for key, got, want, care in (
-                ("alpha", alphas,
-                 ctc_ops.ctc_alpha_plain(emit, skip_in, mask, in_len), None),
-                ("beta", betas,
-                 ctc_ops.ctc_beta_plain(emit, skip_out, mask, in_len, s_len),
-                 valid)):
-            dead = want <= ctc_ops.NEG_INF / 2
-            care = torch.ones_like(dead) if care is None else care.expand_as(dead)
-            check(torch.equal((got <= ctc_ops.NEG_INF / 2) & care, dead & care),
-                  f"ctc_{key}: other cells dead than in the plain table ({what})")
-            check(torch.all(got[dead & care] == ctc_ops.NEG_INF).item(),
-                  f"ctc_{key}: a dead cell is not pinned to NEG_INF ({what})")
-            live = ~dead & care
-            errs[key] = max_err(got[live], want[live]) if live.any() else 0.0
-            check(errs[key] <= FP32_TOL, f"ctc_{key} disagrees with plain ({what})")
-
-        def loss_and_grad():
-            x = log_probs.clone().requires_grad_(True)
-            neg_ll = ctc_ops.ctc_loss(x, labels, in_len, lab_len,
-                                      reduction="none")
-            neg_ll.sum().backward()
-            return neg_ll.detach(), x.grad
-
-        neg_ll, grad = loss_and_grad()
-        with plain_twins():
-            want_ll, want_grad = loss_and_grad()
-        torch.cuda.synchronize()
-        errs["neg_ll_rel"] = ((neg_ll - want_ll).abs()
-                              / want_ll.abs().clamp(min=1.0)).max().item()
-        errs["grad"] = max_err(grad, want_grad)
-        print(f"  ctc T={t} B={b} S={2 * l + 1} ({what}): alpha "
-              f"{errs['alpha']:.3g}, beta {errs['beta']:.3g} (tol {FP32_TOL}); "
-              f"neg_ll rel {errs['neg_ll_rel']:.3g} (tol {CTC_LL_RTOL}), "
-              f"grad {errs['grad']:.3g} (tol {FP32_TOL})")
-        check(torch.isfinite(neg_ll).all().item()
-              and torch.isfinite(grad).all().item(), f"non-finite CTC loss ({what})")
-        check(errs["neg_ll_rel"] <= CTC_LL_RTOL,
-              f"neg_ll disagrees with plain ({what})")
-        check(errs["grad"] <= FP32_TOL, f"CTC gradient disagrees with plain ({what})")
-        if infeasible is not None:
-            check(neg_ll[infeasible].item() >= -ctc_ops.NEG_INF / 2,
-                  "the infeasible utterance has no huge loss")
-            check(not grad[:, infeasible].any().item(),
-                  "the infeasible utterance has a gradient")
-        for k, v in errs.items():
-            worst[k] = max(worst[k], v)
+    branches = {"fwd": set(), "bwd": set()}
+    for i, case in enumerate(CTC_CASES):
+        errs, took = ctc_case(case, seed=300 + i)
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        for k in branches:
+            branches[k].add(took[k])
+    worst["branches"] = {k: sorted(v) for k, v in branches.items()}
     return worst
+
+
+def ctc_case(case, seed: int):
+    """The forward and backward kernels against their plain twins at one
+    CTC_CASES entry: the alpha table and, through the backward's debug
+    output, the beta table (the same cells dead, pinned to NEG_INF, live
+    cells within FP32_TOL), ``neg_ll`` within CTC_LL_RTOL, the gradient
+    within FP32_TOL (each kernel given the twin's inputs, with an upstream
+    gradient that is not all ones and zero on one utterance), two backward
+    calls bit-equal with deterministic algorithms off, one launch each way
+    on the expected branch; then neg_ll and the gradient through
+    ``ctc_loss`` on the kernels against the same call on the twins.
+    ``(errors, {"fwd": branch, "bwd": branch})``."""
+    import torch
+
+    _, _, ctc_ops = port_ops()
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "the CTC cases run with deterministic algorithms off")
+    t, b, c, l, blank, what = case
+    log_probs, labels, in_len, lab_len = ctc_case_inputs(
+        t, b, c, l, blank, what, seed=seed)
+    args = (log_probs, labels, in_len, lab_len, blank)
+    gen = torch.Generator().manual_seed(seed + 100)
+    g = (torch.rand(b, generator=gen) + 0.5).cuda()
+    g[b // 2] = 0.0  # a row the masked mean leaves out
+    errs = {}
+    before = ctc_ops.launches_fwd_branch.copy(), ctc_ops.launches_bwd_branch.copy()
+    launches = ctc_ops.launches_alpha, ctc_ops.launches_beta
+    neg_ll, alphas = ctc_ops.ctc_fwd_cuda(*args, with_alphas=True)
+    check((ctc_ops.launches_alpha, ctc_ops.launches_beta)
+          == (launches[0] + 1, launches[1]), "ctc_fwd_cuda: not one launch")
+    neg_ll_only, none = ctc_ops.ctc_fwd_cuda(*args, with_alphas=False)
+    want_ll, want_alphas = ctc_ops.ctc_fwd_plain(*args)
+    grad, betas = ctc_ops.ctc_bwd_cuda(*args[:4], want_alphas, want_ll, g,
+                                       blank, with_betas=True)
+    grad2, _ = ctc_ops.ctc_bwd_cuda(*args[:4], want_alphas, want_ll, g,
+                                    blank)
+    check(ctc_ops.launches_beta == launches[1] + 2,
+          "ctc_bwd_cuda: not one launch a call")
+    want_grad, want_betas = ctc_ops.ctc_bwd_plain(
+        *args[:4], want_alphas, want_ll, g, blank, with_betas=True)
+    torch.cuda.synchronize()
+    took = {k: [n for n, v in by.items() if v != before[j][n]]
+            for j, (k, by) in enumerate((("fwd", ctc_ops.launches_fwd_branch),
+                                         ("bwd", ctc_ops.launches_bwd_branch)))}
+    s = 2 * l + 1
+    want_branch = {"fwd": ctc_branch(c), "bwd": ctc_branch(c + s)}
+    for k in ("fwd", "bwd"):
+        check(took[k] == [want_branch[k]],
+              f"ctc_{k} took {took[k]}, not {want_branch[k]} ({what})")
+    check(none is None and torch.equal(neg_ll_only, neg_ll),
+          f"ctc_fwd without the alpha table gives another neg_ll ({what})")
+    check(torch.equal(grad, grad2),
+          f"two ctc_bwd calls differ ({what}): not deterministic")
+    errs["alpha"] = hold_table("alpha", alphas, want_alphas, what)
+    errs["beta"] = hold_table("beta", betas, want_betas, what)
+    errs["neg_ll_kernel_rel"] = ((neg_ll - want_ll).abs()
+                                 / want_ll.abs().clamp(min=1.0)).max().item()
+    errs["grad_kernel"] = max_err(grad, want_grad)
+    check(errs["neg_ll_kernel_rel"] <= CTC_LL_RTOL,
+          f"ctc_fwd's neg_ll disagrees with plain ({what})")
+    check(torch.isfinite(grad).all().item() and errs["grad_kernel"] <= FP32_TOL,
+          f"ctc_bwd's gradient disagrees with plain ({what})")
+
+    def loss_and_grad():
+        x = log_probs.clone().requires_grad_(True)
+        out = ctc_ops.ctc_loss(x, labels, in_len, lab_len, blank=blank,
+                               reduction="none")
+        out.sum().backward()
+        return out.detach(), x.grad
+
+    got_ll, got_grad = loss_and_grad()
+    with plain_twins():
+        want_ll2, want_grad2 = loss_and_grad()
+    torch.cuda.synchronize()
+    errs["neg_ll_rel"] = max(errs["neg_ll_kernel_rel"], (
+        (got_ll - want_ll2).abs() / want_ll2.abs().clamp(min=1.0)).max().item())
+    errs["grad"] = max(errs["grad_kernel"], max_err(got_grad, want_grad2))
+    print(f"  ctc T={t} B={b} C={c} S={s} blank={blank} ({what}): "
+          f"{want_branch['fwd']}/{want_branch['bwd']}; alpha "
+          f"{errs['alpha']:.3g}, beta {errs['beta']:.3g} (tol {FP32_TOL}); "
+          f"neg_ll rel {errs['neg_ll_rel']:.3g} (tol {CTC_LL_RTOL}), "
+          f"grad {errs['grad']:.3g} (tol {FP32_TOL}); two backward calls "
+          f"bit-equal")
+    check(torch.isfinite(got_ll).all().item()
+          and torch.isfinite(got_grad).all().item(), f"non-finite CTC loss ({what})")
+    check(errs["neg_ll_rel"] <= CTC_LL_RTOL,
+          f"neg_ll disagrees with plain ({what})")
+    check(errs["grad"] <= FP32_TOL, f"CTC gradient disagrees with plain ({what})")
+    if "infeasible" in what:
+        check(got_ll[2].item() >= -ctc_ops.NEG_INF / 2,
+              "the infeasible utterance has no huge loss")
+        check(not got_grad[:, 2].any().item(),
+              "the infeasible utterance has a gradient")
+    check(not grad[:, b // 2].any().item(),
+          f"a zero upstream gradient left a gradient ({what})")
+    return errs, want_branch
 
 
 def phase_gru_vs_plain() -> dict:
@@ -1121,33 +1261,48 @@ def graph_case(case, seed: int) -> tuple:
     return rows, took[0]
 
 
-def phase_graphs_vs_eager() -> dict:
-    """Every recurrence branch (GRAPH_CASES) and the CTC alpha and beta
-    kernels captured in a CUDA graph, replayed and held against the eager
-    call; ``{kernel row: sorted branches replayed}``."""
-    from ctc_pytorch_tpu_torch.ops.ctc_loss import prepare
+# The CTC kernels' shapes in phase 3's graph replays: (T', B, L), the
+# recipes' batches (TIMIT, 863, mfcc_39's longest) and the bench shape.
+CTC_GRAPH_CASES = [(100, 8, 33), (95, 16, 40), (400, 8, 33), (80, 128, 48)]
+
+
+def ctc_graph_calls(t, b, l, seed):
+    """The forward (with its alpha table) and backward kernel calls at one
+    CTC_GRAPH_CASES shape, on fixed inputs on the card: ``[(kernel row,
+    call)]``, each call returning a tuple of tensors."""
+    import torch
 
     _, _, ctc_ops = port_ops()
+    lp, lab, il, ll = ctc_inputs(t, b, 62, l, seed=seed)
+    g = torch.rand(b, generator=torch.Generator().manual_seed(seed)).cuda()
+    neg_ll, alphas = ctc_ops.ctc_fwd_plain(lp, lab, il, ll)
+    return [("ctc_alpha", lambda: ctc_ops.ctc_fwd_cuda(lp, lab, il, ll)),
+            ("ctc_beta", lambda: ctc_ops.ctc_bwd_cuda(lp, lab, il, ll, alphas,
+                                                      neg_ll, g)[:1])]
+
+
+def phase_graphs_vs_eager() -> dict:
+    """Every recurrence branch (GRAPH_CASES) and the CTC forward and
+    backward kernels (CTC_GRAPH_CASES) captured in a CUDA graph, replayed
+    and held against the eager call; ``{kernel row: sorted branches
+    replayed}``."""
     out: dict = {}
     for i, case in enumerate(GRAPH_CASES):
         rows, branch = graph_case(case, seed=700 + i)
         for row in rows:
             out.setdefault(row, set()).add(branch)
-    for t, b, l in ((100, 8, 33), (95, 16, 40), (80, 128, 48)):
-        lp, lab, il, ll = ctc_inputs(t, b, 62, l, seed=790 + t)
-        _, emit, s_in, s_out, pm, sl = prepare(lp, lab, ll)
-        for row, call in (
-                ("ctc_alpha", lambda: (ctc_ops.ctc_alpha_cuda(emit, s_in, pm,
-                                                             il),)),
-                ("ctc_beta", lambda: (ctc_ops.ctc_beta_cuda(emit, s_out, pm, il,
-                                                           sl),))):
+    for t, b, l in CTC_GRAPH_CASES:
+        for row, call in ctc_graph_calls(t, b, l, seed=790 + t):
             err, eager, left, replay = captured_vs_eager(call)
-            print(f"  graph {row} T={t} B={b} L={l}: replay vs eager "
-                  f"max_abs_err {err:.3g} (tol 0)")
+            took = sorted(eager.get(("ctc_loss", "launches_fwd_branch"
+                                     if row == "ctc_alpha" else
+                                     "launches_bwd_branch"), {}))
+            print(f"  graph {row} T={t} B={b} L={l}: branch {'+'.join(took)}; "
+                  f"replay vs eager max_abs_err {err:.3g} (tol 0)")
             check(err == 0.0 and not left and replay == eager and eager,
                   f"{row} at T={t} B={b}: replay {err}, counts {replay} vs "
                   f"{eager}, capture left {left}")
-            out.setdefault(row, set()).add("one kernel")
+            out.setdefault(row, set()).update(took)
     return {k: sorted(v) for k, v in out.items()}
 
 
@@ -2171,9 +2326,10 @@ def busy_share(fn, wall_s: float) -> float:
 
 @contextlib.contextmanager
 def deterministic():
-    """PyTorch's deterministic algorithms inside the block (``scatter_add_``
-    without atomics, deterministic cuDNN convolutions), ops that have none
-    warning instead of raising; prints the warnings once."""
+    """PyTorch's deterministic algorithms inside the block (deterministic
+    cuDNN convolutions: their weight gradient otherwise adds in a varying
+    order), ops that have none warning instead of raising; prints the
+    warnings once."""
     import warnings
 
     import torch
@@ -2197,9 +2353,9 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
     ``run_epoch_single`` over a ``DeviceCachedLoader``: the same batches in
     the same order (the recipe's ``fused_dispatch: "epoch"`` order).  Both
     run under PyTorch's deterministic algorithms, so that what differs is
-    the graphs alone (``scatter_add_`` in the CTC gradient and cuDNN's
-    weight gradient otherwise add in a varying order, which bf16 weights
-    then round apart).  Per-batch losses within STEP_LOSS_RTOL, token errors
+    the graphs alone (cuDNN's weight gradient otherwise adds in a varying
+    order, which bf16 weights then round apart; the CTC gradient sums in a
+    fixed order either way).  Per-batch losses within STEP_LOSS_RTOL, token errors
     and tokens exactly, the parameters within phase 5's rule per step; the
     fused greedy decode of the graphed run's model gives the streaming
     decode's strings.  Then the times, in the default modes, on new graphs:
@@ -2385,16 +2541,33 @@ def recurrence_bound(gx, w_hh, n_planes: int, n_products: int,
             "gflop": flops / 1e9, "mbytes": bytes_moved / 1e6}
 
 
-def ctc_bound(emit):
-    """Least time for one alpha or beta call: emit read and the table
-    written, fp32, over the memory rate; against about 30 fp32 operations a
-    cell (three exp, one log, the sums) over the fp32 peak."""
-    t, b, s = emit.shape
-    bytes_moved = 2 * emit.numel() * 4 + 2 * b * s * 4 + 2 * b * 4
-    flops = 30 * t * b * s
+# The dependent chain of one CTC frame in ``csrc/ctc_dp.cu``, counted from
+# its code (one position a thread): the exchange (a
+# shared store, a barrier, two shared loads) ~60 cycles; lse3: three fmax, a
+# subtract, expf (6 dependent instructions around one MUFU.EX2), two adds, a
+# clamp, logf (19 dependent FMA-pipe instructions), two adds, two selects,
+# ~45 instructions at ~4 cycles and the MUFU's ~20: ~190 cycles.  The
+# backward's gradient work runs on warps of its own, off this chain.
+CTC_FRAME_CHAIN_CYCLES = 250
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
+
+
+def ctc_bound(t, b, c, s, backward: bool) -> dict:
+    """Least time for one forward or backward CTC call with every utterance
+    at its full length: log_probs (and in the backward the alpha table) read
+    and the outputs (the alpha table and neg_ll; the gradient) written,
+    fp32, over the memory rate, against about 30 fp32 operations a cell
+    (three exp, one log, the sums; 40 in the backward with gamma) over the
+    fp32 peak; and the latency bound, T times one frame's dependent chain
+    (CTC_FRAME_CHAIN_CYCLES at SM_CLOCK_HZ)."""
+    table, lp = t * b * s * 4, t * b * c * 4
+    small = b * (2 * s + 4) * 4  # labels and lengths, neg_ll (and g)
+    bytes_moved = (2 * lp + table if backward else lp + table) + small
+    flops = (40 if backward else 30) * t * b * s
     by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "latency_bound_ms": t * CTC_FRAME_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3,
             "gflop": flops / 1e9, "mbytes": bytes_moved / 1e6}
 
 
@@ -2747,30 +2920,39 @@ def times_stacked(cell: str, t, b, h, dtype, tag) -> dict:
 
 
 def times_ctc(t, b, c, l, tag) -> dict:
-    """Per-call times of the alpha and beta kernels at one shape, their plain
-    twins, bounds and the ``F.ctc_loss`` yardstick; and the whole loss,
-    forward and backward through ``log_softmax``, beside the library's."""
+    """Per-call times of the forward and backward kernels at one shape
+    (CUDA events around one call, as the other kernels are timed, and their
+    device time, ``graph_ms``), their plain twins, bounds and the ``F.ctc_loss``
+    yardstick; the whole loss, forward and backward through
+    ``log_softmax``, beside the library's, its wall time and its device
+    time with the device kernels of one port call by name (no gather or
+    scatter may be left: the loss is the two kernels), and the device time
+    of the loss alone (on a log_probs leaf)."""
     import torch
     import torch.nn.functional as F
 
     _, _, ctc_ops = port_ops()
     log_probs, labels, in_len, lab_len = ctc_inputs(t, b, c, l, seed=9, full=True)
-    _, emit, skip_in, skip_out, mask, s_len = ctc_ops.prepare(
-        log_probs, labels, lab_len)
-    out = {
-        "ctc_alpha": {
-            "ms": cuda_ms(lambda: ctc_ops.ctc_alpha_cuda(
-                emit, skip_in, mask, in_len), reps=20),
-            "plain_ms": cuda_ms(lambda: ctc_ops.ctc_alpha_plain(
-                emit, skip_in, mask, in_len), reps=5),
-            **ctc_bound(emit)},
-        "ctc_beta": {
-            "ms": cuda_ms(lambda: ctc_ops.ctc_beta_cuda(
-                emit, skip_out, mask, in_len, s_len), reps=20),
-            "plain_ms": cuda_ms(lambda: ctc_ops.ctc_beta_plain(
-                emit, skip_out, mask, in_len, s_len), reps=5),
-            **ctc_bound(emit)},
-    }
+    args = (log_probs, labels, in_len, lab_len)
+    g = torch.ones(b, device="cuda")
+    neg_ll, alphas = ctc_ops.ctc_fwd_cuda(*args)
+    s = 2 * l + 1
+    calls = {
+        "ctc_alpha": (lambda: ctc_ops.ctc_fwd_cuda(*args),
+                      lambda: ctc_ops.ctc_fwd_plain(*args),
+                      ctc_ops.launches_fwd_branch, False),
+        "ctc_beta": (lambda: ctc_ops.ctc_bwd_cuda(*args, alphas, neg_ll, g),
+                     lambda: ctc_ops.ctc_bwd_plain(*args, alphas, neg_ll, g),
+                     ctc_ops.launches_bwd_branch, True)}
+    out = {}
+    for key, (kernel, plain, branches, backward) in calls.items():
+        before = dict(branches)
+        kernel()
+        took = [k for k, v in branches.items() if v != before[k]]
+        out[key] = {"ms": cuda_ms(kernel, reps=20),
+                    "device_ms": graph_ms(kernel),
+                    "plain_ms": cuda_ms(plain, reps=3),
+                    "branch": took[0], **ctc_bound(t, b, c, s, backward)}
     # library yardstick: F.ctc_loss's forward computes the alpha table and
     # the loss, its backward the beta table and the logits-space gradient
     lab64, in64, ll64 = (x.long() for x in (labels, in_len, lab_len))
@@ -2791,20 +2973,68 @@ def times_ctc(t, b, c, l, tag) -> dict:
         logits.grad = None
         loss_fn(torch.log_softmax(logits, -1)).backward()
 
-    ours_ms = cuda_ms(lambda: whole(lambda lp: ctc_ops.ctc_loss(
-        lp, labels, in_len, lab_len, reduction="sum")), reps=10)
+    def ours(lp):
+        return ctc_ops.ctc_loss(lp, labels, in_len, lab_len, reduction="sum")
+
+    lp_leaf = log_probs.clone().requires_grad_(True)
+
+    def loss_alone():
+        lp_leaf.grad = None
+        ours(lp_leaf).backward()
+
+    ours_ms = cuda_ms(lambda: whole(ours), reps=10)
     lib_ms = cuda_ms(lambda: whole(lib_loss), reps=10)
+    before = (ctc_ops.launches_alpha, ctc_ops.launches_beta)
+    whole(ours)
+    launched = (ctc_ops.launches_alpha - before[0], ctc_ops.launches_beta - before[1])
+    ours_dev, ours_rows = device_breakdown(lambda: whole(ours))
+    lib_dev, _ = device_breakdown(lambda: whole(lib_loss))
+    alone_dev, _ = device_breakdown(loss_alone)
     for k, v in out.items():
-        print(f"  {k}, {tag} T'={t} B={b} S={2 * l + 1}: {v['ms']:.4f} ms; plain "
-              f"{v['plain_ms']:.4f} ms; F.ctc_loss "
+        print(f"  {k}, {tag} T'={t} B={b} S={s}: {v['ms']:.4f} ms per call "
+              f"({v['device_ms']:.4f} ms on the device, branch {v['branch']}); "
+              f"plain {v['plain_ms']:.4f} ms; F.ctc_loss "
               f"{'forward' if k == 'ctc_alpha' else 'backward'} "
               f"{v['library_ms']:.4f} ms; bound {v['bound_ms']:.5f} ms "
-              f"({v['bound_by']}: {v['mbytes']:.2f} MB)")
+              f"({v['bound_by']}: {v['mbytes']:.2f} MB), latency bound "
+              f"{v['latency_bound_ms']:.4f} ms")
     print(f"  whole CTC loss, forward and backward through log_softmax, {tag}: "
-          f"port {ours_ms:.4f} ms, F.ctc_loss {lib_ms:.4f} ms")
-    out["ctc_alpha"]["loss_fwd_bwd_ms"] = ours_ms
-    out["ctc_alpha"]["library_loss_fwd_bwd_ms"] = lib_ms
+          f"port {ours_ms:.4f} ms wall, {ours_dev / 1e3:.4f} ms device; "
+          f"F.ctc_loss {lib_ms:.4f} ms wall, {lib_dev / 1e3:.4f} ms device; "
+          f"the loss alone (no log_softmax) {alone_dev / 1e3:.4f} ms device; "
+          f"device kernels of one port call:")
+    for n, us in ours_rows:
+        print(f"    {us:9.2f} us  {n[:100]}")
+    names = [n for n, _ in ours_rows]
+    check(not any("scatter" in n or "gather" in n for n in names),
+          f"a port loss call still launches a gather or scatter ({tag})")
+    check(launched == (1, 1) and any("ctc_fwd_kernel" in n for n in names)
+          and any("ctc_bwd_kernel" in n for n in names),
+          f"one loss call launched {launched} forward and backward kernels, "
+          f"not one each, or the profile lacks one ({tag}: {names})")
+    out["ctc_alpha"].update(loss_fwd_bwd_ms=ours_ms,
+                            library_loss_fwd_bwd_ms=lib_ms,
+                            loss_fwd_bwd_device_ms=ours_dev / 1e3,
+                            library_loss_fwd_bwd_device_ms=lib_dev / 1e3,
+                            loss_alone_device_ms=alone_dev / 1e3)
     return out
+
+
+def ctc_step_share(step: dict, ctc: dict) -> dict:
+    """The CTC loss's share of the flagship's B=8 train step on the device:
+    its two kernels' time in the step's breakdown, and the loss alone (from
+    ``times_ctc`` at the same shape, T'=100, B=8, L=33) over the step."""
+    in_step = sum(us for n, us in step["train_step_rows"]
+                  if "ctc_fwd_kernel" in n or "ctc_bwd_kernel" in n) / 1e3
+    alone = ctc["ctc_alpha"]["loss_alone_device_ms"]
+    dev = step["train_step_device_ms"]
+    print(f"  CTC loss in the flagship's B=8 train step: its kernels "
+          f"{in_step:.4f} ms of {dev:.4f} ms on the device "
+          f"({100 * in_step / dev:.2f}%); the loss alone {alone:.4f} ms "
+          f"({100 * alone / dev:.2f}%)")
+    return {"kernels_in_step_ms": in_step, "loss_alone_device_ms": alone,
+            "step_device_ms": dev, "share_kernels": in_step / dev,
+            "share_loss_alone": alone / dev}
 
 
 def print_breakdown(what: str, ms: float, busy_us: float, by_kernel, top: int):
@@ -2851,7 +3081,8 @@ def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
           f"{spec.drop_out}: {step_ms:.4f} ms ({1e3 * b / step_ms:.1f} utts/s)")
     print_breakdown("train step", step_ms, step_busy, step_rows, top=12)
     return {"forward_ms": fwd_ms, "train_step_ms": step_ms,
-            "train_step_device_ms": step_busy / 1e3}
+            "train_step_device_ms": step_busy / 1e3,
+            "train_step_rows": step_rows}
 
 
 def main() -> int:
@@ -2934,7 +3165,10 @@ def main() -> int:
     ctc_863 = {"bench": times_ctc(95, 128, spec_863.num_class, 40,
                                   "863 bench shape"),
                "recipe_batch": times_ctc(95, 16, spec_863.num_class, 40,
-                                         "863 recipe batch")}
+                                         "863 recipe batch"),
+               # keys of the mfcc_39 shape keep their own suffix
+               "mfcc39": times_ctc(400, 8, spec.num_class, 33,
+                                   "mfcc_39 longest batch")}
     entry_points = []
     for cell, (t, b, h), (t_r, b_r, dt_r) in (
             ("lstm", (80, 128, 384), (100, 8, torch.float32)),
@@ -2964,6 +3198,7 @@ def main() -> int:
                               "tanh CNN+BiRNN(384)", "recipe batch")
     times_model(cfg_uni, spec_uni, model_uni, 128, 160, 48,
                 "unidirectional CNN+LSTM(384)", "bench shape")
+    ctc_share = ctc_step_share(model_recipe, recipe)
 
     print(f"[10/11] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
@@ -3013,11 +3248,14 @@ def main() -> int:
          max(errs_train["bwd"]["bf16"], errs_hoist["lstm_bwd"]["bf16"]),
          errs_unidir["lstm"]),
         ("ctc_alpha", csrc + "ctc_dp.cu",
-         tpu + "ctc_pallas.py:132 ctc_alpha_pallas", ctc_paths,
-         errs_ctc["alpha"], None, None),
+         tpu + "ctc_pallas.py:122 ctc_alpha_pallas (call :132), with "
+         "_prepare (:168) and _ll_from_alphas (:180): ctc_fwd_kernel",
+         ctc_paths, max(errs_ctc["alpha"], errs_ctc["neg_ll_rel"]), None,
+         None),
         ("ctc_beta", csrc + "ctc_dp.cu",
-         tpu + "ctc_pallas.py:154 ctc_beta_pallas", ctc_paths,
-         errs_ctc["beta"], None, None),
+         tpu + "ctc_pallas.py:142 ctc_beta_pallas (call :154), with the VJP "
+         "body _neg_ll_pallas_bwd (:214-233): ctc_bwd_kernel", ctc_paths,
+         max(errs_ctc["beta"], errs_ctc["grad"]), None, None),
         ("gru_bidir", fwd,
          tpu + "gru_pallas_v2.py:352 _fwd_pallas (gru_bidir_v2 train=False)",
          ("863",), max(errs_gru["eval"]["fp32"], errs_fwd["gru_eval"]["fp32"]),
@@ -3082,8 +3320,25 @@ def main() -> int:
         entry["graph_replayed_branches"] = graph_branches[name]
         if name.startswith("ctc"):
             for shape, at in ctc_863.items():
-                entry.update({f"{k}_863_{shape}": at[name][k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms")})
+                suffix = shape if shape == "mfcc39" else f"863_{shape}"
+                entry.update({f"{k}_{suffix}": at[name][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms",
+                    "latency_bound_ms", "library_ms")})
+            for k in ("device_ms", "latency_bound_ms", "branch"):
+                entry[k] = at_bench[k]
+                entry[f"{k}_recipe_batch"] = at_recipe[k]
+            entry["branches_phase3"] = errs_ctc["branches"][
+                "fwd" if name == "ctc_alpha" else "bwd"]
+            if name == "ctc_alpha":
+                entry["whole_loss"] = {
+                    shape: {k: at["ctc_alpha"][k] for k in (
+                        "loss_fwd_bwd_ms", "library_loss_fwd_bwd_ms",
+                        "loss_fwd_bwd_device_ms",
+                        "library_loss_fwd_bwd_device_ms",
+                        "loss_alone_device_ms")}
+                    for shape, at in (("timit_bench", bench),
+                                      ("timit_recipe", recipe), *ctc_863.items())}
+                entry["share_of_flagship_b8_step"] = ctc_share
         kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
     for fwd, train_fwd, at_bench, at_recipe in (

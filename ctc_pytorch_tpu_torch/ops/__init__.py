@@ -7,7 +7,7 @@ same for the GRU (``csrc/gru_bidir.cu``: the forward of both;
 ``csrc/gru_bidir_train.cu``: the backward); ``rnn_bidir`` and
 ``rnn_bidir_train``: for the tanh cell (``csrc/rnn_bidir.cu``,
 ``csrc/rnn_bidir_train.cu``).  Every recurrence kernel takes one direction or
-two.  ``ctc_loss``: the CTC loss over the alpha and beta DP kernels
+two.  ``ctc_loss``: the CTC loss as one forward and one backward kernel
 (``csrc/ctc_dp.cu``).  Each stands beside its plain PyTorch twin; ``_build``
 compiles and loads the sources at first use.  ``stacked``: the JAX package's
 stacked-layout (v1) recurrence entry points as layout wrappers over those

@@ -137,8 +137,10 @@ def test_plain_tables_match_the_interpreted_pallas_kernels():
 
 def test_wrapper_has_no_fallback_for_other_devices():
     lp = torch.zeros(2, 1, 3, device="meta")
+    lengths = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.ctc_alpha(lp, lp[0], lp[0], torch.zeros(1, device="meta"))
+        ops.ctc_fwd(lp, torch.zeros(1, 1, dtype=torch.int32, device="meta"),
+                    lengths, lengths)
     assert ops.launches_alpha == 0 and ops.launches_beta == 0
 
 

@@ -1,8 +1,8 @@
 """The port on the card: each Hopper kernel (eval LSTM, GRU and tanh RNN,
 their trainable forwards and backwards, the LSTM's and GRU's forwards on
 each of their branches, the LSTM's and GRU's backward pre-pass and serial
-chain on both of its branches, CTC alpha and beta)
-against its plain twin, with two directions and with one, the stacked-layout
+chain on both of its branches, the CTC loss's forward and backward, at
+phase 3's CTC cases) against its plain twin, with two directions and with one, the stacked-layout
 entry points' launch counts, and the models on CUDA against the same models
 on the CPU, in eval and in a train step; each kernel branch and the CTC
 kernels replayed from a captured CUDA graph against the eager call, a
@@ -40,6 +40,8 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from chip_smoke import (  # noqa: E402  phase 3's shapes
+    CTC_CASES,
+    CTC_GRAPH_CASES,
     FWD_CASES,
     GRAPH_CASES,
     HOIST_CASES,
@@ -184,25 +186,36 @@ def test_lstm_train_autograd_goes_through_both_kernels(card):
     (30, 2, 50, 600),  # S = 1201: more positions than threads in a CTA
 ])
 def test_ctc_kernels_match_plain_on_the_card(card, t, b, c, l):
+    """The forward kernel's alpha table and the backward kernel's beta table
+    (its debug output) against the twins' on random labels, which repeat
+    neighbours; one launch each way."""
     gen = torch.Generator().manual_seed(t + b)
     log_probs = torch.log_softmax(torch.randn(t, b, c, generator=gen), -1).to(card)
     labels = torch.randint(1, c, (b, l), generator=gen).to(card)
     in_len = torch.randint(max(1, t // 2), t + 1, (b,), generator=gen).to(card)
     lab_len = torch.randint(0, l + 1, (b,), generator=gen).to(card)
-    _, emit, skip_in, skip_out, mask, s_len = ctc_ops.prepare(
-        log_probs, labels, lab_len)
+    args = (log_probs, labels, in_len, lab_len)
+    g = torch.ones(b, device=card)
     a0, b0 = ctc_ops.launches_alpha, ctc_ops.launches_beta
-    alphas = ctc_ops.ctc_alpha(emit, skip_in, mask, in_len)
-    betas = ctc_ops.ctc_beta(emit, skip_out, mask, in_len, s_len)
+    neg_ll, alphas = ctc_ops.ctc_fwd(*args)
+    _, betas = ctc_ops.ctc_bwd(*args, alphas, neg_ll, g, with_betas=True)
     torch.cuda.synchronize()
     assert (ctc_ops.launches_alpha, ctc_ops.launches_beta) == (a0 + 1, b0 + 1)
-    for got, want in (
-            (alphas, ctc_ops.ctc_alpha_plain(emit, skip_in, mask, in_len)),
-            (betas, ctc_ops.ctc_beta_plain(emit, skip_out, mask, in_len, s_len))):
+    want_ll, want_alphas = ctc_ops.ctc_fwd_plain(*args)
+    _, want_betas = ctc_ops.ctc_bwd_plain(*args, want_alphas, want_ll, g,
+                                          with_betas=True)
+    for got, want in ((alphas, want_alphas), (betas, want_betas)):
         dead = want <= -1e29
         assert torch.equal(got <= -1e29, dead)
         assert torch.all(got[dead] == ctc_ops.NEG_INF)
         assert (got - want)[~dead].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", CTC_CASES)
+def test_ctc_kernels_match_plain_at_each_case(card, case):
+    """``chip_smoke.py``'s phase 3 CTC case: tables, neg_ll, the gradient,
+    two backward calls bit-equal, one launch each way, the branch."""
+    chip_smoke.ctc_case(case, seed=300 + CTC_CASES.index(case))
 
 
 def test_ctc_loss_on_the_card_matches_the_cpu(card):
@@ -711,14 +724,27 @@ def test_kernel_replays_in_a_captured_graph(card, case):
     chip_smoke.graph_case(case, seed=700 + GRAPH_CASES.index(case))
 
 
-@pytest.mark.parametrize("t,b,l", [(100, 8, 33), (95, 16, 40)])
+@pytest.mark.parametrize("t,b,l", CTC_GRAPH_CASES)
 def test_ctc_kernels_replay_in_a_captured_graph(card, t, b, l):
-    lp, lab, il, ll = chip_smoke.ctc_inputs(t, b, 62, l, seed=t)
-    _, emit, s_in, s_out, pm, sl = ctc_ops.prepare(lp, lab, ll)
-    for call in (lambda: (ctc_ops.ctc_alpha_cuda(emit, s_in, pm, il),),
-                 lambda: (ctc_ops.ctc_beta_cuda(emit, s_out, pm, il, sl),)):
+    for _, call in chip_smoke.ctc_graph_calls(t, b, l, seed=t):
         err, eager, left, replay = chip_smoke.captured_vs_eager(call)
         assert err == 0.0 and not left and replay == eager and eager
+
+
+def test_ctc_loss_is_one_launch_each_way_with_a_deterministic_gradient(card):
+    """A CUDA call of ``ctc_loss`` launches one forward and one backward
+    kernel, and two calls give bit-equal gradients with deterministic
+    algorithms off."""
+    lp, lab, il, ll = chip_smoke.ctc_inputs(100, 8, 41, 33, seed=5)
+    assert not torch.are_deterministic_algorithms_enabled()
+    grads = []
+    for _ in range(2):
+        a0, b0 = ctc_ops.launches_alpha, ctc_ops.launches_beta
+        x = lp.clone().requires_grad_(True)
+        ctc_ops.ctc_loss(x, lab, il, ll).backward()
+        assert (ctc_ops.launches_alpha, ctc_ops.launches_beta) == (a0 + 1, b0 + 1)
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
 
 
 def tiny_recipe(root, split_sizes=(("train", 24), ("dev", 8), ("test", 8))):
