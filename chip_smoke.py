@@ -94,11 +94,26 @@ printed line; any failure ends the run with a nonzero exit and no result:
     package through kernels and twins with ``BeamDevice`` (the same
     strings); the batched search on the card against the same call on the
     CPU (the same tokens); and the beam decodes' times against the greedy
-    one's.
+    one's;
+12. waveform slice: ``recipes/timit/waveform_config.yaml`` as shipped (raw
+    samples in, fbank 80 mel + energy computed in the step, spliced to 243,
+    no CNN, 4 x BiLSTM(384), bf16, batch 128, device cache, fused epoch) on
+    a synthetic corpus of SPHERE and WAV files (``WAVE_SPLITS``): stage 1
+    (``cli.make_feat``) on the card, its fbank, mfcc + deltas and
+    spectrogram held against the CPU (``FEAT_TOL``); stage 3; one epoch of
+    stage 2 through ``cli.train.train``, every batch a graph replay with the
+    frontend in the graph, the training forward on ``cluster32`` and the
+    backward on a cluster branch; stage 4 with ``Greedy`` and
+    ``BeamDevice`` (streaming, capacity T'); ``Recognizer`` on 16 test files
+    (the fp32 package's strings equal to stage 4's) and
+    ``StreamingRecognizer`` over a 20 s stream in 0.5 s hops (per-feed
+    latency, the committed prefix only grows); the branch of every LSTM and
+    CTC launch; then phase 10's comparison of the graphed and the streaming
+    epoch, and the train step's device time with the frontend's share.
 
-Five model paths are driven: the flagship (phases 4 and 5), the 863 model
-(phase 6), the tanh model (phase 7), the unidirectional flagship (phase 8)
-and the mfcc_39 model (phase 11).
+Six model paths are driven: the flagship (phases 4 and 5), the 863 model
+(phase 6), the tanh model (phase 7), the unidirectional flagship (phase 8),
+the mfcc_39 model (phase 11) and the waveform model (phase 12).
 
 It prints one JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -123,6 +138,7 @@ WORK = ROOT / ".chip_smoke"  # synthetic corpus + packages, removed at exit
 RECIPE = ROOT / "recipes" / "timit" / "ctc_config.yaml"
 RECIPE_863 = ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf"  # rnn_type set here
 RECIPE_MFCC = ROOT / "recipes" / "timit" / "mfcc_39_config.yaml"
+RECIPE_WAVE = ROOT / "recipes" / "timit" / "waveform_config.yaml"
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -145,6 +161,10 @@ STEP_LOSS_RTOL = 1e-4
 STEP_OFF_SHARE = 1e-4
 CTC_LL_RTOL = 1e-5  # neg_ll of a few hundred nats in fp32
 N_DECODE_UTTS = 16
+# phase 12's audio corpus: (split, utterances of 1-4 s, seed)
+WAVE_SPLITS = (("train", 512, 41), ("dev", 64, 42), ("test", 128, 43))
+FEAT_TOL = dict(rtol=1e-5, atol=3e-4)  # log-scale features, card vs CPU
+STREAM_SECONDS, HOP_SECONDS = 20.0, 0.5
 N_TRAIN_UTTS, N_DEV_UTTS = 64, 16
 N_TRAIN_UTTS_863, N_DEV_UTTS_863 = 128, 32  # 8 steps and 2 dev batches of 16
 PHONES = ("aa ae ah ao aw ax ay b ch d dh dx eh el en er ey f g hh ih iy "
@@ -203,19 +223,22 @@ def graph_ms(fn, n: int = 20) -> float:
     return cuda_ms(graph.replay, reps=5, warmup=1) / n
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, expect=()):
     """Device time of one ``fn()`` by kernel name, from ``torch.profiler``:
     (total microseconds, [(name, microseconds)] largest first).  A first
     call runs in the profiler's warm-up cycle, which can miss the first
-    kernels of its window; the second is the one recorded."""
+    kernels of its window; the second is the one recorded.  A session that
+    records no kernel, or lacks a kernel whose name holds one of
+    ``expect``, is run again, up to three in all (``torch.profiler`` now and
+    then drops a call's first kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    by_name: dict = {}
-    for _ in range(2):  # a process's first session can record no kernel
+    for _ in range(3):
+        by_name: dict = {}
         recorded: list = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -229,7 +252,7 @@ def device_breakdown(fn):
                     and not ev.name.startswith("ProfilerStep")):
                 by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                     + ev.time_range.elapsed_us())
-        if by_name:
+        if by_name and all(any(e in n for n in by_name) for e in expect):
             break
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     return sum(us for _, us in rows), rows
@@ -428,6 +451,15 @@ def phase_lstm_eval_vs_plain() -> dict:
         (4, 4, 600, torch.float32),  # w_hh read from L2
         (5, 8, 1024, torch.float32),  # weights past shared memory: read from L2
         (3, 3, 2048, torch.float32),
+        # the waveform path (phase 12): 4 s of audio is T' = 200 at B=128
+        # (dev pass and stage 4; bf16, and fp32 for the fp32 package), B=16
+        # (Recognizer), and B=1 stream windows of 2^17 and 2^18 samples
+        (200, 128, 384, torch.bfloat16),
+        (200, 128, 384, torch.float32),
+        (200, 16, 384, torch.bfloat16),
+        (200, 16, 384, torch.float32),
+        (410, 1, 384, torch.float32),
+        (818, 1, 384, torch.float32),
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (t, b, h, dt) in enumerate(cases):
@@ -466,6 +498,7 @@ def phase_lstm_train_vs_plain() -> dict:
         (4, 4, 528, torch.float32),  # widest H with w_hh resident (132 SMs)
         (4, 4, 600, torch.float32),  # past the resident limit: w_hh from L2
         (3, 3, 1024, torch.float32),
+        (200, 128, 384, torch.bfloat16),  # the waveform recipe's step, 4 s
     ]
     worst = {"fwd": {"fp32": 0.0, "bf16": 0.0}, "bwd": {"fp32": 0.0, "bf16": 0.0}}
     for i, (t, b, h, dt) in enumerate(cases):
@@ -526,6 +559,7 @@ CTC_CASES = [
     (20, 2, 30000, 600, 7, "S = 1201, rows wider than the ring, blank = 7"),
     (64, 2, 50, 1600, 0, "S = 3201, widest rows: no room for gradient warps"),
     (64, 2, 50, 14527, 0, "S = 29055, widest rows: the old kernels' widest"),
+    (200, 128, 41, 40, 0, "the waveform recipe's batch: 4 s, 40 phones"),
 ]
 
 
@@ -1486,6 +1520,58 @@ def write_corpus(root: Path, split: str = "test", n_utts: int = 64,
     (test / labels).write_text("\n".join(lines) + "\n")
 
 
+def write_sphere(path: Path, samples, rate: int = 16000) -> None:
+    """A NIST SPHERE file of 16-bit linear PCM, the TIMIT encoding: a
+    1024-byte ASCII header, then the samples little-endian."""
+    import numpy as np
+
+    fields = (f"sample_count -i {len(samples)}", f"sample_rate -i {rate}",
+              "channel_count -i 1", "sample_n_bytes -i 2",
+              "sample_byte_format -s2 01", "sample_coding -s3 pcm",
+              "end_head")
+    header = ("NIST_1A\n   1024\n" + "\n".join(fields) + "\n").encode()
+    path.write_bytes(header.ljust(1024, b" ")
+                     + np.asarray(samples, "<i2").tobytes())
+
+
+def write_audio_corpus(root: Path, split: str, n_utts: int, seed: int,
+                       seconds=(1.0, 4.0), units=PHONES) -> int:
+    """One split of a synthetic TIMIT-layout audio corpus: ``n_utts``
+    utterances of ``seconds`` (a range) at 16 kHz, the even ones NIST
+    SPHERE, the odd ones WAV, listed in ``<split>/wav.scp`` with their
+    ``phn_text``, and the ``units`` file.  Each phone is 0.1 s of a tone of
+    its own pitch (150 + 60 k Hz for the k-th unit) with its second
+    harmonic, under noise, the tone and the noise each at a loudness of
+    their own (as in speech, every band's log energy varies by a few
+    units).  Returns the samples written."""
+    import numpy as np
+
+    from ctc_pytorch_tpu_torch.data.prep.sphere import write_wav
+
+    rng = np.random.RandomState(seed)
+    d = root / split
+    d.mkdir(parents=True, exist_ok=True)
+    (root / "units").write_text("".join(p + "\n" for p in units))
+    scp, lines, total = [], [], 0
+    for i in range(n_utts):
+        utt = f"{split}{i % 8}_si{i:03d}"
+        n = int(rng.uniform(*seconds) * 16000)
+        labels = rng.randint(len(units), size=max(1, n // 1600))
+        seg = np.minimum(np.arange(n) // 1600, len(labels) - 1)
+        gain = rng.uniform(0.1, 1.0, (2, len(labels)))[:, seg]
+        phase = 2 * np.pi * np.cumsum(150.0 + 60.0 * labels[seg]) / 16000.0
+        wav = (gain[0] * (4000 * np.sin(phase) + 1500 * np.sin(2 * phase))
+               + gain[1] * 300 * rng.randn(n))
+        path = d / f"{utt}.{'sph' if i % 2 == 0 else 'wav'}"
+        (write_sphere if i % 2 == 0 else write_wav)(path, wav.astype(np.int16))
+        scp.append(f"{utt} {path}")
+        lines.append(utt + " " + " ".join(units[k] for k in labels))
+        total += n
+    (d / "wav.scp").write_text("\n".join(scp) + "\n")
+    (d / "phn_text").write_text("\n".join(lines) + "\n")
+    return total
+
+
 def recipe_config(recipe: Path = RECIPE, data: str = "data",
                   feats: str = "fbank", labels: str = "phn_text",
                   test_split: str = "test"):
@@ -1902,13 +1988,12 @@ def phase_unidir_slice():
     return counts, decode_launches, cfg, spec, model
 
 
-def stage4_run(cfg, package, decode_type: str, fused: bool = True, **keys):
-    """Stage 4 of ``package`` through ``cli.test.evaluate`` on the card with
-    ``decode_type`` (and any other config ``keys``): ``(result with its wall
+def stage4_run(cfg, package, decode_type: str, fused: bool = True,
+               device: str = "cuda", **keys):
+    """Stage 4 of ``package`` through ``cli.test.evaluate`` on ``device``
+    with ``decode_type`` (and any other config ``keys``): ``(result with its wall
     seconds, {utterance: decoded line}, the launches since the call
     began)``."""
-    import torch
-
     from ctc_pytorch_tpu_torch.cli.test import evaluate
 
     run_cfg = dataclasses.replace(cfg, decode_type=decode_type,
@@ -1916,8 +2001,8 @@ def stage4_run(cfg, package, decode_type: str, fused: bool = True, **keys):
     lines = []
     zero_counts()
     t0 = time.perf_counter()
-    res = evaluate(run_cfg, str(package), device="cuda", log=lines.append)
-    torch.cuda.synchronize()
+    res = evaluate(run_cfg, str(package), device=device, log=lines.append)
+    sync()
     res["wall_s"] = time.perf_counter() - t0
     counts = launch_counts()
     decoded = {u: d for u, d in zip(lines[0::3], lines[2::3])
@@ -2279,6 +2364,366 @@ def phase_mfcc39_slice(smi: str) -> dict:
             "model": {**step, "device": smi}}
 
 
+def feature_err(card, cpu, what: str) -> float:
+    """Largest difference of features on the card and on the CPU, held to
+    ``FEAT_TOL`` (the failure names the worst entry)."""
+    import numpy as np
+
+    card, cpu = card.cpu().numpy(), cpu.cpu().numpy()
+    diff = np.abs(card - cpu)
+    worst = np.unravel_index(diff.argmax(), diff.shape) if diff.size else ()
+    check(np.allclose(card, cpu, **FEAT_TOL),
+          f"{what}: the frontend differs between the card and the CPU, by "
+          f"{diff.max():.3g} at {worst} ({card[worst]} vs {cpu[worst]})")
+    return float(diff.max()) if diff.size else 0.0
+
+
+def path_branches() -> dict:
+    """The launches by branch of the waveform path's kernels since
+    ``zero_counts``: ``{op: {branch: launches}}``, branches launched only."""
+    lstm_ops, train_ops, ctc_ops = port_ops()
+    return {op: {k: v for k, v in by.items() if v} for op, by in (
+        ("lstm_bidir", lstm_ops.launches_fwd_branch),
+        ("lstm_bidir_train_fwd", train_ops.launches_fwd_branch),
+        ("lstm_bidir_train_bwd", train_ops.launches_bwd_branch),
+        ("ctc_alpha", ctc_ops.launches_fwd_branch),
+        ("ctc_beta", ctc_ops.launches_bwd_branch)) if any(by.values())}
+
+
+def added(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+
+
+def phase_waveform_slice(smi: str, device: str = "cuda") -> dict:
+    """``recipes/timit/waveform_config.yaml`` as shipped (fbank 80 mel +
+    energy computed in the step, spliced to 243, no CNN, 4 x BiLSTM(384),
+    bf16, batch 128, device cache, one graphed epoch dispatched once) on a
+    synthetic corpus of SPHERE and WAV files (``WAVE_SPLITS``), through the
+    port's entry points: stage 1 (``cli.make_feat`` on the card; 16
+    utterances' fbank, mfcc + deltas and spectrogram held against the CPU),
+    stage 3, stage 2 (``cli.train.train``, one fused epoch), stage 4 of the
+    test split with ``Greedy`` and ``BeamDevice`` (streaming, as the JAX
+    stage 4 for a waveform package), ``Recognizer`` on 16 test files and
+    ``StreamingRecognizer`` over one stream.  The launches of every LSTM and
+    CTC kernel over these runs, with the branch each took.  Then the epoch
+    graphed against streaming (``phase_fused_vs_streaming``) and the train
+    step's device time with the frontend's share.  ``device="cpu"``
+    rehearses the phase on a cut recipe (``RECIPE_WAVE`` pointed elsewhere):
+    the runners run eagerly, and what only the card has (the recipe's
+    width, kernel launches and branches, times) is not checked."""
+    import numpy as np
+    import torch
+
+    from ctc_pytorch_tpu_torch.api import Recognizer, StreamingRecognizer
+    from ctc_pytorch_tpu_torch.cli import make_feat, train_lm
+    from ctc_pytorch_tpu_torch.cli import train as cli_train
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+    from ctc_pytorch_tpu_torch.data.kaldi_io import iter_ark, read_scp
+    from ctc_pytorch_tpu_torch.data.prep.sphere import read_audio
+    from ctc_pytorch_tpu_torch.frontend import (
+        FrontendConfig,
+        features,
+        num_frames,
+    )
+    from ctc_pytorch_tpu_torch.frontend.e2e import (
+        cmvn_from_config,
+        frontend_fn_from_config,
+        spec_from_config,
+    )
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+    from ctc_pytorch_tpu_torch.train.checkpoint import (
+        model_from_package,
+        save_package,
+    )
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    root = WORK / "data_wave"
+    audio = {split: write_audio_corpus(root, split, n, seed)
+             for split, n, seed in WAVE_SPLITS}
+    n_utts = sum(n for _, n, _ in WAVE_SPLITS)
+    print(f"  corpus: {n_utts} utterances of 1-4 s, "
+          f"{sum(audio.values()) / 16000 / 60:.1f} minutes of audio, SPHERE "
+          f"and WAV ({', '.join(f'{s} {n}' for s, n, _ in WAVE_SPLITS)})")
+    cfg = recipe_config(RECIPE_WAVE, "data_wave", "wav")
+    cfg.data_dir, cfg.exp_name = str(root), "smoke_waveform"
+    cfg.lm_path = str(root / "lm_phone_bg.arpa")
+    vocab = Vocab(cfg.vocab_file)
+    spec = ModelSpec.from_config(cfg, num_class=vocab.n_words)
+    on_card = device == "cuda"
+    check(cfg.feature_type == "waveform" and not spec.add_cnn
+          and spec.rnn_cell == "lstm" and spec.bidirectional
+          and cfg.device_cache and cfg.fused_epoch
+          and cfg.fused_dispatch == "epoch" and cfg.host_prefetch
+          and cfg.decode_type == "BeamDevice" and cfg.beam_width == 20
+          and cfg.lm_alpha == 0.1, "not the waveform recipe's stages 2 and 4")
+    check(not on_card or (
+        spec.rnn_hidden_size == 384 and spec.rnn_layers == 4
+        and spec.rnn_input_size == 243 and spec.num_class == 41
+        and spec.compute_dtype == "bfloat16" and spec.drop_out == 0.2
+        and cfg.batch_size == 128),
+          f"recipe is not the waveform 4 x BiLSTM(384) at B=128: {spec}")
+
+    # stage 1 on the card, then the same function on the CPU
+    t0 = time.perf_counter()
+    make_feat.main(["fbank", str(root), "--device", device])
+    stage1_s = time.perf_counter() - t0
+    cmvn = cmvn_from_config(cfg)
+    check(cmvn is not None and cmvn[0].shape == (81,)
+          and all(len(dict(iter_ark(root / s / "fbank.ark"))) == n
+                  for s, n, _ in WAVE_SPLITS), "stage 1 wrote no features")
+    print(f"  stage 1 (fbank 80 mel + energy, CMVN on train) on {device}: "
+          f"{stage1_s:.3f} s for {n_utts} utterances "
+          f"({n_utts / stage1_s:.1f} utts/s, "
+          f"{sum(audio.values()) / 16000 / stage1_s:.1f} s of audio a "
+          f"second), {smi}")
+    fcfg = FrontendConfig()
+    test_files = [path for _, path in read_scp(cfg.test_scp_path)]
+    stage1_err = {}
+    for feat_type, deltas in (("fbank", False), ("mfcc", True),
+                              ("spectrogram", False)):
+        worst = 0.0
+        for path in test_files[:N_DECODE_UTTS]:
+            padded, t = make_feat.padded_audio(read_audio(path), feat_type,
+                                               fcfg)
+            card, cpu = (make_feat.extract_features(
+                padded, feat_type, fcfg, deltas, dev)[:t] for dev in
+                (device, "cpu"))
+            worst = max(worst, feature_err(card, cpu, feat_type))
+        stage1_err[feat_type + ("+deltas" if deltas else "")] = worst
+    print(f"  stage 1, card vs CPU on {N_DECODE_UTTS} utterances, largest "
+          f"difference (tol atol {FEAT_TOL['atol']}, rtol "
+          f"{FEAT_TOL['rtol']}): {stage1_err}")
+
+    arpa = train_lm.main([str(root)])
+    check(arpa == Path(cfg.lm_path) and arpa.stat().st_size > 0,
+          f"stage 3 wrote {arpa}, not {cfg.lm_path}")
+
+    # stage 2: one epoch of the recipe through the port's entry point
+    lines = []
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer, best = cli_train.train(cfg, device=device, num_epoches=1,
+                                    log=lines.append)
+    sync()
+    fit_s = time.perf_counter() - t0
+    counts, branches = launch_counts(), {"fit": path_branches()}
+    graphs = trainer.graphs()
+    steps = trainer.state.step
+    dev_batches = -(-WAVE_SPLITS[1][1] // cfg.batch_size)
+    pool = graphs.pool_bytes() if on_card else 0
+    for ln in lines:
+        print("  " + ln)
+    print(f"  stage 2 (cli.train.train, 1 epoch): {steps} steps of B="
+          f"{cfg.batch_size} and {dev_batches} dev batch, {fit_s:.3f} s with "
+          f"the loaders and captures; {graphs.replays()} replays of "
+          f"{len(graphs)} graphs captured in {graphs.capture_seconds:.3f} s, "
+          f"pool {pool} bytes; launches by branch "
+          f"{branches['fit']}")
+    check(any(ln.startswith("fused_epoch: the epochs run over the device "
+                            "cache") for ln in lines),
+          "the waveform fit did not take the fused path")
+    n = spec.rnn_layers
+    check(steps == -(-WAVE_SPLITS[0][1] // cfg.batch_size),
+          f"{steps} steps for {WAVE_SPLITS[0][1]} utterances")
+    if on_card:
+        check(graphs.replays() == steps + dev_batches,
+              f"{graphs.replays()} replays for {steps} steps")
+        check_counts(counts, {"lstm_bidir_train_fwd": n * steps,
+                              "lstm_bidir_train_bwd": n * steps,
+                              "ctc_alpha": steps + dev_batches,
+                              "ctc_beta": steps,
+                              "lstm_bidir": n * dev_batches}, "waveform fit")
+        took = branches["fit"]
+        check(took["lstm_bidir_train_fwd"] == {"cluster32": n * steps},
+              f"the training forward at B=128 did not take cluster32: {took}")
+        check("grid" not in took["lstm_bidir_train_bwd"],
+              f"the backward at B=128 took the grid: {took}")
+    check(all(math.isfinite(v) for v in trainer.histories["loss_results"]
+              + trainer.histories["dev_loss_results"])
+          and all(torch.isfinite(v).all().item()
+                  for v in trainer.state.model.state_dict().values()),
+          "non-finite loss or parameter after the waveform epoch")
+
+    # stage 4, streaming (no fused waveform decode), capacity T'
+    test_loader = SpeechDataLoader(
+        SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg),
+        cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets)
+    batches = list(test_loader)
+    t_prime = -(-num_frames(max(b.feats.shape[1] for b in batches),
+                            fcfg.frame_length, fcfg.frame_shift)
+                // cfg.n_skip_frame)
+    t_prime += -t_prime % cfg.n_downsample
+    stage4 = {}
+    decoded = {}
+    for decode_type in ("Greedy", "BeamDevice"):
+        res, decoded[decode_type], c = stage4_run(
+            cfg, best, decode_type, fused=True, device=device,
+            beam_max_len=t_prime)
+        branches[decode_type] = path_branches()
+        counts = added(counts, c)
+        check("fused" not in res and len(decoded[decode_type]) == len(
+            test_files) and math.isfinite(res["wer"]),
+              f"stage 4 {decode_type} did not stream every test utterance")
+        if on_card:
+            check_counts(c, {"lstm_bidir": n * res["batches"]},
+                         f"stage 4 {decode_type}")
+        stage4[decode_type] = {"wall_s": res["wall_s"], "wer": res["wer"],
+                               "utts_per_s": len(test_files) / res["wall_s"]}
+        print(f"  stage 4 {decode_type} (streaming, T' capacity {t_prime}): "
+              f"{res['wall_s']:.3f} s for {len(test_files)} utterances "
+              f"({stage4[decode_type]['utts_per_s']:.1f} utts/s), PER "
+              f"{res['wer']:.4f}; eval forward branches "
+              f"{branches[decode_type].get('lstm_bidir')}")
+
+    # serving: Recognizer against stage 4's greedy strings
+    def strings(lines_by_utt, utts):
+        return [lines_by_utt[u][len("decoded:"):].strip() for u in utts]
+
+    # the served files are the first stage-4 batch's, padded as it is
+    utts = batches[0].utts[:N_DECODE_UTTS]
+    t_pad = batches[0].feats.shape[1]
+    check(utts == [u for u, _ in read_scp(cfg.test_scp_path)][:len(utts)],
+          "the first stage-4 batch is not the first test files")
+    spec_b, model_b, _ = model_from_package(best, device)
+    pkg32 = WORK / "checkpoint" / "waveform_fp32.npz"
+    save_package(pkg32, dataclasses.replace(spec_b, compute_dtype="float32"),
+                 model_b, config=cfg)
+    _, decoded32, c = stage4_run(cfg, pkg32, "Greedy", fused=True,
+                                 device=device)
+    counts = added(counts, c)
+    branches["Greedy_fp32"] = path_branches()
+    serving = {}
+    for tag, pkg, want in (("fp32", pkg32, decoded32),
+                           ("bf16", best, decoded["Greedy"])):
+        zero_counts()
+        rec = Recognizer(pkg, vocab, frontend=spec_from_config(cfg),
+                         cmvn=cmvn, device=device)
+        t0 = time.perf_counter()
+        got = rec.recognize(test_files[:len(utts)], pad_multiple=t_pad)
+        wall = time.perf_counter() - t0
+        counts = added(counts, launch_counts())
+        branches[f"recognizer_{tag}"] = path_branches()
+        same = sum(a == b for a, b in zip(got, strings(want, utts)))
+        serving[f"recognizer_{tag}"] = {"wall_s": wall, "equal": same}
+        print(f"  Recognizer ({tag} package, greedy, B={len(got)}, padded "
+              f"as stage 4): {wall:.3f} s; {same}/{len(got)} strings equal to "
+              f"stage 4's greedy strings")
+    # the fp32 package holds the strings: B=16 and stage 4's B=128 run the
+    # eval forward on other branches, whose bf16 roundings differ
+    check(serving["recognizer_fp32"]["equal"] == len(utts),
+          "Recognizer and stage 4 decode the fp32 package differently")
+
+    stream = np.concatenate([read_audio(p) for p in test_files])[
+        :int(STREAM_SECONDS * 16000)]
+    check(len(stream) == int(STREAM_SECONDS * 16000), "stream too short")
+    zero_counts()
+    sr = StreamingRecognizer(rec, hop_seconds=HOP_SECONDS)
+    hop = int(HOP_SECONDS * 16000)
+    lat, trace = [], []
+    for start in range(0, len(stream), hop):
+        t0 = time.perf_counter()
+        sr.feed(stream[start:start + hop])
+        lat.append(1e3 * (time.perf_counter() - t0))
+        trace.append(list(sr._committed))
+    t0 = time.perf_counter()
+    final = sr.finish()
+    finish_ms = 1e3 * (time.perf_counter() - t0)
+    counts = added(counts, launch_counts())
+    branches["streaming"] = path_branches()
+    check(all(b[:len(a)] == a for a, b in zip(trace, trace[1:]))
+          and final.split()[:len(trace[-1])] == trace[-1],
+          "the streaming commits retracted a token")
+    serving["streaming"] = {
+        "feeds": len(lat), "feed_ms_median": statistics.median(lat),
+        "feed_ms_max": max(lat), "finish_ms": finish_ms,
+        "committed": len(trace[-1]), "final_tokens": len(final.split())}
+    print(f"  StreamingRecognizer, {STREAM_SECONDS:.0f} s fed in "
+          f"{HOP_SECONDS} s hops (bf16 package, window 10 s): {len(lat)} "
+          f"feeds, latency median {serving['streaming']['feed_ms_median']:.2f}"
+          f" ms, max {max(lat):.2f} ms, finish {finish_ms:.2f} ms; "
+          f"{len(trace[-1])} tokens committed before finish, "
+          f"{len(final.split())} after; the committed prefix only grew")
+    took = merged_branches(branches)
+    print(f"  waveform path launches {counts}; by branch {took}")
+    check(not on_card or all(sum(took.get(op, {}).values()) == counts[op]
+                             for op in ("lstm_bidir", "lstm_bidir_train_fwd",
+                                        "lstm_bidir_train_bwd", "ctc_alpha",
+                                        "ctc_beta")),
+          "a launch of the waveform path has no branch recorded")
+
+    # the epoch graphed against streaming, as phase 10
+    frontend_fn = frontend_fn_from_config(cfg)
+    versus = phase_fused_vs_streaming(cfg, spec, "waveform 4 x BiLSTM(384)",
+                                      smi, device, frontend_fn)
+    out = {"counts": counts, "branches": took, "device": smi,
+           "corpus_utts": n_utts, "stage1_s": stage1_s,
+           "stage1_utts_per_s": n_utts / stage1_s,
+           "stage1_card_vs_cpu_err": stage1_err, "fit_s": fit_s,
+           "steps": steps, "capture_s": graphs.capture_seconds,
+           "pool_bytes": pool, "stage4": stage4, "serving": serving,
+           "fused_vs_streaming": versus}
+    if not on_card:
+        return out
+
+    # the train step's device time and the frontend's share of it, on the
+    # longest bucket's batch
+    host = SpeechDataLoader(
+        SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg),
+        cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets)
+    batch = max(host, key=lambda b: b.feats.shape[1])
+    feats, _, labels, lab_len, mask = batch_tensors(batch)
+    frac = torch.as_tensor(batch.input_lengths).cuda().float()
+    state = create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                               cfg.grad_clip, seed=cfg.seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        train_step(state, spec, feats, frac, labels, lab_len, mask, gen,
+                   frontend_fn)
+
+    step_ms = cuda_ms(step, reps=10)
+    # a profile that drops the frontend's or the loss's kernels would
+    # understate the step and overstate the frontend's share: it fails
+    want = ("fft", "fwd_mma_kernel", "bwd_cluster_kernel", "ctc_fwd_kernel",
+            "ctc_bwd_kernel")
+    step_us, rows = device_breakdown(step, expect=want)
+    check(all(any(e in name for name, _ in rows) for e in want),
+          f"the step's profile lacks one of {want}: {[n for n, _ in rows]}")
+    # the frontend with its two sums in float64, as shipped, and in float32,
+    # the JAX package's precision
+    fe = {}
+    for name, dt in (("fp64", torch.float64), ("fp32", torch.float32)):
+        features.SUM_DTYPE = dt
+        try:
+            fe_us, fe_rows = device_breakdown(lambda: frontend_fn(feats, frac),
+                                              expect=("fft",))
+        finally:
+            features.SUM_DTYPE = torch.float64
+        check(any("fft" in n for n, _ in fe_rows),
+              f"the {name} frontend's profile has no FFT kernel")
+        fe[name] = (fe_us, fe_rows)
+    fe_us, fe_rows = fe["fp64"]
+    fft_us = sum(us for name, us in rows if "fft" in name.lower())
+    share = fe_us / step_us if step_us else float("nan")
+    print(f"  waveform train step, B={cfg.batch_size}, S={feats.shape[1]} "
+          f"samples (T'={t_prime}), bf16, dropout {spec.drop_out}: "
+          f"{step_ms:.4f} ms, {step_us / 1e3:.4f} ms of kernels; the frontend "
+          f"alone {fe_us / 1e3:.4f} ms of kernels ({100 * share:.2f}% of the "
+          f"step's), FFT kernels by name {fft_us / 1e3:.4f} ms in the step; "
+          f"the frontend with its DC mean and FFT in float32 "
+          f"{fe['fp32'][0] / 1e3:.4f} ms of kernels ({smi})")
+    print_breakdown("waveform train step", step_ms, step_us, rows, top=12)
+    print_breakdown("frontend, float64 sums", step_ms, fe_us, fe_rows, top=6)
+    print_breakdown("frontend, float32 sums", step_ms, fe["fp32"][0],
+                    fe["fp32"][1], top=6)
+    return {**out, "step_ms": step_ms, "step_device_ms": step_us / 1e3,
+            "frontend_device_ms": fe_us / 1e3, "frontend_share": share,
+            "frontend_fp32_sums_device_ms": fe["fp32"][0] / 1e3,
+            "fft_device_ms_in_step": fft_us / 1e3}
+
+
 def busy_us(prof) -> float:
     """Microseconds in which the card ran anything (kernels, copies, sets)
     in a ``torch.profiler`` trace: the union of its device intervals."""
@@ -2346,7 +2791,7 @@ def deterministic():
 
 
 def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
-                             device: str = "cuda") -> dict:
+                             device: str = "cuda", frontend_fn=None) -> dict:
     """One training epoch with its dev pass of ``cfg``'s model at full width
     and ``drop_out: 0``, from one seeded state, through the eager streaming
     ``run_epoch`` over a ``GroupedLoader`` and through the graphed
@@ -2364,7 +2809,9 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
     for the card's busy share, and a train pass through a
     ``PrefetchLoader`` against the plain host loader, in the turns plain,
     prefetch, prefetch, plain.  ``device="cpu"`` rehearses the phase at a
-    small size (the runners then run eagerly)."""
+    small size (the runners then run eagerly).  With ``frontend_fn`` (a
+    waveform recipe) every step starts with the frontend, in the graphs too,
+    and stage 4 has no fused path to compare (as in the JAX package)."""
     import numpy as np
 
     from ctc_pytorch_tpu_torch.cli.test import evaluate
@@ -2400,11 +2847,12 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
         host_tr.set_epoch(epoch)
         run_epoch(epoch, stream_state, spec,
                   loader or GroupedLoader(host_tr).grouped("epoch"),
-                  training=True, print_every=1 << 30, log=quiet, record=rec_tr)
+                  training=True, print_every=1 << 30, log=quiet, record=rec_tr,
+                  frontend_fn=frontend_fn)
         if loader is None:
             run_epoch(epoch, stream_state, spec,
                       GroupedLoader(host_dv).grouped("epoch"), training=False,
-                      log=quiet, record=rec_dv)
+                      log=quiet, record=rec_dv, frontend_fn=frontend_fn)
 
     def fused(epoch_fns, epoch, rec_tr=None, rec_dv=None):
         cache_tr.set_epoch(epoch)
@@ -2414,7 +2862,7 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
                          training=False, log=quiet, record=rec_dv)
 
     recs = {k: {} for k in ("s_tr", "s_dv", "f_tr", "f_dv")}
-    checked_fns = make_epoch_fns(make_fused_fns(spec))
+    checked_fns = make_epoch_fns(make_fused_fns(spec, None, frontend_fn))
     with deterministic():
         streaming(1, recs["s_tr"], recs["s_dv"])
         fused(checked_fns, 1, recs["f_tr"], recs["f_dv"])
@@ -2456,30 +2904,36 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
           f"{what}: graphed and eager parameters differ")
 
     # the fused and the streaming stage 4 of the graphed run's model
-    pkg = WORK / "checkpoint" / f"phase10_{spec.rnn_cell}.npz"
-    save_package(pkg, spec, fused_state.model, config=cfg)
-    decoded = {}
-    for fused_decode in (True, False):
-        lines = []
-        res = evaluate(dataclasses.replace(cfg, fused_decode=fused_decode),
-                       str(pkg), device=device, log=lines.append)
-        check(bool(res.get("fused")) == fused_decode, "wrong stage-4 path")
-        decoded[fused_decode] = dict(zip(lines[0:-3:3], lines[2:-3:3]))
-    same = sum(decoded[True].get(u) == d for u, d in decoded[False].items())
-    print(f"  {what} stage 4, fused vs streaming: {same}/{len(decoded[False])} "
-          "strings equal")
-    check(decoded[True] == decoded[False] and same > 0,
-          f"{what}: the fused and the streaming decode differ")
+    if frontend_fn is None:
+        pkg = WORK / "checkpoint" / f"phase10_{spec.rnn_cell}.npz"
+        save_package(pkg, spec, fused_state.model, config=cfg)
+        decoded = {}
+        for fused_decode in (True, False):
+            lines = []
+            res = evaluate(dataclasses.replace(cfg, fused_decode=fused_decode),
+                           str(pkg), device=device, log=lines.append)
+            check(bool(res.get("fused")) == fused_decode, "wrong stage-4 path")
+            decoded[fused_decode] = dict(zip(lines[0:-3:3], lines[2:-3:3]))
+        same = sum(decoded[True].get(u) == d
+                   for u, d in decoded[False].items())
+        print(f"  {what} stage 4, fused vs streaming: "
+              f"{same}/{len(decoded[False])} strings equal")
+        check(decoded[True] == decoded[False] and same > 0,
+              f"{what}: the fused and the streaming decode differ")
 
     # the times, in the default modes, on graphs captured in them
-    epoch_fns = make_epoch_fns(make_fused_fns(spec))
+    epoch_fns = make_epoch_fns(make_fused_fns(spec, None, frontend_fn))
     graphs = epoch_fns[0].graphs
     first = {"streaming": timed(lambda: streaming(2)),
              "fused": timed(lambda: fused(epoch_fns, 2))}
+    graphs_first = len(graphs)
     wall = {"streaming": timed(lambda: streaming(3)),
             "fused": timed(lambda: fused(epoch_fns, 3))}
-    busy = {"streaming": busy_share(lambda: streaming(3), wall["streaming"]),
-            "fused": busy_share(lambda: fused(epoch_fns, 3), wall["fused"])}
+    graphs_next = len(graphs)
+    # a device metric: not measured on the CPU
+    busy = ({"streaming": busy_share(lambda: streaming(3), wall["streaming"]),
+             "fused": busy_share(lambda: fused(epoch_fns, 3), wall["fused"])}
+            if device == "cuda" else {"streaming": None, "fused": None})
     # the host loaders' train pass, plain and prefetched, in turns
     pre = PrefetchLoader(host_tr, device)
     turns = [("plain", host_tr), ("prefetch", pre), ("prefetch", pre),
@@ -2493,6 +2947,8 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
         "first_epoch_wall_s": first, "epoch_wall_s": wall,
         "utts_per_s": {k: n_utts / v for k, v in wall.items()},
         "busy_share": busy, "graphs": len(graphs),
+        "graphs_after_first_epoch": graphs_first,
+        "graphs_after_next_epoch": graphs_next,
         "capture_s": graphs.capture_seconds,
         "pool_bytes": graphs.pool_bytes() if device == "cuda" else 0,
         "train_pass_s": pass_s, "card": smi,
@@ -2502,9 +2958,11 @@ def phase_fused_vs_streaming(cfg, spec, what: str, smi: str,
     for k in ("streaming", "fused"):
         print(f"    {k}: first epoch {first[k]:.4f} s, next {wall[k]:.4f} s "
               f"({out['utts_per_s'][k]:.1f} utts/s), card busy "
-              f"{100 * busy[k]:.1f}% of it (torch.profiler)")
+              + (f"{100 * busy[k]:.1f}% of it (torch.profiler)"
+                 if busy[k] is not None else "not measured"))
     print(f"    graphs: {len(graphs)} captured in {graphs.capture_seconds:.3f}"
-          f" s (in the fused first epoch), pool {out['pool_bytes']} bytes")
+          f" s ({graphs_first} in the first epoch, {graphs_next - graphs_first}"
+          f" more in the next), pool {out['pool_bytes']} bytes")
     print(f"    train pass, streaming from the host: plain "
           f"{pass_s['plain']} s, prefetched {pass_s['prefetch']} s")
     return out
@@ -2987,7 +3445,8 @@ def times_ctc(t, b, c, l, tag) -> dict:
     before = (ctc_ops.launches_alpha, ctc_ops.launches_beta)
     whole(ours)
     launched = (ctc_ops.launches_alpha - before[0], ctc_ops.launches_beta - before[1])
-    ours_dev, ours_rows = device_breakdown(lambda: whole(ours))
+    ours_dev, ours_rows = device_breakdown(
+        lambda: whole(ours), expect=("ctc_fwd_kernel", "ctc_bwd_kernel"))
     lib_dev, _ = device_breakdown(lambda: whole(lib_loss))
     alone_dev, _ = device_breakdown(loss_alone)
     for k, v in out.items():
@@ -3101,7 +3560,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/11] device: {smi} | torch {torch.__version__} "
+    print(f"[1/12] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -3109,7 +3568,7 @@ def main() -> int:
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/11] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/12] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -3119,7 +3578,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/11] kernel vs plain on the card")
+    print("[3/12] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -3131,28 +3590,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/11] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/12] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/11] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/12] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/11] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/12] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/11] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/12] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/11] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/12] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/11] times ({smi})")
+    print(f"[9/12] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -3200,15 +3659,21 @@ def main() -> int:
                 "unidirectional CNN+LSTM(384)", "bench shape")
     ctc_share = ctc_step_share(model_recipe, recipe)
 
-    print(f"[10/11] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/12] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/11] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/12] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
+
+    print(f"[12/12] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+          f"on the card, stage 3, one fused epoch with the frontend in the "
+          f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
+          f"StreamingRecognizer ({smi})")
+    wave = phase_waveform_slice(smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -3219,10 +3684,12 @@ def main() -> int:
                "tanh": path(counts_tanh, "rnn_bidir", decode_launches_tanh),
                "unidir": path(counts_uni, "lstm_bidir", decode_launches_uni),
                "mfcc39": path(mfcc["counts"], "lstm_bidir",
-                              mfcc["decode_launches"])}
+                              mfcc["decode_launches"]),
+               "waveform": path(wave["counts"], "lstm_bidir", 0)}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
-    lstm_paths, ctc_paths = ("timit", "unidir", "mfcc39"), tuple(by_path)
+    lstm_paths = ("timit", "unidir", "mfcc39", "waveform")
+    ctc_paths = tuple(by_path)
     # (name, source, TPU kernel, paths that must launch it, worst error fp32,
     # bf16, one direction)
     fwd = csrc + "fwd_cluster.cuh"  # the main paths' forward branches
@@ -3316,6 +3783,8 @@ def main() -> int:
             entry["max_err_one_direction"] = err_ndir1
         if name in branches_tanh:  # the tanh path's launches by branch
             entry["launches_by_branch"] = branches_tanh[name]
+        if name in wave["branches"]:  # the waveform path's, at B=128
+            entry["launches_by_branch_waveform"] = wave["branches"][name]
         # the branches phase 3 captured and replayed against the eager call
         entry["graph_replayed_branches"] = graph_branches[name]
         if name.startswith("ctc"):
@@ -3355,7 +3824,9 @@ def main() -> int:
                       "fused_vs_streaming": fused_vs_streaming,
                       "beam_decode": {"mfcc39": mfcc["beam"],
                                       "863": beam_863},
-                      "mfcc39_model": mfcc["model"]}))
+                      "mfcc39_model": mfcc["model"],
+                      "waveform": {k: v for k, v in wave.items()
+                                   if k not in ("counts", "branches")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -20,6 +20,10 @@ on the device and decoded one captured CUDA graph replay a batch
 one jitted scan a group; otherwise batch by batch from the host (the
 streaming loop; ``Beam`` always streams, as in the JAX package).  Both give
 the same strings; the fused path prints the utterances group by group.
+A ``feature_type: waveform`` package decodes from raw samples through the
+frontend it was trained with (``frontend/e2e.py:frontend_fn_from_config``),
+the sample counts in the ``frac`` slot, and always streams, as the JAX
+stage 4 does (``cli/test.py:86-95``): there is no fused waveform decode.
 Beam strings join their units with no leading space, greedy ones with one
 before each unit (the reference's quirk).
 
@@ -51,6 +55,7 @@ from ctc_pytorch_tpu_torch.data import (
 from ctc_pytorch_tpu_torch.decode import BeamDecoder, GreedyDecoder
 from ctc_pytorch_tpu_torch.decode.beam import warn_capacity
 from ctc_pytorch_tpu_torch.decode.fused import make_fused_decode_fn
+from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
 from ctc_pytorch_tpu_torch.models import CTCModel
 from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
 from ctc_pytorch_tpu_torch.vocab import Vocab
@@ -86,9 +91,10 @@ def evaluate(
             vocab.index2word, beam_width=cfg.beam_width,
             lm_path=cfg.lm_path, lm_alpha=cfg.lm_alpha,
         )
+    frontend_fn = frontend_fn_from_config(cfg)
     # the fused stage 4 where the JAX package takes it (cli/test.py:86-105)
     if (cfg.fused_decode and cfg.decode_type in ("Greedy", "BeamDevice")
-            and max_batches is None
+            and frontend_fn is None and max_batches is None
             and loader.batcher._assignment is not None
             and estimate_bytes(loader) <= cfg.device_cache_max_gb * (1 << 30)):
         return _evaluate_fused(cfg, spec, model, decoder, loader, dev,
@@ -101,7 +107,11 @@ def evaluate(
     with torch.inference_mode():
         for batch in loader:
             feats = torch.from_numpy(batch.feats).to(dev)
-            frac = torch.from_numpy(batch.input_frac).to(dev)
+            if frontend_fn is None:
+                frac = torch.from_numpy(batch.input_frac).to(dev)
+            else:  # waveform in: the frac slot carries the sample counts
+                feats, frac, _ = frontend_fn(feats, torch.from_numpy(
+                    batch.input_lengths).to(dev).to(torch.float32))
             log_probs = model(feats, frac=frac)
             input_sizes = CTCModel.input_sizes(
                 spec, frac, feats.shape[1], log_probs.shape[0])

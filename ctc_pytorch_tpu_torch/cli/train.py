@@ -14,9 +14,12 @@ on the device (``device_cache`` on and the cache within
 ``device_cache_max_gb``), the loaders are ``DeviceCachedLoader``s, and with
 ``fused_epoch`` the trainer runs its passes from captured CUDA graphs over
 them; where it streams from the host with ``host_prefetch``, they are
-``PrefetchLoader``s.  ``--data-parallel`` is not ported.  With ``log_dir``
-set, the log also goes to ``<log_dir>/<exp_name>.log``, as in the JAX
-stage 2.
+``PrefetchLoader``s.  ``feature_type: waveform`` configs train from raw
+samples with the frontend inside the step (``frontend/e2e.py``, the CMVN
+stats of ``<data_dir>/global_fbank_cmvn.npz`` where stage 1 wrote them),
+in the graphs of a fused epoch too.  ``--data-parallel`` is not ported.
+With ``log_dir`` set, the log also goes to ``<log_dir>/<exp_name>.log``, as
+in the JAX stage 2.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ctc_pytorch_tpu_torch.data import (
     SpeechDataset,
     estimate_bytes,
 )
+from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
 from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
 from ctc_pytorch_tpu_torch.train.loop import Trainer
 from ctc_pytorch_tpu_torch.utils import init_file_logger
@@ -94,7 +98,8 @@ def train(cfg, *, device: str | torch.device = "cuda", resume=None,
     # otherwise the vocab decides
     n_class = cfg.num_class + 1 if cfg.num_class > 0 else vocab.n_words
     spec = ModelSpec.from_config(cfg, num_class=n_class)
-    trainer = Trainer(cfg, spec, device=dev)
+    trainer = Trainer(cfg, spec, device=dev,
+                      frontend_fn=frontend_fn_from_config(cfg))
     if resume:
         trainer.resume(resume)
     best = trainer.fit(train_loader, dev_loader, num_epoches=num_epoches,

@@ -342,7 +342,8 @@ class SpeechDataLoader:
 
 def estimate_bytes(loader: SpeechDataLoader) -> int:
     """Bytes a device cache of ``loader``'s dataset would take: fp32 feature
-    planes padded to their bucket, labels and lengths (the JAX
+    planes (raw-sample planes for ``feature_type: waveform``, one value a
+    sample) padded to their bucket, labels and lengths (the JAX
     ``DeviceCachedLoader.estimate_bytes``, which stage 2 checks against
     ``device_cache_max_gb`` before it takes the fused path), computed from
     the host-side bucket shapes without uploading anything.  ``num_buckets
@@ -427,17 +428,21 @@ class GroupedLoader:
         return self.loader.iter_plan(self.epoch_plan(self.epoch, dispatch))
 
 
-def gather_rows(arrs: dict, pos, t_pad: int):
+def gather_rows(arrs: dict, pos, t_pad: int, waveform: bool = False):
     """``(feats, frac, in_len, labels, label_lens)`` of the rows ``pos`` (a
     device index tensor) of a cached bucket plane ``arrs``, the features
     sliced to ``t_pad`` frames and ``frac = in_len / t_pad`` in fp32 (the
-    collate's ``input_frac``, ``train_ctc.py:46``).  Static shapes and no
+    collate's ``input_frac``, ``train_ctc.py:46``).  With ``waveform`` the
+    planes hold raw samples and ``frac`` carries the sample counts, which
+    the step's frontend turns into frame fractions (the JAX
+    ``_gather_batch``, ``train/loop.py:218-228``).  Static shapes and no
     host read: the fused runners gather inside their CUDA graphs."""
     import torch
 
     in_len = arrs["in_len"].index_select(0, pos)
+    frac = in_len.to(torch.float32)
     return (arrs["feats"][:, :t_pad].index_select(0, pos),
-            in_len.to(torch.float32) / t_pad, in_len,
+            frac if waveform else frac / t_pad, in_len,
             arrs["labels"].index_select(0, pos),
             arrs["lab_len"].index_select(0, pos))
 

@@ -1,14 +1,19 @@
-"""Speech dataset: scp/ark features + transcript labels, host-side numpy.
+"""Speech dataset: scp/ark features or audio files, and transcript labels,
+host-side numpy.
 
 Copy of ``ctc_pytorch_tpu/data/dataset.py`` (itself mirroring the
 reference ``SpeechDataset``, ``timit/utils/data_loader.py:50-117``): per
 item ``load_mat`` -> context splice -> frame skip -> zero-pad rows to a
-multiple of ``n_downsample``; labels come from ``utt unit unit ...``
-transcript lines with OOV -> UNK.
+multiple of ``n_downsample``, then F_Mel warping with ``mel: True``
+(``data_loader.py:111-112``); labels come from ``utt unit unit ...``
+transcript lines with OOV -> UNK.  With ``feature_type: waveform`` the scp
+entries are SPHERE or WAV files and an item is its raw samples, ``(S, 1)``
+float32: the frontend, splice and skip run in the step
+(``frontend/e2e.py``), and ``lengths()`` are sample counts, read from the
+audio headers.
 
-Not here yet: the native one-pass ark reader (it returns the same arrays
-as the numpy path below), ``mel`` warping and the waveform mode.  The last
-two raise ``NotImplementedError``.
+Not here yet: the native one-pass ark reader of the JAX package (it returns
+the same arrays as the numpy path below).
 """
 
 from __future__ import annotations
@@ -17,22 +22,14 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ctc_pytorch_tpu_torch.config import Config
 from ctc_pytorch_tpu_torch.data import kaldi_io
+from ctc_pytorch_tpu_torch.data.prep.sphere import audio_num_samples, read_audio
+from ctc_pytorch_tpu_torch.frontend.fmel import f_mel
+from ctc_pytorch_tpu_torch.frontend.splice import downsampled_len, skipped_len
 from ctc_pytorch_tpu_torch.vocab import Vocab
-
-
-def skipped_len(t: int, skip: int) -> int:
-    if skip in (0, 1):
-        return t
-    return -(-t // skip)  # ceil
-
-
-def downsampled_len(t: int, n_downsample: int) -> int:
-    if n_downsample <= 1:
-        return t
-    return t + (-t) % n_downsample
 
 
 def _splice_numpy(feat: np.ndarray, left: int, right: int) -> np.ndarray:
@@ -71,17 +68,13 @@ class SpeechDataset:
         opts: Config,
         cache: bool = True,
     ):
-        if opts.feature_type == "waveform" or opts.mel:
-            raise NotImplementedError(
-                "the waveform frontend and F_Mel warping are not ported yet; "
-                "use offline features (feature_type fbank/mfcc, mel: False)"
-            )
         self.vocab = vocab
         self.opts = opts
         self.left_ctx = opts.left_ctx
         self.right_ctx = opts.right_ctx
         self.n_skip_frame = opts.n_skip_frame
         self.n_downsample = opts.n_downsample
+        self.feature_type = opts.feature_type
 
         self.scp = kaldi_io.read_scp(scp_path)
         label_dict = read_labels(lab_path, vocab)
@@ -98,7 +91,10 @@ class SpeechDataset:
         return len(self.items)
 
     def raw_feature(self, idx: int) -> np.ndarray:
-        return kaldi_io.load_mat(self.items[idx][1])
+        rx = self.items[idx][1]
+        if self.feature_type == "waveform":
+            return read_audio(rx)
+        return kaldi_io.load_mat(rx)
 
     def process_feature(self, feat: np.ndarray) -> np.ndarray:
         """splice -> skip -> pad-to-downsample (data_loader.py:104-110)."""
@@ -131,19 +127,33 @@ class SpeechDataset:
         if self._cache is not None and self._cache[idx] is not None:
             return self._cache[idx]
         utt, _, label = self.items[idx]
-        feat = self.process_feature(self.raw_feature(idx))
+        if self.feature_type == "waveform":
+            # raw samples as (S, 1), so that batching pads them like
+            # features; splice and skip run in the step's frontend
+            feat = self.raw_feature(idx).reshape(-1, 1).astype(np.float32)
+        else:
+            feat = self.process_feature(self.raw_feature(idx))
+            if self.opts.mel:
+                # F_Mel warping of the processed log spectrum
+                # (data_loader.py:111-112)
+                feat = f_mel(torch.from_numpy(feat)).numpy()
         out = (feat, np.asarray(label, np.int32), utt)
         if self._cache is not None:
             self._cache[idx] = out
         return out
 
     def _raw_rows(self, idx: int) -> int:
-        """Raw row count of one item from the ark matrix HEADER when the
-        format allows (BFM/BDM/CM) — a length scan then costs a few bytes
-        per item instead of decoding the corpus twice."""
-        rows = kaldi_io.mat_rows(self.items[idx][1])
-        if rows is not None:
-            return rows
+        """Raw row or sample count of one item from the file HEADER when the
+        format allows (BFM/BDM/CM ark matrices, SPHERE/WAV): a length scan
+        then costs a few bytes per item instead of decoding the corpus
+        twice."""
+        rx = self.items[idx][1]
+        if self.feature_type == "waveform":
+            n = audio_num_samples(rx)
+        else:
+            n = kaldi_io.mat_rows(rx)
+        if n is not None:
+            return n
         return self.raw_feature(idx).shape[0]
 
     def lengths(self) -> np.ndarray:
@@ -154,8 +164,13 @@ class SpeechDataset:
                 if self._cache is not None and self._cache[i] is not None:
                     lens.append(self._cache[i][0].shape[0])
                 else:
-                    t = skipped_len(self._raw_rows(i), self.n_skip_frame)
-                    lens.append(downsampled_len(t, self.n_downsample))
+                    t = self._raw_rows(i)
+                    if self.feature_type != "waveform":
+                        # sample counts stay raw: the frame transforms run
+                        # in the step's frontend
+                        t = skipped_len(t, self.n_skip_frame)
+                        t = downsampled_len(t, self.n_downsample)
+                    lens.append(t)
             self._lengths = np.asarray(lens)
         return self._lengths
 

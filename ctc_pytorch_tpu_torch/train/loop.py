@@ -28,10 +28,15 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py``:
   powers of two (the JAX ``_pad_group``).  ``fused_pregather`` is accepted
   and changes nothing: the gathers run inside the graph either way.  On CPU
   tensors the runners run the same step eagerly;
+- waveform in (``frontend_fn``, ``frontend/e2e.py``): batches carry padded
+  raw samples and their sample counts in the ``frac`` slot, and the step's
+  first op is the frontend, which rewrites both into features and frame
+  fractions (the JAX ``make_step_fns(frontend_fn=...)``); in a fused epoch
+  it is part of the captured graph, its cuFFT plans made by the warm-up;
 - the plateau scheduler with device-side snapshots and rollback, and the
   best-dev-accuracy state kept for the final package.
 
-Data parallelism, the waveform frontend and ``profile`` are not ported.
+Data parallelism and ``profile`` are not ported.
 """
 
 from __future__ import annotations
@@ -68,9 +73,13 @@ from ctc_pytorch_tpu_torch.train.state import (
 
 def forward_loss(state: TrainState, spec: ModelSpec, feats, frac, labels,
                  label_lens, mask, train: bool,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], frontend_fn=None):
     """``(loss, log_probs, input_sizes)`` of one batch in train or eval mode
-    (train mode updates the BN buffers)."""
+    (train mode updates the BN buffers).  With ``frontend_fn`` (waveform
+    in), ``feats`` are padded raw samples and ``frac`` their sample counts,
+    which the frontend turns into features and frame fractions first."""
+    if frontend_fn is not None:
+        feats, frac, _ = frontend_fn(feats, frac)
     log_probs = state.model(feats, frac=frac, example_mask=mask, train=train,
                             generator=generator)
     input_sizes = CTCModel.input_sizes(spec, frac, feats.shape[1],
@@ -85,12 +94,13 @@ def forward_loss(state: TrainState, spec: ModelSpec, feats, frac, labels,
 
 def train_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
                label_lens, mask,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, frontend_fn=None):
     """One optimizer step, in place.  Returns ``(loss, greedy_idx (B, T'),
     input_sizes)`` on the device; nothing is fetched."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, log_probs, input_sizes = forward_loss(
-        state, spec, feats, frac, labels, label_lens, mask, True, generator)
+        state, spec, feats, frac, labels, label_lens, mask, True, generator,
+        frontend_fn)
     loss.backward()
     apply_gradients(state)
     return loss.detach(), torch.argmax(log_probs.detach(), dim=-1).T, input_sizes
@@ -98,10 +108,11 @@ def train_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
 
 @torch.no_grad()
 def eval_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
-              label_lens, mask):
+              label_lens, mask, frontend_fn=None):
     """``(loss, greedy_idx, input_sizes, log_probs)`` in eval mode."""
     loss, log_probs, input_sizes = forward_loss(
-        state, spec, feats, frac, labels, label_lens, mask, False, None)
+        state, spec, feats, frac, labels, label_lens, mask, False, None,
+        frontend_fn)
     return loss, torch.argmax(log_probs, dim=-1).T, input_sizes, log_probs
 
 
@@ -138,13 +149,16 @@ def run_epoch(
     compute_wer: bool = True,
     log=print,
     record: Optional[dict] = None,
+    frontend_fn=None,
 ) -> Tuple[float, float]:
     """One streaming pass, one eager step per batch; returns (accuracy = 1 -
     wer, average loss) like ``run_epoch`` (``train_ctc.py:26-69``).  Losses
     and token errors stay on the device and are fetched only at print
     points and at the end.  ``record``, where given, receives the pass's
     per-batch losses in visiting order and its error and token counts
-    (``_epoch_done``), for parity checks between the epoch runners."""
+    (``_epoch_done``), for parity checks between the epoch runners.  With
+    ``frontend_fn`` the batches hold raw samples and the ``frac`` slot gets
+    their sample counts (the JAX ``run_epoch(waveform=True)``)."""
     dev = next(state.model.parameters()).device
     device_losses = []
     cur_start = 0
@@ -156,12 +170,16 @@ def run_epoch(
         feats, frac, labels, label_lens, mask = (_on(x, dev) for x in (
             batch.feats, batch.input_frac, batch.labels, batch.label_lengths,
             batch.example_mask))
+        if frontend_fn is not None:
+            frac = _on(batch.input_lengths, dev).to(torch.float32)
         if training:
             loss, greedy_idx, input_sizes = train_step(
-                state, spec, feats, frac, labels, label_lens, mask, generator)
+                state, spec, feats, frac, labels, label_lens, mask, generator,
+                frontend_fn)
         else:
             loss, greedy_idx, input_sizes, _ = eval_step(
-                state, spec, feats, frac, labels, label_lens, mask)
+                state, spec, feats, frac, labels, label_lens, mask,
+                frontend_fn)
         device_losses.append(loss)
         n_batches += 1
         if compute_wer:
@@ -222,7 +240,8 @@ def _restoring(state: Optional[TrainState],
 
 
 def make_fused_fns(spec: ModelSpec,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   frontend_fn=None):
     """Per-group runners over a device-resident cache, ``(fused_train,
     fused_eval)`` (counterpart of the JAX ``make_fused_fns``,
     ``train/loop.py:168-373``).
@@ -234,7 +253,9 @@ def make_fused_fns(spec: ModelSpec,
     errs, toks)`` on the device, unfetched; ``fused_eval(state, arrs, pos,
     mask, t_pad, compute_wer)`` the same in eval mode without updates.
     ``state.step`` advances once a training batch.  Dropout draws from
-    ``generator``.
+    ``generator``.  With ``frontend_fn`` the planes hold raw samples, the
+    gather passes the sample counts in the ``frac`` slot and the step
+    starts with the frontend (the JAX ``make_fused_fns(waveform=True)``).
 
     On the card each step shape ``(train or eval, compute_wer, bucket
     plane, t_pad, B)`` is captured once, at its first use, into a CUDA
@@ -265,14 +286,15 @@ def make_fused_fns(spec: ModelSpec,
 
         def step(inputs):
             feats, frac, _, labels, lab_len = gather_rows(
-                arrs, inputs["pos"], t_pad)
+                arrs, inputs["pos"], t_pad, waveform=frontend_fn is not None)
             m = inputs["mask"]
             if training:
                 loss, greedy_idx, sizes = train_step(
-                    state, spec, feats, frac, labels, lab_len, m, generator)
+                    state, spec, feats, frac, labels, lab_len, m, generator,
+                    frontend_fn)
             else:
                 loss, greedy_idx, sizes, _ = eval_step(
-                    state, spec, feats, frac, labels, lab_len, m)
+                    state, spec, feats, frac, labels, lab_len, m, frontend_fn)
             if compute_wer:
                 e, t = device_token_errors(greedy_idx, sizes, labels, lab_len,
                                            m)
@@ -430,11 +452,13 @@ class Trainer:
     runners (``run_epoch_single`` under ``fused_dispatch: "epoch"``, else
     ``run_epoch_fused``): on the card, one graph replay per batch.  Any
     other loader streams its batches in its own order, as the JAX trainer
-    streams where it has no cache."""
+    streams where it has no cache.  ``frontend_fn`` (waveform in,
+    ``frontend/e2e.py:frontend_fn_from_config``) runs inside every step of
+    every path."""
 
     def __init__(self, cfg: Config, spec: ModelSpec,
                  device: str | torch.device = "cuda",
-                 out_dir: Optional[str] = None):
+                 out_dir: Optional[str] = None, frontend_fn=None):
         if cfg.profile:
             raise NotImplementedError("profile: tracing is not ported yet")
         if cfg.fused_dispatch not in ("group", "epoch"):
@@ -442,6 +466,7 @@ class Trainer:
                              f"got {cfg.fused_dispatch!r}")
         self.cfg = cfg
         self.spec = spec
+        self.frontend_fn = frontend_fn
         self.device = resolve_device(device)
         self.state = create_train_state(
             spec, cfg.init_lr, cfg.weight_decay, cfg.grad_clip, seed=cfg.seed,
@@ -451,7 +476,8 @@ class Trainer:
         self.dropout_generator.manual_seed(cfg.seed + 1)
         # the fused runners and their graphs (built even for "epoch", which
         # chains the same per-group runners)
-        self.fused_fns = (make_fused_fns(spec, self.dropout_generator)
+        self.fused_fns = (make_fused_fns(spec, self.dropout_generator,
+                                         frontend_fn)
                           if cfg.fused_epoch else None)
         self.epoch_fns = (make_epoch_fns(self.fused_fns)
                           if cfg.fused_epoch and cfg.fused_dispatch == "epoch"
@@ -493,7 +519,8 @@ class Trainer:
         return run_epoch(
             self.epoch, self.state, self.spec, loader, training=training,
             generator=self.dropout_generator if training else None,
-            print_every=self.cfg.verbose_step, compute_wer=compute_wer, log=log)
+            print_every=self.cfg.verbose_step, compute_wer=compute_wer, log=log,
+            frontend_fn=self.frontend_fn)
 
     def _log_path(self, loader, log) -> None:
         """The first epoch's line on the path ``fused_epoch`` takes."""

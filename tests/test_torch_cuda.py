@@ -888,3 +888,87 @@ def test_batched_beam_search_replays_in_a_captured_graph(card):
         want = step()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def test_waveform_frontend_on_the_card_matches_the_cpu(card):
+    """The step's frontend (fbank + CMVN, mfcc + deltas, spectrogram) on the
+    card against the CPU at stage 1's tolerance (``chip_smoke.FEAT_TOL``)."""
+    from ctc_pytorch_tpu_torch.frontend.e2e import (
+        WaveFrontendSpec,
+        waveform_frontend,
+    )
+    from ctc_pytorch_tpu_torch.frontend.features import FrontendConfig
+
+    rng = np.random.RandomState(0)
+    wavs = (rng.randn(8, 64000) * 2000).astype(np.float32)
+    lens = rng.randint(16000, 64001, 8).astype(np.int32)
+    for i, n in enumerate(lens):
+        wavs[i, n:] = 0.0
+    for feat_type, n_mels in (("fbank", 80), ("mfcc39", 23),
+                              ("spectrogram", 80)):
+        spec = WaveFrontendSpec(feat_type=feat_type,
+                                frontend=FrontendConfig(num_mel_bins=n_mels),
+                                n_downsample=2)
+        dim = spec.feature_dim() // 3
+        cmvn = (None if feat_type == "spectrogram" else
+                (rng.randn(dim).astype(np.float32),
+                 rng.uniform(0.5, 2, dim).astype(np.float32)))
+        out = {}
+        for dev in ("cpu", card):
+            out[str(dev)] = waveform_frontend(
+                spec, torch.from_numpy(wavs).to(dev),
+                torch.from_numpy(lens).to(dev),
+                None if cmvn is None else tuple(
+                    torch.from_numpy(c).to(dev) for c in cmvn))
+        cpu, gpu = out["cpu"], out[str(card)]
+        chip_smoke.feature_err(gpu[0], cpu[0], feat_type)
+        assert torch.equal(gpu[1].cpu(), cpu[1])
+        assert torch.equal(gpu[2].cpu(), cpu[2])
+
+
+def test_fused_waveform_step_replays_against_the_eager_step(card, tmp_path):
+    """One training step of a waveform model, frontend (cuFFT) included,
+    captured by the fused runner over a device cache of raw samples and
+    replayed, against the same step run eagerly from the same state: the
+    loss and every parameter and BN buffer."""
+    from ctc_pytorch_tpu_torch.cli.train import build_loaders
+    from ctc_pytorch_tpu_torch.config import load_config
+    from ctc_pytorch_tpu_torch.data.batching import gather_rows
+    from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
+    from ctc_pytorch_tpu_torch.train.loop import make_fused_fns, train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    # the waveform recipe cut to 12 mel bins + energy, 2 x BiLSTM(16), B=8
+    for seed, (split, n) in enumerate((("train", 16), ("dev", 4))):
+        chip_smoke.write_audio_corpus(tmp_path, split, n, seed, (0.3, 0.7))
+    cfg = load_config(chip_smoke.RECIPE_WAVE)
+    cfg.vocab_file = str(tmp_path / "units")
+    for key, split in (("train", "train"), ("valid", "dev")):
+        setattr(cfg, f"{key}_scp_path", str(tmp_path / split / "wav.scp"))
+        setattr(cfg, f"{key}_lab_path", str(tmp_path / split / "phn_text"))
+    cfg.data_dir = str(tmp_path)
+    cfg.feature_dim, cfg.rnn_input_size = 13, 39
+    cfg.rnn_hidden_size, cfg.rnn_layers = 16, 2
+    cfg.batch_size, cfg.drop_out, cfg.dtype = 8, 0.0, "float32"
+    tr, _ = build_loaders(cfg, Vocab(cfg.vocab_file), device=card)
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    fe = frontend_fn_from_config(cfg)
+    arrs, pos, mask, t_pad = next(tr.epoch_groups(1))
+    states = [create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                                 cfg.grad_clip, seed=3, device=card)
+              for _ in range(2)]
+    fused_train, _ = make_fused_fns(spec, None, fe)
+    losses, _, _ = fused_train(states[0], arrs, pos[:1], mask[:1], t_pad)
+    assert len(fused_train.graphs) == 1 and fused_train.graphs.replays() == 1
+    feats, frac, _, labels, lab_len = gather_rows(
+        arrs, torch.from_numpy(pos[0].astype(np.int64)).to(card), t_pad,
+        waveform=True)
+    loss, _, _ = train_step(states[1], spec, feats, frac, labels, lab_len,
+                            torch.from_numpy(mask[0]).to(card), None, fe)
+    np.testing.assert_allclose(losses[0].item(), loss.item(), rtol=1e-6)
+    want = states[1].model.state_dict()
+    for k, v in states[0].model.state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(),
+                                   atol=1e-6, rtol=0)
+    assert states[0].step == states[1].step == 1

@@ -96,18 +96,40 @@ def test_batch_streams_match_jax(tmp_path, mode, num_buckets, shuffle):
 
 
 def test_waveform_and_mel_raise(tmp_path):
-    write_corpus(tmp_path)
-    for key, value in (("feature_type", "waveform"), ("mel", True)):
-        cfg = _cfg(Config)
+    """``feature_type: waveform`` and ``mel: True`` no longer raise: their
+    items and lengths are the JAX dataset's (F_Mel-warped processed
+    features; raw (S, 1) samples of SPHERE and WAV files with sample
+    counts from the headers)."""
+    from ctc_pytorch_tpu.config import Config as JConfig
+    from tests.test_torch_waveform import audio_corpus
+
+    # F_Mel reads bins up to sample_rate/2 x 25 ms = 200: 201-d spectra
+    write_corpus(tmp_path, n_utts=5, dim=201)
+    audio_corpus(tmp_path / "audio", (("train", 5),))
+    for key, value, scp in (("mel", True, tmp_path / "f.scp"),
+                            ("feature_type", "waveform",
+                             tmp_path / "audio" / "train" / "wav.scp")):
+        lab = tmp_path / ("lab" if key == "mel" else "audio/train/phn_text")
+        units = tmp_path / ("units" if key == "mel" else "audio/units")
+        cfg, jcfg = _cfg(Config), _cfg(JConfig)
         setattr(cfg, key, value)
-        with pytest.raises(NotImplementedError):
-            SpeechDataset(Vocab(tmp_path / "units"), tmp_path / "f.scp",
-                          tmp_path / "lab", cfg)
+        setattr(jcfg, key, value)
+        ours = SpeechDataset(Vocab(units), scp, lab, cfg)
+        ref = JDataset(JVocab(units), scp, lab, jcfg)
+        np.testing.assert_array_equal(ours.lengths(), ref.lengths())
+        for i in range(len(ref)):
+            f, lab_ids, utt = ours[i]
+            rf, rlab, rutt = ref[i]
+            assert utt == rutt and f.dtype == np.float32
+            np.testing.assert_allclose(f, rf, rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(lab_ids, rlab)
+        if key == "feature_type":
+            assert ours[0][0].shape == (ours.lengths()[0], 1)
 
 
 @pytest.mark.parametrize("recipe", [
     "recipes/timit/ctc_config.yaml", "recipes/timit/mfcc_39_config.yaml",
-    "recipes/my_863/cnn_lstm_ctc.conf",
+    "recipes/timit/waveform_config.yaml", "recipes/my_863/cnn_lstm_ctc.conf",
 ])
 def test_config_copy_loads_recipes_like_jax(recipe):
     assert load_config(ROOT / recipe).to_dict() == \

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,7 +34,10 @@ def test_static_scan_finds_no_forbidden_import():
                 "ops/gru_bidir_train.py", "ops/stacked.py", "ops/rnn_bidir.py",
                 "ops/rnn_bidir_train.py", "decode/beam.py",
                 "decode/beam_device.py", "decode/ngram_lm.py",
-                "cli/train_lm.py", "native/__init__.py"):
+                "cli/train_lm.py", "native/__init__.py",
+                "frontend/features.py", "frontend/cmvn.py", "frontend/splice.py",
+                "frontend/fmel.py", "frontend/e2e.py", "data/prep/sphere.py",
+                "data/prep/shorten.py", "cli/make_feat.py", "api.py"):
         assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
@@ -278,3 +282,22 @@ def test_lstm_wrapper_has_no_fallback_for_other_devices():
     gx = torch.zeros(2, 1, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lstm_ops.lstm_bidir(gx, torch.zeros(2, 4, 16, device="meta"))
+
+
+def test_waveform_entry_points_raise_without_a_card(no_card, tmp_path):
+    """Stage 1, the waveform frontend's feature extraction and the
+    ``Recognizer`` default to ``cuda`` and raise without a card, before
+    any file is written."""
+    from ctc_pytorch_tpu_torch.api import Recognizer
+    from ctc_pytorch_tpu_torch.cli import make_feat
+    from ctc_pytorch_tpu_torch.frontend import FrontendConfig
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_feat.main(["fbank", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_feat.extract_features(np.zeros(16000, np.float32), "fbank",
+                                   FrontendConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recognizer(tmp_path / "missing.npz", Vocab.from_units(["a"]))
+    assert not list(tmp_path.iterdir())
