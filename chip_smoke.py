@@ -109,11 +109,32 @@ printed line; any failure ends the run with a nonzero exit and no result:
     ``StreamingRecognizer`` over a 20 s stream in 0.5 s hops (per-feed
     latency, the committed prefix only grows); the branch of every LSTM and
     CTC launch; then phase 10's comparison of the graphed and the streaming
-    epoch, and the train step's device time with the frontend's share.
+    epoch, and the train step's device time with the frontend's share;
+13. pipeline slice: stages 0-4 of the flagship recipe through the port's
+    ``cli.run`` (one stage a call) on a synthetic TIMIT tree
+    (``write_timit_corpus``), with a copy of the recipe that differs only in
+    paths, ``num_epoches: 1`` and ``profile: True``: stage 0 on the host,
+    stage 1 on the card, stage 2 at full width from graphs, stages 3 and 4;
+    every stage-2 utterance read by the native ark reader, the branch of
+    every LSTM and CTC launch, the profiler's trace naming the port's
+    kernels; ``cli.visualize`` of an fp32 copy against the kernels' forward;
+    ``cli.import_torch`` of a full-width reference-format flagship against
+    the reference module's own forward; the stages' walls, the native and
+    numpy readers' rates, stage 2 traced and untraced;
+14. 863 LSTM slice: ``recipes/my_863/cnn_lstm_ctc.conf`` and
+    ``lstm_ctc.conf`` as shipped (4 x BiLSTM(256), bf16, batch 16), each
+    from a text-format Kaldi dump converted by ``data/convert.py``: one
+    fused epoch through ``cli.train.train`` with the training forward on
+    ``cluster16`` and the backward on 16-row ``bwd_cluster_kernel``, the loss
+    falling, stage 4 of the saved package, a seeded model's fp32 strings
+    through kernels and twins, the step's device time by kernel, and the
+    graphed epoch against the streaming one.
 
-Six model paths are driven: the flagship (phases 4 and 5), the 863 model
-(phase 6), the tanh model (phase 7), the unidirectional flagship (phase 8),
-the mfcc_39 model (phase 11) and the waveform model (phase 12).
+Nine model paths are driven: the flagship (phases 4 and 5), the 863 model
+with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
+flagship (phase 8), the mfcc_39 model (phase 11), the waveform model (phase
+12), the flagship through ``cli.run`` (phase 13) and the two 863 LSTM
+recipes (phase 14).
 
 It prints one JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -139,6 +160,11 @@ RECIPE = ROOT / "recipes" / "timit" / "ctc_config.yaml"
 RECIPE_863 = ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf"  # rnn_type set here
 RECIPE_MFCC = ROOT / "recipes" / "timit" / "mfcc_39_config.yaml"
 RECIPE_WAVE = ROOT / "recipes" / "timit" / "waveform_config.yaml"
+RECIPE_PIPELINE = RECIPE  # phase 13's recipe, driven through cli.run
+# phase 14: the 863 LSTM recipes as shipped -> (features, dimension)
+RECIPES_863_LSTM = {
+    ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf": ("spectrum", 201),
+    ROOT / "recipes" / "my_863" / "lstm_ctc.conf": ("fbank", 40)}
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -167,6 +193,11 @@ FEAT_TOL = dict(rtol=1e-5, atol=3e-4)  # log-scale features, card vs CPU
 STREAM_SECONDS, HOP_SECONDS = 20.0, 0.5
 N_TRAIN_UTTS, N_DEV_UTTS = 64, 16
 N_TRAIN_UTTS_863, N_DEV_UTTS_863 = 128, 32  # 8 steps and 2 dev batches of 16
+# phase 13's TIMIT tree: training, dev and core-test speakers, 8 utterances
+# each (SA1 and SA2 are left out by stage 0)
+PIPELINE_SPEAKERS = (6, 2, 2)
+# phase 14's corpora: (split, utterances, seed), phase 6's lengths
+SPLITS_863_LSTM = (("train", 64, 31), ("dev", 16, 32))
 PHONES = ("aa ae ah ao aw ax ay b ch d dh dx eh el en er ey f g hh ih iy "
           "jh k l m n ng ow oy p r s sh t th uh uw v").split()
 # 65 units + blank + UNK: the 863 recipe's num_class 66 + blank = 67 outputs
@@ -560,6 +591,7 @@ CTC_CASES = [
     (64, 2, 50, 1600, 0, "S = 3201, widest rows: no room for gradient warps"),
     (64, 2, 50, 14527, 0, "S = 29055, widest rows: the old kernels' widest"),
     (200, 128, 41, 40, 0, "the waveform recipe's batch: 4 s, 40 phones"),
+    (400, 16, 67, 40, 0, "lstm_ctc.conf's longest batch: no CNN, no skip"),
 ]
 
 
@@ -820,6 +852,11 @@ HOIST_CASES = [
     ("lstm", 6, 16, 424, "bf16", 2, "grid"),
     ("gru", 6, 16, 480, "bf16", 2, "cluster"),
     ("gru", 6, 16, 488, "bf16", 2, "grid"),
+    # the 863 LSTM recipes' batch of 16 on bf16 streams (phase 14):
+    # cnn_lstm_ctc.conf's T' = 95 and its longest bucket, lstm_ctc.conf's
+    ("lstm", 95, 16, 256, "bf16", 2, "cluster"),
+    ("lstm", 195, 16, 256, "bf16", 2, "cluster"),
+    ("lstm", 400, 16, 256, "bf16", 2, "cluster"),
 ]
 
 
@@ -937,6 +974,14 @@ FWD_CASES = [
     ("gru", 6, 128, 449, "bf16", 2, "grid"),
     ("gru", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
     ("gru", 4, 4, 528, "fp32", 2, "grid"),
+    # the 863 LSTM recipes at B=16 on bf16 streams (phase 14): the training
+    # forward on the tensor cores, the eval op's fp32 products on the fp32
+    # cluster; T' of cnn_lstm_ctc.conf, its longest bucket, lstm_ctc.conf's
+    ("lstm_train", 95, 16, 256, "bf16", 2, "cluster16"),
+    ("lstm_train", 195, 16, 256, "bf16", 2, "cluster16"),
+    ("lstm_train", 400, 16, 256, "bf16", 2, "cluster16"),
+    ("lstm_eval", 95, 16, 256, "bf16", 2, "cluster16_fp32"),
+    ("lstm_eval", 400, 16, 256, "bf16", 2, "cluster16_fp32"),
 ]
 
 
@@ -1520,6 +1565,37 @@ def write_corpus(root: Path, split: str = "test", n_utts: int = 64,
     (test / labels).write_text("\n".join(lines) + "\n")
 
 
+def write_text_corpus(root: Path, split: str, n_utts: int, seed: int,
+                      dim: int, units, feats: str, labels: str = "text",
+                      frames=(150, 401)) -> Path:
+    """One split of a synthetic corpus as the 863 recipe ingests it: a
+    text-format Kaldi feature dump (Kaldi's ``copy-feats ark,t:``,
+    ``utt  [`` then one row of ``dim`` values a line, `` ]`` closing the
+    last) in ``<split>/<feats>.txt`` of ``n_utts`` utterances of ``frames``
+    (a range) frames, the label file and the units file.  The features and
+    labels are ``write_corpus``'s for the same arguments.  Returns the
+    dump's path."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d = root / split
+    d.mkdir(parents=True, exist_ok=True)
+    (root / "units").write_text("".join(p + "\n" for p in units))
+    lines = []
+    path = d / f"{feats}.txt"
+    with open(path, "w") as f:
+        for i in range(n_utts):
+            utt = f"{split}{i % 8}_si{i:03d}"
+            n = int(rng.randint(*frames))
+            mat = rng.randn(n, dim).astype(np.float32)
+            rows = ["  " + " ".join(f"{v:.7g}" for v in row) for row in mat]
+            f.write(f"{utt}  [\n" + " \n".join(rows) + " ]\n")
+            lines.append(utt + " " + " ".join(rng.choice(units,
+                                                         max(1, n // 12))))
+    (d / labels).write_text("\n".join(lines) + "\n")
+    return path
+
+
 def write_sphere(path: Path, samples, rate: int = 16000) -> None:
     """A NIST SPHERE file of 16-bit linear PCM, the TIMIT encoding: a
     1024-byte ASCII header, then the samples little-endian."""
@@ -1557,11 +1633,7 @@ def write_audio_corpus(root: Path, split: str, n_utts: int, seed: int,
         utt = f"{split}{i % 8}_si{i:03d}"
         n = int(rng.uniform(*seconds) * 16000)
         labels = rng.randint(len(units), size=max(1, n // 1600))
-        seg = np.minimum(np.arange(n) // 1600, len(labels) - 1)
-        gain = rng.uniform(0.1, 1.0, (2, len(labels)))[:, seg]
-        phase = 2 * np.pi * np.cumsum(150.0 + 60.0 * labels[seg]) / 16000.0
-        wav = (gain[0] * (4000 * np.sin(phase) + 1500 * np.sin(2 * phase))
-               + gain[1] * 300 * rng.randn(n))
+        wav = phone_tones(rng, labels, n)
         path = d / f"{utt}.{'sph' if i % 2 == 0 else 'wav'}"
         (write_sphere if i % 2 == 0 else write_wav)(path, wav.astype(np.int16))
         scp.append(f"{utt} {path}")
@@ -1570,6 +1642,72 @@ def write_audio_corpus(root: Path, split: str, n_utts: int, seed: int,
     (d / "wav.scp").write_text("\n".join(scp) + "\n")
     (d / "phn_text").write_text("\n".join(lines) + "\n")
     return total
+
+
+def phone_tones(rng, labels, n: int):
+    """``n`` samples in which the k-th 0.1 s segment is a tone of pitch
+    150 + 60 ``labels[k]`` Hz with its second harmonic, under noise, the
+    tone and the noise each at a loudness of their own (the last label holds
+    to the end)."""
+    import numpy as np
+
+    seg = np.minimum(np.arange(n) // 1600, len(labels) - 1)
+    gain = rng.uniform(0.1, 1.0, (2, len(labels)))[:, seg]
+    phase = 2 * np.pi * np.cumsum(150.0 + 60.0 * labels[seg]) / 16000.0
+    return (gain[0] * (4000 * np.sin(phase) + 1500 * np.sin(2 * phase))
+            + gain[1] * 300 * rng.randn(n))
+
+
+def write_timit_corpus(root: Path, n_train: int, n_dev: int, n_test: int,
+                       seed: int = 0, phones_per_utt=(8, 16)) -> dict:
+    """A synthetic corpus in the TIMIT layout, the input of stage 0:
+    ``TRAIN/DR1/<SPEAKER>/`` for ``n_train`` made-up training speakers and
+    ``TEST/DR1/<SPEAKER>/`` for the first ``n_dev`` speakers of the dev list
+    and the first ``n_test`` of the core-test list.  Each speaker reads SA1
+    and SA2 (which stage 0 leaves out), SI1-SI3 and SX1-SX5: a NIST SPHERE
+    ``.WAV``, its ``.PHN`` (sample spans of phones of the 60-phone set,
+    ``h#`` at both ends, ``q`` and the closures among them, which the
+    39-phone folding drops or maps to ``sil``) and ``.WRD``.  Every other
+    speaker has lower-case file names, as some copies of the corpus do.
+    The audio is ``phone_tones`` of each phone's 39-phone class, 0.1 s a
+    phone.  Returns the utterances stage 0 should list per split."""
+    import numpy as np
+
+    from ctc_pytorch_tpu_torch.data.prep.phones import phone_map
+    from ctc_pytorch_tpu_torch.data.prep.timit import DEV_SPEAKERS, TEST_SPEAKERS
+
+    rng = np.random.RandomState(seed)
+    fold = phone_map("60-39")
+    inner = sorted(p for p in fold if p != "h#")
+    classes = sorted(set(fold.values()) - {""})
+    speakers = ([("TRAIN", f"{'mf'[i % 2]}trn{i}") for i in range(n_train)]
+                + [("TEST", s) for s in DEV_SPEAKERS[:n_dev]]
+                + [("TEST", s) for s in TEST_SPEAKERS[:n_test]])
+    sentences = ["sa1", "sa2", "si1", "si2", "si3"] + [f"sx{k}" for k in
+                                                       range(1, 6)]
+    for i, (split, spk) in enumerate(speakers):
+        lower = i % 2 == 1
+        d = root / split / "DR1" / (spk if lower else spk.upper())
+        d.mkdir(parents=True, exist_ok=True)
+        for sent in sentences:
+            phones = ["h#"] + list(rng.choice(inner, rng.randint(
+                *phones_per_utt))) + ["h#"]
+            labels = np.array([classes.index(fold[p]) if fold[p] else 0
+                               for p in phones])
+            n = 1600 * len(phones)
+            stem = d / (sent if lower else sent.upper())
+            ext = (lambda e: e) if lower else str.upper
+            write_sphere(stem.with_suffix(ext(".wav")),
+                         phone_tones(rng, labels, n).astype(np.int16))
+            stem.with_suffix(ext(".phn")).write_text("".join(
+                f"{1600 * k} {1600 * (k + 1)} {p}\n"
+                for k, p in enumerate(phones)))
+            stem.with_suffix(ext(".wrd")).write_text("".join(
+                f"{1600 * k} {1600 * (k + 2)} w{rng.randint(100)}\n"
+                for k in range(1, len(phones) - 2, 2)))
+    n_sent = len(sentences) - 2
+    return {"train": n_train * n_sent, "dev": n_dev * n_sent,
+            "test": n_test * n_sent}
 
 
 def recipe_config(recipe: Path = RECIPE, data: str = "data",
@@ -1682,6 +1820,113 @@ def seeded_model(spec):
         # flips an argmax; a sharper output layer makes the strings stable
         model.fc.w.mul_(10.0)
     return model
+
+
+def reference_package(feat: int, cnn_layers, hidden: int, layers: int,
+                      num_class: int, cell: str = "LSTM",
+                      activation: str = "relu", batch_norm: bool = True,
+                      bidirectional: bool = True, seed: int = 0) -> dict:
+    """A checkpoint package as the reference's ``CTC_Model.save_package``
+    writes it (``timit/models/model_ctc.py:209-229``): its hyperparameters
+    (``rnn_param`` with the cell's class, ``cnn_param`` with one
+    ``(channels, kernel, stride, padding, pooling)`` entry a layer,
+    ``add_cnn``, ``num_class``, ``_drop_out``), the training histories and
+    the ``state_dict`` of an ``nn.Module`` with the reference's tree
+    (``LayerCNN`` as ``conv.{i}`` with ``.conv`` and ``.batch_norm``,
+    ``BatchRNN`` as ``rnns.{i}`` with ``.batch_norm`` (none on the first)
+    and a bias-free ``.rnn``; ``fc`` a ``Sequential`` of BN and a bias-free
+    ``Linear``, or the ``Linear`` alone), random weights and BN statistics
+    from ``seed``.  The module itself is under ``"module"``, in eval mode:
+    its ``forward`` is the reference's (``model_ctc.py:144-172``); the rest
+    is what ``torch.save`` writes as the reference's ``.pkl``."""
+    from collections import OrderedDict
+
+    import torch
+    from torch import nn
+
+    act_cls = {"relu": nn.ReLU, "hardtanh": nn.Hardtanh}[activation]
+    rnn_cls = getattr(nn, cell)
+
+    def act():
+        return nn.Hardtanh(0, 20) if activation == "hardtanh" else nn.ReLU()
+
+    class LayerCNN(nn.Module):
+        def __init__(self, cin, cout, k, s, pad):
+            super().__init__()
+            self.conv = nn.Conv2d(cin, cout, k, stride=s, padding=pad)
+            self.batch_norm = nn.BatchNorm2d(cout)
+            self.activation = act()
+
+        def forward(self, x):
+            return self.activation(self.batch_norm(self.conv(x)))
+
+    class BatchRNN(nn.Module):
+        def __init__(self, fin, bn):
+            super().__init__()
+            self.batch_norm = nn.BatchNorm1d(fin) if bn else None
+            self.rnn = rnn_cls(fin, hidden, bidirectional=bidirectional,
+                               bias=False)
+
+        def forward(self, x):  # (T, B, F)
+            if self.batch_norm is not None:
+                x = self.batch_norm(x.transpose(-1, -2)).transpose(-1, -2)
+            return self.rnn(x)[0]
+
+    class CTCReference(nn.Module):
+        def __init__(self):
+            super().__init__()
+            convs, f = [], feat
+            for i, (ch, k, st, pad) in enumerate(cnn_layers):
+                convs.append((str(i), LayerCNN(ch[0], ch[1], k, st, pad)))
+                f = (f + 2 * pad[1] - k[1]) // st[1] + 1
+            self.conv = nn.Sequential(OrderedDict(convs)) if convs else None
+            fin = f * cnn_layers[-1][0][1] if convs else feat
+            dirs = 2 if bidirectional else 1
+            self.rnns = nn.Sequential(OrderedDict(
+                (str(i), BatchRNN(fin if i == 0 else dirs * hidden,
+                                  batch_norm and i > 0))
+                for i in range(layers)))
+            linear = nn.Linear(dirs * hidden, num_class, bias=False)
+            self.fc = (nn.Sequential(nn.BatchNorm1d(dirs * hidden), linear)
+                       if batch_norm else linear)
+
+        def forward(self, x):  # (B, T, F) -> (T', B, C) log-probs
+            if self.conv is not None:
+                x = self.conv(x.unsqueeze(1)).transpose(1, 2).contiguous()
+                b, t, c, f = x.shape
+                x = x.view(b, t, c * f)
+            x = self.rnns(x.transpose(0, 1).contiguous())
+            t, b, h = x.shape
+            x = self.fc(x.reshape(t * b, h)).view(t, b, -1)
+            return torch.log_softmax(x, dim=-1)
+
+    torch.manual_seed(seed)
+    model = CTCReference()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+                n = mod.num_features
+                mod.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                mod.num_batches_tracked.fill_(7)
+    model.eval()
+    return {
+        "rnn_param": {"rnn_input_size": feat, "rnn_hidden_size": hidden,
+                      "rnn_layers": layers, "rnn_type": rnn_cls,
+                      "bidirectional": bidirectional, "batch_norm": batch_norm},
+        "add_cnn": bool(cnn_layers),
+        "cnn_param": {"layer": [[ch, k, st, pad, None]
+                                for ch, k, st, pad in cnn_layers],
+                      "batch_norm": True, "activativate_function": act_cls},
+        "num_class": num_class, "_drop_out": 0.0,
+        "epoch": 3, "loss_results": [3.5, 2.5, 2.0],
+        "dev_loss_results": [3.0, 2.4, 2.2],
+        "dev_cer_results": [80.0, 60.0, 55.0],
+        "state_dict": model.state_dict(), "module": model,
+    }
 
 
 def phase_decode_slice():
@@ -2724,6 +2969,480 @@ def phase_waveform_slice(smi: str, device: str = "cuda") -> dict:
             "fft_device_ms_in_step": fft_us / 1e3}
 
 
+def pipeline_conf(path: Path, profile: bool = True) -> Path:
+    """A copy of ``RECIPE_PIPELINE`` that differs only in the checkpoint
+    path, ``num_epoches: 1`` and ``profile``: its data paths stay the
+    recipe's ``data/...``, which ``cli.run`` remaps onto ``--data``."""
+    text = RECIPE_PIPELINE.read_text()
+    for a, b in (("num_epoches: 500", "num_epoches: 1"),
+                 ("checkpoint_dir: 'checkpoint/'",
+                  f"checkpoint_dir: '{WORK / 'checkpoint'}'")):
+        check(a in text, f"{RECIPE_PIPELINE.name} has no {a!r}")
+        text = text.replace(a, b)
+    path.write_text(text + f"\nprofile: {profile}\n")
+    return path
+
+
+def run_stage(argv, out: list) -> float:
+    """``cli.run.main(argv)`` with its printed lines added to ``out``;
+    returns its wall seconds."""
+    import io
+
+    from ctc_pytorch_tpu_torch.cli import run
+
+    buf = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run.main(argv)
+    sync()
+    out.extend(buf.getvalue().splitlines())
+    return time.perf_counter() - t0
+
+
+def reader_rates(cfg, scp: str, lab: str, workers=(1, 4),
+                 reps: int = 5) -> dict:
+    """Utterances a second of ``SpeechDataset.preload`` over one scp through
+    the native reader and through the numpy reader, with each count of
+    worker threads (median of ``reps`` turns, the readers alternating); the
+    two readers must give the same items."""
+    import numpy as np
+
+    from ctc_pytorch_tpu_torch.data import SpeechDataset
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    class NumpyDataset(SpeechDataset):
+        def _native_processed(self, rx):
+            return None
+
+    vocab = Vocab(cfg.vocab_file)
+    out = {}
+    for w in workers:
+        times = {"native": [], "numpy": []}
+        items = {}
+        for _ in range(reps):
+            for name, cls in (("native", SpeechDataset),
+                              ("numpy", NumpyDataset)):
+                ds = cls(vocab, scp, lab, cfg)
+                t0 = time.perf_counter()
+                ds.preload(w)
+                times[name].append(time.perf_counter() - t0)
+                items[name] = [ds[i][0] for i in range(len(ds))]
+        check(all(np.array_equal(a, b) for a, b in zip(items["native"],
+                                                       items["numpy"])),
+              "the native and the numpy reader give different items")
+        n = len(items["native"])
+        rate = {k: n / statistics.median(v) for k, v in times.items()}
+        out[f"workers_{w}"] = {**rate, "speedup": rate["native"]
+                               / rate["numpy"]}
+    out["utts"] = n
+    return out
+
+
+def trace_kernels(profile_dir: Path, names) -> dict:
+    """The trace ``profile: True`` wrote under ``profile_dir``: its file
+    name, size and, of ``names``, how many device events each names."""
+    import json
+
+    traces = sorted(profile_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"{len(traces)} traces under {profile_dir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"file": traces[0].name, "bytes": traces[0].stat().st_size,
+            "kernel_events": len(kernels),
+            "by_name": {n: sum(n in k for k in kernels) for n in names}}
+
+
+def phase_pipeline_slice(smi: str, device: str = "cuda") -> dict:
+    """Stages 0-4 of the flagship recipe through the port's ``cli.run``, one
+    stage a call, on a synthetic TIMIT tree (``write_timit_corpus``,
+    ``PIPELINE_SPEAKERS``), with a copy of the recipe that differs only in
+    paths, ``num_epoches: 1`` and ``profile: True``: stage 0 on the host,
+    stage 1 on the card, stage 2 at full width (CNN + 4 x BiLSTM(384),
+    bf16, batch 8, the fused epoch from graphs), stage 3, stage 4 (greedy,
+    fused).  Checks: every stage's output; every stage-2 utterance read by
+    the native reader; the launches of each LSTM and CTC kernel over the
+    five stages and the branch each took (fp32 streams at B=8: the forwards
+    on ``cluster16_fp32``, the backward on the grid); the profiler's trace
+    of the first epoch names the port's kernels.  Then ``cli.visualize`` on
+    an fp32 copy of the package (its log-probs the kernels' eval forward of
+    that utterance, rows summing to 1), and ``cli.import_torch`` on a
+    full-width reference-format flagship whose own eval forward (cuDNN, fp32)
+    the imported package's kernel forward must match (atol 1e-4, rtol 1e-3,
+    as ``tests/test_import_torch.py``).  Prints the stages' walls, the native
+    and numpy readers' rates over one scp, and stage 2 with the profiler
+    against stage 2 without.  ``device="cpu"`` rehearses the phase on a cut
+    recipe (``RECIPE_PIPELINE`` pointed elsewhere)."""
+    import numpy as np
+    import torch
+
+    from ctc_pytorch_tpu_torch.cli import import_torch
+    from ctc_pytorch_tpu_torch.cli import visualize as cli_visualize
+    from ctc_pytorch_tpu_torch.cli.test import evaluate
+    from ctc_pytorch_tpu_torch.config import load_config
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+    from ctc_pytorch_tpu_torch.data import dataset as dataset_mod
+    from ctc_pytorch_tpu_torch.train.checkpoint import (
+        model_from_package,
+        save_package,
+    )
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    on_card = device == "cuda"
+    corpus, data = WORK / "timit", WORK / "data_pipeline"
+    want = write_timit_corpus(corpus, *PIPELINE_SPEAKERS, seed=21)
+    conf = pipeline_conf(WORK / "pipeline.yaml")
+    base = ["--data", str(data), "--conf", str(conf), "--device", device]
+    walls, out = {}, {}
+    printed: dict = {}
+    zero_counts()
+    for stage in range(5):
+        if stage == 2:
+            dataset_mod.reset_reads()
+        printed[stage] = []
+        walls[stage] = run_stage(
+            ["--timit", str(corpus), *base, "--stage", str(stage),
+             "--stop-stage", str(stage)], printed[stage])
+        if stage == 2:
+            reads = dict(dataset_mod.READS)
+    counts, took = launch_counts(), path_branches()
+    check(printed[0] == [f"Data preparation succeeded: {want}"],
+          f"stage 0 printed {printed[0]}, wanted the counts {want}")
+    cfg = load_config(data / "conf_resolved.yaml")
+    shipped = load_config(RECIPE_PIPELINE)
+    check(cfg.profile and cfg.num_epoches == 1 and all(
+        getattr(cfg, k) == getattr(shipped, k) for k in (
+            "rnn_hidden_size", "rnn_layers", "batch_size", "dtype", "cnn",
+            "fused_epoch", "fused_dispatch", "decode_type")),
+          "the pipeline's conf is not the recipe's")
+    for split in ("train", "dev", "test"):
+        check((data / split / "fbank.scp").exists()
+              and len((data / split / "fbank.scp").read_text().splitlines())
+              == want[split], f"stage 1 wrote no {split} features")
+    check(reads == {"native": want["train"] + want["dev"], "numpy": 0},
+          f"stage 2 read {reads}, not every utterance natively")
+    best = Path(cfg.checkpoint_dir) / cfg.exp_name / "ctc_best_model.npz"
+    spec, model, _ = model_from_package(best, device)
+    n = spec.rnn_layers
+    check(not on_card or (spec.rnn_hidden_size == 384 and n == 4
+                          and spec.add_cnn and spec.compute_dtype == "bfloat16"
+                          and cfg.batch_size == 8),
+          f"stage 2 did not train the flagship at full width: {spec}")
+    check((data / "lm_phone_bg.arpa").exists(), "stage 3 wrote no LM")
+    decoded = [ln for ln in printed[4] if ln.startswith("decoded: ")]
+    check(len(decoded) == want["test"]
+          and printed[4][-3].startswith("character error rate"),
+          f"stage 4 decoded {len(decoded)} of {want['test']} utterances")
+    vocab = Vocab(cfg.vocab_file)
+
+    def batches(scp, lab):
+        return len(SpeechDataLoader(SpeechDataset(vocab, scp, lab, cfg),
+                                    cfg.batch_size, shuffle=False,
+                                    num_buckets=cfg.num_buckets))
+
+    steps = batches(cfg.train_scp_path, cfg.train_lab_path)
+    dev_b = batches(cfg.valid_scp_path, cfg.valid_lab_path)
+    test_b = batches(cfg.test_scp_path, cfg.test_lab_path)
+    epochs = (Path(cfg.checkpoint_dir) / cfg.exp_name
+              / "train_metrics.jsonl").read_text().splitlines()
+    check(len(epochs) == 1 and '"train_loss": NaN' not in epochs[0],
+          f"stage 2 logged {epochs}")
+    fit_lines = [ln for ln in printed[2] if "fused_epoch" in ln
+                 or ln.startswith("Epoch") or "loss" in ln][:6]
+    for ln in fit_lines:
+        print("  " + ln)
+    print(f"  stages 0-4 through cli.run on {device}: {want} utterances; "
+          f"walls (s) {walls}; stage 2 read {reads}; {steps} steps, "
+          f"{dev_b} dev and {test_b} test batches; launches {counts}; by "
+          f"branch {took}")
+    print("  " + printed[4][-3] + " | " + printed[4][-2])
+    if on_card:
+        check_counts(counts, {"lstm_bidir_train_fwd": n * steps,
+                              "lstm_bidir_train_bwd": n * steps,
+                              "ctc_alpha": steps + dev_b, "ctc_beta": steps,
+                              "lstm_bidir": n * (dev_b + test_b)},
+                     "the pipeline's stages 2 and 4")
+        check(took["lstm_bidir_train_fwd"] == {"cluster16_fp32": n * steps}
+              and took["lstm_bidir"] == {"cluster16_fp32": n * (dev_b + test_b)}
+              and took["lstm_bidir_train_bwd"] == {"grid": n * steps}
+              and took["ctc_alpha"] == {"staged": steps + dev_b}
+              and took["ctc_beta"] == {"staged": steps},
+              f"a pipeline launch took another branch: {took}")
+    names = (("fwd_fma_kernel", "lstm_bidir_bwd_kernel", "ctc_fwd_kernel",
+              "ctc_bwd_kernel") if on_card else ())
+    trace = trace_kernels(Path(cfg.checkpoint_dir) / cfg.exp_name / "profile",
+                          names)
+    print(f"  profile: True traced the first epoch into {trace['file']} "
+          f"({trace['bytes']} bytes, {trace['kernel_events']} kernel events; "
+          f"the port's kernels by name {trace['by_name']})")
+    check(all(trace["by_name"].values()),
+          f"the profile names none of some port kernels: {trace['by_name']}")
+
+    # the first epoch without the profiler (a conf that differs only there)
+    quiet_conf = pipeline_conf(WORK / "pipeline_noprofile.yaml", profile=False)
+    walls["2_without_profile"] = run_stage(
+        ["--data", str(data), "--conf", str(quiet_conf), "--device", device,
+         "--stage", "2", "--stop-stage", "2"], [])
+    rates = reader_rates(cfg, cfg.train_scp_path, cfg.train_lab_path)
+    print(f"  stage 2 with profile: True {walls[2]:.3f} s, without "
+          f"{walls['2_without_profile']:.3f} s; preload of {rates['utts']} "
+          f"utterances, utts/s by worker threads, native against numpy "
+          f"(items bit-equal): " + ", ".join(
+              f"{k} {v['native']:.1f} vs {v['numpy']:.1f} "
+              f"({v['speedup']:.2f}x)" for k, v in rates.items()
+              if k != "utts") + f" ({smi})")
+
+    # cli.visualize on an fp32 copy of the package, against the kernels
+    pkg32 = WORK / "checkpoint" / "pipeline_fp32.npz"
+    spec32 = dataclasses.replace(spec, compute_dtype="float32")
+    save_package(pkg32, spec32, model, config=cfg)
+    zero_counts()
+    viz = cli_visualize.main(["--conf", str(data / "conf_resolved.yaml"),
+                              "--package", str(pkg32), "--out",
+                              str(WORK / "viz" / "act.npz"), "--device",
+                              device])
+    viz_launches = launch_counts()["lstm_bidir"]
+    z = np.load(viz)
+    _, model32, _ = model_from_package(pkg32, device)
+    with torch.inference_mode():
+        lp = model32(torch.from_numpy(z["input"][None]).to(device))
+    viz_err = float(np.abs(lp[:, 0].cpu().numpy() - z["log_probs"]).max())
+    row_err = float(np.abs(np.exp(z["log_probs"]).sum(-1) - 1).max())
+    print(f"  cli.visualize (fp32 package, {z['utt']}): keys {sorted(z.files)}, "
+          f"input {z['input'].shape}, post_cnn {z['post_cnn'].shape}, pre_rnn "
+          f"{z['pre_rnn'].shape}, log_probs {z['log_probs'].shape}; against "
+          f"the kernels' eval forward {viz_err:.3g} (tol 1e-4), rows sum to 1 "
+          f"within {row_err:.3g} (rtol 1e-4); eval launches {viz_launches}")
+    check(viz_err <= 1e-4 and row_err <= 1e-4,
+          "cli.visualize's log-probs are not the kernels' forward")
+    check(not on_card or viz_launches == n, "cli.visualize ran no kernel")
+
+    # cli.import_torch on a full-width reference-format flagship
+    ref = reference_package(cfg.rnn_input_size, [
+        (ch, k, st, pad) for ch, k, st, pad in zip(
+            cfg.cnn.channel, cfg.cnn.kernel_size, cfg.cnn.stride,
+            cfg.cnn.padding)], cfg.rnn_hidden_size, cfg.rnn_layers,
+        vocab.n_words, seed=5)
+    module = ref.pop("module").to(device)
+    pkl, imported = WORK / "reference.pkl", WORK / "imported.npz"
+    torch.save(ref, pkl)
+    t0 = time.perf_counter()
+    import_torch.main([str(pkl), str(imported)])
+    import_s = time.perf_counter() - t0
+    batch = next(iter(SpeechDataLoader(
+        SpeechDataset(vocab, cfg.test_scp_path, cfg.test_lab_path, cfg),
+        cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets)))
+    x = torch.from_numpy(batch.feats).to(device)
+    spec_i, model_i, _ = model_from_package(imported, device)
+    zero_counts()
+    with torch.inference_mode():
+        got = model_i(x)
+        sync()
+        import_launches = launch_counts()["lstm_bidir"]
+        want_lp = module(x)
+    import_err = float((got - want_lp).abs().max())
+    check(got.shape == want_lp.shape and torch.allclose(
+        got, want_lp, rtol=1e-3, atol=1e-4),
+          f"the imported package's forward parts from the reference's by "
+          f"{import_err:.3g}")
+    check(not on_card or import_launches == n,
+          "the imported package's forward ran no kernel")
+    res = evaluate(cfg, str(imported), device=device, log=lambda *_: None)
+    print(f"  cli.import_torch: {spec_i.rnn_layers} x BiLSTM("
+          f"{spec_i.rnn_hidden_size}), {spec_i.num_class} classes, in "
+          f"{import_s:.3f} s; its kernel forward (B={x.shape[0]}, T="
+          f"{x.shape[1]}, fp32) against the reference module's own on "
+          f"{device}: max |diff| {import_err:.3g} (atol 1e-4, rtol 1e-3); "
+          f"eval launches {import_launches}; stage 4 of it: WER "
+          f"{res['wer']:.4f} over {res['batches']} batches")
+    return {"counts": counts, "branches": took, "device": smi,
+            "utterances": want, "stage_walls_s": walls, "reads_stage2": reads,
+            "steps": steps, "readers": rates, "trace": trace,
+            "visualize_err": viz_err, "import_err": import_err,
+            "import_s": import_s}
+
+
+def phase_863_lstm_slice(smi: str, device: str = "cuda") -> dict:
+    """Both 863 LSTM recipes as shipped (``RECIPES_863_LSTM``:
+    ``cnn_lstm_ctc.conf``, log spectrum 201 + CNN 1->16 (11, 5) stride
+    (2, 2) + Hardtanh(0, 20), and ``lstm_ctc.conf``, fbank 40 without a CNN;
+    both 4 x BiLSTM(256), 67 outputs, bf16, batch 16, the accuracy-keyed
+    scheduler, ``dev_over_train``, the fused epoch dispatched once), ingested
+    the reference's 863 way: a text-format Kaldi dump
+    (``write_text_corpus``, ``SPLITS_863_LSTM``) converted by
+    ``data/convert.py``.  For each: one epoch through ``cli.train.train``
+    (every batch a graph replay; at B=16 the streams are bf16, so the
+    training forward runs ``fwd_mma_kernel`` on ``cluster16`` and the
+    backward the pre-pass and ``bwd_cluster_kernel`` with 16-row clusters,
+    each launch's branch checked), the loss on the longest batch before and
+    after (it must fall), stage 4 of the saved package through
+    ``cli.test.evaluate``, and a seeded model decoded through the kernels
+    and, in fp32, through kernels and twins (the same strings,
+    ``decode_slice``).  Then the step's device time by kernel on the longest
+    batch, and the epoch graphed against streaming with the card's busy
+    share (``phase_fused_vs_streaming``).  ``device="cpu"`` rehearses the
+    phase on cut recipes (``RECIPES_863_LSTM`` pointed elsewhere)."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.cli import train as cli_train
+    from ctc_pytorch_tpu_torch.cli.test import evaluate
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+    from ctc_pytorch_tpu_torch.data.convert import text_ark_to_binary
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+    from ctc_pytorch_tpu_torch.train.loop import forward_loss, train_step
+    from ctc_pytorch_tpu_torch.train.state import (
+        create_train_state,
+        restore,
+        snapshot,
+    )
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    on_card = device == "cuda"
+    results = {}
+    for recipe, (feats, dim) in RECIPES_863_LSTM.items():
+        tag = recipe.stem
+        root = WORK / f"data_{tag}"
+        t0 = time.perf_counter()
+        for split, n_utts, seed in SPLITS_863_LSTM:
+            text = write_text_corpus(root, split, n_utts, seed, dim,
+                                     UNITS_863, feats)
+            check(text_ark_to_binary(text, root / split / f"{feats}.ark",
+                                     root / split / f"{feats}.scp") == n_utts,
+                  f"{tag}: the text dump of {split} did not convert")
+        convert_s = time.perf_counter() - t0
+        cfg = recipe_config(recipe, f"data_{tag}", feats, "text", "dev")
+        cfg.exp_name, cfg.log_dir = f"smoke_{tag}", str(WORK / "log")
+        spec = ModelSpec.from_config(cfg, num_class=cfg.num_class + 1)
+        cnn = tag == "cnn_lstm_ctc"
+        check(spec.rnn_cell == "lstm" and spec.bidirectional
+              and spec.num_class == 67 and spec.add_cnn == cnn
+              and spec.rnn_input_size == dim and cfg.batch_size == 16
+              and cfg.scheduler_mode == "acc" and cfg.dev_over_train
+              and cfg.fused_epoch and cfg.fused_dispatch == "epoch"
+              and cfg.n_downsample == (2 if cnn else 1),
+              f"{tag} is not the 863 LSTM recipe as shipped: {spec}")
+        check(not on_card or (spec.rnn_hidden_size == 256
+                              and spec.rnn_layers == 4
+                              and spec.compute_dtype == "bfloat16"),
+              f"{tag} is not at full width: {spec}")
+        vocab = Vocab(cfg.vocab_file)
+
+        def host(scp, lab):
+            return SpeechDataLoader(SpeechDataset(vocab, scp, lab, cfg),
+                                    cfg.batch_size, shuffle=False,
+                                    num_buckets=cfg.num_buckets)
+
+        longest = max(host(cfg.train_scp_path, cfg.train_lab_path),
+                      key=lambda b: b.feats.shape[1])
+        probe = tuple(torch.as_tensor(a).to(device) for a in (
+            longest.feats, longest.input_frac, longest.labels,
+            longest.label_lengths, longest.example_mask))
+
+        def probe_loss(state) -> float:
+            # train mode (batch statistics) with no update: the BN buffers
+            # the forward moves are put back
+            snap = snapshot(state)
+            with torch.no_grad():
+                loss, _, _ = forward_loss(state, spec, *probe, True, None)
+            restore(state, snap)
+            return loss.item()
+
+        def fresh():
+            return create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                                      cfg.grad_clip, seed=cfg.seed,
+                                      device=device)
+
+        loss_before = probe_loss(fresh())  # the trainer's init: same seed
+        lines = []
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer, best = cli_train.train(cfg, device=device, num_epoches=1,
+                                        log=lines.append)
+        sync()
+        fit_s = time.perf_counter() - t0
+        counts, took = launch_counts(), path_branches()
+        steps, n = trainer.state.step, spec.rnn_layers
+        dev_b = len(host(cfg.valid_scp_path, cfg.valid_lab_path))
+        eval_b = dev_b + steps  # the dev pass and the pass over train
+        loss_after = probe_loss(trainer.state)
+        graphs = trainer.graphs()
+        print(f"  {tag} ({feats} {dim}, T' of the longest batch "
+              f"{spec.output_time_len(longest.feats.shape[1])}): text dump "
+              f"converted in {convert_s:.3f} s; cli.train.train, 1 epoch: "
+              f"{steps} steps of B={cfg.batch_size}, {eval_b} eval batches, "
+              f"{fit_s:.3f} s with the captures, {graphs.replays()} replays; "
+              f"launches {counts}; by branch {took}; loss on the longest "
+              f"batch {loss_before:.4f} -> {loss_after:.4f}")
+        check(any(ln.startswith("fused_epoch: the epochs run over the device "
+                                "cache") for ln in lines),
+              f"{tag}: the fit did not take the fused path")
+        check(any(ln.startswith("cer on training set is ") for ln in lines),
+              f"{tag}: dev_over_train ran no pass over the training set")
+        check(steps == -(-SPLITS_863_LSTM[0][1] // cfg.batch_size),
+              f"{tag}: {steps} steps")
+        check(loss_after < loss_before, f"{tag}: the loss did not fall")
+        if on_card:
+            check(graphs.replays() == steps + eval_b,
+                  f"{tag}: {graphs.replays()} replays")
+            check_counts(counts, {"lstm_bidir_train_fwd": n * steps,
+                                  "lstm_bidir_train_bwd": n * steps,
+                                  "ctc_alpha": steps + eval_b,
+                                  "ctc_beta": steps,
+                                  "lstm_bidir": n * eval_b}, f"{tag} fit")
+            check(took["lstm_bidir_train_fwd"] == {"cluster16": n * steps}
+                  and took["lstm_bidir_train_bwd"] == {"cluster16": n * steps},
+                  f"{tag}: the training forward or backward left the "
+                  f"16-row clusters: {took}")
+            check(all(k.startswith("cluster") for k in took["lstm_bidir"]),
+                  f"{tag}: an eval forward took the grid: {took}")
+        res = evaluate(cfg, str(best), device=device, log=lines.append)
+        decoded = [ln for ln in lines if ln.startswith("decoded: ")]
+        check(len(decoded) == SPLITS_863_LSTM[1][1]
+              and math.isfinite(res["wer"]),
+              f"{tag}: the saved package does not decode")
+        print(f"  {tag} stage 4 of the saved package: {len(decoded)} utts, "
+              f"CER {res['cer']:.4f}")
+        out = {"counts": counts, "branches": took, "steps": steps,
+               "fit_s": fit_s, "convert_s": convert_s,
+               "loss_before": loss_before, "loss_after": loss_after,
+               "decode_launches": 0}
+        if on_card:
+            # one epoch leaves blank everywhere: a seeded model with a
+            # sharp output layer decodes strings to compare
+            out["decode_launches"] = decode_slice(
+                cfg, spec, seeded_model(spec), "lstm_bidir",
+                SPLITS_863_LSTM[1][1], f"863_{tag}")
+            state = fresh()
+
+            def step():
+                train_step(state, spec, *probe)
+
+            step_ms = cuda_ms(step, reps=10)
+            want = ("fwd_mma_kernel", "prepass_mma_kernel",
+                    "bwd_cluster_kernel", "ctc_fwd_kernel", "ctc_bwd_kernel")
+            step_us, rows = device_breakdown(step, expect=want)
+            check(all(any(e in name for name, _ in rows) for e in want),
+                  f"{tag}: the step's profile lacks one of {want}")
+            bwd_us = sum(us for name, us in rows if "bwd_cluster_kernel" in name
+                         or "prepass_mma_kernel" in name)
+            fwd_us = sum(us for name, us in rows if "fwd_mma_kernel" in name)
+            print(f"  {tag} train step, B={cfg.batch_size}, T="
+                  f"{probe[0].shape[1]}: {step_ms:.4f} ms, "
+                  f"{step_us / 1e3:.4f} ms of kernels; LSTM backward (pre-pass "
+                  f"+ bwd_cluster_kernel) {bwd_us / 1e3:.4f} ms "
+                  f"({100 * bwd_us / step_us:.1f}%), training forward "
+                  f"{fwd_us / 1e3:.4f} ms ({100 * fwd_us / step_us:.1f}%) "
+                  f"({smi})")
+            print_breakdown(f"{tag} train step", step_ms, step_us, rows, top=10)
+            out.update(step_ms=step_ms, step_device_ms=step_us / 1e3,
+                       lstm_bwd_device_ms=bwd_us / 1e3,
+                       lstm_train_fwd_device_ms=fwd_us / 1e3)
+        out["fused_vs_streaming"] = phase_fused_vs_streaming(
+            cfg, spec, f"863 {tag} 4 x BiLSTM(256)", smi, device)
+        results[tag] = out
+    return results
+
+
 def busy_us(prof) -> float:
     """Microseconds in which the card ran anything (kernels, copies, sets)
     in a ``torch.profiler`` trace: the union of its device intervals."""
@@ -3560,7 +4279,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/12] device: {smi} | torch {torch.__version__} "
+    print(f"[1/14] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -3568,7 +4287,7 @@ def main() -> int:
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/12] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/14] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -3578,7 +4297,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/12] kernel vs plain on the card")
+    print("[3/14] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -3590,28 +4309,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/12] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/14] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/12] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/14] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/12] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/14] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/12] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/14] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/12] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/14] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/12] times ({smi})")
+    print(f"[9/14] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -3659,21 +4378,31 @@ def main() -> int:
                 "unidirectional CNN+LSTM(384)", "bench shape")
     ctc_share = ctc_step_share(model_recipe, recipe)
 
-    print(f"[10/12] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/14] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/12] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/14] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
 
-    print(f"[12/12] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+    print(f"[12/14] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
           f"on the card, stage 3, one fused epoch with the frontend in the "
           f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
           f"StreamingRecognizer ({smi})")
     wave = phase_waveform_slice(smi)
+
+    print(f"[13/14] pipeline: stages 0-4 of the flagship recipe through "
+          f"cli.run on a synthetic TIMIT tree, profile: True, then "
+          f"cli.visualize and cli.import_torch ({smi})")
+    pipeline = phase_pipeline_slice(smi)
+
+    print(f"[14/14] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
+          f"lstm_ctc.conf from text dumps, one fused epoch each through "
+          f"cli.train.train, stage 4, fp32 kernels vs twins ({smi})")
+    lstm_863 = phase_863_lstm_slice(smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -3685,10 +4414,16 @@ def main() -> int:
                "unidir": path(counts_uni, "lstm_bidir", decode_launches_uni),
                "mfcc39": path(mfcc["counts"], "lstm_bidir",
                               mfcc["decode_launches"]),
-               "waveform": path(wave["counts"], "lstm_bidir", 0)}
+               "waveform": path(wave["counts"], "lstm_bidir", 0),
+               # phase 13's counts span stages 2 and 4
+               "pipeline": path(pipeline["counts"], "lstm_bidir", 0),
+               **{f"863_{tag}": path(r["counts"], "lstm_bidir",
+                                     r["decode_launches"])
+                  for tag, r in lstm_863.items()}}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
-    lstm_paths = ("timit", "unidir", "mfcc39", "waveform")
+    lstm_paths = ("timit", "unidir", "mfcc39", "waveform", "pipeline",
+                  "863_cnn_lstm_ctc", "863_lstm_ctc")
     ctc_paths = tuple(by_path)
     # (name, source, TPU kernel, paths that must launch it, worst error fp32,
     # bf16, one direction)
@@ -3785,6 +4520,11 @@ def main() -> int:
             entry["launches_by_branch"] = branches_tanh[name]
         if name in wave["branches"]:  # the waveform path's, at B=128
             entry["launches_by_branch_waveform"] = wave["branches"][name]
+        if name in pipeline["branches"]:  # cli.run's stages 2 and 4, B=8
+            entry["launches_by_branch_pipeline"] = pipeline["branches"][name]
+        for tag, r in lstm_863.items():  # the 863 LSTM fits, B=16
+            if name in r["branches"]:
+                entry[f"launches_by_branch_863_{tag}"] = r["branches"][name]
         # the branches phase 3 captured and replayed against the eager call
         entry["graph_replayed_branches"] = graph_branches[name]
         if name.startswith("ctc"):
@@ -3826,7 +4566,12 @@ def main() -> int:
                                       "863": beam_863},
                       "mfcc39_model": mfcc["model"],
                       "waveform": {k: v for k, v in wave.items()
-                                   if k not in ("counts", "branches")}}))
+                                   if k not in ("counts", "branches")},
+                      "pipeline": {k: v for k, v in pipeline.items()
+                                   if k not in ("counts", "branches")},
+                      "863_lstm": {tag: {k: v for k, v in r.items()
+                                         if k not in ("counts", "branches")}
+                                   for tag, r in lstm_863.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -12,24 +12,46 @@ float32: the frontend, splice and skip run in the step
 (``frontend/e2e.py``), and ``lengths()`` are sample counts, read from the
 audio headers.
 
-Not here yet: the native one-pass ark reader of the JAX package (it returns
-the same arrays as the numpy path below).
+An uncompressed float matrix (``BFM``, what ``ArkWriter`` and stage 1
+write) is read, spliced, skipped and padded in one native pass
+(``native/ark_native.cpp``, as ``ctc_pytorch_tpu/data/dataset.py:112-122``
+reads it), bit for bit the numpy path's; the call releases the GIL, so
+``preload``'s threads run in parallel.  Other formats (compressed, double),
+``mel: True`` and waveform items take the numpy path: dispatch by format,
+not a fallback.  ``READS`` counts the feature items each reader produced.
 """
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ctc_pytorch_tpu_torch import native
 from ctc_pytorch_tpu_torch.config import Config
 from ctc_pytorch_tpu_torch.data import kaldi_io
 from ctc_pytorch_tpu_torch.data.prep.sphere import audio_num_samples, read_audio
 from ctc_pytorch_tpu_torch.frontend.fmel import f_mel
 from ctc_pytorch_tpu_torch.frontend.splice import downsampled_len, skipped_len
 from ctc_pytorch_tpu_torch.vocab import Vocab
+
+
+# items read by each reader since the last reset_reads(), over every dataset
+READS = {"native": 0, "numpy": 0}
+_reads_lock = threading.Lock()
+
+
+def reset_reads() -> None:
+    with _reads_lock:
+        READS.update(dict.fromkeys(READS, 0))
+
+
+def _count_read(reader: str) -> None:
+    with _reads_lock:
+        READS[reader] += 1
 
 
 def _splice_numpy(feat: np.ndarray, left: int, right: int) -> np.ndarray:
@@ -109,10 +131,21 @@ class SpeechDataset:
                 )
         return feat.astype(np.float32)
 
+    def _native_processed(self, rx: str) -> Optional[np.ndarray]:
+        """read + splice + skip + pad in one native pass
+        (``ark_native.cpp``); None for an entry that is not an uncompressed
+        BFM matrix and for ``mel`` features, which the numpy path reads."""
+        if self.opts.mel:
+            return None
+        return native.ark_load_processed_native(
+            rx, self.left_ctx, self.right_ctx, self.n_skip_frame,
+            self.n_downsample)
+
     def preload(self, workers: int = 4) -> None:
         """Fill the cache with `workers` threads (the reference's
-        ``num_workers`` DataLoader knob, ``timit/utils/data_loader.py:148``);
-        the threads overlap file IO."""
+        ``num_workers`` DataLoader knob, ``timit/utils/data_loader.py:148``).
+        The native reader releases the GIL, so the threads run in parallel;
+        on the numpy path they overlap file IO."""
         if self._cache is None:
             return
         from concurrent.futures import ThreadPoolExecutor
@@ -126,13 +159,16 @@ class SpeechDataset:
     def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray, str]:
         if self._cache is not None and self._cache[idx] is not None:
             return self._cache[idx]
-        utt, _, label = self.items[idx]
+        utt, rx, label = self.items[idx]
         if self.feature_type == "waveform":
             # raw samples as (S, 1), so that batching pads them like
             # features; splice and skip run in the step's frontend
             feat = self.raw_feature(idx).reshape(-1, 1).astype(np.float32)
         else:
-            feat = self.process_feature(self.raw_feature(idx))
+            feat = self._native_processed(rx)
+            _count_read("numpy" if feat is None else "native")
+            if feat is None:
+                feat = self.process_feature(self.raw_feature(idx))
             if self.opts.mel:
                 # F_Mel warping of the processed log spectrum
                 # (data_loader.py:111-112)

@@ -177,7 +177,8 @@ class CTCModel(nn.Module):
                 example_mask: Optional[torch.Tensor] = None,
                 train: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None,
+                visualize: bool = False):
         """(B, T, F) -> log_probs (T', B, num_class).
 
         ``frac``: the collate's ``len / T_pad`` per row; drives the
@@ -192,7 +193,13 @@ class CTCModel(nn.Module):
         ``generator`` (on ``x``'s device; required when ``spec.drop_out > 0``).
 
         ``lengths``: (B,) valid frames at the recurrent layers' input, for
-        packed-sequence semantics there (``models/rnn.py``)."""
+        packed-sequence semantics there (``models/rnn.py``).
+
+        ``visualize``: also return the activations the reference shows
+        (``visualize.py:107-132``), as the JAX ``CTCModel.apply(visualize=
+        True)`` returns them: ``(log_probs, [x, post-CNN (B, C, T', F')
+        fp32, pre-RNN (T', B, C*F'), log_probs])``, the two CNN planes only
+        with a CNN."""
         if train is not None:
             self.train(train)
         spec = self.spec
@@ -202,14 +209,19 @@ class CTCModel(nn.Module):
         if frac is not None and spec.pad_dynamics == "batchmax":
             _, bmax = CTCModel.batch_max_frames(frac, x.shape[1], example_mask)
 
+        visual = [x] if visualize else None
         if self.cnn is not None:
             out = self.cnn(x[:, None], cd, t_valid=bmax,
                            example_mask=example_mask, drop_rate=drop,
                            generator=generator)  # (B, C, T', F')
+            if visualize:
+                visual.append(out.float())
             b, c, t, f = out.shape
             # (B, C, T', F') -> (T', B, C*F'): C-major features, the
             # reference's reshape (model_ctc.py:153-158)
             out = out.permute(2, 0, 1, 3).reshape(t, b, c * f)
+            if visualize:
+                visual.append(out)
         else:
             out = x.transpose(0, 1)
 
@@ -233,4 +245,20 @@ class CTCModel(nn.Module):
         if self.fc_bn is not None:
             flat = self.fc_bn(flat, bn_mask)
         logits = self.fc(flat, cd).reshape(t, b, -1)
-        return torch.log_softmax(logits, dim=-1)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        if visualize:
+            return log_probs, visual + [log_probs]
+        return log_probs
+
+    def add_weights_noise(self, stddev: float = 0.075,
+                          generator: Optional[torch.Generator] = None) -> None:
+        """Gaussian weight noise on every parameter, in place
+        (``model_ctc.py:204-207``; the JAX ``CTCModel.add_weights_noise``).
+        BN running statistics are buffers and stay as they are.  The noise is
+        drawn from ``generator``, which must live on the parameters' device;
+        its stream is not the JAX package's."""
+        with torch.no_grad():
+            for p in self.parameters():
+                p.add_(torch.randn(p.shape, generator=generator,
+                                   device=p.device, dtype=p.dtype),
+                       alpha=stddev)

@@ -1,13 +1,16 @@
-"""ctypes binding of the host-side beam search (``ctc_native.cpp``).
+"""ctypes bindings of the host-side C++: the beam search
+(``ctc_native.cpp``) and the one-pass ark reader (``ark_native.cpp``).
 
-Counterpart of ``ctc_pytorch_tpu/native/__init__.py`` for the beam search
-alone.  The library is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17`` into ``native/build/libctc_native-<digest>.so`` (the digest
-covers the source and the flags, so a changed source rebuilds).  The build
-writes a temporary file and renames it into place, so processes that build
-at the same moment each load a whole library.  A failed build raises with
-the compiler's output: the caller asked for the native search, and nothing
-falls back to the numpy one.  Nothing is built at import time.
+Counterpart of ``ctc_pytorch_tpu/native/__init__.py``.  Both sources are
+compiled at first use with ``g++ -O3 -shared -fPIC -std=c++17`` into one
+library, ``native/build/libctc_native-<digest>.so`` (the digest covers the
+sources and the flags, so a changed source rebuilds).  The build writes a
+temporary file and renames it into place, so processes (or threads) that
+build at the same moment each load a whole library.  A failed build raises
+with the compiler's output: the caller asked for the native search or
+reader, and nothing falls back to the numpy one.  Nothing is built at
+import time.  ctypes releases the GIL for the length of a call, so the
+reader's calls from ``SpeechDataset.preload``'s threads run in parallel.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "ctc_native.cpp"
+ARK_SOURCE = SOURCE.parent / "ark_native.cpp"
 BUILD_DIR = SOURCE.parent / "build"
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -32,8 +36,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _sources() -> Tuple[Path, Path]:
+    return SOURCE, ARK_SOURCE
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _sources())
                             + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libctc_native-{digest}.so"
 
@@ -48,16 +56,17 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", tmp],
+        proc = subprocess.run([CXX, *CXX_FLAGS, *map(str, _sources()), "-o",
+                               tmp],
                               capture_output=True, text=True, timeout=300)
     except OSError as exc:
         os.unlink(tmp)
         raise RuntimeError(
-            f"native beam search: cannot run {CXX!r} ({exc})") from exc
+            f"native library: cannot run {CXX!r} ({exc})") from exc
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"native beam search: {CXX} failed ({proc.returncode}):\n"
+            f"native library: {CXX} failed ({proc.returncode}):\n"
             f"{proc.stderr}")
     os.replace(tmp, path)
     return path
@@ -78,6 +87,19 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_double),
             ]
+            lib.ark_open.restype = ctypes.c_int32
+            lib.ark_open.argtypes = [ctypes.c_char_p]
+            lib.ark_close.restype = None
+            lib.ark_close.argtypes = [ctypes.c_int32]
+            lib.ark_dims_fd.restype = ctypes.c_int32
+            lib.ark_dims_fd.argtypes = [
+                ctypes.c_int32, ctypes.c_long, ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32)]
+            lib.ark_load_processed_fd.restype = ctypes.c_int32
+            lib.ark_load_processed_fd.argtypes = [
+                ctypes.c_int32, ctypes.c_long, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_float),
+                ctypes.c_long]
             _lib = lib
         return _lib
 
@@ -120,3 +142,79 @@ def ctc_beam_search_native(
         ctypes.byref(out_score),
     )
     return tuple(int(x) for x in out_seq[:n]), float(out_score.value)
+
+
+ERR_FORMAT = -2  # ark_native.cpp: not an uncompressed "BFM " matrix
+
+# cached fds for the pread reader, by path and inode: each ark file is
+# opened once per process (a file written anew under the same name is
+# opened anew); pread has no seek state, so threads share one fd safely
+_ark_fds: Dict[Tuple[str, int], int] = {}
+_ark_fd_lock = threading.Lock()
+
+
+def _ark_fd(lib, path: str) -> int:
+    key = (path, os.stat(path).st_ino)
+    fd = _ark_fds.get(key)
+    if fd is not None:
+        return fd
+    with _ark_fd_lock:
+        fd = _ark_fds.get(key)
+        if fd is None:
+            fd = int(lib.ark_open(path.encode()))
+            if fd < 0:
+                raise OSError(f"native ark reader: cannot open {path!r}")
+            _ark_fds[key] = fd
+    return fd
+
+
+def close_ark_files() -> None:
+    """Close every cached ark fd (tests, long-lived servers)."""
+    with _ark_fd_lock:
+        if _lib is not None:
+            for fd in _ark_fds.values():
+                _lib.ark_close(fd)
+        _ark_fds.clear()
+
+
+def ark_load_processed_native(
+    rxspec: str, left: int, right: int, skip: int, downsample: int,
+) -> Optional[np.ndarray]:
+    """Read the ``ark:offset`` matrix of ``rxspec`` and splice (``left`` and
+    ``right`` frames, edges replicated), skip (every ``skip``-th row) and
+    zero-pad it (rows to a multiple of ``downsample``) in one native pass;
+    float32 ``(rows_out, cols * (left + 1 + right))``, bit for bit the
+    numpy path's.
+
+    Returns None when the entry is not an uncompressed float matrix (the
+    dataset reads those through numpy: dispatch by format).  A read error
+    raises ``OSError``; a failed build raises ``RuntimeError``.  The ark
+    file is opened once and read by positional reads (pread): a header
+    pread and a payload pread an utterance."""
+    lib = load()
+    if ":" in rxspec:
+        path, off_s = rxspec.rsplit(":", 1)
+        offset = int(off_s)
+    else:
+        path, offset = rxspec, 0
+    fd = _ark_fd(lib, path)
+    rows = ctypes.c_int32()
+    cols = ctypes.c_int32()
+    rc = lib.ark_dims_fd(fd, offset, ctypes.byref(rows), ctypes.byref(cols))
+    if rc == ERR_FORMAT:
+        return None
+    if rc != 0:
+        raise OSError(f"native ark reader: cannot read {rxspec!r} ({rc})")
+    skip = max(skip, 1)
+    downsample = max(downsample, 1)
+    rows_sk = (rows.value + skip - 1) // skip
+    rows_out = rows_sk + (-rows_sk) % downsample
+    cols_out = cols.value * (left + 1 + right)
+    out = np.empty((max(rows_out, 1), cols_out), np.float32)
+    got = lib.ark_load_processed_fd(
+        fd, offset, left, right, skip, downsample,
+        _ptr(out, ctypes.c_float), out.shape[0],
+    )
+    if got < 0:
+        raise OSError(f"native ark reader: cannot read {rxspec!r} ({got})")
+    return out[:got]

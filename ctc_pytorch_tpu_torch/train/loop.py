@@ -34,9 +34,14 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py``:
   fractions (the JAX ``make_step_fns(frontend_fn=...)``); in a fused epoch
   it is part of the captured graph, its cuFFT plans made by the warm-up;
 - the plateau scheduler with device-side snapshots and rollback, and the
-  best-dev-accuracy state kept for the final package.
+  best-dev-accuracy state kept for the final package;
+- ``profile: True``: the first epoch's training pass runs under a
+  ``torch.profiler`` trace written to ``<out_dir>/profile``
+  (``metrics_log.py:profile_ctx``; the JAX package's ``loop.py:775-776``),
+  on the path it takes without the trace: a fused epoch stays fused, its
+  graphs captured inside the trace.
 
-Data parallelism and ``profile`` are not ported.
+Data parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from ctc_pytorch_tpu_torch.ops.ctc_loss import ctc_loss
 from ctc_pytorch_tpu_torch.ops.editdistance import padded_edit_distance_device
 from ctc_pytorch_tpu_torch.train import checkpoint as ckpt
 from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
-from ctc_pytorch_tpu_torch.train.metrics_log import MetricsLogger
+from ctc_pytorch_tpu_torch.train.metrics_log import MetricsLogger, profile_ctx
 from ctc_pytorch_tpu_torch.train.scheduler import PlateauScheduler
 from ctc_pytorch_tpu_torch.train.state import (
     TrainState,
@@ -459,8 +464,6 @@ class Trainer:
     def __init__(self, cfg: Config, spec: ModelSpec,
                  device: str | torch.device = "cuda",
                  out_dir: Optional[str] = None, frontend_fn=None):
-        if cfg.profile:
-            raise NotImplementedError("profile: tracing is not ported yet")
         if cfg.fused_dispatch not in ("group", "epoch"):
             raise ValueError(f"fused_dispatch must be 'group' or 'epoch', "
                              f"got {cfg.fused_dispatch!r}")
@@ -552,8 +555,12 @@ class Trainer:
             train_loader.set_epoch(self.epoch)
             if self.epoch == 1 and cfg.fused_epoch:
                 self._log_path(train_loader, log)
-            train_acc, train_loss = self._run(
-                train_loader, training=True, compute_wer=compute_wer, log=log)
+            with profile_ctx(cfg.profile and self.epoch == 1,
+                             self.out_dir / "profile",
+                             cuda=self.device.type == "cuda"):
+                train_acc, train_loss = self._run(
+                    train_loader, training=True, compute_wer=compute_wer,
+                    log=log)
             if cfg.dev_over_train:
                 tr_eval_acc, _ = self._run(train_loader, training=False,
                                            compute_wer=True, log=log)

@@ -1,14 +1,17 @@
 """Training metrics: JSONL + CSV writers (copy of ``MetricsLogger`` from
-``ctc_pytorch_tpu/train/metrics_log.py``; the profiler context is not ported).
+``ctc_pytorch_tpu/train/metrics_log.py``) and the optional profiler trace.
 
 Replaces the visdom server dependency (``timit/steps/train_ctc.py:148-158,
 232-238``) with durable local artifacts: every epoch appends one JSONL record
 and one CSV row (train loss, dev loss, dev acc, lr, time), which any plotting
-tool can consume.
+tool can consume.  ``profile_ctx`` wraps a block in a ``torch.profiler``
+trace when enabled by config (the JAX package's wraps it in a
+``jax.profiler`` trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import time
@@ -61,3 +64,22 @@ class MetricsLogger:
                 w = csv.DictWriter(f, fieldnames=self._csv_fields,
                                    extrasaction="ignore")
                 w.writerow(record)
+
+
+@contextlib.contextmanager
+def profile_ctx(enabled: bool, out_dir: str | Path, cuda: bool = False):
+    """A ``torch.profiler`` trace of the with-block when ``enabled``: host
+    ops, and with ``cuda`` the card's kernels (CUPTI), written at the end of
+    the block into ``out_dir`` by ``tensorboard_trace_handler`` as a
+    ``*.pt.trace.json`` (Chrome trace format, which TensorBoard's profiler
+    plugin and Perfetto read)."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                           else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(out_dir))):
+        yield

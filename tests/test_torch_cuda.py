@@ -972,3 +972,92 @@ def test_fused_waveform_step_replays_against_the_eager_step(card, tmp_path):
         np.testing.assert_allclose(v.cpu().numpy(), want[k].cpu().numpy(),
                                    atol=1e-6, rtol=0)
     assert states[0].step == states[1].step == 1
+
+
+# the 863 LSTM recipes' kernel shapes among phase 3's lists: H=256, B=16
+# on bf16 streams, T' from cnn_lstm_ctc.conf's 95 to lstm_ctc.conf's 400
+SHAPES_863_LSTM = [c for c in FWD_CASES + HOIST_CASES
+                   if c[0].startswith("lstm") and c[2:5] == (16, 256, "bf16")]
+
+
+def test_phase3_holds_the_863_lstm_recipe_shapes():
+    """The lists the cases above run (and ``chip_smoke.py`` phase 3) hold
+    the 863 LSTM recipes' shapes on their branches, and the CTC cases the
+    ``lstm_ctc.conf`` batch; a list check, so it runs without a card."""
+    assert {(c[0], c[1], c[-1]) for c in SHAPES_863_LSTM} >= {
+        ("lstm_train", 95, "cluster16"), ("lstm_train", 195, "cluster16"),
+        ("lstm_train", 400, "cluster16"), ("lstm_eval", 95, "cluster16_fp32"),
+        ("lstm_eval", 400, "cluster16_fp32"), ("lstm", 95, "cluster"),
+        ("lstm", 195, "cluster"), ("lstm", 400, "cluster")}
+    assert any(c[:4] == (400, 16, 67, 40) for c in CTC_CASES)
+
+
+@pytest.mark.parametrize("t,add_cnn", [(95, True), (400, False)])
+def test_863_lstm_train_step_takes_the_16_row_clusters(card, t, add_cnn):
+    """A bf16 train step of an 863 LSTM model at H=256, B=16 (the recipes'
+    bf16 streams) on the card: the training forward on ``cluster16``, the
+    backward's serial launches on 16-row clusters, a finite loss that
+    agrees with the same step through the twins."""
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+
+    cnn = CNNConfig(add_cnn=add_cnn, layers=1, channel=[(1, 16)],
+                    kernel_size=[(11, 5)], stride=[(2, 2)], padding=[(0, 0)],
+                    activation_function="hardtanh")
+    feat = 201 if add_cnn else 40
+    spec = ModelSpec(add_cnn=add_cnn, cnn=cnn, rnn_input_size=feat,
+                     rnn_hidden_size=256, rnn_layers=2, rnn_cell="lstm",
+                     bidirectional=True, batch_norm=True, num_class=67,
+                     drop_out=0.0, compute_dtype="bfloat16")
+    t_in = 2 * t + 10 if add_cnn else t
+    gen = torch.Generator().manual_seed(t)
+    feats = torch.randn(16, t_in, feat, generator=gen).to(card)
+    frac = torch.ones(16, device=card)
+    labels = torch.randint(1, 67, (16, 30), generator=gen).int().to(card)
+    lab_len = torch.full((16,), 30, dtype=torch.int32, device=card)
+    mask = torch.ones(16, device=card)
+    state = create_train_state(spec, 1e-3, 0.005, 400.0, seed=1, device=card)
+    fwd = dict(train_ops.launches_fwd_branch)
+    bwd = dict(train_ops.launches_bwd_branch)
+    loss, _, _ = train_step(state, spec, feats, frac, labels, lab_len, mask)
+    torch.cuda.synchronize()
+    took_fwd = {k: v - fwd[k] for k, v in train_ops.launches_fwd_branch.items()
+                if v != fwd[k]}
+    took_bwd = {k: v - bwd[k] for k, v in train_ops.launches_bwd_branch.items()
+                if v != bwd[k]}
+    assert took_fwd == {"cluster16": 2} and took_bwd == {"cluster16": 2}
+    assert torch.isfinite(loss).item()
+    with chip_smoke.plain_twins():
+        twin = create_train_state(spec, 1e-3, 0.005, 400.0, seed=1, device=card)
+        want, _, _ = train_step(twin, spec, feats, frac, labels, lab_len, mask)
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=2e-2)
+
+
+def test_cli_run_stage_2_reads_every_utterance_natively_on_the_card(
+        card, tmp_path):
+    """Stages 0-2 of a cut flagship conf through ``cli.run`` on the card:
+    stage 2 reads its train and dev utterances through the native ark
+    reader, none through numpy, and trains from graphs."""
+    from ctc_pytorch_tpu_torch.cli import run
+    from ctc_pytorch_tpu_torch.data import dataset as dataset_mod
+
+    want = chip_smoke.write_timit_corpus(tmp_path / "timit", 2, 1, 1, seed=3)
+    cut = chip_smoke.RECIPE.read_text()
+    for a, b in (("rnn_hidden_size: 384", "rnn_hidden_size: 32"),
+                 ("rnn_layers: 4", "rnn_layers: 2"),
+                 ("num_epoches: 500", "num_epoches: 1"),
+                 ("checkpoint_dir: 'checkpoint/'",
+                  f"checkpoint_dir: '{tmp_path / 'checkpoint'}'")):
+        cut = cut.replace(a, b)
+    (tmp_path / "cut.yaml").write_text(cut)
+    argv = ["--timit", str(tmp_path / "timit"), "--data", str(tmp_path / "d"),
+            "--conf", str(tmp_path / "cut.yaml")]
+    run.main(argv + ["--stage", "0", "--stop-stage", "1"])
+    dataset_mod.reset_reads()
+    before = train_ops.launches_fwd
+    run.main(argv + ["--stage", "2", "--stop-stage", "2"])
+    assert dataset_mod.READS == {"native": want["train"] + want["dev"],
+                                 "numpy": 0}
+    assert train_ops.launches_fwd > before
+    assert (tmp_path / "checkpoint" / "ctc_fbank_cnn"
+            / "ctc_best_model.npz").exists()

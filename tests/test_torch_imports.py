@@ -37,7 +37,10 @@ def test_static_scan_finds_no_forbidden_import():
                 "cli/train_lm.py", "native/__init__.py",
                 "frontend/features.py", "frontend/cmvn.py", "frontend/splice.py",
                 "frontend/fmel.py", "frontend/e2e.py", "data/prep/sphere.py",
-                "data/prep/shorten.py", "cli/make_feat.py", "api.py"):
+                "data/prep/shorten.py", "cli/make_feat.py", "api.py",
+                "data/prep/timit.py", "data/prep/phones.py", "cli/run.py",
+                "data/convert.py", "cli/import_torch.py", "cli/visualize.py",
+                "utils.py"):
         assert f"ctc_pytorch_tpu_torch/{new}" in names
     bad = []
     for path in files:
@@ -271,6 +274,28 @@ def test_native_search_builds_its_own_library_and_nothing_at_import():
         assert "libctc_native.so" not in path.read_text(), path
     code = ("import ctc_pytorch_tpu_torch.native as n, "
             "ctc_pytorch_tpu_torch.decode.beam; assert n._lib is None")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_native_ark_reader_is_the_ports_copy_and_builds_nothing_at_import():
+    """The one-pass ark reader compiles the port's copy of
+    ``ark_native.cpp`` into the same git-ignored library as the beam
+    search, whose name carries a digest of both sources; importing the
+    dataset or the CLIs that read features builds nothing."""
+    from ctc_pytorch_tpu_torch import native
+
+    assert native.ARK_SOURCE == PORT / "native" / "ark_native.cpp"
+    assert native._sources() == (native.SOURCE, native.ARK_SOURCE)
+    text = native.ARK_SOURCE.read_text()
+    for fn in ("ark_open", "ark_close", "ark_dims_fd", "ark_load_processed_fd"):
+        assert f"int {fn}(" in text or f"void {fn}(" in text, fn
+    code = ("import ctc_pytorch_tpu_torch.native as n, "
+            "ctc_pytorch_tpu_torch.data.dataset, ctc_pytorch_tpu_torch.cli.run, "
+            "ctc_pytorch_tpu_torch.cli.visualize, "
+            "ctc_pytorch_tpu_torch.cli.import_torch; "
+            "assert n._lib is None and not n._ark_fds")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -418,9 +418,13 @@ def test_trainer_logs_the_unported_fused_epoch_and_refuses_profile(trainers):
     assert any("fused_epoch requested but running the streaming order" in ln
                for ln in lines)
     assert (trainer.out_dir / "ctc_best_model.npz").exists()
+    # profile: True is ported: the first epoch's training pass is traced
     trainer.cfg.profile = True
-    with pytest.raises(NotImplementedError, match="profile"):
-        Trainer(trainer.cfg, trainer.spec, device="cpu")
+    traced = Trainer(trainer.cfg, trainer.spec, device="cpu",
+                     out_dir=str(trainer.out_dir / "traced"))
+    traced.fit(tr, dv, num_epoches=1, compute_wer=False, log=lines.append)
+    traces = list((traced.out_dir / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1 and "aten::" in traces[0].read_text()
 
 
 def test_cli_trains_on_the_cpu_and_its_package_decodes(trainers, tmp_path):
