@@ -128,13 +128,27 @@ printed line; any failure ends the run with a nonzero exit and no result:
     ``cluster16`` and the backward on 16-row ``bwd_cluster_kernel``, the loss
     falling, stage 4 of the saved package, a seeded model's fp32 strings
     through kernels and twins, the step's device time by kernel, and the
-    graphed epoch against the streaming one.
+    graphed epoch against the streaming one;
+15. data parallel (``phase_data_parallel``): the flagship's step at full
+    width on two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), spawned with a file store: two fp32 steps and an eval step at
+    the recipe's B=8 and two bf16 steps at B=128, each against one process
+    on the whole batch, with each rank's launches and step times; one NCCL
+    rank in this process running a fused epoch from graphs, bit for bit
+    the ungrouped epoch; ``cli.train --data-parallel`` as two gloo ranks for
+    one epoch, its package decoded; stage 4's ``BeamDevice`` search and
+    ``Recognizer`` on a mesh of two against the unsplit runs.
 
-Nine model paths are driven: the flagship (phases 4 and 5), the 863 model
+Ten model paths are driven: the flagship (phases 4 and 5), the 863 model
 with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
 flagship (phase 8), the mfcc_39 model (phase 11), the waveform model (phase
-12), the flagship through ``cli.run`` (phase 13) and the two 863 LSTM
-recipes (phase 14).
+12), the flagship through ``cli.run`` (phase 13), the two 863 LSTM recipes
+(phase 14) and the flagship data parallel (phase 15).
+
+Every profiled device time counts kernels, copies and sets only
+(``device_activity``), not the user annotations that ``torch.profiler``
+draws on the device's timeline, such as the span of
+``Optimizer.step#Adam.step``.
 
 It prints one JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -254,16 +268,29 @@ def graph_ms(fn, n: int = 20) -> float:
     return cuda_ms(graph.replay, reps=5, warmup=1) / n
 
 
+def device_activity(ev) -> bool:
+    """Whether a ``torch.profiler`` event is work on the card (a kernel, a
+    copy or a set): not a step marker, and not a user annotation that the
+    profiler draws on the device's timeline (``Optimizer.step#Adam.step``,
+    ``nccl:all_reduce``), which spans the kernels it encloses."""
+    from torch.autograd import DeviceType
+
+    return (ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith(("ProfilerStep", "Optimizer.",
+                                        "nccl:")))
+
+
 def device_breakdown(fn, expect=()):
     """Device time of one ``fn()`` by kernel name, from ``torch.profiler``:
-    (total microseconds, [(name, microseconds)] largest first).  A first
-    call runs in the profiler's warm-up cycle, which can miss the first
-    kernels of its window; the second is the one recorded.  A session that
-    records no kernel, or lacks a kernel whose name holds one of
-    ``expect``, is run again, up to three in all (``torch.profiler`` now and
-    then drops a call's first kernels)."""
+    (total microseconds, [(name, microseconds)] largest first), kernels,
+    copies and sets only (``device_activity``).  A first call runs in the
+    profiler's warm-up cycle, which can miss the first kernels of its
+    window; the second is the one recorded.  A session that records no
+    kernel, or lacks a kernel whose name holds one of ``expect``, is run
+    again, up to three in all (``torch.profiler`` now and then drops a
+    call's first kernels)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -278,9 +305,8 @@ def device_breakdown(fn, expect=()):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        for ev in recorded:  # the step markers are not kernels
-            if (ev.device_type == DeviceType.CUDA
-                    and not ev.name.startswith("ProfilerStep")):
+        for ev in recorded:
+            if device_activity(ev):
                 by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                     + ev.time_range.elapsed_us())
         if by_name and all(any(e in n for n in by_name) for e in expect):
@@ -491,6 +517,10 @@ def phase_lstm_eval_vs_plain() -> dict:
         (200, 16, 384, torch.float32),
         (410, 1, 384, torch.float32),
         (818, 1, 384, torch.float32),
+        # phase 15's ranks: the flagship's batch of 8 over two ranks (fp32
+        # streams) and the bench batch of 128 over two (bf16 streams)
+        (100, 4, 384, torch.float32),
+        (80, 64, 384, torch.bfloat16),
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (t, b, h, dt) in enumerate(cases):
@@ -530,6 +560,8 @@ def phase_lstm_train_vs_plain() -> dict:
         (4, 4, 600, torch.float32),  # past the resident limit: w_hh from L2
         (3, 3, 1024, torch.float32),
         (200, 128, 384, torch.bfloat16),  # the waveform recipe's step, 4 s
+        (100, 4, 384, torch.float32),  # phase 15: B=8 over two ranks
+        (80, 64, 384, torch.bfloat16),  # phase 15: B=128 over two ranks
     ]
     worst = {"fwd": {"fp32": 0.0, "bf16": 0.0}, "bwd": {"fp32": 0.0, "bf16": 0.0}}
     for i, (t, b, h, dt) in enumerate(cases):
@@ -857,6 +889,9 @@ HOIST_CASES = [
     ("lstm", 95, 16, 256, "bf16", 2, "cluster"),
     ("lstm", 195, 16, 256, "bf16", 2, "cluster"),
     ("lstm", 400, 16, 256, "bf16", 2, "cluster"),
+    # phase 15's ranks: the flagship's B=8 and the bench B=128 over two
+    ("lstm", 100, 4, 384, "fp32", 2, "grid"),
+    ("lstm", 80, 64, 384, "bf16", 2, "cluster"),
 ]
 
 
@@ -982,6 +1017,13 @@ FWD_CASES = [
     ("lstm_train", 400, 16, 256, "bf16", 2, "cluster16"),
     ("lstm_eval", 95, 16, 256, "bf16", 2, "cluster16_fp32"),
     ("lstm_eval", 400, 16, 256, "bf16", 2, "cluster16_fp32"),
+    # phase 15's ranks: the flagship's B=8 over two ranks on fp32 streams,
+    # the bench batch of 128 over two on bf16 streams (the eval op's fp32
+    # products need 8 clusters of 16 CTAs there, which do not fit)
+    ("lstm_eval", 100, 4, 384, "fp32", 2, "cluster16_fp32"),
+    ("lstm_train", 100, 4, 384, "fp32", 2, "cluster16_fp32"),
+    ("lstm_eval", 80, 64, 384, "bf16", 2, "grid"),
+    ("lstm_train", 80, 64, 384, "bf16", 2, "cluster16"),
 ]
 
 
@@ -2390,7 +2432,6 @@ def beam_device_times(cfg, package, smi: str) -> dict:
     pool bytes; and the host ``Beam`` search of the same batch, ms an
     utterance (with the log-probs' copy to the host)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ctc_pytorch_tpu_torch.data import (
@@ -2448,7 +2489,7 @@ def beam_device_times(cfg, package, smi: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         search()
         torch.cuda.synchronize()
-    kernels = sum(1 for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    kernels = sum(1 for ev in prof.events() if device_activity(ev))
     t_out = log_probs.shape[0]
     out.update(kernels_per_replay=kernels, frames=t_out,
                kernels_per_frame=kernels / t_out,
@@ -3446,10 +3487,8 @@ def phase_863_lstm_slice(smi: str, device: str = "cuda") -> dict:
 def busy_us(prof) -> float:
     """Microseconds in which the card ran anything (kernels, copies, sets)
     in a ``torch.profiler`` trace: the union of its device intervals."""
-    from torch.autograd import DeviceType
-
     spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+                   for ev in prof.events() if device_activity(ev))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -4263,6 +4302,442 @@ def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
             "train_step_rows": step_rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism
+# ---------------------------------------------------------------------------
+
+# the phase's ranks: two processes share one card over gloo (NCCL refuses
+# two ranks on one device); a rank's nonzero exit fails the phase
+DP_WORLD = 2
+DP_TIMEOUT_S = 600.0
+# two bf16 steps on other batch shapes (B=64 a rank, B=128 in one process)
+# part by bf16 roundings, at other points of other GEMM and convolution
+# shapes: the loss is held to a bf16 ulp of its own size, and every
+# parameter to Adam's bound on two runs' drift, 2.01 lr a step (a gradient
+# within bf16 noise of zero, such as a conv bias in front of a BN, moves by
+# +-lr on the sign of that noise, so the share past STEP_TOL is printed,
+# not held)
+BF16_LOSS_RTOL = 2.0 ** -8
+
+
+def dp_batch(spec, b: int, t: int, l: int, seed: int) -> dict:
+    """A global batch of ``b`` rows of ``t`` frames (numpy, from a seed) for
+    the flagship's step: the two halves' longest rows differ (``t`` frames
+    in the first, about 3/4 of it in the second), and the second half ends
+    in repeat-padded rows (mask 0) longer than any of its real ones."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    half = b // 2
+    lens = np.concatenate([
+        rng.randint(t // 2, t + 1, half), rng.randint(t // 2, 3 * t // 4, half)])
+    lens[0] = t
+    mask = np.ones(b, np.float32)
+    n_pad = max(1, b // 16)
+    mask[-n_pad:] = 0.0
+    lens[-n_pad:] = t - 1  # longer than the second half's real rows
+    lab_len = np.minimum(rng.randint(1, l + 1, b), lens // 4).astype(np.int32)
+    return {"feats": rng.randn(b, t, spec.rnn_input_size).astype(np.float32),
+            "frac": (lens / t).astype(np.float32),
+            "labels": rng.randint(1, spec.num_class, (b, l)).astype(np.int32),
+            "label_lens": lab_len, "mask": mask}
+
+
+DP_FIELDS = ("feats", "frac", "labels", "label_lens", "mask")
+
+
+def dp_steps(spec, cfg, batch: dict, group, device: str, steps: int = 2,
+             times: bool = False) -> dict:
+    """``steps`` optimizer steps of ``spec``'s model from ``cfg.seed`` on
+    ``batch`` (this rank's rows of it with a ``group``), then an eval step:
+    the summed losses, the eval loss, the state, and with ``times`` one more
+    step's wall time (median of 5, host clock around a synchronised step)
+    and device time (``device_breakdown``)."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.parallel import local_rows, replicate
+    from ctc_pytorch_tpu_torch.train.loop import eval_step, train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                               cfg.grad_clip, seed=cfg.seed, device=device)
+    rows = (lambda a: a) if group is None else (
+        lambda a: local_rows(a, group.rank, group.world))
+    if group is not None:
+        replicate(state.model, group)
+    args = [torch.from_numpy(rows(batch[k])).to(device) for k in DP_FIELDS]
+    losses = [float(train_step(state, spec, *args, group=group)[0])
+              for _ in range(steps)]
+    eval_loss = float(eval_step(state, spec, *args, group=group)[0])
+    out = {"losses": losses, "eval_loss": eval_loss, "rows": len(args[0]),
+           "state": {k: v.detach().float().cpu().clone()
+                     for k, v in state.model.state_dict().items()}}
+    if times:
+        def step():
+            train_step(state, spec, *args, group=group)
+
+        walls = [timed(step) for _ in range(5)]
+        out["step_wall_ms"] = 1e3 * statistics.median(walls)
+        if str(device).startswith("cuda"):
+            busy, rows_by = device_breakdown(step)
+            out["step_device_ms"] = busy / 1e3
+            out["step_top_kernels"] = rows_by[:6]
+        else:
+            out["step_device_ms"] = None  # a device metric: not measured
+    return out
+
+
+def dp_step_rank(rank, world, init_method, device, cases) -> dict:
+    """One rank of phase 15 (a) and (b): ``dp_steps`` on each case, over a
+    gloo group whose ranks share ``device``; the launch counts and branches
+    of the (a) and (b) runs."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.parallel import initialize
+
+    if device != "cpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    group = initialize("gloo", init_method, world, rank, device=device)
+    out = {}
+    for name, spec, cfg, batch, times in cases:
+        zero_counts()
+        out[name] = dp_steps(spec, cfg, batch, group, device, times=times)
+        out[name]["counts"] = launch_counts()
+        out[name]["branches"] = path_branches()
+    return out
+
+
+def dp_cli_rank(rank, world, init_method, conf: str, device: str) -> dict:
+    """One rank of phase 15 (d): ``cli.train --data-parallel`` over gloo, as
+    ``torchrun`` would start it; its printed log, launch counts, branches."""
+    import contextlib
+    import io
+    import os
+
+    from ctc_pytorch_tpu_torch.cli import train as cli_train
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    zero_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        best = cli_train.main(["--conf", conf, "--data-parallel", "--device",
+                               device, "--dist-backend", "gloo",
+                               "--dist-init-method", init_method])
+    return {"best": str(best), "printed": printed.getvalue(),
+            "counts": launch_counts(), "branches": path_branches()}
+
+
+def states_apart(got: dict, want: dict) -> tuple:
+    """``(entries past STEP_TOL, entries, largest difference, its key)``."""
+    n_off = n_all = 0
+    worst, worst_key = 0.0, ""
+    for k, v in want.items():
+        diff = (got[k].float() - v.float()).abs()
+        n_off += int((diff > STEP_TOL).sum())
+        n_all += diff.numel()
+        if diff.max().item() > worst:
+            worst, worst_key = diff.max().item(), k
+    return n_off, n_all, worst, worst_key
+
+
+def phase_data_parallel(smi: str, spec, device: str = "cuda",
+                        big_batch: int = 128, t_frames: int = 200,
+                        label_len: int = 33) -> dict:
+    """Phase 15: the flagship's data parallelism on the one card.
+
+    (a) Two gloo ranks on ``device`` (the recipe at full width, fp32,
+    ``drop_out: 0``): two steps and an eval step on a global batch of 8
+    (``dp_batch``: the halves' maxima differ, mask-0 rows in one half),
+    against one process on the whole batch: the losses within
+    STEP_LOSS_RTOL, the parameters by phase 5's rule; each rank's launches
+    of rows 1, 3a, 3b, 5a and 5b.  (b) The same at B=``big_batch`` on the
+    recipe's bf16 (loss within BF16_LOSS_RTOL, every parameter within
+    Adam's bound).  For both, each rank's step wall and device time beside
+    one process's.  (c) One NCCL rank: a fused epoch of the recipe from graphs
+    under deterministic algorithms equals the same epoch without a group
+    bit for bit; the replayed step's kernels and an eager step's
+    collectives.  (d) ``cli.train --data-parallel`` as shipped (bf16,
+    ``fused_epoch: false``) as two gloo ranks for one epoch: only rank 0
+    logs and writes, the package loads and stage 4 decodes it.  (e) Stage
+    4 with ``BeamDevice`` and ``Recognizer``, each on ``mesh=[device,
+    device]``: the strings of the unsplit runs, on odd batches.
+
+    ``device="cpu"`` rehearses (a), (b), (d) and (e) at the size of
+    ``spec``; (c) needs NCCL, which needs the card."""
+    import numpy as np
+    import torch
+
+    from ctc_pytorch_tpu_torch.api import Recognizer
+    from ctc_pytorch_tpu_torch.cli.test import evaluate
+    from ctc_pytorch_tpu_torch.frontend.e2e import spec_from_config
+    from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
+    from ctc_pytorch_tpu_torch.parallel import spawn_ranks
+    from ctc_pytorch_tpu_torch.train.checkpoint import save_package
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    on_card = device == "cuda"
+    dev = "cuda:0" if on_card else "cpu"
+    cfg = recipe_config(RECIPE)
+    cfg.exp_name = "smoke_dp"
+    check(cfg.batch_size == 8 and cfg.dtype == "bfloat16",
+          "the recipe is not the flagship's batch-8 bf16 training")
+    spec32 = dataclasses.replace(spec, compute_dtype="float32", drop_out=0.0)
+    spec16 = dataclasses.replace(spec, drop_out=0.0)
+    small = dp_batch(spec, cfg.batch_size, t_frames, label_len, seed=15)
+    big = dp_batch(spec, big_batch, t_frames // 2 + 40, label_len, seed=16)
+    cases = [("a", spec32, cfg, small, True), ("b", spec16, cfg, big, True)]
+    out = {"card": smi, "world": DP_WORLD}
+
+    # (a), (b): the ranks, then one process on the whole batches
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_step_rank, DP_WORLD, (dev, cases),
+                        timeout=DP_TIMEOUT_S, threads=0 if on_card else 1)
+    spawn_s = time.perf_counter() - t0
+    zero_counts()
+    single = {name: dp_steps(s, c, b, None, dev, times=times)
+              for name, s, c, b, times in cases}
+    counts = {}
+    for name, rtol, what in (("a", STEP_LOSS_RTOL, "fp32, B=8"),
+                             ("b", BF16_LOSS_RTOL, f"bf16, B={big_batch}")):
+        want = single[name]
+        for r, got in enumerate(ranks):
+            g = got[name]
+            rel = max(abs(x - y) / abs(y) for x, y in
+                      zip(g["losses"] + [g["eval_loss"]],
+                          want["losses"] + [want["eval_loss"]]))
+            n_off, n_all, worst, key = states_apart(g["state"], want["state"])
+            print(f"  ({name}) rank {r} of {DP_WORLD}, {what} ({g['rows']} "
+                  f"rows a rank): losses {g['losses']}, eval {g['eval_loss']:.6g}"
+                  f" vs one process {want['losses']}, {want['eval_loss']:.6g} "
+                  f"(rel {rel:.3g}, tol {rtol:.3g}); {n_off} of {n_all} "
+                  f"entries past {STEP_TOL}, largest {worst:.3g} at {key}; "
+                  f"launches {g['counts']}, branches {g['branches']}")
+            check(rel <= rtol, f"({name}) rank {r}: losses differ from one "
+                  "process")
+            check((name == "b" or n_off <= STEP_OFF_SHARE * n_all)
+                  and worst <= 2.01 * 2 * cfg.init_lr,
+                  f"({name}) rank {r}: parameters differ from one process")
+            for row in ("lstm_bidir", "lstm_bidir_train_fwd",
+                        "lstm_bidir_train_bwd_prepass",
+                        "lstm_bidir_train_bwd", "ctc_alpha", "ctc_beta"):
+                check(not on_card or g["counts"][row] > 0,
+                      f"({name}) rank {r} never launched {row}")
+            counts = added(counts, g["counts"])
+        for k in ranks[0][name]["state"]:
+            check(torch.equal(ranks[0][name]["state"][k],
+                              ranks[1][name]["state"][k]),
+                  f"({name}) the ranks' {k} differ")
+    out["steps"] = {
+        name: {"single": {k: single[name][k] for k in (
+                   "losses", "eval_loss", "step_wall_ms", "step_device_ms")
+                   if k in single[name]},
+               "ranks": [{k: r[name][k] for k in (
+                   "losses", "eval_loss", "step_wall_ms", "step_device_ms",
+                   "counts", "branches") if k in r[name]} for r in ranks]}
+        for name in ("a", "b")}
+    for name, b_size in (("a", cfg.batch_size), ("b", big_batch)):
+        st = out["steps"][name]
+        print(f"  ({name}) step at B={b_size} ({smi}): one process wall "
+              f"{st['single']['step_wall_ms']:.3f} ms, device "
+              f"{st['single']['step_device_ms']} ms; gloo ranks (two on one "
+              f"card) " + "; ".join(
+                  f"rank {i} wall {r['step_wall_ms']:.3f} ms, device "
+                  f"{r['step_device_ms']} ms" for i, r in enumerate(st["ranks"])))
+        print("    one process's top kernels: " + ", ".join(
+            f"{n[:40]} {us / 1e3:.3f} ms"
+            for n, us in single[name].get("step_top_kernels") or []))
+    print(f"  (a)+(b) spawn and run of the ranks: {spawn_s:.1f} s")
+
+    # (c) one NCCL rank: the collectives inside the captured steps
+    if on_card:
+        out["nccl_one_rank"] = dp_nccl_one_rank(cfg, spec)
+
+    # (d) cli.train --data-parallel as shipped, fused_epoch off (gloo)
+    conf = WORK / "dp_recipe.yaml"
+    cfg_d = dataclasses.replace(cfg, fused_epoch=False, num_epoches=1,
+                                checkpoint_dir=str(WORK / "dp_checkpoint"),
+                                exp_name="smoke_dp_cli", log_dir="")
+    cfg_d.to_yaml(conf)
+    t0 = time.perf_counter()
+    cli = spawn_ranks(dp_cli_rank, DP_WORLD, (str(conf), dev),
+                      timeout=DP_TIMEOUT_S, threads=0 if on_card else 1)
+    cli_s = time.perf_counter() - t0
+    best = Path(cli[0]["best"])
+    written = sorted(p.name for p in best.parent.iterdir())
+    print(f"  (d) cli.train --data-parallel, {DP_WORLD} gloo ranks on {dev}, "
+          f"one epoch: {cli_s:.1f} s with the start-up; rank 0 printed "
+          f"{len(cli[0]['printed'].splitlines())} lines, rank 1 "
+          f"{len(cli[1]['printed'].splitlines())}; {best.parent} holds "
+          f"{written}; launches {[c['counts'] for c in cli]}")
+    check(cli[1]["printed"] == "" and "End training" in cli[0]["printed"],
+          "(d) a rank other than 0 logged, or rank 0 did not")
+    check(written.count("ctc_best_model.npz") == 1
+          and "train_metrics.jsonl" in written
+          and cli[0]["best"] == cli[1]["best"],
+          f"(d) the run wrote {written}")
+    for c in cli:
+        counts = added(counts, c["counts"])
+    res = evaluate(cfg_d, str(best), device=dev, log=lambda *_: None)
+    print(f"  (d) stage 4 of its package: {res['batches']} batches, PER "
+          f"{res['wer']:.4f}")
+    check(math.isfinite(res["wer"]) and res["batches"] > 0,
+          "(d) the data-parallel package does not decode")
+    out["cli"] = {"wall_s": cli_s, "files": written, "per": res["wer"]}
+
+    # (e) the sharded stage-4 search and the mesh Recognizer, odd batches
+    mesh = [dev, dev]
+    pkg = WORK / "checkpoint" / "dp_seeded.npz"
+    save_package(pkg, spec, seeded_model(spec), config=cfg)
+    cfg_e = dataclasses.replace(cfg, decode_type="BeamDevice", batch_size=5,
+                                fused_decode=False, beam_width=8,
+                                beam_max_len=t_frames, lm_path="")
+    decoded = {}
+    for tag, m in (("unsplit", None), ("mesh", mesh)):
+        lines = []
+        evaluate(cfg_e, str(pkg), device=dev, log=lines.append, mesh=m)
+        decoded[tag] = lines[2:-3:3]
+    same = sum(a == b for a, b in zip(decoded["mesh"], decoded["unsplit"]))
+    print(f"  (e) stage 4, BeamDevice, batches of 5 on a mesh of two: "
+          f"{same}/{len(decoded['unsplit'])} strings equal to the unsplit "
+          f"search's")
+    check(decoded["mesh"] == decoded["unsplit"] and same > 0,
+          "(e) the sharded search decodes differently")
+    cfg_w = recipe_config(RECIPE_WAVE)
+    vocab = Vocab(cfg.vocab_file)
+    spec_w = dataclasses.replace(
+        ModelSpec.from_config(cfg_w, num_class=vocab.n_words),
+        compute_dtype="float32")
+    if not on_card:  # the rehearsal's width
+        spec_w = dataclasses.replace(spec_w, rnn_hidden_size=spec.rnn_hidden_size,
+                                     rnn_layers=spec.rnn_layers)
+    pkg_w = WORK / "checkpoint" / "dp_wave_fp32.npz"
+    save_package(pkg_w, spec_w, seeded_model(spec_w), config=cfg_w)
+    rng = np.random.RandomState(17)
+    wavs = [(rng.randn(n) * 500).astype(np.float32)
+            for n in (16000, 40000, 23000, 31000, 9000)]
+    got = {}
+    for tag, m in (("unsplit", None), ("mesh", mesh)):
+        rec = Recognizer(pkg_w, vocab, frontend=spec_from_config(cfg_w),
+                         device=dev, mesh=m)
+        got[tag] = rec.recognize(wavs)
+    print(f"  (e) Recognizer (fp32 package), 5 utterances on a mesh of two: "
+          f"{sum(a == b for a, b in zip(got['mesh'], got['unsplit']))}/5 "
+          f"strings equal to one device's")
+    check(got["mesh"] == got["unsplit"] and any(got["unsplit"]),
+          "(e) the mesh Recognizer decodes differently")
+    out["counts"] = counts
+    return out
+
+
+def dp_nccl_one_rank(cfg, spec) -> dict:
+    """Phase 15 (c): one NCCL rank in this process.  A fused epoch of the
+    recipe (bf16, its dropout) from graphs, under deterministic algorithms,
+    with the group and without, from one seed: per-batch losses and
+    parameters bit for bit.  Then the kernels of a replayed training step
+    and the collectives of an eager one (``torch.profiler``)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_pytorch_tpu_torch.cli.train import build_loaders
+    from ctc_pytorch_tpu_torch.data.batching import gather_rows
+    from ctc_pytorch_tpu_torch.parallel import DataGroup
+    from ctc_pytorch_tpu_torch.train.loop import (
+        make_epoch_fns,
+        make_fused_fns,
+        run_epoch_single,
+        train_step,
+    )
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    quiet = lambda *_: None  # noqa: E731
+    cache_tr, cache_dv = build_loaders(cfg, Vocab(cfg.vocab_file), log=quiet,
+                                       device="cuda")
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/nccl",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda:0"))
+        try:
+            group = DataGroup(None, 0, 1, torch.device("cuda:0"), "nccl")
+            runs = {}
+            with deterministic():
+                for tag, g in (("none", None), ("nccl", group)):
+                    state = create_train_state(
+                        spec, cfg.init_lr, cfg.weight_decay, cfg.grad_clip,
+                        seed=cfg.seed, device="cuda")
+                    gen = torch.Generator(device="cuda").manual_seed(
+                        cfg.seed + 1)
+                    fns = make_epoch_fns(make_fused_fns(spec, gen, None, g))
+                    rec_tr, rec_dv = {}, {}
+                    cache_tr.set_epoch(1)
+                    run_epoch_single(1, fns, state, cache_tr, training=True,
+                                     log=quiet, record=rec_tr)
+                    run_epoch_single(1, fns, state, cache_dv, training=False,
+                                     log=quiet, record=rec_dv)
+                    sync()
+                    runs[tag] = (rec_tr, rec_dv, state, fns[0].graphs)
+            a, b = runs["none"], runs["nccl"]
+            same = all(torch.equal(v, b[2].model.state_dict()[k])
+                       for k, v in a[2].model.state_dict().items())
+            steps = len(a[0]["losses"])
+            print(f"  (c) one NCCL rank: a fused epoch ({steps} steps, "
+                  f"{len(a[1]['losses'])} dev batches, {b[3].replays()} "
+                  f"replays of {len(b[3])} graphs) with the group vs "
+                  f"without: losses equal {a[0]['losses'] == b[0]['losses']}"
+                  f" and {a[1]['losses'] == b[1]['losses']}, token counts "
+                  f"{(b[0]['errs'], b[0]['toks'])} vs "
+                  f"{(a[0]['errs'], a[0]['toks'])}, parameters and BN "
+                  f"state bit for bit {same}")
+            check(a[0] == b[0] and a[1] == b[1] and same,
+                  "(c) the NCCL group's fused epoch differs from the "
+                  "ungrouped one")
+            check(b[3].replays() == steps + len(b[1]["losses"]),
+                  "(c) the grouped epoch did not run from graphs")
+            # the kernels of one replayed training step (it moves the
+            # throwaway state on), and the collectives of an eager step
+            cap = next(c for k, c in b[3].graphs.items() if k[0])
+            busy, rows = device_breakdown(cap.graph.replay)
+            nccl_kernels = [(n, us) for n, us in rows if "nccl" in n.lower()]
+            arrs = next(iter(cache_tr.epoch_groups(1)))
+            pos = torch.from_numpy(arrs[1][0].astype("int64")).cuda()
+            feats, frac, _, labels, lab_len = gather_rows(arrs[0], pos, arrs[3])
+            mask = torch.from_numpy(arrs[2][0]).cuda()
+            state = b[2]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            train_step(state, spec, feats, frac, labels, lab_len, mask, gen,
+                       None, group)
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                train_step(state, spec, feats, frac, labels, lab_len, mask,
+                           gen, None, group)
+                sync()
+            by_name: dict = {}
+            for ev in prof.events():
+                if (ev.device_type == DeviceType.CPU
+                        and ev.name in ("c10d::allreduce_", "nccl:all_reduce")):
+                    by_name[ev.name] = by_name.get(ev.name, 0) + 1
+            collectives = max(by_name.values(), default=0)
+            print(f"  (c) a replayed step: {busy / 1e3:.3f} ms of kernels, "
+                  f"NCCL kernels {nccl_kernels or 'none'} (a one-rank "
+                  f"all-reduce in place enqueues no work); an eager step "
+                  f"issues {collectives} all-reduces ({by_name})")
+            check(collectives > 0, "(c) the eager step issued no collective")
+        finally:
+            dist.destroy_process_group()
+    return {"steps": steps, "bit_equal": True, "replays": b[3].replays(),
+            "replayed_step_device_ms": busy / 1e3,
+            "nccl_kernels_in_replay": nccl_kernels,
+            "all_reduces_per_step": collectives}
+
+
+
 def main() -> int:
     import torch
 
@@ -4279,7 +4754,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/14] device: {smi} | torch {torch.__version__} "
+    print(f"[1/15] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -4287,7 +4762,7 @@ def main() -> int:
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
     build_all(libraries)
-    print(f"[2/14] build: {', '.join(lib.source.name for lib in libraries)} for "
+    print(f"[2/15] build: {', '.join(lib.source.name for lib in libraries)} for "
           f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
@@ -4297,7 +4772,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/14] kernel vs plain on the card")
+    print("[3/15] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -4309,28 +4784,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/14] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/15] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/14] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/15] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/14] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/15] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/14] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/15] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/14] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/15] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/14] times ({smi})")
+    print(f"[9/15] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -4378,31 +4853,36 @@ def main() -> int:
                 "unidirectional CNN+LSTM(384)", "bench shape")
     ctc_share = ctc_step_share(model_recipe, recipe)
 
-    print(f"[10/14] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/15] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/14] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/15] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
 
-    print(f"[12/14] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+    print(f"[12/15] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
           f"on the card, stage 3, one fused epoch with the frontend in the "
           f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
           f"StreamingRecognizer ({smi})")
     wave = phase_waveform_slice(smi)
 
-    print(f"[13/14] pipeline: stages 0-4 of the flagship recipe through "
+    print(f"[13/15] pipeline: stages 0-4 of the flagship recipe through "
           f"cli.run on a synthetic TIMIT tree, profile: True, then "
           f"cli.visualize and cli.import_torch ({smi})")
     pipeline = phase_pipeline_slice(smi)
 
-    print(f"[14/14] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
+    print(f"[14/15] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
           f"lstm_ctc.conf from text dumps, one fused epoch each through "
           f"cli.train.train, stage 4, fp32 kernels vs twins ({smi})")
     lstm_863 = phase_863_lstm_slice(smi)
+
+    print(f"[15/15] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
+          f"on the card, one NCCL rank from graphs, cli.train --data-parallel, "
+          f"the sharded stage-4 search and the mesh Recognizer ({smi})")
+    dp = phase_data_parallel(smi, spec)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -4419,11 +4899,13 @@ def main() -> int:
                "pipeline": path(pipeline["counts"], "lstm_bidir", 0),
                **{f"863_{tag}": path(r["counts"], "lstm_bidir",
                                      r["decode_launches"])
-                  for tag, r in lstm_863.items()}}
+                  for tag, r in lstm_863.items()},
+               # phase 15: every rank's launches, (a), (b) and (d)
+               "data_parallel": dp["counts"]}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
     lstm_paths = ("timit", "unidir", "mfcc39", "waveform", "pipeline",
-                  "863_cnn_lstm_ctc", "863_lstm_ctc")
+                  "863_cnn_lstm_ctc", "863_lstm_ctc", "data_parallel")
     ctc_paths = tuple(by_path)
     # (name, source, TPU kernel, paths that must launch it, worst error fp32,
     # bf16, one direction)
@@ -4571,7 +5053,9 @@ def main() -> int:
                                    if k not in ("counts", "branches")},
                       "863_lstm": {tag: {k: v for k, v in r.items()
                                          if k not in ("counts", "branches")}
-                                   for tag, r in lstm_863.items()}}))
+                                   for tag, r in lstm_863.items()},
+                      "data_parallel": {k: v for k, v in dp.items()
+                                        if k != "counts"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

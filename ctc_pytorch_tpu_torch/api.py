@@ -8,8 +8,18 @@ with the training-time CMVN stats; decoding is greedy on the device or the
 host prefix beam search with the bigram LM (``decode/beam.py``).  TF32 is
 off, as in the CLIs, so that the frontend's mel and DCT products and an fp32
 model run in fp32.  ``StreamingRecognizer`` decodes a stream in windows
-over a ``Recognizer``.  The JAX ``mesh`` argument is data parallelism, which
-the port does not have yet: giving one raises.
+over a ``Recognizer``.
+
+``mesh`` (a list of devices, ``parallel/mesh.py:make_mesh``) serves each
+batch split over those devices, one model replica a device, inside one
+process (the JAX ``Recognizer(mesh=...)``): the batch is padded to a
+multiple of the mesh by repeating its first row, each device runs the
+frontend and the model on its rows, and the outputs are gathered on the
+first device.  Under the batchmax pad dynamics every shard takes the whole
+batch's max input length, so the strings are the single-device
+``Recognizer``'s.  The JAX mesh ``Recognizer`` takes each shard's own max
+(``ctc_pytorch_tpu/api.py:71-80``), so its strings can differ from its
+single-device ones where the shards' maxima differ.
 """
 
 from __future__ import annotations
@@ -25,6 +35,11 @@ from ctc_pytorch_tpu_torch.data.prep.sphere import read_audio
 from ctc_pytorch_tpu_torch.decode import BeamDecoder, GreedyDecoder
 from ctc_pytorch_tpu_torch.frontend.e2e import WaveFrontendSpec, build_frontend_fn
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel
+from ctc_pytorch_tpu_torch.parallel.mesh import (
+    make_mesh,
+    pad_batch_to_devices,
+    shard_batch,
+)
 from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
 from ctc_pytorch_tpu_torch.vocab import Vocab
 
@@ -46,16 +61,17 @@ class Recognizer:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Recognizer(mesh=...) is data parallel, which the port does "
-                "not have yet (ROADMAP.md queue 1 item 6)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.vocab = vocab
         self.spec, self.model, self.manifest = model_from_package(
             package_path, self.device)
+        self.mesh = None if mesh is None else make_mesh(mesh)
+        # one replica a device of the mesh
+        self.replicas = {d: (self.model if d == self.device else
+                             model_from_package(package_path, d)[1])
+                         for d in self.mesh or ()}
         self.frontend = frontend or WaveFrontendSpec()
         self.cmvn = cmvn
         self._frontend_fn = build_frontend_fn(self.frontend, cmvn)
@@ -71,11 +87,35 @@ class Recognizer:
     def _forward(self, wavs: torch.Tensor, wav_lengths: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S) samples and (B,) sample counts on the device ->
-        ((T', B, C) log-probs, (B,) valid output frames)."""
-        feats, frac, _ = self._frontend_fn(wavs, wav_lengths)
-        log_probs = self.model(feats, frac=frac)
-        return log_probs, CTCModel.input_sizes(
-            self.spec, frac, feats.shape[1], log_probs.shape[0])
+        ((T', B, C) log-probs, (B,) valid output frames); with a mesh, the
+        rows split over its devices and the outputs on the first."""
+        if self.mesh is None:
+            feats, frac, _ = self._frontend_fn(wavs, wav_lengths)
+            log_probs = self.model(feats, frac=frac)
+            return log_probs, CTCModel.input_sizes(
+                self.spec, frac, feats.shape[1], log_probs.shape[0])
+        b = wavs.shape[0]
+        bp = pad_batch_to_devices(b, len(self.mesh))
+        if bp != b:  # repeated rows, sliced off below
+            wavs = torch.cat([wavs, wavs[:1].expand(bp - b, -1)])
+            wav_lengths = torch.cat([wav_lengths,
+                                     wav_lengths[:1].expand(bp - b)])
+        shards = [self._frontend_fn(w, n)[:2]
+                  for w, n in shard_batch((wavs, wav_lengths), self.mesh)]
+        home = self.mesh[0]
+        # the whole batch's max input frames, for every shard
+        bmax = torch.stack([
+            CTCModel.batch_max_frames(frac, feats.shape[1])[1].to(home)
+            for feats, frac in shards]).max()
+        log_probs, sizes = [], []
+        for dev, (feats, frac) in zip(self.mesh, shards):
+            bm = bmax.to(dev)
+            lp = self.replicas[dev](feats, frac=frac, batch_max=bm)
+            sizes.append(CTCModel.input_sizes(
+                self.spec, frac, feats.shape[1], lp.shape[0],
+                batch_max=bm).to(home))
+            log_probs.append(lp.to(home))
+        return torch.cat(log_probs, 1)[:, :b], torch.cat(sizes)[:b]
 
     def _load(self, item: AudioInput) -> np.ndarray:
         if isinstance(item, (str, Path)):

@@ -27,6 +27,11 @@ stage 4 does (``cli/test.py:86-95``): there is no fused waveform decode.
 Beam strings join their units with no leading space, greedy ones with one
 before each unit (the reference's quirk).
 
+Several cards: ``BeamDevice`` splits each batch's search over every visible
+card (``decode/beam_device.py:batched_beam_search_sharded``), streaming, as
+the JAX stage 4 does when it sees several devices (``cli/test.py:61-66``);
+``evaluate(..., mesh=[devices])`` names the devices.
+
 Precision: TF32 is off for matmuls and cuDNN convolutions, so an fp32
 package computes in full fp32 like the JAX reference it is held against
 (PyTorch's default would run fp32 convolutions in TF32).  bf16 packages
@@ -57,6 +62,7 @@ from ctc_pytorch_tpu_torch.decode.beam import warn_capacity
 from ctc_pytorch_tpu_torch.decode.fused import make_fused_decode_fn
 from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
 from ctc_pytorch_tpu_torch.models import CTCModel
+from ctc_pytorch_tpu_torch.parallel.mesh import make_mesh
 from ctc_pytorch_tpu_torch.train.checkpoint import model_from_package
 from ctc_pytorch_tpu_torch.vocab import Vocab
 
@@ -69,10 +75,19 @@ def evaluate(
     verbose: bool = True,
     max_batches: Optional[int] = None,
     log=print,
+    mesh=None,
 ) -> dict:
+    """Decode and score the test set of ``cfg`` with ``package_path``.
+    ``mesh``: the devices a ``BeamDevice`` search splits each batch over
+    (by default every card when there are several)."""
     dev = resolve_device(device)
     if cfg.decode_type not in ("Greedy", "Beam", "BeamDevice"):
         raise ValueError(f"unknown decode_type: {cfg.decode_type!r}")
+    if cfg.decode_type != "BeamDevice":
+        mesh = None
+    elif (mesh is None and dev.type == "cuda"
+          and torch.cuda.device_count() > 1):
+        mesh = make_mesh()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -94,7 +109,7 @@ def evaluate(
     frontend_fn = frontend_fn_from_config(cfg)
     # the fused stage 4 where the JAX package takes it (cli/test.py:86-105)
     if (cfg.fused_decode and cfg.decode_type in ("Greedy", "BeamDevice")
-            and frontend_fn is None and max_batches is None
+            and frontend_fn is None and max_batches is None and mesh is None
             and loader.batcher._assignment is not None
             and estimate_bytes(loader) <= cfg.device_cache_max_gb * (1 << 30)):
         return _evaluate_fused(cfg, spec, model, decoder, loader, dev,
@@ -119,7 +134,8 @@ def evaluate(
                 decoded = decoder.decode(log_probs, input_sizes)
             elif cfg.decode_type == "BeamDevice":
                 decoded = decoder.decode_on_device(
-                    log_probs, input_sizes, max_len=cfg.beam_max_len)
+                    log_probs, input_sizes, max_len=cfg.beam_max_len,
+                    mesh=mesh)
             else:
                 decoded = decoder.decode(log_probs, input_sizes,
                                          use_native=cfg.beam_use_native)

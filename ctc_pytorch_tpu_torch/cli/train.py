@@ -17,9 +17,20 @@ them; where it streams from the host with ``host_prefetch``, they are
 ``PrefetchLoader``s.  ``feature_type: waveform`` configs train from raw
 samples with the frontend inside the step (``frontend/e2e.py``, the CMVN
 stats of ``<data_dir>/global_fbank_cmvn.npz`` where stage 1 wrote them),
-in the graphs of a fused epoch too.  ``--data-parallel`` is not ported.
-With ``log_dir`` set, the log also goes to ``<log_dir>/<exp_name>.log``, as
-in the JAX stage 2.
+in the graphs of a fused epoch too.  With ``log_dir`` set, the log also
+goes to ``<log_dir>/<exp_name>.log``, as in the JAX stage 2.
+
+``--data-parallel`` trains on every rank that ``torchrun`` started, one
+process a rank (``parallel/``): ``torchrun --nproc-per-node N -m
+ctc_pytorch_tpu_torch.cli.train --conf ... --data-parallel`` on N cards over
+NCCL, or ``--device cpu --dist-backend gloo`` on the CPU.  Each rank takes
+``cuda:LOCAL_RANK``, unless ``--device`` names one card for all of them
+(gloo ranks can share a card; NCCL refuses two ranks on one device).  Every
+rank reads the whole scp lists and builds the same global batches; each
+steps on its ``batch_size / world`` rows, which must divide.  Only rank 0
+logs and writes.  With ``WORLD_SIZE`` unset or 1 it is the single-process
+run, as the JAX flag is on one device.  A gloo group cannot run a fused
+epoch on the card (``Trainer`` raises): set ``fused_epoch: false`` there.
 """
 
 from __future__ import annotations
@@ -39,17 +50,20 @@ from ctc_pytorch_tpu_torch.data import (
 )
 from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
 from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
-from ctc_pytorch_tpu_torch.train.loop import Trainer
+from ctc_pytorch_tpu_torch.parallel.distributed import initialize, shutdown
+from ctc_pytorch_tpu_torch.train.loop import Trainer, quiet
 from ctc_pytorch_tpu_torch.utils import init_file_logger
 from ctc_pytorch_tpu_torch.vocab import Vocab
 
 
 def build_loaders(cfg, vocab, log=print,
-                  device: str | torch.device = "cuda"):
+                  device: str | torch.device = "cuda", group=None):
     """(train_loader, dev_loader) as the JAX package's stage 2 builds them
     (``ctc_pytorch_tpu/cli/train.py:73-103``): ``DeviceCachedLoader``s on
     ``device`` where the cache fits its budget, else ``PrefetchLoader``s
-    with ``host_prefetch``, else the host loaders."""
+    with ``host_prefetch``, else the host loaders.  With a data-parallel
+    ``group`` the device loaders give the rank's rows of each batch (the
+    host loaders give whole batches, which the trainer cuts)."""
     dev = resolve_device(device)
     train_ds = SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg)
     dev_ds = SpeechDataset(vocab, cfg.valid_scp_path, cfg.valid_lab_path, cfg)
@@ -68,8 +82,8 @@ def build_loaders(cfg, vocab, log=print,
         # uploaded
         est = estimate_bytes(train_loader) + estimate_bytes(dev_loader)
         if est <= cfg.device_cache_max_gb * (1 << 30):
-            return (DeviceCachedLoader(train_loader, dev),
-                    DeviceCachedLoader(dev_loader, dev))
+            return (DeviceCachedLoader(train_loader, dev, group),
+                    DeviceCachedLoader(dev_loader, dev, group))
         if est >= 1 << 62:
             log("WARNING: device cache disabled: num_buckets=0 "
                 "(reference-exact per-batch shapes) is not cacheable; "
@@ -81,25 +95,34 @@ def build_loaders(cfg, vocab, log=print,
     if cfg.host_prefetch:
         # whenever batches stream from the host: the cache off by config or
         # over its budget
-        return (PrefetchLoader(train_loader, dev),
-                PrefetchLoader(dev_loader, dev))
+        return (PrefetchLoader(train_loader, dev, group=group),
+                PrefetchLoader(dev_loader, dev, group=group))
     return train_loader, dev_loader
 
 
 def train(cfg, *, device: str | torch.device = "cuda", resume=None,
-          num_epoches=None, log=print):
-    """Train ``cfg``'s model; returns ``(trainer, best package path)``."""
+          num_epoches=None, log=print, group=None):
+    """Train ``cfg``'s model; returns ``(trainer, best package path)``.
+    ``group``: this rank's ``DataGroup`` of a data-parallel run."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if group is not None and cfg.batch_size % group.world:
+        raise SystemExit(
+            f"--data-parallel: batch_size={cfg.batch_size} must be a multiple "
+            f"of the {group.world} ranks (each steps on batch_size / world "
+            f"rows of every batch)")
+    writer = group is None or group.rank == 0
+    if not writer:
+        log = quiet
     vocab = Vocab(cfg.vocab_file)
-    train_loader, dev_loader = build_loaders(cfg, vocab, log, dev)
+    train_loader, dev_loader = build_loaders(cfg, vocab, log, dev, group)
     # 863 configs declare num_class explicitly (blank added on top);
     # otherwise the vocab decides
     n_class = cfg.num_class + 1 if cfg.num_class > 0 else vocab.n_words
     spec = ModelSpec.from_config(cfg, num_class=n_class)
     trainer = Trainer(cfg, spec, device=dev,
-                      frontend_fn=frontend_fn_from_config(cfg))
+                      frontend_fn=frontend_fn_from_config(cfg), group=group)
     if resume:
         trainer.resume(resume)
     best = trainer.fit(train_loader, dev_loader, num_epoches=num_epoches,
@@ -107,7 +130,8 @@ def train(cfg, *, device: str | torch.device = "cuda", resume=None,
     # the best-checkpoint path goes into a config snapshot in the experiment
     # directory, not into the user's file
     cfg.model_file = str(best)
-    cfg.to_yaml(trainer.out_dir / "config_used.yaml")
+    if writer:
+        cfg.to_yaml(trainer.out_dir / "config_used.yaml")
     log(f"End training, best model saved to {best}")
     return trainer, best
 
@@ -118,13 +142,35 @@ def main(argv=None):
     p.add_argument("--resume", default=None,
                    help="path to a resume checkpoint (.npz)")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (the plain PyTorch path)")
+                   help="cuda (default; with --data-parallel each rank takes "
+                        "cuda:LOCAL_RANK unless an index is given), or cpu "
+                        "(the plain PyTorch path)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train on every rank torchrun started, each on its "
+                        "rows of every batch")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the ranks' collectives: nccl (default on cuda) or "
+                        "gloo (default on cpu)")
+    p.add_argument("--dist-init-method", default=None,
+                   help="where the ranks meet (default: torchrun's "
+                        "environment, env://); e.g. file:///shared/store")
     args = p.parse_args(argv)
     cfg = load_config(args.conf)
-    log = print
-    if cfg.log_dir:
-        log = init_file_logger(cfg.log_dir, cfg.exp_name).info
-    return train(cfg, device=args.device, resume=args.resume, log=log)[1]
+    group = None
+    if args.data_parallel:
+        backend = args.dist_backend or (
+            "gloo" if torch.device(args.device).type == "cpu" else "nccl")
+        group = initialize(backend, args.dist_init_method,
+                           device=args.device)
+    try:
+        log = print
+        if cfg.log_dir and (group is None or group.rank == 0):
+            log = init_file_logger(cfg.log_dir, cfg.exp_name).info
+        device = args.device if group is None else group.device
+        return train(cfg, device=device, resume=args.resume, log=log,
+                     group=group)[1]
+    finally:
+        shutdown(group)
 
 
 if __name__ == "__main__":

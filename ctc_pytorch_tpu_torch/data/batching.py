@@ -479,18 +479,27 @@ class DeviceCachedLoader(GroupedLoader):
     loader gathers each batch on the device in the streaming order.  As a
     ``GroupedLoader`` it also gives the host-made batches in the fused order
     (``grouped``).
+
+    ``group`` (data parallel, ``parallel/mesh.py:DataGroup``): every rank
+    holds the whole cache on its device and builds the same global batches
+    from the same seed (the JAX cache is replicated over the mesh,
+    ``batching.py:406-440``); ``epoch_groups`` and ``__iter__`` give the
+    rank's contiguous rows of each (``parallel/distributed.py:row_slice``).
     """
 
     estimate_bytes = staticmethod(estimate_bytes)
 
     def __init__(self, loader: SpeechDataLoader,
-                 device: str | "torch.device" = "cuda"):
+                 device: str | "torch.device" = "cuda", group=None):
         import torch
 
         from ctc_pytorch_tpu_torch import resolve_device
+        from ctc_pytorch_tpu_torch.parallel.distributed import row_slice
 
         super().__init__(loader)
         self.device = dev = resolve_device(device)
+        self._rows = (slice(None) if group is None else
+                      row_slice(loader.batch_size, group.rank, group.world))
         self.pad_to_full_batch = loader.pad_to_full_batch
         ds = loader.dataset
         batcher = loader.batcher
@@ -537,12 +546,14 @@ class DeviceCachedLoader(GroupedLoader):
         differs: grouped by ``(bucket, t_pad, B)`` in order of first
         appearance, the order within a group kept.  ``with_indices=True``
         appends the ``(n_batches, B)`` int64 dataset indices, so that a
-        consumer can name the utterances (the fused stage-4 decode)."""
+        consumer can name the utterances (the fused stage-4 decode).  With a
+        group, B is the rank's share of each batch."""
         for (b_idx, tp, _), batches in self._groups(epoch).items():
             poss, masks, idxs = [], [], []
             for indices, _, _ in batches:
                 idx, mask = _padded(indices, self.batch_size,
                                     self.pad_to_full_batch)
+                idx, mask = idx[self._rows], mask[self._rows]
                 poss.append(self._pos_in_bucket[idx])
                 masks.append(mask)
                 idxs.append(idx)
@@ -555,12 +566,14 @@ class DeviceCachedLoader(GroupedLoader):
 
     def __iter__(self) -> Iterator[Batch]:
         """The epoch's batches in the streaming order, each gathered on the
-        device: a ``Batch`` of device tensors (the mask too)."""
+        device: a ``Batch`` of device tensors (the mask too); with a group,
+        the rank's rows."""
         import torch
 
         for indices, t_pad, _ in self.batcher.epoch_batches(self.epoch):
             idx, mask = _padded(indices, self.batch_size,
                                 self.pad_to_full_batch)
+            idx, mask = idx[self._rows], mask[self._rows]
             arrs = self._bucket_arrays[int(self._bucket_of[idx[0]])]
             pos = torch.from_numpy(self._pos_in_bucket[idx]).to(self.device)
             feats, frac, in_len, labels, lab_len = gather_rows(
@@ -584,20 +597,32 @@ class PrefetchLoader:
     batch.  All copies are issued on the calling thread (the wrapped
     loader's thread only collates host arrays).  Yields ``Batch``es of
     device tensors (the example mask too).  On the CPU the batches are
-    converted to tensors, with nothing to overlap.
+    converted to tensors, with nothing to overlap.  With a data-parallel
+    ``group`` each batch is cut to the rank's rows on the host, before its
+    pinned copy (``parallel/distributed.py:local_rows``).
     """
 
     FIELDS = ("feats", "input_frac", "input_lengths", "labels",
               "label_lengths", "example_mask")
 
     def __init__(self, loader: SpeechDataLoader,
-                 device: str | "torch.device" = "cuda", depth: int = 2):
+                 device: str | "torch.device" = "cuda", depth: int = 2,
+                 group=None):
         from ctc_pytorch_tpu_torch import resolve_device
 
         self.loader = loader
         self.depth = depth
         self.batch_size = loader.batch_size
         self.device = resolve_device(device)
+        self.group = group
+
+    def _host_batches(self) -> Iterator[Batch]:
+        """The wrapped loader's batches, cut to the rank's rows."""
+        from ctc_pytorch_tpu_torch.parallel.distributed import local_rows
+
+        for b in self.loader:
+            yield (b if self.group is None
+                   else local_rows(b, self.group.rank, self.group.world))
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -612,7 +637,7 @@ class PrefetchLoader:
         import torch
 
         if self.device.type != "cuda":
-            for b in self.loader:
+            for b in self._host_batches():
                 yield dataclasses.replace(b, **{
                     k: torch.from_numpy(getattr(b, k)) for k in self.FIELDS})
             return
@@ -636,7 +661,7 @@ class PrefetchLoader:
                 getattr(b, k).record_stream(stream)
             return b
 
-        for b in self.loader:
+        for b in self._host_batches():
             pending.append(put(b))
             if len(pending) > self.depth:
                 yield ready(*pending.popleft())

@@ -49,7 +49,10 @@ import numpy as np
 import torch
 
 from ctc_pytorch_tpu_torch import native
-from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
+from ctc_pytorch_tpu_torch.decode.beam_device import (
+    batched_beam_search,
+    batched_beam_search_sharded,
+)
 from ctc_pytorch_tpu_torch.decode.metrics import Scorer
 from ctc_pytorch_tpu_torch.decode.ngram_lm import LanguageModel
 
@@ -235,20 +238,24 @@ class BeamDecoder:
 
     def decode_on_device(self, log_probs: torch.Tensor,
                          frame_seq_len: torch.Tensor,
-                         max_len: int = 96) -> List[str]:
+                         max_len: int = 96, mesh=None) -> List[str]:
         """Whole-batch decode on ``log_probs``' device
-        (``decode/beam_device.py``).
+        (``decode/beam_device.py``), or split over the devices of ``mesh``
+        (``batched_beam_search_sharded``).
 
         ``max_len`` is the fixed hypothesis capacity; when any decoded
         hypothesis fills it, longer candidates may have been truncated and
         a warning is emitted — raise ``beam_max_len`` in the config."""
         probs = torch.exp(log_probs).transpose(0, 1)
-        seqs, lens, _ = batched_beam_search(
-            probs, torch.as_tensor(frame_seq_len).to(probs.device),
-            beam_width=self.beam_width, max_len=max_len,
-            blank=self.blank_index, lm_table=self.lm_on(probs.device),
-            lm_alpha=self.lm_alpha,
-        )
+        kw = dict(beam_width=self.beam_width, max_len=max_len,
+                  blank=self.blank_index, lm_table=self.lm_on(probs.device),
+                  lm_alpha=self.lm_alpha)
+        lengths = torch.as_tensor(frame_seq_len).to(probs.device)
+        if mesh is None:
+            seqs, lens, _ = batched_beam_search(probs, lengths, **kw)
+        else:
+            seqs, lens, _ = batched_beam_search_sharded(probs, lengths, mesh,
+                                                        **kw)
         seqs, lens = seqs.cpu().numpy(), lens.cpu().numpy()
         warn_capacity(int((lens >= max_len).sum()), max_len)
         return [self.string(seqs[i], lens[i]) for i in range(len(lens))]

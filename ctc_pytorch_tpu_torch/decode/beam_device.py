@@ -31,15 +31,19 @@ search (``native/``) sums in double, so where two prefixes' scores tie to
 float32's resolution the float32 search may keep the other one: the float64
 search sums as the host search does.
 
-``batched_beam_search_sharded`` (a batch split over several devices) is not
-ported.
+``batched_beam_search_sharded`` splits a batch over the devices of a mesh
+(``parallel/mesh.py:make_mesh``) inside one process, as the JAX version
+shards it over a data mesh: each device searches its rows, with no traffic
+between them, since every utterance is searched on its own.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from ctc_pytorch_tpu_torch.parallel.mesh import pad_batch_to_devices, shard_batch
 
 NEG = -1.0e9
 LOG_EPS = 1e-300  # 0 in float32
@@ -197,3 +201,34 @@ def batched_beam_search(
     return (_take(prefixes, best)[:, 0].to(torch.int32),
             lens.gather(1, best)[:, 0].to(torch.int32),
             norm.gather(1, best)[:, 0])
+
+
+def batched_beam_search_sharded(
+    probs: torch.Tensor,  # (B, T, C) probabilities
+    lengths: torch.Tensor,  # (B,)
+    mesh: Sequence[torch.device],
+    beam_width: int = 10,
+    max_len: int = 96,
+    blank: int = 0,
+    lm_table: Optional[torch.Tensor] = None,
+    lm_alpha: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``batched_beam_search`` with the batch split over the devices of
+    ``mesh`` (``ctc_pytorch_tpu/decode/beam_device.py:203-244``): the batch
+    is padded to a multiple of the mesh by repeating its first row, block r
+    of the rows is searched on ``mesh[r]`` (with the LM table copied there),
+    and the results are gathered on the first device with the padding
+    sliced off.  The same outputs as the unsplit search."""
+    b = probs.shape[0]
+    bp = pad_batch_to_devices(b, len(mesh))
+    lengths = torch.as_tensor(lengths).to(probs.device)
+    if bp != b:
+        probs = torch.cat([probs, probs[:1].expand(bp - b, -1, -1)])
+        lengths = torch.cat([lengths, lengths[:1].expand(bp - b)])
+    outs = [batched_beam_search(
+        p, n, beam_width=beam_width, max_len=max_len, blank=blank,
+        lm_table=None if lm_table is None else lm_table.to(p.device),
+        lm_alpha=lm_alpha) for p, n in shard_batch((probs, lengths), mesh)]
+    home = mesh[0]
+    return tuple(torch.cat([o[i].to(home) for o in outs])[:b]
+                 for i in range(3))

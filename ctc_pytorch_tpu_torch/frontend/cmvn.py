@@ -5,8 +5,9 @@ Counterpart of ``ctc_pytorch_tpu/frontend/cmvn.py``, which replaces Kaldi
 (``timit/steps/make_feat.sh:28-30,36``): stats are computed once on the
 training split and applied to every split.  They accumulate as ``(count,
 sum, sumsq)`` in float64 (the JAX package's dtype under x64), on the device
-of the features.  The JAX ``axis_name`` (a ``psum`` over a data-parallel
-mesh) belongs to data parallelism, which is not ported: giving it raises.
+of the features.  With a data-parallel ``group`` (``parallel/mesh.py``) each
+rank adds its share of a batch and the three sums are summed over the ranks,
+as the JAX ``axis_name`` ``psum``s them (``cmvn.py:52-55``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup, all_sum
 
 
 class CmvnStats(NamedTuple):
@@ -30,13 +33,10 @@ def init_cmvn(dim: int, device: str | torch.device = "cpu") -> CmvnStats:
 
 def accumulate_cmvn(stats: CmvnStats, feats: torch.Tensor,
                     frame_mask: Optional[torch.Tensor] = None,
-                    axis_name: Optional[str] = None) -> CmvnStats:
+                    group: Optional[DataGroup] = None) -> CmvnStats:
     """Add a (B, T, F) padded batch; ``frame_mask`` (B, T) marks the valid
-    frames."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "accumulate_cmvn(axis_name=...) is data parallel, which the port "
-            "does not have yet (ROADMAP.md queue 1 item 6)")
+    frames.  With ``group`` the batch is this rank's share, and what it adds
+    is summed over the ranks first."""
     x = feats.to(stats.sum.dtype)
     if frame_mask is not None:
         m = frame_mask.to(x.dtype)[..., None]
@@ -47,7 +47,12 @@ def accumulate_cmvn(stats: CmvnStats, feats: torch.Tensor,
         count = torch.tensor(float(x.shape[0] * x.shape[1]),
                              dtype=stats.count.dtype, device=x.device)
         sq = (x * x).sum(dim=(0, 1))
-    return CmvnStats(stats.count + count, stats.sum + x.sum(dim=(0, 1)),
+    total = x.sum(dim=(0, 1))
+    if group is not None:  # one collective for the three sums
+        count, total, sq = all_sum(torch.cat([count[None], total, sq]),
+                                   group).split([1, len(total), len(sq)])
+        count = count[0]
+    return CmvnStats(stats.count + count, stats.sum + total,
                      stats.sumsq + sq)
 
 

@@ -21,9 +21,12 @@ from torch import nn
 from ctc_pytorch_tpu_torch.config import CNNConfig
 from ctc_pytorch_tpu_torch.models.layers import (
     dropout,
+    global_stats,
     stats_from_sums,
+    synced_sums,
     update_running,
 )
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -39,7 +42,9 @@ class BatchNorm2d(nn.Module):
 
     ``mask``: optional ``(B, 1, T, 1)`` 0/1 validity.  Train-mode statistics
     then cover valid (row, frame) slots only, each slot counting its F
-    positions (the batchmax pad dynamics); the caller zeroes the planes."""
+    positions (the batchmax pad dynamics); the caller zeroes the planes.
+    ``group``: the statistics of the global batch, summed over the ranks
+    (``layers.py:BatchNorm``; JAX ``cnn.py:65-80``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -51,8 +56,8 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
         mean, var = self.mean, self.var
         xf = x.float()
         if self.training:
@@ -60,9 +65,15 @@ class BatchNorm2d(nn.Module):
                 b, c, t, f = x.shape
                 m = mask.to(xf.dtype).expand(b, 1, t, 1)
                 # sum over F first, then the masked (B, T) slots
-                s1 = (xf.sum(3) * m[..., 0]).sum((0, 2))
-                s2 = ((xf * xf).sum(3) * m[..., 0]).sum((0, 2))
-                mean, var, unbiased = stats_from_sums(s1, s2, m.sum() * f)
+                s1, s2, n = synced_sums(
+                    group, (xf.sum(3) * m[..., 0]).sum((0, 2)),
+                    ((xf * xf).sum(3) * m[..., 0]).sum((0, 2)), m.sum() * f)
+                mean, var, unbiased = stats_from_sums(s1, s2, n)
+            elif group is not None:
+                s1, s2 = synced_sums(group, xf.sum((0, 2, 3)),
+                                     (xf * xf).sum((0, 2, 3)))
+                mean, var, unbiased = global_stats(
+                    s1, s2, x.shape[0] * x.shape[2] * x.shape[3] * group.world)
             else:
                 n = x.shape[0] * x.shape[2] * x.shape[3]
                 mean = xf.mean((0, 2, 3))
@@ -110,7 +121,8 @@ class CNNStack(nn.ModuleList):
                 t_valid: Optional[torch.Tensor] = None,
                 example_mask: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
         """(B, 1, T, F) -> (B, C_out, T', F') in ``compute_dtype``.
 
         ``t_valid``: optional 0-d int tensor, the batch's true max input
@@ -121,7 +133,9 @@ class CNNStack(nn.ModuleList):
         (``cnn.py:236-264``).  This applies in eval too.  In train mode
         each BN takes its statistics over the frames below the cutoff, with
         the repeat-padded rows of ``example_mask`` dropped, and every layer
-        ends in dropout (``cnn.py:265``)."""
+        ends in dropout (``cnn.py:265``).  ``group``: the BNs' train-mode
+        statistics cover the global batch (``t_valid`` is then the global
+        max)."""
         cfg = self.cfg
         x = x.to(compute_dtype)
         tv = t_valid
@@ -141,7 +155,7 @@ class CNNStack(nn.ModuleList):
                 if rows is not None:
                     mask = mask & rows
             if layer.bn is not None:
-                out = layer.bn(out, mask)
+                out = layer.bn(out, mask, group)
             out = self.act(out)
             pk = cfg.pool_at(i)
             if pk:

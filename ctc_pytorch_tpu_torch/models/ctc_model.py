@@ -6,6 +6,12 @@ Counterpart of ``ctc_pytorch_tpu/models/ctc_model.py``.  ``ModelSpec`` is a
 copy (the checkpoint's model description); ``CTCModel`` is an
 ``nn.Module`` whose ``state_dict`` keys are the JAX tree paths
 (``cnn.0.w``, ``rnns.1.bn.mean``, ``fc.w``, ...).
+
+Data parallel: with a ``group`` (``parallel/mesh.py``) the batchmax pad
+dynamics take the global batch's max (``all_max``, the JAX ``pmax`` of
+``ctc_model.py:165-166``), and every BN in train mode the global batch's
+statistics.  A batch split over devices inside one process passes the whole
+batch's max as ``batch_max`` instead (the mesh ``Recognizer``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from ctc_pytorch_tpu_torch.config import CNNConfig, Config
 from ctc_pytorch_tpu_torch.models.cnn import CNNStack
 from ctc_pytorch_tpu_torch.models.layers import BatchNorm, Linear
 from ctc_pytorch_tpu_torch.models.rnn import RNNStack
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup, all_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,23 +133,31 @@ class CTCModel(nn.Module):
     @staticmethod
     def batch_max_frames(
         frac: torch.Tensor, t_in: int, example_mask: Optional[torch.Tensor] = None,
+        group: Optional[DataGroup] = None,
+        batch_max: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """True per-utterance input frames and the batch max (0-d), with the
         float32 ops of ``ctc_model.py:146-167``: ``round`` is half-to-even like
-        ``jnp.round``.  Repeat-padded rows are excluded from the max."""
+        ``jnp.round``.  Repeat-padded rows are excluded from the max, which
+        is taken over ``group`` where given; ``batch_max`` replaces it."""
         true_in = torch.round(frac * t_in).to(torch.int32)
+        if batch_max is not None:
+            return true_in, batch_max
         rows = true_in if example_mask is None else torch.where(
             example_mask > 0, true_in, torch.zeros_like(true_in))
-        return true_in, torch.clamp(rows.max(), min=1)
+        return true_in, all_max(torch.clamp(rows.max(), min=1), group)
 
     @staticmethod
     def input_sizes(spec: ModelSpec, frac: torch.Tensor, t_in: int, t_out: int,
-                    example_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    example_mask: Optional[torch.Tensor] = None,
+                    group: Optional[DataGroup] = None,
+                    batch_max: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Valid output frames for the decode (``train_ctc.py:46``), in the same
         float32 ops as ``ctc_model.py:170-193``, truncation included."""
         if spec.pad_dynamics != "batchmax":
             return (frac * t_out).to(torch.int32)
-        true_in, bmax = CTCModel.batch_max_frames(frac, t_in, example_mask)
+        true_in, bmax = CTCModel.batch_max_frames(frac, t_in, example_mask,
+                                                  group, batch_max)
         t_out_b = spec.output_time_len(bmax)
         q = true_in.to(torch.float32) / bmax.to(torch.float32)
         return (q * t_out_b.to(torch.float32)).to(torch.int32)
@@ -178,7 +193,8 @@ class CTCModel(nn.Module):
                 train: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None,
                 lengths: Optional[torch.Tensor] = None,
-                visualize: bool = False):
+                visualize: bool = False, group: Optional[DataGroup] = None,
+                batch_max: Optional[torch.Tensor] = None):
         """(B, T, F) -> log_probs (T', B, num_class).
 
         ``frac``: the collate's ``len / T_pad`` per row; drives the
@@ -195,6 +211,11 @@ class CTCModel(nn.Module):
         ``lengths``: (B,) valid frames at the recurrent layers' input, for
         packed-sequence semantics there (``models/rnn.py``).
 
+        ``group``: the data-parallel group of a rank's share of a global
+        batch: the batch max and the train-mode BN statistics are the global
+        batch's.  ``batch_max``: the max input frames to use instead of this
+        batch's own (a shard of a batch split inside one process).
+
         ``visualize``: also return the activations the reference shows
         (``visualize.py:107-132``), as the JAX ``CTCModel.apply(visualize=
         True)`` returns them: ``(log_probs, [x, post-CNN (B, C, T', F')
@@ -207,13 +228,14 @@ class CTCModel(nn.Module):
         cd = spec.torch_dtype
         bmax = None
         if frac is not None and spec.pad_dynamics == "batchmax":
-            _, bmax = CTCModel.batch_max_frames(frac, x.shape[1], example_mask)
+            _, bmax = CTCModel.batch_max_frames(frac, x.shape[1], example_mask,
+                                                group, batch_max)
 
         visual = [x] if visualize else None
         if self.cnn is not None:
             out = self.cnn(x[:, None], cd, t_valid=bmax,
                            example_mask=example_mask, drop_rate=drop,
-                           generator=generator)  # (B, C, T', F')
+                           generator=generator, group=group)  # (B, C, T', F')
             if visualize:
                 visual.append(out.float())
             b, c, t, f = out.shape
@@ -239,11 +261,11 @@ class CTCModel(nn.Module):
             bn_mask = bn_mask.float()
 
         out = self.rnns(out, cd, bn_mask, lengths=lengths, drop_rate=drop,
-                        generator=generator)
+                        generator=generator, group=group)
         t, b, h = out.shape
         flat = out.reshape(t * b, h)
         if self.fc_bn is not None:
-            flat = self.fc_bn(flat, bn_mask)
+            flat = self.fc_bn(flat, bn_mask, group)
         logits = self.fc(flat, cd).reshape(t, b, -1)
         log_probs = torch.log_softmax(logits, dim=-1)
         if visualize:

@@ -5,7 +5,12 @@ BN running statistics keep the JAX package's names and layouts (``scale``,
 ``bias``, ``mean``, ``var``, ``count``; linear weight stored ``(in, out)``),
 so a checkpoint leaf maps onto a ``state_dict`` key by its tree path alone
 (``train/checkpoint.py``).  Train mode is the module's ``training`` flag; it
-updates the running statistics in place.
+updates the running statistics in place.  With a data-parallel ``group``
+(``parallel/mesh.py``) the train-mode statistics are the whole global
+batch's: the count and the sums of x and x * x are summed over the ranks in
+one differentiable collective before they become the mean and variance
+(the JAX ``psum`` over ``axis_name``, ``layers.py:80-91``), so the input
+gradient on each rank holds every rank's term, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup, all_sum
 
 
 class _Matmul16F32(torch.autograd.Function):
@@ -79,6 +86,24 @@ def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: torch.Tensor):
     return mean, var, var * (n / torch.clamp(n - 1.0, min=1.0))
 
 
+def synced_sums(group: Optional[DataGroup], *parts: torch.Tensor) -> list:
+    """``parts`` summed over ``group`` in one differentiable collective
+    (unchanged without a group)."""
+    if group is None:
+        return list(parts)
+    flat = all_sum(torch.cat([p.reshape(-1) for p in parts]), group)
+    return [t.view_as(p) for t, p in
+            zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def global_stats(s1: torch.Tensor, s2: torch.Tensor, n: int):
+    """``stats_from_sums`` over a fixed count ``n`` (the unmasked statistics
+    of a global batch: each rank's positions times the world)."""
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    return mean, var, var * (n / max(n - 1, 1))
+
+
 def update_running(buf_mean: torch.Tensor, buf_var: torch.Tensor,
                    mean: torch.Tensor, unbiased: torch.Tensor,
                    momentum: float) -> None:
@@ -133,15 +158,20 @@ class BatchNorm(nn.Module):
         if with_count:
             self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
         mean, var = self.mean, self.var
         if self.training:
             flat = x.float().reshape(-1, x.shape[-1])
             if mask is not None:
                 m = mask.reshape(-1, 1).to(flat.dtype)
-                mean, var, unbiased = stats_from_sums(
-                    (flat * m).sum(0), (flat * flat * m).sum(0), m.sum())
+                s1, s2, n = synced_sums(group, (flat * m).sum(0),
+                                        (flat * flat * m).sum(0), m.sum())
+                mean, var, unbiased = stats_from_sums(s1, s2, n)
+            elif group is not None:
+                s1, s2 = synced_sums(group, flat.sum(0), (flat * flat).sum(0))
+                mean, var, unbiased = global_stats(
+                    s1, s2, flat.shape[0] * group.world)
             else:
                 n = flat.shape[0]
                 mean = flat.mean(0)

@@ -37,7 +37,12 @@ trainable ones in stage 2):
   zeroed before the projection and the padded rows of the output after the
   recurrence; the kernels do not change.  With one direction this is the
   JAX package's ``_scan_direction`` followed by its mask;
-- in train mode each layer's output goes through dropout (``rnn.py:447``).
+- in train mode each layer's output goes through dropout (``rnn.py:447``);
+- with a data-parallel ``group`` each layer's BN takes the global batch's
+  statistics (``layers.py:BatchNorm``).  The stream dtype is chosen from the
+  rank's own (local) B, as JAX chooses it inside ``shard_map``: the 863
+  recipes' B=16 on two ranks is B=8 a rank and runs fp32 streams, where one
+  process at B=16 runs bf16 ones.
 
 The JAX layer picks between its v2 kernels, its v1 (stacked-layout) kernels
 and the scan path by what fits the TPU's VMEM (``rnn.py:320-372, 383-432``);
@@ -60,6 +65,7 @@ from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as lstm_train_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup
 
 # per cell: (gates, eval recurrence, trainable recurrence)
 CELLS = {
@@ -116,11 +122,12 @@ class RNNLayer(nn.Module):
                 bn_mask: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
         """(T, B, F) -> (T, B, dirs * H) fp32.  ``lengths`` (B,): valid frames
         per utterance, for packed-sequence semantics."""
         if self.bn is not None:
-            x = self.bn(x, bn_mask)
+            x = self.bn(x, bn_mask, group)
         t_len, b, f = x.shape
         valid = None
         if lengths is not None:
@@ -157,7 +164,9 @@ class RNNStack(nn.ModuleList):
                 bn_mask: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
         for layer in self:
-            x = layer(x, compute_dtype, bn_mask, drop_rate, generator, lengths)
+            x = layer(x, compute_dtype, bn_mask, drop_rate, generator, lengths,
+                      group)
         return x

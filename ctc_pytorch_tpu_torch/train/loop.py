@@ -39,9 +39,19 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py``:
   ``torch.profiler`` trace written to ``<out_dir>/profile``
   (``metrics_log.py:profile_ctx``; the JAX package's ``loop.py:775-776``),
   on the path it takes without the trace: a fused epoch stays fused, its
-  graphs captured inside the trace.
-
-Data parallelism is not ported.
+  graphs captured inside the trace;
+- data parallelism (a ``DataGroup``, ``parallel/mesh.py``; the JAX step under
+  ``shard_map`` on a mesh): each rank runs the step on its rows of the
+  global batch.  The loss divides by the global mask count; the model takes
+  the global batch max and synchronised BN statistics; after the backward
+  every gradient and the loss are summed over the ranks in one collective
+  (``state.py:sum_gradients``), then the clip and Adam run on every rank
+  alike; the eval loss and the token error counts are summed too, so every
+  rank reports the global numbers and takes the same scheduler decisions.
+  Each rank draws dropout from its own stream (``rank_seed``).  Under NCCL
+  the collectives are part of each step's captured graph; gloo's run on the
+  host, so a gloo group cannot run a fused epoch on the card (``Trainer``
+  raises).
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ from ctc_pytorch_tpu_torch.decode.greedy import greedy_collapse
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
 from ctc_pytorch_tpu_torch.ops.ctc_loss import ctc_loss
 from ctc_pytorch_tpu_torch.ops.editdistance import padded_edit_distance_device
+from ctc_pytorch_tpu_torch.parallel.distributed import local_rows, rank_seed
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup, all_sum, replicate
 from ctc_pytorch_tpu_torch.train import checkpoint as ckpt
 from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
 from ctc_pytorch_tpu_torch.train.metrics_log import MetricsLogger, profile_ctx
@@ -73,52 +85,67 @@ from ctc_pytorch_tpu_torch.train.state import (
     restore,
     scale_lr,
     snapshot,
+    sum_gradients,
 )
 
 
 def forward_loss(state: TrainState, spec: ModelSpec, feats, frac, labels,
                  label_lens, mask, train: bool,
-                 generator: Optional[torch.Generator], frontend_fn=None):
+                 generator: Optional[torch.Generator], frontend_fn=None,
+                 group: Optional[DataGroup] = None):
     """``(loss, log_probs, input_sizes)`` of one batch in train or eval mode
     (train mode updates the BN buffers).  With ``frontend_fn`` (waveform
     in), ``feats`` are padded raw samples and ``frac`` their sample counts,
-    which the frontend turns into features and frame fractions first."""
+    which the frontend turns into features and frame fractions first.  With
+    ``group`` the batch is this rank's rows of the global batch and the loss
+    is its share of the global mean."""
     if frontend_fn is not None:
         feats, frac, _ = frontend_fn(feats, frac)
     log_probs = state.model(feats, frac=frac, example_mask=mask, train=train,
-                            generator=generator)
+                            generator=generator, group=group)
     input_sizes = CTCModel.input_sizes(spec, frac, feats.shape[1],
-                                       log_probs.shape[0], example_mask=mask)
+                                       log_probs.shape[0], example_mask=mask,
+                                       group=group)
     neg_ll = ctc_loss(log_probs, labels, input_sizes, label_lens,
                       reduction="none")
     # reference: sum over the batch / batch size (train_ctc.py:47-48); the
-    # masked mean leaves out the repeat-padded rows of a ragged last batch
-    loss = (neg_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # masked mean leaves out the repeat-padded rows of a ragged last batch;
+    # over a group the denominator is the global count (JAX loop.py:92-95)
+    denom = all_sum(mask.sum(), group)
+    loss = (neg_ll * mask).sum() / torch.clamp(denom, min=1.0)
     return loss, log_probs, input_sizes
 
 
 def train_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
                label_lens, mask,
-               generator: Optional[torch.Generator] = None, frontend_fn=None):
+               generator: Optional[torch.Generator] = None, frontend_fn=None,
+               group: Optional[DataGroup] = None):
     """One optimizer step, in place.  Returns ``(loss, greedy_idx (B, T'),
-    input_sizes)`` on the device; nothing is fetched."""
+    input_sizes)`` on the device; nothing is fetched.  With ``group`` the
+    loss is the global batch's and the update the same on every rank."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, log_probs, input_sizes = forward_loss(
         state, spec, feats, frac, labels, label_lens, mask, True, generator,
-        frontend_fn)
+        frontend_fn, group)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        loss = sum_gradients(state, group, loss)
     apply_gradients(state)
-    return loss.detach(), torch.argmax(log_probs.detach(), dim=-1).T, input_sizes
+    return loss, torch.argmax(log_probs.detach(), dim=-1).T, input_sizes
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, spec: ModelSpec, feats, frac, labels,
-              label_lens, mask, frontend_fn=None):
-    """``(loss, greedy_idx, input_sizes, log_probs)`` in eval mode."""
+              label_lens, mask, frontend_fn=None,
+              group: Optional[DataGroup] = None):
+    """``(loss, greedy_idx, input_sizes, log_probs)`` in eval mode; with
+    ``group`` the loss is summed over the ranks (the global batch's)."""
     loss, log_probs, input_sizes = forward_loss(
         state, spec, feats, frac, labels, label_lens, mask, False, None,
-        frontend_fn)
-    return loss, torch.argmax(log_probs, dim=-1).T, input_sizes, log_probs
+        frontend_fn, group)
+    return (all_sum(loss, group), torch.argmax(log_probs, dim=-1).T,
+            input_sizes, log_probs)
 
 
 @torch.no_grad()
@@ -155,6 +182,7 @@ def run_epoch(
     log=print,
     record: Optional[dict] = None,
     frontend_fn=None,
+    group: Optional[DataGroup] = None,
 ) -> Tuple[float, float]:
     """One streaming pass, one eager step per batch; returns (accuracy = 1 -
     wer, average loss) like ``run_epoch`` (``train_ctc.py:26-69``).  Losses
@@ -163,7 +191,11 @@ def run_epoch(
     per-batch losses in visiting order and its error and token counts
     (``_epoch_done``), for parity checks between the epoch runners.  With
     ``frontend_fn`` the batches hold raw samples and the ``frac`` slot gets
-    their sample counts (the JAX ``run_epoch(waveform=True)``)."""
+    their sample counts (the JAX ``run_epoch(waveform=True)``).  With
+    ``group`` each rank steps on its rows of every global batch: a host
+    loader's batches (numpy) are sliced here (``local_rows``), the device
+    loaders give the rank's rows already; losses and counts are the global
+    batch's."""
     dev = next(state.model.parameters()).device
     device_losses = []
     cur_start = 0
@@ -171,7 +203,14 @@ def run_epoch(
     total_errs = torch.zeros((), dtype=torch.int64, device=dev)
     total_tokens = torch.zeros((), dtype=torch.int64, device=dev)
     n_batches = 0
+
+    def counts() -> Tuple[int, int]:  # fetched, summed over the group
+        both = all_sum(torch.stack([total_errs, total_tokens]), group)
+        return int(both[0]), int(both[1])
+
     for i, batch in enumerate(loader):
+        if group is not None and not isinstance(batch.feats, torch.Tensor):
+            batch = local_rows(batch, group.rank, group.world)
         feats, frac, labels, label_lens, mask = (_on(x, dev) for x in (
             batch.feats, batch.input_frac, batch.labels, batch.label_lengths,
             batch.example_mask))
@@ -180,11 +219,11 @@ def run_epoch(
         if training:
             loss, greedy_idx, input_sizes = train_step(
                 state, spec, feats, frac, labels, label_lens, mask, generator,
-                frontend_fn)
+                frontend_fn, group)
         else:
             loss, greedy_idx, input_sizes, _ = eval_step(
                 state, spec, feats, frac, labels, label_lens, mask,
-                frontend_fn)
+                frontend_fn, group)
         device_losses.append(loss)
         n_batches += 1
         if compute_wer:
@@ -195,18 +234,19 @@ def run_epoch(
         if training and (i + 1) % print_every == 0:
             vals = [float(v) for v in device_losses[cur_start:]]
             fetched_sum += sum(vals)
+            errs, toks = counts()
             log(
                 f"Epoch = {epoch_id}, step = {i + 1}, "
                 f"cur_loss = {sum(vals) / max(len(vals), 1):.4f}, "
                 f"total_loss = {fetched_sum / (i + 1):.4f}, "
-                f"total_wer = {int(total_errs) / (int(total_tokens) + 1e-9):.4f}"
+                f"total_wer = {errs / (toks + 1e-9):.4f}"
             )
             cur_start = len(device_losses)
     total_loss = fetched_sum + sum(float(v) for v in device_losses[cur_start:])
     if record is not None:
         record["losses"] = [float(v) for v in device_losses]
-    return _epoch_done(epoch_id, training, total_loss, n_batches,
-                       int(total_errs), int(total_tokens), log, record)
+    return _epoch_done(epoch_id, training, total_loss, n_batches, *counts(),
+                       log, record)
 
 
 def _epoch_done(epoch_id: int, training: bool, loss_sum: float,
@@ -246,7 +286,7 @@ def _restoring(state: Optional[TrainState],
 
 def make_fused_fns(spec: ModelSpec,
                    generator: Optional[torch.Generator] = None,
-                   frontend_fn=None):
+                   frontend_fn=None, group: Optional[DataGroup] = None):
     """Per-group runners over a device-resident cache, ``(fused_train,
     fused_eval)`` (counterpart of the JAX ``make_fused_fns``,
     ``train/loop.py:168-373``).
@@ -261,6 +301,10 @@ def make_fused_fns(spec: ModelSpec,
     ``generator``.  With ``frontend_fn`` the planes hold raw samples, the
     gather passes the sample counts in the ``frac`` slot and the step
     starts with the frontend (the JAX ``make_fused_fns(waveform=True)``).
+    With ``group`` the ``pos`` and ``mask`` are this rank's columns of the
+    group's batches and the step is the data-parallel one; the group's
+    error and token counts are summed over the ranks once, at its end (the
+    JAX ``psum`` after the scan).
 
     On the card each step shape ``(train or eval, compute_wer, bucket
     plane, t_pad, B)`` is captured once, at its first use, into a CUDA
@@ -296,10 +340,11 @@ def make_fused_fns(spec: ModelSpec,
             if training:
                 loss, greedy_idx, sizes = train_step(
                     state, spec, feats, frac, labels, lab_len, m, generator,
-                    frontend_fn)
+                    frontend_fn, group)
             else:
                 loss, greedy_idx, sizes, _ = eval_step(
-                    state, spec, feats, frac, labels, lab_len, m, frontend_fn)
+                    state, spec, feats, frac, labels, lab_len, m, frontend_fn,
+                    group)
             if compute_wer:
                 e, t = device_token_errors(greedy_idx, sizes, labels, lab_len,
                                            m)
@@ -307,11 +352,15 @@ def make_fused_fns(spec: ModelSpec,
                 toks.add_(t)
             return (loss,)
 
+        def totals():
+            both = all_sum(torch.stack([errs, toks]), group)
+            return losses, both[0], both[1]
+
         if dev.type != "cuda":
             for i in range(n):
                 (loss,) = step({"pos": pos_d[i], "mask": mask_d[i]})
                 losses[i] = loss
-            return losses, errs.clone(), toks.clone()
+            return totals()
 
         key = (training, compute_wer, id(state.model),
                arrs["feats"].data_ptr(), int(t_pad), b)
@@ -336,7 +385,7 @@ def make_fused_fns(spec: ModelSpec,
             losses[i].copy_(loss)
             if training:
                 state.step += 1
-        return losses, errs.clone(), toks.clone()
+        return totals()
 
     def fused_train(state, arrs, pos, mask, t_pad: int,
                     compute_wer: bool = True):
@@ -449,6 +498,10 @@ def run_epoch_single(epoch_id: int, epoch_fns, state: TrainState, loader, *,
                        log, record)
 
 
+def quiet(*_args) -> None:
+    """The log of the ranks that do not log."""
+
+
 class Trainer:
     """The whole training run, with plateau scheduling and checkpointing.
 
@@ -459,28 +512,53 @@ class Trainer:
     other loader streams its batches in its own order, as the JAX trainer
     streams where it has no cache.  ``frontend_fn`` (waveform in,
     ``frontend/e2e.py:frontend_fn_from_config``) runs inside every step of
-    every path."""
+    every path.
+
+    ``group`` (data parallel, the JAX ``Trainer(mesh=...)``): the loaders
+    give this rank's rows of the global batches; the initial state is
+    broadcast from rank 0 (``replicate``), every rank runs the same steps
+    and takes the same scheduler decisions from the summed metrics, and
+    only rank 0 writes checkpoints, metrics files, traces and log lines.
+    ``resume`` loads on every rank.  A gloo group's collectives run on the
+    host and cannot be captured, so a gloo group with ``fused_epoch`` on the
+    card raises: set ``fused_epoch: false`` or use NCCL."""
 
     def __init__(self, cfg: Config, spec: ModelSpec,
                  device: str | torch.device = "cuda",
-                 out_dir: Optional[str] = None, frontend_fn=None):
+                 out_dir: Optional[str] = None, frontend_fn=None,
+                 group: Optional[DataGroup] = None):
         if cfg.fused_dispatch not in ("group", "epoch"):
             raise ValueError(f"fused_dispatch must be 'group' or 'epoch', "
                              f"got {cfg.fused_dispatch!r}")
         self.cfg = cfg
         self.spec = spec
         self.frontend_fn = frontend_fn
+        self.group = group
+        if (group is not None and cfg.fused_epoch
+                and torch.device(device).type == "cuda"
+                and not group.capturable):
+            raise ValueError(
+                f"fused_epoch runs each step as a captured CUDA graph, and "
+                f"the {group.backend!r} backend's collectives cannot be "
+                f"captured (they copy through the host): set fused_epoch: "
+                f"false, or train over NCCL")
         self.device = resolve_device(device)
         self.state = create_train_state(
             spec, cfg.init_lr, cfg.weight_decay, cfg.grad_clip, seed=cfg.seed,
             device=self.device)
-        # dropout masks: one stream on the model's device, apart from the init
+        rank = 0
+        if group is not None:
+            replicate(self.state.model, group)
+            rank = group.rank
+        self.writer = rank == 0
+        # dropout masks: one stream on the model's device, apart from the
+        # init, and one per rank (the JAX step folds in the shard index)
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(cfg.seed + 1)
+        self.dropout_generator.manual_seed(rank_seed(cfg.seed + 1, rank))
         # the fused runners and their graphs (built even for "epoch", which
         # chains the same per-group runners)
         self.fused_fns = (make_fused_fns(spec, self.dropout_generator,
-                                         frontend_fn)
+                                         frontend_fn, group)
                           if cfg.fused_epoch else None)
         self.epoch_fns = (make_epoch_fns(self.fused_fns)
                           if cfg.fused_epoch and cfg.fused_dispatch == "epoch"
@@ -490,7 +568,7 @@ class Trainer:
             mode=cfg.scheduler_mode,
         )
         self.out_dir = Path(out_dir or Path(cfg.checkpoint_dir) / cfg.exp_name)
-        self.logger = MetricsLogger(self.out_dir)
+        self.logger = MetricsLogger(self.out_dir) if self.writer else None
         self.histories: Dict[str, list] = {
             "loss_results": [], "dev_loss_results": [], "dev_cer_results": []
         }
@@ -523,7 +601,7 @@ class Trainer:
             self.epoch, self.state, self.spec, loader, training=training,
             generator=self.dropout_generator if training else None,
             print_every=self.cfg.verbose_step, compute_wer=compute_wer, log=log,
-            frontend_fn=self.frontend_fn)
+            frontend_fn=self.frontend_fn, group=self.group)
 
     def _log_path(self, loader, log) -> None:
         """The first epoch's line on the path ``fused_epoch`` takes."""
@@ -543,6 +621,8 @@ class Trainer:
             compute_wer: bool = True, log=print) -> Path:
         cfg = self.cfg
         num_epoches = num_epoches or cfg.num_epoches
+        if not self.writer:
+            log = quiet
         stop = False
         while not stop and self.epoch < num_epoches:
             self.epoch += 1
@@ -555,7 +635,7 @@ class Trainer:
             train_loader.set_epoch(self.epoch)
             if self.epoch == 1 and cfg.fused_epoch:
                 self._log_path(train_loader, log)
-            with profile_ctx(cfg.profile and self.epoch == 1,
+            with profile_ctx(cfg.profile and self.epoch == 1 and self.writer,
                              self.out_dir / "profile",
                              cuda=self.device.type == "cuda"):
                 train_acc, train_loss = self._run(
@@ -587,21 +667,26 @@ class Trainer:
                 self._decay_next = True
             stop = decision.stop
 
-            self.logger.log({
-                "epoch": self.epoch, "lr": lr,
-                "train_loss": train_loss, "train_acc": train_acc,
-                "dev_loss": dev_loss, "dev_acc": dev_acc,
-                "epoch_minutes": (time.time() - t0) / 60.0,
-                "adjust_time": self.scheduler.adjust_time,
-                "rollback": decision.rollback, "decay_lr": decision.decay_lr,
-                "snapshot": decision.snapshot,
-            })
+            if self.logger is not None:
+                self.logger.log({
+                    "epoch": self.epoch, "lr": lr,
+                    "train_loss": train_loss, "train_acc": train_acc,
+                    "dev_loss": dev_loss, "dev_acc": dev_acc,
+                    "epoch_minutes": (time.time() - t0) / 60.0,
+                    "adjust_time": self.scheduler.adjust_time,
+                    "rollback": decision.rollback,
+                    "decay_lr": decision.decay_lr,
+                    "snapshot": decision.snapshot,
+                })
             if cfg.save_every and self.epoch % cfg.save_every == 0:
                 self.save_resume_checkpoint()
         return self.save_best()
 
     # -- persistence ----------------------------------------------------
     def _save(self, path: Path, snap) -> Path:
+        """Write ``snap`` to ``path`` (rank 0 only) and return the path."""
+        if not self.writer:
+            return path
         ckpt.save_package(
             path, self.spec, snap["model"], optimizer=snap["optimizer"],
             step=snap["step"], config=self.cfg,

@@ -24,6 +24,7 @@ import torch
 
 from ctc_pytorch_tpu_torch import resolve_device
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel, ModelSpec
+from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup
 
 
 @dataclasses.dataclass
@@ -121,6 +122,30 @@ def clip_by_global_norm(params, max_norm: float) -> None:
                         max_norm / norm)
     for g in grads:
         g.mul_(scale)
+
+
+@torch.no_grad()
+def sum_gradients(state: TrainState, group: DataGroup,
+                  loss: torch.Tensor) -> torch.Tensor:
+    """Sum every parameter's gradient and ``loss`` over ``group``, in one
+    collective over a flat fp32 buffer, and return the summed loss (the JAX
+    step's ``psum`` of grads and loss, ``loop.py:112-115``).  The loss of
+    each rank is its share of the global mean, so the sums are the global
+    batch's gradient and loss; the clip and Adam then see the same
+    gradients on every rank."""
+    import torch.distributed as dist
+
+    params = state.optimizer.param_groups[0]["params"]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1).float() for p in params]
+                     + [loss.detach().reshape(1).float()])
+    dist.all_reduce(flat, group=group.group)
+    parts = flat.split([p.numel() for p in params] + [1])
+    for p, g in zip(params, parts):
+        p.grad.copy_(g.view_as(p.grad))
+    return parts[-1][0]
 
 
 def apply_gradients(state: TrainState) -> None:

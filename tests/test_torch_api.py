@@ -2,7 +2,7 @@
 package's on the CPU: ``Recognizer`` strings for one utterance and a batch
 (files and arrays) from the same JAX-written package, greedy and beam;
 ``StreamingRecognizer`` texts on the same streams; and the non-mesh cases
-of ``tests/test_api.py``: the final text equals the batch decode, the
+of ``tests/test_api.py`` (the mesh cases: ``tests/test_torch_parallel.py``): the final text equals the batch decode, the
 committed prefix never retracts, a long stream stays within its window,
 and the windowed commits neither drop nor duplicate a token."""
 
@@ -66,11 +66,14 @@ def test_recognizer_raises_for_a_mesh_and_without_a_card(tmp_path,
                                                          monkeypatch):
     pkg = _mini_package(tmp_path, jfe())
     vocab = Vocab.from_units(["aa", "bb"])
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        Recognizer(pkg, vocab, frontend=fe(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="at least one device"):
+        Recognizer(pkg, vocab, frontend=fe(), mesh=[], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Recognizer(pkg, vocab, frontend=fe())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Recognizer(pkg, vocab, frontend=fe(), mesh=["cpu", "cuda:0"],
+                   device="cpu")
 
 
 def _stream(sr, wav, chunk, trace=None):

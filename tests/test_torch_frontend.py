@@ -324,7 +324,7 @@ def test_dither_is_seeded_by_content():
 # cmvn.py, splice.py, fmel.py
 # ---------------------------------------------------------------------------
 
-def test_cmvn_matches_jax():
+def test_cmvn_matches_jax(tmp_path):
     rng = np.random.RandomState(0)
     feats = (rng.randn(3, 20, 7) * 3 + 5).astype(np.float32)
     mask = (np.arange(20)[None] < np.array([20, 13, 4])[:, None])
@@ -351,8 +351,23 @@ def test_cmvn_matches_jax():
     for a, b in zip(cmvn.compute_global_cmvn(items, 7),
                     jcmvn.compute_global_cmvn(items, 7)):
         close(a, b, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        cmvn.accumulate_cmvn(stats, x, axis_name="data")
+    # the JAX axis_name is the port's group: over a one-rank gloo group the
+    # collective sums one share, so the stats are the ungrouped ones (two
+    # ranks against JAX's psum: tests/test_torch_parallel.py)
+    import torch.distributed as dist
+
+    from ctc_pytorch_tpu_torch.parallel import DataGroup
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        group = DataGroup(None, 0, 1, torch.device("cpu"), "gloo")
+        got = cmvn.accumulate_cmvn(stats, x, torch.from_numpy(mask), group)
+    finally:
+        dist.destroy_process_group()
+    want = cmvn.accumulate_cmvn(stats, x, torch.from_numpy(mask))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("left,right,skip,down", [
