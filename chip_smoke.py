@@ -65,8 +65,9 @@ printed line; any failure ends the run with a nonzero exit and no result:
    kernel, its plain twin, its bound and the library call for the same
    function (the recurrences' forwards and backwards in rounds with cuDNN's
    in fp32 and bf16; the LSTM and GRU backwards as pre-pass, serial kernel
-   and both; the CTC kernels also at mfcc_39's T'=400, B=8 with their
-   latency bound, and the whole loss's wall and device time against
+   and both, the LSTM's on fp32 streams also at mfcc_39's T'=400, H=256 and
+   a data-parallel rank's B=4; the CTC kernels also at mfcc_39's T'=400, B=8
+   with their latency bound, and the whole loss's wall and device time against
    ``F.ctc_loss``'s, with the device kernels of one call by name), with the
    branch each kernel took, the stacked entry points, then the flagship's,
    the 863 model's and the tanh model's decode forward and whole train step
@@ -858,26 +859,29 @@ def phase_gru_vs_plain() -> dict:
 
 
 # The LSTM's and GRU's hoisted backward: (cell, T', B, H, stream dtype,
-# directions, the serial branch the launcher must report).  The cluster
-# branch (16 or 32 batch rows a cluster) takes bf16 streams up to H = 416
-# (LSTM) and 480 (GRU); fp32 streams and wider H take the grid branch.  The
-# card's pytest cases (tests/test_torch_cuda.py) run the same list.
+# directions, the serial branch the launcher must report, by prefix).  The
+# bf16 cluster branch (16 or 32 batch rows a cluster) takes bf16 streams up
+# to H = 416 (LSTM) and 480 (GRU); the LSTM's fp32 cluster branch
+# (cluster16_fp32, 16 rows a cluster of 8 CTAs to H = 308, of 16 to H =
+# 432) takes fp32 streams where all its clusters fit at once; the GRU on
+# fp32 streams, B = 128 on fp32 streams and wider H take the grid branch.
+# The card's pytest cases (tests/test_torch_cuda.py) run the same list.
 HOIST_CASES = [
     ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
     ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
-    ("lstm", 100, 8, 384, "fp32", 2, "grid"),  # TIMIT recipe batch
+    ("lstm", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe batch
     ("gru", 95, 16, 256, "bf16", 2, "cluster"),  # 863 recipe batch
     ("gru", 195, 16, 256, "bf16", 2, "cluster"),  # its longest bucket
-    ("lstm", 80, 128, 384, "fp32", 2, "grid"),
+    ("lstm", 80, 128, 384, "fp32", 2, "grid"),  # 16 clusters of 16 CTAs
     ("lstm", 1, 16, 64, "bf16", 2, "cluster"),  # T = 1
     ("gru", 1, 1, 32, "fp32", 2, "grid"),  # T = 1, B = 1
     ("lstm", 9, 1, 64, "bf16", 2, "cluster"),  # B = 1
     ("gru", 9, 1, 64, "bf16", 2, "cluster"),
-    ("lstm", 12, 17, 48, "fp32", 2, "grid"),  # B = 17
+    ("lstm", 12, 17, 48, "fp32", 2, "cluster16_fp32"),  # B = 17
     ("gru", 12, 17, 48, "bf16", 2, "cluster"),
     ("lstm", 10, 20, 37, "bf16", 2, "cluster"),  # H % 8 != 0
     ("gru", 10, 20, 44, "bf16", 2, "cluster"),  # H % 8 == 4
-    ("lstm", 10, 20, 37, "fp32", 1, "grid"),  # one direction
+    ("lstm", 10, 20, 37, "fp32", 1, "cluster16_fp32"),  # one direction
     ("gru", 12, 16, 64, "bf16", 1, "cluster"),
     ("lstm", 6, 200, 64, "bf16", 2, "cluster"),  # 13 row slices
     ("lstm", 6, 16, 416, "bf16", 2, "cluster"),  # widest cluster H
@@ -890,8 +894,17 @@ HOIST_CASES = [
     ("lstm", 195, 16, 256, "bf16", 2, "cluster"),
     ("lstm", 400, 16, 256, "bf16", 2, "cluster"),
     # phase 15's ranks: the flagship's B=8 and the bench B=128 over two
-    ("lstm", 100, 4, 384, "fp32", 2, "grid"),
+    ("lstm", 100, 4, 384, "fp32", 2, "cluster16_fp32"),
     ("lstm", 80, 64, 384, "bf16", 2, "cluster"),
+    # the fp32 cluster: mfcc_39's longest batch (T' = 400, H = 256, 8 CTAs),
+    # T = 1, B = 1 with one direction, each side of both resident bounds
+    ("lstm", 400, 8, 256, "fp32", 2, "cluster16_fp32"),
+    ("lstm", 1, 8, 384, "fp32", 2, "cluster16_fp32"),
+    ("lstm", 9, 1, 384, "fp32", 1, "cluster16_fp32"),
+    ("lstm", 6, 8, 308, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
+    ("lstm", 6, 8, 309, "fp32", 2, "cluster16_fp32"),  # 16 CTAs
+    ("lstm", 6, 8, 432, "fp32", 2, "cluster16_fp32"),
+    ("lstm", 6, 8, 433, "fp32", 2, "grid"),
 ]
 
 
@@ -1051,6 +1064,24 @@ def check_cluster_branches(what: str) -> dict:
     check(all(k.startswith("cluster") for by in took.values() for k in by),
           f"{what}: a launch took the grid branch: {took}")
     return took
+
+
+# the LSTM backward's serial kernel on each branch, and its source
+LSTM_BWD_KERNELS = {
+    "grid": "lstm_bidir_bwd_kernel (csrc/lstm_bidir_train.cu)",
+    "cluster16": "bwd_cluster_kernel<LstmCell, 1> (csrc/bwd_hoist.cuh)",
+    "cluster32": "bwd_cluster_kernel<LstmCell, 2> (csrc/bwd_hoist.cuh)",
+    "cluster16_fp32": "bwd_fma_kernel (csrc/bwd_hoist.cuh)"}
+
+
+def check_lstm_bwd_branch(what: str, took: dict, launches: int) -> None:
+    """Every serial launch of the LSTM backward on a path with fp32 streams
+    (the recipes' batch of 8, a data-parallel rank's 4) took the fp32
+    cluster branch, none the grid: ``took`` is the launches by branch."""
+    took = {k: v for k, v in took.items() if v}
+    check(launches > 0 and took == {"cluster16_fp32": launches},
+          f"{what}: the LSTM backward's {launches} serial launches took "
+          f"{took}, not all cluster16_fp32")
 
 
 def phase_fwd_vs_plain() -> dict:
@@ -1255,7 +1286,9 @@ GRAPH_CASES = [
     ("lstm_train", 80, 128, 384, "bf16", 2, "cluster32"),
     ("lstm_train", 12, 48, 384, "bf16", 1, "cluster16"),
     ("lstm_train", 80, 128, 384, "fp32", 2, "grid"),
-    ("lstm_bwd", 100, 8, 384, "fp32", 2, "grid"),  # TIMIT recipe
+    ("lstm_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
+    ("lstm_bwd", 400, 8, 256, "fp32", 2, "cluster16_fp32"),  # mfcc_39
+    ("lstm_bwd", 80, 128, 384, "fp32", 2, "grid"),
     ("lstm_bwd", 80, 128, 384, "bf16", 2, "cluster32"),
     ("lstm_bwd", 6, 16, 416, "bf16", 2, "cluster16"),
     ("gru_eval", 95, 16, 256, "bf16", 2, "cluster16"),  # 863 recipe batch
@@ -2085,6 +2118,9 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                           f"{cell}_bidir_train_bwd": n * steps,
                           "ctc_alpha": steps + eval_batches, "ctc_beta": steps,
                           f"{cell}_bidir": n * eval_batches}, "Trainer.fit")
+    if cell == "lstm" and cfg.batch_size % 16 != 0:  # fp32 streams
+        check_lstm_bwd_branch("Trainer.fit", port_ops()[1].launches_bwd_branch,
+                              n * steps)
     if cfg.dev_over_train:
         check(any(ln.startswith("cer on training set is ") for ln in lines)
               and len(trainer.histories["training_cer_results"]) == 1,
@@ -2123,6 +2159,9 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                                    "ctc_alpha": 2, "ctc_beta": 2},
                  "two fp32 steps")
     check_cluster_branches("two fp32 steps")
+    if cell == "lstm":
+        check_lstm_bwd_branch("two fp32 steps",
+                              port_ops()[1].launches_bwd_branch, 2 * n)
     with plain_twins():
         p_losses, p_sd = two_steps()
     worst, worst_key, n_off, n_all = 0.0, "", 0, 0
@@ -3104,7 +3143,7 @@ def phase_pipeline_slice(smi: str, device: str = "cuda") -> dict:
     fused).  Checks: every stage's output; every stage-2 utterance read by
     the native reader; the launches of each LSTM and CTC kernel over the
     five stages and the branch each took (fp32 streams at B=8: the forwards
-    on ``cluster16_fp32``, the backward on the grid); the profiler's trace
+    and the backward on ``cluster16_fp32``); the profiler's trace
     of the first epoch names the port's kernels.  Then ``cli.visualize`` on
     an fp32 copy of the package (its log-probs the kernels' eval forward of
     that utterance, rows summing to 1), and ``cli.import_torch`` on a
@@ -3205,11 +3244,11 @@ def phase_pipeline_slice(smi: str, device: str = "cuda") -> dict:
                      "the pipeline's stages 2 and 4")
         check(took["lstm_bidir_train_fwd"] == {"cluster16_fp32": n * steps}
               and took["lstm_bidir"] == {"cluster16_fp32": n * (dev_b + test_b)}
-              and took["lstm_bidir_train_bwd"] == {"grid": n * steps}
+              and took["lstm_bidir_train_bwd"] == {"cluster16_fp32": n * steps}
               and took["ctc_alpha"] == {"staged": steps + dev_b}
               and took["ctc_beta"] == {"staged": steps},
               f"a pipeline launch took another branch: {took}")
-    names = (("fwd_fma_kernel", "lstm_bidir_bwd_kernel", "ctc_fwd_kernel",
+    names = (("fwd_fma_kernel", "bwd_fma_kernel", "ctc_fwd_kernel",
               "ctc_bwd_kernel") if on_card else ())
     trace = trace_kernels(Path(cfg.checkpoint_dir) / cfg.exp_name / "profile",
                           names)
@@ -3970,6 +4009,43 @@ def times_lstm(t, b, h, dtype, tag) -> dict:
     return out
 
 
+def times_lstm_backward(t, b, h, tag) -> dict:
+    """The LSTM backward on fp32 streams at one more shape of the main
+    paths: its pre-pass, its serial kernel with the branch it took and both,
+    the plain twin, the bound and cuDNN's backward (``backward_vs_library``)."""
+    import torch
+
+    _, train_ops, _ = port_ops()
+    gx, w_hh, dy = recurrence_inputs(t, b, h, torch.float32, seed=7)
+    ys, cs = train_ops.lstm_bidir_train_cuda(gx, w_hh)
+    planes = train_ops.lstm_bidir_train_bwd_prepass_cuda(gx, w_hh, ys, cs)
+    before = dict(train_ops.launches_bwd_branch)
+    out = {"serial_ms": cuda_ms(
+        lambda: train_ops.lstm_bidir_train_bwd_serial_cuda(planes, w_hh, dy),
+        reps=20)}
+    out["branch"] = "+".join(k for k, v in train_ops.launches_bwd_branch.items()
+                             if v != before[k])
+    out["prepass_ms"] = cuda_ms(
+        lambda: train_ops.lstm_bidir_train_bwd_prepass_cuda(gx, w_hh, ys, cs),
+        reps=20)
+    out["plain_ms"] = cuda_ms(
+        lambda: train_ops.lstm_bidir_train_backward_plain(gx, w_hh, ys, cs, dy),
+        reps=3)
+    out.update(recurrence_bound(gx, w_hh, n_planes=3, n_products=2,
+                                n_gate_planes=2))
+    out.update(backward_vs_library(
+        torch.nn.LSTM, t, b, h,
+        lambda: train_ops.lstm_bidir_train_backward_cuda(gx, w_hh, ys, cs, dy),
+        f"lstm, {tag}"))
+    print(f"  lstm backward, {tag} T'={t} B={b} H={h} fp32 streams, serial "
+          f"branch {out['branch']}: pre-pass {out['prepass_ms']:.4f} ms; serial "
+          f"kernel {out['serial_ms']:.4f} ms ({1e3 * out['serial_ms'] / t:.2f} "
+          f"us a step); pre-pass + serial {out['ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}, {out['ms'] / out['bound_ms']:.1f}x its bound")
+    return out
+
+
 def print_recurrence_times(out: dict, tag, t, b, h, dtype, library: str) -> None:
     import torch
 
@@ -4524,6 +4600,11 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
                         "lstm_bidir_train_bwd", "ctc_alpha", "ctc_beta"):
                 check(not on_card or g["counts"][row] > 0,
                       f"({name}) rank {r} never launched {row}")
+            if on_card and name == "a":  # 4 rows a rank: fp32 streams
+                check_lstm_bwd_branch(
+                    f"(a) rank {r}",
+                    g["branches"].get("lstm_bidir_train_bwd", {}),
+                    g["counts"]["lstm_bidir_train_bwd"])
             counts = added(counts, g["counts"])
         for k in ranks[0][name]["state"]:
             check(torch.equal(ranks[0][name]["state"][k],
@@ -4577,8 +4658,12 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
           and "train_metrics.jsonl" in written
           and cli[0]["best"] == cli[1]["best"],
           f"(d) the run wrote {written}")
-    for c in cli:
+    for r, c in enumerate(cli):
         counts = added(counts, c["counts"])
+        if on_card:  # 4 rows a rank: fp32 streams
+            check_lstm_bwd_branch(
+                f"(d) rank {r}", c["branches"].get("lstm_bidir_train_bwd", {}),
+                c["counts"]["lstm_bidir_train_bwd"])
     res = evaluate(cfg_d, str(best), device=dev, log=lambda *_: None)
     print(f"  (d) stage 4 of its package: {res['batches']} batches, PER "
           f"{res['wer']:.4f}")
@@ -4815,6 +4900,11 @@ def main() -> int:
               **times_ctc(100, 8, spec.num_class, 33, "TIMIT recipe batch"),
               **times_gru(95, 16, 256, torch.bfloat16, "863 recipe batch"),
               **times_rnn(100, 8, 384, torch.float32, "TIMIT recipe batch")}
+    # the LSTM backward's fp32 cluster at mfcc_39's longest batch and a
+    # data-parallel rank's 4 rows (the recipe's batch of 8 is in `recipe`)
+    lstm_fp32_bwd = {
+        "mfcc39": times_lstm_backward(400, 8, 256, "mfcc_39 longest batch"),
+        "dp_rank": times_lstm_backward(100, 4, 384, "data-parallel rank")}
     ctc_863 = {"bench": times_ctc(95, 128, spec_863.num_class, 40,
                                   "863 bench shape"),
                "recipe_batch": times_ctc(95, 16, spec_863.num_class, 40,
@@ -5009,6 +5099,9 @@ def main() -> int:
                 entry[f"launches_by_branch_863_{tag}"] = r["branches"][name]
         # the branches phase 3 captured and replayed against the eager call
         entry["graph_replayed_branches"] = graph_branches[name]
+        if name == "lstm_bidir_train_bwd":
+            entry["kernel_by_branch"] = LSTM_BWD_KERNELS
+            entry["fp32_cluster_shapes"] = lstm_fp32_bwd
         if name.startswith("ctc"):
             for shape, at in ctc_863.items():
                 suffix = shape if shape == "mfcc39" else f"863_{shape}"

@@ -1,6 +1,7 @@
 // The hoisted backward of the LSTM and GRU recurrences for Hopper (sm_90a),
 // shared by lstm_bidir_train.cu and gru_bidir_train.cu: the gate pre-pass
-// kernel and the cluster kernel of the serial chain.
+// kernel and the two cluster kernels of the serial chain (bf16 streams on
+// the tensor cores, and the LSTM's fp32 streams on the CUDA cores).
 //
 // Port of the hoisted backward of the JAX package
 // (ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:_lstm_prepass and its step,
@@ -29,44 +30,82 @@
 // bound is the bytes: 24 GFLOP but 286 MB at T=80, B=128, H=384 (189 MB of
 // them the planes it writes, read once more by the serial kernel).
 //
-// Serial chain, bf16 streams, the cluster branch: one thread-block cluster
-// of CL <= 8 CTAs per (direction, slice of 16 or 32 batch rows); the
-// recurrence couples only the hidden units of one batch row in one
-// direction, so clusters never meet and the launch is not cooperative.  CTA
-// r owns Uc units (Uc = ceil(H / 8) rounded up to 4) and all their gate
-// columns, and keeps resident in shared memory the rows of w_hh that its
-// columns meet: ws[unit'][q Uc + u] = w_hh[unit', q H + r Uc + u] for every
-// unit', bf16.  Per step a CTA forms dpre for its (row, unit) pairs and
-// multiplies its rounded dpre slice with ws on the tensor cores: the partial
-// dh of ALL units from its own gate columns (a split of the contraction, so
-// dpre never leaves the CTA).  It writes each peer's share of that partial
-// (rows x Uc units, fp32) into the peer's shared memory (distributed shared
-// memory, st.shared::cluster of 4 floats), and each CTA sums the CL
-// partials it received, in rank order, into dh.  A split of the units
-// instead (each CTA gathering every peer's bf16 dpre) would need the whole
-// rows x 4H dpre beside 147 KB of weights at H = 384, and moves more bytes.
+// Serial chain: one thread-block cluster per (direction, slice of batch
+// rows); the recurrence couples only the hidden units of one batch row in
+// one direction, so clusters never meet and the launch is not cooperative.
+// CTA r owns Uc units (a multiple of 4) and all their gate columns, and
+// keeps resident in shared memory the rows of w_hh that its columns meet:
+// w_hh[unit', q H + r Uc + u] for every unit'.  Per step a CTA forms dpre
+// for its (row, unit) pairs from the planes and multiplies its dpre slice
+// with the resident rows: the partial dh of ALL units from its own gate
+// columns (a split of the contraction, so dpre never leaves the CTA).  It
+// writes each peer's Uc-wide share of that partial (rows x Uc units, fp32)
+// into the peer's shared memory (distributed shared memory,
+// st.shared::cluster of 4 floats), and each CTA sums the CL partials it
+// received, in rank order (deterministic: a graphed call equals the eager
+// one bit for bit), into dh.  A split of the units instead would gather
+// the whole rows x 4H dpre into every CTA beside its weights: at B = 8, H
+// = 384 a CTA of a cluster of 16 sends 11.5 KB of partials a step, where
+// the gather would bring 49 KB into each CTA.
 //
-// What a step costs (tools/probe_bwd_steps.py on an H100: clock64 stamps
-// of one thread, LSTM H = 384, 16 rows, ~10k cycles): the product (~2.6k),
-// the DSMEM writes (~2.4k for 24 KB, about 10 bytes a clock per SM), the
-// receive sum (~1.2k) and the cluster barriers (~2.1k: the release arrive
-// ~1.2k, the waits and the read arrive ~0.9k).  The design keeps the
-// barrier count at one round trip and a half a step: one receive buffer,
-// and a relaxed "read" arrive that lets peers refill it while this CTA
-// forms dpre; the release arrive that publishes the data is not held up by
-// global stores, which come after it; the next step's planes and dy are
-// loaded during the product.  Only 15 clusters of 8 one-CTA-per-SM blocks
-// fit on a 132-SM H100 at once, so where 16-row clusters would run in two
-// waves (B = 128 with two directions) the launcher takes 32-row clusters
-// (two m16 tiles sharing each weight fragment).  The launcher's choice is
-// asked of the CUDA runtime once per device and shape (cluster_branch).
-// The branch takes bf16 streams while its shared memory fits (LSTM H <= 416,
-// GRU H <= 480) and a cluster of CL CTAs can be placed.
+// bwd_cluster_kernel, bf16 streams (branches cluster16, cluster32): CL <=
+// 8 CTAs, Uc = ceil(H / 8) rounded up to 4, the resident rows bf16 and the
+// product on the tensor cores (the rounded dpre slice by ws).  What a step
+// costs (tools/probe_bwd_steps.py on an H100: clock64 stamps of one thread,
+// LSTM H = 384, 16 rows, ~10k cycles): the product (~2.6k), the DSMEM
+// writes (~2.4k for 24 KB, about 10 bytes a clock per SM), the receive sum
+// (~1.2k) and the cluster barriers (~2.1k: the release arrive ~1.2k, the
+// waits and the read arrive ~0.9k).  Only 15 clusters of 8 one-CTA-per-SM
+// blocks fit on a 132-SM H100 at once, so where 16-row clusters would run
+// in two waves (B = 128 with two directions) the launcher takes 32-row
+// clusters (two m16 tiles sharing each weight fragment).  It takes bf16
+// streams while its shared memory fits (LSTM H <= 416, GRU H <= 480).
 //
-// Everything else -- fp32 streams (their resident fp32 weights do not fit a
-// cluster of 8 at H = 384) and H past the bound -- takes the grid branch:
-// the persistent cooperative grid kernel of each source, reading the same
-// planes.  The launcher reports which branch it took.
+// bwd_fma_kernel, the LSTM on fp32 streams (branch cluster16_fp32; the
+// recipes' batch of 8 and the data-parallel ranks' 4): 16 rows a cluster,
+// fp32 FMA on CUDA cores (fp32 parity, no TF32).  fp32 w_hh at H = 384 is
+// 2.36 MB a direction: 295 KB a CTA in a cluster of 8, so the kernel takes a
+// 16-CTA cluster (non-portable; Uc = 24, 147 KB a CTA) where 8 does not fit,
+// as the fp32 forward does (fwd_fma_kernel); at H = 256 (mfcc_39) a cluster
+// of 8 holds it (Uc = 32, 131 KB).  Shared memory: the resident rows as
+// ws[k][n] (k the CTA's 4 Uc gate columns, n all H units padded to 4, a
+// float4 holding four adjacent units), dpre transposed as [k][16 rows + 4]
+// (the 4 floats of padding make the rows of 8 adjacent k hit 8 distinct
+// bank quads) and the receive buffer [CL][16][Uc].  Bound: all three
+// within 227 KB: H <= 308 at CL = 8, H <= 432 at CL = 16.  The product is
+// bound by shared-memory wavefronts before FMAs (as the fp32 forward's
+// is), so thread (item = quad of four output units, k slice) keeps
+// the sums of all the slice's rows (4 units x 16 rows): one float4 of
+// weights serves every row, and the rows' dpre float4 is one address for
+// every lane of a slice (a broadcast).  Items are a warp's fastest index,
+// KSN k slices (a power of two, up to 8, with up to 384 threads) are
+// kPer = 32 / KSN lanes apart and summed by a reduce-scatter of shuffles
+// that leaves lane ks the rows ks, ks + KSN, ...: each lane then writes its
+// rows' float4 into the one peer that owns the quad.  Rows past B are
+// neither multiplied, exchanged nor stored, and where B <= 8 the sums hold
+// 8 rows, not 16 (123-125 registers a thread, not 157).  What a step costs
+// (tools/probe_bwd_steps.py on an H100, B = 8, H = 384, clusters of 16:
+// ~10k cycles with the stamps, 4.3 us without): the product and the
+// reduce-scatter ~5.2k (57 FMAs a clock of the SM's 128), the release
+// arrive ~1.05k, the CTA barrier ~0.8k, the receive sum of 16 partials
+// ~0.7k, the DSMEM writes ~0.55k, the element-wise step ~0.5k.
+//
+// Per step, both kernels keep the barrier count at one round trip and a
+// half: one receive buffer, and a relaxed "read" arrive that lets peers
+// refill it while this CTA forms dpre; the release arrive that publishes
+// the data is not held up by global stores (bwd_cluster_kernel stores dgx
+// after it, bwd_fma_kernel before its product, which they have long
+// drained by then, so that dpre holds no registers through the product);
+// the next step's planes and dy are loaded during the product.  The
+// launcher's choice is asked of the CUDA runtime once per device and shape
+// (cluster_branch): a cluster branch only where its shared memory fits and
+// all of the launch's clusters can be resident at once.
+//
+// Everything else -- H past the bounds, the LSTM on fp32 streams at B = 128
+// (16 clusters of 16 CTAs do not fit at once) and the GRU on fp32 streams --
+// takes the grid branch: the persistent cooperative grid kernel of each
+// source, reading the same planes.  The launcher reports which branch it
+// took.
 
 #pragma once
 
@@ -74,6 +113,7 @@
 #include <cstdint>
 #include <map>
 #include <mutex>
+#include <type_traits>
 
 #include "lstm_fwd.cuh"
 
@@ -85,6 +125,8 @@ constexpr int kPreK = 32;      // k depth of a staged pre-pass tile
 constexpr int kPreLd = kPreK + 8;  // bf16 row stride: conflict-free fragments
 constexpr int kSlice = 16;         // batch rows of a cluster (one mma M tile)
 constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kMaxClusterNP = 16;  // non-portable cluster size
+constexpr int kLoadDepth = 16;  // weight loads in flight a thread at the start
 constexpr int kMaxNtw = 8;         // step-product n-tiles per warp (H <= 512)
 constexpr int kClusterThreads = 256;
 
@@ -557,7 +599,7 @@ cudaError_t launch_prepass(const void* gx, const void* w, const void* ys,
 }
 
 // ---------------------------------------------------------------------------
-// serial chain, cluster branch (bf16 streams)
+// serial chain, bf16 cluster branch
 // ---------------------------------------------------------------------------
 
 // The cluster's shape for H and kM x 16 batch rows: Uc units per CTA (a
@@ -923,24 +965,374 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 
 constexpr int kMaxSmem = 232448;  // an H100 CTA's shared memory, opt-in
 
-// The launch of bwd_cluster_kernel<Cell, kM> for the shape; attr holds its
-// cluster dimension.
-template <class Cell, int kM>
-cudaLaunchConfig_t cluster_launch(const ClusterShape& cs, int B, int ndir,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+// The launch of a cluster kernel with cl CTAs a cluster over (slices, ndir);
+// attr holds its cluster dimension.
+inline cudaLaunchConfig_t cluster_config(int cl, int slices, int ndir,
+                                         int threads, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs.cl, (B + kSlice * kM - 1) / (kSlice * kM), ndir);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = cs.smem;
+  cfg.gridDim = dim3(cl, slices, ndir);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs.cl;
+  attr->val.clusterDim.x = cl;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// Whether all `slices` x ndir clusters of `kernel` fit on the current device
+// at once; raises the kernel's dynamic shared memory limit to the card's
+// maximum (and allows 16-CTA clusters), so that no launch needs the
+// attribute calls.
+inline cudaError_t clusters_fit(const void* kernel, int cl, int slices,
+                                int ndir, int threads, size_t smem,
+                                bool* fit) {
+  *fit = false;
+  if (smem > (size_t)kMaxSmem) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  if (cl > kMaxCluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cl, slices, ndir, threads, smem, 0, attr);
+  int capacity = 0;
+  err = cudaOccupancyMaxActiveClusters(&capacity, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  *fit = capacity >= slices * ndir;
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// serial chain, fp32 cluster branch (the LSTM on fp32 streams)
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaBwdRows = 16;  // batch rows of an fp32 cluster
+constexpr int kFmaBwdLd = kFmaBwdRows + 4;  // row stride of dpre^T, floats
+constexpr int kFmaBwdThreads = 384;  // most threads a CTA
+
+// The shape of the fp32 cluster for H: Uc units a CTA (a multiple of 4), CL
+// CTAs (8 where the shared memory fits, else 16), KSN k slices of each
+// output quad (the most, up to 8, that kFmaBwdThreads threads hold), the
+// threads and the shared memory: the resident rows [4 Uc][4 nq] (nq = the
+// output quads, ceil(H / 4)), dpre^T [4 Uc][kFmaBwdLd] and the receive
+// buffer [CL][16][Uc].  ok: the shared memory fits, the 16 x Uc / 4
+// element-wise (row, quad) pairs have a thread each and KSN >= 2.
+struct FmaBwdShape {
+  int uc, cl, ksn, threads;
+  size_t smem;
+  bool ok;
+};
+
+inline FmaBwdShape fma_bwd_shape(int H) {
+  FmaBwdShape s{0, 0, 0, 0, 0, false};
+  const int nq = (H + 3) / 4;
+  for (int cl : {kMaxCluster, kMaxClusterNP}) {
+    s.uc = ((H + cl - 1) / cl + 3) / 4 * 4;
+    s.cl = (H + s.uc - 1) / s.uc;
+    s.smem = ((size_t)4 * s.uc * 4 * nq + (size_t)4 * s.uc * kFmaBwdLd +
+              (size_t)s.cl * kFmaBwdRows * s.uc) * sizeof(float);
+    if (s.smem <= (size_t)kMaxSmem) break;
+  }
+  s.ksn = 8;
+  while (s.ksn > 1 && nq * s.ksn > kFmaBwdThreads) s.ksn /= 2;
+  s.threads = (nq * s.ksn + 31) / 32 * 32;
+  s.ok = s.smem <= (size_t)kMaxSmem && s.ksn >= 2 &&
+         kFmaBwdRows * (s.uc / 4) <= s.threads;
+  return s;
+}
+
+// One round of the reduce-scatter of bwd_fma_kernel over the k slices of an
+// output quad: the pair of entries (2i, 2i + 1) of acc differs in bit kR of
+// its row; the lane with bit kR of its slice ks set keeps the odd one and
+// adds the partner's (lanes delta << kR apart), into entry i.  Pairs of
+// rows past `live` (a multiple of 4) are skipped.
+template <int kR, int kRows>
+__device__ __forceinline__ void reduce_round(float (&acc)[kRows][4], int ks,
+                                             int delta, int live) {
+  const bool upper = (ks >> kR) & 1;
+#pragma unroll
+  for (int i = 0; i < (kRows >> (kR + 1)); ++i) {
+    if (((2 * i) << kR) < live) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float send = upper ? acc[2 * i][e] : acc[2 * i + 1][e];
+        const float keep = upper ? acc[2 * i + 1][e] : acc[2 * i][e];
+        acc[i][e] = keep + __shfl_xor_sync(0xffffffffu, send, delta << kR);
+      }
+    }
+  }
+}
+
+// Cluster (direction blockIdx.z, rows [16 blockIdx.y, +16)), CTA rank
+// blockIdx.x, of the LSTM's serial chain on fp32 streams; see the header.
+// planes (ndir, T, 6, B, Hp), w = w_hh (ndir, H, 4H), dy (T, B, ndir H) and
+// dgx (T, B, ndir 4H), all fp32.  vec4: w, dy and dgx rows are 16-byte
+// aligned at every 4th unit (H % 4 == 0).  A thread's sums hold kG 4-row
+// groups: 2 where no slice has more than 8 rows (B <= 8), else 4.
+template <int KSN, int kG>
+__global__ void __launch_bounds__(kFmaBwdThreads, 1)
+    bwd_fma_kernel(const float* __restrict__ planes,
+                   const float* __restrict__ w, const float* __restrict__ dy,
+                   float* __restrict__ dgx, int T, int B, int H, int Hp,
+                   int ndir, int uc, int vec4) {
+  constexpr int P = LstmCell::kPlanes;
+  constexpr int R = kFmaBwdRows;
+  constexpr int kR = 4 * kG;      // rows a thread's sums hold
+  constexpr int kPer = 32 / KSN;  // output quads a warp
+  constexpr int M = kR / KSN;     // rows a lane holds after the reduce-scatter
+  static_assert(KSN <= kR, "a row a lane at least");
+  extern __shared__ float4 hoist_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, nthreads = blockDim.x;
+  const int d = blockIdx.z, r0 = blockIdx.y * R;
+  const int own0 = rank * uc;
+  const int nq = (H + 3) / 4;  // output quads
+  const int K = 4 * uc;        // this CTA's gate columns: k = q Uc + u
+  const size_t gh = 4 * (size_t)H;
+  float4* ws = hoist_smem;                                    // [K][nq]
+  float* dT = reinterpret_cast<float*>(ws + (size_t)K * nq);  // [K][kFmaBwdLd]
+  float* recv = dT + (size_t)K * kFmaBwdLd;                   // [cl][R][uc]
+
+  // resident: ws[k][n] = w_hh[d][n][q H + own0 + u], zero past H in both.
+  // Thread (k quad, n), n fastest: one float4 of four gate columns read,
+  // four conflict-free shared stores; kLoadDepth / 4 entries in flight.
+  {
+    float* wf = reinterpret_cast<float*>(ws);
+    const int ldw = 4 * nq, n_items = uc * ldw;
+    const float* wd = w + (size_t)d * H * gh;
+    constexpr int kEntries = kLoadDepth / 4;
+    for (int i0 = tid; i0 < n_items; i0 += kEntries * nthreads) {
+      float4 v[kEntries];
+#pragma unroll
+      for (int i = 0; i < kEntries; ++i) {
+        const int idx = i0 + i * nthreads;
+        const int n = idx % ldw, k = 4 * (idx / ldw);
+        const int unit = own0 + k % uc;  // k .. k + 3: one gate, 4 units
+        const int nu = idx < n_items && n < H ? min(4, H - unit) : 0;
+        const float* src = wd + (size_t)(nu > 0 ? n : 0) * gh +
+                           (size_t)(k / uc) * H + (nu > 0 ? unit : 0);
+        if (vec4 && nu >= 4) {
+          v[i] = *reinterpret_cast<const float4*>(src);
+        } else {
+          v[i] = make_float4(nu > 0 ? src[0] : 0.f, nu > 1 ? src[1] : 0.f,
+                             nu > 2 ? src[2] : 0.f, nu > 3 ? src[3] : 0.f);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kEntries; ++i) {
+        const int idx = i0 + i * nthreads;
+        if (idx < n_items) {
+          float* dst = wf + (size_t)4 * (idx / ldw) * ldw + idx % ldw;
+          dst[0] = v[i].x, dst[ldw] = v[i].y, dst[2 * ldw] = v[i].z,
+          dst[3 * ldw] = v[i].w;
+        }
+      }
+    }
+  }
+  for (int idx = tid; idx < K * kFmaBwdLd; idx += nthreads) dT[idx] = 0.f;
+  for (int idx = tid; idx < cl * R * uc; idx += nthreads) recv[idx] = 0.f;
+
+  // element-wise work: thread (row, 4-unit quad of the CTA's units)
+  const int nqc = uc / 4;
+  const int row = tid / nqc, u = own0 + 4 * (tid % nqc), b = r0 + row;
+  const bool live = tid < R * nqc && b < B && u < H;
+  const int nu = live ? min(4, H - u) : 0;  // units to store
+  const size_t ps = (size_t)B * Hp;
+  const size_t lanes = (size_t)ndir * H;
+  float nx_pl[P][4], nx_dy[4];
+  auto fetch = [&](int t) {
+    if (!live) return;
+    const float* src = planes + (((size_t)d * T + t) * P * B + b) * Hp + u;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float4 v = *reinterpret_cast<const float4*>(src + p * ps);
+      nx_pl[p][0] = v.x, nx_pl[p][1] = v.y, nx_pl[p][2] = v.z, nx_pl[p][3] = v.w;
+    }
+    const float* dsrc = dy + ((size_t)t * B + b) * lanes + (size_t)d * H + u;
+    if (vec4 && nu >= 4) {
+      const float4 v = *reinterpret_cast<const float4*>(dsrc);
+      nx_dy[0] = v.x, nx_dy[1] = v.y, nx_dy[2] = v.z, nx_dy[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nx_dy[e] = e < nu ? dsrc[e] : 0.f;
+    }
+  };
+
+  // the product's thread: output quad `item`, k slice ks; the rows of the
+  // slice in 4-row groups, rgs of them live
+  const int item = (tid >> 5) * kPer + lane % kPer, ks = lane / kPer;
+  const bool active = item < nq;
+  const int rows = min(R, B - r0), rgs = (rows + 3) / 4;
+  const int n0 = 4 * min(item, nq - 1);  // the quad's first unit
+  const int peer = n0 / uc, off = n0 % uc;
+  const float4* wq = ws + min(item, nq - 1);
+  const float4* d4 = reinterpret_cast<const float4*>(dT);
+
+  float carry[4] = {0.f, 0.f, 0.f, 0.f};
+  fetch(d == 0 ? T - 1 : 0);
+  cluster.sync();  // every CTA of the cluster runs and holds its weights
+  BWD_STAMP_START
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d == 0 ? T - 1 - s : s;
+    const bool more = s + 1 < T;
+    float dh[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s > 0) {
+      cluster_wait();  // the partials of step s - 1 are in recv
+      BWD_STAMP(0)  // wait for the data
+      if (live) {
+        const float* src = recv + row * uc + (u - own0);
+        for (int p = 0; p < cl; ++p) {  // in rank order
+          const float4 v = *reinterpret_cast<const float4*>(src + p * R * uc);
+          dh[0] += v.x, dh[1] += v.y, dh[2] += v.z, dh[3] += v.w;
+        }
+      }
+    }
+    BWD_STAMP(1)  // the receive sum
+    // "read": recv may be refilled
+    if (more) cluster_arrive_after(dh[0] + dh[1] + dh[2] + dh[3]);
+    BWD_STAMP(2)  // the read arrive
+
+    if (live) {
+      float dpre[4][4];
+      cell_step(LstmCell{}, nx_pl, nx_dy, dh, carry, dpre, nullptr);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dT[(q * uc + u - own0 + e) * kFmaBwdLd + row] = e < nu ? dpre[q][e] : 0.f;
+      // dgx, stored before the product (the stores have long drained by
+      // the release arrive), so that dpre holds no registers through it
+      float* o = dgx + ((size_t)t * B + b) * ndir * gh + d * gh + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float* oq = o + (size_t)q * H;
+        if (vec4 && nu >= 4) {
+          *reinterpret_cast<float4*>(oq) =
+              make_float4(dpre[q][0], dpre[q][1], dpre[q][2], dpre[q][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e < nu) oq[e] = dpre[q][e];
+        }
+      }
+    }
+    BWD_STAMP(3)  // the element-wise step and dgx issued
+    if (!more) break;
+    fetch(d == 0 ? t - 1 : t + 1);
+    BWD_STAMP(4)  // the next step's loads issued
+    __syncthreads();  // the CTA's dpre slice is in dT
+    BWD_STAMP(5)  // the CTA's barrier
+
+    // partial dh of the quad's four units for every row from this CTA's
+    // gate columns k = ks, ks + KSN, ...: acc[row][unit]
+    float acc[kR][4];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    if (active) {
+      // K is a multiple of 16: two k a slice at a time, loads first
+      for (int k = ks; k < K; k += 2 * KSN) {
+        const float4 w2[2] = {wq[(size_t)k * nq], wq[(size_t)(k + KSN) * nq]};
+        float4 h2[2][kG];
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int g = 0; g < kG; ++g)
+            h2[x][g] = g < rgs ? d4[(k + x * KSN) * (kFmaBwdLd / 4) + g]
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            if (g < rgs) {
+              const float hr[4] = {h2[x][g].x, h2[x][g].y, h2[x][g].z,
+                                   h2[x][g].w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float* a = acc[4 * g + j];
+                a[0] = fmaf(hr[j], w2[x].x, a[0]);
+                a[1] = fmaf(hr[j], w2[x].y, a[1]);
+                a[2] = fmaf(hr[j], w2[x].z, a[2]);
+                a[3] = fmaf(hr[j], w2[x].w, a[3]);
+              }
+            }
+          }
+      }
+    }
+    // reduce-scatter over the KSN slices of the quad (reduce_round): entry
+    // i then holds row i KSN + ks
+    reduce_round<0>(acc, ks, kPer, 4 * rgs);
+    if constexpr (KSN >= 4) reduce_round<1>(acc, ks, kPer, 4 * rgs);
+    if constexpr (KSN >= 8) reduce_round<2>(acc, ks, kPer, 4 * rgs);
+    BWD_STAMP(6)  // the product and the reduce-scatter
+    cluster_wait();  // every CTA has read recv
+    BWD_STAMP(7)  // wait for the reads
+    // the quad's rows into the peer that owns it, this CTA's slot
+    if (active && n0 < H) {
+      float* slot = recv + (size_t)rank * R * uc + off;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const int j = i * KSN + ks;
+        if (j < rows)
+          st_cluster4(slot + j * uc, peer,
+                      make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      }
+    }
+    BWD_STAMP(8)  // the DSMEM stores
+    cluster_arrive();  // the data of step s
+    BWD_STAMP(9)  // the data arrive
+  }
+}
+
+// bwd_fma_kernel with ksn k slices (fma_bwd_shape) for B rows
+template <int kG>
+const void* fma_bwd_kernel_g(int ksn) {
+  switch (ksn) {
+    case 2: return reinterpret_cast<const void*>(bwd_fma_kernel<2, kG>);
+    case 4: return reinterpret_cast<const void*>(bwd_fma_kernel<4, kG>);
+    default: return reinterpret_cast<const void*>(bwd_fma_kernel<8, kG>);
+  }
+}
+// (a template, so that only the sources that launch it compile it)
+template <class Cell>
+const void* fma_bwd_kernel_for(int ksn, int B) {
+  static_assert(std::is_same<Cell, LstmCell>::value, "the LSTM cell");
+  return B <= 8 ? fma_bwd_kernel_g<2>(ksn) : fma_bwd_kernel_g<4>(ksn);
+}
+
+// Launch the fp32 cluster branch (cluster_branch chose it for the shape).
+template <class Cell>
+cudaError_t launch_bwd_fma(const void* planes, const void* w, const void* dy,
+                           void* dgx, int T, int B, int H, int Hp, int ndir,
+                           cudaStream_t stream) {
+  const FmaBwdShape f = fma_bwd_shape(H);
+  if (!f.ok) return cudaErrorInvalidValue;
+  auto aligned16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  int vec4 = H % 4 == 0 && aligned16(w) && aligned16(dy) && aligned16(dgx);
+  int uc = f.uc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(f.cl, (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir,
+                     f.threads, f.smem, stream, attr);
+  void* args[] = {&planes, &w, &dy, &dgx, &T, &B, &H, &Hp, &ndir, &uc, &vec4};
+  const cudaError_t err =
+      cudaLaunchKernelExC(&cfg, fma_bwd_kernel_for<Cell>(f.ksn, B), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // The clusters of bwd_cluster_kernel<Cell, kM> that the current device
@@ -957,45 +1349,68 @@ cudaError_t cluster_capacity(const ClusterShape& cs, int B, int ndir,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_launch<Cell, kM>(cs, B, ndir, 0, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cs.cl, (B + kSlice * kM - 1) / (kSlice * kM), ndir, kClusterThreads,
+      cs.smem, 0, attr);
   return cudaOccupancyMaxActiveClusters(
       capacity, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
-// The serial chain's branch for the shape on the current device: 1 or 2
-// the cluster branch with 16 or 32 batch rows a cluster, 0 the grid branch.
-// The cluster branch takes bf16 streams where its shared memory fits and a
-// cluster can be placed; 32 rows where the 16-row clusters would not all
-// fit on the card at once and the 32-row ones do.  Asked of the runtime once
-// per (device, B, H, ndir) and kept: every training step asks again.
+// the serial chain's branches, as the entry points report them
+enum BwdBranch { kBwdGrid = 0, kBwdMma16 = 1, kBwdMma32 = 2, kBwdFma16 = 3 };
+
+// The serial chain's branch for the shape on the current device
+// (BwdBranch).  bf16 streams take bwd_cluster_kernel where its shared
+// memory fits and a cluster can be placed: 32 rows where the 16-row
+// clusters would not all fit on the card at once and the 32-row ones do.
+// The LSTM on fp32 streams takes bwd_fma_kernel where its shared memory
+// fits and all of its 16-row clusters fit at once.  Every other shape the
+// grid.  Asked of the runtime once per (device, B, H, ndir, stream type)
+// and kept: every training step asks again.
 template <class Cell>
 cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
-  *branch = 0;
+  *branch = kBwdGrid;
   const ClusterShape cs1 = cluster_shape(Cell::kGates, H, 1);
-  if (!bf16 || cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw) return cudaSuccess;
+  constexpr bool kLstm = std::is_same<Cell, LstmCell>::value;
+  if (bf16 ? cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw
+           : !kLstm || !fma_bwd_shape(H).ok)
+    return cudaSuccess;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   static std::mutex mu;
-  static std::map<std::array<int, 4>, int> known;
-  const std::array<int, 4> key = {device, B, H, ndir};
+  static std::map<std::array<int, 5>, int> known;
+  const std::array<int, 5> key = {device, B, H, ndir, bf16};
   std::lock_guard<std::mutex> lock(mu);
   const auto hit = known.find(key);
   if (hit != known.end()) {
     *branch = hit->second;
     return cudaSuccess;
   }
-  int cap1 = 0, cap2 = 0;
-  err = cluster_capacity<Cell, 1>(cs1, B, ndir, &cap1);
-  if (err != cudaSuccess) return err;
-  int taken = cap1 >= 1 ? 1 : 0;
-  const int need1 = ndir * ((B + kSlice - 1) / kSlice);
-  const int need2 = ndir * ((B + 2 * kSlice - 1) / (2 * kSlice));
-  if (need1 > cap1 && need2 < need1) {
-    err = cluster_capacity<Cell, 2>(cluster_shape(Cell::kGates, H, 2), B, ndir,
-                                    &cap2);
+  int taken = kBwdGrid;
+  if (!bf16) {
+    if constexpr (kLstm) {
+      const FmaBwdShape f = fma_bwd_shape(H);
+      bool fit = false;
+      err = clusters_fit(fma_bwd_kernel_for<Cell>(f.ksn, B), f.cl,
+                         (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir, f.threads,
+                         f.smem, &fit);
+      if (err != cudaSuccess) return err;
+      if (fit) taken = kBwdFma16;
+    }
+  } else {
+    int cap1 = 0, cap2 = 0;
+    err = cluster_capacity<Cell, 1>(cs1, B, ndir, &cap1);
     if (err != cudaSuccess) return err;
-    if (cap2 >= 1 && (need2 <= cap2 || cap1 < 1)) taken = 2;
+    taken = cap1 >= 1 ? kBwdMma16 : kBwdGrid;
+    const int need1 = ndir * ((B + kSlice - 1) / kSlice);
+    const int need2 = ndir * ((B + 2 * kSlice - 1) / (2 * kSlice));
+    if (need1 > cap1 && need2 < need1) {
+      err = cluster_capacity<Cell, 2>(cluster_shape(Cell::kGates, H, 2), B,
+                                      ndir, &cap2);
+      if (err != cudaSuccess) return err;
+      if (cap2 >= 1 && (need2 <= cap2 || cap1 < 1)) taken = kBwdMma32;
+    }
   }
   known[key] = taken;
   *branch = taken;
@@ -1017,8 +1432,9 @@ cudaError_t launch_cluster(const void* planes, const void* w, const void* dy,
   const int vec4 = H % 4 == 0 && aligned8(dy) && aligned8(dgx) &&
                    (dhhn == nullptr || aligned8(dhhn));
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_launch<Cell, kM>(cs, B, ndir, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cs.cl, (B + kSlice * kM - 1) / (kSlice * kM), ndir, kClusterThreads,
+      cs.smem, stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, bwd_cluster_kernel<Cell, kM>, static_cast<const float*>(planes),
       static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(dy),

@@ -115,8 +115,6 @@ namespace {
 
 constexpr int kFmaThreads = 256;
 constexpr int kFmaRows = 16;  // batch rows of an fp32 cluster
-constexpr int kMaxClusterNP = 16;  // non-portable cluster size
-constexpr int kLoadDepth = 16;  // weight loads in flight a thread at the start
 
 // Phase stamps of a forward step, for tools/probe_bwd_steps.py: built with
 // FWD_STEP_STAMPS defined, thread 0 of the first CTA adds the clock64()
@@ -903,53 +901,6 @@ __global__ void __launch_bounds__(kFmaThreads, 1)
 // launcher
 // ---------------------------------------------------------------------------
 
-// The launch of a cluster kernel with cl CTAs a cluster over (slices, ndir);
-// attr holds its cluster dimension.
-inline cudaLaunchConfig_t fwd_cluster_launch(int cl, int slices, int ndir,
-                                             int threads, size_t smem,
-                                             cudaStream_t stream,
-                                             cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, slices, ndir);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cl;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Whether all `slices` x ndir clusters of `kernel` fit on the current device
-// at once; raises the kernel's dynamic shared memory limit to the card's
-// maximum (and allows 16-CTA clusters), so that no launch needs the
-// attribute calls.
-inline cudaError_t fwd_clusters_fit(const void* kernel, int cl, int slices,
-                                    int ndir, int threads, size_t smem,
-                                    bool* fit) {
-  *fit = false;
-  if (smem > (size_t)kMaxSmem) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err != cudaSuccess) return err;
-  if (cl > kMaxCluster) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      fwd_cluster_launch(cl, slices, ndir, threads, smem, 0, attr);
-  int capacity = 0;
-  err = cudaOccupancyMaxActiveClusters(&capacity, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  *fit = capacity >= slices * ndir;
-  return cudaSuccess;
-}
-
 template <typename S>
 constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
 
@@ -994,7 +945,7 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
   if constexpr (kRound && kIsBf16<S>) {
     const MmaShape m1 = mma_shape(Cell::kGates, H, 1);
     if (m1.uc <= 64) {
-      err = fwd_clusters_fit(
+      err = clusters_fit(
           reinterpret_cast<const void*>(fwd_mma_kernel<Cell, 1>), m1.cl,
           (B + 15) / 16, ndir, m1.threads, m1.smem, &fit);
       if (err != cudaSuccess) return err;
@@ -1002,7 +953,7 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
         taken = kFwdMma16;
       } else {
         const MmaShape m2 = mma_shape(Cell::kGates, H, 2);
-        err = fwd_clusters_fit(
+        err = clusters_fit(
             reinterpret_cast<const void*>(fwd_mma_kernel<Cell, 2>), m2.cl,
             (B + 31) / 32, ndir, m2.threads, m2.smem, &fit);
         if (err != cudaSuccess) return err;
@@ -1014,16 +965,16 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
     const FmaShape f = fma1_shape(H);
     const int ksn = fma1_slices(B, f.uc);
     if (ksn > 0) {
-      err = fwd_clusters_fit(fma1_kernel_for<Cell>(ksn), f.cl,
-                             (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads,
-                             f.smem, &fit);
+      err = clusters_fit(fma1_kernel_for<Cell>(ksn), f.cl,
+                         (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads,
+                         f.smem, &fit);
       if (err != cudaSuccess) return err;
       if (fit) taken = kFwdFma16;
     }
   } else {
     const FmaShape f = fma_shape(H);
     if (4 * f.uc <= kFmaThreads) {
-      err = fwd_clusters_fit(
+      err = clusters_fit(
           reinterpret_cast<const void*>(fwd_fma_kernel<Cell, S, kRound>), f.cl,
           (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads, f.smem, &fit);
       if (err != cudaSuccess) return err;
@@ -1055,7 +1006,7 @@ cudaError_t launch_fwd_cluster(int branch, const void* gx, const void* w,
                      (y_in == nullptr || aligned4(y_in));
     const int km = branch == kFwdMma32 ? 2 : 1;
     const MmaShape m = mma_shape(Cell::kGates, H, km);
-    const cudaLaunchConfig_t cfg = fwd_cluster_launch(
+    const cudaLaunchConfig_t cfg = cluster_config(
         m.cl, (B + 16 * km - 1) / (16 * km), ndir, m.threads, m.smem, stream,
         attr);
     const auto* g = static_cast<const __nv_bfloat16*>(gx);
@@ -1075,8 +1026,8 @@ cudaError_t launch_fwd_cluster(int branch, const void* gx, const void* w,
     const int ksn = fma1_slices(B, f.uc);
     if (ksn == 0) return cudaErrorInvalidValue;
     const cudaLaunchConfig_t cfg =
-        fwd_cluster_launch(f.cl, (B + kFmaRows - 1) / kFmaRows, ndir,
-                           kFmaThreads, f.smem, stream, attr);
+        cluster_config(f.cl, (B + kFmaRows - 1) / kFmaRows, ndir,
+                       kFmaThreads, f.smem, stream, attr);
     int uc = f.uc;
     void* args[] = {&gx, &y_in, &w, &ys, &T, &B, &H, &ndir, &uc};
     err = cudaLaunchKernelExC(&cfg, fma1_kernel_for<Cell>(ksn), args);
@@ -1084,8 +1035,8 @@ cudaError_t launch_fwd_cluster(int branch, const void* gx, const void* w,
     if (branch != kFwdFma16) return cudaErrorInvalidValue;
     const FmaShape f = fma_shape(H);
     const cudaLaunchConfig_t cfg =
-        fwd_cluster_launch(f.cl, (B + kFmaRows - 1) / kFmaRows, ndir,
-                           kFmaThreads, f.smem, stream, attr);
+        cluster_config(f.cl, (B + kFmaRows - 1) / kFmaRows, ndir,
+                       kFmaThreads, f.smem, stream, attr);
     err = cudaLaunchKernelEx(&cfg, fwd_fma_kernel<Cell, S, kRound>,
                              static_cast<const S*>(gx),
                              static_cast<const float*>(w), static_cast<S*>(ys),

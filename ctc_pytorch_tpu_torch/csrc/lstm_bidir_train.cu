@@ -40,15 +40,18 @@
 // read once.  With fp32 streams the products are fp32 and the limit is
 // operations at 67 TFLOP/s.
 //
-// Two branches for (b), chosen by the launcher, which reports the one it
-// took: the cluster branch of bwd_hoist.cuh (bf16 streams, H <= 416: tensor
-// cores, the exchange in distributed shared memory within a cluster per
-// (direction, 16 or 32 batch rows)), and for every other shape the grid branch
-// below: one persistent cooperative grid, CTA (d, g) owning 8 hidden units
-// of direction d, each thread one unit and 4 batch rows, the unit's 8 rows
-// of w_hh resident in shared memory (128*H + 64 KB, co-resident while
-// 2*ceil(H/8) <= SMs, H <= 528 on a 132-SM H100; past that the grid strides
-// over the items and reads w_hh from L2).  Per step:
+// Three branches for (b), chosen by the launcher, which reports the one it
+// took (bwd_hoist.cuh, BwdBranch): two cluster branches, each a cluster per
+// (direction, batch rows) with w_hh resident across it and the partial dh
+// exchanged in distributed shared memory -- bwd_cluster_kernel for bf16
+// streams (H <= 416: tensor cores, 16 or 32 batch rows), bwd_fma_kernel for
+// fp32 streams (H <= 432: fp32 FMA, 16 rows, clusters of 8 or 16 CTAs) --
+// and for every other shape (B = 128 on fp32 streams, H past the bounds)
+// the grid branch below: one persistent cooperative grid, CTA (d, g) owning
+// 8 hidden units of direction d, each thread one unit and 4 batch rows, the
+// unit's 8 rows of w_hh resident in shared memory (128*H + 64 KB,
+// co-resident while 2*ceil(H/8) <= SMs, H <= 528 on a 132-SM H100; past
+// that the grid strides over the items and reads w_hh from L2).  Per step:
 //   phase B  dh for the owned units from the previous step's dpre, which
 //            all CTAs wrote transposed, (4H, ldh), into a global double
 //            buffer (L2), streamed through shared memory with cp.async;
@@ -211,19 +214,21 @@ size_t bwd_smem_bytes(int H, bool resident) {
          2 * (size_t)kTileFloats * sizeof(float);
 }
 
-// The serial chain on the branch that cluster_branch chose: 1 or 2 the
-// cluster branch with 16 or 32 batch rows a cluster, 0 the grid branch.
+// The serial chain on the branch that cluster_branch chose (BwdBranch).
 template <typename S>
 cudaError_t launch_bwd(const void* planes, const void* w_hh, const void* dy,
                        void* dgx, void* dpbuf, void* dhbuf, void* dcbuf, int T,
                        int B, int H, int Hp, int ldh, int ndir, int branch,
                        cudaStream_t stream) {
-  if (branch == 1)
+  if (branch == kBwdMma16)
     return launch_cluster<LstmCell, 1>(planes, w_hh, dy, dgx, nullptr, T, B, H,
                                        Hp, ndir, stream);
-  if (branch == 2)
+  if (branch == kBwdMma32)
     return launch_cluster<LstmCell, 2>(planes, w_hh, dy, dgx, nullptr, T, B, H,
                                        Hp, ndir, stream);
+  if (branch == kBwdFma16)
+    return launch_bwd_fma<LstmCell>(planes, w_hh, dy, dgx, T, B, H, Hp, ndir,
+                                    stream);
   void* args[] = {&planes, &w_hh, &dy, &dgx, &dpbuf, &dhbuf, &dcbuf,
                   &T,      &B,    &H,  &Hp,  &ldh,   &ndir};
   const int items = ndir * ((H + kUnits - 1) / kUnits);
@@ -303,8 +308,8 @@ int lstm_bidir_train_bwd_prepass(const void* gx, const void* w_hh,
 }
 
 // The serial chain's branch for a backward of this shape on the current
-// device: *branch 1 or 2 the cluster branch with 16 or 32 batch rows a
-// cluster, 0 the grid branch.  Returns a cudaError_t.
+// device: *branch 0 the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3
+// the fp32 cluster (BwdBranch).  Returns a cudaError_t.
 int lstm_bidir_train_bwd_branch(int B, int H, int ndir, int bf16,
                                 int* branch) {
   return (int)cluster_branch<LstmCell>(B, H, ndir, bf16, branch);
@@ -328,7 +333,7 @@ int lstm_bidir_train_backward(const void* planes, const void* w_hh,
   int plan = 0;
   cudaError_t err = cluster_branch<LstmCell>(B, H, ndir, bf16, &plan);
   if (err != cudaSuccess) return (int)err;
-  if (plan == 0 && (!dpbuf || !dhbuf || !dcbuf))
+  if (plan == kBwdGrid && (!dpbuf || !dhbuf || !dcbuf))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = bf16 ? launch_bwd<__nv_bfloat16>(planes, w_hh, dy, dgx, dpbuf, dhbuf,

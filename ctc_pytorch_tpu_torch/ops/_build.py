@@ -23,9 +23,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-# the serial backward kernels' branches, as their launchers number them: the
-# cooperative grid, and clusters of 16 or of 32 batch rows
-BRANCHES = ("grid", "cluster16", "cluster32")
+# the serial backward kernels' branches, as their launchers number them
+# (csrc/bwd_hoist.cuh BwdBranch): the cooperative grid, the bf16 tensor-core
+# clusters of 16 or 32 batch rows, and the LSTM's fp32 cluster of 16 rows
+BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
 # the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch), which the
 # tanh cell's backward takes too: the cooperative grid, the bf16
 # tensor-core clusters of 16 or 32 batch rows, and the fp32 cluster of 16

@@ -26,11 +26,17 @@ shifted ``ys`` against ``dgx`` (as the JAX package forms it outside Pallas);
 the input projection and its gradients belong to the caller's
 ``torch.matmul``.
 
-The serial chain has two branches, which the launcher chooses by shape and
-reports (``launches_bwd_branch``): with bf16 streams and H <= 416 a
-thread-block cluster per (direction, 16 or 32 batch rows) runs its step
-product on the tensor cores and exchanges it in distributed shared memory;
-every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
+The serial chain has three branches, which the launcher chooses by shape
+and reports (``launches_bwd_branch``).  Two are a thread-block cluster per
+direction and slice of batch rows, with the rows of ``w_hh`` that each
+CTA's gate columns meet resident in its shared memory and the partial dh
+exchanged in distributed shared memory: with bf16 streams and H <= 416,
+16 or 32 rows a cluster and the step product on the tensor cores
+(``cluster16``, ``cluster32``); with fp32 streams and H <= 432, 16 rows a
+cluster of 8 or 16 CTAs and the product in fp32 on CUDA cores
+(``cluster16_fp32``: the recipes' batch of 8).  Every other shape (fp32
+streams at B = 128, H past the bounds) takes the persistent cooperative
+grid, fp32 products on CUDA cores, the only branch with global scratch
 (``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The forward has
 branches of its own, chosen and reported the same way
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
@@ -269,7 +275,7 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h) -> torch.Tensor:
         _raise(lib, err, "lstm_bidir_train backward branch", t_len, b, h)
     ldh = -(-b // 4) * 4
     scratch = []
-    if branch.value == 0:
+    if BRANCHES[branch.value] == "grid":
         # the grid branch's: dpre double buffer, (direction, parity, 4H,
         # ldh), as hbuf above; the dh and dc scratch
         dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=dy.device)

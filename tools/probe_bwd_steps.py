@@ -2,7 +2,8 @@
 """Phase stamps of the recurrences' cluster kernels on one GPU: the LSTM's
 and GRU's backward serial kernel (``bwd_cluster_kernel`` in
 ``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) at the bench and recipe shapes
-with bf16 streams, and the forward kernels (``fwd_mma_kernel``,
+with bf16 streams, the LSTM's on fp32 streams (``bwd_fma_kernel``, same
+header) at the recipes' batches of 8 and 4, and the forward kernels (``fwd_mma_kernel``,
 ``fwd_fma_kernel``, ``fma1_kernel`` in ``csrc/fwd_cluster.cuh``) at the main
 paths' and bench shapes, for the LSTM, the GRU and the tanh cell forward
 and backward: the cycles a step spends in each phase, and the clusters the
@@ -142,6 +143,56 @@ void run(int T, int B, int H, const char* what) {
   }
 }
 
+// one fp32 serial launch of the LSTM backward on the branch the launcher
+// picks, with its stamps
+void run_fma(int T, int B, int H, const char* what) {
+  const int P = LstmCell::kPlanes, ndir = 2;
+  const int Hp = (H + 3) / 4 * 4;
+  const size_t n_planes = (size_t)ndir * T * P * B * Hp;
+  const size_t n_w = (size_t)ndir * H * 4 * H, n_y = (size_t)T * B * ndir * H;
+  float *planes, *w, *dy, *dgx;
+  cudaMalloc(&planes, n_planes * 4);
+  cudaMalloc(&w, n_w * 4);
+  cudaMalloc(&dy, n_y * 4);
+  cudaMalloc(&dgx, n_y * 4 * 4);
+  cudaMemset(planes, 0, n_planes * 4);
+  cudaMemset(w, 0, n_w * 4);
+  cudaMemset(dy, 0, n_y * 4);
+  int branch = 0;
+  cluster_branch<LstmCell>(B, H, ndir, 0, &branch);
+  const FmaBwdShape f = fma_bwd_shape(H);
+  if (branch != kBwdFma16) {
+    printf("%s: branch %d, no stamps\n", what, branch);
+    return;
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    long long zero[16] = {0};
+    cudaMemcpyToSymbol(bwd_step_cycles, zero, sizeof(zero));
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    cudaEventRecord(a);
+    const cudaError_t err =
+        launch_bwd_fma<LstmCell>(planes, w, dy, dgx, T, B, H, Hp, ndir, 0);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, a, b);
+    long long acc[16];
+    cudaMemcpyFromSymbol(acc, bwd_step_cycles, sizeof(acc));
+    long long total = 0;
+    printf("%s: clusters of %d CTAs (Uc %d, %d threads, %d k slices, %zu B "
+           "shared), %.4f ms, %.2f us a step; cycles a step by phase:",
+           what, f.cl, f.uc, f.threads, f.ksn, f.smem, ms, 1e3 * ms / T);
+    for (int i = 0; i < 11; ++i) {
+      printf(" %lld", acc[i] / (T - 1));
+      total += acc[i];
+    }
+    printf(" | total %lld (%s)\n", total / (T - 1),
+           cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+  }
+}
+
 int main() {
   int clock_khz = 0;
   cudaDeviceGetAttribute(&clock_khz, cudaDevAttrClockRate, 0);
@@ -150,6 +201,11 @@ int main() {
   run<LstmCell>(80, 128, 384, "lstm T=80 B=128 H=384");
   run<GruCell>(95, 16, 256, "gru T=95 B=16 H=256");
   run<GruCell>(95, 128, 256, "gru T=95 B=128 H=256");
+  printf("backward, fp32 streams (phase 3 the element-wise step with dgx "
+         "issued, 6 the product and the reduce-scatter, 10 empty)\n");
+  run_fma(100, 8, 384, "lstm T=100 B=8 H=384 fp32");
+  run_fma(400, 8, 256, "lstm T=400 B=8 H=256 fp32");
+  run_fma(100, 4, 384, "lstm T=100 B=4 H=384 fp32");
   printf("forward\n");
   run_fwd<LstmCell, float, false>(100, 8, 384, "lstm eval T=100 B=8 H=384 fp32");
   run_fwd<LstmCell, float, true>(100, 8, 384, "lstm train T=100 B=8 H=384 fp32");
