@@ -72,7 +72,10 @@ printed line; any failure ends the run with a nonzero exit and no result:
    branch each kernel took, the stacked entry points, then the flagship's,
    the 863 model's and the tanh model's decode forward and whole train step
    with their device time by kernel, and the CTC loss's share of the
-   flagship's B=8 step on the device;
+   flagship's B=8 step on the device; the wide forward branch and the
+   GRU's fp32 backward cluster against the grid they replaced, and the
+   flagship's B=128 decode forward with its eval forwards on either
+   (``times_redesigned``);
 10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
     at B=16 (bf16 streams), one epoch and its dev pass at ``drop_out: 0``
     from one seeded state through the eager ``run_epoch`` and the graphed
@@ -138,7 +141,12 @@ printed line; any failure ends the run with a nonzero exit and no result:
     rank in this process running a fused epoch from graphs, bit for bit
     the ungrouped epoch; ``cli.train --data-parallel`` as two gloo ranks for
     one epoch, its package decoded; stage 4's ``BeamDevice`` search and
-    ``Recognizer`` on a mesh of two against the unsplit runs.
+    ``Recognizer`` on a mesh of two against the unsplit runs;
+16. fp32 streams (``phase_fp32_streams``) where the wide forward branch
+    and the GRU's fp32 backward cluster take them: the 863 GRU model's
+    step at B=8 (its recipe's 16 over two ranks) through the kernels and
+    the twins, its fp32 decode forward at B=128, the flagship's fp32 step
+    at B=128, each with the branch asserted.
 
 Ten model paths are driven: the flagship (phases 4 and 5), the 863 model
 with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
@@ -162,6 +170,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -861,11 +870,11 @@ def phase_gru_vs_plain() -> dict:
 # The LSTM's and GRU's hoisted backward: (cell, T', B, H, stream dtype,
 # directions, the serial branch the launcher must report, by prefix).  The
 # bf16 cluster branch (16 or 32 batch rows a cluster) takes bf16 streams up
-# to H = 416 (LSTM) and 480 (GRU); the LSTM's fp32 cluster branch
-# (cluster16_fp32, 16 rows a cluster of 8 CTAs to H = 308, of 16 to H =
-# 432) takes fp32 streams where all its clusters fit at once; the GRU on
-# fp32 streams, B = 128 on fp32 streams and wider H take the grid branch.
-# The card's pytest cases (tests/test_torch_cuda.py) run the same list.
+# to H = 416 (LSTM) and 480 (GRU); the fp32 cluster branch (cluster16_fp32,
+# 16 rows a cluster of 8 CTAs to H = 308, of 16 to H = 432 for the LSTM; to
+# H = 344 and 500 for the GRU) takes fp32 streams where all its clusters fit
+# at once; B = 128 on fp32 streams and wider H take the grid branch.  The
+# card's pytest cases (tests/test_torch_cuda.py) run the same list.
 HOIST_CASES = [
     ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
     ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
@@ -874,7 +883,7 @@ HOIST_CASES = [
     ("gru", 195, 16, 256, "bf16", 2, "cluster"),  # its longest bucket
     ("lstm", 80, 128, 384, "fp32", 2, "grid"),  # 16 clusters of 16 CTAs
     ("lstm", 1, 16, 64, "bf16", 2, "cluster"),  # T = 1
-    ("gru", 1, 1, 32, "fp32", 2, "grid"),  # T = 1, B = 1
+    ("gru", 1, 1, 32, "fp32", 2, "cluster16_fp32"),  # T = 1, B = 1
     ("lstm", 9, 1, 64, "bf16", 2, "cluster"),  # B = 1
     ("gru", 9, 1, 64, "bf16", 2, "cluster"),
     ("lstm", 12, 17, 48, "fp32", 2, "cluster16_fp32"),  # B = 17
@@ -905,6 +914,19 @@ HOIST_CASES = [
     ("lstm", 6, 8, 309, "fp32", 2, "cluster16_fp32"),  # 16 CTAs
     ("lstm", 6, 8, 432, "fp32", 2, "cluster16_fp32"),
     ("lstm", 6, 8, 433, "fp32", 2, "grid"),
+    # the GRU's fp32 cluster: the 863 GRU model at B = 8 (B = 16 over two
+    # data-parallel ranks) and its longest bucket, B = 128 on the grid (16
+    # clusters of 8 CTAs do not fit at once), B = 17, one direction with H
+    # % 4 != 0, each side of both resident bounds
+    ("gru", 95, 8, 256, "fp32", 2, "cluster16_fp32"),
+    ("gru", 195, 8, 256, "fp32", 2, "cluster16_fp32"),
+    ("gru", 95, 128, 256, "fp32", 2, "grid"),
+    ("gru", 12, 17, 48, "fp32", 2, "cluster16_fp32"),
+    ("gru", 10, 20, 37, "fp32", 1, "cluster16_fp32"),
+    ("gru", 6, 8, 344, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
+    ("gru", 6, 8, 345, "fp32", 2, "cluster16_fp32"),  # 16 CTAs
+    ("gru", 6, 8, 500, "fp32", 2, "cluster16_fp32"),
+    ("gru", 6, 8, 501, "fp32", 2, "grid"),
 ]
 
 
@@ -921,6 +943,7 @@ def phase_hoist_vs_plain() -> dict:
     _, gru_train_ops = port_gru_ops()
     worst = {f"{cell}_{k}": {"fp32": 0.0, "bf16": 0.0}
              for cell in ("lstm", "gru") for k in ("prepass", "serial", "bwd")}
+    by_branch: dict = {}  # (cell, serial branch) -> worst serial and whole
     for i, (cell, t, b, h, name, ndir, branch) in enumerate(HOIST_CASES):
         bf16 = name == "bf16"
         gates, mod = (4, train_ops) if cell == "lstm" else (3, gru_train_ops)
@@ -971,6 +994,9 @@ def phase_hoist_vs_plain() -> dict:
         check(held["bwd"] <= tol_b, f"{cell} backward disagrees with plain {where}")
         for key, err in errs.items():
             worst[f"{cell}_{key}"][name] = max(worst[f"{cell}_{key}"][name], err)
+        at = by_branch.setdefault(f"{cell}:{took[0]}", {})
+        at[name] = max(at.get(name, 0.0), errs["serial"], errs["bwd"])
+    worst["by_branch"] = by_branch
     return worst
 
 
@@ -982,18 +1008,20 @@ def phase_hoist_vs_plain() -> dict:
 # holds H <= 309 with 8 CTAs and H <= 416 with 16; the bf16 cluster LSTM H
 # <= 432 (32 rows: 384), GRU H <= 496 (32 rows: 448); a branch is taken only
 # where all its clusters fit at once (15 clusters of 8 one-CTA-per-SM
-# blocks).  The card's pytest cases (tests/test_torch_cuda.py) run the same
-# list.
+# blocks).  fp32 products that no cluster holds take the wide branch
+# (csrc/fwd_wide.cuh) to its bound (two directions: LSTM H <= 776 at B <=
+# 16, GRU H <= 1056 at B <= 64), then the grid.  The card's pytest cases
+# (tests/test_torch_cuda.py) run the same list.
 FWD_CASES = [
     ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
     ("lstm_train", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
-    ("lstm_eval", 80, 128, 384, "bf16", 2, "grid"),  # TIMIT bench shape
+    ("lstm_eval", 80, 128, 384, "bf16", 2, "wide_fp32"),  # TIMIT bench shape
     ("lstm_train", 80, 128, 384, "bf16", 2, "cluster32"),
     ("gru", 95, 16, 256, "bf16", 2, "cluster16"),  # 863 recipe batch
     ("gru", 195, 16, 256, "bf16", 2, "cluster16"),  # its longest bucket
     ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
-    ("lstm_train", 80, 128, 384, "fp32", 2, "grid"),
-    ("gru", 95, 128, 256, "fp32", 2, "grid"),
+    ("lstm_train", 80, 128, 384, "fp32", 2, "wide_fp32"),
+    ("gru", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("lstm_eval", 1, 8, 384, "fp32", 2, "cluster16_fp32"),  # T = 1
     ("lstm_train", 1, 16, 64, "bf16", 2, "cluster16"),
     ("lstm_eval", 9, 1, 384, "fp32", 1, "cluster16_fp32"),  # B = 1, one direction
@@ -1012,7 +1040,7 @@ FWD_CASES = [
     ("lstm_eval", 12, 17, 309, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
     ("lstm_eval", 12, 17, 310, "bf16", 2, "cluster16_fp32"),  # 16 CTAs
     ("lstm_eval", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
-    ("lstm_eval", 6, 8, 417, "fp32", 2, "grid"),
+    ("lstm_eval", 6, 8, 417, "fp32", 2, "wide_fp32"),
     ("lstm_train", 6, 16, 432, "bf16", 2, "cluster16"),
     ("lstm_train", 6, 16, 433, "bf16", 2, "grid"),
     ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),  # 32 rows: H <= 384
@@ -1021,7 +1049,7 @@ FWD_CASES = [
     ("gru", 6, 128, 448, "bf16", 2, "cluster32"),
     ("gru", 6, 128, 449, "bf16", 2, "grid"),
     ("gru", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
-    ("gru", 4, 4, 528, "fp32", 2, "grid"),
+    ("gru", 4, 4, 528, "fp32", 2, "wide_fp32"),
     # the 863 LSTM recipes at B=16 on bf16 streams (phase 14): the training
     # forward on the tensor cores, the eval op's fp32 products on the fp32
     # cluster; T' of cnn_lstm_ctc.conf, its longest bucket, lstm_ctc.conf's
@@ -1032,11 +1060,28 @@ FWD_CASES = [
     ("lstm_eval", 400, 16, 256, "bf16", 2, "cluster16_fp32"),
     # phase 15's ranks: the flagship's B=8 over two ranks on fp32 streams,
     # the bench batch of 128 over two on bf16 streams (the eval op's fp32
-    # products need 8 clusters of 16 CTAs there, which do not fit)
+    # products need 8 clusters of 16 CTAs there, which do not fit: the wide
+    # branch)
     ("lstm_eval", 100, 4, 384, "fp32", 2, "cluster16_fp32"),
     ("lstm_train", 100, 4, 384, "fp32", 2, "cluster16_fp32"),
-    ("lstm_eval", 80, 64, 384, "bf16", 2, "grid"),
+    ("lstm_eval", 80, 64, 384, "bf16", 2, "wide_fp32"),
     ("lstm_train", 80, 64, 384, "bf16", 2, "cluster16"),
+    # the wide branch: the bench shape on fp32 streams at B = 128 and 64,
+    # the waveform recipe's dev pass (T' = 200), the training forward at B
+    # = 64, T = 1, B not a multiple of 16, one direction, and each side of
+    # its bound (LSTM H = 776 at B = 8, GRU H = 1056)
+    ("lstm_eval", 80, 128, 384, "fp32", 2, "wide_fp32"),
+    ("lstm_eval", 80, 64, 384, "fp32", 2, "wide_fp32"),
+    ("lstm_eval", 200, 128, 384, "bf16", 2, "wide_fp32"),
+    ("lstm_train", 80, 64, 384, "fp32", 2, "wide_fp32"),
+    ("lstm_eval", 1, 128, 384, "fp32", 2, "wide_fp32"),
+    ("lstm_eval", 12, 100, 384, "fp32", 2, "wide_fp32"),
+    ("gru", 12, 130, 256, "fp32", 2, "wide_fp32"),
+    ("lstm_train", 12, 144, 384, "fp32", 1, "wide_fp32"),
+    ("lstm_eval", 6, 8, 776, "fp32", 2, "wide_fp32"),
+    ("lstm_eval", 6, 8, 777, "fp32", 2, "grid"),
+    ("gru", 4, 4, 1056, "fp32", 2, "wide_fp32"),
+    ("gru", 4, 4, 1057, "fp32", 2, "grid"),
 ]
 
 
@@ -1074,13 +1119,15 @@ LSTM_BWD_KERNELS = {
     "cluster16_fp32": "bwd_fma_kernel (csrc/bwd_hoist.cuh)"}
 
 
-def check_lstm_bwd_branch(what: str, took: dict, launches: int) -> None:
-    """Every serial launch of the LSTM backward on a path with fp32 streams
-    (the recipes' batch of 8, a data-parallel rank's 4) took the fp32
-    cluster branch, none the grid: ``took`` is the launches by branch."""
+def check_fp32_bwd_branch(what: str, took: dict, launches: int,
+                          cell: str = "LSTM") -> None:
+    """Every serial launch of the LSTM's (or ``cell``'s) backward on a path
+    with fp32 streams (the recipes' batch of 8, a data-parallel rank's 4,
+    the 863 GRU model at B = 8) took the fp32 cluster branch, none the
+    grid: ``took`` is the launches by branch."""
     took = {k: v for k, v in took.items() if v}
     check(launches > 0 and took == {"cluster16_fp32": launches},
-          f"{what}: the LSTM backward's {launches} serial launches took "
+          f"{what}: the {cell} backward's {launches} serial launches took "
           f"{took}, not all cluster16_fp32")
 
 
@@ -1095,6 +1142,7 @@ def phase_fwd_vs_plain() -> dict:
     gru_ops, gru_train_ops = port_gru_ops()
     worst = {k: {"fp32": 0.0, "bf16": 0.0}
              for k in ("lstm_eval", "lstm_train", "gru_eval", "gru_train")}
+    by_branch: dict = {}  # (kernel, branch) -> worst error, both dtypes
     for i, (kernel, t, b, h, name, ndir, branch) in enumerate(FWD_CASES):
         bf16 = name == "bf16"
         gates = 3 if kernel == "gru" else 4
@@ -1133,6 +1181,9 @@ def phase_fwd_vs_plain() -> dict:
                   f"{key} forward took {took}, not {branch}, {where}")
             check(err <= tol, f"{key} forward disagrees with plain {where}")
             worst[key][name] = max(worst[key][name], err)
+            at = by_branch.setdefault(f"{key}:{took[0]}", {})
+            at[name] = max(at.get(name, 0.0), err)
+    worst["by_branch"] = by_branch
     return worst
 
 
@@ -1281,11 +1332,11 @@ def phase_rnn_vs_plain() -> dict:
 # The card's pytest cases (tests/test_torch_cuda.py) run the same list.
 GRAPH_CASES = [
     ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
-    ("lstm_eval", 80, 128, 384, "bf16", 2, "grid"),  # TIMIT bench shape
+    ("lstm_eval", 80, 128, 384, "bf16", 2, "wide_fp32"),  # TIMIT bench shape
     ("lstm_train", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
     ("lstm_train", 80, 128, 384, "bf16", 2, "cluster32"),
     ("lstm_train", 12, 48, 384, "bf16", 1, "cluster16"),
-    ("lstm_train", 80, 128, 384, "fp32", 2, "grid"),
+    ("lstm_train", 80, 128, 384, "fp32", 2, "wide_fp32"),
     ("lstm_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
     ("lstm_bwd", 400, 8, 256, "fp32", 2, "cluster16_fp32"),  # mfcc_39
     ("lstm_bwd", 80, 128, 384, "fp32", 2, "grid"),
@@ -1295,7 +1346,7 @@ GRAPH_CASES = [
     ("gru_train", 95, 16, 256, "bf16", 2, "cluster16"),
     ("gru_train", 6, 128, 448, "bf16", 2, "cluster32"),
     ("gru_train", 33, 5, 36, "fp32", 2, "cluster16_fp32"),
-    ("gru_train", 95, 128, 256, "fp32", 2, "grid"),
+    ("gru_train", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("gru_bwd", 95, 16, 256, "bf16", 2, "cluster16"),
     ("gru_bwd", 95, 128, 256, "bf16", 2, "cluster"),
     ("gru_bwd", 95, 128, 256, "fp32", 2, "grid"),
@@ -1305,6 +1356,11 @@ GRAPH_CASES = [
     ("rnn_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
     ("rnn_bwd", 80, 128, 384, "bf16", 2, "cluster16"),
     ("rnn_bwd", 80, 128, 384, "fp32", 2, "grid"),
+    # the wide branch at B = 64, the GRU's fp32 cluster backward, and the
+    # forward's grid (bf16 products past the 32-row cluster's bound)
+    ("lstm_eval", 80, 64, 384, "fp32", 2, "wide_fp32"),
+    ("gru_bwd", 95, 8, 256, "fp32", 2, "cluster16_fp32"),
+    ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),
 ]
 # op -> (kernel rows of the result line, op module, branch counter)
 GRAPH_OPS = {
@@ -2119,7 +2175,7 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                           "ctc_alpha": steps + eval_batches, "ctc_beta": steps,
                           f"{cell}_bidir": n * eval_batches}, "Trainer.fit")
     if cell == "lstm" and cfg.batch_size % 16 != 0:  # fp32 streams
-        check_lstm_bwd_branch("Trainer.fit", port_ops()[1].launches_bwd_branch,
+        check_fp32_bwd_branch("Trainer.fit", port_ops()[1].launches_bwd_branch,
                               n * steps)
     if cfg.dev_over_train:
         check(any(ln.startswith("cer on training set is ") for ln in lines)
@@ -2158,10 +2214,11 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                                    f"{cell}_bidir_train_bwd": 2 * n,
                                    "ctc_alpha": 2, "ctc_beta": 2},
                  "two fp32 steps")
-    check_cluster_branches("two fp32 steps")
-    if cell == "lstm":
-        check_lstm_bwd_branch("two fp32 steps",
-                              port_ops()[1].launches_bwd_branch, 2 * n)
+    check_cluster_branches("two fp32 steps")  # the tanh backward's too
+    if cell in ("lstm", "gru"):
+        check_fp32_bwd_branch("two fp32 steps", (
+            port_ops()[1] if cell == "lstm" else port_gru_ops()[1]
+        ).launches_bwd_branch, 2 * n, cell.upper())
     with plain_twins():
         p_losses, p_sd = two_steps()
     worst, worst_key, n_off, n_all = 0.0, "", 0, 0
@@ -2865,6 +2922,10 @@ def phase_waveform_slice(smi: str, device: str = "cuda") -> dict:
               f"the training forward at B=128 did not take cluster32: {took}")
         check("grid" not in took["lstm_bidir_train_bwd"],
               f"the backward at B=128 took the grid: {took}")
+        # the dev pass's eval forward, fp32 products at B = 64-128: no
+        # cluster of 16 CTAs holds it, the wide branch does
+        check(took["lstm_bidir"] == {"wide_fp32": n * dev_batches},
+              f"the dev pass's eval forward did not take wide_fp32: {took}")
     check(all(math.isfinite(v) for v in trainer.histories["loss_results"]
               + trainer.histories["dev_loss_results"])
           and all(torch.isfinite(v).all().item()
@@ -4378,6 +4439,398 @@ def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
             "train_step_rows": step_rows}
 
 
+TF32_FLOP_PER_S = 495e12  # tensor cores, dense
+
+# The wide-batch forward branch, timed against the grid it replaced (its
+# parent form, tools/parent_forms.py) and cuDNN in turns in one call (phase
+# 9): (op, T', B, H, stream dtype).  The wide branch at the
+# bench shape on both stream dtypes of the eval forward and at B = 64 (a
+# data-parallel rank), the waveform recipe's dev pass (T' = 200), the
+# training forward and the GRU on fp32 streams.
+WIDE_TIMES = [
+    ("lstm_eval", 80, 128, 384, "fp32"), ("lstm_eval", 80, 128, 384, "bf16"),
+    ("lstm_eval", 80, 64, 384, "fp32"), ("lstm_eval", 80, 64, 384, "bf16"),
+    ("lstm_eval", 200, 128, 384, "bf16"), ("lstm_train", 80, 128, 384, "fp32"),
+    ("lstm_train", 80, 64, 384, "fp32"), ("gru", 95, 128, 256, "fp32"),
+]
+
+
+def turns(fns: dict, reps: int = 10) -> dict:
+    """Each of ``fns`` timed ``ROUNDS`` times in turns (``cuda_ms``):
+    ``{name: (median, [rounds])}``."""
+    rounds = {k: [] for k in fns}
+    for _ in range(ROUNDS):
+        for k, fn in fns.items():
+            rounds[k].append(cuda_ms(fn, reps=reps))
+    return {k: (statistics.median(v), v) for k, v in rounds.items()}
+
+
+def times_redesigned(spec, model, smi: str) -> dict:
+    """The redesigned branches against their parent form, the grid, and
+    cuDNN, in turns: the fp32-product forwards on ``wide_fp32`` at
+    ``WIDE_TIMES`` (with the twin, the fp32 bound and the 3xTF32
+    tensor-core bound), the GRU backward's fp32 serial chain on
+    ``cluster16_fp32`` at (95, 8, 256) alone and with its pre-pass (cuDNN's
+    fp32 backward beside it), and the flagship's B=128 decode forward with
+    its eval forwards on the wide branch and on the grid."""
+    import torch
+
+    from tools.parent_forms import parent_forms
+
+    lstm_ops, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+
+    def on_parent(fn):
+        def run():
+            with parent_forms():
+                return fn()
+        return run
+
+    out = {}
+    for op, t, b, h, name in WIDE_TIMES:
+        dt = torch.bfloat16 if name == "bf16" else torch.float32
+        gates = 3 if op == "gru" else 4
+        gx, w, _ = recurrence_inputs(t, b, h, dt, seed=7, gates=gates)
+        kern, plain, counts = {
+            "lstm_eval": (lstm_ops.lstm_bidir_cuda, lstm_ops.lstm_bidir_plain,
+                          lstm_ops.launches_fwd_branch),
+            "lstm_train": (train_ops.lstm_bidir_train_cuda,
+                           train_ops.lstm_bidir_train_plain,
+                           train_ops.launches_fwd_branch),
+            "gru": (gru_ops.gru_bidir_cuda, gru_ops.gru_bidir_plain,
+                    gru_ops.launches_fwd_branch)}[op]
+        train = op == "lstm_train"
+        lib = (torch.nn.GRU if op == "gru" else torch.nn.LSTM)(
+            2 * h, h, bias=False, bidirectional=True).cuda()
+        x = torch.randn(t, b, 2 * h, device="cuda", requires_grad=train)
+        before = dict(counts)
+        with torch.set_grad_enabled(train):
+            res = turns({"new": lambda: kern(gx, w),
+                         "grid": on_parent(lambda: kern(gx, w)),
+                         "library": lambda: lib(x)})
+        took = sorted(k for k, v in counts.items() if v != before[k])
+        check(took == ["grid", "wide_fp32"],
+              f"{op} at B={b}: the timed launches took {took}")
+        bound = recurrence_bound(gx, w, n_planes=2 if train else 1,
+                                 n_products=1)
+        key = f"{op}_{t}_{b}_{h}_{name}"
+        out[key] = {
+            "ms": res["new"][0], "ms_rounds": res["new"][1],
+            "grid_ms": res["grid"][0], "grid_ms_rounds": res["grid"][1],
+            "library_ms": res["library"][0],
+            "library_ms_rounds": res["library"][1],
+            "plain_ms": cuda_ms(lambda: plain(gx, w), reps=2),
+            "tf32x3_bound_ms": 3 * bound["gflop"] * 1e9 / TF32_FLOP_PER_S * 1e3,
+            **bound}
+        r = out[key]
+        print(f"  {key} ({smi}): wide_fp32 {r['ms']:.4f} ms "
+              f"{[round(v, 4) for v in r['ms_rounds']]} ({1e3 * r['ms'] / t:.2f}"
+              f" us a step); grid {r['grid_ms']:.4f} "
+              f"{[round(v, 4) for v in r['grid_ms_rounds']]}; cuDNN fp32 "
+              f"{r['library_ms']:.4f}; twin {r['plain_ms']:.4f}; bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}, 3xTF32 on the tensor "
+              f"cores {r['tf32x3_bound_ms']:.4f}; grid / wide "
+              f"{r['grid_ms'] / r['ms']:.2f}x")
+
+    # the GRU backward on fp32 streams at B = 8 (the 863 model over two
+    # data-parallel ranks): the serial chain's cluster against the grid
+    t, b, h = 95, 8, 256
+    gx, w, dy = recurrence_inputs(t, b, h, torch.float32, seed=7, gates=3)
+    ys = gru_ops.gru_bidir_plain(gx, w)
+    planes = gru_train_ops.gru_bidir_train_bwd_prepass_cuda(gx, w, ys)
+    before = dict(gru_train_ops.launches_bwd_branch)
+    res = turns({
+        "serial": lambda: gru_train_ops.gru_bidir_train_bwd_serial_cuda(
+            planes, w, dy),
+        "serial_grid": on_parent(
+            lambda: gru_train_ops.gru_bidir_train_bwd_serial_cuda(
+                planes, w, dy))}, reps=20)
+    took = sorted(k for k, v in gru_train_ops.launches_bwd_branch.items()
+                  if v != before[k])
+    check(took == ["cluster16_fp32", "grid"],
+          f"the GRU fp32 serial chain's timed launches took {took}")
+    whole = backward_vs_library(
+        torch.nn.GRU, t, b, h,
+        lambda: gru_train_ops.gru_bidir_train_backward_cuda(gx, w, ys, dy),
+        f"gru fp32 backward T={t} B={b} H={h}")
+    bound = recurrence_bound(gx, w, n_planes=3, n_products=2, n_gate_planes=2)
+    out["gru_bwd_95_8_256_fp32"] = {
+        "serial_ms": res["serial"][0], "serial_ms_rounds": res["serial"][1],
+        "grid_serial_ms": res["serial_grid"][0],
+        "grid_serial_ms_rounds": res["serial_grid"][1],
+        "ms": whole["ms"], "ms_rounds": whole["ms_rounds"],
+        "library_ms": whole["library_ms"],
+        "library_ms_bf16": whole["library_ms_bf16"],
+        "plain_ms": cuda_ms(
+            lambda: gru_train_ops.gru_bidir_train_backward_plain(gx, w, ys, dy),
+            reps=2),
+        **bound}
+    r = out["gru_bwd_95_8_256_fp32"]
+    print(f"  gru fp32 backward T={t} B={b} H={h} ({smi}): serial chain "
+          f"cluster16_fp32 {r['serial_ms']:.4f} ms "
+          f"{[round(v, 4) for v in r['serial_ms_rounds']]} "
+          f"({1e3 * r['serial_ms'] / t:.2f} us a step), grid "
+          f"{r['grid_serial_ms']:.4f} {[round(v, 4) for v in r['grid_serial_ms_rounds']]}"
+          f"; pre-pass + serial {r['ms']:.4f}; cuDNN fp32 {r['library_ms']:.4f}"
+          f"; twin {r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} by "
+          f"{r['bound_by']}")
+
+    # the flagship's B=128 decode forward: its eval forwards on the wide
+    # branch, and (the parent form) on the grid
+    x = torch.randn(128, 160, spec.rnn_input_size, device="cuda")
+    frac = torch.ones(128, device="cuda")
+    model = model.cuda().eval()
+    before = dict(lstm_ops.launches_fwd_branch)
+    with torch.inference_mode():
+        res = turns({"new": lambda: model(x, frac=frac),
+                     "grid": on_parent(lambda: model(x, frac=frac))})
+    took = sorted(k for k, v in lstm_ops.launches_fwd_branch.items()
+                  if v != before[k])
+    check(took == ["grid", "wide_fp32"],
+          f"the decode forward's eval launches took {took}")
+    out["flagship_decode_forward_b128"] = {
+        "ms": res["new"][0], "ms_rounds": res["new"][1],
+        "grid_ms": res["grid"][0], "grid_ms_rounds": res["grid"][1]}
+    r = out["flagship_decode_forward_b128"]
+    print(f"  flagship decode forward B=128 T=160 bf16 ({smi}): eval forwards "
+          f"on wide_fp32 {r['ms']:.4f} ms {[round(v, 4) for v in r['ms_rounds']]}"
+          f", on the grid {r['grid_ms']:.4f} "
+          f"{[round(v, 4) for v in r['grid_ms_rounds']]}: "
+          f"{r['grid_ms'] - r['ms']:.4f} ms saved")
+    return out
+
+
+# Phase 16's fp32 decode forwards at B = 128 run from features at these
+# scales and seeds: at 0.05 random weights leave the gates unsaturated, at
+# unit scale they are the features the recipes' front ends give; one more
+# at unit scale from the global generator, wherever the run has left it
+# (one such input once gave a NaN here that no seeded input or NaN-fill
+# run has reproduced, PERF.md).  The NaN-fill runs take the first two seeds.
+DECODE_SCALES = (0.05, 1.0)
+DECODE_SEEDS = (0, 1, 2)
+# (op, T', B, H, stream dtype) of the NaN-fill runs: the LSTM eval and
+# training forwards and the GRU forward at B = 128, a B that is not a
+# multiple of 16; launches a run
+WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
+                  ("lstm_eval", 95, 128, 384, "bf16"),
+                  ("lstm_train", 80, 128, 384, "fp32"),
+                  ("gru", 95, 128, 256, "fp32"), ("gru", 95, 130, 256, "fp32")]
+WIDE_NAN_LAUNCHES = 25
+
+
+def decode_b128(spec, scale: float, seed, device: str) -> dict:
+    """``spec``'s model (random weights from a seed) decoding B = 128
+    utterances of 200 frames through the kernels and through the plain
+    twins, from features drawn at ``scale`` from ``seed`` (None: from the
+    global generator, wherever the run has left it): the features' largest
+    magnitude, whether each side's log-probs are finite, and their largest
+    difference."""
+    import torch
+
+    model = seeded_model(spec).to(device).eval()
+    gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+    x = scale * torch.randn(128, 200, spec.rnn_input_size, generator=gen,
+                            device=device)
+    frac = torch.ones(128, device=device)
+    with torch.inference_mode():
+        got = model(x, frac=frac)
+        with plain_twins():
+            want = model(x, frac=frac)
+    sync()
+    finite = [bool(torch.isfinite(y).all()) for y in (got, want)]
+    return {"scale": scale, "seed": seed, "x_max_abs": x.abs().max().item(),
+            "max_abs_err": max_err(got, want), "finite_kernels": finite[0],
+            "finite_twins": finite[1], "finite": all(finite)}
+
+
+def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
+                      scale: float, seed: int, n: int) -> dict:
+    """``n`` launches of the wide branch's forward entry (``op``: the LSTM
+    eval or training forward or the GRU forward) at (t, b, h) on ``name``
+    streams with gates drawn at ``scale`` from ``seed``, each after filling
+    the exchange buffer with NaN and the step flags with a large count (the
+    library zeroes them): a read of a block of h before its writers
+    published it reads NaN at the first step and a stale h after, and the
+    kernel is deterministic.  Counts the launches whose output holds a
+    non-finite value or differs in any bit from the first; the first is
+    held against the twin.  Needs the card."""
+    import ctypes
+
+    import torch
+
+    from ctc_pytorch_tpu_torch.ops import _build
+
+    lstm_ops, train_ops, _ = port_ops()
+    gru_ops, _ = port_gru_ops()
+    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    gx, w_hh, _ = recurrence_inputs(t, b, h, dtype, seed=seed,
+                                    gates=3 if op == "gru" else 4, scale=scale)
+    ops, prefix, plain = {
+        "lstm_eval": (lstm_ops, "lstm_bidir", lstm_ops.lstm_bidir_plain),
+        "lstm_train": (train_ops, "lstm_bidir_train",
+                       train_ops.lstm_bidir_train_plain),
+        "gru": (gru_ops, "gru_bidir", gru_ops.gru_bidir_plain)}[op]
+    lib = ops.LIBRARY.load()
+    # the weights as the op's wrapper passes them
+    w = (w_hh.contiguous() if op == "lstm_eval"
+         else w_hh.to(dtype).float().contiguous())
+    bf16 = int(dtype == torch.bfloat16)
+    ys = torch.empty(t, b, 2 * h, dtype=dtype, device="cuda")
+    outs = [ys] + ([torch.empty_like(ys)] if op == "lstm_train" else [])
+    n_hx, n_flags = _build.wide_scratch_sizes(b, h, 2)
+    hx = torch.empty(n_hx, dtype=torch.float32, device="cuda")
+    flags = torch.empty(n_flags, dtype=torch.int32, device="cuda")
+    branch = ctypes.c_int(-1)
+
+    def launch():
+        hx.fill_(float("nan"))
+        flags.fill_(1 << 20)
+        err = getattr(lib, f"{prefix}_forward")(
+            gx.data_ptr(), w.data_ptr(), *[o.data_ptr() for o in outs],
+            hx.data_ptr(), flags.data_ptr(), t, b, h, -(-b // 4) * 4, 2, bf16,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(branch))
+        check(err == 0 and _build.FWD_BRANCHES[branch.value] == "wide_fp32",
+              f"{op} at ({t}, {b}, {h}) {name}: launch {err}, branch "
+              f"{branch.value}")
+
+    launch()
+    first = [o.clone() for o in outs]
+    want = plain(gx, w_hh)
+    want = list(want) if isinstance(want, tuple) else [want]
+    bad = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for o in first:
+        bad[0] += (~torch.isfinite(o)).any().int()
+    for _ in range(n - 1):
+        launch()
+        for o, f in zip(outs, first):
+            bad[0] += (~torch.isfinite(o)).any().int()
+            bad[1] += (o != f).any().int()
+    nonfinite, differing = bad.tolist()
+    return {"op": op, "t": t, "b": b, "h": h, "dtype": name, "scale": scale,
+            "seed": seed, "launches": n, "nonfinite_launches": nonfinite,
+            "differing_launches": differing,
+            "twin_max_abs_err": max(max_err(g, x) for g, x in zip(first, want))}
+
+
+def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
+                       device: str = "cuda") -> dict:
+    """Phase 16, fp32 streams where the redesigned branches run them: the
+    863 GRU model's train step at B = 8 (the recipe's 16 over two
+    data-parallel ranks), two steps through the kernels and through the
+    twins, the GRU forwards and backward on ``cluster16_fp32``; its fp32
+    decode forward at B = 128 and the flagship's, the eval forwards on
+    ``wide_fp32``, against the twins from unit-scale features of the global
+    generator and at ``DECODE_SCALES`` over ``DECODE_SEEDS``; the wide branch's forwards under a NaN-filled exchange
+    buffer (``wide_nan_launches`` at ``WIDE_NAN_CASES``); and the flagship's
+    fp32 train step at B = 128, the training forwards on ``wide_fp32`` (its
+    backward on the grid, which no cluster holds there).  Returns the
+    launches by op and branch.  With ``device="cpu"`` (a rehearsal: every op
+    its twin) the branches are not checked and the NaN fill is not run."""
+    import torch
+
+    on_card = device != "cpu"
+    gru_ops, gru_train_ops = port_gru_ops()
+    out = {}
+    spec32 = dataclasses.replace(spec_863, compute_dtype="float32", drop_out=0.0)
+    n = spec32.rnn_layers
+    batch = dp_batch(spec32, 8, 200, 40, seed=16)
+    zero_counts()
+    got = dp_steps(spec32, cfg_863, batch, None, device)
+    took = path_branches() | {
+        "gru_bidir_train_fwd": {k: v for k, v in
+                                gru_train_ops.launches_fwd_branch.items() if v},
+        "gru_bidir_train_bwd": {k: v for k, v in
+                                gru_train_ops.launches_bwd_branch.items() if v},
+        "gru_bidir": {k: v for k, v in gru_ops.launches_fwd_branch.items() if v}}
+    if on_card:
+        check(took["gru_bidir_train_fwd"] == {"cluster16_fp32": 2 * n},
+              f"the 863 GRU step at B=8 fp32: the training forward took {took}")
+        check_fp32_bwd_branch("the 863 GRU step at B=8 fp32",
+                              gru_train_ops.launches_bwd_branch, 2 * n, "GRU")
+    with plain_twins():
+        want = dp_steps(spec32, cfg_863, batch, None, device)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(
+        got["losses"] + [got["eval_loss"]], want["losses"] + [want["eval_loss"]]))
+    n_off, n_all, worst, key = states_apart(got["state"], want["state"])
+    print(f"  863 GRU model, two fp32 steps and an eval step at B=8 ({smi}): "
+          f"losses {got['losses']}, eval {got['eval_loss']:.6g} through the "
+          f"kernels vs {want['losses']}, {want['eval_loss']:.6g} through the "
+          f"twins (rel {rel:.3g}, tol {STEP_LOSS_RTOL}); {n_off} of {n_all} "
+          f"entries past {STEP_TOL}, largest {worst:.3g} at {key}; branches "
+          f"{took}")
+    check(rel <= STEP_LOSS_RTOL, "the 863 GRU fp32 B=8 losses differ from the twins")
+    check(n_off <= STEP_OFF_SHARE * n_all and worst <= 2.01 * 2 * cfg_863.init_lr,
+          "the 863 GRU fp32 B=8 parameters differ from the twins")
+    out["gru_b8"] = {"losses": got["losses"], "eval_loss": got["eval_loss"],
+                     "rel_vs_twins": rel, "branches": took}
+
+    # the fp32 decode forwards at B = 128 of the 863 GRU model and the
+    # flagship: their eval forwards on the wide branch, from features at
+    # 0.05 (the gates unsaturated) and at unit scale, over seeds
+    for key, spec_d, op, counts in (
+            ("gru_b128_forward", spec32, "gru_bidir", gru_ops.launches_fwd_branch),
+            ("flagship_b128_forward",
+             dataclasses.replace(spec, compute_dtype="float32", drop_out=0.0),
+             "lstm_bidir", port_ops()[0].launches_fwd_branch)):
+        zero_counts()
+        runs = [decode_b128(spec_d, 1.0, None, device)]
+        for scale in DECODE_SCALES:
+            for seed in DECODE_SEEDS:
+                runs.append(decode_b128(spec_d, scale, seed, device))
+        took = {k: v for k, v in counts.items() if v}
+        err = max(r["max_abs_err"] for r in runs)
+        finite = all(r["finite"] for r in runs)
+        by_run = [f"{r['max_abs_err']:.3g}" for r in runs]
+        print(f"  {key} fp32 B=128 T=200, features at unit scale from the "
+              f"global generator (max |x| {runs[0]['x_max_abs']:.3g}), then at "
+              f"scales {DECODE_SCALES} x seeds {DECODE_SEEDS}: the kernels' "
+              f"log-probs against the twins' max_abs_err by run {by_run} (tol "
+              f"{FP32_TOL}), all finite {finite}; eval forwards {took}")
+        n_runs = len(runs) * spec_d.rnn_layers
+        check(not on_card or took == {"wide_fp32": n_runs},
+              f"the {key} fp32 B=128 eval forwards took {took}")
+        check(finite and err <= FP32_TOL,
+              f"the {key} fp32 B=128 decode differs from the twins")
+        out[key] = {"runs": runs, "max_abs_err": err, "branches": {op: took}}
+    if on_card:
+        # the wide branch's exchange buffer filled with NaN before every
+        # launch: a read of h before its writers published it shows
+        runs = [wide_nan_launches(*case, scale, seed, WIDE_NAN_LAUNCHES)
+                for case in WIDE_NAN_CASES for scale in DECODE_SCALES
+                for seed in DECODE_SEEDS[:2]]
+        bad = sum(r["nonfinite_launches"] + r["differing_launches"]
+                  for r in runs)
+        worst = max(r["twin_max_abs_err"] for r in runs
+                    if r["dtype"] == "fp32")
+        print(f"  wide_fp32 under a NaN-filled exchange buffer ({smi}): "
+              f"{sum(r['launches'] for r in runs)} launches over "
+              f"{WIDE_NAN_CASES} at scales {DECODE_SCALES}, {bad} non-finite "
+              f"or differing from their first; first vs twin {worst:.3g}")
+        check(bad == 0 and worst <= FP32_TOL,
+              "the wide branch read h before it was published")
+        out["wide_nan_fill"] = {"runs": runs, "branches": {}}
+
+    # the flagship's fp32 train step at B = 128: the training forward on the
+    # wide branch
+    spec_f = dataclasses.replace(spec, compute_dtype="float32", drop_out=0.0)
+    zero_counts()
+    got = dp_steps(spec_f, cfg, dp_batch(spec_f, 128, 160, 48, seed=17), None,
+                   device, steps=1)
+    took = path_branches()
+    print(f"  flagship, one fp32 step and an eval step at B=128: loss "
+          f"{got['losses']}, eval {got['eval_loss']:.6g}; branches {took}")
+    check(not on_card or (
+        took["lstm_bidir_train_fwd"] == {"wide_fp32": spec_f.rnn_layers}
+        and took["lstm_bidir"] == {"wide_fp32": spec_f.rnn_layers}),
+          f"the flagship's fp32 B=128 step: the forwards took {took}")
+    check(all(math.isfinite(v) for v in got["losses"] + [got["eval_loss"]]),
+          "non-finite flagship fp32 B=128 loss")
+    out["flagship_b128_fp32_step"] = {"losses": got["losses"],
+                                      "eval_loss": got["eval_loss"],
+                                      "branches": took}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 15: data parallelism
 # ---------------------------------------------------------------------------
@@ -4601,10 +5054,15 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
                 check(not on_card or g["counts"][row] > 0,
                       f"({name}) rank {r} never launched {row}")
             if on_card and name == "a":  # 4 rows a rank: fp32 streams
-                check_lstm_bwd_branch(
+                check_fp32_bwd_branch(
                     f"(a) rank {r}",
                     g["branches"].get("lstm_bidir_train_bwd", {}),
                     g["counts"]["lstm_bidir_train_bwd"])
+            if on_card and name == "b":  # 64 rows a rank: the eval forward
+                check(g["branches"].get("lstm_bidir") == {
+                          "wide_fp32": g["counts"]["lstm_bidir"]},
+                      f"(b) rank {r}: the eval forward at B={g['rows']} took "
+                      f"{g['branches'].get('lstm_bidir')}, not wide_fp32")
             counts = added(counts, g["counts"])
         for k in ranks[0][name]["state"]:
             check(torch.equal(ranks[0][name]["state"][k],
@@ -4661,7 +5119,7 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
     for r, c in enumerate(cli):
         counts = added(counts, c["counts"])
         if on_card:  # 4 rows a rank: fp32 streams
-            check_lstm_bwd_branch(
+            check_fp32_bwd_branch(
                 f"(d) rank {r}", c["branches"].get("lstm_bidir_train_bwd", {}),
                 c["counts"]["lstm_bidir_train_bwd"])
     res = evaluate(cfg_d, str(best), device=dev, log=lambda *_: None)
@@ -4831,6 +5289,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from ctc_pytorch_tpu_torch.ops._build import build_all
+    from tools.parent_forms import DEFINE as PARENT_DEFINE
+    from tools.parent_forms import libraries as parent_libraries
 
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
@@ -4839,16 +5299,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/15] device: {smi} | torch {torch.__version__} "
+    print(f"[1/16] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
     libraries = [lstm_ops.LIBRARY, train_ops.LIBRARY, ctc_ops.LIBRARY,
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
                  rnn_train_ops.LIBRARY]
-    build_all(libraries)
-    print(f"[2/15] build: {', '.join(lib.source.name for lib in libraries)} for "
-          f"sm_90a, one nvcc each, in {time.perf_counter() - t0:.2f} s")
+    # and the parent forms of the redesigned branches, which phase 9 times
+    parents = parent_libraries()
+    build_all(libraries + parents)
+    print(f"[2/16] build: {', '.join(lib.source.name for lib in libraries)} and "
+          f"the parent forms ({PARENT_DEFINE}) of "
+          f"{', '.join(lib.source.name for lib in parents)} for sm_90a, one "
+          f"nvcc each, in {time.perf_counter() - t0:.2f} s")
     for lib in libraries:
         lib.load()
         if not lib.build_log:
@@ -4857,7 +5321,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/15] kernel vs plain on the card")
+    print("[3/16] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -4869,28 +5333,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/15] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/16] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/15] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/16] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/15] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/16] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/15] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/16] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/15] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/16] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/15] times ({smi})")
+    print(f"[9/16] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -4942,37 +5406,45 @@ def main() -> int:
     times_model(cfg_uni, spec_uni, model_uni, 128, 160, 48,
                 "unidirectional CNN+LSTM(384)", "bench shape")
     ctc_share = ctc_step_share(model_recipe, recipe)
+    # the wide forward and the GRU's fp32 backward cluster against the grid
+    # they replaced
+    redesigned = times_redesigned(spec, model, smi)
 
-    print(f"[10/15] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/16] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/15] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/16] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
 
-    print(f"[12/15] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+    print(f"[12/16] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
           f"on the card, stage 3, one fused epoch with the frontend in the "
           f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
           f"StreamingRecognizer ({smi})")
     wave = phase_waveform_slice(smi)
 
-    print(f"[13/15] pipeline: stages 0-4 of the flagship recipe through "
+    print(f"[13/16] pipeline: stages 0-4 of the flagship recipe through "
           f"cli.run on a synthetic TIMIT tree, profile: True, then "
           f"cli.visualize and cli.import_torch ({smi})")
     pipeline = phase_pipeline_slice(smi)
 
-    print(f"[14/15] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
+    print(f"[14/16] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
           f"lstm_ctc.conf from text dumps, one fused epoch each through "
           f"cli.train.train, stage 4, fp32 kernels vs twins ({smi})")
     lstm_863 = phase_863_lstm_slice(smi)
 
-    print(f"[15/15] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
+    print(f"[15/16] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
           f"on the card, one NCCL rank from graphs, cli.train --data-parallel, "
           f"the sharded stage-4 search and the mesh Recognizer ({smi})")
     dp = phase_data_parallel(smi, spec)
+
+    print(f"[16/16] fp32 streams on the redesigned branches: the 863 GRU "
+          f"model's step at B=8 (cluster16_fp32) and its decode forward at "
+          f"B=128, the flagship's fp32 step at B=128 (wide_fp32) ({smi})")
+    fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -5124,7 +5596,63 @@ def main() -> int:
                                       ("timit_recipe", recipe), *ctc_863.items())}
                 entry["share_of_flagship_b8_step"] = ctc_share
         kernels.append(entry)
+    # the redesigned branches, one entry each: their launches on the main
+    # paths (the phases that record launches by branch), their worst error
+    # against the twins in phase 3, their times against the grid and cuDNN
+    branch_runs = [wave["branches"], pipeline["branches"],
+                   *(r["branches"] for r in lstm_863.values()),
+                   *(r["branches"] for st in dp["steps"].values()
+                     for r in st["ranks"]),
+                   *(v["branches"] for v in fp32_streams.values())]
+
+    def branch_launches(ops, branch):
+        return sum(run.get(op, {}).get(branch, 0)
+                   for run in branch_runs for op in ops)
+
+    wide = csrc + "fwd_wide.cuh"
+    for (name, ops, branch, source, replaces, key, err_keys) in (
+            ("lstm_bidir_wide_fp32", ("lstm_bidir",), "wide_fp32", wide,
+             tpu + "lstm_pallas_v2.py:142 lstm_bidir_pallas_v2 (call :177), "
+             "fp32 products at B >= 64", "lstm_eval_80_128_384_fp32",
+             [("fwd", "lstm_eval:wide_fp32")]),
+            ("lstm_bidir_train_fwd_wide_fp32", ("lstm_bidir_train_fwd",),
+             "wide_fp32", wide, tpu + "lstm_pallas_train_v2.py:438 "
+             "_fwd_pallas (lstm_scan_train_v2), fp32 streams at B >= 64",
+             "lstm_train_80_128_384_fp32", [("fwd", "lstm_train:wide_fp32")]),
+            ("gru_bidir_wide_fp32", ("gru_bidir", "gru_bidir_train_fwd"),
+             "wide_fp32", wide, tpu + "gru_pallas_v2.py:352 _fwd_pallas, fp32 "
+             "streams at B >= 64", "gru_95_128_256_fp32",
+             [("fwd", "gru_eval:wide_fp32"), ("fwd", "gru_train:wide_fp32")]),
+            ("gru_bidir_train_bwd_cluster16_fp32", ("gru_bidir_train_bwd",),
+             "cluster16_fp32", csrc + "bwd_hoist.cuh",
+             tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2), fp32 "
+             "streams", "gru_bwd_95_8_256_fp32",
+             [("hoist", "gru:cluster16_fp32")])):
+        at = redesigned[key]
+        errs = {"fwd": errs_fwd["by_branch"], "hoist": errs_hoist["by_branch"]}
+        err = max(errs[kind][k].get("fp32", 0.0) for kind, k in err_keys)
+        launches = branch_launches(ops, branch)
+        check(launches > 0, f"no main path launched {name}")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": err,
+                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                 "shape": key}
+        # every timed shape of the same op: its name up to the first number
+        op_key = re.match(r"\D+", key).group(0)
+        entry["times"] = {k: v for k, v in redesigned.items()
+                          if re.match(r"\D+", k).group(0) == op_key}
+        if branch == "wide_fp32":
+            # its product runs in 3xTF32 on the tensor cores: beside the
+            # fp32 bound, the bound of that work at the tensor cores' rate
+            entry["tf32x3_bound_ms"] = at["tf32x3_bound_ms"]
+            entry["max_abs_err_bf16_streams"] = max(
+                errs["fwd"][k].get("bf16", 0.0) for kind, k in err_keys)
+        kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
+    by_name["lstm_bidir"]["flagship_decode_forward_b128"] = redesigned[
+        "flagship_decode_forward_b128"]
     for fwd, train_fwd, at_bench, at_recipe in (
             ("lstm_bidir", "lstm_bidir_train_fwd", model_bench, model_recipe),
             ("gru_bidir", "gru_bidir_train_fwd", bench_863, recipe_863),
@@ -5148,7 +5676,8 @@ def main() -> int:
                                          if k not in ("counts", "branches")}
                                    for tag, r in lstm_863.items()},
                       "data_parallel": {k: v for k, v in dp.items()
-                                        if k != "counts"}}))
+                                        if k != "counts"},
+                      "fp32_streams": fp32_streams}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

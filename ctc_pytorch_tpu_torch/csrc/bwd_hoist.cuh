@@ -1,7 +1,7 @@
 // The hoisted backward of the LSTM and GRU recurrences for Hopper (sm_90a),
 // shared by lstm_bidir_train.cu and gru_bidir_train.cu: the gate pre-pass
 // kernel and the two cluster kernels of the serial chain (bf16 streams on
-// the tensor cores, and the LSTM's fp32 streams on the CUDA cores).
+// the tensor cores, and fp32 streams on the CUDA cores).
 //
 // Port of the hoisted backward of the JAX package
 // (ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:_lstm_prepass and its step,
@@ -61,8 +61,9 @@
 // clusters (two m16 tiles sharing each weight fragment).  It takes bf16
 // streams while its shared memory fits (LSTM H <= 416, GRU H <= 480).
 //
-// bwd_fma_kernel, the LSTM on fp32 streams (branch cluster16_fp32; the
-// recipes' batch of 8 and the data-parallel ranks' 4): 16 rows a cluster,
+// bwd_fma_kernel, fp32 streams (branch cluster16_fp32; the LSTM recipes'
+// batch of 8 and the data-parallel ranks' 4, the GRU at B = 8): 16 rows a
+// cluster,
 // fp32 FMA on CUDA cores (fp32 parity, no TF32).  fp32 w_hh at H = 384 is
 // 2.36 MB a direction: 295 KB a CTA in a cluster of 8, so the kernel takes a
 // 16-CTA cluster (non-portable; Uc = 24, 147 KB a CTA) where 8 does not fit,
@@ -89,6 +90,15 @@
 // reduce-scatter ~5.2k (57 FMAs a clock of the SM's 128), the release
 // arrive ~1.05k, the CTA barrier ~0.8k, the receive sum of 16 partials
 // ~0.7k, the DSMEM writes ~0.55k, the element-wise step ~0.5k.
+// The GRU runs the same kernel with three gate columns a unit: the planes
+// [P_r | P_z | P_n | P_hn | Z], dgx = [dpre_r | dpre_z | dpre_n] and dhhn =
+// dh_t P_hn stored before the product, the product over [dpre_r, dpre_z,
+// dhh_n] (a CTA's 3 Uc columns padded with zeros to Kp, a multiple of 16,
+// for the two-k steps of its slices) and the local dh_t Z added to the
+// receive sum, after it, by the unit's owner (cell_step).  At H = 256 the
+// rows of 3 Uc columns fit a cluster of 8 (Uc = 32, Kp = 96, 122 KB a CTA
+// with dpre^T and the receive buffer).  Bound: H <= 344 at CL = 8, H <= 500
+// at CL = 16.
 //
 // Per step, both kernels keep the barrier count at one round trip and a
 // half: one receive buffer, and a relaxed "read" arrive that lets peers
@@ -101,11 +111,10 @@
 // (cluster_branch): a cluster branch only where its shared memory fits and
 // all of the launch's clusters can be resident at once.
 //
-// Everything else -- H past the bounds, the LSTM on fp32 streams at B = 128
-// (16 clusters of 16 CTAs do not fit at once) and the GRU on fp32 streams --
-// takes the grid branch: the persistent cooperative grid kernel of each
-// source, reading the same planes.  The launcher reports which branch it
-// took.
+// Everything else -- H past the bounds, fp32 streams at B = 128 (16
+// clusters of 8 or 16 CTAs do not fit at once) -- takes the grid branch:
+// the persistent cooperative grid kernel of each source, reading the same
+// planes.  The launcher reports which branch it took.
 
 #pragma once
 
@@ -1020,26 +1029,29 @@ constexpr int kFmaBwdRows = 16;  // batch rows of an fp32 cluster
 constexpr int kFmaBwdLd = kFmaBwdRows + 4;  // row stride of dpre^T, floats
 constexpr int kFmaBwdThreads = 384;  // most threads a CTA
 
-// The shape of the fp32 cluster for H: Uc units a CTA (a multiple of 4), CL
-// CTAs (8 where the shared memory fits, else 16), KSN k slices of each
-// output quad (the most, up to 8, that kFmaBwdThreads threads hold), the
-// threads and the shared memory: the resident rows [4 Uc][4 nq] (nq = the
-// output quads, ceil(H / 4)), dpre^T [4 Uc][kFmaBwdLd] and the receive
-// buffer [CL][16][Uc].  ok: the shared memory fits, the 16 x Uc / 4
-// element-wise (row, quad) pairs have a thread each and KSN >= 2.
+// The shape of the fp32 cluster for G gates and H: Uc units a CTA (a
+// multiple of 4), CL CTAs (8 where the shared memory fits, else 16), Kp
+// gate columns a CTA (G Uc rounded up to 16; the GRU's padding is zero),
+// KSN k slices of each output quad (the most, up to 8, that
+// kFmaBwdThreads threads hold), the threads and the shared memory: the
+// resident rows [Kp][4 nq] (nq = the output quads, ceil(H / 4)), dpre^T
+// [Kp][kFmaBwdLd] and the receive buffer [CL][16][Uc].  ok: the shared
+// memory fits, the 16 x Uc / 4 element-wise (row, quad) pairs have a
+// thread each and KSN >= 2.
 struct FmaBwdShape {
-  int uc, cl, ksn, threads;
+  int uc, cl, kp, ksn, threads;
   size_t smem;
   bool ok;
 };
 
-inline FmaBwdShape fma_bwd_shape(int H) {
-  FmaBwdShape s{0, 0, 0, 0, 0, false};
+inline FmaBwdShape fma_bwd_shape(int gates, int H) {
+  FmaBwdShape s{0, 0, 0, 0, 0, 0, false};
   const int nq = (H + 3) / 4;
   for (int cl : {kMaxCluster, kMaxClusterNP}) {
     s.uc = ((H + cl - 1) / cl + 3) / 4 * 4;
     s.cl = (H + s.uc - 1) / s.uc;
-    s.smem = ((size_t)4 * s.uc * 4 * nq + (size_t)4 * s.uc * kFmaBwdLd +
+    s.kp = (gates * s.uc + 15) / 16 * 16;
+    s.smem = ((size_t)s.kp * 4 * nq + (size_t)s.kp * kFmaBwdLd +
               (size_t)s.cl * kFmaBwdRows * s.uc) * sizeof(float);
     if (s.smem <= (size_t)kMaxSmem) break;
   }
@@ -1074,18 +1086,22 @@ __device__ __forceinline__ void reduce_round(float (&acc)[kRows][4], int ks,
 }
 
 // Cluster (direction blockIdx.z, rows [16 blockIdx.y, +16)), CTA rank
-// blockIdx.x, of the LSTM's serial chain on fp32 streams; see the header.
-// planes (ndir, T, 6, B, Hp), w = w_hh (ndir, H, 4H), dy (T, B, ndir H) and
-// dgx (T, B, ndir 4H), all fp32.  vec4: w, dy and dgx rows are 16-byte
-// aligned at every 4th unit (H % 4 == 0).  A thread's sums hold kG 4-row
-// groups: 2 where no slice has more than 8 rows (B <= 8), else 4.
-template <int KSN, int kG>
+// blockIdx.x, of the serial chain on fp32 streams; see the header.  planes
+// (ndir, T, P, B, Hp), w = w_hh (ndir, H, G H), dy (T, B, ndir H), dgx (T,
+// B, ndir G H) and the GRU's dhhn (T, B, ndir H; null for the LSTM), all
+// fp32.  kp: the CTA's gate columns, G Uc rounded up to 16.  vec4: w, dy,
+// dgx and dhhn rows are 16-byte aligned at every 4th unit (H % 4 == 0).  A
+// thread's sums hold kG 4-row groups: 2 where no slice has more than 8 rows
+// (B <= 8), else 4.
+template <class Cell, int KSN, int kG>
 __global__ void __launch_bounds__(kFmaBwdThreads, 1)
     bwd_fma_kernel(const float* __restrict__ planes,
                    const float* __restrict__ w, const float* __restrict__ dy,
-                   float* __restrict__ dgx, int T, int B, int H, int Hp,
-                   int ndir, int uc, int vec4) {
-  constexpr int P = LstmCell::kPlanes;
+                   float* __restrict__ dgx, float* __restrict__ dhhn, int T,
+                   int B, int H, int Hp, int ndir, int uc, int kp, int vec4) {
+  constexpr int P = Cell::kPlanes;
+  constexpr int G = Cell::kGates;
+  constexpr bool kGru = std::is_same<Cell, GruCell>::value;
   constexpr int R = kFmaBwdRows;
   constexpr int kR = 4 * kG;      // rows a thread's sums hold
   constexpr int kPer = 32 / KSN;  // output quads a warp
@@ -1099,18 +1115,19 @@ __global__ void __launch_bounds__(kFmaBwdThreads, 1)
   const int d = blockIdx.z, r0 = blockIdx.y * R;
   const int own0 = rank * uc;
   const int nq = (H + 3) / 4;  // output quads
-  const int K = 4 * uc;        // this CTA's gate columns: k = q Uc + u
-  const size_t gh = 4 * (size_t)H;
+  const int K = kp;  // this CTA's gate columns: k = q Uc + u, zero past G Uc
+  const size_t gh = (size_t)G * H;
   float4* ws = hoist_smem;                                    // [K][nq]
   float* dT = reinterpret_cast<float*>(ws + (size_t)K * nq);  // [K][kFmaBwdLd]
   float* recv = dT + (size_t)K * kFmaBwdLd;                   // [cl][R][uc]
 
-  // resident: ws[k][n] = w_hh[d][n][q H + own0 + u], zero past H in both.
-  // Thread (k quad, n), n fastest: one float4 of four gate columns read,
-  // four conflict-free shared stores; kLoadDepth / 4 entries in flight.
+  // resident: ws[k][n] = w_hh[d][n][q H + own0 + u], zero past H in both
+  // and past G Uc in k.  Thread (k quad, n), n fastest: one float4 of four
+  // gate columns read, four conflict-free shared stores; kLoadDepth / 4
+  // entries in flight.
   {
     float* wf = reinterpret_cast<float*>(ws);
-    const int ldw = 4 * nq, n_items = uc * ldw;
+    const int ldw = 4 * nq, n_items = K / 4 * ldw;
     const float* wd = w + (size_t)d * H * gh;
     constexpr int kEntries = kLoadDepth / 4;
     for (int i0 = tid; i0 < n_items; i0 += kEntries * nthreads) {
@@ -1120,7 +1137,8 @@ __global__ void __launch_bounds__(kFmaBwdThreads, 1)
         const int idx = i0 + i * nthreads;
         const int n = idx % ldw, k = 4 * (idx / ldw);
         const int unit = own0 + k % uc;  // k .. k + 3: one gate, 4 units
-        const int nu = idx < n_items && n < H ? min(4, H - unit) : 0;
+        const int nu =
+            idx < n_items && n < H && k / uc < G ? min(4, H - unit) : 0;
         const float* src = wd + (size_t)(nu > 0 ? n : 0) * gh +
                            (size_t)(k / uc) * H + (nu > 0 ? unit : 0);
         if (vec4 && nu >= 4) {
@@ -1206,28 +1224,33 @@ __global__ void __launch_bounds__(kFmaBwdThreads, 1)
     BWD_STAMP(2)  // the read arrive
 
     if (live) {
-      float dpre[4][4];
-      cell_step(LstmCell{}, nx_pl, nx_dy, dh, carry, dpre, nullptr);
+      // dpre[q] enters the product (the GRU's dpre[2] is dhh_n), and dgx
+      // gets dpre_n in its place
+      float dpre[G][4], dpre_n[4];
+      cell_step(Cell{}, nx_pl, nx_dy, dh, carry, dpre, dpre_n);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int q = 0; q < G; ++q)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dT[(q * uc + u - own0 + e) * kFmaBwdLd + row] = e < nu ? dpre[q][e] : 0.f;
-      // dgx, stored before the product (the stores have long drained by
-      // the release arrive), so that dpre holds no registers through it
-      float* o = dgx + ((size_t)t * B + b) * ndir * gh + d * gh + u;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float* oq = o + (size_t)q * H;
+      // dgx (and dhhn), stored before the product (the stores have long
+      // drained by the release arrive), so that dpre holds no registers
+      // through it
+      auto store4 = [&](float* oq, const float* v) {
         if (vec4 && nu >= 4) {
-          *reinterpret_cast<float4*>(oq) =
-              make_float4(dpre[q][0], dpre[q][1], dpre[q][2], dpre[q][3]);
+          *reinterpret_cast<float4*>(oq) = make_float4(v[0], v[1], v[2], v[3]);
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (e < nu) oq[e] = dpre[q][e];
+            if (e < nu) oq[e] = v[e];
         }
-      }
+      };
+      float* o = dgx + ((size_t)t * B + b) * ndir * gh + d * gh + u;
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        store4(o + (size_t)q * H, kGru && q == 2 ? dpre_n : dpre[q]);
+      if constexpr (kGru)
+        store4(dhhn + ((size_t)t * B + b) * lanes + (size_t)d * H + u, dpre[2]);
     }
     BWD_STAMP(3)  // the element-wise step and dgx issued
     if (!more) break;
@@ -1297,38 +1320,40 @@ __global__ void __launch_bounds__(kFmaBwdThreads, 1)
 }
 
 // bwd_fma_kernel with ksn k slices (fma_bwd_shape) for B rows
-template <int kG>
+template <class Cell, int kG>
 const void* fma_bwd_kernel_g(int ksn) {
   switch (ksn) {
-    case 2: return reinterpret_cast<const void*>(bwd_fma_kernel<2, kG>);
-    case 4: return reinterpret_cast<const void*>(bwd_fma_kernel<4, kG>);
-    default: return reinterpret_cast<const void*>(bwd_fma_kernel<8, kG>);
+    case 2: return reinterpret_cast<const void*>(bwd_fma_kernel<Cell, 2, kG>);
+    case 4: return reinterpret_cast<const void*>(bwd_fma_kernel<Cell, 4, kG>);
+    default: return reinterpret_cast<const void*>(bwd_fma_kernel<Cell, 8, kG>);
   }
 }
-// (a template, so that only the sources that launch it compile it)
 template <class Cell>
 const void* fma_bwd_kernel_for(int ksn, int B) {
-  static_assert(std::is_same<Cell, LstmCell>::value, "the LSTM cell");
-  return B <= 8 ? fma_bwd_kernel_g<2>(ksn) : fma_bwd_kernel_g<4>(ksn);
+  return B <= 8 ? fma_bwd_kernel_g<Cell, 2>(ksn)
+                : fma_bwd_kernel_g<Cell, 4>(ksn);
 }
 
 // Launch the fp32 cluster branch (cluster_branch chose it for the shape).
+// dhhn: the GRU's, null for the LSTM.
 template <class Cell>
 cudaError_t launch_bwd_fma(const void* planes, const void* w, const void* dy,
-                           void* dgx, int T, int B, int H, int Hp, int ndir,
-                           cudaStream_t stream) {
-  const FmaBwdShape f = fma_bwd_shape(H);
+                           void* dgx, void* dhhn, int T, int B, int H, int Hp,
+                           int ndir, cudaStream_t stream) {
+  const FmaBwdShape f = fma_bwd_shape(Cell::kGates, H);
   if (!f.ok) return cudaErrorInvalidValue;
   auto aligned16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  int vec4 = H % 4 == 0 && aligned16(w) && aligned16(dy) && aligned16(dgx);
-  int uc = f.uc;
+  int vec4 = H % 4 == 0 && aligned16(w) && aligned16(dy) && aligned16(dgx) &&
+             (dhhn == nullptr || aligned16(dhhn));
+  int uc = f.uc, kp = f.kp;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(f.cl, (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir,
                      f.threads, f.smem, stream, attr);
-  void* args[] = {&planes, &w, &dy, &dgx, &T, &B, &H, &Hp, &ndir, &uc, &vec4};
+  void* args[] = {&planes, &w,   &dy,  &dgx, &dhhn, &T,  &B,
+                  &H,      &Hp,  &ndir, &uc, &kp,   &vec4};
   const cudaError_t err =
       cudaLaunchKernelExC(&cfg, fma_bwd_kernel_for<Cell>(f.ksn, B), args);
   if (err != cudaSuccess) return err;
@@ -1359,21 +1384,31 @@ cudaError_t cluster_capacity(const ClusterShape& cs, int B, int ndir,
 // the serial chain's branches, as the entry points report them
 enum BwdBranch { kBwdGrid = 0, kBwdMma16 = 1, kBwdMma32 = 2, kBwdFma16 = 3 };
 
+// Built with -DPARENT_BRANCHES (tools/parent_forms.py; the package's build
+// never defines it) the launchers keep the grid where the wide forward
+// (fwd_wide.cuh) and the GRU's fp32 cluster took it over, so that one run
+// on the card times both forms.
+#ifdef PARENT_BRANCHES
+constexpr bool kParentBranches = true;
+#else
+constexpr bool kParentBranches = false;
+#endif
+
 // The serial chain's branch for the shape on the current device
 // (BwdBranch).  bf16 streams take bwd_cluster_kernel where its shared
 // memory fits and a cluster can be placed: 32 rows where the 16-row
 // clusters would not all fit on the card at once and the 32-row ones do.
-// The LSTM on fp32 streams takes bwd_fma_kernel where its shared memory
-// fits and all of its 16-row clusters fit at once.  Every other shape the
-// grid.  Asked of the runtime once per (device, B, H, ndir, stream type)
+// fp32 streams take bwd_fma_kernel where its shared memory fits and all of
+// its 16-row clusters fit at once.  Every other shape the grid.  Asked of the runtime once per (device, B, H, ndir, stream type)
 // and kept: every training step asks again.
 template <class Cell>
 cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
   *branch = kBwdGrid;
+  if (kParentBranches && !bf16 && std::is_same<Cell, GruCell>::value)
+    return cudaSuccess;
   const ClusterShape cs1 = cluster_shape(Cell::kGates, H, 1);
-  constexpr bool kLstm = std::is_same<Cell, LstmCell>::value;
   if (bf16 ? cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw
-           : !kLstm || !fma_bwd_shape(H).ok)
+           : !fma_bwd_shape(Cell::kGates, H).ok)
     return cudaSuccess;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -1389,15 +1424,13 @@ cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
   }
   int taken = kBwdGrid;
   if (!bf16) {
-    if constexpr (kLstm) {
-      const FmaBwdShape f = fma_bwd_shape(H);
-      bool fit = false;
-      err = clusters_fit(fma_bwd_kernel_for<Cell>(f.ksn, B), f.cl,
-                         (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir, f.threads,
-                         f.smem, &fit);
-      if (err != cudaSuccess) return err;
-      if (fit) taken = kBwdFma16;
-    }
+    const FmaBwdShape f = fma_bwd_shape(Cell::kGates, H);
+    bool fit = false;
+    err = clusters_fit(fma_bwd_kernel_for<Cell>(f.ksn, B), f.cl,
+                       (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir, f.threads,
+                       f.smem, &fit);
+    if (err != cudaSuccess) return err;
+    if (fit) taken = kBwdFma16;
   } else {
     int cap1 = 0, cap2 = 0;
     err = cluster_capacity<Cell, 1>(cs1, B, ndir, &cap1);

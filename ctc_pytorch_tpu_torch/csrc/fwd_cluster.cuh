@@ -100,8 +100,12 @@
 // cycles in both.
 // The launcher asks cudaOccupancyMaxActiveClusters once per (device, B, H,
 // ndir, kernel) and takes a cluster branch only where the weights fit and
-// every cluster of the launch can be resident at once; otherwise (H past
-// the bound, or B = 128 with fp32 products: 16 clusters of 16 CTAs) the grid
+// every cluster of the launch can be resident at once.  Where fp32 products
+// find no cluster (B >= 64 at H = 384: 8 or 16 clusters of 16 CTAs; H past
+// the cluster bound) it takes the wide branch of fwd_wide.cuh (kFwdWide: a
+// persistent cooperative kernel, weights resident across every SM, the
+// product on the tensor cores in 3xTF32, h exchanged through L2 under
+// per-block step flags) where its resident weights fit; otherwise the grid
 // kernel.  The entry points report the branch they launched.
 
 #pragma once
@@ -138,7 +142,13 @@ __device__ long long fwd_step_cycles[8];
 #endif
 
 // forward branches, as the entry points report them
-enum FwdBranch { kFwdGrid = 0, kFwdMma16 = 1, kFwdMma32 = 2, kFwdFma16 = 3 };
+enum FwdBranch {
+  kFwdGrid = 0,
+  kFwdMma16 = 1,
+  kFwdMma32 = 2,
+  kFwdFma16 = 3,
+  kFwdWide = 4
+};
 
 // 32 bits into the shared memory of CTA `rank` of the cluster, at the
 // address that p has in this CTA's.
@@ -897,6 +907,12 @@ __global__ void __launch_bounds__(kFmaThreads, 1)
   }
 }
 
+}  // namespace
+
+#include "fwd_wide.cuh"  // the wide-batch fp32 branch, over the cells above
+
+namespace {
+
 // ---------------------------------------------------------------------------
 // launcher
 // ---------------------------------------------------------------------------
@@ -920,7 +936,9 @@ const void* fma1_kernel_for(int ksn) {
 // Products on bf16 operands (kRound with bf16 streams) take the mma
 // kernel, 16 rows a cluster where all clusters fit, else 32; fp32 products
 // take the fma kernel (fma1_kernel for the one-gate cells) where all its
-// 16-row clusters fit; every other shape the grid.  The tanh backward
+// 16-row clusters fit, else (the LSTM and the GRU) the wide kernel where
+// its shape holds and its CTAs are all resident; every other shape the
+// grid.  The tanh backward
 // (TanhBwdCell) asks for its branch here too.  Asked of the runtime once
 // per (device, B, H, ndir, kernel) and kept: every layer of every step asks
 // again.
@@ -980,14 +998,20 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
       if (err != cudaSuccess) return err;
       if (fit) taken = kFwdFma16;
     }
+    if (taken == kFwdGrid && !kParentBranches) {
+      err = wide_fits<Cell, S, kRound>(B, H, ndir, &fit);
+      if (err != cudaSuccess) return err;
+      if (fit) taken = kFwdWide;
+    }
   }
   known[key] = taken;
   *branch = taken;
   return cudaSuccess;
 }
 
-// Launch the cluster branch `branch` (not the grid) that fwd_branch chose.
-// cs: the LSTM training forward's cell states, else null.  The tanh
+// Launch the cluster branch `branch` (not the grid, not the wide branch)
+// that fwd_branch chose.  cs: the LSTM training forward's cell states, else
+// null.  The tanh
 // backward (TanhBwdCell) passes dy as gx, dgx as ys and the saved ys as
 // y_in.
 template <class Cell, typename S, bool kRound>

@@ -1,0 +1,480 @@
+// The wide-batch branch of the fp32-product forward recurrences for Hopper
+// (sm_90a): the LSTM eval forward at every stream dtype, the LSTM training
+// forward on fp32 streams (which also writes cs) and the GRU forward on fp32
+// streams, where the fp32 cluster kernel (fwd_fma_kernel, fwd_cluster.cuh)
+// cannot place all its clusters at once: B >= 64 at H = 384, where 8 or 16
+// clusters of 16 one-CTA-per-SM blocks are more than the card holds.
+// fwd_cluster.cuh includes this header after its cells (cell_fwd) and
+// stamps; its launcher (fwd_branch) chooses the branch.
+//
+// Replaces, for those shapes (the grid kernels of lstm_fwd.cuh and
+// gru_fwd.cuh stay the branch past the bound below):
+//   ctc_pytorch_tpu/ops/lstm_pallas_v2.py:142 lstm_bidir_pallas_v2 (the
+//     pallas_call at :177, cell _cell2);
+//   ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:438, the forward
+//     pallas_call of lstm_scan_train_v2;
+//   ctc_pytorch_tpu/ops/gru_pallas_v2.py:352, the forward pallas_call
+//     shared by gru_bidir_v2 and gru_scan_train_v2.
+// The function is the grid kernels' and the twins' (fwd_cluster.cuh says
+// where each rounds): the product sums h_{t-1} (fp32; rounded to S first
+// where kRound) times fp32 w_hh, the gate math and the carries are fp32.
+//
+// What bounds it: at the bench shape (T = 80, B = 128, H = 384, two
+// directions) a step is 151 M fp32 multiply-adds, 24.2 GFLOP a launch:
+// 0.36 ms at 67 TFLOP/s of fp32 FMA.  The grid kernel takes 22 us a step,
+// and its clock64 stamps (tools/probe_bwd_steps.py, PERF.md §5) put 68% of
+// it in the product (30.3k of 44.3k cycles: 52 FMAs a clock of the SM's
+// 128), 11% in staging h through shared memory, 6% in grid.sync().  So the
+// product moves to the tensor cores and the grid barrier goes:
+//
+// Product: 3xTF32 on mma.sync m16n8k8.  Each operand is split x = hi + lo,
+// hi = x rounded to tf32 (to nearest, ties away from zero: the bits plus
+// 0x1000, masked) and lo = x - hi (exact in fp32), which the tensor core
+// reads as tf32 by its upper 19 bits (truncated, as CUTLASS's fast 3xTF32
+// relies on); the sums take lo_h hi_w + hi_h lo_w + hi_h hi_w in fp32,
+// which keeps the fp32 contract (1e-4 against the fp32 twin; a single TF32
+// pass does not).  lo's truncation and the dropped lo_h lo_w are ~2^-21
+// of a product.  The split is integer work (an add and a mask a value: the
+// SM's integer pipe runs at half the fp32 rate), so lo is not rounded
+// again (the product's stamps fell from 12.3k to 10.6k cycles a step);
+// what is left runs at the mma.sync TF32 rate, ~12 cycles an m16n8k8 per
+// SM sub-partition, three times over.  Work a step per CTA at the
+// bench shape: 32 rows x 96 columns x 384 x 3 = 3.5 M MACs, ~3.5k
+// tensor-core instructions, where fp32 FMA would take ~20k cycles.
+//
+// Layout: persistent, weights resident, one CTA an SM.  CTA (j, r, d) owns
+// Uc units [j Uc, j Uc + Uc) of direction d (Uc a multiple of 8) with all G
+// gate columns of them, and RB batch rows [r RB, r RB + RB): the columns
+// stay in shared memory for the whole launch as fp32, in the order of the
+// mma's B fragments (one 8-byte load a lane, conflict-free), split when
+// loaded.  Rows never meet, so the chains of the RB-row blocks are
+// independent; splitting the rows as well as the units cuts what each CTA
+// reads of h a step to RB x H.  Warp (m-tile, unit block, k split kh) does
+// G n-tiles (gate q of 8 units) of one 16-row m-tile over its share of the
+// k-steps; the KS splits of a (m-tile, unit block) leave their sums in
+// shared memory and meet at a named barrier, and each adds, in kh order,
+// the sums of 4 / KS of the thread's four (row, unit) pairs (rows g, g + 8,
+// units 2c, 2c + 1, all G gates) and does their gate math, so that no split
+// waits on another's transcendentals and the carries (c, the GRU's h) stay
+// in the registers of the thread that owns the pair.
+//
+// The exchange, with no grid barrier: h_t goes to a global double buffer in
+// the mma's A-fragment order (per 16-row m-tile and 8-unit k-step, lane l
+// holds its four elements as one float4), so a reader loads each k-step of
+// its A operand with one 16-byte L2 load a lane, eight k-steps in flight,
+// straight into registers: no shared-memory staging, no CTA barrier.  The
+// KS writer warps of (m-tile, unit block) store their parts of its 16 x 8
+// block, fence, and each adds one to that block's flag with a release
+// reduction; a reader acquires the flags of its k-steps (one lane each, KS
+// times the step) before it loads them.  Flags count the steps, so nothing
+// is reset between steps; the launcher zeroes them with a memset on the
+// launch's stream before each launch, which a CUDA graph replays.  Directions and row blocks never
+// wait on each other.  A writer overwrites a block of the buffer two steps
+// later only after every warp of its m-tile has published the step between,
+// which each does after its last read.  The k-steps are summed in a fixed
+// order whatever the order in which they arrive, so a graph replay equals
+// the eager call bit for bit.  Spinning needs every CTA resident: the
+// launch is cooperative (the runtime refuses a grid that cannot be
+// co-resident, and the launcher asks the occupancy first), and a spin that
+// outlasts kWideSpinLimit polls traps: a fault, never a hang.
+// Against the usual Hopper form (TMA bulk copies of 64-unit k-tiles into a
+// shared ring, multicast across a cluster): the stamps show staging at 11%
+// and the product at 68%; with row blocks a CTA reads 49 KB of h a step (6.3
+// MB over the card, not 25 MB), and the fragment-order buffer loads it into
+// the registers that the mma reads with no staging at all, so neither TMA
+// nor multicast is used.
+//
+// The shape (wide_shape): the Uc (a multiple of 8) and RB (a multiple of
+// 16) whose CTAs, ndir x ceil(B / RB) x ceil(H / Uc), fit on the card's SMs
+// with the least work a CTA (RB x Uc; ties to the larger Uc, which reads
+// less h), weights and partial sums within 227 KB and at most 12 warps (168
+// registers a thread); KS (1, 2 or 4) the fewest splits that give 8
+// warps.  Bench shape: Uc =
+// 24, RB = 32, KS = 2: 128 CTAs of 12 warps, 147 KB of weights + 48 KB of
+// partials; B = 64: RB = 16, KS = 4, 128 CTAs; the GRU at (B = 128, H =
+// 256): Uc = 32, RB = 16, KS = 2, 128 CTAs of 8 warps, 98 KB + 24 KB.
+// Shared memory is 4 G Uc Hk bytes of weights (Hk = H rounded up to 8) and,
+// where KS > 1, 1024 G KS groups bytes of partials (groups = the CTA's
+// m-tiles x unit blocks); a launch asks for at least 116 KB so that two
+// CTAs never share an SM.  Bound (the largest H that has a shape), on a
+// 132-SM H100 with two directions: LSTM H <= 776 at B <= 16, 904 at B = 64,
+// 600 at B = 128; GRU H <= 1056 at B <= 64, 792 at B = 128; with one
+// direction LSTM H <= 1056, GRU H <= 1080 at B <= 16.  Past it the grid.
+
+#pragma once
+
+namespace {
+
+constexpr int kWideMaxWarps = 12;  // 168 registers a thread
+constexpr int kWideDepth = 8;  // k-steps of h in flight a warp
+constexpr int kWideSpinLimit = 1 << 24;  // polls of one flag before a trap
+constexpr size_t kWideMinSmem = 116 * 1024;  // one CTA an SM
+
+struct WideShape {
+  int uc, nj, rb, nr, ks, warps, nks;
+  size_t smem;  // what the CTA uses; a launch asks for kWideMinSmem at least
+  bool ok;
+};
+
+// The wide branch's shape for G gates, H, B and ndir on a card of `sms` SMs
+// (see the header); ok is false where no shape holds.
+inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
+  WideShape best{0, 0, 0, 0, 0, 0, (H + 7) / 8, 0, false};
+  const int bp = (B + 15) / 16 * 16;
+  long best_work = 0;
+  for (int uc = 8; uc <= 8 * best.nks; uc += 8) {
+    const int nj = (H + uc - 1) / uc;
+    for (int rb = 16; rb <= bp; rb += 16) {
+      const int nr = (B + rb - 1) / rb;
+      if (ndir * nr * nj > sms) continue;
+      const int groups = rb / 16 * (uc / 8);
+      if (groups > kWideMaxWarps) break;
+      int ks = 1;
+      while (ks < 4 && groups * ks < 8 && groups * ks * 2 <= kWideMaxWarps &&
+             ks * 2 <= best.nks)
+        ks *= 2;
+      const size_t smem = (size_t)4 * gates * uc * 8 * best.nks +
+                          (size_t)1024 * gates * (ks > 1 ? ks : 0) * groups;
+      if (smem > (size_t)kMaxSmem) continue;
+      const long work = (long)rb * uc;
+      if (!best.ok || work < best_work || (work == best_work && uc > best.uc)) {
+        best = WideShape{uc, nj, rb, nr, ks, groups * ks, best.nks, smem, true};
+        best_work = work;
+      }
+      break;  // a larger RB for this Uc does more work a CTA
+    }
+  }
+  return best;
+}
+
+// hi: x rounded to tf32 to nearest with ties away from zero
+// (cvt.rna.tf32.f32 on finite values); lo: x - hi, whose low 13 bits the
+// tensor core does not read
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, one m16n8k8 tile: tf32 operands, fp32 sums
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of the exchange buffer, through L2 (as __ldcg).  Volatile and
+// with a memory clobber, so that the compiler keeps it after the flag's
+// acquire: __ldcg is an asm with neither, which the compiler may take to
+// read no memory and move.
+__device__ __forceinline__ float4 ld_exchange(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// CTA (units blockIdx.x, rows blockIdx.y, direction blockIdx.z); see the
+// header.  hx: the exchange buffer [2][ndir][nmt][nks][32][4] fp32; flags:
+// [ndir][nmt][nks] int32, zero at the launch.  cs: the LSTM training
+// forward's cell states, else null.
+template <class Cell, typename S, bool kRound>
+__global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
+    fwd_wide_kernel(const S* __restrict__ gx, const float* __restrict__ w,
+                    S* __restrict__ ys, S* __restrict__ cs, float* hx,
+                    int* flags, int T, int B, int H, int ndir, int uc, int rb,
+                    int ks) {
+  constexpr int G = Cell::kGates;
+  extern __shared__ float4 wide_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int d = blockIdx.z;
+  const int own0 = blockIdx.x * uc;
+  const int nks = (H + 7) / 8, nmt = (B + 15) / 16, nub = uc / 8;
+  const int groups = rb / 16 * nub;
+  const size_t gh = (size_t)G * H;
+  float2* ws = reinterpret_cast<float2*>(wide_smem);  // [nub][G][nks][32]
+  // [2][groups][ks][4 G][32]: each k split's sums (ks > 1)
+  float* part = reinterpret_cast<float*>(ws + (size_t)nub * G * nks * 32);
+
+  // resident: read along the units (coalesced), stored as the B fragments:
+  // lane 4 g + c holds (k = 8 kb + c, 8 kb + c + 4) of column g of n-tile
+  // (unit block, gate q); zero past H in both
+  {
+    const int hk = 8 * nks, n_w = G * hk * uc, nthreads = blockDim.x;
+    float* wf = reinterpret_cast<float*>(ws);
+    for (int idx0 = tid; idx0 < n_w; idx0 += kLoadDepth * nthreads) {
+      float v[kLoadDepth];
+#pragma unroll
+      for (int i = 0; i < kLoadDepth; ++i) {
+        const int idx = idx0 + i * nthreads;
+        const int u = idx % uc, k = idx / uc % hk, q = idx / (uc * hk);
+        const int unit = own0 + u;
+        v[i] = idx < n_w && k < H && unit < H
+                   ? w[((size_t)d * H + k) * gh + (size_t)q * H + unit]
+                   : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kLoadDepth; ++i) {
+        const int idx = idx0 + i * nthreads;
+        if (idx >= n_w) continue;
+        const int u = idx % uc, k = idx / uc % hk, q = idx / (uc * hk);
+        wf[((((size_t)(u >> 3) * G + q) * nks + (k >> 3)) * 32 + 4 * (u & 7) +
+            (k & 3)) * 2 + ((k >> 2) & 1)] = v[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the warp's (m-tile, unit block, k split); a group past B or H is idle
+  const int grp = warp / ks, kh = warp % ks;
+  const int mt = blockIdx.y * (rb / 16) + grp / nub;
+  const int kb_own = blockIdx.x * nub + grp % nub;  // its unit block, a k-step
+  const bool live = mt < nmt && 8 * kb_own < H;
+  const int kpw = (nks + ks - 1) / ks;
+  const int k0 = min(nks, kh * kpw), k1 = min(nks, k0 + kpw);
+  int* fl = flags + ((size_t)d * nmt + mt) * nks;
+  auto block4 = [&](int par, int kb) {  // the float4s of (m-tile, k-step)
+    return reinterpret_cast<float4*>(hx) +
+           ((((size_t)par * ndir + d) * nmt + mt) * nks + kb) * 32;
+  };
+  const float2* wq = ws + (size_t)(grp % nub) * G * nks * 32 + lane;
+  float* pp = part + (size_t)grp * ks * 4 * G * 32 + lane;
+  const size_t part_par = (size_t)groups * ks * 4 * G * 32;
+
+  // the thread's (row, unit) pairs of the block, p = 2 e + jj: row g + 8 e,
+  // unit 2 c + jj, the sums acc[q][p]; the KS splits share them out, split
+  // kh doing the gate math of pairs [kh np, kh np + np)
+  const int np = 4 / ks, p0 = kh * np;
+  const size_t lanes = (size_t)ndir * H;
+  float carry[4] = {0.f, 0.f, 0.f, 0.f}, nx[4][G];
+  auto row = [&](int p) { return 16 * mt + g + 8 * (p >> 1); };
+  auto unit = [&](int p) { return 8 * kb_own + 2 * c + (p & 1); };
+  auto fetch = [&](int t) {  // rows and units past B, H read a clamped address
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= np) break;
+      const int p = p0 + i;
+      const bool ok = row(p) < B && unit(p) < H;
+      const S* src = gx + ((size_t)t * B + (ok ? row(p) : 0)) * ndir * gh +
+                     d * gh + (ok ? unit(p) : 0);
+#pragma unroll
+      for (int q = 0; q < G; ++q) nx[i][q] = load_f(src + (size_t)q * H);
+    }
+  };
+  if (live) fetch(d == 0 ? 0 : T - 1);
+  FWD_STAMP_START
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d == 0 ? s : T - 1 - s;
+    float acc[G][4];
+#pragma unroll
+    for (int q = 0; q < G; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+    if (live && s > 0 && k0 < k1) {  // h_{-1} = 0: no product at s = 0
+      // h_{s-1} of every k-step of the split is published: each of the KS
+      // writers of a block adds one to its flag a step
+      for (int base = k0; base < k1; base += 32) {
+        if (base + lane < k1) {
+          int spins = 0;
+          while (ld_acquire(fl + base + lane) < ks * s)
+            if (++spins > kWideSpinLimit) __trap();
+        }
+      }
+      __syncwarp();
+      FWD_STAMP(0)  // the flags
+      const float4* src = block4((s + 1) & 1, 0) + lane;
+      float4 ring[kWideDepth];
+#pragma unroll
+      for (int i = 0; i < kWideDepth; ++i)
+        if (k0 + i < k1) ring[i] = ld_exchange(src + (size_t)(k0 + i) * 32);
+      for (int kb0 = k0; kb0 < k1; kb0 += kWideDepth) {
+#pragma unroll
+        for (int i = 0; i < kWideDepth; ++i) {
+          const int kb = kb0 + i;
+          if (kb < k1) {
+            unsigned ah[4], al[4];
+            split_tf32(ring[i].x, ah[0], al[0]);
+            split_tf32(ring[i].y, ah[1], al[1]);
+            split_tf32(ring[i].z, ah[2], al[2]);
+            split_tf32(ring[i].w, ah[3], al[3]);
+            if (kb + kWideDepth < k1)
+              ring[i] = ld_exchange(src + (size_t)(kb + kWideDepth) * 32);
+#pragma unroll
+            for (int q = 0; q < G; ++q) {
+              const float2 bv = wq[((size_t)q * nks + kb) * 32];
+              unsigned bh0, bl0, bh1, bl1;
+              split_tf32(bv.x, bh0, bl0);
+              split_tf32(bv.y, bh1, bl1);
+              mma_tf32(acc[q], al, bh0, bh1);
+              mma_tf32(acc[q], ah, bl0, bl1);
+              mma_tf32(acc[q], ah, bh0, bh1);
+            }
+          }
+        }
+      }
+    }
+    FWD_STAMP(1)  // the product
+    if (!live) continue;
+    // acc[q][i] becomes the sums of this split's pair p0 + i: with KS > 1
+    // every split's sums meet in shared memory and are added in kh order
+    if (ks > 1) {
+      float* p = pp + (size_t)(s & 1) * part_par;
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[((size_t)kh * 4 * G + 4 * q + i) * 32] = acc[q][i];
+      named_sync(1 + grp, 32 * ks);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= np) break;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          float sum = p[(size_t)(4 * q + p0 + i) * 32];
+          for (int x = 1; x < ks; ++x)
+            sum += p[((size_t)x * 4 * G + 4 * q + p0 + i) * 32];
+          acc[q][i] = sum;
+        }
+      }
+    }
+    FWD_STAMP(2)  // the splits' barrier and sum
+
+    float hv[4], cv[4], hxv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= np) break;
+      const int p = p0 + i;
+      float hh[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) hh[q] = acc[q][i];
+      hv[i] = cell_fwd(Cell{}, hh, nx[i], &carry[i], &cv[i]);
+      // past B or H the exchanged value is zero: it meets zero weights
+      hxv[i] = row(p) < B && unit(p) < H
+                   ? (kRound ? round_to(hv[i], ys) : hv[i])
+                   : 0.f;
+    }
+    FWD_STAMP(3)  // the gate math
+    if (s + 1 < T) {
+      // h_s into the buffer: unit 2 c + jj of the block is the A fragment's
+      // column (2 c + jj) % 4 of half c / 2, row g + 8 e its element e of
+      // that half; each of the KS splits adds one to the block's flag
+      float* dst = reinterpret_cast<float*>(block4(s & 1, kb_own));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= np) break;
+        const int p = p0 + i, e = p >> 1, jj = p & 1;
+        dst[(4 * g + ((2 * c + jj) & 3)) * 4 + e + 2 * (c >> 1)] = hxv[i];
+      }
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) red_release_add(fl + kb_own, 1);
+      fetch(d == 0 ? t + 1 : t - 1);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= np) break;
+      const int p = p0 + i;
+      if (row(p) >= B || unit(p) >= H) continue;
+      const size_t o = ((size_t)t * B + row(p)) * lanes + (size_t)d * H + unit(p);
+      store_f(ys + o, hv[i]);
+      if (cs != nullptr) store_f(cs + o, cv[i]);
+    }
+    FWD_STAMP(4)  // the exchange, the flag and the stores
+  }
+}
+
+// the exchange buffer (floats) and the flags (ints) of a wide launch
+inline size_t wide_hx_floats(int B, int H, int ndir) {
+  return (size_t)2 * ndir * ((B + 15) / 16 * 16) * ((H + 7) / 8 * 8);
+}
+inline size_t wide_flag_ints(int B, int H, int ndir) {
+  return (size_t)ndir * ((B + 15) / 16) * ((H + 7) / 8);
+}
+
+// Whether the wide branch holds the shape on the current device: a shape
+// exists and all its CTAs can be resident at once (one an SM).  Raises the
+// kernel's dynamic shared memory limit, so that no launch needs it.
+template <class Cell, typename S, bool kRound>
+cudaError_t wide_fits(int B, int H, int ndir, bool* fit) {
+  *fit = false;
+  int device = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms);
+  if (!coop || !ws.ok) return cudaSuccess;
+  const void* kernel = reinterpret_cast<const void*>(fwd_wide_kernel<Cell, S, kRound>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, 32 * ws.warps,
+      ws.smem > kWideMinSmem ? ws.smem : kWideMinSmem);
+  if (err != cudaSuccess) return err;
+  *fit = per_sm * sms >= ndir * ws.nr * ws.nj;
+  return cudaSuccess;
+}
+
+// Launch the wide branch (fwd_branch chose it for the shape): zero the
+// flags on the stream, then one cooperative launch.  hx and flags as
+// wide_hx_floats and wide_flag_ints count them; cs as fwd_wide_kernel.
+template <class Cell, typename S, bool kRound>
+cudaError_t launch_fwd_wide(const void* gx, const void* w, void* ys, void* cs,
+                            void* hx, void* flags, int T, int B, int H,
+                            int ndir, cudaStream_t stream) {
+  if (hx == nullptr || flags == nullptr) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms);
+  if (!ws.ok) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(flags, 0, wide_flag_ints(B, H, ndir) * sizeof(int),
+                        stream);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ws.nj, ws.nr, ndir);
+  cfg.blockDim = dim3(32 * ws.warps);
+  cfg.dynamicSmemBytes = ws.smem > kWideMinSmem ? ws.smem : kWideMinSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fwd_wide_kernel<Cell, S, kRound>,
+                           static_cast<const S*>(gx),
+                           static_cast<const float*>(w), static_cast<S*>(ys),
+                           static_cast<S*>(cs), static_cast<float*>(hx),
+                           static_cast<int*>(flags), T, B, H, ndir, ws.uc,
+                           ws.rb, ws.ks);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -41,11 +41,14 @@
 // 2*ceil(H/8) CTAs are co-resident while H <= 4 * SMs (528 on a 132-SM
 // H100): 64 CTAs at H = 256.  Past that a co-resident grid strides over the
 // (d, g) items and reads w_hh from L2, so any H runs.
-// That grid is now the branch for the shapes that no cluster holds: the
+// That grid is now the branch for the shapes that no other holds: the
 // cluster branch of fwd_cluster.cuh (a thread-block cluster per direction
 // and 16 or 32 batch rows, w_hh resident across it, h exchanged in
 // distributed shared memory, one cluster barrier a step; the products on
-// the tensor cores with bf16 streams) takes the rest.  The grid's device
+// the tensor cores with bf16 streams) takes what its clusters hold, and
+// with fp32 streams the wide branch of fwd_wide.cuh (one CTA an SM, 3xTF32
+// on the tensor cores, h exchanged through L2 under step flags) takes the
+// wider batches (B = 128 at H = 256) up to its bound (H <= 1056).  The grid's device
 // code lives in gru_fwd.cuh; the trainable op's forward launches this same
 // entry.
 
@@ -54,17 +57,18 @@
 extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0 the
-// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
-// (FwdBranch).  Returns a cudaError_t.
+// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster, 4
+// the wide branch (FwdBranch).  Returns a cudaError_t.
 int gru_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)(bf16 ? fwd_branch<GruCell, __nv_bfloat16, true>(B, H, ndir, branch)
                     : fwd_branch<GruCell, float, true>(B, H, ndir, branch));
 }
 
 // See gru_forward in gru_fwd.cuh for the arguments; hbuf and hcarry are
-// for the grid branch only (else null).  *branch: the branch launched, as
-// gru_bidir_fwd_branch numbers them.  Returns a cudaError_t; 0 means
-// launched.
+// the grid branch's scratch, or the wide branch's exchange buffer and step
+// flags (lstm_bidir.cu says their sizes), null for the clusters.
+// *branch: the branch launched, as gru_bidir_fwd_branch numbers them.
+// Returns a cudaError_t; 0 means launched.
 int gru_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
                       void* hcarry, int T, int B, int H, int ldh, int ndir,
                       int bf16, void* stream, int* branch) {
@@ -78,6 +82,11 @@ int gru_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
     if (!hbuf || !hcarry) return (int)cudaErrorInvalidValue;
     err = gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, bf16,
                       stream);
+  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
+    err = bf16 ? cudaErrorInvalidValue
+               : launch_fwd_wide<GruCell, float, true>(
+                     gx, w_hh, ys, nullptr, hbuf, hcarry, T, B, H, ndir,
+                     static_cast<cudaStream_t>(stream));
   } else {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     err = bf16 ? launch_fwd_cluster<GruCell, __nv_bfloat16, true>(

@@ -34,9 +34,12 @@
 // ms at 3.35 TB/s (the planes add 125 MB written and read once); with fp32
 // streams it is the fp32 operations at 67 TFLOP/s.
 //
-// Two branches for (b), chosen by the launcher, which reports the one it
-// took: the cluster branch of bwd_hoist.cuh (bf16 streams, H <= 480), and
-// for every other shape the grid branch below, the LSTM's
+// Three branches for (b), chosen by the launcher, which reports the one it
+// took: the two cluster branches of bwd_hoist.cuh, bwd_cluster_kernel (bf16
+// streams, H <= 480) and bwd_fma_kernel (fp32 streams: 16 rows a cluster of
+// 8 CTAs to H = 344, of 16 to H = 500, where all the clusters fit at once:
+// B = 8 at H = 256, not B = 128), and for every other shape the grid branch
+// below, the LSTM's
 // (lstm_bidir_train.cu): one persistent cooperative grid, CTA (d, g) owning
 // 8 hidden units of direction d, each thread one unit and 4 batch rows, the
 // unit's row of 3H weights resident in shared memory.  Per step:
@@ -220,19 +223,21 @@ size_t gru_bwd_smem_bytes(int H, bool resident) {
          2 * (size_t)kTileFloats * sizeof(float);
 }
 
-// The serial chain on the branch that cluster_branch chose: 1 or 2 the
-// cluster branch with 16 or 32 batch rows a cluster, 0 the grid branch.
+// The serial chain on the branch that cluster_branch chose (BwdBranch).
 template <typename S>
 cudaError_t gru_launch_bwd(const void* planes, const void* w_hh,
                            const void* dy, void* dgx, void* dhhn, void* dpbuf,
                            void* dhbuf, int T, int B, int H, int Hp, int ldh,
                            int ndir, int branch, cudaStream_t stream) {
-  if (branch == 1)
+  if (branch == kBwdMma16)
     return launch_cluster<GruCell, 1>(planes, w_hh, dy, dgx, dhhn, T, B, H, Hp,
                                       ndir, stream);
-  if (branch == 2)
+  if (branch == kBwdMma32)
     return launch_cluster<GruCell, 2>(planes, w_hh, dy, dgx, dhhn, T, B, H, Hp,
                                       ndir, stream);
+  if (branch == kBwdFma16)
+    return launch_bwd_fma<GruCell>(planes, w_hh, dy, dgx, dhhn, T, B, H, Hp,
+                                   ndir, stream);
   void* args[] = {&planes, &w_hh, &dy, &dgx, &dhhn, &dpbuf, &dhbuf,
                   &T,      &B,    &H,  &Hp,  &ldh,  &ndir};
   const int items = ndir * ((H + kUnits - 1) / kUnits);
@@ -269,8 +274,8 @@ int gru_bidir_train_bwd_prepass(const void* gx, const void* w_hh,
 }
 
 // The serial chain's branch for a backward of this shape on the current
-// device: *branch 1 or 2 the cluster branch with 16 or 32 batch rows a
-// cluster, 0 the grid branch.  Returns a cudaError_t.
+// device: *branch 0 the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3
+// the fp32 cluster (BwdBranch).  Returns a cudaError_t.
 int gru_bidir_train_bwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)cluster_branch<GruCell>(B, H, ndir, bf16, branch);
 }
@@ -294,7 +299,7 @@ int gru_bidir_train_backward(const void* planes, const void* w_hh,
   int plan = 0;
   cudaError_t err = cluster_branch<GruCell>(B, H, ndir, bf16, &plan);
   if (err != cudaSuccess) return (int)err;
-  if (plan == 0 && (!dpbuf || !dhbuf)) return (int)cudaErrorInvalidValue;
+  if (plan == kBwdGrid && (!dpbuf || !dhbuf)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = bf16 ? gru_launch_bwd<__nv_bfloat16>(planes, w_hh, dy, dgx, dhhn,
                                              dpbuf, dhbuf, T, B, H, Hp, ldh,

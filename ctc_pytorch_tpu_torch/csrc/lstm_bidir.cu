@@ -36,14 +36,17 @@
 // H <= 4 * SMs (528 on a 132-SM H100).  Past that a co-resident grid of one
 // CTA per SM strides over the (d, g) items and reads w_hh from L2 instead,
 // so any H runs.
-// That grid is now the branch for the shapes that no cluster holds: the
-// cluster branch of fwd_cluster.cuh (a thread-block cluster per direction
-// and 16 batch rows, the weights resident across it, h exchanged in
-// distributed shared memory, one cluster barrier a step) takes every shape
-// whose clusters all fit on the card at once (H <= 416: the recipe's B = 8
-// at H = 384, not B = 128, whose 16 clusters of 16 CTAs keep the grid).
-// The grid's device code lives in lstm_fwd.cuh, which the training forward
-// shares.
+// That grid is now the branch for the shapes that neither of the others
+// holds: the cluster branch of fwd_cluster.cuh (a thread-block cluster per
+// direction and 16 batch rows, the weights resident across it, h exchanged
+// in distributed shared memory, one cluster barrier a step) takes every
+// shape whose clusters all fit on the card at once (H <= 416: the recipe's
+// B = 8 at H = 384, not B = 64 or 128, whose 8 or 16 clusters of 16 CTAs
+// do not fit), and the wide branch of fwd_wide.cuh (one CTA an SM, the
+// weights resident, 3xTF32 on the tensor cores, h exchanged through L2
+// under per-block step flags) the rest up to its bound (H <= 600 at B =
+// 128 with two directions, fwd_wide.cuh).  The grid's device code lives in lstm_fwd.cuh, which the
+// training forward shares.
 
 #include "fwd_cluster.cuh"
 
@@ -61,18 +64,21 @@ cudaError_t eval_branch(int B, int H, int ndir, int* branch) {
 extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0 the
-// grid, 3 the fp32 cluster (FwdBranch).  Returns a cudaError_t.
+// grid, 3 the fp32 cluster, 4 the wide branch (FwdBranch).  Returns a
+// cudaError_t.
 int lstm_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)(bf16 ? eval_branch<__nv_bfloat16>(B, H, ndir, branch)
                     : eval_branch<float>(B, H, ndir, branch));
 }
 
 // gx (T, B, ndir * 4H) and ys (T, B, ndir * H) in the stream type (bf16 !=
-// 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; for the grid branch
-// only (else null) hbuf (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and
-// cbuf (ndir, B, H), both fp32 zeros; ndir 1 or 2.  *branch: the branch
-// launched, as lstm_bidir_fwd_branch numbers them.  Returns a cudaError_t;
-// 0 means launched.
+// 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; ndir 1 or 2.  The
+// scratch, by branch (null for the clusters): the grid's hbuf (ndir, 2, H,
+// ldh) with ldh >= B a multiple of 4, and cbuf (ndir, B, H), both fp32
+// zeros; the wide branch's exchange buffer as hbuf (wide_hx_floats fp32)
+// and its step flags as cbuf (wide_flag_ints int32, zeroed here).
+// *branch: the branch launched, as lstm_bidir_fwd_branch numbers them.
+// Returns a cudaError_t; 0 means launched.
 int lstm_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
                        void* cbuf, int T, int B, int H, int ldh, int ndir,
                        int bf16, void* stream, int* branch) {
@@ -90,6 +96,11 @@ int lstm_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
                                                cbuf, T, B, H, ldh, ndir, st)
                : launch<float, false>(gx, w_hh, ys, nullptr, hbuf, cbuf, T, B,
                                       H, ldh, ndir, st);
+  } else if (plan == kFwdWide) {
+    err = bf16 ? launch_fwd_wide<LstmCell, __nv_bfloat16, false>(
+                     gx, w_hh, ys, nullptr, hbuf, cbuf, T, B, H, ndir, st)
+               : launch_fwd_wide<LstmCell, float, false>(
+                     gx, w_hh, ys, nullptr, hbuf, cbuf, T, B, H, ndir, st);
   } else {
     err = bf16 ? launch_fwd_cluster<LstmCell, __nv_bfloat16, false>(
                      plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st)

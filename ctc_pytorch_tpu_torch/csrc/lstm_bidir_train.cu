@@ -227,8 +227,8 @@ cudaError_t launch_bwd(const void* planes, const void* w_hh, const void* dy,
     return launch_cluster<LstmCell, 2>(planes, w_hh, dy, dgx, nullptr, T, B, H,
                                        Hp, ndir, stream);
   if (branch == kBwdFma16)
-    return launch_bwd_fma<LstmCell>(planes, w_hh, dy, dgx, T, B, H, Hp, ndir,
-                                    stream);
+    return launch_bwd_fma<LstmCell>(planes, w_hh, dy, dgx, nullptr, T, B, H,
+                                    Hp, ndir, stream);
   void* args[] = {&planes, &w_hh, &dy, &dgx, &dpbuf, &dhbuf, &dcbuf,
                   &T,      &B,    &H,  &Hp,  &ldh,   &ndir};
   const int items = ndir * ((H + kUnits - 1) / kUnits);
@@ -249,8 +249,8 @@ cudaError_t launch_bwd(const void* planes, const void* w_hh, const void* dy,
 extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0
-// the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
-// (FwdBranch).  Returns a cudaError_t.
+// the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster,
+// 4 the wide branch (FwdBranch).  Returns a cudaError_t.
 int lstm_bidir_train_fwd_branch(int B, int H, int ndir, int bf16,
                                 int* branch) {
   return (int)(bf16
@@ -259,11 +259,13 @@ int lstm_bidir_train_fwd_branch(int B, int H, int ndir, int bf16,
 }
 
 // Forward.  gx (T, B, ndir * 4H), ys and cs (T, B, ndir * H) in the stream
-// type (bf16 != 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; for
-// the grid branch only (else null) hbuf (ndir, 2, H, ldh) with ldh >= B a
-// multiple of 4, and cbuf (ndir, B, H), both fp32 zeros; ndir 1 or 2.
-// *branch: the branch launched, as lstm_bidir_train_fwd_branch numbers
-// them.  Returns a cudaError_t; 0 means launched.
+// type (bf16 != 0: bfloat16, else float32); w_hh (ndir, H, 4H) fp32; ndir 1
+// or 2.  The scratch, by branch (null for the clusters): the grid's hbuf
+// (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and cbuf (ndir, B, H),
+// both fp32 zeros; the wide branch's exchange buffer as hbuf and its step
+// flags as cbuf (lstm_bidir.cu says their sizes).  *branch: the branch
+// launched, as lstm_bidir_train_fwd_branch numbers them.  Returns a
+// cudaError_t; 0 means launched.
 int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
                              void* cs, void* hbuf, void* cbuf, int T, int B,
                              int H, int ldh, int ndir, int bf16,
@@ -282,6 +284,10 @@ int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
                                               B, H, ldh, ndir, st)
                : launch<float, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B, H,
                                      ldh, ndir, st);
+  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
+    err = bf16 ? cudaErrorInvalidValue
+               : launch_fwd_wide<LstmCell, float, true>(
+                     gx, w_hh, ys, cs, hbuf, cbuf, T, B, H, ndir, st);
   } else {
     err = bf16 ? launch_fwd_cluster<LstmCell, __nv_bfloat16, true>(
                      plan, gx, w_hh, ys, cs, T, B, H, ndir, st)

@@ -29,6 +29,26 @@ constexpr int kRowTile = 32 * kRows;  // rows per pass of a CTA (32 row groups)
 constexpr int kTileK = 64;            // k-rows of h per shared-memory tile
 constexpr int kTileFloats = kTileK * kRowTile;
 
+// Phase stamps of a grid step, for tools/probe_bwd_steps.py: built with
+// GRID_STEP_STAMPS defined, thread 0 of CTA 0 adds the clock64() cycles
+// since the stamp before to grid_step_cycles[i] at stamp i.  The package's
+// build leaves them out.
+#ifdef GRID_STEP_STAMPS
+__device__ long long grid_step_cycles[8];
+__device__ long long grid_stamp_last;
+#define GRID_STAMP_START                                                  \
+  if (threadIdx.x == 0 && blockIdx.x == 0) grid_stamp_last = clock64();
+#define GRID_STAMP(i)                                                     \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                             \
+    const long long now_ = clock64();                                     \
+    grid_step_cycles[i] += now_ - grid_stamp_last;                        \
+    grid_stamp_last = now_;                                               \
+  }
+#else
+#define GRID_STAMP_START
+#define GRID_STAMP(i)
+#endif
+
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -112,6 +132,7 @@ __device__ __forceinline__ void step_item(
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[j][q] = ok ? load_f(g + q * H) : 0.f;
     }
+    GRID_STAMP(0)  // the gate inputs loaded, the first tile issued
     for (int kt = 0; kt < n_tiles; ++kt) {
       if (kt + 1 < n_tiles) {
         stage(tiles + ((kt + 1) & 1) * kTileFloats, h_prev, (kt + 1) * kTileK,
@@ -121,6 +142,7 @@ __device__ __forceinline__ void step_item(
         cp_async_wait<0>();
       }
       __syncthreads();  // tile kt (and, first, w_s) visible to all
+      GRID_STAMP(1)  // the staging: copies issued, waited for, the barrier
       const float* tile = tiles + (kt & 1) * kTileFloats;
       const int k0 = kt * kTileK;
       // row groups wholly past B (small batches) skip the products
@@ -146,6 +168,7 @@ __device__ __forceinline__ void step_item(
         }
       }
       __syncthreads();  // tile kt consumed before its buffer is refilled
+      GRID_STAMP(2)  // the product of the tile and the barrier after it
     }
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
@@ -168,6 +191,7 @@ __device__ __forceinline__ void step_item(
         h_next[(size_t)unit * ldh + b] = hn;
       }
     }
+    GRID_STAMP(3)  // the gate math and the stores
   }
 }
 
@@ -206,6 +230,7 @@ __global__ void __launch_bounds__(32 * kUnits)
   }
 
   cg::grid_group grid = cg::this_grid();
+  GRID_STAMP_START
   for (int s = 0; s < T; ++s) {
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int d = item / groups;
@@ -218,6 +243,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           tiles, d == 0 ? s : T - 1 - s, u0, d, B, H, ldh, ndir);
     }
     grid.sync();
+    GRID_STAMP(4)  // grid.sync()
   }
 }
 

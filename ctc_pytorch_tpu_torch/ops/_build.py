@@ -29,9 +29,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
 # the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch), which the
 # tanh cell's backward takes too: the cooperative grid, the bf16
-# tensor-core clusters of 16 or 32 batch rows, and the fp32 cluster of 16
-# rows
-FWD_BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
+# tensor-core clusters of 16 or 32 batch rows, the fp32 cluster of 16
+# rows, and the wide-batch fp32 branch (csrc/fwd_wide.cuh: one CTA an SM,
+# 3xTF32 on the tensor cores, h exchanged through L2 under step flags)
+FWD_BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32",
+                "wide_fp32")
+
+
+def wide_scratch_sizes(b: int, h: int, ndir: int) -> Tuple[int, int]:
+    """``(floats, ints)`` of the wide branch's scratch (``csrc/fwd_wide.cuh``
+    ``wide_hx_floats``, ``wide_flag_ints``): the exchange buffer, two steps
+    of h in the mma's fragment order over B and H rounded up to 16 and 8,
+    and one step flag per (direction, 16 rows, 8 units)."""
+    mt, kb = -(-b // 16), -(-h // 8)
+    return 2 * ndir * 16 * mt * 8 * kb, ndir * mt * kb
 
 
 def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
@@ -40,7 +51,9 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
     on the current stream with ``outs`` (``ys``, and the LSTM training
     forward's ``cs``): asks ``<prefix>_fwd_branch`` first and makes the
     grid branch's zeroed fp32 scratch (``scratch_shapes``, after the h
-    double buffer ``(ndir, 2, H, ldh)``) only for it.  Returns the branch
+    double buffer ``(ndir, 2, H, ldh)``) only for it, and the wide branch's
+    exchange buffer and step flags (``wide_scratch_sizes``; the library
+    zeroes the flags on the stream) only for that one.  Returns the branch
     launched (``FWD_BRANCHES``); raises if the launch failed."""
     import torch
 
@@ -50,11 +63,16 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
                                                ctypes.byref(branch))
     ldh = -(-b // 4) * 4  # rows of the grid's h buffer, 16-byte pieces
     ptrs = [None] * (1 + len(scratch_shapes))
-    if err == 0 and branch.value == 0:
+    if err == 0 and FWD_BRANCHES[branch.value] == "grid":
         scratch = [torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
                                device=gx.device)]
         scratch += [torch.zeros(*s, dtype=torch.float32, device=gx.device)
                     for s in scratch_shapes]
+        ptrs = [x.data_ptr() for x in scratch]
+    elif err == 0 and FWD_BRANCHES[branch.value] == "wide_fp32":
+        n_hx, n_flags = wide_scratch_sizes(b, h, ndir)
+        scratch = [torch.empty(n_hx, dtype=torch.float32, device=gx.device),
+                   torch.empty(n_flags, dtype=torch.int32, device=gx.device)]
         ptrs = [x.data_ptr() for x in scratch]
     if err == 0:
         stream = torch.cuda.current_stream(gx.device).cuda_stream

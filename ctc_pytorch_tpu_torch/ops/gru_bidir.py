@@ -22,8 +22,11 @@ has two branches, which the library chooses by shape and reports
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it, h exchanged in distributed
 shared memory and the step product on the tensor cores with bf16 streams
-(``csrc/fwd_cluster.cuh``), or one cooperative grid with a grid barrier per
-time step where no cluster holds the shape.  Any T >= 1, B >= 1 and H run,
+(``csrc/fwd_cluster.cuh``); with fp32 streams where those clusters do not
+all fit (B = 128), the wide branch (``wide_fp32``, ``csrc/fwd_wide.cuh``:
+one CTA an SM, 3xTF32 on the tensor cores, h exchanged through L2 under
+step flags, H <= 1056); or one cooperative grid with a grid barrier per
+time step where neither holds the shape.  Any T >= 1, B >= 1 and H run,
 with no padding.
 
 ``gru_bidir`` takes the plain version for CPU tensors only.  A CUDA tensor
@@ -54,7 +57,8 @@ LIBRARY = KernelLibrary(
      "gru_bidir_forward": (
          [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "gru_bidir_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_wide.cuh",
+             "fwd_cluster.cuh"])
 
 # kernel launches made through ``gru_bidir``; the plain path adds nothing
 launches = 0

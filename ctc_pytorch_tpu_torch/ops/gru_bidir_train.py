@@ -27,12 +27,16 @@ package forms it outside Pallas); the input projection and its gradients
 belong to the caller's ``torch.matmul``.
 
 The forward's branches are the eval op's, counted here by the branch the
-library reported (``launches_fwd_branch``).  The serial chain has two
-branches, which the launcher chooses by shape and reports
-(``launches_bwd_branch``): with bf16 streams and H <= 480 a
-thread-block cluster per (direction, 16 or 32 batch rows) runs its step
-product on the tensor cores and exchanges it in distributed shared memory;
-every other shape takes the persistent cooperative grid, fp32 products on CUDA cores
+library reported (``launches_fwd_branch``; with fp32 streams at B = 128 the
+wide branch, ``wide_fp32``).  The serial chain has three branches, which
+the launcher chooses by shape and reports (``launches_bwd_branch``): with
+bf16 streams and H <= 480 a thread-block cluster per (direction, 16 or 32
+batch rows) runs its step product on the tensor cores and exchanges it in
+distributed shared memory (``cluster16``, ``cluster32``); with fp32 streams
+(B = 8, the 863 GRU recipe over two data-parallel ranks) a cluster of 8 or
+16 CTAs per (direction, 16 rows) does it in fp32 FMA (``cluster16_fp32``,
+H <= 500, where all its clusters fit at once); every other shape takes the
+persistent cooperative grid, fp32 products on CUDA cores
 (``csrc/bwd_hoist.cuh``, ``csrc/gru_bidir_train.cu`` count the limits).  Any
 T >= 1, B >= 1 and H run, with no padding of the caller's tensors.
 
@@ -215,7 +219,7 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h
         _raise(lib, err, "gru_bidir_train backward branch", t_len, b, h)
     ldh = -(-b // 4) * 4
     scratch = []
-    if branch.value == 0:
+    if BRANCHES[branch.value] == "grid":
         # the grid branch's: exchange double buffer, (direction, parity, K4,
         # ldh): 3H rows padded to a multiple of 4, row length to a multiple
         # of 4 floats (16-byte copies); the dh scratch

@@ -16,10 +16,14 @@ per layer, ~0.36 ms at 67 TFLOP/s, against ~25 us for the ~83 MB of gx, ys
 and w_hh.  The kernel has two branches, which the library chooses by shape
 and reports (``launches_fwd_branch``): a thread-block cluster per direction
 and 16 batch rows with ``w_hh`` resident across it and h exchanged in
-distributed shared memory (``csrc/fwd_cluster.cuh``, H <= 416, while every
-cluster fits on the card at once), and for every other shape one
-cooperative grid with a grid barrier per time step (``csrc/lstm_bidir.cu``).
-Any T >= 1, B >= 1 and H run, with no padding.
+distributed shared memory (``cluster16_fp32``, ``csrc/fwd_cluster.cuh``, H
+<= 416, while every cluster fits on the card at once); where they do not (B
+>= 64 at H = 384) the wide branch (``wide_fp32``, ``csrc/fwd_wide.cuh``: one
+CTA an SM with its weights resident, the product in 3xTF32 on the tensor
+cores, h exchanged through L2 under per-block step flags, H <= 600 at B =
+128 with two directions); and for every other shape one cooperative grid with a grid
+barrier per time step (``csrc/lstm_bidir.cu``).  Any T >= 1, B >= 1 and H
+run, with no padding.
 
 ``lstm_bidir`` takes the plain version for CPU tensors only.  A CUDA tensor
 goes through the kernel, or the call raises.
@@ -47,7 +51,8 @@ LIBRARY = KernelLibrary(
      "lstm_bidir_forward": (
          [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
+             "fwd_cluster.cuh"])
 
 # kernel launches made through ``lstm_bidir``; the plain path adds nothing
 launches = 0

@@ -42,8 +42,11 @@ branches of its own, chosen and reported the same way
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it and h exchanged in distributed
 shared memory, its step product on the tensor cores with bf16 streams and
-on CUDA cores in fp32 with fp32 streams (``csrc/fwd_cluster.cuh``), or the
-cooperative grid where no cluster holds the shape.  With bf16 streams the products' operands
+on CUDA cores in fp32 with fp32 streams (``csrc/fwd_cluster.cuh``); with fp32
+streams where those clusters do not all fit (B = 128), the wide branch
+(``wide_fp32``, ``csrc/fwd_wide.cuh``: one CTA an SM, the product in 3xTF32
+on the tensor cores, h exchanged through L2 under step flags); or the
+cooperative grid where neither holds the shape.  With bf16 streams the products' operands
 are bf16 values, so the card's limit for the work is its bytes; with fp32
 streams it is the fp32 operations.  Any T >= 1, B >= 1 and H run, with no
 padding of the caller's tensors.
@@ -87,7 +90,8 @@ LIBRARY = KernelLibrary(
      "lstm_bidir_train_backward": (
          [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
+             "fwd_cluster.cuh"])
 
 PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
 

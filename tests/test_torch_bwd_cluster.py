@@ -39,14 +39,16 @@ BOUND_CL8, BOUND_CL16 = 308, 432
 MMA_BOUND = {"lstm": 416, "gru": 480}
 
 
-def fma_bwd_shape(h):
+def fma_bwd_shape(h, gates=4):
     """Python mirror of the header's ``fma_bwd_shape``: ``(uc, cl, ksn,
-    threads, smem, ok)``."""
+    threads, smem, ok)``; the CTA's gate columns are ``gates`` Uc rounded up
+    to 16 (the LSTM's 4 Uc already are)."""
     nq = -(-h // 4)
     for cl in (8, 16):
         uc = -(-(-(-h // cl)) // 4) * 4
         cl_eff = -(-h // uc)
-        smem = (4 * uc * 4 * nq + 4 * uc * LD + cl_eff * ROWS * uc) * 4
+        kp = -(-(gates * uc) // 16) * 16
+        smem = (kp * 4 * nq + kp * LD + cl_eff * ROWS * uc) * 4
         if smem <= SMEM:
             break
     ksn = 8
@@ -98,12 +100,11 @@ def expected_branch(cell, b, h, dtype, ndir):
     """The branch of the launcher's rule for a HOIST_CASES entry, or None
     where only the card's cluster capacity decides.  Clusters of 8 CTAs: 15
     fit at once on the card; clusters of 16 surely fit four at once and
-    surely not more than eight (one a GPC)."""
+    surely not more than eight (one a GPC).  fp32 streams take the fp32
+    cluster for both cells (the GRU with three gate columns a unit)."""
     if dtype == "bf16":
         return "cluster" if h <= MMA_BOUND[cell] else "grid"
-    if cell == "gru":
-        return "grid"
-    uc, cl, _, _, _, ok = fma_bwd_shape(h)
+    uc, cl, _, _, _, ok = fma_bwd_shape(h, 4 if cell == "lstm" else 3)
     clusters = ndir * -(-b // ROWS)
     if not ok:
         return "grid"

@@ -158,22 +158,23 @@ def test_kernel_modules_build_nothing_at_import():
         assert lib.output_path().parent == _build.BUILD_DIR
     # a header is part of the version: both LSTM sources include the
     # forward's cluster header, which includes lstm_fwd.cuh (the grid), the
-    # hoisted backward's header and gru_fwd.cuh
-    fwd = ["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_cluster.cuh"]
+    # hoisted backward's header, gru_fwd.cuh and the wide branch's header
+    fwd = ["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
+           "fwd_cluster.cuh"]
     assert [h.name for h in lstm_ops.LIBRARY.headers] == fwd
     assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == fwd
     for lib in (lstm_ops.LIBRARY, lstm_bidir_train.LIBRARY):
         assert '#include "fwd_cluster.cuh"' in lib.source.read_text()
     assert '#include "bwd_hoist.cuh"' in lstm_bidir_train.LIBRARY.source.read_text()
     cluster = (_build.CSRC / "fwd_cluster.cuh").read_text()
-    for inc in ("bwd_hoist.cuh", "gru_fwd.cuh"):
+    for inc in ("bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh"):
         assert f'#include "{inc}"' in cluster
     # the forward entries name their branch first and report it
     for lib, prefix in ((lstm_ops.LIBRARY, "lstm_bidir"),
                         (lstm_bidir_train.LIBRARY, "lstm_bidir_train")):
         assert {f"{prefix}_fwd_branch", f"{prefix}_forward"} <= set(lib.functions)
     assert _build.FWD_BRANCHES == ("grid", "cluster16", "cluster32",
-                                   "cluster16_fp32")
+                                   "cluster16_fp32", "wide_fp32")
 
 
 def test_gru_kernel_modules_build_nothing_at_import():
@@ -185,7 +186,8 @@ def test_gru_kernel_modules_build_nothing_at_import():
     # and bwd_hoist.cuh
     for lib, source, headers, inc in (
             (gru_bidir.LIBRARY, "gru_bidir.cu",
-             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_cluster.cuh"],
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_wide.cuh",
+              "fwd_cluster.cuh"],
              "fwd_cluster.cuh"),
             (gru_bidir_train.LIBRARY, "gru_bidir_train.cu",
              ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"], "gru_fwd.cuh")):
@@ -217,10 +219,11 @@ def test_rnn_kernel_modules_build_nothing_at_import():
         assert lib.output_path().parent == _build.BUILD_DIR
         # every csrc/ header the source reaches is part of the version: the
         # grid branch's rnn_fwd.cuh (over lstm_fwd.cuh) and the cluster
-        # branches' fwd_cluster.cuh (over bwd_hoist.cuh and gru_fwd.cuh)
+        # branches' fwd_cluster.cuh (over bwd_hoist.cuh, gru_fwd.cuh and
+        # fwd_wide.cuh)
         assert {h.name for h in lib.headers} == included(lib.source) == {
             "lstm_fwd.cuh", "rnn_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh",
-            "fwd_cluster.cuh"}
+            "fwd_wide.cuh", "fwd_cluster.cuh"}
         assert '#include "rnn_fwd.cuh"' in lib.source.read_text()
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "rnn_fwd.cuh").read_text()
     # the trainable op's forward is the eval library's kernel; its own

@@ -3,15 +3,18 @@
 and GRU's backward serial kernel (``bwd_cluster_kernel`` in
 ``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) at the bench and recipe shapes
 with bf16 streams, the LSTM's on fp32 streams (``bwd_fma_kernel``, same
-header) at the recipes' batches of 8 and 4, and the forward kernels (``fwd_mma_kernel``,
-``fwd_fma_kernel``, ``fma1_kernel`` in ``csrc/fwd_cluster.cuh``) at the main
-paths' and bench shapes, for the LSTM, the GRU and the tanh cell forward
-and backward: the cycles a step spends in each phase, and the clusters the
+header) at the recipes' batches of 8 and 4 and the GRU's at B = 8, the
+forward kernels (``fwd_mma_kernel``, ``fwd_fma_kernel``, ``fma1_kernel`` in
+``csrc/fwd_cluster.cuh``, ``fwd_wide_kernel`` in ``csrc/fwd_wide.cuh``) at
+the main paths' and bench shapes, for the LSTM, the GRU and the tanh cell
+forward and backward, and the grid forward (``csrc/lstm_fwd.cuh``) at the
+bench shape: the cycles a step spends in each phase, and the clusters the
 card holds at once.
 
     python3 tools/probe_bwd_steps.py
 
-Builds the headers with ``BWD_STEP_STAMPS`` and ``FWD_STEP_STAMPS`` defined
+Builds the headers with ``BWD_STEP_STAMPS``, ``FWD_STEP_STAMPS`` and
+``GRID_STEP_STAMPS`` defined
 (thread 0 of the first CTA adds ``clock64()`` deltas between the kernels'
 phases) and the small main below into the git-ignored
 ``csrc/build/probes/`` with nvcc for sm_90a, and runs it.  The stamps cost
@@ -34,9 +37,21 @@ PHASES = ["wait for the data", "receive sum", "read arrive", "element-wise",
 FWD_PHASES = ["product", "gate math", "DSMEM stores", "release arrive",
               "loads and global stores issued", "wait"]
 
+# the grid forward's step (lstm_fwd.cuh); staging and product are summed
+# over the step's k-tiles
+GRID_PHASES = ["gate inputs and the first tile issued",
+               "staging (cp.async waits and the barrier)",
+               "product (and the barrier after each tile)",
+               "gate math and stores", "grid.sync()"]
+
+# the wide branch's step (fwd_wide.cuh), stamped by warp 0 (a k split 0)
+WIDE_PHASES = ["the flags", "product", "the k splits' barrier and sum",
+               "gate math", "exchange, flag and stores"]
+
 MAIN = r"""
 #include "fwd_cluster.cuh"
 #include <cstdio>
+
 #include <type_traits>
 
 // one forward launch on the branch the launcher picks, with its stamps
@@ -59,6 +74,11 @@ void run_fwd(int T, int B, int H, const char* what) {
     printf("%s: grid branch, no stamps\n", what);
     return;
   }
+  void *hx = nullptr, *flags = nullptr;
+  if (branch == kFwdWide) {
+    cudaMalloc(&hx, wide_hx_floats(B, H, ndir) * 4);
+    cudaMalloc(&flags, wide_flag_ints(B, H, ndir) * 4);
+  }
   void* c = std::is_same<Cell, LstmCell>::value && kRound ? cs : nullptr;
   // the tanh backward reads a saved ys plane beside dy (gx here)
   const void* y_in = kBackward<Cell> ? cs : nullptr;
@@ -69,8 +89,12 @@ void run_fwd(int T, int B, int H, const char* what) {
     cudaEventCreate(&a);
     cudaEventCreate(&b);
     cudaEventRecord(a);
-    const cudaError_t err = launch_fwd_cluster<Cell, S, kRound>(
-        branch, gx, w, ys, c, T, B, H, ndir, 0, y_in);
+    const cudaError_t err =
+        branch == kFwdWide
+            ? launch_fwd_wide<Cell, S, kRound>(gx, w, ys, c, hx, flags, T, B,
+                                               H, ndir, 0)
+            : launch_fwd_cluster<Cell, S, kRound>(branch, gx, w, ys, c, T, B,
+                                                  H, ndir, 0, y_in);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     float ms = 0.f;
@@ -143,24 +167,26 @@ void run(int T, int B, int H, const char* what) {
   }
 }
 
-// one fp32 serial launch of the LSTM backward on the branch the launcher
-// picks, with its stamps
+// one fp32 serial launch of the LSTM's or GRU's backward on the branch
+// the launcher picks, with its stamps
+template <class Cell>
 void run_fma(int T, int B, int H, const char* what) {
-  const int P = LstmCell::kPlanes, ndir = 2;
+  const int P = Cell::kPlanes, G = Cell::kGates, ndir = 2;
   const int Hp = (H + 3) / 4 * 4;
   const size_t n_planes = (size_t)ndir * T * P * B * Hp;
-  const size_t n_w = (size_t)ndir * H * 4 * H, n_y = (size_t)T * B * ndir * H;
-  float *planes, *w, *dy, *dgx;
+  const size_t n_w = (size_t)ndir * H * G * H, n_y = (size_t)T * B * ndir * H;
+  float *planes, *w, *dy, *dgx, *dhhn;
   cudaMalloc(&planes, n_planes * 4);
   cudaMalloc(&w, n_w * 4);
   cudaMalloc(&dy, n_y * 4);
-  cudaMalloc(&dgx, n_y * 4 * 4);
+  cudaMalloc(&dgx, n_y * G * 4);
+  cudaMalloc(&dhhn, n_y * 4);
   cudaMemset(planes, 0, n_planes * 4);
   cudaMemset(w, 0, n_w * 4);
   cudaMemset(dy, 0, n_y * 4);
   int branch = 0;
-  cluster_branch<LstmCell>(B, H, ndir, 0, &branch);
-  const FmaBwdShape f = fma_bwd_shape(H);
+  cluster_branch<Cell>(B, H, ndir, 0, &branch);
+  const FmaBwdShape f = fma_bwd_shape(G, H);
   if (branch != kBwdFma16) {
     printf("%s: branch %d, no stamps\n", what, branch);
     return;
@@ -172,8 +198,9 @@ void run_fma(int T, int B, int H, const char* what) {
     cudaEventCreate(&a);
     cudaEventCreate(&b);
     cudaEventRecord(a);
-    const cudaError_t err =
-        launch_bwd_fma<LstmCell>(planes, w, dy, dgx, T, B, H, Hp, ndir, 0);
+    const cudaError_t err = launch_bwd_fma<Cell>(
+        planes, w, dy, dgx, std::is_same<Cell, GruCell>::value ? dhhn : nullptr,
+        T, B, H, Hp, ndir, 0);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     float ms = 0.f;
@@ -193,6 +220,51 @@ void run_fma(int T, int B, int H, const char* what) {
   }
 }
 
+// one launch of the grid forward (lstm_fwd.cuh), whatever the launcher
+// would pick, with its stamps
+template <typename S, bool kTrain>
+void run_grid(int T, int B, int H, const char* what) {
+  const int ndir = 2, ldh = (B + 3) / 4 * 4;
+  const size_t n_gx = (size_t)T * B * ndir * 4 * H, n_y = (size_t)T * B * ndir * H;
+  void *gx, *ys, *cs;
+  float *w, *hbuf, *cbuf;
+  cudaMalloc(&gx, n_gx * sizeof(S));
+  cudaMalloc(&ys, n_y * sizeof(S));
+  cudaMalloc(&cs, n_y * sizeof(S));
+  cudaMalloc(&w, (size_t)ndir * H * 4 * H * 4);
+  cudaMalloc(&hbuf, (size_t)ndir * 2 * H * ldh * 4);
+  cudaMalloc(&cbuf, (size_t)ndir * B * H * 4);
+  cudaMemset(gx, 0, n_gx * sizeof(S));
+  cudaMemset(w, 0, (size_t)ndir * H * 4 * H * 4);
+  for (int rep = 0; rep < 2; ++rep) {
+    long long zero[8] = {0};
+    cudaMemcpyToSymbol(grid_step_cycles, zero, sizeof(zero));
+    cudaMemset(hbuf, 0, (size_t)ndir * 2 * H * ldh * 4);
+    cudaMemset(cbuf, 0, (size_t)ndir * B * H * 4);
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    cudaEventRecord(a);
+    const cudaError_t err = launch<S, kTrain>(gx, w, ys, kTrain ? cs : nullptr,
+                                              hbuf, cbuf, T, B, H, ldh, ndir, 0);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, a, b);
+    long long acc[8];
+    cudaMemcpyFromSymbol(acc, grid_step_cycles, sizeof(acc));
+    long long total = 0;
+    printf("%s: grid, %.4f ms, %.2f us a step; cycles a step by phase:", what,
+           ms, 1e3 * ms / T);
+    for (int i = 0; i < 5; ++i) {
+      printf(" %lld", acc[i] / T);
+      total += acc[i];
+    }
+    printf(" | total %lld (%s)\n", total / T,
+           cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+  }
+}
+
 int main() {
   int clock_khz = 0;
   cudaDeviceGetAttribute(&clock_khz, cudaDevAttrClockRate, 0);
@@ -203,9 +275,11 @@ int main() {
   run<GruCell>(95, 128, 256, "gru T=95 B=128 H=256");
   printf("backward, fp32 streams (phase 3 the element-wise step with dgx "
          "issued, 6 the product and the reduce-scatter, 10 empty)\n");
-  run_fma(100, 8, 384, "lstm T=100 B=8 H=384 fp32");
-  run_fma(400, 8, 256, "lstm T=400 B=8 H=256 fp32");
-  run_fma(100, 4, 384, "lstm T=100 B=4 H=384 fp32");
+  run_fma<LstmCell>(100, 8, 384, "lstm T=100 B=8 H=384 fp32");
+  run_fma<LstmCell>(400, 8, 256, "lstm T=400 B=8 H=256 fp32");
+  run_fma<LstmCell>(100, 4, 384, "lstm T=100 B=4 H=384 fp32");
+  run_fma<GruCell>(95, 8, 256, "gru T=95 B=8 H=256 fp32");
+  run_fma<GruCell>(195, 8, 256, "gru T=195 B=8 H=256 fp32");
   printf("forward\n");
   run_fwd<LstmCell, float, false>(100, 8, 384, "lstm eval T=100 B=8 H=384 fp32");
   run_fwd<LstmCell, float, true>(100, 8, 384, "lstm train T=100 B=8 H=384 fp32");
@@ -213,6 +287,16 @@ int main() {
                                          "lstm train T=80 B=128 H=384 bf16");
   run_fwd<GruCell, __nv_bfloat16, true>(95, 16, 256, "gru T=95 B=16 H=256 bf16");
   run_fwd<GruCell, __nv_bfloat16, true>(95, 128, 256, "gru T=95 B=128 H=256 bf16");
+  printf("forward, wide branch (branch 4)\n");
+  run_fwd<LstmCell, float, false>(80, 128, 384, "lstm eval T=80 B=128 H=384 fp32");
+  run_fwd<LstmCell, float, false>(80, 64, 384, "lstm eval T=80 B=64 H=384 fp32");
+  run_fwd<LstmCell, float, true>(80, 128, 384, "lstm train T=80 B=128 H=384 fp32");
+  run_fwd<GruCell, float, true>(95, 128, 256, "gru T=95 B=128 H=256 fp32");
+  printf("grid forward\n");
+  run_grid<float, false>(80, 128, 384, "lstm eval T=80 B=128 H=384 fp32");
+  run_grid<__nv_bfloat16, false>(80, 128, 384, "lstm eval T=80 B=128 H=384 bf16");
+  run_grid<float, false>(80, 64, 384, "lstm eval T=80 B=64 H=384 fp32");
+  run_grid<float, true>(80, 128, 384, "lstm train T=80 B=128 H=384 fp32");
   printf("tanh forward and backward\n");
   run_fwd<TanhCell, float, true>(100, 8, 384, "tanh fwd T=100 B=8 H=384 fp32");
   run_fwd<TanhBwdCell, float, true>(100, 8, 384, "tanh bwd T=100 B=8 H=384 fp32");
@@ -232,9 +316,12 @@ def main() -> int:
     cu.write_text(MAIN)
     subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                     "-std=c++17", "-DBWD_STEP_STAMPS", "-DFWD_STEP_STAMPS",
+                    "-DGRID_STEP_STAMPS",
                     f"-I{CSRC}", "-o", str(exe), str(cu)], check=True)
     print("backward phases:", ", ".join(PHASES))
     print("forward phases:", ", ".join(FWD_PHASES))
+    print("wide forward phases:", ", ".join(WIDE_PHASES))
+    print("grid forward phases:", ", ".join(GRID_PHASES))
     subprocess.run([str(exe)], check=True)
     return 0
 
