@@ -72,10 +72,11 @@ printed line; any failure ends the run with a nonzero exit and no result:
    branch each kernel took, the stacked entry points, then the flagship's,
    the 863 model's and the tanh model's decode forward and whole train step
    with their device time by kernel, and the CTC loss's share of the
-   flagship's B=8 step on the device; the wide forward branch and the
-   GRU's fp32 backward cluster against the grid they replaced, and the
-   flagship's B=128 decode forward with its eval forwards on either
-   (``times_redesigned``);
+   flagship's B=8 step on the device; the wide forward branch, the wide
+   backward (pre-pass and serial chain apart and together, with cuDNN's
+   backward) and the GRU's fp32 backward cluster against the grid they
+   replaced, and the flagship's B=128 decode forward with its eval
+   forwards on either (``times_redesigned``);
 10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
     at B=16 (bf16 streams), one epoch and its dev pass at ``drop_out: 0``
     from one seeded state through the eager ``run_epoch`` and the graphed
@@ -142,11 +143,14 @@ printed line; any failure ends the run with a nonzero exit and no result:
     the ungrouped epoch; ``cli.train --data-parallel`` as two gloo ranks for
     one epoch, its package decoded; stage 4's ``BeamDevice`` search and
     ``Recognizer`` on a mesh of two against the unsplit runs;
-16. fp32 streams (``phase_fp32_streams``) where the wide forward branch
-    and the GRU's fp32 backward cluster take them: the 863 GRU model's
-    step at B=8 (its recipe's 16 over two ranks) through the kernels and
-    the twins, its fp32 decode forward at B=128, the flagship's fp32 step
-    at B=128, each with the branch asserted.
+16. fp32 streams (``phase_fp32_streams``) where the wide branches and the
+    GRU's fp32 backward cluster take them: the 863 GRU model's step at B=8
+    (its recipe's 16 over two ranks) through the kernels and the twins, its
+    fp32 decode forward at B=128, the wide forwards and backwards under a
+    NaN-filled exchange buffer, the flagship's and the 863 GRU model's fp32
+    steps at B=128 through the kernels and the twins (forwards and
+    backwards on ``wide_fp32``) and timed against the grid, each with the
+    branch asserted.
 
 Ten model paths are driven: the flagship (phases 4 and 5), the 863 model
 with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
@@ -873,15 +877,18 @@ def phase_gru_vs_plain() -> dict:
 # to H = 416 (LSTM) and 480 (GRU); the fp32 cluster branch (cluster16_fp32,
 # 16 rows a cluster of 8 CTAs to H = 308, of 16 to H = 432 for the LSTM; to
 # H = 344 and 500 for the GRU) takes fp32 streams where all its clusters fit
-# at once; B = 128 on fp32 streams and wider H take the grid branch.  The
-# card's pytest cases (tests/test_torch_cuda.py) run the same list.
+# at once; other fp32 streams (B >= 64 at H = 384, H past the cluster's
+# bound) take the wide branch (csrc/bwd_wide.cuh) to its bound (two
+# directions: LSTM H <= 872 at B <= 16, 528 at B = 128; GRU H <= 672 at B =
+# 128), and wider H the grid branch.  The card's pytest cases
+# (tests/test_torch_cuda.py) run the same list.
 HOIST_CASES = [
     ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
     ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
     ("lstm", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe batch
     ("gru", 95, 16, 256, "bf16", 2, "cluster"),  # 863 recipe batch
     ("gru", 195, 16, 256, "bf16", 2, "cluster"),  # its longest bucket
-    ("lstm", 80, 128, 384, "fp32", 2, "grid"),  # 16 clusters of 16 CTAs
+    ("lstm", 80, 128, 384, "fp32", 2, "wide_fp32"),  # 16 clusters of 16 CTAs
     ("lstm", 1, 16, 64, "bf16", 2, "cluster"),  # T = 1
     ("gru", 1, 1, 32, "fp32", 2, "cluster16_fp32"),  # T = 1, B = 1
     ("lstm", 9, 1, 64, "bf16", 2, "cluster"),  # B = 1
@@ -913,20 +920,38 @@ HOIST_CASES = [
     ("lstm", 6, 8, 308, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
     ("lstm", 6, 8, 309, "fp32", 2, "cluster16_fp32"),  # 16 CTAs
     ("lstm", 6, 8, 432, "fp32", 2, "cluster16_fp32"),
-    ("lstm", 6, 8, 433, "fp32", 2, "grid"),
+    ("lstm", 6, 8, 433, "fp32", 2, "wide_fp32"),
     # the GRU's fp32 cluster: the 863 GRU model at B = 8 (B = 16 over two
-    # data-parallel ranks) and its longest bucket, B = 128 on the grid (16
-    # clusters of 8 CTAs do not fit at once), B = 17, one direction with H
-    # % 4 != 0, each side of both resident bounds
+    # data-parallel ranks) and its longest bucket, B = 128 on the wide
+    # branch (16 clusters of 8 CTAs do not fit at once), B = 17, one
+    # direction with H % 4 != 0, each side of both resident bounds
     ("gru", 95, 8, 256, "fp32", 2, "cluster16_fp32"),
     ("gru", 195, 8, 256, "fp32", 2, "cluster16_fp32"),
-    ("gru", 95, 128, 256, "fp32", 2, "grid"),
+    ("gru", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("gru", 12, 17, 48, "fp32", 2, "cluster16_fp32"),
     ("gru", 10, 20, 37, "fp32", 1, "cluster16_fp32"),
     ("gru", 6, 8, 344, "fp32", 2, "cluster16_fp32"),  # 8 CTAs
     ("gru", 6, 8, 345, "fp32", 2, "cluster16_fp32"),  # 16 CTAs
     ("gru", 6, 8, 500, "fp32", 2, "cluster16_fp32"),
-    ("gru", 6, 8, 501, "fp32", 2, "grid"),
+    ("gru", 6, 8, 501, "fp32", 2, "wide_fp32"),
+    # the wide branch (bwd_wide.cuh): a data-parallel rank's B = 64, B not a
+    # multiple of 16 (100, 130), T' = 1, the waveform dev pass's T' = 200,
+    # one direction, and each side of its bounds
+    ("lstm", 80, 64, 384, "fp32", 2, "wide_fp32"),
+    ("lstm", 12, 100, 384, "fp32", 2, "wide_fp32"),
+    ("lstm", 12, 130, 384, "fp32", 2, "wide_fp32"),
+    ("gru", 12, 130, 256, "fp32", 2, "wide_fp32"),
+    ("lstm", 1, 128, 384, "fp32", 2, "wide_fp32"),
+    ("gru", 1, 128, 256, "fp32", 2, "wide_fp32"),
+    ("lstm", 200, 128, 384, "fp32", 2, "wide_fp32"),
+    ("lstm", 12, 144, 384, "fp32", 1, "wide_fp32"),
+    ("gru", 12, 256, 256, "fp32", 1, "wide_fp32"),
+    ("lstm", 6, 128, 528, "fp32", 2, "wide_fp32"),
+    ("lstm", 6, 128, 529, "fp32", 2, "grid"),
+    ("gru", 6, 128, 672, "fp32", 2, "wide_fp32"),
+    ("gru", 6, 128, 673, "fp32", 2, "grid"),
+    ("lstm", 4, 8, 872, "fp32", 2, "wide_fp32"),
+    ("lstm", 4, 8, 873, "fp32", 2, "grid"),
 ]
 
 
@@ -1116,7 +1141,8 @@ LSTM_BWD_KERNELS = {
     "grid": "lstm_bidir_bwd_kernel (csrc/lstm_bidir_train.cu)",
     "cluster16": "bwd_cluster_kernel<LstmCell, 1> (csrc/bwd_hoist.cuh)",
     "cluster32": "bwd_cluster_kernel<LstmCell, 2> (csrc/bwd_hoist.cuh)",
-    "cluster16_fp32": "bwd_fma_kernel (csrc/bwd_hoist.cuh)"}
+    "cluster16_fp32": "bwd_fma_kernel (csrc/bwd_hoist.cuh)",
+    "wide_fp32": "bwd_wide_kernel<LstmCell, RB / 16> (csrc/bwd_wide.cuh)"}
 
 
 def check_fp32_bwd_branch(what: str, took: dict, launches: int,
@@ -1339,7 +1365,7 @@ GRAPH_CASES = [
     ("lstm_train", 80, 128, 384, "fp32", 2, "wide_fp32"),
     ("lstm_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
     ("lstm_bwd", 400, 8, 256, "fp32", 2, "cluster16_fp32"),  # mfcc_39
-    ("lstm_bwd", 80, 128, 384, "fp32", 2, "grid"),
+    ("lstm_bwd", 80, 128, 384, "fp32", 2, "wide_fp32"),
     ("lstm_bwd", 80, 128, 384, "bf16", 2, "cluster32"),
     ("lstm_bwd", 6, 16, 416, "bf16", 2, "cluster16"),
     ("gru_eval", 95, 16, 256, "bf16", 2, "cluster16"),  # 863 recipe batch
@@ -1349,7 +1375,7 @@ GRAPH_CASES = [
     ("gru_train", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("gru_bwd", 95, 16, 256, "bf16", 2, "cluster16"),
     ("gru_bwd", 95, 128, 256, "bf16", 2, "cluster"),
-    ("gru_bwd", 95, 128, 256, "fp32", 2, "grid"),
+    ("gru_bwd", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("rnn_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # tanh recipe
     ("rnn_train", 80, 128, 384, "bf16", 2, "cluster16"),
     ("rnn_train", 80, 128, 384, "fp32", 2, "grid"),
@@ -1361,6 +1387,10 @@ GRAPH_CASES = [
     ("lstm_eval", 80, 64, 384, "fp32", 2, "wide_fp32"),
     ("gru_bwd", 95, 8, 256, "fp32", 2, "cluster16_fp32"),
     ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),
+    # the wide backward at B = 64, and the backwards' grid past its bound
+    ("lstm_bwd", 80, 64, 384, "fp32", 2, "wide_fp32"),
+    ("lstm_bwd", 6, 128, 529, "fp32", 2, "grid"),
+    ("gru_bwd", 6, 128, 673, "fp32", 2, "grid"),
 ]
 # op -> (kernel rows of the result line, op module, branch counter)
 GRAPH_OPS = {
@@ -4455,6 +4485,36 @@ WIDE_TIMES = [
 ]
 
 
+# The wide backward's serial chain (csrc/bwd_wide.cuh), timed against the
+# grid it replaced (tools/parent_forms.py) and cuDNN's backward in turns in
+# one call (phase 9): (cell, T', B, H), fp32 streams.  The LSTM at the
+# bench shape and at B = 64 (a data-parallel rank), the GRU at the 863
+# model's bench shape.
+WIDE_BWD_TIMES = [("lstm", 80, 128, 384), ("lstm", 80, 64, 384),
+                  ("gru", 95, 128, 256)]
+
+
+def serial_bound(gx, w_hh, n_planes: int, n_outs: int) -> dict:
+    """Least time for one backward serial chain on fp32 streams: its
+    ``n_planes`` fp32 pre-pass planes and dy read, dgx (and ``n_outs`` - 1
+    more (T, B, ndir H) planes) written and w_hh read, each once, over the
+    memory rate; its one (B, nH) x (nH, H) product a step and direction over
+    the fp32 peak (``bound_ms``) and, for its three TF32 passes, over the
+    tensor cores' TF32 peak (``tf32x3_bound_ms``)."""
+    t, b, _ = gx.shape
+    ndir, h, nh = w_hh.shape
+    plane = t * b * ndir * h * 4
+    bytes_moved = ((n_planes + 1 + (n_outs - 1)) * plane + gx.numel() * 4
+                   + w_hh.numel() * 4)
+    flops = 2 * ndir * t * b * h * nh
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return {"serial_bound_ms": max(by_bytes, by_ops) * 1e3,
+            "serial_bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "tf32x3_bound_ms": max(by_bytes,
+                                   3 * flops / TF32_FLOP_PER_S) * 1e3,
+            "serial_gflop": flops / 1e9, "serial_mbytes": bytes_moved / 1e6}
+
+
 def turns(fns: dict, reps: int = 10) -> dict:
     """Each of ``fns`` timed ``ROUNDS`` times in turns (``cuda_ms``):
     ``{name: (median, [rounds])}``."""
@@ -4465,27 +4525,120 @@ def turns(fns: dict, reps: int = 10) -> dict:
     return {k: (statistics.median(v), v) for k, v in rounds.items()}
 
 
+def on_parent(fn):
+    """``fn`` run through the parent forms (``tools/parent_forms.py``): the
+    grid where the redesigned branches took it over."""
+    def run():
+        from tools.parent_forms import parent_forms
+
+        with parent_forms():
+            return fn()
+    return run
+
+
+def times_wide_backward(smi: str) -> dict:
+    """The wide backward (``csrc/bwd_wide.cuh``) at ``WIDE_BWD_TIMES``
+    against the grid and cuDNN in turns: the pre-pass, the serial chain on
+    either branch and both together, with the twin and the bounds."""
+    import torch
+
+    _, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    out = {}
+    for cell, t, b, h in WIDE_BWD_TIMES:
+        lstm = cell == "lstm"
+        gates, mod = (4, train_ops) if lstm else (3, gru_train_ops)
+        gx, w, dy = recurrence_inputs(t, b, h, torch.float32, seed=7,
+                                      gates=gates)
+        saved = (train_ops.lstm_bidir_train_cuda(gx, w) if lstm
+                 else (gru_ops.gru_bidir_cuda(gx, w),))
+        fn = {k: getattr(mod, f"{cell}_bidir_train_{k}") for k in (
+            "bwd_prepass_cuda", "bwd_serial_cuda", "backward_cuda",
+            "backward_plain", "bwd_serial_plain")}
+        planes = fn["bwd_prepass_cuda"](gx, w, *saved)
+        cudnn = {}
+        for name, dt in (("library", torch.float32),
+                         ("library_bf16", torch.bfloat16)):
+            net = (torch.nn.LSTM if lstm else torch.nn.GRU)(
+                2 * h, h, bias=False, bidirectional=True).cuda().to(dt)
+            x = torch.randn(t, b, 2 * h, device="cuda", dtype=dt,
+                            requires_grad=True)
+            y, _ = net(x)
+            g = torch.randn_like(y)
+            cudnn[name] = (lambda y=y, wrt=(x, *net.parameters()), g=g:
+                           torch.autograd.grad(y, wrt, g, retain_graph=True))
+        before = dict(mod.launches_bwd_branch)
+        res = turns({
+            "prepass": lambda: fn["bwd_prepass_cuda"](gx, w, *saved),
+            "serial": lambda: fn["bwd_serial_cuda"](planes, w, dy),
+            "serial_grid": on_parent(
+                lambda: fn["bwd_serial_cuda"](planes, w, dy)),
+            "whole": lambda: fn["backward_cuda"](gx, w, *saved, dy),
+            "whole_grid": on_parent(
+                lambda: fn["backward_cuda"](gx, w, *saved, dy)),
+            **cudnn}, reps=10)
+        took = sorted(k for k, v in mod.launches_bwd_branch.items()
+                      if v != before[k])
+        check(took == ["grid", "wide_fp32"],
+              f"the {cell} fp32 serial chain at B={b}: the timed launches "
+              f"took {took}")
+        key = f"{cell}_bwd_{t}_{b}_{h}_fp32"
+        out[key] = {
+            "ms": res["whole"][0], "ms_rounds": res["whole"][1],
+            "serial_ms": res["serial"][0], "serial_ms_rounds": res["serial"][1],
+            "prepass_ms": res["prepass"][0],
+            "prepass_ms_rounds": res["prepass"][1],
+            "grid_ms": res["whole_grid"][0],
+            "grid_ms_rounds": res["whole_grid"][1],
+            "grid_serial_ms": res["serial_grid"][0],
+            "grid_serial_ms_rounds": res["serial_grid"][1],
+            "library_ms": res["library"][0],
+            "library_ms_rounds": res["library"][1],
+            "library_ms_bf16": res["library_bf16"][0],
+            "library_ms_bf16_rounds": res["library_bf16"][1],
+            "plain_ms": cuda_ms(lambda: fn["backward_plain"](
+                gx, w, *saved, dy), reps=2),
+            "serial_plain_ms": cuda_ms(lambda: fn["bwd_serial_plain"](
+                planes, w, dy), reps=2),
+            **recurrence_bound(gx, w, n_planes=3, n_products=2,
+                               n_gate_planes=2),
+            **serial_bound(gx, w, n_planes=mod.PLANES, n_outs=1 if lstm else 2)}
+        r = out[key]
+        print(f"  {cell} fp32 backward T={t} B={b} H={h} ({smi}): serial chain "
+              f"wide_fp32 {r['serial_ms']:.4f} ms "
+              f"{[round(v, 4) for v in r['serial_ms_rounds']]} "
+              f"({1e3 * r['serial_ms'] / t:.2f} us a step), grid "
+              f"{r['grid_serial_ms']:.4f} "
+              f"{[round(v, 4) for v in r['grid_serial_ms_rounds']]} "
+              f"({1e3 * r['grid_serial_ms'] / t:.2f} us a step); pre-pass "
+              f"{r['prepass_ms']:.4f} "
+              f"{[round(v, 4) for v in r['prepass_ms_rounds']]}; pre-pass + "
+              f"serial {r['ms']:.4f} {[round(v, 4) for v in r['ms_rounds']]}, "
+              f"on the grid {r['grid_ms']:.4f} "
+              f"{[round(v, 4) for v in r['grid_ms_rounds']]}; cuDNN backward "
+              f"fp32 {r['library_ms']:.4f}, bf16 {r['library_ms_bf16']:.4f}; "
+              f"twin {r['plain_ms']:.4f} (serial {r['serial_plain_ms']:.4f}); "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, serial chain "
+              f"{r['serial_bound_ms']:.4f} by {r['serial_bound_by']}, its "
+              f"3xTF32 on the tensor cores {r['tf32x3_bound_ms']:.4f}; grid / "
+              f"wide serial {r['grid_serial_ms'] / r['serial_ms']:.2f}x")
+
+    return out
+
+
 def times_redesigned(spec, model, smi: str) -> dict:
     """The redesigned branches against their parent form, the grid, and
     cuDNN, in turns: the fp32-product forwards on ``wide_fp32`` at
     ``WIDE_TIMES`` (with the twin, the fp32 bound and the 3xTF32
-    tensor-core bound), the GRU backward's fp32 serial chain on
-    ``cluster16_fp32`` at (95, 8, 256) alone and with its pre-pass (cuDNN's
-    fp32 backward beside it), and the flagship's B=128 decode forward with
-    its eval forwards on the wide branch and on the grid."""
+    tensor-core bound), the LSTM's and GRU's fp32 backward on
+    ``wide_fp32`` (``times_wide_backward``), the GRU backward's fp32 serial
+    chain on ``cluster16_fp32`` at (95, 8, 256) alone and with its pre-pass
+    (cuDNN's fp32 backward beside it), and the flagship's B=128 decode
+    forward with its eval forwards on the wide branch and on the grid."""
     import torch
-
-    from tools.parent_forms import parent_forms
 
     lstm_ops, train_ops, _ = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
-
-    def on_parent(fn):
-        def run():
-            with parent_forms():
-                return fn()
-        return run
-
     out = {}
     for op, t, b, h, name in WIDE_TIMES:
         dt = torch.bfloat16 if name == "bf16" else torch.float32
@@ -4531,6 +4684,8 @@ def times_redesigned(spec, model, smi: str) -> dict:
               f"{r['bound_ms']:.4f} by {r['bound_by']}, 3xTF32 on the tensor "
               f"cores {r['tf32x3_bound_ms']:.4f}; grid / wide "
               f"{r['grid_ms'] / r['ms']:.2f}x")
+
+    out.update(times_wide_backward(smi))
 
     # the GRU backward on fp32 streams at B = 8 (the 863 model over two
     # data-parallel ranks): the serial chain's cluster against the grid
@@ -4610,11 +4765,17 @@ DECODE_SCALES = (0.05, 1.0)
 DECODE_SEEDS = (0, 1, 2)
 # (op, T', B, H, stream dtype) of the NaN-fill runs: the LSTM eval and
 # training forwards and the GRU forward at B = 128, a B that is not a
-# multiple of 16; launches a run
+# multiple of 16; the LSTM's and GRU's backward serial chains (the wide
+# backward, csrc/bwd_wide.cuh) at B = 128 and at a B that is not a multiple
+# of 16; launches a run
 WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
                   ("lstm_eval", 95, 128, 384, "bf16"),
                   ("lstm_train", 80, 128, 384, "fp32"),
-                  ("gru", 95, 128, 256, "fp32"), ("gru", 95, 130, 256, "fp32")]
+                  ("gru", 95, 128, 256, "fp32"), ("gru", 95, 130, 256, "fp32"),
+                  ("lstm_bwd", 80, 128, 384, "fp32"),
+                  ("lstm_bwd", 80, 100, 384, "fp32"),
+                  ("gru_bwd", 95, 128, 256, "fp32"),
+                  ("gru_bwd", 95, 130, 256, "fp32")]
 WIDE_NAN_LAUNCHES = 25
 
 
@@ -4645,21 +4806,24 @@ def decode_b128(spec, scale: float, seed, device: str) -> dict:
 
 def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
                       scale: float, seed: int, n: int) -> dict:
-    """``n`` launches of the wide branch's forward entry (``op``: the LSTM
-    eval or training forward or the GRU forward) at (t, b, h) on ``name``
+    """``n`` launches of a wide branch's entry (``op``: the LSTM eval or
+    training forward or the GRU forward, or the LSTM's or GRU's backward
+    serial chain, ``lstm_bwd`` and ``gru_bwd``) at (t, b, h) on ``name``
     streams with gates drawn at ``scale`` from ``seed``, each after filling
     the exchange buffer with NaN and the step flags with a large count (the
-    library zeroes them): a read of a block of h before its writers
-    published it reads NaN at the first step and a stale h after, and the
-    kernel is deterministic.  Counts the launches whose output holds a
-    non-finite value or differs in any bit from the first; the first is
-    held against the twin.  Needs the card."""
+    library zeroes them): a read of a block of h (of a partial dh) before
+    its writers published it reads NaN at the first step and a stale value
+    after, and the kernel is deterministic.  Counts the launches whose
+    output holds a non-finite value or differs in any bit from the first;
+    the first is held against the twin.  Needs the card."""
     import ctypes
 
     import torch
 
     from ctc_pytorch_tpu_torch.ops import _build
 
+    if op in ("lstm_bwd", "gru_bwd"):
+        return wide_bwd_nan_launches(op, t, b, h, scale, seed, n)
     lstm_ops, train_ops, _ = port_ops()
     gru_ops, _ = port_gru_ops()
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
@@ -4712,6 +4876,70 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
             "twin_max_abs_err": max(max_err(g, x) for g, x in zip(first, want))}
 
 
+def wide_bwd_nan_launches(op: str, t: int, b: int, h: int, scale: float,
+                          seed: int, n: int) -> dict:
+    """``wide_nan_launches`` for the wide backward's serial chain (``op``
+    ``lstm_bwd`` or ``gru_bwd``, fp32 streams) over the twin's pre-pass
+    planes: its exchange buffer of partial dh filled with NaN and its step
+    flags with a large count before each launch; the outputs are dgx (and
+    the GRU's dhhn), the first held against the serial twin."""
+    import ctypes
+
+    import torch
+
+    from ctc_pytorch_tpu_torch.ops import _build
+
+    _, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    lstm = op == "lstm_bwd"
+    gates, mod = (4, train_ops) if lstm else (3, gru_train_ops)
+    prefix = "lstm_bidir_train" if lstm else "gru_bidir_train"
+    gx, w_hh, dy = recurrence_inputs(t, b, h, torch.float32, seed=seed,
+                                     gates=gates, scale=scale)
+    if lstm:
+        planes = train_ops.lstm_bidir_train_bwd_prepass_plain(
+            gx, w_hh, *train_ops.lstm_bidir_train_plain(gx, w_hh))
+    else:
+        planes = gru_train_ops.gru_bidir_train_bwd_prepass_plain(
+            gx, w_hh, gru_ops.gru_bidir_plain(gx, w_hh))
+    buf, hp = _build.padded_planes(planes)
+    lib = mod.LIBRARY.load()
+    dgx = torch.empty(t, b, 2 * gates * h, device="cuda")
+    outs = [dgx] + ([] if lstm else [torch.empty_like(dy)])
+    xbuf, flags = _build.serial_scratch(lib, prefix, "wide_fp32", b, h, 2, 0,
+                                        "cuda")
+    branch = ctypes.c_int(-1)
+
+    def launch():
+        xbuf.fill_(float("nan"))
+        flags.fill_(1 << 20)
+        err = getattr(lib, f"{prefix}_backward")(
+            buf.data_ptr(), w_hh.data_ptr(), dy.data_ptr(),
+            *[o.data_ptr() for o in outs], xbuf.data_ptr(), flags.data_ptr(),
+            *([None] if lstm else []), t, b, h, hp, -(-b // 4) * 4, 2, 0,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(branch))
+        check(err == 0 and _build.BRANCHES[branch.value] == "wide_fp32",
+              f"{op} at ({t}, {b}, {h}): launch {err}, branch {branch.value}")
+
+    launch()
+    first = [o.clone() for o in outs]
+    want = getattr(mod, f"{prefix}_bwd_serial_plain")(planes, w_hh, dy)
+    want = list(want) if isinstance(want, tuple) else [want]
+    bad = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for o in first:
+        bad[0] += (~torch.isfinite(o)).any().int()
+    for _ in range(n - 1):
+        launch()
+        for o, f in zip(outs, first):
+            bad[0] += (~torch.isfinite(o)).any().int()
+            bad[1] += (o != f).any().int()
+    nonfinite, differing = bad.tolist()
+    return {"op": op, "t": t, "b": b, "h": h, "dtype": "fp32", "scale": scale,
+            "seed": seed, "launches": n, "nonfinite_launches": nonfinite,
+            "differing_launches": differing,
+            "twin_max_abs_err": max(max_err(g, x) for g, x in zip(first, want))}
+
+
 def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
                        device: str = "cuda") -> dict:
     """Phase 16, fp32 streams where the redesigned branches run them: the
@@ -4720,12 +4948,15 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
     twins, the GRU forwards and backward on ``cluster16_fp32``; its fp32
     decode forward at B = 128 and the flagship's, the eval forwards on
     ``wide_fp32``, against the twins from unit-scale features of the global
-    generator and at ``DECODE_SCALES`` over ``DECODE_SEEDS``; the wide branch's forwards under a NaN-filled exchange
-    buffer (``wide_nan_launches`` at ``WIDE_NAN_CASES``); and the flagship's
-    fp32 train step at B = 128, the training forwards on ``wide_fp32`` (its
-    backward on the grid, which no cluster holds there).  Returns the
+    generator and at ``DECODE_SCALES`` over ``DECODE_SEEDS``; the wide
+    branches, forward and backward, under a NaN-filled exchange buffer
+    (``wide_nan_launches`` at ``WIDE_NAN_CASES``); and the flagship's and
+    the 863 GRU model's fp32 train steps at B = 128, the training forwards
+    and the backwards' serial chains on ``wide_fp32``, held against the
+    twins and timed against the parent forms (the grid).  Returns the
     launches by op and branch.  With ``device="cpu"`` (a rehearsal: every op
-    its twin) the branches are not checked and the NaN fill is not run."""
+    its twin) the branches are not checked, and neither the NaN fill nor
+    the timings run."""
     import torch
 
     on_card = device != "cpu"
@@ -4802,32 +5033,82 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
                   for r in runs)
         worst = max(r["twin_max_abs_err"] for r in runs
                     if r["dtype"] == "fp32")
-        print(f"  wide_fp32 under a NaN-filled exchange buffer ({smi}): "
+        print(f"  wide_fp32 forwards and backwards under a NaN-filled "
+              f"exchange buffer ({smi}): "
               f"{sum(r['launches'] for r in runs)} launches over "
               f"{WIDE_NAN_CASES} at scales {DECODE_SCALES}, {bad} non-finite "
               f"or differing from their first; first vs twin {worst:.3g}")
         check(bad == 0 and worst <= FP32_TOL,
-              "the wide branch read h before it was published")
+              "a wide branch read its exchange buffer before it was published")
         out["wide_nan_fill"] = {"runs": runs, "branches": {}}
 
-    # the flagship's fp32 train step at B = 128: the training forward on the
-    # wide branch
+    # the fp32 train steps at B = 128 of the flagship and the 863 GRU model:
+    # the training forwards and the backwards' serial chains on the wide
+    # branches, held against the twins, then timed against the parent forms
     spec_f = dataclasses.replace(spec, compute_dtype="float32", drop_out=0.0)
-    zero_counts()
-    got = dp_steps(spec_f, cfg, dp_batch(spec_f, 128, 160, 48, seed=17), None,
-                   device, steps=1)
-    took = path_branches()
-    print(f"  flagship, one fp32 step and an eval step at B=128: loss "
-          f"{got['losses']}, eval {got['eval_loss']:.6g}; branches {took}")
-    check(not on_card or (
-        took["lstm_bidir_train_fwd"] == {"wide_fp32": spec_f.rnn_layers}
-        and took["lstm_bidir"] == {"wide_fp32": spec_f.rnn_layers}),
-          f"the flagship's fp32 B=128 step: the forwards took {took}")
-    check(all(math.isfinite(v) for v in got["losses"] + [got["eval_loss"]]),
-          "non-finite flagship fp32 B=128 loss")
-    out["flagship_b128_fp32_step"] = {"losses": got["losses"],
-                                      "eval_loss": got["eval_loss"],
-                                      "branches": took}
+    lstm_ops, train_ops, _ = port_ops()
+    for key, spec_s, cfg_s, batch, prefix, eval_counts in (
+            ("flagship_b128_fp32_step", spec_f, cfg,
+             dp_batch(spec_f, 128, 160, 48, seed=17), "lstm_bidir",
+             lstm_ops.launches_fwd_branch),
+            ("gru_b128_fp32_step", spec32, cfg_863,
+             dp_batch(spec32, 128, 200, 40, seed=18), "gru_bidir",
+             gru_ops.launches_fwd_branch)):
+        layers = spec_s.rnn_layers
+        mod = train_ops if prefix == "lstm_bidir" else gru_train_ops
+        zero_counts()
+        got = dp_steps(spec_s, cfg_s, batch, None, device, steps=1)
+        took = {"fwd": {k: v for k, v in mod.launches_fwd_branch.items() if v},
+                "bwd": {k: v for k, v in mod.launches_bwd_branch.items() if v},
+                "eval": {k: v for k, v in eval_counts.items() if v}}
+        with plain_twins():
+            want = dp_steps(spec_s, cfg_s, batch, None, device, steps=1)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(
+            got["losses"] + [got["eval_loss"]],
+            want["losses"] + [want["eval_loss"]]))
+        n_off, n_all, worst, wkey = states_apart(got["state"], want["state"])
+        print(f"  {key}: one fp32 step and an eval step at B=128 ({smi}): loss "
+              f"{got['losses']}, eval {got['eval_loss']:.6g} through the "
+              f"kernels vs {want['losses']}, {want['eval_loss']:.6g} through "
+              f"the twins (rel {rel:.3g}, tol {STEP_LOSS_RTOL}); {n_off} of "
+              f"{n_all} entries past {STEP_TOL}, largest {worst:.3g} at "
+              f"{wkey}; training forwards {took['fwd']}, backwards' serial "
+              f"chains {took['bwd']}, eval forwards {took['eval']}")
+        check(not on_card or all(v == {"wide_fp32": layers}
+                                 for v in took.values()),
+              f"{key}: the recurrences took {took}")
+        check(all(math.isfinite(v) for v in got["losses"] + [got["eval_loss"]]),
+              f"non-finite {key} loss")
+        check(rel <= STEP_LOSS_RTOL, f"the {key} losses differ from the twins")
+        check(n_off <= STEP_OFF_SHARE * n_all
+              and worst <= 2.01 * cfg_s.init_lr,
+              f"the {key} parameters differ from the twins")
+        entry = {"losses": got["losses"], "eval_loss": got["eval_loss"],
+                 "rel_vs_twins": rel, "entries_past_tol": n_off,
+                 "branches": {f"{prefix}_train_fwd": took["fwd"],
+                              f"{prefix}_train_bwd": took["bwd"],
+                              prefix: took["eval"]}}
+        if on_card:
+            # the step's wall and device time on the wide branches and,
+            # through the parent libraries, on the grid, in turns
+            from tools.parent_forms import parent_forms
+
+            runs = {"new": [], "grid": []}
+            for _ in range(2):
+                for form in ("new", "grid"):
+                    ctx = (parent_forms() if form == "grid"
+                           else contextlib.nullcontext())
+                    with ctx:
+                        r = dp_steps(spec_s, cfg_s, batch, None, device,
+                                     steps=1, times=True)
+                    runs[form].append((r["step_wall_ms"], r["step_device_ms"]))
+            entry["step_ms"] = {k: [w for w, _ in v] for k, v in runs.items()}
+            entry["step_device_ms"] = {k: [d for _, d in v]
+                                       for k, v in runs.items()}
+            print(f"  {key} ({smi}): step wall ms {entry['step_ms']}, device "
+                  f"ms {entry['step_device_ms']} (new: forwards and backwards "
+                  f"on wide_fp32; grid: the parent forms)")
+        out[key] = entry
     return out
 
 
@@ -5443,7 +5724,8 @@ def main() -> int:
 
     print(f"[16/16] fp32 streams on the redesigned branches: the 863 GRU "
           f"model's step at B=8 (cluster16_fp32) and its decode forward at "
-          f"B=128, the flagship's fp32 step at B=128 (wide_fp32) ({smi})")
+          f"B=128, the flagship's and the 863 GRU model's fp32 steps at B=128 "
+          f"(wide_fp32 forwards and backwards) ({smi})")
     fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi)
 
     # launches of every kernel on each model path: its fit and its decode
@@ -5627,7 +5909,17 @@ def main() -> int:
              "cluster16_fp32", csrc + "bwd_hoist.cuh",
              tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2), fp32 "
              "streams", "gru_bwd_95_8_256_fp32",
-             [("hoist", "gru:cluster16_fp32")])):
+             [("hoist", "gru:cluster16_fp32")]),
+            ("lstm_bidir_train_bwd_wide_fp32", ("lstm_bidir_train_bwd",),
+             "wide_fp32", csrc + "bwd_wide.cuh",
+             tpu + "lstm_pallas_train_v2.py:478 _bwd_pallas "
+             "(lstm_scan_train_v2), fp32 streams at B >= 64",
+             "lstm_bwd_80_128_384_fp32", [("hoist", "lstm:wide_fp32")]),
+            ("gru_bidir_train_bwd_wide_fp32", ("gru_bidir_train_bwd",),
+             "wide_fp32", csrc + "bwd_wide.cuh",
+             tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2), fp32 "
+             "streams at B >= 64", "gru_bwd_95_128_256_fp32",
+             [("hoist", "gru:wide_fp32")])):
         at = redesigned[key]
         errs = {"fwd": errs_fwd["by_branch"], "hoist": errs_hoist["by_branch"]}
         err = max(errs[kind][k].get("fp32", 0.0) for kind, k in err_keys)
@@ -5646,9 +5938,15 @@ def main() -> int:
         if branch == "wide_fp32":
             # its product runs in 3xTF32 on the tensor cores: beside the
             # fp32 bound, the bound of that work at the tensor cores' rate
+            # (the backwards': of the serial chain, beside its serial_ms)
             entry["tf32x3_bound_ms"] = at["tf32x3_bound_ms"]
+        if err_keys[0][0] == "fwd" and branch == "wide_fp32":
             entry["max_abs_err_bf16_streams"] = max(
                 errs["fwd"][k].get("bf16", 0.0) for kind, k in err_keys)
+        if err_keys[0][0] == "hoist" and branch == "wide_fp32":
+            for k in ("serial_ms", "grid_serial_ms", "prepass_ms", "grid_ms",
+                      "serial_bound_ms", "library_ms_bf16"):
+                entry[k] = at[k]
         kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
     by_name["lstm_bidir"]["flagship_decode_forward_b128"] = redesigned[

@@ -111,9 +111,14 @@
 // (cluster_branch): a cluster branch only where its shared memory fits and
 // all of the launch's clusters can be resident at once.
 //
-// Everything else -- H past the bounds, fp32 streams at B = 128 (16
-// clusters of 8 or 16 CTAs do not fit at once) -- takes the grid branch:
-// the persistent cooperative grid kernel of each source, reading the same
+// fp32 streams where the fp32 cluster's clusters do not all fit at once (B
+// >= 64 at H = 384: 8 or 16 clusters of 16 CTAs) or its weights do not fit
+// take the wide branch of bwd_wide.cuh (kBwdWide: one persistent
+// cooperative CTA an SM, the rows of w_hh that its gate columns meet
+// resident, the product in 3xTF32 on the tensor cores, the partial dh
+// exchanged through L2 under per-writer step flags) where its shape holds.
+// Everything else -- H past the bounds -- takes the grid branch: the
+// persistent cooperative grid kernel of each source, reading the same
 // planes.  The launcher reports which branch it took.
 
 #pragma once
@@ -1381,13 +1386,26 @@ cudaError_t cluster_capacity(const ClusterShape& cs, int B, int ndir,
       capacity, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
+}  // namespace
+
+#include "bwd_wide.cuh"  // the wide-batch fp32 branch, over the cells above
+
+namespace {
+
 // the serial chain's branches, as the entry points report them
-enum BwdBranch { kBwdGrid = 0, kBwdMma16 = 1, kBwdMma32 = 2, kBwdFma16 = 3 };
+enum BwdBranch {
+  kBwdGrid = 0,
+  kBwdMma16 = 1,
+  kBwdMma32 = 2,
+  kBwdFma16 = 3,
+  kBwdWide = 4
+};
 
 // Built with -DPARENT_BRANCHES (tools/parent_forms.py; the package's build
 // never defines it) the launchers keep the grid where the wide forward
-// (fwd_wide.cuh) and the GRU's fp32 cluster took it over, so that one run
-// on the card times both forms.
+// (fwd_wide.cuh), the GRU's fp32 cluster and the wide backward
+// (bwd_wide.cuh) took it over, so that one run on the card times both
+// forms.
 #ifdef PARENT_BRANCHES
 constexpr bool kParentBranches = true;
 #else
@@ -1399,7 +1417,9 @@ constexpr bool kParentBranches = false;
 // memory fits and a cluster can be placed: 32 rows where the 16-row
 // clusters would not all fit on the card at once and the 32-row ones do.
 // fp32 streams take bwd_fma_kernel where its shared memory fits and all of
-// its 16-row clusters fit at once.  Every other shape the grid.  Asked of the runtime once per (device, B, H, ndir, stream type)
+// its 16-row clusters fit at once, else bwd_wide_kernel where its shape
+// holds and all its CTAs are resident at once.  Every other shape the
+// grid.  Asked of the runtime once per (device, B, H, ndir, stream type)
 // and kept: every training step asks again.
 template <class Cell>
 cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
@@ -1407,9 +1427,7 @@ cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
   if (kParentBranches && !bf16 && std::is_same<Cell, GruCell>::value)
     return cudaSuccess;
   const ClusterShape cs1 = cluster_shape(Cell::kGates, H, 1);
-  if (bf16 ? cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw
-           : !fma_bwd_shape(Cell::kGates, H).ok)
-    return cudaSuccess;
+  if (bf16 && (cs1.uc > 64 || (cs1.nt + 7) / 8 > kMaxNtw)) return cudaSuccess;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -1426,11 +1444,19 @@ cudaError_t cluster_branch(int B, int H, int ndir, int bf16, int* branch) {
   if (!bf16) {
     const FmaBwdShape f = fma_bwd_shape(Cell::kGates, H);
     bool fit = false;
-    err = clusters_fit(fma_bwd_kernel_for<Cell>(f.ksn, B), f.cl,
-                       (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir, f.threads,
-                       f.smem, &fit);
-    if (err != cudaSuccess) return err;
-    if (fit) taken = kBwdFma16;
+    if (f.ok) {
+      err = clusters_fit(fma_bwd_kernel_for<Cell>(f.ksn, B), f.cl,
+                         (B + kFmaBwdRows - 1) / kFmaBwdRows, ndir, f.threads,
+                         f.smem, &fit);
+      if (err != cudaSuccess) return err;
+    }
+    if (fit) {
+      taken = kBwdFma16;
+    } else if (!kParentBranches) {
+      err = bwd_wide_fits<Cell>(B, H, ndir, &fit);
+      if (err != cudaSuccess) return err;
+      if (fit) taken = kBwdWide;
+    }
   } else {
     int cap1 = 0, cap2 = 0;
     err = cluster_capacity<Cell, 1>(cs1, B, ndir, &cap1);

@@ -105,10 +105,9 @@
 
 namespace {
 
-constexpr int kWideMaxWarps = 12;  // 168 registers a thread
+// kWideMaxWarps, kWideSpinLimit, kWideMinSmem and the 3xTF32 and exchange
+// primitives are bwd_wide.cuh's, which bwd_hoist.cuh includes
 constexpr int kWideDepth = 8;  // k-steps of h in flight a warp
-constexpr int kWideSpinLimit = 1 << 24;  // polls of one flag before a trap
-constexpr size_t kWideMinSmem = 116 * 1024;  // one CTA an SM
 
 struct WideShape {
   int uc, nj, rb, nr, ks, warps, nks;
@@ -145,54 +144,6 @@ inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
     }
   }
   return best;
-}
-
-// hi: x rounded to tf32 to nearest with ties away from zero
-// (cvt.rna.tf32.f32 on finite values); lo: x - hi, whose low 13 bits the
-// tensor core does not read
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a * b, one m16n8k8 tile: tf32 operands, fp32 sums
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes of the exchange buffer, through L2 (as __ldcg).  Volatile and
-// with a memory clobber, so that the compiler keeps it after the flag's
-// acquire: __ldcg is an asm with neither, which the compiler may take to
-// read no memory and move.
-__device__ __forceinline__ float4 ld_exchange(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void red_release_add(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // CTA (units blockIdx.x, rows blockIdx.y, direction blockIdx.z); see the
@@ -294,14 +245,7 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
     if (live && s > 0 && k0 < k1) {  // h_{-1} = 0: no product at s = 0
       // h_{s-1} of every k-step of the split is published: each of the KS
       // writers of a block adds one to its flag a step
-      for (int base = k0; base < k1; base += 32) {
-        if (base + lane < k1) {
-          int spins = 0;
-          while (ld_acquire(fl + base + lane) < ks * s)
-            if (++spins > kWideSpinLimit) __trap();
-        }
-      }
-      __syncwarp();
+      wait_flags(fl + k0, k1 - k0, ks * s, lane);
       FWD_STAMP(0)  // the flags
       const float4* src = block4((s + 1) & 1, 0) + lane;
       float4 ring[kWideDepth];

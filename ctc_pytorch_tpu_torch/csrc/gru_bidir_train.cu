@@ -34,12 +34,15 @@
 // ms at 3.35 TB/s (the planes add 125 MB written and read once); with fp32
 // streams it is the fp32 operations at 67 TFLOP/s.
 //
-// Three branches for (b), chosen by the launcher, which reports the one it
+// Four branches for (b), chosen by the launcher, which reports the one it
 // took: the two cluster branches of bwd_hoist.cuh, bwd_cluster_kernel (bf16
 // streams, H <= 480) and bwd_fma_kernel (fp32 streams: 16 rows a cluster of
 // 8 CTAs to H = 344, of 16 to H = 500, where all the clusters fit at once:
-// B = 8 at H = 256, not B = 128), and for every other shape the grid branch
-// below, the LSTM's
+// B = 8 at H = 256, not B = 128), the wide branch of bwd_wide.cuh for fp32
+// streams where those clusters do not all fit (B = 128 at H = 256: one
+// persistent CTA an SM, 3xTF32 on the tensor cores, the partial dh through
+// L2 under step flags), and for every other shape the grid branch below,
+// the LSTM's
 // (lstm_bidir_train.cu): one persistent cooperative grid, CTA (d, g) owning
 // 8 hidden units of direction d, each thread one unit and 4 batch rows, the
 // unit's row of 3H weights resident in shared memory.  Per step:
@@ -238,6 +241,9 @@ cudaError_t gru_launch_bwd(const void* planes, const void* w_hh,
   if (branch == kBwdFma16)
     return launch_bwd_fma<GruCell>(planes, w_hh, dy, dgx, dhhn, T, B, H, Hp,
                                    ndir, stream);
+  if (branch == kBwdWide)  // its exchange buffer and step flags
+    return launch_bwd_wide<GruCell>(planes, w_hh, dy, dgx, dhhn, dpbuf, dhbuf,
+                                    T, B, H, Hp, ndir, stream);
   void* args[] = {&planes, &w_hh, &dy, &dgx, &dhhn, &dpbuf, &dhbuf,
                   &T,      &B,    &H,  &Hp,  &ldh,  &ndir};
   const int items = ndir * ((H + kUnits - 1) / kUnits);
@@ -275,18 +281,29 @@ int gru_bidir_train_bwd_prepass(const void* gx, const void* w_hh,
 
 // The serial chain's branch for a backward of this shape on the current
 // device: *branch 0 the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3
-// the fp32 cluster (BwdBranch).  Returns a cudaError_t.
+// the fp32 cluster, 4 the wide branch (BwdBranch).  Returns a cudaError_t.
 int gru_bidir_train_bwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)cluster_branch<GruCell>(B, H, ndir, bf16, branch);
 }
 
+// The wide branch's scratch at this shape on the current device: *floats
+// of exchange buffer and *ints of step flags (0 where it has no shape).
+// Returns a cudaError_t.
+int gru_bidir_train_bwd_wide_scratch(int B, int H, int ndir, size_t* floats,
+                                     size_t* ints) {
+  return (int)bwd_wide_scratch<GruCell>(B, H, ndir, floats, ints);
+}
+
 // Backward serial chain over the pre-pass planes.  dy, dhhn (T, B, ndir *
-// H) and dgx (T, B, ndir * 3H) in the stream type; w_hh as above; for the
-// grid branch only (else null) dpbuf (ndir, 2, K4, ldh) with K4 = 3H rounded
-// up to a multiple of 4 and ldh >= B a multiple of 4, and dhbuf (ndir, B,
-// H), both fp32 zeros.  *branch: the branch launched, as
-// gru_bidir_train_bwd_branch numbers them.
-// Returns a cudaError_t; 0 means launched.
+// H) and dgx (T, B, ndir * 3H) in the stream type; w_hh as above; the
+// scratch, by branch (null for the clusters): the grid's dpbuf (ndir, 2,
+// K4, ldh) with K4 = 3H rounded up to a multiple of 4 and ldh >= B a
+// multiple of 4, and dhbuf (ndir, B, H), both fp32 zeros; the wide
+// branch's exchange buffer (fp32) as dpbuf and its step flags (int32) as
+// dhbuf, sized by gru_bidir_train_bwd_wide_scratch (the library zeroes the
+// flags on the stream).  *branch: the branch launched, as
+// gru_bidir_train_bwd_branch numbers them.  Returns a cudaError_t; 0 means
+// launched.
 int gru_bidir_train_backward(const void* planes, const void* w_hh,
                              const void* dy, void* dgx, void* dhhn,
                              void* dpbuf, void* dhbuf, int T, int B, int H,
@@ -299,7 +316,9 @@ int gru_bidir_train_backward(const void* planes, const void* w_hh,
   int plan = 0;
   cudaError_t err = cluster_branch<GruCell>(B, H, ndir, bf16, &plan);
   if (err != cudaSuccess) return (int)err;
-  if (plan == kBwdGrid && (!dpbuf || !dhbuf)) return (int)cudaErrorInvalidValue;
+  if ((plan == kBwdGrid || plan == kBwdWide) && (!dpbuf || !dhbuf))
+    return (int)cudaErrorInvalidValue;
+  if (plan == kBwdWide && bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = bf16 ? gru_launch_bwd<__nv_bfloat16>(planes, w_hh, dy, dgx, dhhn,
                                              dpbuf, dhbuf, T, B, H, Hp, ldh,

@@ -40,14 +40,16 @@
 // read once.  With fp32 streams the products are fp32 and the limit is
 // operations at 67 TFLOP/s.
 //
-// Three branches for (b), chosen by the launcher, which reports the one it
+// Four branches for (b), chosen by the launcher, which reports the one it
 // took (bwd_hoist.cuh, BwdBranch): two cluster branches, each a cluster per
 // (direction, batch rows) with w_hh resident across it and the partial dh
 // exchanged in distributed shared memory -- bwd_cluster_kernel for bf16
 // streams (H <= 416: tensor cores, 16 or 32 batch rows), bwd_fma_kernel for
 // fp32 streams (H <= 432: fp32 FMA, 16 rows, clusters of 8 or 16 CTAs) --
-// and for every other shape (B = 128 on fp32 streams, H past the bounds)
-// the grid branch below: one persistent cooperative grid, CTA (d, g) owning
+// the wide branch for fp32 streams where those clusters do not all fit (B
+// >= 64 at H = 384; bwd_wide.cuh: one persistent CTA an SM, 3xTF32 on the
+// tensor cores, the partial dh exchanged through L2 under step flags), and
+// for every other shape (H past the bounds) the grid branch below: one persistent cooperative grid, CTA (d, g) owning
 // 8 hidden units of direction d, each thread one unit and 4 batch rows, the
 // unit's 8 rows of w_hh resident in shared memory (128*H + 64 KB,
 // co-resident while 2*ceil(H/8) <= SMs, H <= 528 on a 132-SM H100; past
@@ -96,6 +98,7 @@ __device__ __forceinline__ void bwd_item(
       const int n_tiles = (H4 + kTileK - 1) / kTileK;
       float acc[kRows] = {0.f, 0.f, 0.f, 0.f};
       stage(tiles, dp_prev, 0, r0, H4, ldh, tid);
+      GRID_STAMP(0)  // the first tile issued
       for (int kt = 0; kt < n_tiles; ++kt) {
         if (kt + 1 < n_tiles) {
           stage(tiles + ((kt + 1) & 1) * kTileFloats, dp_prev,
@@ -105,6 +108,7 @@ __device__ __forceinline__ void bwd_item(
           cp_async_wait<0>();
         }
         __syncthreads();
+        GRID_STAMP(1)  // the staging: copies issued, waited for, the barrier
         const float* tile = tiles + (kt & 1) * kTileFloats;
         const int k0 = kt * kTileK;
         const int kn = rows_live ? min(kTileK, H4 - k0) : 0;  // multiple of 4
@@ -129,6 +133,7 @@ __device__ __forceinline__ void bwd_item(
           }
         }
         __syncthreads();
+        GRID_STAMP(2)  // the product of the tile and the barrier after it
       }
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
@@ -159,6 +164,7 @@ __device__ __forceinline__ void bwd_item(
         dp_next[(size_t)(q * H + unit) * ldh + b] = round_to(dpre[q], out);
       }
     }
+    GRID_STAMP(3)  // the cell backward, dgx and the exchange write
   }
 }
 
@@ -194,6 +200,7 @@ __global__ void __launch_bounds__(32 * kUnits)
   }
 
   cg::grid_group grid = cg::this_grid();
+  GRID_STAMP_START
   for (int s = 0; s < T; ++s) {
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int d = item / groups;
@@ -206,6 +213,7 @@ __global__ void __launch_bounds__(32 * kUnits)
           d == 0 ? T - 1 - s : s, s == 0, u0, d, T, B, H, Hp, ldh, ndir);
     }
     grid.sync();
+    GRID_STAMP(4)  // grid.sync()
   }
 }
 
@@ -229,6 +237,9 @@ cudaError_t launch_bwd(const void* planes, const void* w_hh, const void* dy,
   if (branch == kBwdFma16)
     return launch_bwd_fma<LstmCell>(planes, w_hh, dy, dgx, nullptr, T, B, H,
                                     Hp, ndir, stream);
+  if (branch == kBwdWide)  // its exchange buffer and step flags
+    return launch_bwd_wide<LstmCell>(planes, w_hh, dy, dgx, nullptr, dpbuf,
+                                     dhbuf, T, B, H, Hp, ndir, stream);
   void* args[] = {&planes, &w_hh, &dy, &dgx, &dpbuf, &dhbuf, &dcbuf,
                   &T,      &B,    &H,  &Hp,  &ldh,   &ndir};
   const int items = ndir * ((H + kUnits - 1) / kUnits);
@@ -315,18 +326,28 @@ int lstm_bidir_train_bwd_prepass(const void* gx, const void* w_hh,
 
 // The serial chain's branch for a backward of this shape on the current
 // device: *branch 0 the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3
-// the fp32 cluster (BwdBranch).  Returns a cudaError_t.
+// the fp32 cluster, 4 the wide branch (BwdBranch).  Returns a cudaError_t.
 int lstm_bidir_train_bwd_branch(int B, int H, int ndir, int bf16,
                                 int* branch) {
   return (int)cluster_branch<LstmCell>(B, H, ndir, bf16, branch);
 }
 
+// The wide branch's scratch at this shape on the current device: *floats
+// of exchange buffer and *ints of step flags (0 where it has no shape).
+// Returns a cudaError_t.
+int lstm_bidir_train_bwd_wide_scratch(int B, int H, int ndir, size_t* floats,
+                                      size_t* ints) {
+  return (int)bwd_wide_scratch<LstmCell>(B, H, ndir, floats, ints);
+}
+
 // Backward serial chain over the pre-pass planes.  dy (T, B, ndir * H) and
-// dgx (T, B, ndir * 4H) in the stream type; w_hh as above; for the grid
-// branch only (else null) dpbuf (ndir, 2, 4H, ldh), dhbuf and dcbuf (ndir,
-// B, H), fp32 zeros.  *branch: the branch launched, as
-// lstm_bidir_train_bwd_branch numbers them.
-// Returns a cudaError_t; 0 means launched.
+// dgx (T, B, ndir * 4H) in the stream type; w_hh as above; the scratch, by
+// branch (null for the clusters): the grid's dpbuf (ndir, 2, 4H, ldh),
+// dhbuf and dcbuf (ndir, B, H), fp32 zeros; the wide branch's exchange
+// buffer (fp32) as dpbuf and its step flags (int32) as dhbuf, sized by
+// lstm_bidir_train_bwd_wide_scratch (the library zeroes the flags on the
+// stream).  *branch: the branch launched, as lstm_bidir_train_bwd_branch
+// numbers them.  Returns a cudaError_t; 0 means launched.
 int lstm_bidir_train_backward(const void* planes, const void* w_hh,
                               const void* dy, void* dgx, void* dpbuf,
                               void* dhbuf, void* dcbuf, int T, int B, int H,
@@ -339,7 +360,8 @@ int lstm_bidir_train_backward(const void* planes, const void* w_hh,
   int plan = 0;
   cudaError_t err = cluster_branch<LstmCell>(B, H, ndir, bf16, &plan);
   if (err != cudaSuccess) return (int)err;
-  if (plan == kBwdGrid && (!dpbuf || !dhbuf || !dcbuf))
+  if ((plan == kBwdGrid && (!dpbuf || !dhbuf || !dcbuf)) ||
+      (plan == kBwdWide && (bf16 || !dpbuf || !dhbuf)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = bf16 ? launch_bwd<__nv_bfloat16>(planes, w_hh, dy, dgx, dpbuf, dhbuf,

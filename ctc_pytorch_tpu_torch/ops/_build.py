@@ -25,8 +25,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 # the serial backward kernels' branches, as their launchers number them
 # (csrc/bwd_hoist.cuh BwdBranch): the cooperative grid, the bf16 tensor-core
-# clusters of 16 or 32 batch rows, and the LSTM's fp32 cluster of 16 rows
-BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32")
+# clusters of 16 or 32 batch rows, the fp32 cluster of 16 rows, and the
+# wide-batch fp32 branch (csrc/bwd_wide.cuh: one CTA an SM, 3xTF32 on the
+# tensor cores, the partial dh exchanged through L2 under step flags)
+BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32", "wide_fp32")
 # the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch), which the
 # tanh cell's backward takes too: the cooperative grid, the bf16
 # tensor-core clusters of 16 or 32 batch rows, the fp32 cluster of 16
@@ -84,6 +86,35 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
         raise RuntimeError(f"{prefix} forward kernel launch failed ({err}: "
                            f"{msg}) at T={t_len} B={b} H={h}")
     return FWD_BRANCHES[branch.value]
+
+
+def serial_scratch(lib, prefix: str, branch: str, b: int, h: int, ndir: int,
+                   dp_rows: int, device) -> list:
+    """The scratch of a backward serial launch ``<prefix>_backward`` on
+    ``branch`` (``BRANCHES``), as the entry takes it after ``dgx`` (and the
+    GRU's ``dhhn``): the grid's zeroed fp32 dpre double buffer ``(ndir, 2,
+    dp_rows, ldh)`` and dh scratch ``(ndir, B, H)`` (the LSTM passes a dc
+    scratch of that shape too, after them); the wide branch's exchange
+    buffer and step flags, sized by ``<prefix>_bwd_wide_scratch`` (the
+    library zeroes the flags on the stream); nothing for the clusters."""
+    import torch
+
+    if branch == "grid":
+        ldh = -(-b // 4) * 4
+        return [torch.zeros(ndir, 2, dp_rows, ldh, dtype=torch.float32,
+                            device=device),
+                torch.zeros(ndir, b, h, dtype=torch.float32, device=device)]
+    if branch == "wide_fp32":
+        n_x, n_flags = ctypes.c_size_t(0), ctypes.c_size_t(0)
+        err = getattr(lib, f"{prefix}_bwd_wide_scratch")(
+            b, h, ndir, ctypes.byref(n_x), ctypes.byref(n_flags))
+        if err != 0 or n_x.value == 0:
+            msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+            raise RuntimeError(f"{prefix} wide backward has no scratch ({err}: "
+                               f"{msg}) at B={b} H={h}")
+        return [torch.empty(n_x.value, dtype=torch.float32, device=device),
+                torch.empty(n_flags.value, dtype=torch.int32, device=device)]
+    return []
 
 
 def device_kind(t, what: str) -> str:

@@ -57,8 +57,8 @@ LIBRARY = KernelLibrary(
      "gru_bidir_forward": (
          [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "gru_bidir_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_wide.cuh",
-             "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh",
+             "fwd_wide.cuh", "fwd_cluster.cuh"])
 
 # kernel launches made through ``gru_bidir``; the plain path adds nothing
 launches = 0

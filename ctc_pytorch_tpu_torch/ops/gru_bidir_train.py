@@ -28,14 +28,18 @@ belong to the caller's ``torch.matmul``.
 
 The forward's branches are the eval op's, counted here by the branch the
 library reported (``launches_fwd_branch``; with fp32 streams at B = 128 the
-wide branch, ``wide_fp32``).  The serial chain has three branches, which
+wide branch, ``wide_fp32``).  The serial chain has four branches, which
 the launcher chooses by shape and reports (``launches_bwd_branch``): with
 bf16 streams and H <= 480 a thread-block cluster per (direction, 16 or 32
 batch rows) runs its step product on the tensor cores and exchanges it in
 distributed shared memory (``cluster16``, ``cluster32``); with fp32 streams
 (B = 8, the 863 GRU recipe over two data-parallel ranks) a cluster of 8 or
 16 CTAs per (direction, 16 rows) does it in fp32 FMA (``cluster16_fp32``,
-H <= 500, where all its clusters fit at once); every other shape takes the
+H <= 500, where all its clusters fit at once); with fp32 streams where
+those clusters do not all fit (B = 128) the wide branch (``wide_fp32``,
+``csrc/bwd_wide.cuh``: one CTA an SM with its gate columns' rows of
+``w_hh`` resident, the product in 3xTF32 on the tensor cores, the partial
+dh exchanged through L2 under step flags); every other shape takes the
 persistent cooperative grid, fp32 products on CUDA cores
 (``csrc/bwd_hoist.cuh``, ``csrc/gru_bidir_train.cu`` count the limits).  Any
 T >= 1, B >= 1 and H run, with no padding of the caller's tensors.
@@ -63,6 +67,7 @@ from ctc_pytorch_tpu_torch.ops._build import (
     padded_planes,
     prepass_weights,
     per_direction,
+    serial_scratch,
     shifted,
     step_times,
 )
@@ -72,10 +77,12 @@ LIBRARY = KernelLibrary(
     "gru_bidir_train.cu",
     {"gru_bidir_train_bwd_prepass": ([_VP] * 4 + [_CI] * 6 + [_VP], _CI),
      "gru_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "gru_bidir_train_bwd_wide_scratch": (
+         [_CI] * 3 + [ctypes.POINTER(ctypes.c_size_t)] * 2, _CI),
      "gru_bidir_train_backward": (
          [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "gru_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"])
+    headers=["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh"])
 
 PLANES = 5  # the pre-pass planes [P_r | P_z | P_n | P_hn | Z]
 
@@ -218,15 +225,11 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h
     if err != 0:
         _raise(lib, err, "gru_bidir_train backward branch", t_len, b, h)
     ldh = -(-b // 4) * 4
-    scratch = []
-    if BRANCHES[branch.value] == "grid":
-        # the grid branch's: exchange double buffer, (direction, parity, K4,
-        # ldh): 3H rows padded to a multiple of 4, row length to a multiple
-        # of 4 floats (16-byte copies); the dh scratch
-        k4 = -(-3 * h // 4) * 4
-        scratch = [torch.zeros(ndir, 2, k4, ldh, dtype=torch.float32,
-                               device=dy.device),
-                   torch.zeros(ndir, b, h, dtype=torch.float32, device=dy.device)]
+    # the grid's exchange double buffer (3H rows padded to a multiple of 4,
+    # for 16-byte copies) and dh scratch; the wide branch's exchange buffer
+    # and flags
+    scratch = serial_scratch(lib, "gru_bidir_train", BRANCHES[branch.value],
+                             b, h, ndir, -(-3 * h // 4) * 4, dy.device)
     ptrs = [x.data_ptr() for x in scratch] or [None] * 2
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     err = lib.gru_bidir_train_backward(

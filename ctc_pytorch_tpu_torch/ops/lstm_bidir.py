@@ -51,8 +51,8 @@ LIBRARY = KernelLibrary(
      "lstm_bidir_forward": (
          [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
-             "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh", "gru_fwd.cuh",
+             "fwd_wide.cuh", "fwd_cluster.cuh"])
 
 # kernel launches made through ``lstm_bidir``; the plain path adds nothing
 launches = 0

@@ -26,7 +26,7 @@ shifted ``ys`` against ``dgx`` (as the JAX package forms it outside Pallas);
 the input projection and its gradients belong to the caller's
 ``torch.matmul``.
 
-The serial chain has three branches, which the launcher chooses by shape
+The serial chain has four branches, which the launcher chooses by shape
 and reports (``launches_bwd_branch``).  Two are a thread-block cluster per
 direction and slice of batch rows, with the rows of ``w_hh`` that each
 CTA's gate columns meet resident in its shared memory and the partial dh
@@ -34,10 +34,14 @@ exchanged in distributed shared memory: with bf16 streams and H <= 416,
 16 or 32 rows a cluster and the step product on the tensor cores
 (``cluster16``, ``cluster32``); with fp32 streams and H <= 432, 16 rows a
 cluster of 8 or 16 CTAs and the product in fp32 on CUDA cores
-(``cluster16_fp32``: the recipes' batch of 8).  Every other shape (fp32
-streams at B = 128, H past the bounds) takes the persistent cooperative
-grid, fp32 products on CUDA cores, the only branch with global scratch
-(``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The forward has
+(``cluster16_fp32``: the recipes' batch of 8).  With fp32 streams where
+those clusters do not all fit (B >= 64) the wide branch (``wide_fp32``,
+``csrc/bwd_wide.cuh``): one CTA an SM, the same split of the contraction,
+the product in 3xTF32 on the tensor cores and the partial dh exchanged
+through L2 under step flags.  Every other shape (H past the bounds) takes
+the persistent cooperative grid, fp32 products on CUDA cores
+(``csrc/bwd_hoist.cuh``, ``csrc/lstm_bidir_train.cu``).  The grid and the
+wide branch take global scratch.  The forward has
 branches of its own, chosen and reported the same way
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it and h exchanged in distributed
@@ -75,6 +79,7 @@ from ctc_pytorch_tpu_torch.ops._build import (
     padded_planes,
     prepass_weights,
     per_direction,
+    serial_scratch,
     shifted,
     step_times,
 )
@@ -87,11 +92,13 @@ LIBRARY = KernelLibrary(
          [_VP] * 6 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_bwd_prepass": ([_VP] * 5 + [_CI] * 6 + [_VP], _CI),
      "lstm_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
+     "lstm_bidir_train_bwd_wide_scratch": (
+         [_CI] * 3 + [ctypes.POINTER(ctypes.c_size_t)] * 2, _CI),
      "lstm_bidir_train_backward": (
          [_VP] * 7 + [_CI] * 7 + [_VP, ctypes.POINTER(_CI)], _CI),
      "lstm_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
-    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
-             "fwd_cluster.cuh"])
+    headers=["lstm_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh", "gru_fwd.cuh",
+             "fwd_wide.cuh", "fwd_cluster.cuh"])
 
 PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
 
@@ -278,14 +285,13 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h) -> torch.Tensor:
     if err != 0:
         _raise(lib, err, "lstm_bidir_train backward branch", t_len, b, h)
     ldh = -(-b // 4) * 4
-    scratch = []
+    # the grid's dpre double buffer (4H rows), dh and dc scratch; the wide
+    # branch's exchange buffer and flags
+    scratch = serial_scratch(lib, "lstm_bidir_train", BRANCHES[branch.value],
+                             b, h, ndir, 4 * h, dy.device)
     if BRANCHES[branch.value] == "grid":
-        # the grid branch's: dpre double buffer, (direction, parity, 4H,
-        # ldh), as hbuf above; the dh and dc scratch
-        dhbuf = torch.zeros(ndir, b, h, dtype=torch.float32, device=dy.device)
-        scratch = [torch.zeros(ndir, 2, 4 * h, ldh, dtype=torch.float32,
-                               device=dy.device), dhbuf, torch.zeros_like(dhbuf)]
-    ptrs = [x.data_ptr() for x in scratch] or [None] * 3
+        scratch.append(torch.zeros_like(scratch[1]))
+    ptrs = [x.data_ptr() for x in scratch] + [None] * (3 - len(scratch))
     stream = torch.cuda.current_stream(dy.device).cuda_stream
     err = lib.lstm_bidir_train_backward(
         planes.data_ptr(), w.data_ptr(), dy.data_ptr(), dgx.data_ptr(), *ptrs,

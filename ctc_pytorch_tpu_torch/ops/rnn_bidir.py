@@ -48,7 +48,7 @@ from ctc_pytorch_tpu_torch.ops._build import (
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # every csrc/ header the tanh sources include
 HEADERS = ["lstm_fwd.cuh", "rnn_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh",
-           "fwd_wide.cuh", "fwd_cluster.cuh"]
+           "bwd_wide.cuh", "fwd_wide.cuh", "fwd_cluster.cuh"]
 LIBRARY = KernelLibrary(
     "rnn_bidir.cu",
     {"rnn_bidir_fwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),

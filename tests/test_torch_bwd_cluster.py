@@ -25,6 +25,7 @@ import torch
 from ctc_pytorch_tpu.ops.lstm_pallas_train_v2 import lstm_scan_train_v2
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as ops
 from ctc_pytorch_tpu_torch.ops._build import BRANCHES, per_direction, step_times
+from test_torch_wide_bwd import fp32_branch
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -101,16 +102,12 @@ def expected_branch(cell, b, h, dtype, ndir):
     where only the card's cluster capacity decides.  Clusters of 8 CTAs: 15
     fit at once on the card; clusters of 16 surely fit four at once and
     surely not more than eight (one a GPC).  fp32 streams take the fp32
-    cluster for both cells (the GRU with three gate columns a unit)."""
+    cluster for both cells (the GRU with three gate columns a unit); where
+    it does not fit, the wide branch where its shape holds, else the grid
+    (``test_torch_wide_bwd.fp32_branch``)."""
     if dtype == "bf16":
         return "cluster" if h <= MMA_BOUND[cell] else "grid"
-    uc, cl, _, _, _, ok = fma_bwd_shape(h, 4 if cell == "lstm" else 3)
-    clusters = ndir * -(-b // ROWS)
-    if not ok:
-        return "grid"
-    if clusters <= (15 if cl <= 8 else 4):
-        return "cluster16_fp32"
-    return "grid" if clusters > 8 else None
+    return fp32_branch(cell, b, h, ndir)
 
 
 @pytest.mark.parametrize("case", chip_smoke.HOIST_CASES,
@@ -123,7 +120,8 @@ def test_each_card_case_names_its_branch(case):
 
 def test_the_card_cases_cover_the_fp32_branch():
     """Both sides of each fp32 bound, the recipes' shapes, T = 1, B = 1 with
-    one direction, and B = 128 on the grid."""
+    one direction, and B = 128 on the wide branch, which takes H past the
+    cluster's bound too."""
     fp32 = {(t, b, h, ndir): branch for cell, t, b, h, dtype, ndir, branch
             in chip_smoke.HOIST_CASES if cell == "lstm" and dtype == "fp32"}
     for key, branch in (((100, 8, 384, 2), "cluster16_fp32"),
@@ -131,11 +129,11 @@ def test_the_card_cases_cover_the_fp32_branch():
                         ((100, 4, 384, 2), "cluster16_fp32"),
                         ((1, 8, 384, 2), "cluster16_fp32"),
                         ((9, 1, 384, 1), "cluster16_fp32"),
-                        ((80, 128, 384, 2), "grid")):
+                        ((80, 128, 384, 2), "wide_fp32")):
         assert fp32.get(key) == branch, key
-    hs = {h: branch for (_, _, h, _), branch in fp32.items()}
+    hs = {h: branch for (_, b, h, _), branch in fp32.items() if b <= 8}
     assert hs.get(BOUND_CL16) == "cluster16_fp32"
-    assert hs.get(BOUND_CL16 + 1) == "grid"
+    assert hs.get(BOUND_CL16 + 1) == "wide_fp32"
     assert any(fma_bwd_shape(h)[1] <= 8 for h in hs)
 
 

@@ -1066,14 +1066,16 @@ def test_cli_run_stage_2_reads_every_utterance_natively_on_the_card(
 @pytest.mark.parametrize("case", chip_smoke.WIDE_NAN_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_wide_forward_reads_only_published_h(card, case):
-    """The wide branch (``csrc/fwd_wide.cuh``) launched again and again with
-    its exchange buffer filled with NaN and its step flags with a large
+    """The wide branches (``csrc/fwd_wide.cuh``; the backward's serial chain,
+    ``csrc/bwd_wide.cuh``, at its cases) launched again and again with
+    their exchange buffer filled with NaN and their step flags with a large
     count before every launch (``chip_smoke.wide_nan_launches``), from gates
-    at 0.05 and at unit scale: a read of a block of h before its writers
-    published it would read NaN at the first step and a stale h after, and
-    the kernel is deterministic, so no launch may hold a non-finite value or
-    differ in any bit from the first; the first holds the twin (fp32 1e-4,
-    bf16 streams 2e-2, as the other cases here)."""
+    at 0.05 and at unit scale: a read of a block of h (of a partial dh)
+    before its writers published it would read NaN at the first step and a
+    stale value after, and the kernels are deterministic, so no launch may
+    hold a non-finite value or differ in any bit from the first; the first
+    holds the twin (fp32 1e-4, bf16 streams 2e-2, as the other cases
+    here)."""
     tol = 1e-4 if case[-1] == "fp32" else 2e-2
     for scale in chip_smoke.DECODE_SCALES:
         r = chip_smoke.wide_nan_launches(*case, scale, seed=5, n=40)

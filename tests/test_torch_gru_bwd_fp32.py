@@ -30,6 +30,7 @@ from ctc_pytorch_tpu.ops.gru_pallas_v2 import gru_scan_train_v2
 from ctc_pytorch_tpu_torch.ops import gru_bidir as eval_ops
 from ctc_pytorch_tpu_torch.ops import gru_bidir_train as ops
 from ctc_pytorch_tpu_torch.ops._build import BRANCHES, CSRC, per_direction, step_times
+from test_torch_wide_bwd import fp32_branch
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -93,16 +94,10 @@ def expected_branch(b, h, ndir):
     """The launcher's rule for the GRU on fp32 streams: the fp32 cluster
     where its shared memory fits and all of its clusters fit at once (15
     clusters of 8 one-CTA-per-SM blocks, surely four of 16, fewer than 8 of
-    16), else the grid; None where only the card's occupancy tells."""
-    _, cl, _, _, _, smem, ok = fma_bwd_shape(h)
-    clusters = ndir * -(-b // ROWS)
-    if not ok:
-        return "grid"
-    if clusters <= (15 if cl <= 8 else 4):
-        return "cluster16_fp32"
-    if cl > 8 and clusters >= 8:
-        return "grid"
-    return "grid" if smem > SMEM // 2 and clusters >= 16 else None
+    16), else the wide branch where its shape holds, else the grid; None
+    where only the card's occupancy tells (``test_torch_wide_bwd.
+    fp32_branch``)."""
+    return fp32_branch("gru", b, h, ndir)
 
 
 GRU_FP32 = [c for c in chip_smoke.HOIST_CASES if c[0] == "gru" and c[4] == "fp32"]
@@ -116,19 +111,20 @@ def test_each_gru_fp32_card_case_names_its_branch(case):
 
 def test_the_card_cases_cover_the_gru_fp32_branch():
     """The 863 GRU model at B = 8 and its longest bucket, B = 128 on the
-    grid, T = 1 with B = 1, B = 17, one direction with H % 4 != 0, each side
-    of both bounds; a graph case of the branch."""
+    wide branch, T = 1 with B = 1, B = 17, one direction with H % 4 != 0,
+    each side of both bounds (past the last, the wide branch); a graph case
+    of the branch."""
     got = {(t, b, h, ndir): branch for _, t, b, h, _, ndir, branch in GRU_FP32}
     for key, branch in (((95, 8, 256, 2), "cluster16_fp32"),
                         ((195, 8, 256, 2), "cluster16_fp32"),
-                        ((95, 128, 256, 2), "grid"),
+                        ((95, 128, 256, 2), "wide_fp32"),
                         ((1, 1, 32, 2), "cluster16_fp32"),
                         ((12, 17, 48, 2), "cluster16_fp32"),
                         ((10, 20, 37, 1), "cluster16_fp32"),
                         ((6, 8, BOUND_CL8, 2), "cluster16_fp32"),
                         ((6, 8, BOUND_CL8 + 1, 2), "cluster16_fp32"),
                         ((6, 8, BOUND_CL16, 2), "cluster16_fp32"),
-                        ((6, 8, BOUND_CL16 + 1, 2), "grid")):
+                        ((6, 8, BOUND_CL16 + 1, 2), "wide_fp32")):
         assert got.get(key) == branch, key
     assert fma_bwd_shape(BOUND_CL8 + 1)[1] > 8  # 15 CTAs at H = 345
     assert ("gru_bwd", 95, 8, 256, "fp32", 2, "cluster16_fp32") in \

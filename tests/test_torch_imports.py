@@ -159,8 +159,8 @@ def test_kernel_modules_build_nothing_at_import():
     # a header is part of the version: both LSTM sources include the
     # forward's cluster header, which includes lstm_fwd.cuh (the grid), the
     # hoisted backward's header, gru_fwd.cuh and the wide branch's header
-    fwd = ["lstm_fwd.cuh", "bwd_hoist.cuh", "gru_fwd.cuh", "fwd_wide.cuh",
-           "fwd_cluster.cuh"]
+    fwd = ["lstm_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh", "gru_fwd.cuh",
+           "fwd_wide.cuh", "fwd_cluster.cuh"]
     assert [h.name for h in lstm_ops.LIBRARY.headers] == fwd
     assert [h.name for h in lstm_bidir_train.LIBRARY.headers] == fwd
     for lib in (lstm_ops.LIBRARY, lstm_bidir_train.LIBRARY):
@@ -186,11 +186,12 @@ def test_gru_kernel_modules_build_nothing_at_import():
     # and bwd_hoist.cuh
     for lib, source, headers, inc in (
             (gru_bidir.LIBRARY, "gru_bidir.cu",
-             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "fwd_wide.cuh",
-              "fwd_cluster.cuh"],
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh",
+              "fwd_wide.cuh", "fwd_cluster.cuh"],
              "fwd_cluster.cuh"),
             (gru_bidir_train.LIBRARY, "gru_bidir_train.cu",
-             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh"], "gru_fwd.cuh")):
+             ["lstm_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh", "bwd_wide.cuh"],
+             "gru_fwd.cuh")):
         assert lib._lib is None and lib.source.name == source
         assert lib.source.exists() and all(h.exists() for h in lib.headers)
         assert lib.output_path().parent == _build.BUILD_DIR
@@ -204,7 +205,7 @@ def test_gru_kernel_modules_build_nothing_at_import():
     # is a pre-pass and a serial launch, whose branch the library names first
     assert set(gru_bidir_train.LIBRARY.functions) == {
         "gru_bidir_train_bwd_prepass", "gru_bidir_train_bwd_branch",
-        "gru_bidir_train_backward",
+        "gru_bidir_train_bwd_wide_scratch", "gru_bidir_train_backward",
         "gru_bidir_train_error_string"}
     assert not hasattr(stacked, "LIBRARY")  # wrappers: no kernel of their own
 
@@ -223,7 +224,7 @@ def test_rnn_kernel_modules_build_nothing_at_import():
         # fwd_wide.cuh)
         assert {h.name for h in lib.headers} == included(lib.source) == {
             "lstm_fwd.cuh", "rnn_fwd.cuh", "gru_fwd.cuh", "bwd_hoist.cuh",
-            "fwd_wide.cuh", "fwd_cluster.cuh"}
+            "bwd_wide.cuh", "fwd_wide.cuh", "fwd_cluster.cuh"}
         assert '#include "rnn_fwd.cuh"' in lib.source.read_text()
     assert '#include "lstm_fwd.cuh"' in (_build.CSRC / "rnn_fwd.cuh").read_text()
     # the trainable op's forward is the eval library's kernel; its own

@@ -3,8 +3,11 @@
 and GRU's backward serial kernel (``bwd_cluster_kernel`` in
 ``ctc_pytorch_tpu_torch/csrc/bwd_hoist.cuh``) at the bench and recipe shapes
 with bf16 streams, the LSTM's on fp32 streams (``bwd_fma_kernel``, same
-header) at the recipes' batches of 8 and 4 and the GRU's at B = 8, the
-forward kernels (``fwd_mma_kernel``, ``fwd_fma_kernel``, ``fma1_kernel`` in
+header) at the recipes' batches of 8 and 4 and the GRU's at B = 8, the wide
+backward (``bwd_wide_kernel`` in ``csrc/bwd_wide.cuh``) at the fp32 bench
+shapes and the LSTM's grid backward (``lstm_bidir_bwd_kernel`` in
+``csrc/lstm_bidir_train.cu``) beside it, the forward kernels
+(``fwd_mma_kernel``, ``fwd_fma_kernel``, ``fma1_kernel`` in
 ``csrc/fwd_cluster.cuh``, ``fwd_wide_kernel`` in ``csrc/fwd_wide.cuh``) at
 the main paths' and bench shapes, for the LSTM, the GRU and the tanh cell
 forward and backward, and the grid forward (``csrc/lstm_fwd.cuh``) at the
@@ -48,8 +51,22 @@ GRID_PHASES = ["gate inputs and the first tile issued",
 WIDE_PHASES = ["the flags", "product", "the k splits' barrier and sum",
                "gate math", "exchange, flag and stores"]
 
+# the wide backward's step (bwd_wide.cuh), stamped by thread 0 (an
+# element-wise owner and a writer)
+WIDE_BWD_PHASES = ["the flags", "receive sum", "element-wise step and dgx "
+                   "issued", "next loads issued", "CTA barrier",
+                   "product and exchange stores", "fence and flag"]
+
+# the grid backward's step (lstm_bidir_train.cu); staging and product are
+# summed over the step's k-tiles of dpre
+GRID_BWD_PHASES = ["the first tile issued",
+                   "staging (cp.async waits and the barrier)",
+                   "product (and the barrier after each tile)",
+                   "cell backward, dgx and the exchange write", "grid.sync()"]
+
 MAIN = r"""
 #include "fwd_cluster.cuh"
+#include "lstm_bidir_train.cu"  // the grid backward's launcher
 #include <cstdio>
 
 #include <type_traits>
@@ -220,6 +237,116 @@ void run_fma(int T, int B, int H, const char* what) {
   }
 }
 
+// one fp32 serial launch of the LSTM's or GRU's wide backward, with its
+// stamps (whatever the launcher would pick)
+template <class Cell>
+void run_wide_bwd(int T, int B, int H, const char* what) {
+  const int P = Cell::kPlanes, G = Cell::kGates, ndir = 2;
+  const int Hp = (H + 3) / 4 * 4;
+  const size_t n_planes = (size_t)ndir * T * P * B * Hp;
+  const size_t n_w = (size_t)ndir * H * G * H, n_y = (size_t)T * B * ndir * H;
+  float *planes, *w, *dy, *dgx, *dhhn, *xbuf;
+  int* flags;
+  size_t n_x = 0, n_flags = 0;
+  bwd_wide_scratch<Cell>(B, H, ndir, &n_x, &n_flags);
+  cudaMalloc(&planes, n_planes * 4);
+  cudaMalloc(&w, n_w * 4);
+  cudaMalloc(&dy, n_y * 4);
+  cudaMalloc(&dgx, n_y * G * 4);
+  cudaMalloc(&dhhn, n_y * 4);
+  cudaMalloc(&xbuf, n_x * 4);
+  cudaMalloc(&flags, n_flags * 4);
+  cudaMemset(planes, 0, n_planes * 4);
+  cudaMemset(w, 0, n_w * 4);
+  cudaMemset(dy, 0, n_y * 4);
+  int sms = 0;
+  device_sms(&sms);
+  const BwdWideShape s = bwd_wide_shape(G, H, B, ndir, sms);
+  bool fit = false;  // and raises the kernel's shared memory limit
+  bwd_wide_fits<Cell>(B, H, ndir, &fit);
+  if (!fit) {
+    printf("%s: the wide backward does not fit, no stamps\n", what);
+    return;
+  }
+  for (int rep = 0; rep < 2; ++rep) {
+    long long zero[16] = {0};
+    cudaMemcpyToSymbol(bwd_step_cycles, zero, sizeof(zero));
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    cudaEventRecord(a);
+    const cudaError_t err = launch_bwd_wide<Cell>(
+        planes, w, dy, dgx, std::is_same<Cell, GruCell>::value ? dhhn : nullptr,
+        xbuf, flags, T, B, H, Hp, ndir, 0);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, a, b);
+    long long acc[16];
+    cudaMemcpyFromSymbol(acc, bwd_step_cycles, sizeof(acc));
+    long long total = 0;
+    printf("%s: Uc %d, RB %d, %d CTAs of %d warps (%zu B shared), %.4f ms, "
+           "%.2f us a step; cycles a step by phase:",
+           what, s.uc, s.rb, ndir * s.nr * s.nj, s.warps, s.smem, ms,
+           1e3 * ms / T);
+    for (int i = 0; i < 7; ++i) {
+      printf(" %lld", acc[i] / (T - 1));
+      total += acc[i];
+    }
+    printf(" | total %lld (%s)\n", total / (T - 1),
+           cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+  }
+}
+
+// one fp32 launch of the LSTM's grid backward (lstm_bidir_train.cu),
+// whatever the launcher would pick, with its stamps
+void run_grid_bwd(int T, int B, int H, const char* what) {
+  const int P = LstmCell::kPlanes, ndir = 2, ldh = (B + 3) / 4 * 4;
+  const int Hp = (H + 3) / 4 * 4;
+  const size_t n_planes = (size_t)ndir * T * P * B * Hp;
+  const size_t n_w = (size_t)ndir * H * 4 * H, n_y = (size_t)T * B * ndir * H;
+  float *planes, *w, *dy, *dgx, *dpbuf, *dhbuf, *dcbuf;
+  cudaMalloc(&planes, n_planes * 4);
+  cudaMalloc(&w, n_w * 4);
+  cudaMalloc(&dy, n_y * 4);
+  cudaMalloc(&dgx, n_y * 4 * 4);
+  cudaMalloc(&dpbuf, (size_t)ndir * 2 * 4 * H * ldh * 4);
+  cudaMalloc(&dhbuf, (size_t)ndir * B * H * 4);
+  cudaMalloc(&dcbuf, (size_t)ndir * B * H * 4);
+  cudaMemset(planes, 0, n_planes * 4);
+  cudaMemset(w, 0, n_w * 4);
+  cudaMemset(dy, 0, n_y * 4);
+  for (int rep = 0; rep < 2; ++rep) {
+    long long zero[8] = {0};
+    cudaMemcpyToSymbol(grid_step_cycles, zero, sizeof(zero));
+    cudaMemset(dpbuf, 0, (size_t)ndir * 2 * 4 * H * ldh * 4);
+    cudaMemset(dhbuf, 0, (size_t)ndir * B * H * 4);
+    cudaMemset(dcbuf, 0, (size_t)ndir * B * H * 4);
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    cudaEventRecord(a);
+    const cudaError_t err =
+        launch_bwd<float>(planes, w, dy, dgx, dpbuf, dhbuf, dcbuf, T, B, H, Hp,
+                          ldh, ndir, kBwdGrid, 0);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, a, b);
+    long long acc[8];
+    cudaMemcpyFromSymbol(acc, grid_step_cycles, sizeof(acc));
+    long long total = 0;
+    printf("%s: grid, %.4f ms, %.2f us a step; cycles a step by phase:", what,
+           ms, 1e3 * ms / T);
+    for (int i = 0; i < 5; ++i) {
+      printf(" %lld", acc[i] / T);
+      total += acc[i];
+    }
+    printf(" | total %lld (%s)\n", total / T,
+           cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+  }
+}
+
 // one launch of the grid forward (lstm_fwd.cuh), whatever the launcher
 // would pick, with its stamps
 template <typename S, bool kTrain>
@@ -280,6 +407,13 @@ int main() {
   run_fma<LstmCell>(100, 4, 384, "lstm T=100 B=4 H=384 fp32");
   run_fma<GruCell>(95, 8, 256, "gru T=95 B=8 H=256 fp32");
   run_fma<GruCell>(195, 8, 256, "gru T=195 B=8 H=256 fp32");
+  printf("backward, fp32 streams, wide branch\n");
+  run_wide_bwd<LstmCell>(80, 128, 384, "lstm T=80 B=128 H=384 fp32");
+  run_wide_bwd<LstmCell>(80, 64, 384, "lstm T=80 B=64 H=384 fp32");
+  run_wide_bwd<GruCell>(95, 128, 256, "gru T=95 B=128 H=256 fp32");
+  printf("backward, fp32 streams, grid\n");
+  run_grid_bwd(80, 128, 384, "lstm T=80 B=128 H=384 fp32");
+  run_grid_bwd(80, 64, 384, "lstm T=80 B=64 H=384 fp32");
   printf("forward\n");
   run_fwd<LstmCell, float, false>(100, 8, 384, "lstm eval T=100 B=8 H=384 fp32");
   run_fwd<LstmCell, float, true>(100, 8, 384, "lstm train T=100 B=8 H=384 fp32");
@@ -321,6 +455,8 @@ def main() -> int:
     print("backward phases:", ", ".join(PHASES))
     print("forward phases:", ", ".join(FWD_PHASES))
     print("wide forward phases:", ", ".join(WIDE_PHASES))
+    print("wide backward phases:", ", ".join(WIDE_BWD_PHASES))
+    print("grid backward phases:", ", ".join(GRID_BWD_PHASES))
     print("grid forward phases:", ", ".join(GRID_PHASES))
     subprocess.run([str(exe)], check=True)
     return 0
