@@ -150,13 +150,25 @@ printed line; any failure ends the run with a nonzero exit and no result:
     NaN-filled exchange buffer, the flagship's and the 863 GRU model's fp32
     steps at B=128 through the kernels and the twins (forwards and
     backwards on ``wide_fp32``) and timed against the grid, each with the
-    branch asserted.
+    branch asserted;
+17. remat (``phase_remat``): the waveform recipe (B=128, dropout 0.2) for
+    one graphed fused epoch through ``cli.train.train`` and one eager step,
+    the flagship (B=8, fp32 streams) for one graphed fused epoch and one
+    eager step, and the 863 GRU model for one eager step at B=16, each with
+    ``remat: true`` against ``remat: false`` from one seeded state: loss,
+    gradients, every parameter and BN buffer bit for bit, the training
+    forward kernel launched twice a layer a step under remat and once
+    without (the recompute), every other kernel as often; the eager steps'
+    peak memory and time both ways; then ``ctc_forward_score`` through
+    ``ctc_fwd_kernel`` against its twin, an impossible alignment scoring
+    exactly ``NEG_INF``.
 
 Ten model paths are driven: the flagship (phases 4 and 5), the 863 model
 with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
 flagship (phase 8), the mfcc_39 model (phase 11), the waveform model (phase
 12), the flagship through ``cli.run`` (phase 13), the two 863 LSTM recipes
-(phase 14) and the flagship data parallel (phase 15).
+(phase 14) and the flagship data parallel (phase 15); phase 17 drives the
+waveform recipe, the flagship and the 863 GRU model again with remat.
 
 Every profiled device time counts kernels, copies and sets only
 (``device_activity``), not the user annotations that ``torch.profiler``
@@ -345,8 +357,8 @@ def recurrence_inputs(t, b, h, dtype, seed, gates: int = 4, ndir: int = 2,
     return gx, w_hh.cuda(), dy
 
 
-def ctc_inputs(t, b, c, l, seed, full: bool = False):
-    """``(log_probs, labels, input_lengths, label_lengths)`` on the card.
+def ctc_inputs(t, b, c, l, seed, full: bool = False, device: str = "cuda"):
+    """``(log_probs, labels, input_lengths, label_lengths)`` on ``device``.
     Neighbouring labels differ, so ``l`` labels fit in ``l`` frames.  With
     ``full`` every utterance has all ``t`` frames and ``l`` labels; otherwise
     both lengths are drawn below the pad."""
@@ -364,7 +376,7 @@ def ctc_inputs(t, b, c, l, seed, full: bool = False):
                                dtype=torch.int32)
         lab_len = torch.randint(0, l + 1, (b,), generator=gen,
                                 dtype=torch.int32)
-    return tuple(x.cuda() for x in (log_probs, labels, in_len, lab_len))
+    return tuple(x.to(device) for x in (log_probs, labels, in_len, lab_len))
 
 
 def port_ops():
@@ -5562,6 +5574,373 @@ def dp_nccl_one_rank(cfg, spec) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: remat
+# ---------------------------------------------------------------------------
+
+# the kernel whose launches double under remat, by cell: the training forward
+TRAIN_FWD = {"lstm": "lstm_bidir_train_fwd", "gru": "gru_bidir_train_fwd",
+             "rnn": "rnn_bidir_train_fwd"}
+REMAT_STEP_REPS = 10
+
+
+def remat_data(device: str) -> None:
+    """The corpora the remat phase trains on, written if an earlier phase
+    has not (so that the phase also runs alone): the flagship's and the 863
+    model's train and dev splits, and the waveform recipe's audio with
+    stage 1's CMVN statistics."""
+    from ctc_pytorch_tpu_torch.cli import make_feat
+
+    write_corpus(WORK / "data", "train", N_TRAIN_UTTS, seed=1)
+    write_corpus(WORK / "data", "dev", N_DEV_UTTS, seed=2)
+    for split, n, seed in (("train", N_TRAIN_UTTS_863, 11),
+                           ("dev", N_DEV_UTTS_863, 12)):
+        write_corpus(WORK / "data863", split, n, seed=seed, dim=201,
+                     units=UNITS_863, feats="spectrum", labels="text")
+    root = WORK / "data_wave"
+    if not (root / "global_fbank_cmvn.npz").exists():
+        for split, n, seed in WAVE_SPLITS:
+            write_audio_corpus(root, split, n, seed)
+        make_feat.main(["fbank", str(root), "--device", device])
+
+
+def waveform_config():
+    """``recipes/timit/waveform_config.yaml`` on phase 12's corpus."""
+    cfg = recipe_config(RECIPE_WAVE, "data_wave", "wav")
+    cfg.data_dir = str(WORK / "data_wave")
+    return cfg
+
+
+def remat_branches() -> dict:
+    """Every op's launches by branch since ``zero_counts``: the forwards'
+    and the tanh backward's (``cluster_branch_counts``), the LSTM's and
+    CTC's (``path_branches``) and the GRU backward's."""
+    _, gru_train_ops = port_gru_ops()
+    took = {op: {k: v for k, v in by.items() if v}
+            for op, by in cluster_branch_counts().items() if any(by.values())}
+    took.update(path_branches())
+    if any(gru_train_ops.launches_bwd_branch.values()):
+        took["gru_bidir_train_bwd"] = {
+            k: v for k, v in gru_train_ops.launches_bwd_branch.items() if v}
+    return took
+
+
+def states_equal(a: dict, b: dict) -> list:
+    """The keys of two state dicts (or gradient dicts) whose tensors are not
+    equal bit for bit."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def remat_fit(cfg, device: str) -> dict:
+    """One epoch of ``cfg`` through ``cli.train.train`` (the recipe's fused
+    epoch from captured graphs) under deterministic algorithms: the
+    launches, the replays, the loss histories and the state after it (on
+    the host)."""
+    from ctc_pytorch_tpu_torch.cli import train as cli_train
+
+    zero_counts()
+    lines = []
+    with deterministic():
+        t0 = time.perf_counter()
+        trainer, _ = cli_train.train(cfg, device=device, num_epoches=1,
+                                     log=lines.append)
+        sync()
+        fit_s = time.perf_counter() - t0
+    check(any(ln.startswith("fused_epoch: the epochs run over the device "
+                            "cache") for ln in lines),
+          f"{cfg.exp_name}: the fit did not take the fused path")
+    graphs = trainer.graphs()
+    return {"counts": launch_counts(), "branches": remat_branches(),
+            "steps": trainer.state.step, "fit_s": fit_s,
+            "replays": graphs.replays() if device == "cuda" else 0,
+            "histories": {k: list(trainer.histories[k]) for k in (
+                "loss_results", "dev_loss_results")},
+            "state": {k: v.detach().to("cpu", copy=True) for k, v in
+                      trainer.state.model.state_dict().items()}}
+
+
+def remat_step(cfg, spec, args, frontend_fn, device: str, times: bool
+               ) -> dict:
+    """One eager train step of ``spec``'s model from ``cfg``'s seeded state
+    on ``args`` (feats, frac, labels, label lengths, mask), the recipe's
+    dropout drawn from a seeded generator, under deterministic algorithms:
+    loss, gradients, the state after the step (on the host), the
+    launches.  With
+    ``times``, then the step's peak memory (``max_memory_allocated`` over
+    one more step, after ``reset_peak_memory_stats``, beside what was
+    allocated before it), its device time (``device_breakdown``) and its
+    median time over ``REMAT_STEP_REPS``."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.train.loop import train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                               cfg.grad_clip, seed=cfg.seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def step():
+        return train_step(state, spec, *args, gen, frontend_fn)
+
+    zero_counts()
+    with deterministic():
+        loss = step()[0]
+        sync()
+    # held on the host, so that the card holds as much before each run's
+    # memory is measured
+    out = {"counts": launch_counts(), "branches": remat_branches(),
+           "loss": loss.to("cpu", copy=True),
+           "grads": {k: p.grad.to("cpu", copy=True) for k, p in
+                     state.model.named_parameters()},
+           "state": {k: v.detach().to("cpu", copy=True) for k, v in
+                     state.model.state_dict().items()}}
+    if times and device == "cuda":
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        step_us, _ = device_breakdown(step)
+        out.update(peak_bytes=peak, base_bytes=base,
+                   step_bytes=peak - base,
+                   step_ms=cuda_ms(step, reps=REMAT_STEP_REPS),
+                   step_device_ms=step_us / 1e3)
+    return out
+
+
+def host_batch(cfg, vocab, waveform: bool, device: str):
+    """The longest batch of ``cfg``'s train split from the host loader, as
+    the step's tensors on ``device`` (a waveform batch carries its sample
+    counts in the ``frac`` slot, as the fused gather passes them)."""
+    import numpy as np
+    import torch
+
+    from ctc_pytorch_tpu_torch.data import SpeechDataLoader, SpeechDataset
+
+    host = SpeechDataLoader(
+        SpeechDataset(vocab, cfg.train_scp_path, cfg.train_lab_path, cfg),
+        cfg.batch_size, shuffle=False, num_buckets=cfg.num_buckets)
+    batch = max(host, key=lambda b: b.feats.shape[1])
+    frac = batch.input_lengths if waveform else batch.input_frac
+    return tuple(torch.as_tensor(a).to(device) for a in (
+        batch.feats, np.asarray(frac, np.float32), batch.labels,
+        batch.label_lengths, batch.example_mask))
+
+
+def hold_remat(what: str, cell: str, layers: int, plain: dict, remat: dict,
+               steps: int, device: str) -> dict:
+    """``remat`` against ``plain`` (two ``remat_fit`` or ``remat_step``
+    results): every tensor bit for bit, and the training forward launched
+    twice a layer a step under remat and once without, every other kernel
+    as often.  Returns the launches of both runs."""
+    import torch
+
+    off = states_equal(plain["state"], remat["state"])
+    if "grads" in plain:  # an eager step's
+        off += [f"grad {k}" for k in states_equal(plain["grads"],
+                                                  remat["grads"])]
+        if not torch.equal(plain["loss"], remat["loss"]):
+            off.append("loss")
+    if "histories" in plain and plain["histories"] != remat["histories"]:
+        off.append("loss histories")
+    print(f"  {what}: remat against plain, {len(plain['state'])} state "
+          f"tensors" + (f" and {len(plain['grads'])} gradients"
+                        if "grads" in plain else "")
+          + f": {len(off)} differ bit for bit {off[:8]}")
+    check(not off, f"{what}: the remat run differs from the plain one: {off}")
+    fwd = TRAIN_FWD[cell]
+    if device == "cuda":
+        want = dict(plain["counts"])
+        want[fwd] = 2 * plain["counts"][fwd]
+        check(plain["counts"][fwd] == layers * steps,
+              f"{what}: {plain['counts'][fwd]} training forwards for "
+              f"{layers} layers x {steps} steps")
+        check(remat["counts"] == want,
+              f"{what}: remat launches {remat['counts']}, expected {want}")
+        check(remat["branches"].get(fwd) == {
+            k: 2 * v for k, v in plain["branches"][fwd].items()},
+              f"{what}: the recompute took other branches: "
+              f"{remat['branches'].get(fwd)} against "
+              f"{plain['branches'][fwd]}")
+    print(f"  {what}: {fwd} launches {plain['counts'][fwd]} plain, "
+          f"{remat['counts'][fwd]} remat ({layers} layers x {steps} steps); "
+          f"branches {remat['branches'].get(fwd)}")
+    return {"plain": plain["counts"], "remat": remat["counts"]}
+
+
+def ctc_forward_score_vs_plain(device: str) -> dict:
+    """``ctc_forward_score`` through ``ctc_fwd_kernel`` against
+    ``-ctc_fwd_plain`` on the same inputs (fp32, ``FP32_TOL`` relative to
+    max(|score|, 1)) at the flagship's recipe and bench shapes, and an
+    impossible alignment (a repeated label in too few frames), which must
+    score exactly ``NEG_INF`` on both; one launch a call."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.ops.ctc_loss import (
+        NEG_INF,
+        ctc_forward_score,
+        ctc_fwd_plain,
+    )
+
+    _, _, ctc_ops = port_ops()
+    worst, calls = 0.0, 0
+    for t, b, c, l, seed in ((100, 8, 62, 33, 0), (80, 128, 62, 48, 1)):
+        args = ctc_inputs(t, b, c, l, seed, device=device)
+        before = ctc_ops.launches_alpha
+        got = ctc_forward_score(*args)
+        calls += 1
+        want = -ctc_fwd_plain(*args, with_alphas=False)[0]
+        check(device == "cpu" or ctc_ops.launches_alpha == before + 1,
+              "ctc_forward_score did not launch ctc_fwd_kernel once")
+        err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        worst = max(worst, err)
+        check(got.shape == (b,) and bool(torch.isfinite(got).all())
+              and err <= FP32_TOL,
+              f"ctc_forward_score at ({t}, {b}, {c}, {l}): rel err {err}")
+    lp = ctc_inputs(6, 3, 10, 3, 2, device=device)[0]
+    labels = torch.tensor([[1, 2, 3], [4, 4, 4], [5, 5, 0]],
+                          dtype=torch.int32, device=lp.device)
+    in_len = torch.tensor([6, 4, 2], dtype=torch.int32, device=lp.device)
+    lab_len = torch.tensor([3, 3, 2], dtype=torch.int32, device=lp.device)
+    args = (lp, labels, in_len, lab_len)
+    got = ctc_forward_score(*args).cpu()
+    calls += 1
+    want = (-ctc_fwd_plain(*args, with_alphas=False)[0]).cpu()
+    neg = torch.tensor(NEG_INF, dtype=torch.float32)
+    print(f"  ctc_forward_score vs ctc_fwd_plain: worst rel err {worst:.3g} "
+          f"(tol {FP32_TOL}); impossible rows {got[1:].tolist()} (plain "
+          f"{want[1:].tolist()}, NEG_INF {NEG_INF}); {calls} calls")
+    check(torch.equal(got[1:], torch.stack([neg, neg]))
+          and torch.equal(want[1:], got[1:])
+          and abs(got[0] - want[0]) <= FP32_TOL * max(abs(want[0]), 1.0),
+          f"ctc_forward_score's impossible rows {got.tolist()}, plain "
+          f"{want.tolist()}")
+    return {"max_rel_err": worst, "impossible": got[1:].tolist(),
+            "calls": calls}
+
+
+def print_memory(what: str, out: dict, runs, smi: str) -> None:
+    """Add the plain and remat eager steps' peak memory and times (two
+    ``remat_step`` results, plain first) to ``out`` and print them; nothing
+    where they were not measured (the CPU)."""
+    if "peak_bytes" not in runs[0]:
+        return
+    mem = {k: [r[k] for r in runs] for k in (
+        "peak_bytes", "base_bytes", "step_bytes", "step_ms",
+        "step_device_ms")}
+    out.update(mem)
+    print(f"  {what} eager step ({smi}): peak memory {mem['peak_bytes'][0]} "
+          f"bytes plain, {mem['peak_bytes'][1]} remat "
+          f"({mem['peak_bytes'][0] - mem['peak_bytes'][1]} less); above the "
+          f"{mem['base_bytes'][0]} bytes held before the step "
+          f"{mem['step_bytes'][0]} and {mem['step_bytes'][1]}; step "
+          f"{mem['step_ms'][0]:.4f} ms plain, {mem['step_ms'][1]:.4f} ms "
+          f"remat ({mem['step_ms'][1] - mem['step_ms'][0]:+.4f}), median of "
+          f"{REMAT_STEP_REPS}; kernels {mem['step_device_ms'][0]:.4f} and "
+          f"{mem['step_device_ms'][1]:.4f} ms")
+
+
+def phase_remat(smi: str, device: str = "cuda") -> dict:
+    """``remat: true`` on the shipped recipes against ``remat: false``, each
+    pair from one seeded state under deterministic algorithms: the waveform
+    recipe (4 x BiLSTM(384), bf16, B=128, dropout 0.2) and the flagship
+    (CNN + 4 x BiLSTM(384), fp32 streams at B=8) each for one graphed fused
+    epoch through ``cli.train.train`` and one eager step on its longest
+    batch; the 863 GRU model for one eager step at B=16.  Each remat run must equal its plain run bit for bit (loss,
+    gradients, every parameter and BN buffer after it) and launch the
+    training forward kernel twice a layer a step, where the plain run
+    launches it once; every other kernel as often.  The eager steps' peak
+    memory and median time, with and without remat, are printed.  Then
+    ``ctc_forward_score`` on the card against its twin.  ``device="cpu"``
+    rehearses the phase on cut recipes (no launches, no times)."""
+    from ctc_pytorch_tpu_torch.frontend.e2e import frontend_fn_from_config
+    from ctc_pytorch_tpu_torch.models import ModelSpec
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    remat_data(device)
+    total, out = None, {"device": smi}
+
+    def both(what, run):
+        nonlocal total
+        runs = {}
+        for remat in (False, True):
+            runs[remat] = run(remat)
+            total = (runs[remat]["counts"] if total is None
+                     else added(total, runs[remat]["counts"]))
+        return runs[False], runs[True]
+
+    # the waveform recipe: a graphed epoch, then an eager step
+    cfg = waveform_config()
+    vocab = Vocab(cfg.vocab_file)
+    spec = ModelSpec.from_config(cfg, num_class=vocab.n_words)
+    check(device == "cpu" or (
+        spec.rnn_layers == 4 and spec.rnn_hidden_size == 384
+        and cfg.batch_size == 128 and spec.compute_dtype == "bfloat16"
+        and spec.drop_out > 0 and cfg.fused_epoch and not cfg.remat),
+          f"not the waveform recipe as shipped: {spec}")
+    fits = both("waveform fit", lambda remat: remat_fit(dataclasses.replace(
+        cfg, remat=remat, exp_name=f"smoke_remat_wave_{int(remat)}"), device))
+    steps = fits[0]["steps"]
+    out["waveform_fit"] = hold_remat(
+        f"waveform fit, B={cfg.batch_size}, {steps} steps", "lstm",
+        spec.rnn_layers, *fits, steps, device)
+    out["waveform_fit"].update(
+        steps=steps, fit_s=[f["fit_s"] for f in fits],
+        replays=[f["replays"] for f in fits])
+    frontend_fn = frontend_fn_from_config(cfg)
+    args = host_batch(cfg, vocab, True, device)
+    wave = both("waveform step", lambda remat: remat_step(
+        cfg, dataclasses.replace(spec, remat=remat), args, frontend_fn,
+        device, times=True))
+    out["waveform_step"] = hold_remat(
+        f"waveform eager step, B={args[0].shape[0]}, S={args[0].shape[1]} "
+        f"samples", "lstm", spec.rnn_layers, *wave, 1, device)
+    print_memory("waveform", out["waveform_step"], wave, smi)
+
+    # the flagship: a graphed epoch at B=8, fp32 streams
+    cfg = recipe_config(RECIPE)
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    fits = both("flagship fit", lambda remat: remat_fit(dataclasses.replace(
+        cfg, remat=remat, exp_name=f"smoke_remat_flagship_{int(remat)}"),
+        device))
+    steps = fits[0]["steps"]
+    out["flagship_fit"] = hold_remat(
+        f"flagship fit, B={cfg.batch_size}, {steps} steps", "lstm",
+        spec.rnn_layers, *fits, steps, device)
+    out["flagship_fit"].update(steps=steps,
+                               fit_s=[f["fit_s"] for f in fits],
+                               replays=[f["replays"] for f in fits])
+    args = host_batch(cfg, Vocab(cfg.vocab_file), False, device)
+    flag = both("flagship step", lambda remat: remat_step(
+        cfg, dataclasses.replace(spec, remat=remat), args, None, device,
+        times=True))
+    out["flagship_step"] = hold_remat(
+        f"flagship eager step, B={args[0].shape[0]}", "lstm",
+        spec.rnn_layers, *flag, 1, device)
+    print_memory("flagship", out["flagship_step"], flag, smi)
+
+    # the 863 GRU model: an eager step at B=16, bf16 streams
+    cfg = recipe_config_863()
+    spec = ModelSpec.from_config(cfg, num_class=cfg.num_class + 1)
+    args = host_batch(cfg, Vocab(cfg.vocab_file), False, device)
+    gru = both("863 GRU step", lambda remat: remat_step(
+        cfg, dataclasses.replace(spec, remat=remat), args, None, device,
+        times=True))
+    out["863_gru_step"] = hold_remat(
+        f"863 GRU eager step, B={args[0].shape[0]}", "gru",
+        spec.rnn_layers, *gru, 1, device)
+    print_memory("863 GRU", out["863_gru_step"], gru, smi)
+
+    zero_counts()
+    out["ctc_forward_score"] = ctc_forward_score_vs_plain(device)
+    total = added(total, launch_counts())
+    out["counts"] = total
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5580,7 +5959,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/16] device: {smi} | torch {torch.__version__} "
+    print(f"[1/17] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -5590,7 +5969,7 @@ def main() -> int:
     # and the parent forms of the redesigned branches, which phase 9 times
     parents = parent_libraries()
     build_all(libraries + parents)
-    print(f"[2/16] build: {', '.join(lib.source.name for lib in libraries)} and "
+    print(f"[2/17] build: {', '.join(lib.source.name for lib in libraries)} and "
           f"the parent forms ({PARENT_DEFINE}) of "
           f"{', '.join(lib.source.name for lib in parents)} for sm_90a, one "
           f"nvcc each, in {time.perf_counter() - t0:.2f} s")
@@ -5602,7 +5981,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/16] kernel vs plain on the card")
+    print("[3/17] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -5614,28 +5993,28 @@ def main() -> int:
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
 
-    print("[4/16] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/17] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/16] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/17] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/16] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/17] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/16] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/17] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/16] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/17] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/16] times ({smi})")
+    print(f"[9/17] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -5691,42 +6070,48 @@ def main() -> int:
     # they replaced
     redesigned = times_redesigned(spec, model, smi)
 
-    print(f"[10/16] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/17] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/16] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/17] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
 
-    print(f"[12/16] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+    print(f"[12/17] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
           f"on the card, stage 3, one fused epoch with the frontend in the "
           f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
           f"StreamingRecognizer ({smi})")
     wave = phase_waveform_slice(smi)
 
-    print(f"[13/16] pipeline: stages 0-4 of the flagship recipe through "
+    print(f"[13/17] pipeline: stages 0-4 of the flagship recipe through "
           f"cli.run on a synthetic TIMIT tree, profile: True, then "
           f"cli.visualize and cli.import_torch ({smi})")
     pipeline = phase_pipeline_slice(smi)
 
-    print(f"[14/16] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
+    print(f"[14/17] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
           f"lstm_ctc.conf from text dumps, one fused epoch each through "
           f"cli.train.train, stage 4, fp32 kernels vs twins ({smi})")
     lstm_863 = phase_863_lstm_slice(smi)
 
-    print(f"[15/16] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
+    print(f"[15/17] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
           f"on the card, one NCCL rank from graphs, cli.train --data-parallel, "
           f"the sharded stage-4 search and the mesh Recognizer ({smi})")
     dp = phase_data_parallel(smi, spec)
 
-    print(f"[16/16] fp32 streams on the redesigned branches: the 863 GRU "
+    print(f"[16/17] fp32 streams on the redesigned branches: the 863 GRU "
           f"model's step at B=8 (cluster16_fp32) and its decode forward at "
           f"B=128, the flagship's and the 863 GRU model's fp32 steps at B=128 "
           f"(wide_fp32 forwards and backwards) ({smi})")
     fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi)
+
+    print(f"[17/17] remat: the waveform recipe (graphed epoch and an eager "
+          f"step at B=128), the flagship (graphed epoch and an eager step at "
+          f"B=8) and the 863 GRU model (eager step at B=16) with remat: true "
+          f"against remat: false, then ctc_forward_score ({smi})")
+    remat = phase_remat(smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -5745,7 +6130,9 @@ def main() -> int:
                                      r["decode_launches"])
                   for tag, r in lstm_863.items()},
                # phase 15: every rank's launches, (a), (b) and (d)
-               "data_parallel": dp["counts"]}
+               "data_parallel": dp["counts"],
+               # phase 17: the remat and plain runs, ctc_forward_score
+               "remat": remat["counts"]}
     csrc = "ctc_pytorch_tpu_torch/csrc/"
     tpu = "ctc_pytorch_tpu/ops/"
     lstm_paths = ("timit", "unidir", "mfcc39", "waveform", "pipeline",
@@ -5842,6 +6229,8 @@ def main() -> int:
             entry["max_abs_err_bf16"] = err_bf16
         if err_ndir1 is not None:
             entry["max_err_one_direction"] = err_ndir1
+        if remat["counts"][name]:  # phase 17's, remat and plain runs
+            entry["launches_remat_phase"] = remat["counts"][name]
         if name in branches_tanh:  # the tanh path's launches by branch
             entry["launches_by_branch"] = branches_tanh[name]
         if name in wave["branches"]:  # the waveform path's, at B=128
@@ -5975,7 +6364,9 @@ def main() -> int:
                                    for tag, r in lstm_863.items()},
                       "data_parallel": {k: v for k, v in dp.items()
                                         if k != "counts"},
-                      "fp32_streams": fp32_streams}))
+                      "fp32_streams": fp32_streams,
+                      "remat": {k: v for k, v in remat.items()
+                                if k != "counts"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

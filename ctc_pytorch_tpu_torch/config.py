@@ -218,7 +218,7 @@ class Config:
     dtype: str = "bfloat16"  # compute dtype for matmuls; params/loss stay fp32
     data_axis: str = "data"  # mesh axis name for data parallelism
     save_every: int = 0  # periodic durable checkpoint cadence (epochs); 0 = off
-    remat: bool = False  # jax.checkpoint each RNN layer (memory for FLOPs)
+    remat: bool = False  # RNN layers recomputed in the backward pass
     # BN statistics over valid frames only + zeroed padding planes, making
     # the train step independent of the padded length (the reference's BN
     # normalises padding too — model_ctc.py:29-32 — so its dynamics shift

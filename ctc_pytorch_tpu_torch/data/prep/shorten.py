@@ -1,6 +1,6 @@
 """Shorten (v1/v2) lossless audio decompression, host-side numpy.
 
-Copy of the decoder of ``ctc_pytorch_tpu/data/prep/shorten.py``.  LDC SPHERE
+Copy of ``ctc_pytorch_tpu/data/prep/shorten.py``.  LDC SPHERE
 distributions ship waveforms as ``embedded-shorten-v*`` payloads, which the
 reference pipeline decodes with the sph2pipe C binary
 (``timit/local/timit_data_prep.sh:18,52``).  ``decode_shorten`` implements
@@ -13,6 +13,10 @@ the shorten bitstream (Tony Robinson's format, the one sph2pipe embeds):
   semantics;
 - sample types S8/U8/S16HL/S16LH/U16HL/U16LH/ULAW/ALAW (u-law/A-law are
   expanded to linear 16-bit exactly like ``sph2pipe -f wav``).
+
+``encode_shorten`` is a minimal v2 encoder (DIFF0-3 block predictors) for
+compressed fixtures and round-trip tests; it emits streams any standard
+shorten decoder accepts, byte for byte the JAX package's.
 
 I/O, not compute: it stays on the host.
 """
@@ -92,6 +96,48 @@ class _BitReader:
 
     def ulong(self) -> int:
         return self.uvar(self.uvar(ULONGSIZE))
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.nacc = 0
+
+    def put(self, val: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.acc = (self.acc << 1) | ((val >> i) & 1)
+            self.nacc += 1
+            if self.nacc == 8:
+                self.out.append(self.acc)
+                self.acc = 0
+                self.nacc = 0
+
+    def unary(self, q: int) -> None:
+        for _ in range(q):
+            self.put(0, 1)
+        self.put(1, 1)
+
+    def uvar(self, val: int, k: int) -> None:
+        self.unary(val >> k)
+        self.put(val & ((1 << k) - 1), k)
+
+    def var(self, val: int, k: int) -> None:
+        u = (val << 1) if val >= 0 else ((-val - 1) << 1) | 1
+        self.uvar(u, k + 1)
+
+    def ulong(self, val: int) -> None:
+        k = max(val.bit_length(), 0)
+        # any k works; shorten uses the minimal-ish width
+        self.uvar(k, ULONGSIZE)
+        self.uvar(val, k)
+
+    def getvalue(self) -> bytes:
+        while self.nacc:
+            self.put(0, 1)
+        while len(self.out) % 4:  # pad to a 32-bit word like shorten
+            self.out.append(0)
+        return bytes(self.out)
 
 
 def _ulaw_to_linear(u: np.ndarray) -> np.ndarray:
@@ -271,3 +317,68 @@ def decode_shorten(data: bytes, max_samples: int | None = None) -> tuple:
     if max_samples is not None:
         samples = samples[:max_samples]
     return samples, ftype
+
+
+def encode_shorten(
+    samples: np.ndarray,
+    ftype: int = TYPE_S16LH,
+    blocksize: int = DEFAULT_BLOCK_SIZE,
+    nmean: int = 0,
+    version: int = 2,
+) -> bytes:
+    """Minimal shorten v2 encoder (mono, DIFF0-3 predictors, no LPC) for
+    fixtures and roundtrip tests.  Picks the cheapest DIFF order per block
+    like the reference encoder's heuristic."""
+    if version != 2:
+        raise ValueError(f"the encoder emits v2 streams only, not v{version}")
+    x = np.asarray(samples, np.int64)
+    if ftype in (TYPE_U16HL, TYPE_U16LH):
+        x = x + 0x8000
+    bw = _BitWriter()
+    bw.ulong(ftype)
+    bw.ulong(1)  # nchan
+    bw.ulong(blocksize)
+    bw.ulong(0)  # maxnlpc
+    bw.ulong(nmean)
+    bw.ulong(0)  # nskip
+    mean0 = 0x8000 if ftype in (TYPE_U16HL, TYPE_U16LH) else (
+        0x80 if ftype == TYPE_U8 else 0)
+    cbuf = [mean0] * max(1, nmean)
+    hist = np.zeros(NWRAP, np.int64)
+    for start in range(0, len(x), blocksize):
+        block = x[start : start + blocksize]
+        nblock = block.size
+        if nblock != blocksize:
+            bw.uvar(FN_BLOCKSIZE, FNSIZE)
+            bw.ulong(nblock)
+            blocksize = nblock
+        if nmean == 0:
+            coffset = cbuf[0]
+        else:
+            s = nmean // 2 + sum(cbuf)
+            coffset = _rounded_shift_down(_cdiv(s, nmean), 0)
+        prev = np.concatenate([hist, block])
+        cands = {
+            FN_DIFF0: block - coffset,
+            FN_DIFF1: np.diff(prev, 1)[NWRAP - 1:],
+            FN_DIFF2: np.diff(prev, 2)[NWRAP - 2:],
+            FN_DIFF3: np.diff(prev, 3)[NWRAP - 3:],
+        }
+        cmd = min(cands, key=lambda c: np.abs(cands[c]).sum())
+        res = cands[cmd]
+        if not np.any(block) and coffset == 0:
+            bw.uvar(FN_ZERO, FNSIZE)
+        else:
+            mean_abs = max(float(np.abs(res).mean()), 1.0)
+            resn = max(int(np.ceil(np.log2(mean_abs))) + 1, 0)
+            bw.uvar(cmd, FNSIZE)
+            bw.uvar(resn, ENERGYSIZE)
+            for r in res:
+                bw.var(int(r), resn)
+        if nmean > 0:
+            s = nblock // 2 + int(block.sum())
+            cbuf.pop(0)
+            cbuf.append(_cdiv(s, nblock))
+        hist = prev[-NWRAP:]
+    bw.uvar(FN_QUIT, FNSIZE)
+    return MAGIC + bytes([version]) + bw.getvalue()

@@ -1,6 +1,6 @@
 """Greedy (best-path) CTC decoding, batched on the tensor's device.
 
-Counterpart of ``ctc_pytorch_tpu/decode/greedy.py:20-75``: per-frame
+Counterpart of ``ctc_pytorch_tpu/decode/greedy.py:20-94``: per-frame
 argmax, collapse repeats, drop blanks.  keep[t] = idx[t] != blank and
 idx[t] != idx[t-1] and t < length, the rule of the reference's
 ``_process_string(remove_rep=True)``; only the string conversion runs on
@@ -11,9 +11,11 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from ctc_pytorch_tpu_torch.decode.metrics import Scorer
+from ctc_pytorch_tpu_torch.ops.editdistance import padded_edit_distance
 
 
 def greedy_indices(log_probs: torch.Tensor) -> torch.Tensor:
@@ -58,3 +60,22 @@ class GreedyDecoder:
             self.scorer.to_string(tokens[i], int(lens[i]))
             for i in range(tokens.shape[0])
         ]
+
+    def batch_errors(self, log_probs: torch.Tensor,
+                     frame_seq_len: torch.Tensor, targets,
+                     target_sizes) -> Tuple[int, int]:
+        """Training-loop token error count (``compute_wer`` semantics):
+        ``(edit-distance sum, target-token sum)`` of the greedy hypotheses
+        against padded ``targets`` (B, L), the distances by the host's
+        native edit distance.  Hypotheses of zero capacity (T' = 0) are all
+        deletions."""
+        tokens, lens = greedy_collapse(
+            greedy_indices(log_probs), frame_seq_len, self.blank_index)
+        tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+        targets = np.asarray(targets)
+        tsizes = np.asarray(target_sizes, np.int64)
+        if tokens.shape[1] == 0:  # zero-capacity hyps: all deletions
+            dists = tsizes
+        else:
+            dists = padded_edit_distance(targets, tsizes, tokens, lens)
+        return int(np.sum(dists)), int(np.sum(tsizes))

@@ -1,5 +1,5 @@
 """Error-rate scoring with the reference's exact metric definitions (copy of
-``ctc_pytorch_tpu/decode/metrics.py`` ``Scorer``).
+``ctc_pytorch_tpu/decode/metrics.py``: ``Scorer`` and ``phone_word_error``).
 
 Reproduces ``Decoder`` (``timit/utils/ctcDecoder.py:9-149``):
 
@@ -15,6 +15,8 @@ Reproduces ``Decoder`` (``timit/utils/ctcDecoder.py:9-149``):
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
+
+import numpy as np
 
 from ctc_pytorch_tpu_torch.ops.editdistance import edit_distance
 
@@ -77,3 +79,28 @@ class Scorer:
             self.num_word += len(ref.split())
             self.num_char += len(ref)
         return cer, wer
+
+
+def phone_word_error(decoder, log_probs, frame_seq_len, targets,
+                     target_sizes) -> tuple:
+    """Decode + score in one call, matching ``Decoder.phone_word_error``
+    (``timit/utils/ctcDecoder.py:27-49``): returns accumulated (cer, wer);
+    running normalisers live on ``decoder.scorer``.
+
+    Targets may be padded (B, L) rows or a flat 1-D array with sizes
+    (the 863/warp-ctc convention, unflattened like ``ctcDecoder.py:51-64``);
+    a tensor is read on the host.
+    """
+    if hasattr(targets, "cpu"):
+        targets = targets.cpu()
+    targets = np.asarray(targets)
+    sizes = [int(s) for s in target_sizes]
+    if targets.ndim == 1:
+        rows, off = [], 0
+        for s in sizes:
+            rows.append(targets[off: off + s])
+            off += s
+    else:
+        rows = [targets[i][: sizes[i]] for i in range(len(sizes))]
+    hyps = decoder.decode(log_probs, frame_seq_len)
+    return decoder.scorer.score_batch(hyps, rows, sizes)

@@ -46,7 +46,7 @@ class ModelSpec:
     drop_out: float
     compute_dtype: str = "bfloat16"
     use_pallas_rnn: bool = False  # JAX package knob, kept for the manifest
-    remat: bool = False  # JAX package knob, kept for the manifest
+    remat: bool = False  # recompute each RNN layer in the backward pass
     # 'batchmax' | 'padded' | 'valid': what the padding region does to BN
     # (see ctc_pytorch_tpu/models/ctc_model.py:54-67 and config.py)
     pad_dynamics: str = "batchmax"
@@ -207,6 +207,9 @@ class CTCModel(nn.Module):
         and updates its running buffers in place, the recurrent layers run the
         trainable kernels, and dropout at ``spec.drop_out`` is drawn from
         ``generator`` (on ``x``'s device; required when ``spec.drop_out > 0``).
+        With ``spec.remat`` each recurrent layer is recomputed in the
+        backward pass instead of keeping its activations
+        (``models/rnn.py``).
 
         ``lengths``: (B,) valid frames at the recurrent layers' input, for
         packed-sequence semantics there (``models/rnn.py``).
@@ -261,7 +264,7 @@ class CTCModel(nn.Module):
             bn_mask = bn_mask.float()
 
         out = self.rnns(out, cd, bn_mask, lengths=lengths, drop_rate=drop,
-                        generator=generator, group=group)
+                        generator=generator, group=group, remat=spec.remat)
         t, b, h = out.shape
         flat = out.reshape(t * b, h)
         if self.fc_bn is not None:

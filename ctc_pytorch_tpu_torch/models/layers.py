@@ -143,7 +143,9 @@ class BatchNorm(nn.Module):
     so a bias-free recurrence downstream sees exact zeros through padding.
     Train mode normalises with the batch's biased variance and moves the
     running ``mean``/``var`` (unbiased) with ``momentum``; ``count`` is the
-    number of such updates (``layers.py:74-103``).
+    number of such updates (``layers.py:74-103``).  ``update=False`` takes
+    the batch statistics and leaves the buffers as they are: a remat
+    layer's recompute (``models/rnn.py``), whose update its forward made.
     """
 
     def __init__(self, dim: int, with_count: bool = True, eps: float = 1e-5,
@@ -159,7 +161,8 @@ class BatchNorm(nn.Module):
             self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                group: Optional[DataGroup] = None) -> torch.Tensor:
+                group: Optional[DataGroup] = None,
+                update: bool = True) -> torch.Tensor:
         mean, var = self.mean, self.var
         if self.training:
             flat = x.float().reshape(-1, x.shape[-1])
@@ -177,9 +180,11 @@ class BatchNorm(nn.Module):
                 mean = flat.mean(0)
                 var = flat.var(0, unbiased=False)
                 unbiased = var * (n / max(n - 1, 1))
-            update_running(self.mean, self.var, mean, unbiased, self.momentum)
-            if hasattr(self, "count"):
-                self.count += 1
+            if update:
+                update_running(self.mean, self.var, mean, unbiased,
+                               self.momentum)
+                if hasattr(self, "count"):
+                    self.count += 1
         inv = torch.rsqrt(var + self.eps)
         out = (x.float() - mean) * (inv * self.scale) + self.bias
         if mask is not None:

@@ -38,11 +38,29 @@ trainable ones in stage 2):
   recurrence; the kernels do not change.  With one direction this is the
   JAX package's ``_scan_direction`` followed by its mask;
 - in train mode each layer's output goes through dropout (``rnn.py:447``);
+- with ``remat`` (the config's ``remat``) each layer in train mode runs
+  under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+  JAX ``jax.checkpoint(rnn_layer_apply)`` (``rnn.py:504-507``): the
+  forward keeps the layer's input and nothing from inside the region (BN,
+  input projection, recurrence, output mask), so neither the projection's
+  operands nor the recurrence's saved planes (the LSTM's ``gx``, ``ys``,
+  ``cs``; the GRU's ``gx``, ``ys``; the tanh cell's ``ys``) outlive the
+  forward; the backward recomputes the region, launching the projection
+  GEMM and the training forward kernel a second time, then runs the
+  backward kernels as without remat.  The recompute takes the BN's batch
+  statistics again but leaves its running buffers alone (the forward moved
+  them once; JAX discards the recomputed state), decided per call, so a
+  captured step holds one update.  Dropout, the layer's only random draw,
+  stays outside the region: a recompute draws nothing, and the region
+  neither saves nor restores an RNG state (``preserve_rng_state=False``),
+  so nothing reads a generator's state inside a graph capture.  Results
+  are bit for bit those without remat;
 - with a data-parallel ``group`` each layer's BN takes the global batch's
-  statistics (``layers.py:BatchNorm``).  The stream dtype is chosen from the
-  rank's own (local) B, as JAX chooses it inside ``shard_map``: the 863
-  recipes' B=16 on two ranks is B=8 a rank and runs fp32 streams, where one
-  process at B=16 runs bf16 ones.
+  statistics (``layers.py:BatchNorm``); under remat its recompute sums
+  them over the group again, as every rank does.  The stream dtype is
+  chosen from the rank's own (local) B, as JAX chooses it inside
+  ``shard_map``: the 863 recipes' B=16 on two ranks is B=8 a rank and runs
+  fp32 streams, where one process at B=16 runs bf16 ones.
 
 The JAX layer picks between its v2 kernels, its v1 (stacked-layout) kernels
 and the scan path by what fits the TPU's VMEM (``rnn.py:320-372, 383-432``);
@@ -57,6 +75,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctc_pytorch_tpu_torch.models.layers import BatchNorm, dropout, matmul_stream
 from ctc_pytorch_tpu_torch.ops import gru_bidir as gru_ops
@@ -123,11 +142,33 @@ class RNNLayer(nn.Module):
                 drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
                 lengths: Optional[torch.Tensor] = None,
-                group: Optional[DataGroup] = None) -> torch.Tensor:
+                group: Optional[DataGroup] = None,
+                remat: bool = False) -> torch.Tensor:
         """(T, B, F) -> (T, B, dirs * H) fp32.  ``lengths`` (B,): valid frames
-        per utterance, for packed-sequence semantics."""
+        per utterance, for packed-sequence semantics.  ``remat``: recompute
+        the layer in the backward pass (train mode with grad enabled;
+        otherwise there is nothing to keep and it changes nothing)."""
+        if remat and self.training and torch.is_grad_enabled():
+            runs = []
+
+            def region(x_in):
+                # the forward's run moves the BN buffers, the recompute not
+                runs.append(None)
+                return self._region(x_in, compute_dtype, bn_mask, lengths,
+                                    group, update_bn=len(runs) == 1)
+
+            out = checkpoint(region, x, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = self._region(x, compute_dtype, bn_mask, lengths, group)
+        return dropout(out, drop_rate, generator, self.training)
+
+    def _region(self, x, compute_dtype, bn_mask, lengths, group,
+                update_bn: bool = True) -> torch.Tensor:
+        """The layer up to its dropout: BN, input projection, recurrence and
+        the output mask (the region a remat layer recomputes)."""
         if self.bn is not None:
-            x = self.bn(x, bn_mask, group)
+            x = self.bn(x, bn_mask, group, update=update_bn)
         t_len, b, f = x.shape
         valid = None
         if lengths is not None:
@@ -144,7 +185,7 @@ class RNNLayer(nn.Module):
                else self.eval_op(gx, w_hh))
         if valid is not None:
             out = out * valid
-        return dropout(out, drop_rate, generator, self.training)
+        return out
 
 
 class RNNStack(nn.ModuleList):
@@ -165,8 +206,9 @@ class RNNStack(nn.ModuleList):
                 lengths: Optional[torch.Tensor] = None,
                 drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                group: Optional[DataGroup] = None) -> torch.Tensor:
+                group: Optional[DataGroup] = None,
+                remat: bool = False) -> torch.Tensor:
         for layer in self:
             x = layer(x, compute_dtype, bn_mask, drop_rate, generator, lengths,
-                      group)
+                      group, remat)
         return x

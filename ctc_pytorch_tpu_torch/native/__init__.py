@@ -1,5 +1,6 @@
-"""ctypes bindings of the host-side C++: the beam search
-(``ctc_native.cpp``) and the one-pass ark reader (``ark_native.cpp``).
+"""ctypes bindings of the host-side C++: the beam search and the batch edit
+distance (``ctc_native.cpp``) and the one-pass ark reader
+(``ark_native.cpp``).
 
 Counterpart of ``ctc_pytorch_tpu/native/__init__.py``.  Both sources are
 compiled at first use with ``g++ -O3 -shared -fPIC -std=c++17`` into one
@@ -8,7 +9,7 @@ sources and the flags, so a changed source rebuilds).  The build writes a
 temporary file and renames it into place, so processes (or threads) that
 build at the same moment each load a whole library.  A failed build raises
 with the compiler's output: the caller asked for the native search or
-reader, and nothing falls back to the numpy one.  Nothing is built at
+reader (or edit distance), and nothing falls back to the numpy one.  Nothing is built at
 import time.  ctypes releases the GIL for the length of a call, so the
 reader's calls from ``SpeechDataset.preload``'s threads run in parallel.
 """
@@ -78,6 +79,12 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            lib.batch_edit_distance.restype = None
+            lib.batch_edit_distance.argtypes = [
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int64)]
             lib.ctc_beam_search.restype = ctypes.c_int32
             lib.ctc_beam_search.argtypes = [
                 ctypes.POINTER(ctypes.c_float), ctypes.c_int32,
@@ -106,6 +113,32 @@ def load() -> ctypes.CDLL:
 
 def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def batch_edit_distance_native(refs: np.ndarray, ref_lens: np.ndarray,
+                               hyps: np.ndarray, hyp_lens: np.ndarray
+                               ) -> np.ndarray:
+    """(B,) int64 Levenshtein distances of padded ``refs (B, N)`` and
+    ``hyps (B, M)`` with their lengths, read as int32 (the JAX
+    ``batch_edit_distance_native``); a length past its padding is clamped
+    to it."""
+    lib = load()
+    refs = np.ascontiguousarray(refs, np.int32)
+    hyps = np.ascontiguousarray(hyps, np.int32)
+    ref_lens = np.ascontiguousarray(ref_lens, np.int32)
+    hyp_lens = np.ascontiguousarray(hyp_lens, np.int32)
+    b = refs.shape[0]
+    if not (hyps.shape[0] == ref_lens.shape[0] == hyp_lens.shape[0] == b):
+        raise ValueError(f"batch sizes differ: refs {refs.shape}, hyps "
+                         f"{hyps.shape}, lengths {ref_lens.shape}, "
+                         f"{hyp_lens.shape}")
+    out = np.zeros(b, np.int64)
+    lib.batch_edit_distance(
+        _ptr(refs, ctypes.c_int32), _ptr(ref_lens, ctypes.c_int32),
+        _ptr(hyps, ctypes.c_int32), _ptr(hyp_lens, ctypes.c_int32), b,
+        refs.shape[1] if refs.ndim > 1 else 0,
+        hyps.shape[1] if hyps.ndim > 1 else 0, _ptr(out, ctypes.c_int64))
+    return out
 
 
 def ctc_beam_search_native(

@@ -3,7 +3,10 @@
 // search (ctc_native.cpp there), whose scoring rules are the reference's
 // (timit/utils/BeamSearch.py): blank-skip > 0.9, the prBlank-vs-prTotal
 // repeat rule on the previous frame, the LM on every extension, </s>
-// scoring, length normalisation.
+// scoring, length normalisation.  Beside it, a copy of the same file's
+// batch Levenshtein distance, the host edit distance of
+// ops/editdistance.py:padded_edit_distance (the reference's `editdistance`
+// C++ extension, timit/models/model_ctc.py:7,200).
 //
 // Built as a plain shared library (no pybind11) by g++ at first use and
 // bound with ctypes (native/__init__.py).
@@ -16,6 +19,40 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Batch Levenshtein edit distance over padded int32 arrays.
+// refs: (b, rl), hyps: (b, hl); unit insert/delete/substitute costs
+// (matches timit/utils/ctcDecoder.py:131-149).
+// ---------------------------------------------------------------------------
+void batch_edit_distance(const int32_t* refs, const int32_t* ref_lens,
+                         const int32_t* hyps, const int32_t* hyp_lens,
+                         int32_t b, int32_t rl, int32_t hl, int64_t* out) {
+  std::vector<int64_t> prev(hl + 1), cur(hl + 1);
+  for (int32_t i = 0; i < b; ++i) {
+    const int32_t* ref = refs + (int64_t)i * rl;
+    const int32_t* hyp = hyps + (int64_t)i * hl;
+    // clamp to the padded widths like the numpy twin (a caller passing a
+    // length beyond the padding must not read/write out of bounds)
+    int32_t n = std::min(std::max(ref_lens[i], 0), rl);
+    int32_t m = std::min(std::max(hyp_lens[i], 0), hl);
+    if (n == 0) { out[i] = m; continue; }
+    if (m == 0) { out[i] = n; continue; }
+    for (int32_t j = 0; j <= m; ++j) prev[j] = j;
+    for (int32_t r = 1; r <= n; ++r) {
+      cur[0] = r;
+      int32_t rc = ref[r - 1];
+      for (int32_t j = 1; j <= m; ++j) {
+        int64_t sub = prev[j - 1] + (hyp[j - 1] != rc);
+        int64_t del = prev[j] + 1;
+        int64_t ins = cur[j - 1] + 1;
+        cur[j] = std::min(sub, std::min(del, ins));
+      }
+      std::swap(prev, cur);
+    }
+    out[i] = prev[m];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // CTC prefix beam search with dense bigram LM.

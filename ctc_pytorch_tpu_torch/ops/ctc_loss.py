@@ -361,6 +361,19 @@ def ctc_bwd(log_probs, labels, input_lengths, label_lengths, alphas, neg_ll,
                          alphas, neg_ll, g, blank, with_betas)
 
 
+@torch.no_grad()
+def ctc_forward_score(log_probs, labels, input_lengths, label_lengths,
+                      blank: int = 0) -> torch.Tensor:
+    """Per-utterance ``log P(labels | log_probs)``; (T, B, C), (B, L) -> (B,)
+    fp32, no gradient (the JAX ``ctc_forward_score``, ``ops/ctc_loss.py:
+    111-121``).  One launch of the forward kernel without its alpha table
+    on a CUDA tensor, the twin on a CPU one.  An utterance whose labels
+    cannot be aligned in its frames scores exactly ``NEG_INF``, as in JAX."""
+    neg_ll, _ = ctc_fwd(log_probs, labels, input_lengths, label_lengths,
+                        blank, with_alphas=False)
+    return -neg_ll
+
+
 class _CtcNegLogLikelihood(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_probs, labels, input_lengths, label_lengths, blank,

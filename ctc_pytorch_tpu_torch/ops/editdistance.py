@@ -1,11 +1,14 @@
 """Levenshtein edit distance (copy of ``ctc_pytorch_tpu/ops/editdistance.py``
-``edit_distance``), matching the pure-python DP in
-``timit/utils/ctcDecoder.py:131-149`` (unit costs for ins/del/sub), and its
-batched form on the device (``padded_edit_distance_device``)."""
+``edit_distance`` and ``batch_edit_distance``), matching the pure-python DP
+in ``timit/utils/ctcDecoder.py:131-149`` (unit costs for ins/del/sub); its
+batched form over padded arrays on the host (``padded_edit_distance``: the
+native C++ of ``native/ctc_native.cpp``, whose plain twin is the numpy DP
+``padded_edit_distance_plain``) and on the device
+(``padded_edit_distance_device``)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +35,52 @@ def edit_distance(ref: Sequence, hyp: Sequence) -> int:
                 cur[j] = cur[j - 1] + 1
         prev, cur = cur, prev
     return int(prev[m])
+
+
+def batch_edit_distance(refs: List[np.ndarray],
+                        hyps: List[np.ndarray]) -> np.ndarray:
+    """Edit distance for each (ref, hyp) pair."""
+    return np.array([edit_distance(r, h) for r, h in zip(refs, hyps)])
+
+
+def padded_edit_distance(refs: np.ndarray, ref_lens: np.ndarray,
+                         hyps: np.ndarray, hyp_lens: np.ndarray) -> np.ndarray:
+    """(B,) int64 edit distances of padded ``refs (B, N)`` and ``hyps (B,
+    M)`` with their lengths, on the host: the native batch DP
+    (``native.batch_edit_distance_native``), as the JAX
+    ``padded_edit_distance`` runs it where it builds.  A failed build raises;
+    nothing falls back to ``padded_edit_distance_plain``."""
+    from ctc_pytorch_tpu_torch import native
+
+    return native.batch_edit_distance_native(refs, ref_lens, hyps, hyp_lens)
+
+
+def padded_edit_distance_plain(refs: np.ndarray, ref_lens: np.ndarray,
+                               hyps: np.ndarray, hyp_lens: np.ndarray
+                               ) -> np.ndarray:
+    """The native DP's twin in numpy (copy of the JAX
+    ``_padded_edit_distance_numpy``, ``editdistance.py:64-90``): the DP over
+    the hyp axis row by row, vectorised across B, the insertion recurrence a
+    prefix minimum."""
+    b, n_max = refs.shape
+    m_max = hyps.shape[1]
+    prev = np.broadcast_to(np.arange(m_max + 1, dtype=np.int64),
+                           (b, m_max + 1)).copy()
+    # positions beyond hyp_lens are clamped later; run full DP then gather
+    for i in range(1, n_max + 1):
+        active = i <= ref_lens  # (B,)
+        ref_tok = refs[:, i - 1][:, None]  # (B, 1)
+        sub = prev[:, :-1] + (hyps != ref_tok)
+        dele = prev[:, 1:] + 1
+        cur = np.empty_like(prev)
+        cur[:, 0] = i
+        cur[:, 1:] = np.minimum(sub, dele)
+        # prefix-min for insertions: cur[j] = min(cur[j], cur[k] + (j-k))
+        base = cur - np.arange(m_max + 1)[None, :]
+        np.minimum.accumulate(base, axis=1, out=base)
+        cur = np.minimum(cur, base + np.arange(m_max + 1)[None, :])
+        prev = np.where(active[:, None], cur, prev)
+    return prev[np.arange(b), np.minimum(hyp_lens, m_max)]
 
 
 def padded_edit_distance_device(refs: torch.Tensor, ref_lens: torch.Tensor,

@@ -1,6 +1,7 @@
 from ctc_pytorch_tpu_torch.parallel.distributed import (  # noqa: F401
     initialize,
     local_rows,
+    make_global_batch,
     shard_for_host,
     shutdown,
     spawn_ranks,

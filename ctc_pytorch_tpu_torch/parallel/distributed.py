@@ -7,7 +7,9 @@ them in a ``torch.distributed`` process group (``initialize``): NCCL on
 cards, gloo on the CPU.  Every rank reads the whole scp list and builds the
 same global batch plan from the same seed; a rank computes on its own
 contiguous rows of each global batch (``local_rows``), the rows that the
-JAX ``NamedSharding(P('data'))`` places on device r.  ``shard_for_host``
+JAX ``NamedSharding(P('data'))`` places on device r.  ``make_global_batch``
+puts a rank's rows on its device, checking that every rank holds as many:
+the concatenation in rank order is the global batch.  ``shard_for_host``
 (round-robin over a list) is kept for callers that split a file list.
 
 ``spawn_ranks`` starts ``world`` ranks of a function on this machine with a
@@ -23,7 +25,7 @@ import os
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -105,6 +107,40 @@ def local_rows(batch, rank: int, world: int):
             f.name: getattr(batch, f.name)[rows]
             for f in dataclasses.fields(batch)})
     return batch[row_slice(batch.shape[0], rank, world)]
+
+
+def make_global_batch(local_arrays: Sequence, group: Optional[DataGroup],
+                      device: str | torch.device | None = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """A rank's share of a global batch from its local arrays (numpy or
+    tensors): each on ``device`` (by default the group's; ``cuda`` without
+    a group), the counterpart of the JAX ``make_global_batch``
+    (``distributed.py:69-77``).  Under ``torch.distributed`` a rank's tensor
+    is its shard, and the global batch is the ranks' rows in rank order, as
+    ``row_slice`` / ``local_rows`` cut them; so, as
+    ``jax.make_array_from_process_local_data`` requires, every rank must
+    hold the same number of rows of each array: one all-gather of the row
+    counts checks it, and a mismatch raises on every rank.  A world of one
+    (no group) returns the arrays on the device."""
+    if device is None:
+        device = group.device if group is not None else "cuda"
+    dev = resolve_device(device)
+    out = tuple(torch.as_tensor(a).to(dev) for a in local_arrays)
+    if group is None:
+        return out
+    # NCCL gathers on the card, gloo on the host
+    cdev = group.device if group.backend == "nccl" else torch.device("cpu")
+    rows = torch.tensor([t.shape[0] for t in out], dtype=torch.int64,
+                        device=cdev)
+    parts = [torch.empty_like(rows) for _ in range(group.world)]
+    dist.all_gather(parts, rows, group=group.group)
+    gathered = torch.stack(parts).cpu()
+    if not bool((gathered == gathered[0]).all()):
+        raise ValueError(
+            "make_global_batch: the ranks hold different row counts (rank x "
+            f"array: {gathered.tolist()}); every rank must hold as many rows "
+            "of each array")
+    return out
 
 
 def rank_seed(seed: int, rank: int) -> int:

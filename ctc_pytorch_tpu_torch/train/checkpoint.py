@@ -282,3 +282,15 @@ def restore_train_state(path: str | Path, state, spec: ModelSpec) -> dict:
     state.step = int(pkg["manifest"].get("step", 0))
     return pkg["manifest"]
 
+
+def latest_checkpoint(ckpt_dir: str | Path, pattern: str = "resume_ep*.npz"
+                      ) -> Optional[Path]:
+    """The newest resume checkpoint in ``ckpt_dir``: the match of
+    ``pattern`` whose stem's digits make the largest number (the JAX
+    ``latest_checkpoint``; ``Trainer`` writes ``resume_epNNNN.npz``), or
+    None."""
+    ckpts = sorted(
+        Path(ckpt_dir).glob(pattern),
+        key=lambda p: int("".join(ch for ch in p.stem if ch.isdigit()) or 0),
+    )
+    return ckpts[-1] if ckpts else None

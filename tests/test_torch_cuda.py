@@ -1081,3 +1081,38 @@ def test_wide_forward_reads_only_published_h(card, case):
         r = chip_smoke.wide_nan_launches(*case, scale, seed=5, n=40)
         assert (r["nonfinite_launches"], r["differing_launches"]) == (0, 0), r
         assert r["twin_max_abs_err"] <= tol, r
+
+
+@pytest.mark.parametrize("cell,rnn_type", [("lstm", "nn.LSTM"),
+                                           ("gru", "nn.GRU"),
+                                           ("rnn", "nn.RNN")])
+def test_remat_fit_and_step_equal_the_plain_ones_on_the_card(card, tmp_path,
+                                                             monkeypatch, cell,
+                                                             rnn_type):
+    """``chip_smoke.py``'s phase 17 at a small size: a graphed fused epoch
+    through ``cli.train.train`` and an eager step, with dropout 0.2, under
+    ``remat: true`` against ``remat: false`` (``chip_smoke.hold_remat``):
+    every tensor bit for bit, the training forward launched twice a layer
+    a step under remat and once without, every other kernel as often; the
+    graphs captured the recompute."""
+    import dataclasses
+
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    monkeypatch.setattr(chip_smoke, "WORK", tmp_path)
+    cfg, _ = tiny_recipe(tmp_path / "data")
+    cfg = dataclasses.replace(cfg, rnn_type=rnn_type, drop_out=0.2)
+    fits = [chip_smoke.remat_fit(dataclasses.replace(
+        cfg, remat=remat, exp_name=f"remat{int(remat)}"), "cuda")
+        for remat in (False, True)]
+    steps = fits[0]["steps"]
+    assert steps > 0 and fits[1]["replays"] == fits[0]["replays"] > 0
+    chip_smoke.hold_remat("tiny fit", cell, cfg.rnn_layers, *fits, steps,
+                          "cuda")
+    spec = ModelSpec.from_config(cfg, num_class=Vocab(cfg.vocab_file).n_words)
+    args = chip_smoke.host_batch(cfg, Vocab(cfg.vocab_file), False, "cuda")
+    runs = [chip_smoke.remat_step(cfg, dataclasses.replace(spec, remat=remat),
+                                  args, None, "cuda", times=True)
+            for remat in (False, True)]
+    chip_smoke.hold_remat("tiny step", cell, cfg.rnn_layers, *runs, 1, "cuda")
+    assert all(r["peak_bytes"] > 0 for r in runs)

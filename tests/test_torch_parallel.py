@@ -2,13 +2,17 @@
 the JAX package's on its 2-device CPU mesh: the row placement of a sharded
 batch, the collectives inside the model (synchronised BN1d and BN2d in
 train mode, the batch max of the batchmax pad dynamics, CMVN), the sharded
-batched beam search, and the mesh ``Recognizer``.
+batched beam search, and the mesh ``Recognizer``; and, on the ranks alone,
+``make_global_batch`` and a ``remat`` step with synchronised BN against the
+plain step.
 
 The port's collectives run in two gloo ranks spawned on the CPU
 (``spawn_ranks``); one spawn computes every rank-side result of this file
 (the ``ranks`` fixture).  Tolerances: BN outputs, statistics and input
 gradients 1e-5 absolute (fp32, other summation orders); integer sizes and
 decoded strings exactly."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from ctc_pytorch_tpu_torch.parallel import (
     DataGroup,
     initialize,
     local_rows,
+    make_global_batch,
     make_mesh,
     pad_batch_to_devices,
     shard_batch,
@@ -93,6 +98,11 @@ def small_spec():
                      drop_out=0.0, compute_dtype="float32")
 
 
+# a global batch whose rank shares make_global_batch places
+GLOBAL_FEATS = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+GLOBAL_LABELS = np.arange(8 * 2, dtype=np.int32).reshape(8, 2) % 5
+
+
 def cmvn_case():
     rng = np.random.RandomState(0)
     feats = (rng.randn(8, 10, 4) * 3 + 2).astype(np.float32)
@@ -129,6 +139,44 @@ def run_bn(module_cls, case, group, rank, rows_of):
             "var": bn.var.numpy(), "grad": xl.grad.numpy()}
 
 
+def global_batch_rank(group, rank, rows_of):
+    """The rank's share through ``make_global_batch``, and the error a
+    mismatch of row counts (3 rows on rank 0, 2 on rank 1) raises."""
+    got = make_global_batch((rows_of(GLOBAL_FEATS), rows_of(GLOBAL_LABELS)),
+                            group, "cpu")
+    try:
+        make_global_batch((np.zeros((3 - rank, 4), np.float32),), group,
+                          "cpu")
+        err = None
+    except ValueError as exc:
+        err = str(exc)
+    return {"arrays": [t.numpy() for t in got], "mismatch": err}
+
+
+def remat_rank(group, rows_of):
+    """One train-mode forward and backward of a two-layer model (its second
+    layer's BN synchronised, inside the remat region) on the rank's rows,
+    without and with ``remat``: loss, gradients and buffers of each."""
+    rng = np.random.RandomState(4)
+    feats = rng.randn(8, 16, 8).astype(np.float32)
+    w = rng.randn(8, 8, 5).astype(np.float32)  # (T', B, C) loss weights
+    out = {}
+    for remat in (False, True):
+        spec = dataclasses.replace(small_spec(), rnn_layers=2, remat=remat)
+        model = CTCModel(spec)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        lp = model(torch.from_numpy(rows_of(feats)),
+                   torch.from_numpy(rows_of(BMAX_LENS / 16)),
+                   torch.from_numpy(rows_of(BMAX_MASK)), train=True,
+                   group=group)
+        loss = (lp * torch.from_numpy(w[:, :lp.shape[1]])).sum()
+        loss.backward()
+        out[remat] = {"loss": loss.detach(),
+                      **{k: p.grad for k, p in model.named_parameters()},
+                      **dict(model.named_buffers())}
+    return out
+
+
 def collective_ranks(rank, world, init_method):
     group = initialize("gloo", init_method, world, rank, device="cpu")
     rows_of = lambda a: local_rows(a, rank, world)  # noqa: E731
@@ -159,6 +207,8 @@ def collective_ranks(rank, world, init_method):
                                  torch.from_numpy(rows_of(feats)),
                                  torch.from_numpy(rows_of(fmask)), group)
     out["cmvn"] = [t.numpy() for t in stats]
+    out["global_batch"] = global_batch_rank(group, rank, rows_of)
+    out["remat"] = remat_rank(group, rows_of)
     return out
 
 
@@ -373,6 +423,34 @@ def test_synced_batchnorm_matches_jax_with_the_input_gradient(ranks, kind,
     np.testing.assert_allclose(gathered(ranks, plain, "y"), y, atol=TOL,
                                rtol=0)
     assert np.abs(gathered(ranks, plain, "grad") - dx).max() > 100 * TOL
+
+
+def test_make_global_batch_places_each_ranks_rows(ranks):
+    """The ranks' shares in rank order are the global batch (the rows
+    ``local_rows`` cuts); unequal row counts raise on every rank."""
+    for i, want in enumerate((GLOBAL_FEATS, GLOBAL_LABELS)):
+        got = np.concatenate([r["global_batch"]["arrays"][i] for r in ranks])
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    for r in ranks:
+        assert "different row counts" in r["global_batch"]["mismatch"]
+        assert "[[3], [2]]" in r["global_batch"]["mismatch"]
+
+
+def test_remat_step_with_synced_batchnorm_equals_the_plain_step(ranks):
+    """Under remat the recompute sums the BN statistics over the group
+    again, as every rank does, but moves the running buffers once: loss,
+    gradients and buffers equal the plain step's bit for bit on each
+    rank."""
+    for r in ranks:
+        plain, remat = r["remat"][False], r["remat"][True]
+        assert plain.keys() == remat.keys()
+        for k in plain:
+            assert torch.equal(plain[k], remat[k]), k
+        assert int(remat["rnns.1.bn.count"]) == 1
+    # the synchronised statistics: both ranks hold the same buffers
+    assert torch.equal(ranks[0]["remat"][True]["rnns.1.bn.mean"],
+                       ranks[1]["remat"][True]["rnns.1.bn.mean"])
 
 
 def test_batch_max_and_input_sizes_take_the_global_max(ranks):

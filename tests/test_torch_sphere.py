@@ -1,9 +1,10 @@
 """The port's SPHERE/WAV readers and shorten decoder
 (``ctc_pytorch_tpu_torch/data/prep/``) against the JAX package's: the
 committed ``tests/fixtures/shorten_v2.sph`` decodes to
-``shorten_v2_samples.npz`` exactly, streams from the JAX encoder and the
-hand-packed streams of ``tests/test_shorten.py`` decode to the same samples,
-and WAV files round-trip with their header sample counts."""
+``shorten_v2_samples.npz`` exactly, streams from the port's encoder (byte for
+byte the JAX encoder's) and the hand-packed streams of
+``tests/test_shorten.py`` decode to the same samples, and WAV files
+round-trip with their header sample counts."""
 
 from pathlib import Path
 
@@ -48,7 +49,9 @@ def test_committed_fixture_decodes_exactly():
     (jsh.TYPE_U16LH, 0, 128), (jsh.TYPE_S16HL, 4, 100)])
 def test_streams_of_the_jax_encoder_decode_as_in_jax(ftype, nmean, blocksize):
     x = _speechlike(3001, seed=nmean + blocksize)
-    enc = jsh.encode_shorten(x, ftype=ftype, blocksize=blocksize, nmean=nmean)
+    enc = sh.encode_shorten(x, ftype=ftype, blocksize=blocksize, nmean=nmean)
+    assert enc == jsh.encode_shorten(x, ftype=ftype, blocksize=blocksize,
+                                     nmean=nmean)
     got, got_type = sh.decode_shorten(enc)
     want, want_type = jsh.decode_shorten(enc)
     assert got_type == want_type == ftype
@@ -80,7 +83,7 @@ def test_sphere_pcm_shorten_and_wav_round_trip(tmp_path):
     x = _speechlike(2345, seed=3)
     pcm, emb, wav = (tmp_path / n for n in ("a.sph", "b.sph", "c.wav"))
     chip_smoke.write_sphere(pcm, x)
-    emb.write_bytes(_sphere_bytes(jsh.encode_shorten(x), len(x)))
+    emb.write_bytes(_sphere_bytes(sh.encode_shorten(x), len(x)))
     write_wav(wav, x)
     for path in (pcm, emb, wav):
         got = read_audio(path)
