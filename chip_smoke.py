@@ -74,7 +74,8 @@ printed line; any failure ends the run with a nonzero exit and no result:
    with their device time by kernel, and the CTC loss's share of the
    flagship's B=8 step on the device; the wide forward branch, the wide
    backward (pre-pass and serial chain apart and together, with cuDNN's
-   backward) and the GRU's fp32 backward cluster against the grid they
+   backward), the tanh cell's fp32 forward and backward on the wide branch
+   (with cuDNN's) and the GRU's fp32 backward cluster against the grid they
    replaced, and the flagship's B=128 decode forward with its eval
    forwards on either (``times_redesigned``);
 10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
@@ -146,11 +147,13 @@ printed line; any failure ends the run with a nonzero exit and no result:
 16. fp32 streams (``phase_fp32_streams``) where the wide branches and the
     GRU's fp32 backward cluster take them: the 863 GRU model's step at B=8
     (its recipe's 16 over two ranks) through the kernels and the twins, its
-    fp32 decode forward at B=128, the wide forwards and backwards under a
-    NaN-filled exchange buffer, the flagship's and the 863 GRU model's fp32
-    steps at B=128 through the kernels and the twins (forwards and
-    backwards on ``wide_fp32``) and timed against the grid, each with the
-    branch asserted;
+    fp32 decode forward at B=128, the wide forwards and backwards (the
+    tanh cell's too) under a NaN-filled exchange buffer, the flagship's,
+    the 863 GRU model's and the tanh model's fp32 steps at B=128 through
+    the kernels and the twins (forwards and backwards on ``wide_fp32``) and
+    timed against the grid, the tanh model's fp32 greedy decode at B=128
+    (strings equal to the twins', its forward timed against the grid),
+    each with the branch asserted;
 17. remat (``phase_remat``): the waveform recipe (B=128, dropout 0.2) for
     one graphed fused epoch through ``cli.train.train`` and one eager step,
     the flagship (B=8, fp32 streams) for one graphed fused epoch and one
@@ -1230,17 +1233,21 @@ def phase_fwd_vs_plain() -> dict:
 # gx).  "fwd" is the eval op and the training forward (one kernel), "bwd"
 # the backward.  Bounds (csrc/fwd_cluster.cuh): the bf16 cluster holds H <=
 # 512 with 16 and with 32 rows, the fp32 cluster H <= 558 with 8 CTAs and H
-# <= 726 with 16; a branch is taken only where all its clusters fit at once.
-# Past the bounds the grid, whose w_hh is resident up to H = 1056 with two
-# directions and 1568 with one, in L2 beyond.  The card's pytest cases
-# (tests/test_torch_cuda.py) run the same list.
+# <= 726 with 16; a branch is taken only where all its clusters fit at once
+# (15 clusters of 8 at H = 384: B <= 112 with two directions).  fp32
+# streams past that take the wide branch (csrc/fwd_wide.cuh) to its bound,
+# H <= 792 at B = 128, 1752 at B <= 16 with two directions, 2288 at B <= 16
+# with one.  Past the bounds the grid, whose w_hh is resident up to H =
+# 1056 with two directions and 1568 with one, in L2 beyond.  The card's
+# pytest cases (tests/test_torch_cuda.py) run the same list.
 RNN_CASES = [
     ("fwd", 80, 128, 384, "bf16", 2, "cluster16", 1.0),  # TIMIT bench shape
     ("bwd", 80, 128, 384, "bf16", 2, "cluster16", 1.0),
     ("fwd", 100, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),  # recipe batch
     ("bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32", 1.0),
-    ("fwd", 80, 128, 384, "fp32", 2, "grid", 1.0),  # 16 clusters of 8 CTAs
-    ("bwd", 80, 128, 384, "fp32", 2, "grid", 1.0),
+    # 16 clusters of 8 one-CTA-per-SM blocks do not fit: the wide branch
+    ("fwd", 80, 128, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 80, 128, 384, "fp32", 2, "wide_fp32", 1.0),
     # saturated: 1 - y^2 from y near 1
     ("fwd", 80, 128, 384, "bf16", 2, "cluster16", 8.0),
     ("bwd", 80, 128, 384, "bf16", 2, "cluster16", 8.0),
@@ -1279,17 +1286,61 @@ RNN_CASES = [
     ("bwd", 6, 8, 559, "fp32", 1, "cluster16_fp32", 1.0),
     ("fwd", 4, 8, 726, "fp32", 2, "cluster16_fp32", 1.0),
     ("bwd", 4, 8, 726, "fp32", 2, "cluster16_fp32", 1.0),
-    ("fwd", 4, 8, 727, "fp32", 2, "grid", 1.0),
-    ("bwd", 4, 8, 727, "fp32", 2, "grid", 1.0),
+    ("fwd", 4, 8, 727, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 4, 8, 727, "fp32", 2, "wide_fp32", 1.0),
+    # fp32 past the clusters' bound at B = 4: the wide branch, at the grid's
+    # bounds of w_hh resident (two directions, one)
+    ("fwd", 4, 4, 1056, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 1056, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 4, 4, 1064, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 1064, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 4, 4, 1568, "fp32", 1, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 1568, "fp32", 1, "wide_fp32", 1.0),
+    ("fwd", 4, 4, 1576, "fp32", 1, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 1576, "fp32", 1, "wide_fp32", 1.0),
+    # B = 64 and 100 at the bench width: 8 and 14 clusters of 8, which fit
+    ("fwd", 80, 64, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 80, 64, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    ("fwd", 80, 100, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    ("bwd", 80, 100, 384, "fp32", 2, "cluster16_fp32", 1.0),
+    # the wide branch: B not a multiple of 16, T' = 200, saturated, T = 1,
+    # one direction
+    ("fwd", 12, 130, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 12, 130, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 12, 200, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 12, 200, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 200, 128, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 200, 128, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 80, 128, 384, "fp32", 2, "wide_fp32", 8.0),
+    ("bwd", 80, 128, 384, "fp32", 2, "wide_fp32", 8.0),
+    ("fwd", 1, 128, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 1, 128, 384, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 12, 256, 384, "fp32", 1, "wide_fp32", 1.0),
+    ("bwd", 12, 256, 384, "fp32", 1, "wide_fp32", 1.0),
+    # each side of the wide bound; past it the grid, w_hh resident (H = 793
+    # at B = 128) or in L2
+    ("fwd", 4, 128, 792, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 4, 128, 792, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 4, 128, 793, "fp32", 2, "grid", 1.0),
+    ("bwd", 4, 128, 793, "fp32", 2, "grid", 1.0),
+    ("fwd", 4, 4, 1752, "fp32", 2, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 1752, "fp32", 2, "wide_fp32", 1.0),
+    ("fwd", 4, 4, 1753, "fp32", 2, "grid", 1.0),
+    ("bwd", 4, 4, 1753, "fp32", 2, "grid", 1.0),
+    ("fwd", 4, 4, 2288, "fp32", 1, "wide_fp32", 1.0),
+    ("bwd", 4, 4, 2288, "fp32", 1, "wide_fp32", 1.0),
+    ("fwd", 4, 4, 2289, "fp32", 1, "grid", 1.0),
+    ("bwd", 4, 4, 2289, "fp32", 1, "grid", 1.0),
     # the grid: w_hh resident, then in L2, with two directions and one
-    ("fwd", 4, 4, 1056, "fp32", 2, "grid", 1.0),
-    ("bwd", 4, 4, 1056, "fp32", 2, "grid", 1.0),
-    ("fwd", 4, 4, 1064, "fp32", 2, "grid", 1.0),
-    ("bwd", 4, 4, 1064, "fp32", 2, "grid", 1.0),
-    ("fwd", 4, 4, 1568, "fp32", 1, "grid", 1.0),
-    ("bwd", 4, 4, 1568, "fp32", 1, "grid", 1.0),
-    ("fwd", 4, 4, 1576, "fp32", 1, "grid", 1.0),
-    ("bwd", 4, 4, 1576, "fp32", 1, "grid", 1.0),
+    # (bf16 streams, which no wide branch takes)
+    ("fwd", 4, 4, 1056, "bf16", 2, "grid", 1.0),
+    ("bwd", 4, 4, 1056, "bf16", 2, "grid", 1.0),
+    ("fwd", 4, 4, 1064, "bf16", 2, "grid", 1.0),
+    ("bwd", 4, 4, 1064, "bf16", 2, "grid", 1.0),
+    ("fwd", 4, 4, 1568, "bf16", 1, "grid", 1.0),
+    ("bwd", 4, 4, 1568, "bf16", 1, "grid", 1.0),
+    ("fwd", 4, 4, 1576, "bf16", 1, "grid", 1.0),
+    ("bwd", 4, 4, 1576, "bf16", 1, "grid", 1.0),
 ]
 
 
@@ -1299,12 +1350,13 @@ def phase_rnn_vs_plain() -> dict:
     the training forward; dgx and the dW_hh formed from it.  The backward
     kernel is given the twin's ys, so each kernel is held on its own.
     Tolerances as the LSTM phases.  Returns the worst error per kernel and
-    dtype."""
+    dtype, and under ``by_branch`` per (kernel, branch) and dtype."""
     import torch
 
     rnn_ops, rnn_train_ops = port_rnn_ops()
     _, train_ops, _ = port_ops()
     worst = {k: {"fp32": 0.0, "bf16": 0.0} for k in ("eval", "fwd", "bwd")}
+    by_branch: dict = {}  # "kernel:branch" -> worst error, both dtypes
     for i, (kernel, t, b, h, name, ndir, branch, scale) in enumerate(RNN_CASES):
         bf16 = name == "bf16"
         gx, w_hh, dy = recurrence_inputs(
@@ -1358,6 +1410,9 @@ def phase_rnn_vs_plain() -> dict:
                 check(e_dw <= tol * dw_scale,
                       f"tanh dW_hh disagrees with plain {where}")
             worst[key][name] = max(worst[key][name], err)
+            at = by_branch.setdefault(f"{key}:{took[0]}", {})
+            at[name] = max(at.get(name, 0.0), err)
+    worst["by_branch"] = by_branch
     return worst
 
 
@@ -1390,10 +1445,10 @@ GRAPH_CASES = [
     ("gru_bwd", 95, 128, 256, "fp32", 2, "wide_fp32"),
     ("rnn_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # tanh recipe
     ("rnn_train", 80, 128, 384, "bf16", 2, "cluster16"),
-    ("rnn_train", 80, 128, 384, "fp32", 2, "grid"),
+    ("rnn_train", 80, 128, 384, "fp32", 2, "wide_fp32"),
     ("rnn_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
     ("rnn_bwd", 80, 128, 384, "bf16", 2, "cluster16"),
-    ("rnn_bwd", 80, 128, 384, "fp32", 2, "grid"),
+    ("rnn_bwd", 80, 128, 384, "fp32", 2, "wide_fp32"),
     # the wide branch at B = 64, the GRU's fp32 cluster backward, and the
     # forward's grid (bf16 products past the 32-row cluster's bound)
     ("lstm_eval", 80, 64, 384, "fp32", 2, "wide_fp32"),
@@ -1403,6 +1458,9 @@ GRAPH_CASES = [
     ("lstm_bwd", 80, 64, 384, "fp32", 2, "wide_fp32"),
     ("lstm_bwd", 6, 128, 529, "fp32", 2, "grid"),
     ("gru_bwd", 6, 128, 673, "fp32", 2, "grid"),
+    # the tanh cell's grid, fp32 past the wide bound
+    ("rnn_train", 4, 128, 793, "fp32", 2, "grid"),
+    ("rnn_bwd", 4, 128, 793, "fp32", 2, "grid"),
 ]
 # op -> (kernel rows of the result line, op module, branch counter)
 GRAPH_OPS = {
@@ -4488,12 +4546,15 @@ TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 # 9): (op, T', B, H, stream dtype).  The wide branch at the
 # bench shape on both stream dtypes of the eval forward and at B = 64 (a
 # data-parallel rank), the waveform recipe's dev pass (T' = 200), the
-# training forward and the GRU on fp32 streams.
+# training forward and the GRU on fp32 streams; the tanh cell's forward
+# (eval and training: one kernel) and backward (``rnn_bwd``, against cuDNN's
+# backward) at the bench shape on fp32 streams.
 WIDE_TIMES = [
     ("lstm_eval", 80, 128, 384, "fp32"), ("lstm_eval", 80, 128, 384, "bf16"),
     ("lstm_eval", 80, 64, 384, "fp32"), ("lstm_eval", 80, 64, 384, "bf16"),
     ("lstm_eval", 200, 128, 384, "bf16"), ("lstm_train", 80, 128, 384, "fp32"),
     ("lstm_train", 80, 64, 384, "fp32"), ("gru", 95, 128, 256, "fp32"),
+    ("rnn", 80, 128, 384, "fp32"), ("rnn_bwd", 80, 128, 384, "fp32"),
 ]
 
 
@@ -4651,31 +4712,56 @@ def times_redesigned(spec, model, smi: str) -> dict:
 
     lstm_ops, train_ops, _ = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     out = {}
     for op, t, b, h, name in WIDE_TIMES:
         dt = torch.bfloat16 if name == "bf16" else torch.float32
-        gates = 3 if op == "gru" else 4
-        gx, w, _ = recurrence_inputs(t, b, h, dt, seed=7, gates=gates)
-        kern, plain, counts = {
-            "lstm_eval": (lstm_ops.lstm_bidir_cuda, lstm_ops.lstm_bidir_plain,
-                          lstm_ops.launches_fwd_branch),
-            "lstm_train": (train_ops.lstm_bidir_train_cuda,
-                           train_ops.lstm_bidir_train_plain,
-                           train_ops.launches_fwd_branch),
-            "gru": (gru_ops.gru_bidir_cuda, gru_ops.gru_bidir_plain,
-                    gru_ops.launches_fwd_branch)}[op]
-        train = op == "lstm_train"
-        lib = (torch.nn.GRU if op == "gru" else torch.nn.LSTM)(
-            2 * h, h, bias=False, bidirectional=True).cuda()
+        cell = op.split("_")[0]
+        gates = {"gru": 3, "rnn": 1}.get(cell, 4)
+        gx, w, dy = recurrence_inputs(t, b, h, dt, seed=7, gates=gates)
+        if op == "rnn_bwd":  # the backward of the twin's ys
+            ys = rnn_ops.rnn_bidir_plain(gx, w)
+            kern, plain, counts = (
+                lambda gx, w: rnn_train_ops.rnn_bidir_train_backward_cuda(
+                    w, ys, dy),
+                lambda gx, w: rnn_train_ops.rnn_bidir_train_backward_plain(
+                    w, ys, dy),
+                rnn_train_ops.launches_bwd_branch)
+        else:
+            kern, plain, counts = {
+                "lstm_eval": (lstm_ops.lstm_bidir_cuda,
+                              lstm_ops.lstm_bidir_plain,
+                              lstm_ops.launches_fwd_branch),
+                "lstm_train": (train_ops.lstm_bidir_train_cuda,
+                               train_ops.lstm_bidir_train_plain,
+                               train_ops.launches_fwd_branch),
+                "gru": (gru_ops.gru_bidir_cuda, gru_ops.gru_bidir_plain,
+                        gru_ops.launches_fwd_branch),
+                "rnn": (rnn_ops.rnn_bidir_cuda, rnn_ops.rnn_bidir_plain,
+                        rnn_ops.launches_fwd_branch)}[op]
+        train = op in ("lstm_train", "rnn_bwd")
+        net = {"gru": torch.nn.GRU, "rnn": torch.nn.RNN}.get(
+            cell, torch.nn.LSTM)(2 * h, h, bias=False, bidirectional=True).cuda()
         x = torch.randn(t, b, 2 * h, device="cuda", requires_grad=train)
+        if op == "rnn_bwd":  # cuDNN's backward, input gradients included
+            y_lib, _ = net(x)
+            g_lib = torch.randn_like(y_lib)
+
+            def library():
+                torch.autograd.grad(y_lib, (x, *net.parameters()), g_lib,
+                                    retain_graph=True)
+        else:
+            def library():
+                net(x)
         before = dict(counts)
         with torch.set_grad_enabled(train):
             res = turns({"new": lambda: kern(gx, w),
                          "grid": on_parent(lambda: kern(gx, w)),
-                         "library": lambda: lib(x)})
+                         "library": library})
         took = sorted(k for k, v in counts.items() if v != before[k])
         check(took == ["grid", "wide_fp32"],
               f"{op} at B={b}: the timed launches took {took}")
+        # the tanh backward reads ys and dy and writes dgx (gx-sized)
         bound = recurrence_bound(gx, w, n_planes=2 if train else 1,
                                  n_products=1)
         key = f"{op}_{t}_{b}_{h}_{name}"
@@ -4779,7 +4865,8 @@ DECODE_SEEDS = (0, 1, 2)
 # training forwards and the GRU forward at B = 128, a B that is not a
 # multiple of 16; the LSTM's and GRU's backward serial chains (the wide
 # backward, csrc/bwd_wide.cuh) at B = 128 and at a B that is not a multiple
-# of 16; launches a run
+# of 16; the tanh cell's forward and backward (csrc/fwd_wide.cuh) at B = 128
+# and B = 130; launches a run
 WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
                   ("lstm_eval", 95, 128, 384, "bf16"),
                   ("lstm_train", 80, 128, 384, "fp32"),
@@ -4787,7 +4874,10 @@ WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
                   ("lstm_bwd", 80, 128, 384, "fp32"),
                   ("lstm_bwd", 80, 100, 384, "fp32"),
                   ("gru_bwd", 95, 128, 256, "fp32"),
-                  ("gru_bwd", 95, 130, 256, "fp32")]
+                  ("gru_bwd", 95, 130, 256, "fp32"),
+                  ("rnn", 80, 128, 384, "fp32"), ("rnn", 80, 130, 384, "fp32"),
+                  ("rnn_bwd", 80, 128, 384, "fp32"),
+                  ("rnn_bwd", 80, 130, 384, "fp32")]
 WIDE_NAN_LAUNCHES = 25
 
 
@@ -4816,18 +4906,63 @@ def decode_b128(spec, scale: float, seed, device: str) -> dict:
             "finite_twins": finite[1], "finite": all(finite)}
 
 
+def greedy_b128(cfg, spec, seed: int, device: str) -> dict:
+    """``spec``'s model (random weights from a seed) decoding B = 128
+    utterances of up to 200 frames (features and lengths from ``seed``, the
+    first row full length) through stage 4's calls, ``CTCModel.forward``,
+    ``CTCModel.input_sizes`` and ``GreedyDecoder.decode``, through the
+    kernels and through the plain twins: both sides' strings, the log-probs'
+    largest difference and whether both are finite; ``forward`` runs the
+    kernels' forward alone, for the timings."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.decode import GreedyDecoder
+    from ctc_pytorch_tpu_torch.models import CTCModel
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    model = seeded_model(spec).to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(128, 200, spec.rnn_input_size, generator=gen,
+                    device=device)
+    lens = torch.randint(100, 201, (128,), generator=gen, device=device)
+    lens[0] = 200
+    frac = lens.float() / 200.0
+    decoder = GreedyDecoder(Vocab(cfg.vocab_file).index2word)
+
+    def run():
+        with torch.inference_mode():
+            lp = model(x, frac=frac)
+            sizes = CTCModel.input_sizes(spec, frac, x.shape[1], lp.shape[0])
+            return lp, decoder.decode(lp, sizes)
+
+    got, strings = run()
+    with plain_twins():
+        want, strings_twins = run()
+    sync()
+
+    def forward():
+        with torch.inference_mode():
+            model(x, frac=frac)
+
+    return {"seed": seed, "strings": strings, "strings_twins": strings_twins,
+            "max_abs_err": max_err(got, want),
+            "finite": bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all()), "forward": forward}
+
+
 def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
                       scale: float, seed: int, n: int) -> dict:
     """``n`` launches of a wide branch's entry (``op``: the LSTM eval or
-    training forward or the GRU forward, or the LSTM's or GRU's backward
-    serial chain, ``lstm_bwd`` and ``gru_bwd``) at (t, b, h) on ``name``
-    streams with gates drawn at ``scale`` from ``seed``, each after filling
-    the exchange buffer with NaN and the step flags with a large count (the
-    library zeroes them): a read of a block of h (of a partial dh) before
-    its writers published it reads NaN at the first step and a stale value
-    after, and the kernel is deterministic.  Counts the launches whose
-    output holds a non-finite value or differs in any bit from the first;
-    the first is held against the twin.  Needs the card."""
+    training forward, the GRU forward or the tanh forward, ``rnn``; the
+    LSTM's or GRU's backward serial chain, ``lstm_bwd`` and ``gru_bwd``, or
+    the tanh backward, ``rnn_bwd``) at (t, b, h) on ``name`` streams with
+    gates drawn at ``scale`` from ``seed``, each after filling the exchange
+    buffer with NaN and the step flags with a large count (the library
+    zeroes them): a read of a block of h (of a partial dh; of the tanh
+    backward's dpre) before its writers published it reads NaN at the first
+    step and a stale value after, and the kernel is deterministic.  Counts
+    the launches whose output holds a non-finite value or differs in any bit
+    from the first; the first is held against the twin.  Needs the card."""
     import ctypes
 
     import torch
@@ -4838,14 +4973,19 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
         return wide_bwd_nan_launches(op, t, b, h, scale, seed, n)
     lstm_ops, train_ops, _ = port_ops()
     gru_ops, _ = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
-    gx, w_hh, _ = recurrence_inputs(t, b, h, dtype, seed=seed,
-                                    gates=3 if op == "gru" else 4, scale=scale)
+    gx, w_hh, dy = recurrence_inputs(
+        t, b, h, dtype, seed=seed, scale=scale,
+        gates={"gru": 3, "rnn": 1, "rnn_bwd": 1}.get(op, 4))
     ops, prefix, plain = {
         "lstm_eval": (lstm_ops, "lstm_bidir", lstm_ops.lstm_bidir_plain),
         "lstm_train": (train_ops, "lstm_bidir_train",
                        train_ops.lstm_bidir_train_plain),
-        "gru": (gru_ops, "gru_bidir", gru_ops.gru_bidir_plain)}[op]
+        "gru": (gru_ops, "gru_bidir", gru_ops.gru_bidir_plain),
+        "rnn": (rnn_ops, "rnn_bidir", rnn_ops.rnn_bidir_plain),
+        "rnn_bwd": (rnn_train_ops, "rnn_bidir_train",
+                    rnn_train_ops.rnn_bidir_train_backward_plain)}[op]
     lib = ops.LIBRARY.load()
     # the weights as the op's wrapper passes them
     w = (w_hh.contiguous() if op == "lstm_eval"
@@ -4857,12 +4997,19 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
     hx = torch.empty(n_hx, dtype=torch.float32, device="cuda")
     flags = torch.empty(n_flags, dtype=torch.int32, device="cuda")
     branch = ctypes.c_int(-1)
+    if op == "rnn_bwd":  # the backward of the twin's ys; dgx into ys
+        saved = rnn_ops.rnn_bidir_plain(gx, w_hh)
+        args = (w.data_ptr(), saved.data_ptr(), dy.data_ptr())
+        entry = getattr(lib, f"{prefix}_backward")
+    else:
+        args = (gx.data_ptr(), w.data_ptr())
+        entry = getattr(lib, f"{prefix}_forward")
 
     def launch():
         hx.fill_(float("nan"))
         flags.fill_(1 << 20)
-        err = getattr(lib, f"{prefix}_forward")(
-            gx.data_ptr(), w.data_ptr(), *[o.data_ptr() for o in outs],
+        err = entry(
+            *args, *[o.data_ptr() for o in outs],
             hx.data_ptr(), flags.data_ptr(), t, b, h, -(-b // 4) * 4, 2, bf16,
             torch.cuda.current_stream().cuda_stream, ctypes.byref(branch))
         check(err == 0 and _build.FWD_BRANCHES[branch.value] == "wide_fp32",
@@ -4871,7 +5018,7 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
 
     launch()
     first = [o.clone() for o in outs]
-    want = plain(gx, w_hh)
+    want = (plain(w_hh, saved, dy) if op == "rnn_bwd" else plain(gx, w_hh))
     want = list(want) if isinstance(want, tuple) else [want]
     bad = torch.zeros(2, dtype=torch.int32, device="cuda")
     for o in first:
@@ -4952,8 +5099,8 @@ def wide_bwd_nan_launches(op: str, t: int, b: int, h: int, scale: float,
             "twin_max_abs_err": max(max_err(g, x) for g, x in zip(first, want))}
 
 
-def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
-                       device: str = "cuda") -> dict:
+def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
+                       smi: str, device: str = "cuda") -> dict:
     """Phase 16, fp32 streams where the redesigned branches run them: the
     863 GRU model's train step at B = 8 (the recipe's 16 over two
     data-parallel ranks), two steps through the kernels and through the
@@ -4962,10 +5109,13 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
     ``wide_fp32``, against the twins from unit-scale features of the global
     generator and at ``DECODE_SCALES`` over ``DECODE_SEEDS``; the wide
     branches, forward and backward, under a NaN-filled exchange buffer
-    (``wide_nan_launches`` at ``WIDE_NAN_CASES``); and the flagship's and
-    the 863 GRU model's fp32 train steps at B = 128, the training forwards
-    and the backwards' serial chains on ``wide_fp32``, held against the
-    twins and timed against the parent forms (the grid).  Returns the
+    (``wide_nan_launches`` at ``WIDE_NAN_CASES``); the flagship's, the 863
+    GRU model's and the tanh model's fp32 train steps at B = 128, the
+    training forwards and the backwards' serial chains (the tanh backward
+    whole) on ``wide_fp32``, held against the twins and timed against the
+    parent forms (the grid); and the tanh model's fp32 greedy decode at B =
+    128 (``greedy_b128``), the eval forwards on ``wide_fp32``, its strings
+    those of the twins, its forward timed against the grid.  Returns the
     launches by op and branch.  With ``device="cpu"`` (a rehearsal: every op
     its twin) the branches are not checked, and neither the NaN fill nor
     the timings run."""
@@ -4973,6 +5123,7 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
 
     on_card = device != "cpu"
     gru_ops, gru_train_ops = port_gru_ops()
+    rnn_ops, rnn_train_ops = port_rnn_ops()
     out = {}
     spec32 = dataclasses.replace(spec_863, compute_dtype="float32", drop_out=0.0)
     n = spec32.rnn_layers
@@ -5054,10 +5205,13 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
               "a wide branch read its exchange buffer before it was published")
         out["wide_nan_fill"] = {"runs": runs, "branches": {}}
 
-    # the fp32 train steps at B = 128 of the flagship and the 863 GRU model:
-    # the training forwards and the backwards' serial chains on the wide
-    # branches, held against the twins, then timed against the parent forms
+    # the fp32 train steps at B = 128 of the flagship, the 863 GRU model and
+    # the tanh model: the training forwards and the backwards' serial chains
+    # (the tanh backward whole) on the wide branches, held against the
+    # twins, then timed against the parent forms
     spec_f = dataclasses.replace(spec, compute_dtype="float32", drop_out=0.0)
+    spec_t = dataclasses.replace(spec_tanh, compute_dtype="float32",
+                                 drop_out=0.0)
     lstm_ops, train_ops, _ = port_ops()
     for key, spec_s, cfg_s, batch, prefix, eval_counts in (
             ("flagship_b128_fp32_step", spec_f, cfg,
@@ -5065,9 +5219,13 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
              lstm_ops.launches_fwd_branch),
             ("gru_b128_fp32_step", spec32, cfg_863,
              dp_batch(spec32, 128, 200, 40, seed=18), "gru_bidir",
-             gru_ops.launches_fwd_branch)):
+             gru_ops.launches_fwd_branch),
+            ("tanh_b128_fp32_step", spec_t, cfg_tanh,
+             dp_batch(spec_t, 128, 160, 48, seed=19), "rnn_bidir",
+             rnn_ops.launches_fwd_branch)):
         layers = spec_s.rnn_layers
-        mod = train_ops if prefix == "lstm_bidir" else gru_train_ops
+        mod = {"lstm_bidir": train_ops, "gru_bidir": gru_train_ops,
+               "rnn_bidir": rnn_train_ops}[prefix]
         zero_counts()
         got = dp_steps(spec_s, cfg_s, batch, None, device, steps=1)
         took = {"fwd": {k: v for k, v in mod.launches_fwd_branch.items() if v},
@@ -5121,6 +5279,41 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi: str,
                   f"ms {entry['step_device_ms']} (new: forwards and backwards "
                   f"on wide_fp32; grid: the parent forms)")
         out[key] = entry
+
+    # the tanh model's fp32 greedy decode at B = 128: its eval forwards on
+    # the wide branch, its strings those of the twins, its forward timed
+    # against the grid
+    zero_counts()
+    runs = [greedy_b128(cfg_tanh, spec_t, seed, device) for seed in (0, 1)]
+    took = {k: v for k, v in rnn_ops.launches_fwd_branch.items() if v}
+    err = max(r["max_abs_err"] for r in runs)
+    same = [sum(a == b for a, b in zip(r["strings"], r["strings_twins"]))
+            for r in runs]
+    n_tok = sum(len(x.split()) for r in runs for x in r["strings"])
+    print(f"  tanh model fp32 greedy decode at B=128, T=200 ({smi}): strings "
+          f"equal to the twins' {same} of 128 by seed, {n_tok} tokens; "
+          f"log-probs max_abs_err {err:.3g} (tol {FP32_TOL}), all finite "
+          f"{all(r['finite'] for r in runs)}; eval forwards {took}")
+    check(not on_card or took == {"wide_fp32": len(runs) * spec_t.rnn_layers},
+          f"the tanh fp32 B=128 decode's eval forwards took {took}")
+    check(all(r["finite"] for r in runs) and err <= FP32_TOL,
+          "the tanh fp32 B=128 decode's log-probs differ from the twins")
+    check(all(r["strings"] == r["strings_twins"] for r in runs) and n_tok > 0,
+          "the tanh fp32 B=128 decode's strings differ from the twins'")
+    entry = {"max_abs_err": err, "strings_equal": same, "tokens": n_tok,
+             "branches": {"rnn_bidir": took}}
+    if on_card:
+        fwd = runs[0]["forward"]
+        res = turns({"new": fwd, "grid": on_parent(fwd)}, reps=5)
+        entry.update(forward_ms=res["new"][0], forward_ms_rounds=res["new"][1],
+                     grid_forward_ms=res["grid"][0],
+                     grid_forward_ms_rounds=res["grid"][1])
+        print(f"  tanh model fp32 decode forward B=128 T=200 ({smi}): eval "
+              f"forwards on wide_fp32 {entry['forward_ms']:.4f} ms "
+              f"{[round(v, 4) for v in entry['forward_ms_rounds']]}, on the "
+              f"grid {entry['grid_forward_ms']:.4f} "
+              f"{[round(v, 4) for v in entry['grid_forward_ms_rounds']]}")
+    out["tanh_b128_fp32_decode"] = entry
     return out
 
 
@@ -6103,9 +6296,11 @@ def main() -> int:
 
     print(f"[16/17] fp32 streams on the redesigned branches: the 863 GRU "
           f"model's step at B=8 (cluster16_fp32) and its decode forward at "
-          f"B=128, the flagship's and the 863 GRU model's fp32 steps at B=128 "
-          f"(wide_fp32 forwards and backwards) ({smi})")
-    fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, smi)
+          f"B=128, the flagship's, the 863 GRU model's and the tanh model's "
+          f"fp32 steps at B=128 (wide_fp32 forwards and backwards), the tanh "
+          f"model's fp32 greedy decode at B=128 ({smi})")
+    fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh,
+                                      spec_tanh, smi)
 
     print(f"[17/17] remat: the waveform recipe (graphed epoch and an eager "
           f"step at B=128), the flagship (graphed epoch and an eager step at "
@@ -6308,9 +6503,20 @@ def main() -> int:
              "wide_fp32", csrc + "bwd_wide.cuh",
              tpu + "gru_pallas_v2.py:382 _bwd_pallas (gru_scan_train_v2), fp32 "
              "streams at B >= 64", "gru_bwd_95_128_256_fp32",
-             [("hoist", "gru:wide_fp32")])):
+             [("hoist", "gru:wide_fp32")]),
+            ("rnn_bidir_wide_fp32", ("rnn_bidir", "rnn_bidir_train_fwd"),
+             "wide_fp32", wide, tpu + "rnn_pallas_v2.py:228 _fwd_pallas "
+             "(rnn_bidir_v2, rnn_scan_v2), fp32 streams where no fp32 cluster "
+             "fits (B >= 113 at H = 384)", "rnn_80_128_384_fp32",
+             [("rnn", "eval:wide_fp32"), ("rnn", "fwd:wide_fp32")]),
+            ("rnn_bidir_train_bwd_wide_fp32", ("rnn_bidir_train_bwd",),
+             "wide_fp32", wide, tpu + "rnn_pallas_v2.py:258 _bwd_pallas "
+             "(rnn_scan_v2), fp32 streams where no fp32 cluster fits (B >= "
+             "113 at H = 384)", "rnn_bwd_80_128_384_fp32",
+             [("rnn", "bwd:wide_fp32")])):
         at = redesigned[key]
-        errs = {"fwd": errs_fwd["by_branch"], "hoist": errs_hoist["by_branch"]}
+        errs = {"fwd": errs_fwd["by_branch"], "hoist": errs_hoist["by_branch"],
+                "rnn": errs_rnn["by_branch"]}
         err = max(errs[kind][k].get("fp32", 0.0) for kind, k in err_keys)
         launches = branch_launches(ops, branch)
         check(launches > 0, f"no main path launched {name}")

@@ -92,7 +92,8 @@
 //     kernel does; the k slices then reduce-scatter their 16 sums.  16
 //     rows a cluster.  Bound: resident w_hh (4 H Uc bytes) and the h
 //     buffers (128 H) within 227 KB: H <= 558 at CL = 8, H <= 726 at
-//     CL = 16.
+//     CL = 16.  At H = 384 a CTA takes 120 KB, one an SM, and the card
+//     holds 15 clusters of 8: B <= 112 with two directions.
 // What a step costs: tools/probe_bwd_steps.py stamps each phase (PERF.md
 // §7 has the cycles).  The fp32 kernel's step is about 60% product; the
 // bf16 kernel's is a third product and a third gate math at 32 rows, a
@@ -101,12 +102,14 @@
 // The launcher asks cudaOccupancyMaxActiveClusters once per (device, B, H,
 // ndir, kernel) and takes a cluster branch only where the weights fit and
 // every cluster of the launch can be resident at once.  Where fp32 products
-// find no cluster (B >= 64 at H = 384: 8 or 16 clusters of 16 CTAs; H past
-// the cluster bound) it takes the wide branch of fwd_wide.cuh (kFwdWide: a
-// persistent cooperative kernel, weights resident across every SM, the
-// product on the tensor cores in 3xTF32, h exchanged through L2 under
-// per-block step flags) where its resident weights fit; otherwise the grid
-// kernel.  The entry points report the branch they launched.
+// find no cluster (B >= 64 at H = 384 for the gated cells: 8 or 16
+// clusters of 16 CTAs; B >= 113 for the tanh cell and its backward: 16 or
+// more clusters of 8; H past the cluster bound) it takes the wide branch of
+// fwd_wide.cuh (kFwdWide: a persistent cooperative kernel, weights
+// resident across every SM, the product on the tensor cores in 3xTF32, h
+// (the tanh backward: dpre) exchanged through L2 under per-block step
+// flags) where its resident weights fit; otherwise the grid kernel.  The
+// entry points report the branch they launched.
 
 #pragma once
 
@@ -936,9 +939,8 @@ const void* fma1_kernel_for(int ksn) {
 // Products on bf16 operands (kRound with bf16 streams) take the mma
 // kernel, 16 rows a cluster where all clusters fit, else 32; fp32 products
 // take the fma kernel (fma1_kernel for the one-gate cells) where all its
-// 16-row clusters fit, else (the LSTM and the GRU) the wide kernel where
-// its shape holds and its CTAs are all resident; every other shape the
-// grid.  The tanh backward
+// 16-row clusters fit, else the wide kernel where its shape holds and its
+// CTAs are all resident; every other shape the grid.  The tanh backward
 // (TanhBwdCell) asks for its branch here too.  Asked of the runtime once
 // per (device, B, H, ndir, kernel) and kept: every layer of every step asks
 // again.
@@ -978,25 +980,28 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
         if (fit) taken = kFwdMma32;
       }
     }
-  } else if constexpr (Cell::kGates == 1) {
-    static_assert(!kIsBf16<S> && kRound, "one gate, fp32 streams");
-    const FmaShape f = fma1_shape(H);
-    const int ksn = fma1_slices(B, f.uc);
-    if (ksn > 0) {
-      err = clusters_fit(fma1_kernel_for<Cell>(ksn), f.cl,
-                         (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads,
-                         f.smem, &fit);
-      if (err != cudaSuccess) return err;
-      if (fit) taken = kFwdFma16;
-    }
   } else {
-    const FmaShape f = fma_shape(H);
-    if (4 * f.uc <= kFmaThreads) {
-      err = clusters_fit(
-          reinterpret_cast<const void*>(fwd_fma_kernel<Cell, S, kRound>), f.cl,
-          (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads, f.smem, &fit);
-      if (err != cudaSuccess) return err;
-      if (fit) taken = kFwdFma16;
+    if constexpr (Cell::kGates == 1) {
+      static_assert(!kIsBf16<S> && kRound, "one gate, fp32 streams");
+      const FmaShape f = fma1_shape(H);
+      const int ksn = fma1_slices(B, f.uc);
+      if (ksn > 0) {
+        err = clusters_fit(fma1_kernel_for<Cell>(ksn), f.cl,
+                           (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads,
+                           f.smem, &fit);
+        if (err != cudaSuccess) return err;
+        if (fit) taken = kFwdFma16;
+      }
+    } else {
+      const FmaShape f = fma_shape(H);
+      if (4 * f.uc <= kFmaThreads) {
+        err = clusters_fit(
+            reinterpret_cast<const void*>(fwd_fma_kernel<Cell, S, kRound>),
+            f.cl, (B + kFmaRows - 1) / kFmaRows, ndir, kFmaThreads, f.smem,
+            &fit);
+        if (err != cudaSuccess) return err;
+        if (fit) taken = kFwdFma16;
+      }
     }
     if (taken == kFwdGrid && !kParentBranches) {
       err = wide_fits<Cell, S, kRound>(B, H, ndir, &fit);

@@ -1,23 +1,40 @@
-// The wide-batch branch of the fp32-product forward recurrences for Hopper
+// The wide-batch branch of the fp32-product recurrences for Hopper
 // (sm_90a): the LSTM eval forward at every stream dtype, the LSTM training
-// forward on fp32 streams (which also writes cs) and the GRU forward on fp32
-// streams, where the fp32 cluster kernel (fwd_fma_kernel, fwd_cluster.cuh)
-// cannot place all its clusters at once: B >= 64 at H = 384, where 8 or 16
-// clusters of 16 one-CTA-per-SM blocks are more than the card holds.
-// fwd_cluster.cuh includes this header after its cells (cell_fwd) and
-// stamps; its launcher (fwd_branch) chooses the branch.
+// forward on fp32 streams (which also writes cs), the GRU forward on fp32
+// streams, and the tanh cell's forward and backward on fp32 streams, where
+// the fp32 cluster kernels (fwd_fma_kernel, fma1_kernel, fwd_cluster.cuh)
+// cannot place all their clusters at once: B >= 64 at H = 384 for the gated
+// cells, where 8 or 16 clusters of 16 one-CTA-per-SM blocks are more than
+// the card holds, and B >= 113 for the tanh cell with two directions (16 or
+// more clusters of 8), and H past those clusters' resident bounds.
+// fwd_cluster.cuh includes this header after its cells (cell_fwd,
+// step_time) and stamps; its launcher (fwd_branch) chooses the branch.
 //
-// Replaces, for those shapes (the grid kernels of lstm_fwd.cuh and
-// gru_fwd.cuh stay the branch past the bound below):
+// Replaces, for those shapes (the grid kernels of lstm_fwd.cuh, gru_fwd.cuh,
+// rnn_fwd.cuh and rnn_bidir_train.cu stay the branch past the bounds below):
 //   ctc_pytorch_tpu/ops/lstm_pallas_v2.py:142 lstm_bidir_pallas_v2 (the
 //     pallas_call at :177, cell _cell2);
 //   ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:438, the forward
 //     pallas_call of lstm_scan_train_v2;
 //   ctc_pytorch_tpu/ops/gru_pallas_v2.py:352, the forward pallas_call
-//     shared by gru_bidir_v2 and gru_scan_train_v2.
+//     shared by gru_bidir_v2 and gru_scan_train_v2;
+//   ctc_pytorch_tpu/ops/rnn_pallas_v2.py:228 (_fwd_pallas, shared by
+//     rnn_bidir_v2 and rnn_scan_v2) and :258 (_bwd_pallas, the backward of
+//     rnn_scan_v2).
 // The function is the grid kernels' and the twins' (fwd_cluster.cuh says
 // where each rounds): the product sums h_{t-1} (fp32; rounded to S first
 // where kRound) times fp32 w_hh, the gate math and the carries are fp32.
+//
+// The tanh backward (TanhBwdCell) runs on this kernel under the policy that
+// fwd_mma_kernel and fma1_kernel carry (kBackward, kInPlanes, step_time):
+// its step has the forward's shape exactly, dpre = (dy + dh) (1 - y^2)
+// exchanged every step into dh = dpre @ w_hh^T, and nothing to hoist (the
+// gated cells' backward needs the pre-pass planes of bwd_hoist.cuh and
+// contracts over G H columns, hence bwd_wide.cuh).  So the resident columns
+// are rows of w_hh, a step reads dy (in the place of gx) and the saved ys,
+// stores dgx where the forward stores ys, exchanges dpre as h, and direction
+// 0 walks time from T - 1 down.  A one-gate step at the bench shape is 16
+// rows x 48 columns x 384 x 3 = 0.9 M MACs a CTA, a quarter of the LSTM's.
 //
 // What bounds it: at the bench shape (T = 80, B = 128, H = 384, two
 // directions) a step is 151 M fp32 multiply-adds, 24.2 GFLOP a launch:
@@ -25,7 +42,9 @@
 // and its clock64 stamps (tools/probe_bwd_steps.py, PERF.md §5) put 68% of
 // it in the product (30.3k of 44.3k cycles: 52 FMAs a clock of the SM's
 // 128), 11% in staging h through shared memory, 6% in grid.sync().  So the
-// product moves to the tensor cores and the grid barrier goes:
+// product moves to the tensor cores and the grid barrier goes.  The tanh
+// cell there: 6.04 GFLOP a launch, 0.090 ms of fp32 FMA (its three TF32
+// passes 0.037 ms at 495 TFLOP/s), forward and backward alike:
 //
 // Product: 3xTF32 on mma.sync m16n8k8.  Each operand is split x = hi + lo,
 // hi = x rounded to tf32 (to nearest, ties away from zero: the bits plus
@@ -84,6 +103,23 @@
 // the registers that the mma reads with no staging at all, so neither TMA
 // nor multicast is used.
 //
+// The one-gate cell stages h.  Each unit block of a CTA loads the whole A
+// operand of its m-tile, so the card reads h from L2 once a unit block:
+// 48 times a step at H = 384 (18.9 MB at the tanh bench shape, 147 KB a
+// CTA).  The gated cells' G n-tiles a warp hide that under a G times longer
+// product; the one-gate cell's product phase stayed at 8.1-8.5k cycles a
+// step (tools/probe_bwd_steps.py) with its mma on one chain or on three.
+// So where two steps of the CTA's RB rows of h fit in shared memory
+// beside the weights (stage: 48 KB at the bench shape, 2 RB Hk x 4 bytes),
+// the CTA's warps first copy its m-tiles' k-steps of h_{s-1}, each once
+// (one flag wait and one 16-byte L2 load a lane a k-step), into a buffer
+// of the step's parity, meet at one CTA barrier, and the warps read their
+// A fragments from there: 24.6 KB a CTA a step, 3.1 MB over the card.
+// Elsewhere (B = 128 at H past 552, B <= 16 past 1056) each warp loads its
+// k-steps from L2 as the gated cells do.  A step's staging buffer is
+// rewritten two steps later, after every warp of the CTA passed the
+// barrier of the step between, which follows its last read of it.
+//
 // The shape (wide_shape): the Uc (a multiple of 8) and RB (a multiple of
 // 16) whose CTAs, ndir x ceil(B / RB) x ceil(H / Uc), fit on the card's SMs
 // with the least work a CTA (RB x Uc; ties to the larger Uc, which reads
@@ -99,7 +135,12 @@
 // CTAs never share an SM.  Bound (the largest H that has a shape), on a
 // 132-SM H100 with two directions: LSTM H <= 776 at B <= 16, 904 at B = 64,
 // 600 at B = 128; GRU H <= 1056 at B <= 64, 792 at B = 128; with one
-// direction LSTM H <= 1056, GRU H <= 1080 at B <= 16.  Past it the grid.
+// direction LSTM H <= 1056, GRU H <= 1080 at B <= 16.  The tanh cell at
+// (B = 128, H = 384, two directions): Uc = 48, RB = 16, KS = 2, 128 CTAs of
+// 12 warps, 74 KB of weights + 12 KB of partials + 48 KB of staged h; its
+// bound (chosen without the staging, which is taken where it fits) with
+// two directions H <= 1752 at B <= 16, 1584 at B = 64, 792 at B = 128, with
+// one direction H <= 2288 at B <= 16.  Past it the grid.
 
 #pragma once
 
@@ -113,12 +154,13 @@ struct WideShape {
   int uc, nj, rb, nr, ks, warps, nks;
   size_t smem;  // what the CTA uses; a launch asks for kWideMinSmem at least
   bool ok;
+  bool stage;  // the one-gate cell stages h through shared memory
 };
 
 // The wide branch's shape for G gates, H, B and ndir on a card of `sms` SMs
 // (see the header); ok is false where no shape holds.
 inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
-  WideShape best{0, 0, 0, 0, 0, 0, (H + 7) / 8, 0, false};
+  WideShape best{0, 0, 0, 0, 0, 0, (H + 7) / 8, 0, false, false};
   const int bp = (B + 15) / 16 * 16;
   long best_work = 0;
   for (int uc = 8; uc <= 8 * best.nks; uc += 8) {
@@ -137,11 +179,18 @@ inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
       if (smem > (size_t)kMaxSmem) continue;
       const long work = (long)rb * uc;
       if (!best.ok || work < best_work || (work == best_work && uc > best.uc)) {
-        best = WideShape{uc, nj, rb, nr, ks, groups * ks, best.nks, smem, true};
+        best = WideShape{uc, nj, rb, nr, ks, groups * ks, best.nks, smem, true,
+                         false};
         best_work = work;
       }
       break;  // a larger RB for this Uc does more work a CTA
     }
+  }
+  // the one-gate cell's h staged a step, double-buffered, where it fits
+  const size_t staged = (size_t)2 * best.rb * 8 * best.nks * sizeof(float);
+  if (gates == 1 && best.ok && best.smem + staged <= (size_t)kMaxSmem) {
+    best.stage = true;
+    best.smem += staged;
   }
   return best;
 }
@@ -149,14 +198,17 @@ inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
 // CTA (units blockIdx.x, rows blockIdx.y, direction blockIdx.z); see the
 // header.  hx: the exchange buffer [2][ndir][nmt][nks][32][4] fp32; flags:
 // [ndir][nmt][nks] int32, zero at the launch.  cs: the LSTM training
-// forward's cell states, else null.
+// forward's cell states, else null.  The tanh backward (TanhBwdCell) reads
+// dy as gx and the saved ys as y_in (null for every forward cell) and
+// stores dgx as ys.  stage: the one-gate cell's staging of h (WideShape).
 template <class Cell, typename S, bool kRound>
 __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
-    fwd_wide_kernel(const S* __restrict__ gx, const float* __restrict__ w,
-                    S* __restrict__ ys, S* __restrict__ cs, float* hx,
-                    int* flags, int T, int B, int H, int ndir, int uc, int rb,
-                    int ks) {
+    fwd_wide_kernel(const S* __restrict__ gx, const S* __restrict__ y_in,
+                    const float* __restrict__ w, S* __restrict__ ys,
+                    S* __restrict__ cs, float* hx, int* flags, int T, int B,
+                    int H, int ndir, int uc, int rb, int ks, int stage) {
   constexpr int G = Cell::kGates;
+  constexpr int NI = kInPlanes<Cell>;
   extern __shared__ float4 wide_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
@@ -169,28 +221,44 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
   // [2][groups][ks][4 G][32]: each k split's sums (ks > 1)
   float* part = reinterpret_cast<float*>(ws + (size_t)nub * G * nks * 32);
 
-  // resident: read along the units (coalesced), stored as the B fragments:
-  // lane 4 g + c holds (k = 8 kb + c, 8 kb + c + 4) of column g of n-tile
-  // (unit block, gate q); zero past H in both
+  // resident: read along the units (coalesced; the backward's rows of w_hh
+  // along k), stored as the B fragments: lane 4 g + c holds (k = 8 kb + c,
+  // 8 kb + c + 4) of column g of n-tile (unit block, gate q); zero past H in
+  // both.  Column q H + unit is w_hh[d][k][q H + unit], the backward's
+  // w_hh[d][unit][k] (a column of w_hh^T).
   {
     const int hk = 8 * nks, n_w = G * hk * uc, nthreads = blockDim.x;
     float* wf = reinterpret_cast<float*>(ws);
+    auto coords = [&](int idx, int& u, int& k, int& q) {
+      q = idx / (uc * hk);
+      if constexpr (kBackward<Cell>) {
+        k = idx % hk;
+        u = idx / hk % uc;
+      } else {
+        u = idx % uc;
+        k = idx / uc % hk;
+      }
+    };
     for (int idx0 = tid; idx0 < n_w; idx0 += kLoadDepth * nthreads) {
       float v[kLoadDepth];
 #pragma unroll
       for (int i = 0; i < kLoadDepth; ++i) {
         const int idx = idx0 + i * nthreads;
-        const int u = idx % uc, k = idx / uc % hk, q = idx / (uc * hk);
+        int u, k, q;
+        coords(idx, u, k, q);
         const int unit = own0 + u;
         v[i] = idx < n_w && k < H && unit < H
-                   ? w[((size_t)d * H + k) * gh + (size_t)q * H + unit]
+                   ? w[kBackward<Cell>
+                           ? ((size_t)d * H + unit) * H + k
+                           : ((size_t)d * H + k) * gh + (size_t)q * H + unit]
                    : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kLoadDepth; ++i) {
         const int idx = idx0 + i * nthreads;
         if (idx >= n_w) continue;
-        const int u = idx % uc, k = idx / uc % hk, q = idx / (uc * hk);
+        int u, k, q;
+        coords(idx, u, k, q);
         wf[((((size_t)(u >> 3) * G + q) * nks + (k >> 3)) * 32 + 4 * (u & 7) +
             (k & 3)) * 2 + ((k >> 2) & 1)] = v[i];
       }
@@ -213,13 +281,18 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
   const float2* wq = ws + (size_t)(grp % nub) * G * nks * 32 + lane;
   float* pp = part + (size_t)grp * ks * 4 * G * 32 + lane;
   const size_t part_par = (size_t)groups * ks * 4 * G * 32;
+  // the one-gate cell's staged h: [2][rb / 16][nks][32] float4, the A
+  // fragments of the CTA's m-tiles, after the partials
+  const int mts = rb / 16, units = mts * nks;
+  float4* staged =
+      reinterpret_cast<float4*>(part + (ks > 1 ? 2 * part_par : 0));
 
   // the thread's (row, unit) pairs of the block, p = 2 e + jj: row g + 8 e,
   // unit 2 c + jj, the sums acc[q][p]; the KS splits share them out, split
   // kh doing the gate math of pairs [kh np, kh np + np)
   const int np = 4 / ks, p0 = kh * np;
   const size_t lanes = (size_t)ndir * H;
-  float carry[4] = {0.f, 0.f, 0.f, 0.f}, nx[4][G];
+  float carry[4] = {0.f, 0.f, 0.f, 0.f}, nx[4][NI];
   auto row = [&](int p) { return 16 * mt + g + 8 * (p >> 1); };
   auto unit = [&](int p) { return 8 * kb_own + 2 * c + (p & 1); };
   auto fetch = [&](int t) {  // rows and units past B, H read a clamped address
@@ -228,21 +301,88 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
       if (i >= np) break;
       const int p = p0 + i;
       const bool ok = row(p) < B && unit(p) < H;
-      const S* src = gx + ((size_t)t * B + (ok ? row(p) : 0)) * ndir * gh +
-                     d * gh + (ok ? unit(p) : 0);
+      const size_t o = ((size_t)t * B + (ok ? row(p) : 0)) * ndir * gh +
+                       d * gh + (ok ? unit(p) : 0);
 #pragma unroll
-      for (int q = 0; q < G; ++q) nx[i][q] = load_f(src + (size_t)q * H);
+      for (int q = 0; q < G; ++q) nx[i][q] = load_f(gx + o + (size_t)q * H);
+      // plane G (the backward's saved y) has gx's layout, as G = 1
+      if constexpr (NI > G) nx[i][G] = load_f(y_in + o);
     }
   };
-  if (live) fetch(d == 0 ? 0 : T - 1);
+  if (live) fetch(step_time<Cell>(0, d, T));
   FWD_STAMP_START
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? s : T - 1 - s;
+    const int t = step_time<Cell>(s, d, T);
     float acc[G][4];
 #pragma unroll
     for (int q = 0; q < G; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
-    if (live && s > 0 && k0 < k1) {  // h_{-1} = 0: no product at s = 0
+    // one k-step of the product: the A fragment a (h or dpre of 16 rows x 8
+    // units, split here) times the warp's G n-tiles of k-step kb
+    auto kstep = [&](const unsigned* ah, const unsigned* al, int kb) {
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float2 bv = wq[((size_t)q * nks + kb) * 32];
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32(bv.x, bh0, bl0);
+        split_tf32(bv.y, bh1, bl1);
+        mma_tf32(acc[q], al, bh0, bh1);
+        mma_tf32(acc[q], ah, bl0, bl1);
+        mma_tf32(acc[q], ah, bh0, bh1);
+      }
+    };
+    auto split4 = [](const float4& v, unsigned* ah, unsigned* al) {
+      split_tf32(v.x, ah[0], al[0]);
+      split_tf32(v.y, ah[1], al[1]);
+      split_tf32(v.z, ah[2], al[2]);
+      split_tf32(v.w, ah[3], al[3]);
+    };
+    if (G == 1 && stage && s > 0) {
+      // the one-gate cell: the CTA's warps copy h_{s-1} of its m-tiles, each
+      // k-step of each m-tile once, from the exchange buffer into shared
+      // memory (one flag wait and one L2 load a k-step and m-tile, where
+      // the unit blocks of an m-tile would each load all of it), then meet
+      const int nw = blockDim.x >> 5;
+      float4* dst = staged + (size_t)(s & 1) * units * 32 + lane;
+      auto mt_of = [&](int u) { return (int)blockIdx.y * mts + u / nks; };
+      for (int j = lane; warp + nw * j < units; j += 32) {
+        const int u = warp + nw * j;
+        if (mt_of(u) >= nmt) continue;
+        const int* f = flags + ((size_t)d * nmt + mt_of(u)) * nks + u % nks;
+        int spins = 0;
+        while (ld_acquire(f) < ks * s)
+          if (++spins > kWideSpinLimit) __trap();
+      }
+      __syncwarp();
+      for (int u0 = warp; u0 < units; u0 += nw * kWideDepth) {
+        float4 v[kWideDepth];
+#pragma unroll
+        for (int i = 0; i < kWideDepth; ++i) {
+          const int u = u0 + nw * i;
+          if (u < units && mt_of(u) < nmt)
+            v[i] = ld_exchange(reinterpret_cast<const float4*>(hx) +
+                               ((((size_t)((s + 1) & 1) * ndir + d) * nmt +
+                                 mt_of(u)) * nks + u % nks) * 32 + lane);
+        }
+#pragma unroll
+        for (int i = 0; i < kWideDepth; ++i) {
+          const int u = u0 + nw * i;
+          if (u < units && mt_of(u) < nmt) dst[(size_t)u * 32] = v[i];
+        }
+      }
+      __syncthreads();
+      FWD_STAMP(0)  // the flags and the staging
+      if (live) {
+        const float4* src =
+            staged + ((size_t)(s & 1) * units + (size_t)(grp / nub) * nks) * 32 +
+            lane;
+        for (int kb = k0; kb < k1; ++kb) {
+          unsigned ah[4], al[4];
+          split4(src[(size_t)kb * 32], ah, al);
+          kstep(ah, al, kb);
+        }
+      }
+    } else if (live && s > 0 && k0 < k1) {  // h_{-1} = 0: no product at s = 0
       // h_{s-1} of every k-step of the split is published: each of the KS
       // writers of a block adds one to its flag a step
       wait_flags(fl + k0, k1 - k0, ks * s, lane);
@@ -258,22 +398,10 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
           const int kb = kb0 + i;
           if (kb < k1) {
             unsigned ah[4], al[4];
-            split_tf32(ring[i].x, ah[0], al[0]);
-            split_tf32(ring[i].y, ah[1], al[1]);
-            split_tf32(ring[i].z, ah[2], al[2]);
-            split_tf32(ring[i].w, ah[3], al[3]);
+            split4(ring[i], ah, al);
             if (kb + kWideDepth < k1)
               ring[i] = ld_exchange(src + (size_t)(kb + kWideDepth) * 32);
-#pragma unroll
-            for (int q = 0; q < G; ++q) {
-              const float2 bv = wq[((size_t)q * nks + kb) * 32];
-              unsigned bh0, bl0, bh1, bl1;
-              split_tf32(bv.x, bh0, bl0);
-              split_tf32(bv.y, bh1, bl1);
-              mma_tf32(acc[q], al, bh0, bh1);
-              mma_tf32(acc[q], ah, bl0, bl1);
-              mma_tf32(acc[q], ah, bh0, bh1);
-            }
+            kstep(ah, al, kb);
           }
         }
       }
@@ -333,7 +461,7 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
       __threadfence();
       __syncwarp();
       if (lane == 0) red_release_add(fl + kb_own, 1);
-      fetch(d == 0 ? t + 1 : t - 1);
+      fetch(step_time<Cell>(s + 1, d, T));
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -385,11 +513,13 @@ cudaError_t wide_fits(int B, int H, int ndir, bool* fit) {
 
 // Launch the wide branch (fwd_branch chose it for the shape): zero the
 // flags on the stream, then one cooperative launch.  hx and flags as
-// wide_hx_floats and wide_flag_ints count them; cs as fwd_wide_kernel.
+// wide_hx_floats and wide_flag_ints count them; cs and y_in as
+// fwd_wide_kernel (the tanh backward passes dy as gx and dgx as ys).
 template <class Cell, typename S, bool kRound>
 cudaError_t launch_fwd_wide(const void* gx, const void* w, void* ys, void* cs,
                             void* hx, void* flags, int T, int B, int H,
-                            int ndir, cudaStream_t stream) {
+                            int ndir, cudaStream_t stream,
+                            const void* y_in = nullptr) {
   if (hx == nullptr || flags == nullptr) return cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -413,10 +543,11 @@ cudaError_t launch_fwd_wide(const void* gx, const void* w, void* ys, void* cs,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fwd_wide_kernel<Cell, S, kRound>,
                            static_cast<const S*>(gx),
+                           static_cast<const S*>(y_in),
                            static_cast<const float*>(w), static_cast<S*>(ys),
                            static_cast<S*>(cs), static_cast<float*>(hx),
                            static_cast<int*>(flags), T, B, H, ndir, ws.uc,
-                           ws.rb, ws.ks);
+                           ws.rb, ws.ks, (int)ws.stage);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -31,6 +31,17 @@
 // 8 CTAs, H <= 726 with 16).  A cluster branch is taken only where every
 // cluster of the launch is resident at once.
 //
+// Wide branch, fp32 streams where no fp32 cluster fits (B >= 113 at H =
+// 384 with two directions: 16 clusters of 8 one-CTA-per-SM blocks are more
+// than the card holds; H past 726): fwd_wide_kernel<TanhCell>
+// (fwd_wide.cuh), one persistent cooperative CTA an SM owning Uc units x
+// RB rows with their w_hh columns resident, the product in 3xTF32 on
+// mma.sync, h exchanged through L2 under per-block step flags, to the bound
+// the header states (H <= 792 at B = 128).  The grid below spends a step
+// on an fp32 FMA product and a grid barrier; the wide branch's step is the
+// exchange and a quarter of the LSTM's 3xTF32 product (PERF.md row 9 has
+// both branches' times).
+//
 // Grid branch, every other shape: the GRU forward's grid (gru_bidir.cu)
 // with one product per unit.  One persistent cooperative grid; CTA (d, g)
 // owns 8 hidden units of direction d and keeps the matching 8 columns of
@@ -53,8 +64,8 @@
 extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0 the
-// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
-// (FwdBranch).  Returns a cudaError_t.
+// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster, 4 the
+// wide branch (FwdBranch).  Returns a cudaError_t.
 int rnn_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)(bf16 ? fwd_branch<TanhCell, __nv_bfloat16, true>(B, H, ndir, branch)
                     : fwd_branch<TanhCell, float, true>(B, H, ndir, branch));
@@ -62,13 +73,16 @@ int rnn_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
 
 // gx (T, B, ndir * H) and ys (T, B, ndir * H) in the stream type (bf16 != 0:
 // bfloat16, else float32); w_hh (ndir, H, H) fp32, already rounded to the
-// stream type; ndir 1 or 2.  hbuf, for the grid branch only (else null):
-// (ndir, 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4.  *branch: the
-// branch launched, as rnn_bidir_fwd_branch numbers them.  Returns a
-// cudaError_t; 0 means launched.
+// stream type; ndir 1 or 2.  hbuf and flags: for the grid branch hbuf is
+// (ndir, 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4 and flags null;
+// for the wide branch the exchange buffer and the step flags
+// (wide_hx_floats, wide_flag_ints; the flags are zeroed on the stream);
+// null for the clusters.  *branch: the branch launched, as
+// rnn_bidir_fwd_branch numbers them.  Returns a cudaError_t; 0 means
+// launched.
 int rnn_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
-                      int T, int B, int H, int ldh, int ndir, int bf16,
-                      void* stream, int* branch) {
+                      void* flags, int T, int B, int H, int ldh, int ndir,
+                      int bf16, void* stream, int* branch) {
   *branch = -1;
   if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
     return (int)cudaErrorInvalidValue;
@@ -81,6 +95,10 @@ int rnn_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
     err = bf16 ? rnn_launch<__nv_bfloat16>(gx, w_hh, ys, hbuf, T, B, H, ldh,
                                            ndir, st)
                : rnn_launch<float>(gx, w_hh, ys, hbuf, T, B, H, ldh, ndir, st);
+  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
+    err = bf16 ? cudaErrorInvalidValue
+               : launch_fwd_wide<TanhCell, float, true>(
+                     gx, w_hh, ys, nullptr, hbuf, flags, T, B, H, ndir, st);
   } else {
     err = bf16 ? launch_fwd_cluster<TanhCell, __nv_bfloat16, true>(
                      plan, gx, w_hh, ys, nullptr, T, B, H, ndir, st)

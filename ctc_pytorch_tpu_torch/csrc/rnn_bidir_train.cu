@@ -35,6 +35,18 @@
 // resident at once.  There is nothing to hoist (the LSTM's and GRU's
 // pre-pass of bwd_hoist.cuh): 1 - y^2 is one multiply on a saved plane.
 //
+// Wide branch, fp32 streams where no fp32 cluster fits (B >= 113 at H =
+// 384 with two directions; H past 726): the forward's wide kernel with the
+// backward cell, fwd_wide_kernel<TanhBwdCell> (fwd_wide.cuh): one
+// persistent cooperative CTA an SM owning Uc units x RB rows, the rows of
+// w_hh its units meet resident, dpre exchanged through L2 under per-block
+// step flags, the product dpre @ w_hh^T in 3xTF32 on mma.sync, time
+// reversed; to the bound the header states (H <= 792 at B = 128).  Not
+// bwd_wide.cuh: that kernel forms each CTA's partial dh over its own G Uc
+// gate columns from the gated cells' pre-pass planes; here dpre is one
+// plane, formed in the step, and the product contracts over H, the
+// forward's shape.
+//
 // Grid branch, every other shape: the grid forward's design (rnn_fwd.cuh),
 // whose product this step has the shape of: h @ w becomes dpre @ w^T.  CTA
 // (d, g) owns 8 hidden units of direction d and keeps their 8 rows of
@@ -142,8 +154,8 @@ cudaError_t rnn_launch_bwd(const void* w_hh, const void* ys, const void* dy,
 extern "C" {
 
 // The backward's branch for this shape on the current device: *branch 0 the
-// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster
-// (FwdBranch).  Returns a cudaError_t.
+// grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster, 4
+// the wide branch (FwdBranch).  Returns a cudaError_t.
 int rnn_bidir_train_bwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)(bf16 ? fwd_branch<TanhBwdCell, __nv_bfloat16, true>(B, H, ndir,
                                                                     branch)
@@ -152,13 +164,16 @@ int rnn_bidir_train_bwd_branch(int B, int H, int ndir, int bf16, int* branch) {
 
 // ys, dy and dgx (T, B, ndir * H) in the stream type (bf16 != 0: bfloat16,
 // else float32); w_hh (ndir, H, H) fp32, rounded to the stream type by the
-// caller; ndir 1 or 2.  dpbuf, for the grid branch only (else null): (ndir,
-// 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4.  *branch: the branch
-// launched, as rnn_bidir_train_bwd_branch numbers them.  Returns a
-// cudaError_t; 0 means launched.
+// caller; ndir 1 or 2.  dpbuf and flags: for the grid branch dpbuf is
+// (ndir, 2, H, ldh) fp32 zeros with ldh >= B a multiple of 4 and flags
+// null; for the wide branch the exchange buffer and the step flags
+// (wide_hx_floats, wide_flag_ints; the flags are zeroed on the stream);
+// null for the clusters.  *branch: the branch launched, as
+// rnn_bidir_train_bwd_branch numbers them.  Returns a cudaError_t; 0 means
+// launched.
 int rnn_bidir_train_backward(const void* w_hh, const void* ys, const void* dy,
-                             void* dgx, void* dpbuf, int T, int B, int H,
-                             int ldh, int ndir, int bf16, void* stream,
+                             void* dgx, void* dpbuf, void* flags, int T, int B,
+                             int H, int ldh, int ndir, int bf16, void* stream,
                              int* branch) {
   *branch = -1;
   if (ldh < B || ldh % 4 != 0 || ndir < 1 || ndir > 2)
@@ -174,6 +189,11 @@ int rnn_bidir_train_backward(const void* w_hh, const void* ys, const void* dy,
                                                H, ldh, ndir, st)
                : rnn_launch_bwd<float>(w_hh, ys, dy, dgx, dpbuf, T, B, H, ldh,
                                        ndir, st);
+  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
+    err = bf16 ? cudaErrorInvalidValue
+               : launch_fwd_wide<TanhBwdCell, float, true>(
+                     dy, w_hh, dgx, nullptr, dpbuf, flags, T, B, H, ndir, st,
+                     ys);
   } else {
     err = bf16 ? launch_fwd_cluster<TanhBwdCell, __nv_bfloat16, true>(
                      plan, dy, w_hh, dgx, nullptr, T, B, H, ndir, st, ys)

@@ -51,12 +51,14 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
                    ndir: int, scratch_shapes) -> str:
     """Launch the forward entry ``<prefix>_forward`` of a recurrence library
     on the current stream with ``outs`` (``ys``, and the LSTM training
-    forward's ``cs``): asks ``<prefix>_fwd_branch`` first and makes the
-    grid branch's zeroed fp32 scratch (``scratch_shapes``, after the h
-    double buffer ``(ndir, 2, H, ldh)``) only for it, and the wide branch's
-    exchange buffer and step flags (``wide_scratch_sizes``; the library
-    zeroes the flags on the stream) only for that one.  Returns the branch
-    launched (``FWD_BRANCHES``); raises if the launch failed."""
+    forward's ``cs``) and two scratch pointers after them: asks
+    ``<prefix>_fwd_branch`` first and makes the grid branch's zeroed fp32
+    scratch (the h double buffer ``(ndir, 2, H, ldh)``, then
+    ``scratch_shapes``, at most one, else a null pointer) only for it, and
+    the wide branch's exchange buffer and step flags
+    (``wide_scratch_sizes``; the library zeroes the flags on the stream)
+    only for that one.  Returns the branch launched (``FWD_BRANCHES``);
+    raises if the launch failed."""
     import torch
 
     bf16 = int(gx.dtype == torch.bfloat16)
@@ -64,13 +66,13 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
     err = getattr(lib, f"{prefix}_fwd_branch")(b, h, ndir, bf16,
                                                ctypes.byref(branch))
     ldh = -(-b // 4) * 4  # rows of the grid's h buffer, 16-byte pieces
-    ptrs = [None] * (1 + len(scratch_shapes))
+    ptrs = [None, None]
     if err == 0 and FWD_BRANCHES[branch.value] == "grid":
         scratch = [torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
                                device=gx.device)]
         scratch += [torch.zeros(*s, dtype=torch.float32, device=gx.device)
                     for s in scratch_shapes]
-        ptrs = [x.data_ptr() for x in scratch]
+        ptrs = [x.data_ptr() for x in scratch] + [None] * (2 - len(scratch))
     elif err == 0 and FWD_BRANCHES[branch.value] == "wide_fp32":
         n_hx, n_flags = wide_scratch_sizes(b, h, ndir)
         scratch = [torch.empty(n_hx, dtype=torch.float32, device=gx.device),

@@ -16,13 +16,17 @@ product, so the rounded h is all the recurrence carries.
 
 On this card the work is bound by its bytes with bf16 streams and by fp32
 operations with fp32 streams; ``csrc/rnn_bidir.cu`` counts both.  The kernel
-has two branches, which the library chooses by shape and reports
+has three branches, which the library chooses by shape and reports
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it and h exchanged in distributed
 shared memory (``csrc/fwd_cluster.cuh``: the step product on the tensor
-cores with bf16 streams, fp32 FMA with fp32 streams), or one cooperative
-grid with a grid barrier per time step where no cluster holds the shape.
-Any T >= 1, B >= 1 and H run, with no padding.
+cores with bf16 streams, fp32 FMA with fp32 streams); with fp32 streams
+where those clusters do not all fit (B >= 113 at H = 384 with two
+directions) or H is past them, the wide branch (``wide_fp32``,
+``csrc/fwd_wide.cuh``: one CTA an SM, 3xTF32 on the tensor cores, h
+exchanged through L2 under step flags, H <= 792 at B = 128); or one
+cooperative grid with a grid barrier per time step where neither holds the
+shape.  Any T >= 1, B >= 1 and H run, with no padding.
 
 ``rnn_bidir`` takes the plain version for CPU tensors only.  A CUDA tensor
 goes through the kernel, or the call raises.
@@ -53,7 +57,7 @@ LIBRARY = KernelLibrary(
     "rnn_bidir.cu",
     {"rnn_bidir_fwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_forward": (
-         [_VP] * 4 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
+         [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_error_string": ([_CI], ctypes.c_char_p)},
     headers=HEADERS)
 
@@ -103,7 +107,8 @@ def launch_forward(gx: torch.Tensor, w_hh: torch.Tensor
     w = w_hh.to(gx.dtype).float().contiguous()  # rounded to the stream dtype
     with torch.cuda.device(gx.device):
         ys = torch.empty(t_len, b, ndir * h, dtype=gx.dtype, device=gx.device)
-        # the grid branch needs only its h double buffer
+        # the grid branch needs only its h double buffer; the wide branch
+        # its exchange buffer and step flags
         branch = _launch(lib, "rnn_bidir", gx, w, [ys], t_len, b, h, ndir, [])
     return ys, branch
 

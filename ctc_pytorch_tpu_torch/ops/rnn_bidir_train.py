@@ -30,9 +30,12 @@ feeds a (B, H) x (H, H) product) and the forward's branches, which the
 library chooses by shape and reports (``launches_bwd_branch``, as the
 forward's ``launches_fwd_branch``): the forward's cluster kernels
 (``csrc/fwd_cluster.cuh``) run backward in time on the rows of ``w_hh``,
-with the tensor cores on bf16 streams and fp32 FMA on fp32 streams, or one
-cooperative grid with a grid barrier per time step where no cluster holds
-the shape.  The serial chain, not the card's limits, sets their time
+with the tensor cores on bf16 streams and fp32 FMA on fp32 streams; with
+fp32 streams where those clusters do not all fit, the forward's wide kernel
+run backward in time the same way (``wide_fp32``, ``csrc/fwd_wide.cuh``:
+one CTA an SM, 3xTF32 on the tensor cores, dpre exchanged through L2 under
+step flags); or one cooperative grid with a grid barrier per time step
+where neither holds the shape.  The serial chain, not the card's limits, sets their time
 (``csrc/rnn_bidir_train.cu`` counts the limits).  Any T >= 1, B >= 1 and H
 run, with no padding.
 
@@ -54,6 +57,7 @@ from ctc_pytorch_tpu_torch.ops._build import (
     check_plane,
     device_kind,
     step_times,
+    wide_scratch_sizes,
 )
 from ctc_pytorch_tpu_torch.ops.lstm_bidir_train import dw_hh
 
@@ -62,7 +66,7 @@ LIBRARY = KernelLibrary(
     "rnn_bidir_train.cu",
     {"rnn_bidir_train_bwd_branch": ([_CI] * 4 + [ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_train_backward": (
-         [_VP] * 5 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
+         [_VP] * 6 + [_CI] * 6 + [_VP, ctypes.POINTER(_CI)], _CI),
      "rnn_bidir_train_error_string": ([_CI], ctypes.c_char_p)},
     headers=rnn_ops.HEADERS)
 
@@ -129,19 +133,27 @@ def rnn_bidir_train_backward_cuda(w_hh: torch.Tensor, ys: torch.Tensor,
                                              ctypes.byref(branch))
         dgx = torch.empty_like(ys)
         ldh = -(-b // 4) * 4
-        dpbuf = None
-        if err == 0 and branch.value == 0:
+        scratch = []
+        if err == 0 and FWD_BRANCHES[branch.value] == "grid":
             # the grid branch's dpre exchange double buffer, (direction,
             # parity, H, ldh): rows padded to a multiple of 4 floats
             # (16-byte copies)
-            dpbuf = torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
-                                device=ys.device)
+            scratch = [torch.zeros(ndir, 2, h, ldh, dtype=torch.float32,
+                                   device=ys.device)]
+        elif err == 0 and FWD_BRANCHES[branch.value] == "wide_fp32":
+            # the wide branch's exchange buffer and step flags (the library
+            # zeroes the flags on the stream)
+            n_x, n_flags = wide_scratch_sizes(b, h, ndir)
+            scratch = [torch.empty(n_x, dtype=torch.float32, device=ys.device),
+                       torch.empty(n_flags, dtype=torch.int32,
+                                   device=ys.device)]
+        ptrs = [x.data_ptr() for x in scratch] + [None] * (2 - len(scratch))
         if err == 0:
             stream = torch.cuda.current_stream(ys.device).cuda_stream
             err = lib.rnn_bidir_train_backward(
                 w.data_ptr(), ys.data_ptr(), dy.data_ptr(), dgx.data_ptr(),
-                None if dpbuf is None else dpbuf.data_ptr(), t_len, b, h, ldh,
-                ndir, bf16, stream, ctypes.byref(branch))
+                *ptrs, t_len, b, h, ldh, ndir, bf16, stream,
+                ctypes.byref(branch))
     if err != 0:
         msg = lib.rnn_bidir_train_error_string(err).decode()
         raise RuntimeError(f"rnn_bidir_train backward kernel launch failed "

@@ -506,6 +506,31 @@ def test_rnn_train_autograd_goes_through_both_kernels(card):
     assert (w_hh.grad.cpu() - w_c.grad).abs().max().item() <= 1e-4
 
 
+def test_rnn_train_autograd_takes_the_wide_branch_at_the_bench_batch(card):
+    """fp32 streams at B = 128, H = 384 (16 clusters of 8 do not fit):
+    through ``rnn_bidir_train`` and ``.backward()`` both kernels launch the
+    wide branch once, and the gradients hold the CPU twins' (gx within
+    1e-4; dW_hh, a sum over T x B, within 1e-4 of its largest entry)."""
+    gx, w_hh, dy = _rnn_inputs(20, 128, 384, torch.float32, card)
+    gx.requires_grad_(True)
+    w_hh.requires_grad_(True)
+    fwd = dict(rnn_train_ops.launches_fwd_branch)
+    bwd = dict(rnn_train_ops.launches_bwd_branch)
+    ys = rnn_train_ops.rnn_bidir_train(gx, w_hh)
+    (ys * dy).sum().backward()
+    torch.cuda.synchronize()
+    for now, before in ((rnn_train_ops.launches_fwd_branch, fwd),
+                        (rnn_train_ops.launches_bwd_branch, bwd)):
+        assert {k: v - before[k] for k, v in now.items()
+                if v != before[k]} == {"wide_fp32": 1}
+    gx_c = gx.detach().cpu().requires_grad_(True)
+    w_c = w_hh.detach().cpu().requires_grad_(True)
+    (rnn_train_ops.rnn_bidir_train(gx_c, w_c) * dy.cpu()).sum().backward()
+    assert (gx.grad.cpu() - gx_c.grad).abs().max().item() <= 1e-4
+    scale = max(1.0, w_c.grad.abs().max().item())
+    assert (w_hh.grad.cpu() - w_c.grad).abs().max().item() <= 1e-4 * scale
+
+
 # (eval op, trainable op, gates) per cell, for the one-direction launches
 UNIDIR = {"lstm": (lstm_ops, train_ops, 4), "gru": (gru_ops, gru_train_ops, 3),
           "rnn": (rnn_ops, rnn_train_ops, 1)}

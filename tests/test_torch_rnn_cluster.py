@@ -109,17 +109,23 @@ def test_the_header_sizes_at_the_bench_width():
 
 
 def test_the_card_cases_respect_the_bounds():
-    """Every ``chip_smoke.RNN_CASES`` shape past its dtype's bound expects
-    the grid, and every shape within it whose few clusters surely fit
-    expects a cluster branch of its dtype; the list covers both sides of
-    each bound, T = 1, one direction and both kernels."""
+    """Every ``chip_smoke.RNN_CASES`` shape past its dtype's cluster bound
+    expects the grid (fp32 streams: the wide branch where its shape holds,
+    ``tests/test_torch_rnn_wide.py``), and every shape within it whose few
+    clusters surely fit expects a cluster branch of its dtype; the list
+    covers both sides of each bound, T = 1, one direction and both
+    kernels."""
+    from test_torch_wide_fwd import wide_shape
+
     seen = set()
     for kernel, t, b, h, dtype, ndir, branch, _ in chip_smoke.RNN_CASES:
         holds = (mma1_holds(h, 16) if dtype == "bf16"
                  else fma1_cluster(h) is not None)
         clusters = ndir * -(-b // 16)
         if not holds:
-            assert branch == "grid", (kernel, t, b, h, dtype)
+            wide = dtype == "fp32" and wide_shape(1, h, b, ndir) is not None
+            assert branch == ("wide_fp32" if wide else "grid"), (
+                kernel, t, b, h, dtype)
         elif clusters <= 8:
             assert branch.startswith("cluster"), (kernel, t, b, h, dtype)
             assert branch.endswith("_fp32") == (dtype == "fp32")

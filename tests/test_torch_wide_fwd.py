@@ -48,7 +48,8 @@ TOL = 1e-4
 
 def wide_shape(gates, h, b, ndir, sms=SMS):
     """Python mirror of the header's ``wide_shape``: ``(uc, nj, rb, nr, ks,
-    warps, nks, smem)`` or None where no shape holds."""
+    warps, nks, smem)`` or None where no shape holds; the one-gate cell's
+    smem includes its staged h (two steps of RB rows) where that fits."""
     nks = -(-h // 8)
     bp = -(-b // 16) * 16
     best, best_work = None, None
@@ -75,6 +76,10 @@ def wide_shape(gates, h, b, ndir, sms=SMS):
                 best = (uc, nj, rb, nr, ks, groups * ks, nks, smem)
                 best_work = work
             break
+    if gates == 1 and best is not None:
+        staged = 2 * best[2] * 8 * nks * 4
+        if best[-1] + staged <= SMEM:
+            best = best[:-1] + (best[-1] + staged,)
     return best
 
 
@@ -146,8 +151,9 @@ def test_the_scratch_is_the_headers():
 
 
 def test_the_parent_forms_are_the_same_sources_with_one_define(monkeypatch):
-    """The grid that phase 9 times beside the wide branch and the GRU's fp32
-    cluster is the same sources built with ``-DPARENT_BRANCHES``
+    """The grid that phases 9 and 16 time beside the wide branches (the
+    tanh cell's too) and the GRU's fp32 cluster is the same sources built
+    with ``-DPARENT_BRANCHES``
     (``tools/parent_forms.py``): only those launchers read the define, the
     package's flags never set it, a parent library builds to a path of its
     own, and the block that routes the ops through the parents restores
@@ -170,8 +176,10 @@ def test_the_parent_forms_are_the_same_sources_with_one_define(monkeypatch):
             "bwd_hoist.cuh", "fwd_cluster.cuh")), path
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     from ctc_pytorch_tpu_torch.ops import (gru_bidir_train,
-                                           lstm_bidir_train)
-    mods = (lstm_ops, lstm_bidir_train, gru_ops, gru_bidir_train)
+                                           lstm_bidir_train, rnn_bidir,
+                                           rnn_bidir_train)
+    mods = (lstm_ops, lstm_bidir_train, gru_ops, gru_bidir_train, rnn_bidir,
+            rnn_bidir_train)
     saved = [m.LIBRARY for m in mods]
     for parent, mod in zip(libraries(), mods):
         lib = mod.LIBRARY

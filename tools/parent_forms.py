@@ -1,5 +1,6 @@
-"""The parent forms of the branches that the wide-batch forward
-(``csrc/fwd_wide.cuh``) and the GRU backward's fp32 cluster took over: the
+"""The parent forms of the branches that the wide-batch kernels
+(``csrc/fwd_wide.cuh``, ``csrc/bwd_wide.cuh``; the tanh cell's forward and
+backward on the first) and the GRU backward's fp32 cluster took over: the
 port's recurrence libraries built again with ``-DPARENT_BRANCHES``
 (``csrc/bwd_hoist.cuh``), whose launchers keep the cooperative grid at those
 shapes, and a block that routes the ops through them.  So one run on the
@@ -26,9 +27,11 @@ DEFINE = "-DPARENT_BRANCHES"
 def _modules():
     """The op modules whose libraries have a parent form."""
     from ctc_pytorch_tpu_torch.ops import (gru_bidir, gru_bidir_train,
-                                           lstm_bidir, lstm_bidir_train)
+                                           lstm_bidir, lstm_bidir_train,
+                                           rnn_bidir, rnn_bidir_train)
 
-    return [lstm_bidir, lstm_bidir_train, gru_bidir, gru_bidir_train]
+    return [lstm_bidir, lstm_bidir_train, gru_bidir, gru_bidir_train,
+            rnn_bidir, rnn_bidir_train]
 
 
 _PARENTS: dict = {}
@@ -61,8 +64,8 @@ def libraries() -> list:
 
 @contextlib.contextmanager
 def parent_forms():
-    """Inside the block the LSTM and GRU ops launch through the parent
-    libraries; their launch counts go on as usual (the grid's)."""
+    """Inside the block the LSTM, GRU and tanh ops launch through the
+    parent libraries; their launch counts go on as usual (the grid's)."""
     modules = _modules()
     saved = [m.LIBRARY for m in modules]
     for m in modules:

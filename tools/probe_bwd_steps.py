@@ -10,8 +10,9 @@ shapes and the LSTM's grid backward (``lstm_bidir_bwd_kernel`` in
 (``fwd_mma_kernel``, ``fwd_fma_kernel``, ``fma1_kernel`` in
 ``csrc/fwd_cluster.cuh``, ``fwd_wide_kernel`` in ``csrc/fwd_wide.cuh``) at
 the main paths' and bench shapes, for the LSTM, the GRU and the tanh cell
-forward and backward, and the grid forward (``csrc/lstm_fwd.cuh``) at the
-bench shape: the cycles a step spends in each phase, and the clusters the
+forward and backward (the tanh cell's on the wide branch too, fp32 at the
+bench shape), and the grid forward (``csrc/lstm_fwd.cuh``) at the bench
+shape: the cycles a step spends in each phase, and the clusters the
 card holds at once.
 
     python3 tools/probe_bwd_steps.py
@@ -48,8 +49,9 @@ GRID_PHASES = ["gate inputs and the first tile issued",
                "gate math and stores", "grid.sync()"]
 
 # the wide branch's step (fwd_wide.cuh), stamped by warp 0 (a k split 0)
-WIDE_PHASES = ["the flags", "product", "the k splits' barrier and sum",
-               "gate math", "exchange, flag and stores"]
+WIDE_PHASES = ["the flags (the one-gate cell's staged h: and its copy)",
+               "product", "the k splits' barrier and sum", "gate math",
+               "exchange, flag and stores"]
 
 # the wide backward's step (bwd_wide.cuh), stamped by thread 0 (an
 # element-wise owner and a writer)
@@ -109,7 +111,7 @@ void run_fwd(int T, int B, int H, const char* what) {
     const cudaError_t err =
         branch == kFwdWide
             ? launch_fwd_wide<Cell, S, kRound>(gx, w, ys, c, hx, flags, T, B,
-                                               H, ndir, 0)
+                                               H, ndir, 0, y_in)
             : launch_fwd_cluster<Cell, S, kRound>(branch, gx, w, ys, c, T, B,
                                                   H, ndir, 0, y_in);
     cudaEventRecord(b);
@@ -438,6 +440,10 @@ int main() {
                                          "tanh fwd T=80 B=128 H=384 bf16");
   run_fwd<TanhBwdCell, __nv_bfloat16, true>(80, 128, 384,
                                             "tanh bwd T=80 B=128 H=384 bf16");
+  printf("tanh forward and backward, fp32 streams, wide branch (branch 4)\n");
+  run_fwd<TanhCell, float, true>(80, 128, 384, "tanh fwd T=80 B=128 H=384 fp32");
+  run_fwd<TanhBwdCell, float, true>(80, 128, 384,
+                                    "tanh bwd T=80 B=128 H=384 fp32");
   return 0;
 }
 """
