@@ -213,6 +213,7 @@ RECIPES_863_LSTM = {
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # tensor cores, dense, fp32 sums
+TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 
 FP32_TOL = 1e-4  # same math, other summation order
 BF16_TOL = 2e-2  # both round h to bf16 at the same point: a few bf16 ulps
@@ -409,7 +410,8 @@ NO_LAUNCHES = dict.fromkeys(
      "lstm_bidir_train_bwd", "ctc_alpha", "ctc_beta", "gru_bidir",
      "gru_bidir_train_fwd", "gru_bidir_train_bwd_prepass",
      "gru_bidir_train_bwd", "rnn_bidir", "rnn_bidir_train_fwd",
-     "rnn_bidir_train_bwd"), 0)
+     "rnn_bidir_train_bwd", "lstm_bidir_train_bwd_prepass_tf32",
+     "gru_bidir_train_bwd_prepass_tf32"), 0)
 
 
 def launch_counts() -> dict:
@@ -428,7 +430,12 @@ def launch_counts() -> dict:
             "gru_bidir_train_bwd": gru_train_ops.launches_bwd,
             "rnn_bidir": rnn_ops.launches,
             "rnn_bidir_train_fwd": rnn_train_ops.launches_fwd,
-            "rnn_bidir_train_bwd": rnn_train_ops.launches_bwd}
+            "rnn_bidir_train_bwd": rnn_train_ops.launches_bwd,
+            # the pre-pass launches on fp32 streams: prepass_tf32_kernel
+            "lstm_bidir_train_bwd_prepass_tf32":
+                train_ops.launches_bwd_prepass_tf32,
+            "gru_bidir_train_bwd_prepass_tf32":
+                gru_train_ops.launches_bwd_prepass_tf32}
 
 
 def zero_counts() -> None:
@@ -441,6 +448,7 @@ def zero_counts() -> None:
     lstm_ops.launches = gru_ops.launches = rnn_ops.launches = 0
     for mod in (train_ops, gru_train_ops):
         mod.launches_fwd = mod.launches_bwd_prepass = mod.launches_bwd = 0
+        mod.launches_bwd_prepass_tf32 = 0
         mod.launches_bwd_branch.update(dict.fromkeys(mod.launches_bwd_branch, 0))
     for by in cluster_branch_counts().values():
         by.update(dict.fromkeys(by, 0))
@@ -463,10 +471,17 @@ def check_counts(counts: dict, want: dict, what: str,
     and the run since ``zero_counts`` must have entered the stacked-layout
     wrappers ``want_stacked_calls`` times: a model's path never does.  The
     LSTM's and GRU's backward launch one pre-pass per serial launch, so
-    ``want`` names only the serial count."""
+    ``want`` names only the serial count; of those pre-passes the ones on
+    fp32 streams are ``prepass_tf32_kernel``'s, at most all of them here
+    (``check_fp32_bwd_branch`` holds a path whose backwards all run fp32
+    streams to exactly all)."""
     want = {**NO_LAUNCHES, **want}
     for cell in ("lstm", "gru"):
-        want[f"{cell}_bidir_train_bwd_prepass"] = want[f"{cell}_bidir_train_bwd"]
+        pre = want[f"{cell}_bidir_train_bwd"]
+        want[f"{cell}_bidir_train_bwd_prepass"] = pre
+        tf32 = f"{cell}_bidir_train_bwd_prepass_tf32"
+        if not want[tf32]:
+            want[tf32] = min(counts.get(tf32, 0), pre)
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     check(stacked_calls() == want_stacked_calls,
           f"{what}: {stacked_calls()} calls into ops/stacked.py, expected "
@@ -967,7 +982,24 @@ HOIST_CASES = [
     ("gru", 6, 128, 673, "fp32", 2, "grid"),
     ("lstm", 4, 8, 872, "fp32", 2, "wide_fp32"),
     ("lstm", 4, 8, 873, "fp32", 2, "grid"),
+    # the fp32 pre-pass (prepass_tf32_kernel): T' B off its tiles' rows
+    # with H off their units, H % 4 != 0 in both cells with two directions
+    # (its 4-byte copies, odd H: scalar pairs), one direction at B = 1 (the
+    # LSTM's is above), the widest H of the wide branch at B = 16 and with
+    # one direction, and gates driven to saturation (HOIST_SCALE)
+    ("lstm", 7, 9, 200, "fp32", 2, "cluster16_fp32"),
+    ("gru", 7, 9, 200, "fp32", 2, "cluster16_fp32"),
+    ("lstm", 5, 24, 45, "fp32", 2, "cluster16_fp32"),
+    ("gru", 5, 24, 45, "fp32", 2, "cluster16_fp32"),
+    ("gru", 9, 1, 256, "fp32", 1, "cluster16_fp32"),
+    ("gru", 3, 16, 1056, "fp32", 2, "wide_fp32"),
+    ("lstm", 3, 16, 1056, "fp32", 1, "wide_fp32"),
+    ("lstm", 20, 24, 384, "fp32", 2, "cluster16_fp32"),
+    ("gru", 20, 24, 256, "fp32", 2, "cluster16_fp32"),
 ]
+# HOIST_CASES entries whose gx phase 3 scales (by their first six fields)
+HOIST_SCALE = {("lstm", 20, 24, 384, "fp32", 2): 8.0,
+               ("gru", 20, 24, 256, "fp32", 2): 8.0}
 
 
 def phase_hoist_vs_plain() -> dict:
@@ -987,9 +1019,10 @@ def phase_hoist_vs_plain() -> dict:
     for i, (cell, t, b, h, name, ndir, branch) in enumerate(HOIST_CASES):
         bf16 = name == "bf16"
         gates, mod = (4, train_ops) if cell == "lstm" else (3, gru_train_ops)
+        scale = HOIST_SCALE.get((cell, t, b, h, name, ndir), 1.0)
         gx, w_hh, dy = recurrence_inputs(
             t, b, h, torch.bfloat16 if bf16 else torch.float32, seed=520 + i,
-            gates=gates, ndir=ndir)
+            gates=gates, ndir=ndir, scale=scale)
         if cell == "lstm":
             saved = train_ops.lstm_bidir_train_plain(gx, w_hh)
         else:
@@ -1017,7 +1050,8 @@ def phase_hoist_vs_plain() -> dict:
             check(all(torch.isfinite(g.float()).all().item() for g, _ in pairs),
                   "non-finite kernel output")
         tol_b = BF16_BWD_RTOL if bf16 else FP32_TOL
-        print(f"  {cell} backward T={t} B={b} H={h} ndir={ndir} {name}: branch "
+        print(f"  {cell} backward T={t} B={b} H={h} ndir={ndir} {name}"
+              + (f" gx x {scale:g}" if scale != 1.0 else "") + ": branch "
               f"{'+'.join(took)} (want {branch}); pre-pass planes "
               f"{errs['prepass']:.3g} (tol {FP32_TOL}); serial kernel "
               f"{errs['serial']:.3g}, pre-pass + serial {errs['bwd']:.3g}"
@@ -1161,15 +1195,21 @@ LSTM_BWD_KERNELS = {
 
 
 def check_fp32_bwd_branch(what: str, took: dict, launches: int,
-                          cell: str = "LSTM") -> None:
+                          cell: str = "LSTM", prepass_tf32: int = None) -> None:
     """Every serial launch of the LSTM's (or ``cell``'s) backward on a path
     with fp32 streams (the recipes' batch of 8, a data-parallel rank's 4,
     the 863 GRU model at B = 8) took the fp32 cluster branch, none the
-    grid: ``took`` is the launches by branch."""
+    grid: ``took`` is the launches by branch; and, where ``prepass_tf32``
+    (the module's ``launches_bwd_prepass_tf32``) is given, every pre-pass
+    before them was ``prepass_tf32_kernel``."""
     took = {k: v for k, v in took.items() if v}
     check(launches > 0 and took == {"cluster16_fp32": launches},
           f"{what}: the {cell} backward's {launches} serial launches took "
           f"{took}, not all cluster16_fp32")
+    if prepass_tf32 is not None:
+        check(prepass_tf32 == launches,
+              f"{what}: {prepass_tf32} of the {cell} backward's {launches} "
+              f"pre-passes launched prepass_tf32_kernel")
 
 
 def phase_fwd_vs_plain() -> dict:
@@ -2275,8 +2315,10 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                           "ctc_alpha": steps + eval_batches, "ctc_beta": steps,
                           f"{cell}_bidir": n * eval_batches}, "Trainer.fit")
     if cell == "lstm" and cfg.batch_size % 16 != 0:  # fp32 streams
-        check_fp32_bwd_branch("Trainer.fit", port_ops()[1].launches_bwd_branch,
-                              n * steps)
+        train_ops = port_ops()[1]
+        check_fp32_bwd_branch("Trainer.fit", train_ops.launches_bwd_branch,
+                              n * steps, "LSTM",
+                              train_ops.launches_bwd_prepass_tf32)
     if cfg.dev_over_train:
         check(any(ln.startswith("cer on training set is ") for ln in lines)
               and len(trainer.histories["training_cer_results"]) == 1,
@@ -2316,9 +2358,9 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
                  "two fp32 steps")
     check_cluster_branches("two fp32 steps")  # the tanh backward's too
     if cell in ("lstm", "gru"):
-        check_fp32_bwd_branch("two fp32 steps", (
-            port_ops()[1] if cell == "lstm" else port_gru_ops()[1]
-        ).launches_bwd_branch, 2 * n, cell.upper())
+        mod = port_ops()[1] if cell == "lstm" else port_gru_ops()[1]
+        check_fp32_bwd_branch("two fp32 steps", mod.launches_bwd_branch, 2 * n,
+                              cell.upper(), mod.launches_bwd_prepass_tf32)
     with plain_twins():
         p_losses, p_sd = two_steps()
     worst, worst_key, n_off, n_all = 0.0, "", 0, 0
@@ -3991,21 +4033,28 @@ def prepass_bound(gx, w_hh, n_saved: int, n_planes: int, bf16: bool) -> dict:
     """Least time for one backward pre-pass: gx and ``n_saved`` saved (T, B,
     ndir H) planes read in the stream dtype, w_hh, and ``n_planes`` fp32
     (ndir, T, B, H) factor planes written, over the memory rate; its one
-    (T B, H) x (H, nH) product per direction over the peak for its operands
-    (bf16 tensor cores with bf16 streams)."""
+    (T B, H) x (H, nH) product per direction over the peak for the
+    operations the kernel does: bf16 on the tensor cores with bf16 streams,
+    three TF32 passes on the tensor cores with fp32 streams
+    (``prepass_tf32_kernel``), whose bound is ``bound_ms``; beside it the
+    product in fp32 FMA on the CUDA cores (``fp32_ops_ms``, ``fp32_bound_ms``)
+    and in 3xTF32 (``tf32x3_ops_ms``)."""
     t, b, _ = gx.shape
     ndir, h, nh = w_hh.shape
     es = gx.element_size()
     bytes_moved = (gx.numel() * es + n_saved * t * b * ndir * h * es
                    + w_hh.numel() * es + n_planes * ndir * t * b * h * 4)
     flops = 2 * ndir * t * b * h * nh
-    peak = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
-    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    fp32_ops, tf32x3_ops = flops / FP32_FLOP_PER_S, 3 * flops / TF32_FLOP_PER_S
+    by_ops = flops / BF16_FLOP_PER_S if bf16 else tf32x3_ops
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes > by_ops else "operations",
             "bytes_ms": by_bytes * 1e3, "ops_ms": by_ops * 1e3,
+            "fp32_ops_ms": fp32_ops * 1e3, "tf32x3_ops_ms": tf32x3_ops * 1e3,
+            "fp32_bound_ms": max(by_bytes, fp32_ops) * 1e3,
             "peak": ("bf16 tensor-core peak, 989 TFLOP/s" if bf16
-                     else "fp32 peak, 67 TFLOP/s"),
+                     else "three TF32 passes at the tensor cores' 495 TFLOP/s"),
             "gflop": flops / 1e9, "mbytes": bytes_moved / 1e6}
 
 
@@ -4539,7 +4588,6 @@ def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
             "train_step_rows": step_rows}
 
 
-TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 
 # The wide-batch forward branch, timed against the grid it replaced (its
 # parent form, tools/parent_forms.py) and cuDNN in turns in one call (phase
@@ -4696,6 +4744,75 @@ def times_wide_backward(smi: str) -> dict:
               f"3xTF32 on the tensor cores {r['tf32x3_bound_ms']:.4f}; grid / "
               f"wide serial {r['grid_serial_ms'] / r['serial_ms']:.2f}x")
 
+    return out
+
+
+# The fp32 backward pre-pass (prepass_tf32_kernel, csrc/bwd_hoist.cuh)
+# timed in phase 9: (cell, T', B, H), fp32 streams, two directions.  The
+# main paths' shapes (the flagship's batch of 8, mfcc_39's longest batch, a
+# data-parallel rank's 4, the 863 GRU model's 8) and the bench batches
+# (the LSTM's 128 and a data-parallel rank's 64, the GRU's 128).
+PREPASS_TIMES = [("lstm", 100, 8, 384), ("lstm", 400, 8, 256),
+                 ("lstm", 100, 4, 384), ("lstm", 80, 128, 384),
+                 ("lstm", 80, 64, 384), ("gru", 95, 128, 256),
+                 ("gru", 95, 8, 256)]
+
+
+def times_prepass_tf32(smi: str) -> dict:
+    """The fp32 pre-pass at ``PREPASS_TIMES``, timed in turns with its
+    cuBLAS yardstick: ``torch.matmul`` of h_prev (ndir, T B, H) by w_hh
+    (ndir, H, G H) in full fp32 (``allow_tf32`` off), the product alone,
+    which the port never calls; each also on the device alone
+    (``graph_ms``: the host's launch cost, a large part of a call at B <=
+    8, out of the measure); with the twin's time and the bounds
+    (``prepass_bound``: bytes, 3xTF32 and fp32 FMA)."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.ops._build import shifted
+
+    _, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the pre-pass yardstick must multiply in fp32")
+    out = {}
+    for cell, t, b, h in PREPASS_TIMES:
+        lstm = cell == "lstm"
+        gates, mod = (4, train_ops) if lstm else (3, gru_train_ops)
+        gx, w, _ = recurrence_inputs(t, b, h, torch.float32, seed=7,
+                                     gates=gates)
+        saved = (train_ops.lstm_bidir_train_cuda(gx, w) if lstm
+                 else (gru_ops.gru_bidir_cuda(gx, w),))
+        kernel = getattr(mod, f"{cell}_bidir_train_bwd_prepass_cuda")
+        plain = getattr(mod, f"{cell}_bidir_train_bwd_prepass_plain")
+        h_prev = shifted(saved[0], 2, torch.float32).reshape(2, t * b, h)
+        before = mod.launches_bwd_prepass_tf32
+        res = turns({"kernel": lambda: kernel(gx, w, *saved),
+                     "library": lambda: torch.matmul(h_prev, w)}, reps=20)
+        check(mod.launches_bwd_prepass_tf32 > before,
+              f"the {cell} fp32 pre-pass launched no prepass_tf32_kernel")
+        key = f"{cell}_prepass_{t}_{b}_{h}_fp32"
+        r = out[key] = {
+            "ms": res["kernel"][0], "ms_rounds": res["kernel"][1],
+            "library_ms": res["library"][0],
+            "library_ms_rounds": res["library"][1],
+            "device_ms": graph_ms(lambda: kernel(gx, w, *saved)),
+            "library_device_ms": graph_ms(lambda: torch.matmul(h_prev, w)),
+            "plain_ms": cuda_ms(lambda: plain(gx, w, *saved), reps=3),
+            **prepass_bound(gx, w, n_saved=2 if lstm else 1,
+                            n_planes=mod.PLANES, bf16=False)}
+        print(f"  {cell} fp32 pre-pass T'={t} B={b} H={h} ({smi}): "
+              f"prepass_tf32_kernel {r['ms']:.4f} ms "
+              f"{[round(v, 4) for v in r['ms_rounds']]}, on the device "
+              f"{r['device_ms']:.4f}; cuBLAS fp32 product alone "
+              f"{r['library_ms']:.4f} "
+              f"{[round(v, 4) for v in r['library_ms_rounds']]}, on the device "
+              f"{r['library_device_ms']:.4f}; twin "
+              f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['mbytes']:.1f} MB: {r['bytes_ms']:.4f}; "
+              f"{r['gflop']:.2f} GFLOP: 3xTF32 {r['tf32x3_ops_ms']:.4f}, fp32 "
+              f"FMA {r['fp32_ops_ms']:.4f}), on the device "
+              f"{r['device_ms'] / r['bound_ms']:.1f}x its bound, "
+              f"{r['gflop'] / r['device_ms']:.1f} TFLOP/s")
     return out
 
 
@@ -5130,6 +5247,7 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
     batch = dp_batch(spec32, 8, 200, 40, seed=16)
     zero_counts()
     got = dp_steps(spec32, cfg_863, batch, None, device)
+    got["prepass_tf32"] = gru_train_ops.launches_bwd_prepass_tf32
     took = path_branches() | {
         "gru_bidir_train_fwd": {k: v for k, v in
                                 gru_train_ops.launches_fwd_branch.items() if v},
@@ -5140,7 +5258,8 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
         check(took["gru_bidir_train_fwd"] == {"cluster16_fp32": 2 * n},
               f"the 863 GRU step at B=8 fp32: the training forward took {took}")
         check_fp32_bwd_branch("the 863 GRU step at B=8 fp32",
-                              gru_train_ops.launches_bwd_branch, 2 * n, "GRU")
+                              gru_train_ops.launches_bwd_branch, 2 * n, "GRU",
+                              gru_train_ops.launches_bwd_prepass_tf32)
     with plain_twins():
         want = dp_steps(spec32, cfg_863, batch, None, device)
     rel = max(abs(x - y) / abs(y) for x, y in zip(
@@ -5155,6 +5274,9 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
     check(rel <= STEP_LOSS_RTOL, "the 863 GRU fp32 B=8 losses differ from the twins")
     check(n_off <= STEP_OFF_SHARE * n_all and worst <= 2.01 * 2 * cfg_863.init_lr,
           "the 863 GRU fp32 B=8 parameters differ from the twins")
+    # the backward's pre-passes, all on prepass_tf32_kernel (above)
+    took["gru_bidir_train_bwd_prepass"] = {
+        "prepass_tf32_kernel": got["prepass_tf32"]}
     out["gru_b8"] = {"losses": got["losses"], "eval_loss": got["eval_loss"],
                      "rel_vs_twins": rel, "branches": took}
 
@@ -5228,6 +5350,7 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
                "rnn_bidir": rnn_train_ops}[prefix]
         zero_counts()
         got = dp_steps(spec_s, cfg_s, batch, None, device, steps=1)
+        prepass_tf32 = getattr(mod, "launches_bwd_prepass_tf32", 0)
         took = {"fwd": {k: v for k, v in mod.launches_fwd_branch.items() if v},
                 "bwd": {k: v for k, v in mod.launches_bwd_branch.items() if v},
                 "eval": {k: v for k, v in eval_counts.items() if v}}
@@ -5258,6 +5381,12 @@ def phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh, spec_tanh,
                  "branches": {f"{prefix}_train_fwd": took["fwd"],
                               f"{prefix}_train_bwd": took["bwd"],
                               prefix: took["eval"]}}
+        if prefix != "rnn_bidir":  # the backward's pre-passes
+            check(not on_card or prepass_tf32 == layers,
+                  f"{key}: {prepass_tf32} of {layers} pre-passes launched "
+                  f"prepass_tf32_kernel")
+            entry["branches"][f"{prefix}_train_bwd_prepass"] = {
+                "prepass_tf32_kernel": prepass_tf32}
         if on_card:
             # the step's wall and device time on the wide branches and,
             # through the parent libraries, on the grid, in turns
@@ -5543,7 +5672,8 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
                 check_fp32_bwd_branch(
                     f"(a) rank {r}",
                     g["branches"].get("lstm_bidir_train_bwd", {}),
-                    g["counts"]["lstm_bidir_train_bwd"])
+                    g["counts"]["lstm_bidir_train_bwd"], "LSTM",
+                    g["counts"]["lstm_bidir_train_bwd_prepass_tf32"])
             if on_card and name == "b":  # 64 rows a rank: the eval forward
                 check(g["branches"].get("lstm_bidir") == {
                           "wide_fp32": g["counts"]["lstm_bidir"]},
@@ -5607,7 +5737,8 @@ def phase_data_parallel(smi: str, spec, device: str = "cuda",
         if on_card:  # 4 rows a rank: fp32 streams
             check_fp32_bwd_branch(
                 f"(d) rank {r}", c["branches"].get("lstm_bidir_train_bwd", {}),
-                c["counts"]["lstm_bidir_train_bwd"])
+                c["counts"]["lstm_bidir_train_bwd"], "LSTM",
+                c["counts"]["lstm_bidir_train_bwd_prepass_tf32"])
     res = evaluate(cfg_d, str(best), device=dev, log=lambda *_: None)
     print(f"  (d) stage 4 of its package: {res['batches']} batches, PER "
           f"{res['wer']:.4f}")
@@ -6262,6 +6393,7 @@ def main() -> int:
     # the wide forward and the GRU's fp32 backward cluster against the grid
     # they replaced
     redesigned = times_redesigned(spec, model, smi)
+    prepass_tf32 = times_prepass_tf32(smi)
 
     print(f"[10/17] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
@@ -6543,6 +6675,39 @@ def main() -> int:
                       "serial_bound_ms", "library_ms_bf16"):
                 entry[k] = at[k]
         kernels.append(entry)
+    # the fp32 pre-pass, one entry a cell: its launches on the main paths
+    # (the phases' counts, and phase 16's fp32 steps), its worst error
+    # against the twin in phase 3, its times at PREPASS_TIMES beside cuBLAS
+    for cell, paths, key, replaces in (
+            ("lstm", ("timit", "unidir", "mfcc39", "pipeline", "data_parallel"),
+             "lstm_prepass_80_128_384_fp32",
+             tpu + "lstm_pallas_train_v2.py:203 _lstm_prepass (in _bwd_pallas, "
+             "call :478), fp32 streams"),
+            ("gru", (), "gru_prepass_95_128_256_fp32",
+             tpu + "gru_pallas_v2.py:239 pre-pass of _make_bwd_kernel (in "
+             "_bwd_pallas, call :382), fp32 streams")):
+        name = f"{cell}_bidir_train_bwd_prepass_tf32"
+        launched = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        for p in paths:
+            check(p in launched, f"the {p} path never launched {name}")
+        launched["fp32_streams"] = branch_launches(
+            (f"{cell}_bidir_train_bwd_prepass",), "prepass_tf32_kernel")
+        check(launched["fp32_streams"] > 0,
+              f"phase 16's fp32 steps never launched {name}")
+        at = prepass_tf32[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "bwd_hoist.cuh",
+            "replaces": replaces, "launches": sum(launched.values()),
+            "launches_by_path": launched,
+            "max_abs_err": errs_hoist[f"{cell}_prepass"]["fp32"],
+            **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "device_ms",
+                                  "library_device_ms")},
+            "library": "torch.matmul of the product alone, fp32",
+            "shape": key, "kernel": f"prepass_tf32_kernel<{cell.capitalize()}"
+                                    f"Cell, WM, WU>",
+            "times": {k: v for k, v in prepass_tf32.items()
+                      if k.startswith(cell)}})
     by_name = {k["name"]: k for k in kernels}
     by_name["lstm_bidir"]["flagship_decode_forward_b128"] = redesigned[
         "flagship_decode_forward_b128"]

@@ -1,7 +1,8 @@
 // The hoisted backward of the LSTM and GRU recurrences for Hopper (sm_90a),
 // shared by lstm_bidir_train.cu and gru_bidir_train.cu: the gate pre-pass
-// kernel and the two cluster kernels of the serial chain (bf16 streams on
-// the tensor cores, and fp32 streams on the CUDA cores).
+// kernels (bf16 and fp32 streams, both on the tensor cores) and the two
+// cluster kernels of the serial chain (bf16 streams on the tensor cores,
+// and fp32 streams on the CUDA cores).
 //
 // Port of the hoisted backward of the JAX package
 // (ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:_lstm_prepass and its step,
@@ -20,15 +21,56 @@
 // w_hh^T (the GRU adds dh_t Z).
 //
 // Pre-pass: a (T B, H) x (H, nH) product per direction, gx and the saved
-// planes in, the planes out.  A CTA owns 64 (t, b) rows and 16 hidden units
-// with all their gate columns, so the epilogue finds every gate of a (row,
-// unit) pair in one thread's registers; the epilogue's inputs (gx, cs or
-// ys) are loaded before the product, and each thread stores two adjacent
-// units of a plane at once.  bf16 streams: mma.sync m16n8k16 on ldmatrix
+// planes in, the planes out.  Every gate of a (row, unit) pair lands in
+// one thread's accumulators (n8 tile 2 q + s of a warp is gate q of its
+// units [8 s, 8 s + 8)), so the epilogue is fused; each thread stores two
+// adjacent units of a plane at once.
+//
+// bf16 streams, prepass_mma_kernel: a CTA owns 64 (t, b) rows and 16
+// hidden units with all their gate columns; mma.sync m16n8k16 on ldmatrix
 // fragments, bf16 operands (the saved ys and w_hh^T rounded to bf16), fp32
-// sums; fp32 streams: fp32 FMA on CUDA cores (fp32 parity, no TF32).  Its
-// bound is the bytes: 24 GFLOP but 286 MB at T=80, B=128, H=384 (189 MB of
-// them the planes it writes, read once more by the serial kernel).
+// sums, the epilogue's inputs loaded before the product.  Its bound is the
+// bytes: 24 GFLOP but 286 MB at T=80, B=128, H=384.
+//
+// fp32 streams, prepass_tf32_kernel (replacing, with the bf16 kernel, the
+// pre-pass of the JAX package's backward Pallas kernels:
+// ctc_pytorch_tpu/ops/lstm_pallas_train_v2.py:203 _lstm_prepass, called
+// from the pallas_call at :478, and the pre-pass of gru_pallas_v2.py:
+// _make_bwd_kernel, :228-239, in the pallas_call at :382).  What bounds it
+// at T=80, B=128, H=384, two directions: 24.2 GFLOP and 382 MB (gx 126
+// MB, ys and cs 63 MB, w_hh 4.7 MB read; the six planes, 189 MB, written,
+// read once more by the serial kernel): 0.114 ms of bytes at 3.35 TB/s,
+// 0.361 ms of fp32 FMA at 67 TFLOP/s, 0.146 ms for three TF32 passes at
+// 495 TFLOP/s; at the recipe's (100, 8, 384) 1.89 GFLOP and 34 MB.  So
+// the product runs on the tensor cores in 3xTF32, as the wide kernels'
+// do: both operands split into hi = x rounded to TF32 and lo = x - hi
+// (which the tensor core reads truncated to TF32), lo hi + hi lo + hi hi
+// summed in fp32 a k step at a time in order (mma.sync m16n8k8; a single
+// TF32 pass misses the card's fp32 tolerance, 1e-4).  A warp owns 32 rows
+// and 16 units (2 x 2 G tiles of m16n8, each A fragment serving 2 G tiles
+// and each B fragment two), a CTA 4 x 2 warps: 128 rows x 32 units.
+// Staging is asynchronous: a ring of three k slots of 32, the next two in
+// flight behind the one multiplied (105 KB, the GRU's 93 KB, so that two
+// of the GRU's CTAs fit an SM; a fourth slot was no faster for the LSTM
+// and 1.4x slower at the GRU's bench shape), each thread's 16-byte
+// cp.async chunks (4-byte copies where H % 4 != 0 or a row start is not
+// 16-byte aligned, which the kernel itself chooses) of ys rows as
+// [row][k] and of w_hh rows as [k][column] -- both as they lie in memory,
+// so the weights need no transposed copy a call, and both tiles' strides
+// keep the fragments' 4-byte shared loads free of bank conflicts.  The
+// warps split the fragments they load in registers: a first version
+// split each element once a CTA, in place after its copy landed, which
+// costs a pass over each slot and a second plane of lo values, so twice
+// the fragment loads from shared memory, and it measured slower on an H100
+// at all seven of the main paths' shapes.  Smaller CTAs (64 x 32, 64 x 16,
+// and 128 x 16 two CTAs an SM), which spread the recipe's 800 and the
+// data-parallel rank's 400 rows over more SMs, ranged on the device from
+// 9% faster (128 x 16 at the recipe's batch of 8) to 10% slower at B <= 8
+// and from as fast to 47% slower at B >= 64, so the kernel keeps one tile
+// (tools/probe_prepass_tiles.py).
+// The epilogue's inputs (gx, cs at t and t -/+ 1, the GRU's ys at t -/+ 1)
+// are loaded after the product.  No atomics, no split of k: a graph
+// replay equals the eager call bit for bit.
 //
 // Serial chain: one thread-block cluster per (direction, slice of batch
 // rows); the recurrence couples only the hidden units of one batch row in
@@ -199,64 +241,6 @@ __device__ __forceinline__ void ldsm_b2(unsigned* b, const unsigned short* tile,
 __device__ __forceinline__ int prev_time(int t, int d, int T) {
   const int tp = d == 0 ? t - 1 : t + 1;
   return tp < T ? tp : -1;
-}
-
-// ---------------------------------------------------------------------------
-// fp32 pre-pass epilogue: one (t, b, unit) of direction d with its G
-// recurrent products hh; writes the P planes of that entry.  (The bf16
-// pre-pass works on pairs of units: emit_pair below.)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void emit_planes(
-    LstmCell, const float* __restrict__ gx, const float* __restrict__ ys,
-    const float* __restrict__ cs, float* __restrict__ planes, const float* hh,
-    int t, int b, int unit, int d, int T, int B, int H, int Hp, int ndir) {
-  const size_t h4 = 4 * (size_t)H;
-  const float* g = gx + ((size_t)t * B + b) * ndir * h4 + d * h4 + unit;
-  const float ig = sigmoid_f(load_f(g) + hh[0]);
-  const float fg = sigmoid_f(load_f(g + H) + hh[1]);
-  const float gg = tanhf(load_f(g + 2 * H) + hh[2]);
-  const float og = sigmoid_f(load_f(g + 3 * H) + hh[3]);
-  const size_t row = (size_t)ndir * H;
-  const int tp = prev_time(t, d, T);
-  const float c_t = load_f(cs + ((size_t)t * B + b) * row + d * H + unit);
-  const float c_prev =
-      tp >= 0 ? load_f(cs + ((size_t)tp * B + b) * row + d * H + unit) : 0.f;
-  const float tc = tanhf(c_t);
-  const size_t ps = (size_t)B * Hp;
-  float* out = planes + (((size_t)d * T + t) * LstmCell::kPlanes * B + b) * Hp +
-               unit;
-  out[0] = og * (1.0f - tc * tc);
-  out[ps] = gg * (ig * (1.0f - ig));
-  out[2 * ps] = c_prev * (fg * (1.0f - fg));
-  out[3 * ps] = ig * (1.0f - gg * gg);
-  out[4 * ps] = tc * (og * (1.0f - og));
-  out[5 * ps] = fg;
-}
-
-__device__ __forceinline__ void emit_planes(
-    GruCell, const float* __restrict__ gx, const float* __restrict__ ys,
-    const float* __restrict__, float* __restrict__ planes, const float* hh, int t,
-    int b, int unit, int d, int T, int B, int H, int Hp, int ndir) {
-  const size_t h3 = 3 * (size_t)H;
-  const float* g = gx + ((size_t)t * B + b) * ndir * h3 + d * h3 + unit;
-  const float rg = sigmoid_f(load_f(g) + hh[0]);
-  const float zg = sigmoid_f(load_f(g + H) + hh[1]);
-  const float hh_n = hh[2];
-  const float ng = tanhf(load_f(g + 2 * H) + rg * hh_n);
-  const int tp = prev_time(t, d, T);
-  const float hp =
-      tp >= 0 ? load_f(ys + ((size_t)tp * B + b) * ndir * H + d * H + unit)
-              : 0.f;
-  const float p_n = (1.0f - zg) * (1.0f - ng * ng);
-  const size_t ps = (size_t)B * Hp;
-  float* out = planes + (((size_t)d * T + t) * GruCell::kPlanes * B + b) * Hp +
-               unit;
-  out[0] = p_n * hh_n * (rg * (1.0f - rg));
-  out[ps] = (hp - ng) * (zg * (1.0f - zg));
-  out[2 * ps] = p_n;
-  out[3 * ps] = p_n * rg;
-  out[4 * ps] = zg;
 }
 
 // 8 consecutive bf16 of a row as raw bits, zero past n valid entries; one
@@ -502,81 +486,344 @@ __global__ void __launch_bounds__(128, 4)
 }
 
 // ---------------------------------------------------------------------------
-// pre-pass kernel, fp32 streams: CUDA cores
+// pre-pass kernel, fp32 streams: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-// CTA (m-tile, unit group, direction), 256 threads; thread (unit u, row
-// group rq) sums rows [4 rq, 4 rq + 4) of the tile for all G gates of u.
+// hi: x rounded to tf32 to nearest with ties away from zero
+// (cvt.rna.tf32.f32 on finite values); lo: x - hi, whose low 13 bits the
+// tensor core does not read.  Shared with the wide kernels (bwd_wide.cuh,
+// fwd_wide.cuh).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, one m16n8k8 tile: tf32 operands, fp32 sums
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4-byte global -> shared copy through L1; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The tile of prepass_tf32_kernel: a warp owns kTfWarpRows (t, b) rows (two
+// m16 tiles) and kTfWarpUnits units with all their gate columns (2 G n8
+// tiles); a CTA is kTfWarpsM x kTfWarpsU warps, 128 rows x 32 units.
+constexpr int kTfWarpRows = 32;
+constexpr int kTfWarpUnits = 16;
+constexpr int kTfWarpsM = 4;
+constexpr int kTfWarpsU = 2;
+constexpr int kTfK = 32;          // k depth of a ring slot
+constexpr int kTfStages = 3;      // ring slots: two in flight past the one used
+constexpr int kTfLdA = kTfK + 4;  // A row stride, floats
+constexpr int kTfPadB = 8;        // B row padding, floats
+
 template <class Cell>
-__global__ void __launch_bounds__(256)
-    prepass_fma_kernel(const float* __restrict__ gx,
-                       const float* __restrict__ w,
-                       const float* __restrict__ ys,
-                       const float* __restrict__ cs,
-                       float* __restrict__ planes, int T, int B, int H, int Hp,
-                       int ndir) {
+struct TfTile {
+  static constexpr int kThreads = 32 * kTfWarpsM * kTfWarpsU;
+  static constexpr int kRows = kTfWarpRows * kTfWarpsM;
+  static constexpr int kUnits = kTfWarpUnits * kTfWarpsU;
+  static constexpr int kCols = Cell::kGates * kUnits;
+  static constexpr int kLdB = kCols + kTfPadB;
+  static constexpr int kSlotA = kRows * kTfLdA;  // floats of the A tile
+  static constexpr int kSlotB = kTfK * kLdB;     // floats of the B tile
+  static constexpr int kSlot = kSlotA + kSlotB;  // a slot: A, then B
+  static constexpr size_t kSmem = (size_t)kTfStages * kSlot * sizeof(float);
+  static constexpr int kAChunksRow = kTfK / 4;   // 16-byte chunks a row
+  static constexpr int kAPer = kRows * kAChunksRow / kThreads;  // exact
+  static constexpr int kBChunksRow = kCols / 4;
+  static constexpr int kBPer = (kTfK * kBChunksRow + kThreads - 1) / kThreads;
+};
+
+// The planes of two adjacent units (unit, unit + 1) of one (t, b) from
+// their products hh[q][e], the gate inputs gv[q][e] and ev: c_t and c_prev
+// (LSTM) or h_prev (GRU); the same formulas as emit_pair.
+__device__ __forceinline__ void emit_pair_f32(LstmCell, const float (*gv)[2],
+                                              const float (*ev)[2],
+                                              const float (*hh)[2],
+                                              float (*v)[2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float ig = sigmoid_f(gv[0][e] + hh[0][e]);
+    const float fg = sigmoid_f(gv[1][e] + hh[1][e]);
+    const float gg = tanhf(gv[2][e] + hh[2][e]);
+    const float og = sigmoid_f(gv[3][e] + hh[3][e]);
+    const float tc = tanhf(ev[0][e]);
+    const float c_prev = ev[1][e];
+    v[0][e] = og * (1.0f - tc * tc);
+    v[1][e] = gg * (ig * (1.0f - ig));
+    v[2][e] = c_prev * (fg * (1.0f - fg));
+    v[3][e] = ig * (1.0f - gg * gg);
+    v[4][e] = tc * (og * (1.0f - og));
+    v[5][e] = fg;
+  }
+}
+
+__device__ __forceinline__ void emit_pair_f32(GruCell, const float (*gv)[2],
+                                              const float (*ev)[2],
+                                              const float (*hh)[2],
+                                              float (*v)[2]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float rg = sigmoid_f(gv[0][e] + hh[0][e]);
+    const float zg = sigmoid_f(gv[1][e] + hh[1][e]);
+    const float hh_n = hh[2][e];
+    const float ng = tanhf(gv[2][e] + rg * hh_n);
+    const float hp = ev[0][e];
+    const float p_n = (1.0f - zg) * (1.0f - ng * ng);
+    v[0][e] = p_n * hh_n * (rg * (1.0f - rg));
+    v[1][e] = (hp - ng) * (zg * (1.0f - zg));
+    v[2][e] = p_n;
+    v[3][e] = p_n * rg;
+    v[4][e] = zg;
+  }
+}
+
+// n valid floats (n <= 2) at p, zero past them; one 8-byte load when vec
+__device__ __forceinline__ void load_pair(float* out, const float* p, int n,
+                                          bool vec) {
+  if (vec && n >= 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+    out[0] = n > 0 ? p[0] : 0.f;
+    out[1] = n > 1 ? p[1] : 0.f;
+  }
+}
+
+// CTA (m-tile, unit group, direction) of kTfWarpsM x kTfWarpsU warps; warp
+// (wm, wu) owns tile rows [32 wm, 32 wm + 32) and units [16 wu, 16 wu +
+// 16) of the tile.  Shared memory is a ring of kTfStages slots of kTfK;
+// A is the tile's rows of h_prev (ys at t -/+ 1, zero at the sequence
+// ends) as [row][k], B the tile's gate columns of w_hh as [k][column],
+// column q kUnits + u = gate q of unit u0 + u, both as they lie in global
+// memory (k-contiguous rows of ys, unit-contiguous rows of w_hh).  Each
+// thread copies its 16-byte chunks of a slot with cp.async (4-byte copies
+// where vec4 is 0); one barrier a slot.  Each warp splits the fragments it
+// loads into hi and lo in registers.  A warp's accumulators hold, for each
+// of its two m16 tiles, n8 tile 2 q + s = gate q of units [8 s, 8 s + 8)
+// of its 16, so that lane (g, c) finds every gate of units 8 s + 2 c and 8
+// s + 2 c + 1 for rows g and g + 8 in its registers.
+template <class Cell>
+__global__ void __launch_bounds__(TfTile<Cell>::kThreads)
+    prepass_tf32_kernel(const float* __restrict__ gx,
+                        const float* __restrict__ w,
+                        const float* __restrict__ ys,
+                        const float* __restrict__ cs,
+                        float* __restrict__ planes, int T, int B, int H,
+                        int Hp, int ndir, int vec4, int vec2) {
+  using Tile = TfTile<Cell>;
   constexpr int G = Cell::kGates;
-  constexpr int kCols = G * kPreUnits;
-  __shared__ float as[kPreRows][kPreK + 1];
-  __shared__ float bs[kPreK][kCols];
-  const int tid = threadIdx.x;
-  const int u = tid % kPreUnits, rq = tid / kPreUnits;  // rq in 0..15
+  constexpr bool kLstm = G == LstmCell::kGates;
+  constexpr int kNt = 2 * G;  // n8 tiles of a warp
+  constexpr int kTh = Tile::kThreads;
+  extern __shared__ __align__(16) float tf_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int wm = warp % kTfWarpsM, wu = warp / kTfWarpsM;
   const int d = blockIdx.z;
-  const int u0 = blockIdx.y * kPreUnits;
-  const int m0 = blockIdx.x * kPreRows;
+  const int m0 = blockIdx.x * Tile::kRows;
+  const int u0 = blockIdx.y * Tile::kUnits;
   const int M = T * B;
   const size_t gh = (size_t)G * H;
+  const size_t lanes = (size_t)ndir * H;
+  const int n_kt = (H + kTfK - 1) / kTfK;
 
-  float acc[4][G];
+  // this thread's chunks: A rows (their h_prev row, null where zero) and
+  // B columns, the same in every k tile
+  const float* arow[Tile::kAPer];
+  int aoff[Tile::kAPer];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < G; ++q) acc[j][q] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kPreK) {
-    for (int e = tid; e < kPreRows * kPreK; e += 256) {
-      const int r = e / kPreK, kk = e % kPreK;
-      const int m = m0 + r, k = k0 + kk;
-      int tp = -1, b = 0;
-      if (m < M) {
-        b = m % B;
-        tp = prev_time(m / B, d, T);
-      }
-      as[r][kk] = tp >= 0 && k < H
-                      ? ys[((size_t)tp * B + b) * ndir * H + (size_t)d * H + k]
-                      : 0.f;
+  for (int i = 0; i < Tile::kAPer; ++i) {
+    const int e = tid + i * kTh;
+    const int r = e / Tile::kAChunksRow, m = m0 + r;
+    arow[i] = nullptr;
+    if (m < M) {
+      const int b = m % B, tp = prev_time(m / B, d, T);
+      if (tp >= 0) arow[i] = ys + ((size_t)tp * B + b) * lanes + (size_t)d * H;
     }
-    for (int e = tid; e < kPreK * kCols; e += 256) {
-      const int j = e % kCols, kk = e / kCols;
-      const int unit = u0 + j % kPreUnits, k = k0 + kk;
-      bs[kk][j] = unit < H && k < H
-                      ? w[((size_t)d * H + k) * gh +
-                          (size_t)(j / kPreUnits) * H + unit]
-                      : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(kPreK, H - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float bv[G];
-#pragma unroll
-      for (int q = 0; q < G; ++q) bv[q] = bs[kk][q * kPreUnits + u];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float av = as[4 * rq + j][kk];
-#pragma unroll
-        for (int q = 0; q < G; ++q) acc[j][q] = fmaf(av, bv[q], acc[j][q]);
-      }
-    }
-    __syncthreads();
+    aoff[i] = r * kTfLdA + 4 * (e % Tile::kAChunksRow);
   }
-  const int unit = u0 + u;
-  if (unit >= H) return;
+  int bcol[Tile::kBPer], bkk[Tile::kBPer], bunit[Tile::kBPer];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = m0 + 4 * rq + j;
-    if (m < M)
-      emit_planes(Cell{}, gx, ys, cs, planes, acc[j], m / B, m % B, unit, d,
-                  T, B, H, Hp, ndir);
+  for (int i = 0; i < Tile::kBPer; ++i) {
+    const int e = tid + i * kTh;
+    const int j = 4 * (e % Tile::kBChunksRow);
+    bkk[i] = e / Tile::kBChunksRow;  // >= kTfK: no chunk
+    bunit[i] = u0 + j % Tile::kUnits;
+    bcol[i] = (j / Tile::kUnits) * H + bunit[i];
   }
+  const float* wd = w + (size_t)d * H * gh;
+
+  auto fetch = [&](int kt, int slot) {
+    float* s = tf_smem + slot * Tile::kSlot;
+    const int k0 = kt * kTfK;
+#pragma unroll
+    for (int i = 0; i < Tile::kAPer; ++i) {
+      const int k = k0 + 4 * ((tid + i * kTh) % Tile::kAChunksRow);
+      float* dst = s + aoff[i];
+      if (vec4) {
+        const bool ok = arow[i] != nullptr && k < H;
+        cp_async16(dst, ok ? arow[i] + k : ys, ok);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const bool ok = arow[i] != nullptr && k + x < H;
+          cp_async4(dst + x, ok ? arow[i] + k + x : ys, ok);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::kBPer; ++i) {
+      if (bkk[i] >= kTfK) continue;
+      const int k = k0 + bkk[i];
+      const int j = 4 * ((tid + i * kTh) % Tile::kBChunksRow);
+      float* dst = s + Tile::kSlotA + bkk[i] * Tile::kLdB + j;
+      const float* src = wd + (size_t)k * gh + bcol[i];
+      if (vec4) {
+        const bool ok = k < H && bunit[i] < H;
+        cp_async16(dst, ok ? src : w, ok);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const bool ok = k < H && bunit[i] + x < H;
+          cp_async4(dst + x, ok ? src + x : w, ok);
+        }
+      }
+    }
+  };
+  float acc[2][kNt][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+      acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kTfStages - 1; ++st) {
+    if (st < n_kt) fetch(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int slot = kt % kTfStages;
+    cp_async_wait<kTfStages - 2>();  // this thread's copies of kt
+    __syncthreads();  // everyone's copies of kt landed; slot kt - 1 free
+    if (kt + kTfStages - 1 < n_kt)
+      fetch(kt + kTfStages - 1, (kt + kTfStages - 1) % kTfStages);
+    cp_async_commit();
+    const float* sl = tf_smem + slot * Tile::kSlot;
+    const float* ap = sl + (kTfWarpRows * wm + g) * kTfLdA + c;
+    const float* bp = sl + Tile::kSlotA + c * Tile::kLdB + kTfWarpUnits * wu + g;
+#pragma unroll
+    for (int ks = 0; ks < kTfK / 8; ++ks) {
+      // A fragments of both m16 tiles (rows g, g + 8; k c, c + 4), split
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int o = 16 * i * kTfLdA + 8 * ks;
+        split_tf32(ap[o], ah[i][0], al[i][0]);
+        split_tf32(ap[o + 8 * kTfLdA], ah[i][1], al[i][1]);
+        split_tf32(ap[o + 4], ah[i][2], al[i][2]);
+        split_tf32(ap[o + 8 * kTfLdA + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        // n8 tile n: gate n / 2 of units 8 (n % 2) .. of the warp's 16
+        const int o = 8 * ks * Tile::kLdB + (n >> 1) * Tile::kUnits + 8 * (n & 1);
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32(bp[o], bh0, bl0);
+        split_tf32(bp[o + 4 * Tile::kLdB], bh1, bl1);
+        // lo hi + hi lo + hi hi, in that order into each sum
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[i][n], al[i], bh0, bh1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[i][n], ah[i], bl0, bl1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[i][n], ah[i], bh0, bh1);
+      }
+    }
+  }
+
+  // the epilogue: its inputs loaded after the product, two units a store
+  const size_t ps = (size_t)B * Hp;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + kTfWarpRows * wm + 16 * i + 8 * r + g;
+      if (m >= M) continue;
+      const int t = m / B, b = m % B;
+      const int tp = prev_time(t, d, T);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int unit = u0 + kTfWarpUnits * wu + 8 * s + 2 * c;
+        if (unit >= H) continue;
+        const int nv = H - unit;  // valid units from here
+        float gv[G][2], ev[2][2], hh[G][2], v[Cell::kPlanes][2];
+        const float* gp = gx + ((size_t)t * B + b) * ndir * gh + d * gh + unit;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          load_pair(gv[q], gp + (size_t)q * H, nv, vec2);
+          hh[q][0] = acc[i][2 * q + s][2 * r];
+          hh[q][1] = acc[i][2 * q + s][2 * r + 1];
+        }
+        const size_t o_t = ((size_t)t * B + b) * lanes + (size_t)d * H + unit;
+        const size_t o_p =
+            ((size_t)(tp < 0 ? 0 : tp) * B + b) * lanes + (size_t)d * H + unit;
+        if constexpr (kLstm) {
+          load_pair(ev[0], cs + o_t, nv, vec2);
+          load_pair(ev[1], cs + o_p, tp < 0 ? 0 : nv, vec2);
+        } else {
+          load_pair(ev[0], ys + o_p, tp < 0 ? 0 : nv, vec2);
+          ev[1][0] = ev[1][1] = 0.f;
+        }
+        emit_pair_f32(Cell{}, gv, ev, hh, v);
+        // unit + 1 < Hp: rows of the planes are padded to a multiple of 4
+        float* out = planes +
+                     (((size_t)d * T + t) * Cell::kPlanes * B + b) * Hp + unit;
+#pragma unroll
+        for (int p = 0; p < Cell::kPlanes; ++p) {
+          if (vec2) {
+            *reinterpret_cast<float2*>(out + p * ps) = make_float2(v[p][0], v[p][1]);
+          } else {
+            out[p * ps] = v[p][0];
+            out[p * ps + 1] = v[p][1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Raise the dynamic shared memory limit of the cell's kernel once per
+// device, at its first launch there (eager, before any capture).
+template <class Cell>
+cudaError_t prepass_tf32_ready() {
+  static std::mutex mu;
+  static std::map<int, bool> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(prepass_tf32_kernel<Cell>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TfTile<Cell>::kSmem);
+  done[device] = err == cudaSuccess;
+  return err;
 }
 
 // Launch the pre-pass of one cell on the stream.  w: with bf16 streams
@@ -586,12 +833,12 @@ template <class Cell>
 cudaError_t launch_prepass(const void* gx, const void* w, const void* ys,
                            const void* cs, void* planes, int T, int B, int H,
                            int Hp, int ndir, int bf16, cudaStream_t stream) {
-  const dim3 grid((T * B + kPreRows - 1) / kPreRows,
-                  (H + kPreUnits - 1) / kPreUnits, ndir);
+  auto aligned = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
   if (bf16) {
-    auto aligned = [](const void* p, int n) {
-      return reinterpret_cast<uintptr_t>(p) % n == 0;
-    };
+    const dim3 grid((T * B + kPreRows - 1) / kPreRows,
+                    (H + kPreUnits - 1) / kPreUnits, ndir);
     // 16-byte rows of ys and w^T, 4-byte pairs of gx, cs and ys, where every
     // row start is so aligned
     const int vec8 = H % 8 == 0 && aligned(ys, 16) && aligned(w, 16);
@@ -603,12 +850,22 @@ cudaError_t launch_prepass(const void* gx, const void* w, const void* ys,
         static_cast<const __nv_bfloat16*>(ys),
         static_cast<const __nv_bfloat16*>(cs), static_cast<float*>(planes), T,
         B, H, Hp, ndir, vec8, vec2);
-  } else {
-    prepass_fma_kernel<Cell><<<grid, 256, 0, stream>>>(
-        static_cast<const float*>(gx), static_cast<const float*>(w),
-        static_cast<const float*>(ys), static_cast<const float*>(cs),
-        static_cast<float*>(planes), T, B, H, Hp, ndir);
+    return cudaGetLastError();
   }
+  cudaError_t err = prepass_tf32_ready<Cell>();
+  if (err != cudaSuccess) return err;
+  // 16-byte chunks of ys rows and w_hh rows, 8-byte pairs of gx, cs, ys
+  // and the planes, where every row start is so aligned
+  const int vec4 = H % 4 == 0 && aligned(ys, 16) && aligned(w, 16);
+  const int vec2 = H % 2 == 0 && aligned(gx, 8) && aligned(ys, 8) &&
+                   aligned(planes, 8) && (cs == nullptr || aligned(cs, 8));
+  using Tile = TfTile<Cell>;
+  const dim3 grid((T * B + Tile::kRows - 1) / Tile::kRows,
+                  (H + Tile::kUnits - 1) / Tile::kUnits, ndir);
+  prepass_tf32_kernel<Cell><<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
+      static_cast<const float*>(gx), static_cast<const float*>(w),
+      static_cast<const float*>(ys), static_cast<const float*>(cs),
+      static_cast<float*>(planes), T, B, H, Hp, ndir, vec4, vec2);
   return cudaGetLastError();
 }
 

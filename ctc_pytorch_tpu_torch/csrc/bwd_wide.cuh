@@ -5,8 +5,9 @@
 // holds) and H past that cluster's resident bound.  bwd_hoist.cuh includes
 // this header after its cells (cell_step) and stamps; its launcher
 // (cluster_branch) chooses the branch.  The header also holds what this
-// kernel shares with the wide forward (fwd_wide.cuh): the 3xTF32 split and
-// product, and the exchange's loads, flags and barriers.
+// kernel shares with the wide forward (fwd_wide.cuh): the exchange's loads,
+// flags and barriers; the 3xTF32 split and product (split_tf32, mma_tf32)
+// are bwd_hoist.cuh's, which its fp32 pre-pass uses too.
 //
 // Replaces, for those shapes (the grid kernels of lstm_bidir_train.cu and
 // gru_bidir_train.cu stay the branch past the bound below):
@@ -114,26 +115,6 @@ constexpr int kBwdWideMaxMt = 4;  // 16-row m-tiles of a row block
 // ---------------------------------------------------------------------------
 // shared by both wide kernels
 // ---------------------------------------------------------------------------
-
-// hi: x rounded to tf32 to nearest with ties away from zero
-// (cvt.rna.tf32.f32 on finite values); lo: x - hi, whose low 13 bits the
-// tensor core does not read
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a * b, one m16n8k8 tile: tf32 operands, fp32 sums
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 16 bytes of an exchange buffer, through L2 (as __ldcg).  Volatile and
 // with a memory clobber, so that the compiler keeps it after the flag's

@@ -106,6 +106,8 @@ PLANES = 6  # the pre-pass planes [A | Gi | Gf | Gg | Go | F]
 # pre-pass and one serial launch per backward); the plain path adds nothing
 launches_fwd = 0
 launches_bwd_prepass = 0
+# of them on fp32 streams: prepass_tf32_kernel (csrc/bwd_hoist.cuh)
+launches_bwd_prepass_tf32 = 0
 launches_bwd = 0
 # forward and serial launches by the branch the launcher reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
@@ -259,7 +261,7 @@ def lstm_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor
 
 def _launch_prepass(lib, gx, w_hh, ys, cs, ndir, h) -> torch.Tensor:
     w = prepass_weights(w_hh, gx.dtype)
-    global launches_bwd_prepass
+    global launches_bwd_prepass, launches_bwd_prepass_tf32
     t_len, b = gx.shape[:2]
     hp = -(-h // 4) * 4  # rows padded for the serial kernel's 16-byte loads
     planes = torch.empty(ndir, t_len, PLANES, b, hp, dtype=torch.float32,
@@ -272,6 +274,8 @@ def _launch_prepass(lib, gx, w_hh, ys, cs, ndir, h) -> torch.Tensor:
     if err != 0:
         _raise(lib, err, "lstm_bidir_train backward pre-pass", t_len, b, h)
     launches_bwd_prepass += 1
+    if gx.dtype != torch.bfloat16:
+        launches_bwd_prepass_tf32 += 1
     return planes
 
 

@@ -8,15 +8,15 @@ so that a change and its parent can be compared in one run:
 imports ``ctc_pytorch_tpu_torch`` from ``<tree>`` (its kernels build into its
 own ``csrc/build/``) and the timers, inputs and recipes from the
 ``chip_smoke.py`` beside this tool.  At the LSTM's (80, 128, 384) and (80,
-64, 384) and the GRU's (95, 128, 256), fp32 streams, it times the
-backward's pre-pass, its serial kernel (on the pre-pass's planes, with the
-branch it took) and both; at the tanh cell's (80, 128, 384) its forward
-and its backward (one kernel each, with their branches); then one fp32
-train step at B=128 of the flagship (T=160, L=48), of the 863 GRU model
-(T=200, L=40) and of the tanh model (the flagship with ``rnn_type:
-nn.RNN``, T=160, L=48) from a seed (``chip_smoke.dp_steps``: wall, median
-of 5, and device time), with the backward kernels' branches.  Prints one
-JSON line last and writes it to
+64, 384) and the GRU's (95, 128, 256) and (95, 8, 256), fp32 streams, it
+times the backward's pre-pass, its serial kernel (on the pre-pass's
+planes, with the branch it took) and both; at the tanh cell's (80, 128,
+384) its forward and its backward (one kernel each, with their
+branches); then one fp32 train step at B=128 of the flagship (T=160,
+L=48), of the 863 GRU model (T=200, L=40) and of the tanh model (the
+flagship with ``rnn_type: nn.RNN``, T=160, L=48) from a seed
+(``chip_smoke.dp_steps``: wall, median of 5, and device time), with the
+backward kernels' branches.  Prints one JSON line last and writes it to
 ``chiprun_out/probe_fp32_step_<label>.json``.  Needs one GPU.
 """
 
@@ -31,7 +31,7 @@ from pathlib import Path
 from probe_ctc_loss import load_chip_smoke  # this tool's chip_smoke.py
 
 SHAPES = [("lstm", 80, 128, 384), ("lstm", 80, 64, 384), ("gru", 95, 128, 256),
-          ("rnn", 80, 128, 384)]
+          ("gru", 95, 8, 256), ("rnn", 80, 128, 384)]
 
 
 def tanh_times(cs, t, b, h) -> dict:
