@@ -547,22 +547,36 @@ class DeviceCachedLoader(GroupedLoader):
         appearance, the order within a group kept.  ``with_indices=True``
         appends the ``(n_batches, B)`` int64 dataset indices, so that a
         consumer can name the utterances (the fused stage-4 decode).  With a
-        group, B is the rank's share of each batch."""
-        for (b_idx, tp, _), batches in self._groups(epoch).items():
-            poss, masks, idxs = [], [], []
-            for indices, _, _ in batches:
-                idx, mask = _padded(indices, self.batch_size,
-                                    self.pad_to_full_batch)
-                idx, mask = idx[self._rows], mask[self._rows]
-                poss.append(self._pos_in_bucket[idx])
-                masks.append(mask)
-                idxs.append(idx)
-            out = (self._bucket_arrays[b_idx],
-                   np.stack(poss).astype(np.int32),
-                   np.stack(masks).astype(np.float32), tp)
-            if with_indices:
-                out = out + (np.stack(idxs).astype(np.int64),)
+        group, B is the rank's share of each batch.  Each group's host work
+        (the first's with the epoch's plan) is one ``ctc.loader.plan`` span
+        (``spans.py``), closed before the group is yielded."""
+        from ctc_pytorch_tpu_torch.spans import span
+
+        with span("loader.plan"):
+            groups = list(self._groups(epoch).items())
+            out = self._group(groups[0], with_indices) if groups else None
+        for k, group in enumerate(groups):
+            if k:
+                with span("loader.plan"):
+                    out = self._group(group, with_indices)
             yield out
+
+    def _group(self, group, with_indices: bool) -> tuple:
+        """One ``epoch_groups`` entry from a ``_groups`` item."""
+        (b_idx, tp, _), batches = group
+        poss, masks, idxs = [], [], []
+        for indices, _, _ in batches:
+            idx, mask = _padded(indices, self.batch_size,
+                                self.pad_to_full_batch)
+            idx, mask = idx[self._rows], mask[self._rows]
+            poss.append(self._pos_in_bucket[idx])
+            masks.append(mask)
+            idxs.append(idx)
+        out = (self._bucket_arrays[b_idx], np.stack(poss).astype(np.int32),
+               np.stack(masks).astype(np.float32), tp)
+        if with_indices:
+            out = out + (np.stack(idxs).astype(np.int64),)
+        return out
 
     def __iter__(self) -> Iterator[Batch]:
         """The epoch's batches in the streaming order, each gathered on the

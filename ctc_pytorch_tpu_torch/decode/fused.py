@@ -23,6 +23,7 @@ from ctc_pytorch_tpu_torch.data.batching import gather_rows
 from ctc_pytorch_tpu_torch.decode.beam_device import batched_beam_search
 from ctc_pytorch_tpu_torch.decode.greedy import greedy_collapse, greedy_indices
 from ctc_pytorch_tpu_torch.models.ctc_model import CTCModel
+from ctc_pytorch_tpu_torch.spans import span
 from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
 
 
@@ -62,28 +63,31 @@ def make_fused_decode_fn(spec, model: CTCModel, *, mode: str = "greedy",
 
     def fused(arrs, pos, t_pad: int):
         dev = arrs["feats"].device
-        pos_d = torch.as_tensor(pos, dtype=torch.int64).to(dev)
-        n, b = pos_d.shape
+        n, b = pos.shape
+        shape = (int(t_pad), b, n)
+        with span("runner.upload", shape):
+            pos_d = torch.as_tensor(pos, dtype=torch.int64).to(dev)
         tokens = lens = None
         key = (arrs["feats"].data_ptr(), int(t_pad), b)
         for i in range(n):
-            if dev.type != "cuda":
-                tok, ln = step(arrs, t_pad, {"pos": pos_d[i]})
-            else:
-                cap = graphs.get(key)
-                if cap is None:
-                    inputs = {"pos": pos_d[i].clone(), "arrs": arrs}
-                    cap = graphs.capture(
-                        key, lambda: step(arrs, t_pad, inputs), inputs)
+            with span("runner.step", shape):
+                if dev.type != "cuda":
+                    tok, ln = step(arrs, t_pad, {"pos": pos_d[i]})
                 else:
-                    cap.inputs["pos"].copy_(pos_d[i])
-                tok, ln = cap.replay()
-            if tokens is None:
-                tokens = torch.empty((n,) + tuple(tok.shape), dtype=tok.dtype,
-                                     device=dev)
-                lens = torch.empty((n, b), dtype=ln.dtype, device=dev)
-            tokens[i].copy_(tok)
-            lens[i].copy_(ln)
+                    cap = graphs.get(key)
+                    if cap is None:
+                        inputs = {"pos": pos_d[i].clone(), "arrs": arrs}
+                        cap = graphs.capture(
+                            key, lambda: step(arrs, t_pad, inputs), inputs)
+                    else:
+                        cap.inputs["pos"].copy_(pos_d[i])
+                    tok, ln = cap.replay()
+                if tokens is None:
+                    tokens = torch.empty((n,) + tuple(tok.shape),
+                                         dtype=tok.dtype, device=dev)
+                    lens = torch.empty((n, b), dtype=ln.dtype, device=dev)
+                tokens[i].copy_(tok)
+                lens[i].copy_(ln)
         return tokens, lens
 
     fused.graphs = graphs

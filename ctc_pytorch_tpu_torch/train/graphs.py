@@ -37,6 +37,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence
 import torch
 
 from ctc_pytorch_tpu_torch.ops import launch_counts
+from ctc_pytorch_tpu_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -51,8 +52,9 @@ class Captured:
     replays: int = 0
 
     def replay(self) -> tuple:
-        self.graph.replay()
-        launch_counts.add(self.counts)
+        with span("graphs.replay"):
+            self.graph.replay()
+            launch_counts.add(self.counts)
         self.replays += 1
         return self.outputs
 
@@ -90,25 +92,27 @@ class StepGraphs:
         count) is the caller's to put back."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        before = launch_counts.read()
-        side = torch.cuda.Stream()
-        with guard():  # its snapshot and restore run on the caller's stream
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                step()
-            torch.cuda.current_stream().wait_stream(side)
-        launch_counts.restore(before)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self.pool):
-            outputs = step()
-        counts = launch_counts.diff(launch_counts.read(), before)
-        launch_counts.restore(before)
-        torch.cuda.synchronize()
-        self.capture_seconds += time.perf_counter() - t0
+        with span("graphs.capture"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = launch_counts.read()
+            side = torch.cuda.Stream()
+            # the guard's snapshot and restore run on the caller's stream
+            with guard():
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream().wait_stream(side)
+            launch_counts.restore(before)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                graph.register_generator_state(gen)
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs = step()
+            counts = launch_counts.diff(launch_counts.read(), before)
+            launch_counts.restore(before)
+            torch.cuda.synchronize()
+            self.capture_seconds += time.perf_counter() - t0
         captured = Captured(graph, inputs, tuple(outputs), counts)
         self.graphs[key] = captured
         return captured

@@ -39,7 +39,11 @@ Counterpart of ``ctc_pytorch_tpu/train/loop.py``:
   ``torch.profiler`` trace written to ``<out_dir>/profile``
   (``metrics_log.py:profile_ctx``; the JAX package's ``loop.py:775-776``),
   on the path it takes without the trace: a fused epoch stays fused, its
-  graphs captured inside the trace;
+  graphs captured inside the trace.  The trace names the runners' host
+  phases (``spans.py``): ``ctc.loader.plan`` a group, ``ctc.runner.upload``
+  a group and ``ctc.runner.step`` a batch with the group's ``(t_pad, B,
+  n)``, ``ctc.graphs.replay`` inside each step, ``ctc.runner.fetch``, and
+  ``ctc.graphs.capture`` around each of the first epoch's captures;
 - data parallelism (a ``DataGroup``, ``parallel/mesh.py``; the JAX step under
   ``shard_map`` on a mesh): each rank runs the step on its rows of the
   global batch.  The loss divides by the global mask count; the model takes
@@ -73,6 +77,7 @@ from ctc_pytorch_tpu_torch.ops.ctc_loss import ctc_loss
 from ctc_pytorch_tpu_torch.ops.editdistance import padded_edit_distance_device
 from ctc_pytorch_tpu_torch.parallel.distributed import local_rows, rank_seed
 from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup, all_sum, replicate
+from ctc_pytorch_tpu_torch.spans import span
 from ctc_pytorch_tpu_torch.train import checkpoint as ckpt
 from ctc_pytorch_tpu_torch.train.graphs import StepGraphs
 from ctc_pytorch_tpu_torch.train.metrics_log import MetricsLogger, profile_ctx
@@ -329,8 +334,10 @@ def make_fused_fns(spec: ModelSpec,
         errs.zero_()
         toks.zero_()
         n, b = pos.shape
-        pos_d = torch.from_numpy(np.asarray(pos, np.int64)).to(dev)
-        mask_d = torch.from_numpy(np.asarray(mask, np.float32)).to(dev)
+        shape = (int(t_pad), b, n)
+        with span("runner.upload", shape):
+            pos_d = torch.from_numpy(np.asarray(pos, np.int64)).to(dev)
+            mask_d = torch.from_numpy(np.asarray(mask, np.float32)).to(dev)
         losses = torch.empty(n, dtype=torch.float32, device=dev)
 
         def step(inputs):
@@ -358,33 +365,36 @@ def make_fused_fns(spec: ModelSpec,
 
         if dev.type != "cuda":
             for i in range(n):
-                (loss,) = step({"pos": pos_d[i], "mask": mask_d[i]})
-                losses[i] = loss
+                with span("runner.step", shape):
+                    (loss,) = step({"pos": pos_d[i], "mask": mask_d[i]})
+                    losses[i] = loss
             return totals()
 
         key = (training, compute_wer, id(state.model),
                arrs["feats"].data_ptr(), int(t_pad), b)
         cap = graphs.get(key)
         for i in range(n):
-            if cap is None:
-                # the static buffers, and what the graph reads besides
-                # them, live as long as it does
-                inputs = {"pos": pos_d[i].clone(), "mask": mask_d[i].clone(),
-                          "arrs": arrs, "model": state.model}
-                step0 = state.step
-                cap = graphs.capture(
-                    key, lambda: step(inputs), inputs,
-                    lambda: _restoring(state if training else None,
-                                       generator if training else None,
-                                       (errs, toks)))
-                state.step = step0
-            else:
-                cap.inputs["pos"].copy_(pos_d[i])
-                cap.inputs["mask"].copy_(mask_d[i])
-            (loss,) = cap.replay()
-            losses[i].copy_(loss)
-            if training:
-                state.step += 1
+            with span("runner.step", shape):
+                if cap is None:
+                    # the static buffers, and what the graph reads besides
+                    # them, live as long as it does
+                    inputs = {"pos": pos_d[i].clone(),
+                              "mask": mask_d[i].clone(), "arrs": arrs,
+                              "model": state.model}
+                    step0 = state.step
+                    cap = graphs.capture(
+                        key, lambda: step(inputs), inputs,
+                        lambda: _restoring(state if training else None,
+                                           generator if training else None,
+                                           (errs, toks)))
+                    state.step = step0
+                else:
+                    cap.inputs["pos"].copy_(pos_d[i])
+                    cap.inputs["mask"].copy_(mask_d[i])
+                (loss,) = cap.replay()
+                losses[i].copy_(loss)
+                if training:
+                    state.step += 1
         return totals()
 
     def fused_train(state, arrs, pos, mask, t_pad: int,
@@ -442,12 +452,14 @@ def run_epoch_fused(epoch_id: int, fused_fns, state: TrainState, loader, *,
     for arrs, pos, mask, t_pad in loader.epoch_groups(loader.epoch):
         fn = fused_train if training else fused_eval
         losses, e, t = fn(state, arrs, pos, mask, t_pad, compute_wer)
-        vals = losses.cpu().numpy()
+        with span("runner.fetch"):
+            vals = losses.cpu().numpy()
+            e, t = int(e), int(t)
         every += vals.tolist()
         loss_sum += float(vals.sum())
         n_batches += len(vals)
-        errs += int(e)
-        toks += int(t)
+        errs += e
+        toks += t
         if training:
             log(
                 f"Epoch = {epoch_id}, step = {n_batches}, "
@@ -478,8 +490,9 @@ def run_epoch_single(epoch_id: int, epoch_fns, state: TrainState, loader, *,
     fn = epoch_train if training else epoch_eval
     losses, errs, toks = fn(state, groups, compute_wer)
     # one fetch: the fp32 losses and the counts, exact in fp64
-    flat = torch.cat([x.double() for x in losses]
-                     + [torch.stack([errs, toks]).double()]).cpu().numpy()
+    with span("runner.fetch"):
+        flat = torch.cat([x.double() for x in losses]
+                         + [torch.stack([errs, toks]).double()]).cpu().numpy()
     loss_sum, n_batches = 0.0, 0
     for vals in np.split(flat[:-2].astype(np.float32),
                          np.cumsum([len(x) for x in losses])[:-1]):

@@ -6,8 +6,9 @@ phase 3's CTC cases) against its plain twin, with two directions and with one, t
 entry points' launch counts, and the models on CUDA against the same models
 on the CPU, in eval and in a train step; each kernel branch and the CTC
 kernels replayed from a captured CUDA graph against the eager call, a
-graphed epoch against the eager one, and a graphed ``Trainer`` run with a
-rollback and an LR decay against the same run on the CPU.
+graphed epoch against the eager one, a graphed ``Trainer`` run with a
+rollback and an LR decay against the same run on the CPU, and the runners'
+spans around the replays and captures.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -1141,3 +1142,63 @@ def test_remat_fit_and_step_equal_the_plain_ones_on_the_card(card, tmp_path,
             for remat in (False, True)]
     chip_smoke.hold_remat("tiny step", cell, cfg.rnn_layers, *runs, 1, "cuda")
     assert all(r["peak_bytes"] > 0 for r in runs)
+
+
+def test_spans_hold_one_replay_a_step_and_no_capture_after_set_up(card,
+                                                                  tmp_path):
+    """The runners' spans (``spans.py``) on the card, under ``torch.
+    profiler``: a first fused epoch and dev pass (set-up) capture every step
+    shape, each in one ``ctc.graphs.capture`` range inside a step; a second
+    epoch and pass (the window) capture nothing, and each of their batches
+    is one ``ctc.runner.step`` range holding exactly one
+    ``ctc.graphs.replay``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_pytorch_tpu_torch.cli.train import build_loaders
+    from ctc_pytorch_tpu_torch.train.loop import (
+        Trainer,
+        quiet,
+        run_epoch_single,
+    )
+    from ctc_pytorch_tpu_torch.vocab import Vocab
+
+    cfg, spec = tiny_recipe(tmp_path / "data")
+    train, dev = build_loaders(cfg, Vocab(cfg.vocab_file), device="cuda")
+    trainer = Trainer(cfg, spec, device="cuda", out_dir=str(tmp_path / "out"))
+    batches = len(train) + len(dev)
+
+    def epoch(e):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for loader, training in ((train, True), (dev, False)):
+                loader.set_epoch(e)
+                run_epoch_single(e, trainer.epoch_fns, trainer.state, loader,
+                                 training=training, log=quiet)
+            torch.cuda.synchronize()
+        host, kernels = {}, []
+        for ev in prof.events():
+            tr = (ev.time_range.start, ev.time_range.end)
+            if ev.device_type == DeviceType.CPU and ev.name.startswith("ctc."):
+                host.setdefault(ev.name, []).append(tr)
+            elif (ev.device_type == DeviceType.CUDA
+                  and not ev.name.startswith("ctc.")
+                  and not getattr(ev, "is_user_annotation", False)):
+                kernels.append(tr)
+        return host, kernels
+
+    graphs = trainer.epoch_fns[0].graphs
+    setup, _ = epoch(1)
+    assert len(setup["ctc.graphs.capture"]) == len(graphs) >= 2
+    assert len(setup["ctc.runner.step"]) == batches
+    captured = graphs.capture_seconds
+    window, kernels = epoch(2)
+    assert "ctc.graphs.capture" not in window
+    assert graphs.capture_seconds == captured
+    steps, replays = window["ctc.runner.step"], window["ctc.graphs.replay"]
+    assert len(steps) == len(replays) == batches
+    for s, e in steps:
+        assert sum(s <= a and b <= e for a, b in replays) == 1
+    assert kernels and len(window["ctc.runner.fetch"]) == 2
+    for a, b in setup["ctc.graphs.capture"]:
+        assert any(s <= a and b <= e for s, e in setup["ctc.runner.step"])
