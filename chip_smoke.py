@@ -5,7 +5,7 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, each a
 printed line; any failure ends the run with a nonzero exit and no result:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the seven kernel sources under ``csrc/`` with nvcc, in
+2. build: compiles the eight kernel sources under ``csrc/`` with nvcc, in
    parallel;
 3. kernel vs plain: each of the eleven kernel wrappers (eval BiLSTM,
    trainable BiLSTM forward and backward, the CTC loss's forward and
@@ -27,7 +27,12 @@ printed line; any failure ends the run with a nonzero exit and no result:
    recurrence branch and the CTC kernels captured in a CUDA graph through
    the port's ``train/graphs.py`` and replayed (``GRAPH_CASES``,
    ``CTC_GRAPH_CASES``): the replay equal to the eager call bit for bit, its
-   launches counted once;
+   launches counted once; then the CNN's conv epilogue
+   (``ops/conv_epilogue.py``) on the flagship's CNN stack at the benchmark
+   cells' padded shapes (``EPILOGUE_CASES``), train and eval, forward and
+   backward, against its plain twin (``EPILOGUE_TOL``), its launches
+   counted.  Every model path below counts the epilogue's launches too
+   (``epilogue_want``), and ``plain_twins`` sends it to its twin;
 4. TIMIT decode slice: stage 4 of the flagship TIMIT recipe at full width
    (CNN + 4 x BiLSTM(384), bf16) on a synthetic TIMIT-layout test set,
    with random weights from a seed, through ``cli.test.evaluate``, which
@@ -77,7 +82,10 @@ printed line; any failure ends the run with a nonzero exit and no result:
    backward), the tanh cell's fp32 forward and backward on the wide branch
    (with cuDNN's) and the GRU's fp32 backward cluster against the grid they
    replaced, and the flagship's B=128 decode forward with its eval
-   forwards on either (``times_redesigned``);
+   forwards on either (``times_redesigned``); the flagship's CNN stack,
+   forward and backward, through the conv epilogue's kernels and its twin
+   at the bf16 ``EPILOGUE_CASES``, with the kernels' byte bound
+   (``times_conv_epilogue``);
 10. fused vs streaming: the flagship at B=8 (fp32 streams) and the 863 model
     at B=16 (bf16 streams), one epoch and its dev pass at ``drop_out: 0``
     from one seeded state through the eager ``run_epoch`` and the graphed
@@ -405,19 +413,27 @@ def port_rnn_ops():
     return rnn_ops, rnn_train_ops
 
 
+def port_epilogue_ops():
+    from ctc_pytorch_tpu_torch.ops import conv_epilogue
+
+    return conv_epilogue
+
+
 NO_LAUNCHES = dict.fromkeys(
     ("lstm_bidir", "lstm_bidir_train_fwd", "lstm_bidir_train_bwd_prepass",
      "lstm_bidir_train_bwd", "ctc_alpha", "ctc_beta", "gru_bidir",
      "gru_bidir_train_fwd", "gru_bidir_train_bwd_prepass",
      "gru_bidir_train_bwd", "rnn_bidir", "rnn_bidir_train_fwd",
      "rnn_bidir_train_bwd", "lstm_bidir_train_bwd_prepass_tf32",
-     "gru_bidir_train_bwd_prepass_tf32"), 0)
+     "gru_bidir_train_bwd_prepass_tf32", "cnn_epilogue_fwd",
+     "cnn_epilogue_bwd"), 0)
 
 
 def launch_counts() -> dict:
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
     rnn_ops, rnn_train_ops = port_rnn_ops()
+    route = port_epilogue_ops().launches_route
     return {"lstm_bidir": lstm_ops.launches,
             "lstm_bidir_train_fwd": train_ops.launches_fwd,
             "lstm_bidir_train_bwd_prepass": train_ops.launches_bwd_prepass,
@@ -435,7 +451,10 @@ def launch_counts() -> dict:
             "lstm_bidir_train_bwd_prepass_tf32":
                 train_ops.launches_bwd_prepass_tf32,
             "gru_bidir_train_bwd_prepass_tf32":
-                gru_train_ops.launches_bwd_prepass_tf32}
+                gru_train_ops.launches_bwd_prepass_tf32,
+            # the CNN's conv epilogue: layer calls on its kernels, each way
+            "cnn_epilogue_fwd": route["fused_fwd"],
+            "cnn_epilogue_bwd": route["fused_bwd"]}
 
 
 def zero_counts() -> None:
@@ -454,7 +473,9 @@ def zero_counts() -> None:
         by.update(dict.fromkeys(by, 0))
     rnn_train_ops.launches_fwd = rnn_train_ops.launches_bwd = 0
     ctc_ops.launches_alpha = ctc_ops.launches_beta = 0
-    for by in (ctc_ops.launches_fwd_branch, ctc_ops.launches_bwd_branch):
+    route = port_epilogue_ops().launches_route
+    for by in (ctc_ops.launches_fwd_branch, ctc_ops.launches_bwd_branch,
+               route):
         by.update(dict.fromkeys(by, 0))
 
 
@@ -463,6 +484,26 @@ def stacked_calls() -> int:
     from ctc_pytorch_tpu_torch.ops import stacked
 
     return stacked.calls
+
+
+def epilogue_want(model_cfg, eval_calls: int, train_steps: int = 0) -> dict:
+    """The conv epilogue's layer calls on its kernels (``launch_counts``'
+    ``cnn_epilogue_*``) over ``train_steps`` training steps and
+    ``eval_calls`` eval forwards of the model of ``model_cfg`` (a
+    ``ModelSpec`` or a ``Config``: its ``cnn`` and ``pad_dynamics``): one a
+    layer each way for each layer the route fuses on the card
+    (``ops/conv_epilogue.fused_route``: a BN, ``relu`` or ``hardtanh``, no
+    pool); a training step's only with the batch-max frame count that
+    masks its statistics (``pad_dynamics: batchmax``)."""
+    ce = port_epilogue_ops()
+    cnn = model_cfg.cnn
+    layers = sum(1 for i in range(cnn.layers) if cnn.add_cnn
+                 and cnn.batch_norm and not cnn.pool_at(i)
+                 and cnn.activation_function.lower() in ce.FUSED_ACTS)
+    if model_cfg.pad_dynamics != "batchmax":
+        train_steps = 0
+    return {"cnn_epilogue_fwd": layers * (train_steps + eval_calls),
+            "cnn_epilogue_bwd": layers * train_steps}
 
 
 def check_counts(counts: dict, want: dict, what: str,
@@ -496,7 +537,8 @@ def plain_twins():
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
     rnn_ops, rnn_train_ops = port_rnn_ops()
-    swaps = [(lstm_ops, "lstm_bidir_cuda", lstm_ops.lstm_bidir_plain),
+    swaps = [(port_epilogue_ops(), "fused_route", lambda *a, **k: False),
+             (lstm_ops, "lstm_bidir_cuda", lstm_ops.lstm_bidir_plain),
              (train_ops, "lstm_bidir_train_cuda", train_ops.lstm_bidir_train_plain),
              (train_ops, "lstm_bidir_train_backward_cuda",
               train_ops.lstm_bidir_train_backward_plain),
@@ -1810,6 +1852,133 @@ def phase_stacked_vs_plain() -> dict:
     return worst
 
 
+# The CNN's conv epilogue (``ops/conv_epilogue.py``): the flagship's stack
+# (its recipe's two conv layers) at the benchmark cells' padded shapes, (B,
+# T, dtype): B = 8 at T = 200 and 392, B = 128 at T = 288 and 392, bf16 as
+# the cells run, and the recipe's B = 8 in fp32
+EPILOGUE_CASES = ((8, 200, "bfloat16"), (8, 392, "bfloat16"),
+                  (128, 288, "bfloat16"), (128, 392, "bfloat16"),
+                  (8, 200, "float32"))
+# kernels against the twin, both on the card: (output, gradient) tolerances.
+# The statistics' sums run in another order, which moves an output across a
+# rounding edge of the plane's dtype now and then, and the second layer
+# carries that on: outputs within this error in units of max(|want|, 1);
+# every leaf's gradient within this share of its largest entry (the conv
+# biases under BN, rounding alone, against their layer's weight gradient);
+# the running buffers within EPILOGUE_BUF_TOL of theirs
+EPILOGUE_TOL = {"bfloat16": (2.0 ** -5, 1e-2), "float32": (1e-5, 1e-4)}
+EPILOGUE_BUF_TOL = 1e-5
+
+
+def epilogue_stack(cfg, device: str = "cuda"):
+    """The flagship's CNN stack on ``device``, with its weights and BN state
+    (scale, shift, running mean and variance) drawn from a seed."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.models.cnn import CNNStack
+
+    gen = torch.Generator().manual_seed(11)
+    stack = CNNStack(cfg.cnn)
+    for layer in stack:
+        layer.reset_parameters(gen)
+        with torch.no_grad():
+            layer.bn.scale.uniform_(0.5, 1.5, generator=gen)
+            layer.bn.bias.uniform_(-0.3, 0.3, generator=gen)
+            layer.bn.mean.uniform_(-0.2, 0.2, generator=gen)
+            layer.bn.var.uniform_(0.5, 2.0, generator=gen)
+    return stack.to(device)
+
+
+def epilogue_inputs(cfg, stack, b: int, t: int, dtype, device: str = "cuda"):
+    """One batch of the stack's input (B, 1, T, F), its frame count 7 below
+    T, its example mask with the last row repeat-padded, and the output's
+    gradient in the plane's dtype."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(b * t)
+    x = torch.randn(b, 1, t, cfg.rnn_input_size, generator=gen,
+                    device=device)
+    tv = torch.tensor(t - 7, dtype=torch.int32, device=device)
+    em = torch.ones(b, device=device)
+    em[-1] = 0.0
+    with torch.no_grad():
+        shape = stack.eval()(x, dtype, t_valid=tv).shape
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return x, tv, em, dy
+
+
+def phase_conv_epilogue_vs_plain(cfg, device: str = "cuda",
+                                 cases=EPILOGUE_CASES) -> dict:
+    """The conv epilogue's kernels against their plain twin, both on the
+    card, at ``EPILOGUE_CASES``: the flagship's CNN stack (``cfg``'s) in
+    train mode (the statistics of the frames below the count and of the
+    real rows, the running buffers updated) and in eval mode (the running
+    statistics), each a forward and a backward from a gradient of the
+    output, from one state: outputs, every leaf's gradient and the running
+    buffers within ``EPILOGUE_TOL``.  The kernels' call must launch them
+    once a layer each way (``cnn_epilogue_*``) and nothing else; the
+    twins' none.  Returns the worst errors by dtype.  (``device`` and
+    ``cases`` let a CPU run rehearse it at small shapes: the CPU takes the
+    twin on both sides and launches nothing.)"""
+    import torch
+
+    stack = epilogue_stack(cfg, device)
+    start = {k: v.clone() for k, v in stack.state_dict().items()}
+    layers = len(stack)
+
+    def step(x, dtype, tv, em, dy, train):
+        stack.load_state_dict(start)
+        stack.train(train)
+        stack.zero_grad(set_to_none=True)
+        y = stack(x, dtype, t_valid=tv, example_mask=em)
+        y.backward(dy)
+        sync()
+        return (y.float(),
+                {n: p.grad.float().clone() for n, p in stack.named_parameters()},
+                {n: v.clone() for n, v in stack.named_buffers()})
+
+    on_card = device == "cuda"
+    errs = {}
+    for b, t, dname in cases:
+        dtype = getattr(torch, dname)
+        x, tv, em, dy = epilogue_inputs(cfg, stack, b, t, dtype, device)
+        out_tol, grad_tol = EPILOGUE_TOL[dname]
+        for train in (True, False):
+            what = (f"conv epilogue B={b} T={t} {dname} "
+                    f"{'train' if train else 'eval'}")
+            zero_counts()
+            got = step(x, dtype, tv, em, dy, train)
+            check_counts(launch_counts(), {"cnn_epilogue_fwd": layers * on_card,
+                                           "cnn_epilogue_bwd": layers * on_card},
+                         what)
+            with plain_twins():
+                want = step(x, dtype, tv, em, dy, train)
+            out_err = scaled_err(got[0], want[0])
+            grad_err = 0.0
+            for name, value in want[1].items():
+                ref = want[1][name[:-1] + "w"] if name.endswith(".b") else value
+                grad_err = max(grad_err, ((got[1][name] - value).abs().max()
+                                          / ref.abs().max()).item())
+            buf_err = max(((got[2][n] - v).abs().max()
+                           / v.abs().max().clamp(min=1.0)).item()
+                          for n, v in want[2].items())
+            print(f"  {what}: output {out_err:.3g} (tol {out_tol:.3g}), "
+                  f"gradients {grad_err:.3g} of their largest entry (tol "
+                  f"{grad_tol:.3g}), running buffers {buf_err:.3g} (tol "
+                  f"{EPILOGUE_BUF_TOL:.3g})")
+            check(out_err <= out_tol, f"{what}: the output is off the twin's")
+            check(grad_err <= grad_tol,
+                  f"{what}: a gradient is off the twin's")
+            check(buf_err <= EPILOGUE_BUF_TOL,
+                  f"{what}: the running buffers are off the twin's")
+            worst = errs.setdefault(dname, {"output": 0.0, "gradients": 0.0,
+                                            "buffers": 0.0})
+            for key, err in (("output", out_err), ("gradients", grad_err),
+                             ("buffers", buf_err)):
+                worst[key] = max(worst[key], err)
+    return errs
+
+
 def write_corpus(root: Path, split: str = "test", n_utts: int = 64,
                  seed: int = 0, dim: int = 81, units=PHONES,
                  feats: str = "fbank", labels: str = "phn_text") -> None:
@@ -2055,13 +2224,15 @@ def decode_slice(cfg, spec, model, eval_kernel: str, n_utts: int, tag: str,
     check(res.get("fused") and res["graphs"] >= 1,
           f"{tag} decode did not take the fused stage 4")
     check(len(decoded) == n_utts, f"decoded {len(decoded)} of {n_utts} utterances")
-    check_counts(counts, {eval_kernel: spec.rnn_layers * res["batches"]},
+    check_counts(counts, {eval_kernel: spec.rnn_layers * res["batches"],
+                          **epilogue_want(spec, res["batches"])},
                  f"{tag} decode")
 
     zero_counts()
     res32, dec32, _ = run(pkg_fp32)
     check_counts(launch_counts(),
-                 {eval_kernel: spec.rnn_layers * res32["batches"]},
+                 {eval_kernel: spec.rnn_layers * res32["batches"],
+                  **epilogue_want(spec, res32["batches"])},
                  f"{tag} fp32 decode")
     check_cluster_branches(f"{tag} fp32 decode")
     with plain_twins():
@@ -2313,7 +2484,9 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
     check_counts(counts, {f"{cell}_bidir_train_fwd": n * steps,
                           f"{cell}_bidir_train_bwd": n * steps,
                           "ctc_alpha": steps + eval_batches, "ctc_beta": steps,
-                          f"{cell}_bidir": n * eval_batches}, "Trainer.fit")
+                          f"{cell}_bidir": n * eval_batches,
+                          **epilogue_want(spec, eval_batches, steps)},
+                 "Trainer.fit")
     if cell == "lstm" and cfg.batch_size % 16 != 0:  # fp32 streams
         train_ops = port_ops()[1]
         check_fp32_bwd_branch("Trainer.fit", train_ops.launches_bwd_branch,
@@ -2354,7 +2527,8 @@ def train_slice(cfg, spec, cell: str, n_test_utts: int,
     k_losses, k_sd = two_steps()
     check_counts(launch_counts(), {f"{cell}_bidir_train_fwd": 2 * n,
                                    f"{cell}_bidir_train_bwd": 2 * n,
-                                   "ctc_alpha": 2, "ctc_beta": 2},
+                                   "ctc_alpha": 2, "ctc_beta": 2,
+                                   **epilogue_want(spec32, 0, 2)},
                  "two fp32 steps")
     check_cluster_branches("two fp32 steps")  # the tanh backward's too
     if cell in ("lstm", "gru"):
@@ -2567,7 +2741,8 @@ def beam_decodes_agree(cfg, package, n_utts: int, eval_kernel: str, layers: int,
               f"{what} {name}: decoded {len(decoded)} of {n_utts} utterances")
         check(bool(res.get("fused")) == (fused and decode_type != "Beam"),
               f"{what} {name}: took the wrong stage-4 path")
-        check_counts(counts, {eval_kernel: layers * res["batches"]},
+        check_counts(counts, {eval_kernel: layers * res["batches"],
+                              **epilogue_want(cfg, res["batches"])},
                      f"{what} {name}")
         launched += counts[eval_kernel]
         runs[name] = (res, decoded)
@@ -3443,7 +3618,8 @@ def phase_pipeline_slice(smi: str, device: str = "cuda") -> dict:
         check_counts(counts, {"lstm_bidir_train_fwd": n * steps,
                               "lstm_bidir_train_bwd": n * steps,
                               "ctc_alpha": steps + dev_b, "ctc_beta": steps,
-                              "lstm_bidir": n * (dev_b + test_b)},
+                              "lstm_bidir": n * (dev_b + test_b),
+                              **epilogue_want(spec, dev_b + test_b, steps)},
                      "the pipeline's stages 2 and 4")
         check(took["lstm_bidir_train_fwd"] == {"cluster16_fp32": n * steps}
               and took["lstm_bidir"] == {"cluster16_fp32": n * (dev_b + test_b)}
@@ -3671,7 +3847,9 @@ def phase_863_lstm_slice(smi: str, device: str = "cuda") -> dict:
                                   "lstm_bidir_train_bwd": n * steps,
                                   "ctc_alpha": steps + eval_b,
                                   "ctc_beta": steps,
-                                  "lstm_bidir": n * eval_b}, f"{tag} fit")
+                                  "lstm_bidir": n * eval_b,
+                                  **epilogue_want(spec, eval_b, steps)},
+                         f"{tag} fit")
             check(took["lstm_bidir_train_fwd"] == {"cluster16": n * steps}
                   and took["lstm_bidir_train_bwd"] == {"cluster16": n * steps},
                   f"{tag}: the training forward or backward left the "
@@ -4549,6 +4727,58 @@ def print_breakdown(what: str, ms: float, busy_us: float, by_kernel, top: int):
           f"{100 * busy_us / 1e3 / ms:.1f}% of the timed span):")
     for name, us in by_kernel[:top]:
         print(f"    {us / 1e3:9.4f} ms {100 * us / busy_us:5.1f}%  {name[:90]}")
+
+
+def times_conv_epilogue(cfg, smi: str) -> dict:
+    """Device time of the flagship's CNN stack (``cfg``'s), forward in
+    train mode and backward, through the conv epilogue's kernels and
+    through the twin, at the bf16 ``EPILOGUE_CASES`` (``device_breakdown``,
+    in turns twin, kernels, kernels, twin, the smaller of each), with the
+    epilogue kernels' own time and their byte bound: each pass over a
+    layer's plane once (the statistics' read, the apply's read and write,
+    the backward sums' two reads, its apply's two reads and a write) at
+    ``HBM_BYTES_PER_S``."""
+    import torch
+
+    from tools.probe_cnn_bn import plane_bytes
+
+    stack = epilogue_stack(cfg).train()
+    params = list(stack.parameters())
+    out = {}
+    for b, t, dname in EPILOGUE_CASES:
+        if dname != "bfloat16":
+            continue
+        dtype = torch.bfloat16
+        x, tv, em, dy = epilogue_inputs(cfg, stack, b, t, dtype)
+        stack.train()
+
+        def call():
+            y = stack(x, dtype, t_valid=tv, example_mask=em)
+            torch.autograd.grad(y, params, dy)
+
+        ms = {"plain": [], "fused": []}
+        kernels_ms = []
+        for route in ("plain", "fused", "fused", "plain"):
+            if route == "fused":
+                us, rows = device_breakdown(call, expect=("cnn_bn_",))
+                kernels_ms.append(sum(v for n, v in rows if "cnn_bn_" in n)
+                                  / 1e3)
+            else:
+                with plain_twins():
+                    us, rows = device_breakdown(call)
+            ms[route].append(us / 1e3)
+        bound = (plane_bytes(cfg.cnn, b, t, cfg.rnn_input_size, 2, True)
+                 / HBM_BYTES_PER_S * 1e3)
+        key = f"b{b}_t{t}"
+        out[key] = {"ms": min(ms["fused"]), "plain_ms": min(ms["plain"]),
+                    "kernels_ms": min(kernels_ms), "bound_ms": bound,
+                    "ms_turns": ms["fused"], "plain_ms_turns": ms["plain"]}
+        r = out[key]
+        print(f"  CNN stack forward and backward, B={b} T={t} bf16 ({smi}): "
+              f"{r['ms']:.4f} ms on the device through the conv epilogue's "
+              f"kernels ({r['kernels_ms']:.4f} ms of them, byte bound "
+              f"{bound:.4f} ms), {r['plain_ms']:.4f} ms through the twin")
+    return out
 
 
 def times_model(cfg, spec, model, b, t, l, what, tag) -> dict:
@@ -6279,6 +6509,7 @@ def main() -> int:
     lstm_ops, train_ops, ctc_ops = port_ops()
     gru_ops, gru_train_ops = port_gru_ops()
     rnn_ops, rnn_train_ops = port_rnn_ops()
+    epilogue_ops = port_epilogue_ops()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -6289,7 +6520,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = [lstm_ops.LIBRARY, train_ops.LIBRARY, ctc_ops.LIBRARY,
                  gru_ops.LIBRARY, gru_train_ops.LIBRARY, rnn_ops.LIBRARY,
-                 rnn_train_ops.LIBRARY]
+                 rnn_train_ops.LIBRARY, epilogue_ops.LIBRARY]
     # and the parent forms of the redesigned branches, which phase 9 times
     parents = parent_libraries()
     build_all(libraries + parents)
@@ -6316,6 +6547,7 @@ def main() -> int:
     errs_unidir = phase_unidir_vs_plain()
     errs_stacked = phase_stacked_vs_plain()
     graph_branches = phase_graphs_vs_eager()
+    errs_epilogue = phase_conv_epilogue_vs_plain(recipe_config())
 
     print("[4/17] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
@@ -6394,6 +6626,7 @@ def main() -> int:
     # they replaced
     redesigned = times_redesigned(spec, model, smi)
     prepass_tf32 = times_prepass_tf32(smi)
+    epilogue_times = times_conv_epilogue(cfg, smi)
 
     print(f"[10/17] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
@@ -6708,6 +6941,36 @@ def main() -> int:
                                     f"Cell, WM, WU>",
             "times": {k: v for k, v in prepass_tf32.items()
                       if k.startswith(cell)}})
+    # the CNN's conv epilogue: no TPU kernel (XLA fuses the JAX package's
+    # chain); its launches on the main paths, its worst errors against the
+    # twin in phase 3, the stack's device time both ways at the cells'
+    # shapes in phase 9 (ms: B=128 T=392; _recipe_batch: B=8 T=200)
+    name = "cnn_epilogue_fwd"
+    launched = {p: c[name] for p, c in by_path.items() if c.get(name)}
+    for p in ("timit", "863", "tanh", "unidir", "pipeline",
+              "863_cnn_lstm_ctc"):
+        check(p in launched, f"the {p} path never launched {name}")
+    at, at_recipe = epilogue_times["b128_t392"], epilogue_times["b8_t200"]
+    kernels.append({
+        "name": "cnn_conv_epilogue", "route": "cuda",
+        "source": csrc + "conv_epilogue.cu",
+        "replaces": "no TPU kernel: XLA fuses the conv bias, BatchNorm2d, "
+                    "activation and tail mask of ctc_pytorch_tpu/models/"
+                    "cnn.py:cnn_stack_apply",
+        "kernels": ["cnn_bn_stats_kernel", "cnn_bn_apply_kernel",
+                    "cnn_bn_grad_sums_kernel", "cnn_bn_grad_apply_kernel",
+                    "cnn_bn_sum_kernel"],
+        "launches": sum(launched.values()), "launches_by_path": launched,
+        "launches_bwd": sum(c.get("cnn_epilogue_bwd", 0)
+                            for c in by_path.values()),
+        "max_err_vs_plain": errs_epilogue,
+        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "kernels_ms": at["kernels_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": "bytes", "ms_recipe_batch": at_recipe["ms"],
+        "plain_ms_recipe_batch": at_recipe["plain_ms"],
+        "kernels_ms_recipe_batch": at_recipe["kernels_ms"],
+        "bound_ms_recipe_batch": at_recipe["bound_ms"],
+        "times": epilogue_times})
     by_name = {k["name"]: k for k in kernels}
     by_name["lstm_bidir"]["flagship_decode_forward_b128"] = redesigned[
         "flagship_decode_forward_b128"]

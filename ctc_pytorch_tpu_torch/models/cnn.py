@@ -6,7 +6,10 @@ runs channels-last and swaps some strided convs for a space-to-depth
 formulation (a TPU matrix-unit trick with identical outputs); here every
 layer is a plain ``F.conv2d``.  Planes stay in ``compute_dtype`` as in JAX,
 with the conv output rounded before the bias add and BN computed in fp32
-and cast back, so bf16 rounding happens at the same points.
+and cast back, so bf16 rounding happens at the same points.  Everything
+between the conv and the dropout (bias, BN, activation, pool, the time
+tail's mask) is ``ops/conv_epilogue.py``: hand-written kernels for the
+recipes' layers on the card, its plain twin elsewhere.
 """
 
 from __future__ import annotations
@@ -26,14 +29,8 @@ from ctc_pytorch_tpu_torch.models.layers import (
     synced_sums,
     update_running,
 )
+from ctc_pytorch_tpu_torch.ops.conv_epilogue import ACTIVATIONS, conv_epilogue
 from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup
-
-ACTIVATIONS = {
-    "relu": torch.relu,
-    "hardtanh": lambda x: torch.clamp(x, 0.0, 20.0),  # 863's Hardtanh(0, 20)
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-}
 
 
 class BatchNorm2d(nn.Module):
@@ -115,7 +112,9 @@ class CNNStack(nn.ModuleList):
             for i in range(cnn.layers)
         )
         self.cfg = cnn
-        self.act = ACTIVATIONS[cnn.activation_function.lower()]
+        self.act_name = cnn.activation_function.lower()
+        if self.act_name not in ACTIVATIONS:
+            raise KeyError(self.act_name)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
                 t_valid: Optional[torch.Tensor] = None,
@@ -141,29 +140,13 @@ class CNNStack(nn.ModuleList):
         tv = t_valid
         rows = None
         if t_valid is not None and example_mask is not None:
-            rows = (example_mask > 0).view(-1, 1, 1, 1)
+            rows = example_mask > 0
         for i, layer in enumerate(self):
-            pad = cfg.padding[i]
             out = F.conv2d(x, layer.w.to(compute_dtype), stride=cfg.stride[i],
-                           padding=pad)
-            out = out + layer.b.to(compute_dtype).view(1, -1, 1, 1)
-            mask = None
+                           padding=cfg.padding[i])
             if tv is not None:
                 tv = torch.clamp(cfg.conv_out(i, tv, 0)[0], min=1)
-                t_idx = torch.arange(out.shape[2], device=out.device)
-                mask = (t_idx < tv).view(1, 1, -1, 1)
-                if rows is not None:
-                    mask = mask & rows
-            if layer.bn is not None:
-                out = layer.bn(out, mask, group)
-            out = self.act(out)
-            pk = cfg.pool_at(i)
-            if pk:
-                out = F.max_pool2d(out, kernel_size=pk, stride=pk)
-                if tv is not None:
-                    tv = torch.clamp((tv - pk[0]) // pk[0] + 1, min=1)
-            if tv is not None:
-                t_idx = torch.arange(out.shape[2], device=out.device)
-                out = out * (t_idx < tv).to(out.dtype).view(1, 1, -1, 1)
+            out, tv = conv_epilogue(out, layer, self.act_name, tv, rows,
+                                    cfg.pool_at(i), group, self.training)
             x = dropout(out, drop_rate, generator, self.training)
         return x

@@ -3,7 +3,8 @@
 Each op module counts its kernel launches in Python, where its launcher runs:
 ``launches``, ``launches_fwd``, ``launches_bwd_prepass``, ``launches_bwd``,
 ``launches_alpha``, ``launches_beta`` (ints) and ``launches_fwd_branch``,
-``launches_bwd_branch`` (dicts by branch).  Under a captured CUDA graph a
+``launches_bwd_branch`` (dicts by branch), ``launches_route`` (the conv
+epilogue's layer calls, a dict by route).  Under a captured CUDA graph a
 launcher runs once, at capture, and every replay launches the same kernels
 without Python.  So a captured graph keeps the counts that its capture added
 (``diff``), the capture's own additions are taken back (``restore``), and
@@ -16,8 +17,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, Tuple
 
-MODULES = ("ctc_loss", "gru_bidir", "gru_bidir_train", "lstm_bidir",
-           "lstm_bidir_train", "rnn_bidir", "rnn_bidir_train")
+MODULES = ("conv_epilogue", "ctc_loss", "gru_bidir", "gru_bidir_train",
+           "lstm_bidir", "lstm_bidir_train", "rnn_bidir", "rnn_bidir_train")
 
 Counts = Dict[Tuple[str, str], object]
 

@@ -7,8 +7,9 @@ entry points' launch counts, and the models on CUDA against the same models
 on the CPU, in eval and in a train step; each kernel branch and the CTC
 kernels replayed from a captured CUDA graph against the eager call, a
 graphed epoch against the eager one, a graphed ``Trainer`` run with a
-rollback and an LR decay against the same run on the CPU, and the runners'
-spans around the replays and captures.
+rollback and an LR decay against the same run on the CPU, the runners'
+spans around the replays and captures, and the CNN's conv epilogue against
+its CPU arithmetic and its plain twin, eager and replayed.
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so on the GPU host it runs without
@@ -1202,3 +1203,222 @@ def test_spans_hold_one_replay_a_step_and_no_capture_after_set_up(card,
     assert kernels and len(window["ctc.runner.fetch"]) == 2
     for a, b in setup["ctc.graphs.capture"]:
         assert any(s <= a and b <= e for s, e in setup["ctc.runner.step"])
+
+
+# ---- the CNN's conv epilogue (ops/conv_epilogue.py) ----
+
+def _epilogue_operands(b, c, t, f, dtype, seed):
+    """A raw conv plane on the card, its fp32 (C,) operands, a frame count
+    below T and one repeat-padded row."""
+    gen = torch.Generator().manual_seed(seed)
+    conv = (torch.randn(b, c, t, f, generator=gen) * 2).to(dtype)
+    vec = [torch.rand(c, generator=gen) * 0.6 - 0.3 for _ in range(3)]
+    k = torch.rand(c, generator=gen) + 0.5
+    dy = torch.randn(b, c, t, f, generator=gen).to(dtype)
+    ds = [torch.randn(c, generator=gen) * 1e-3 for _ in range(2)]
+    rows = torch.ones(b, dtype=torch.bool)
+    rows[b // 2] = False
+    tv = torch.tensor(t - 3, dtype=torch.int32)
+    return conv, vec[0], vec[1], k, vec[2], dy, ds, tv, rows
+
+
+@pytest.mark.parametrize("act", ["relu", "hardtanh"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,t,f", [(6, 5, 37, 13), (3, 2, 9, 5000),
+                                     (2, 3, 1, 3)])
+def test_conv_epilogue_kernels_match_their_cpu_arithmetic(card, b, c, t, f,
+                                                          dtype, act):
+    """Each launch against the same arithmetic in torch ops on the CPU:
+    the elementwise outputs bit for bit, the per-channel sums within their
+    order's rounding.  Odd F and T*F put 16-byte vectors across rows,
+    slices and runs; F = 5000 gives one row a block."""
+    from ctc_pytorch_tpu_torch.ops import conv_epilogue as ce
+
+    ops = _epilogue_operands(b, c, t, f, dtype, seed=b * t + f)
+    conv, bias, mean, k, beta, dy, (ds1, ds2), tv, rows = ops
+    cuda = [x.to(card) for x in (conv, bias, mean, k, beta, dy, ds1, ds2, tv,
+                                 rows)]
+    cconv, cbias, cmean, ck, cbeta, cdy, cds1, cds2, ctv, crows = cuda
+    got = {
+        "stats": ce.stats(cconv, cbias, ctv, crows),
+        "y": ce.apply(cconv, cbias, cmean, ck, cbeta, ctv, act),
+        "sums": ce.grad_sums(cconv, cdy, cbias, cmean, ck, cbeta, ctv, act),
+        "train": ce.grad_apply(cconv, cdy, cbias, cmean, ck, cbeta, cds1,
+                               cds2, ctv, crows, act),
+        "eval": ce.grad_apply(cconv, cdy, cbias, cmean, ck, cbeta, None, None,
+                              None, None, act),
+    }
+    torch.cuda.synchronize()
+    want = {
+        "stats": ce._stats_cpu(conv, bias, tv, rows),
+        "y": ce._apply_cpu(conv, bias, mean, k, beta, tv, act),
+        "sums": ce._grad_sums_cpu(conv, dy, bias, mean, k, beta, tv, act),
+        "train": ce._grad_apply_cpu(conv, dy, bias, mean, k, beta, ds1, ds2,
+                                    tv, rows, act),
+        "eval": ce._grad_apply_cpu(conv, dy, bias, mean, k, beta, None, None,
+                                   None, None, act),
+    }
+    assert torch.equal(got["y"].cpu(), want["y"])
+    for part in ("train", "eval"):
+        assert torch.equal(got[part][0].cpu(), want[part][0])
+        # the bias's gradient: a sum of the plane, rounded to its dtype
+        err = (got[part][1].cpu() - want[part][1]).abs().max().item()
+        scale = want[part][0].float().abs().sum((0, 2, 3)).max().item()
+        assert err <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * scale
+    assert got["stats"][2].item() == want["stats"][2].item()
+    for part, n in (("stats", 2), ("sums", 3)):
+        for g, w in zip(got[part][:n], want[part][:n]):
+            err = (g.cpu() - w).abs().max().item()
+            assert err <= 1e-5 * max(1.0, w.abs().max().item()), part
+
+
+@pytest.mark.parametrize("act", ["relu", "hardtanh"])
+def test_conv_epilogue_activation_ties_follow_autograd(card, act):
+    """Normalised values at exactly 0 and 20 (and -0, and around them):
+    the output and the gate of relu (passes where its output is > 0) and
+    clamp(0, 20) (passes where 0 <= z <= 20) as autograd takes them."""
+    from ctc_pytorch_tpu_torch.ops import conv_epilogue as ce
+
+    vals = torch.tensor([0.0, -0.0, 20.0, 1.0, -1.0, 19.875, 20.125, 0.5])
+    conv = vals.repeat(2, 1, 3, 4).view(2, 1, 3, 32).to(torch.bfloat16)
+    one, zero = torch.ones(1), torch.zeros(1)
+    dy = torch.linspace(1.0, 2.0, conv.numel()).view_as(conv).to(
+        torch.bfloat16)
+    args = [x.to(card) for x in (conv, zero, zero, one, zero)]
+    y = ce.apply(*args, None, act)
+    dconv, _ = ce.grad_apply(args[0], dy.to(card), *args[1:], None, None, None,
+                             None, act)
+    x = conv.float().requires_grad_(True)
+    want = ce.ACTIVATIONS[act](x.to(torch.bfloat16))
+    want.backward(dy)
+    assert torch.equal(y.cpu().float(), want.float())
+    assert torch.equal(dconv.cpu().float(), x.grad)
+
+
+# the cells' padded shapes (B, T) at the flagship's first conv input
+# (F = 243, CNN 1 -> 32 -> 32) and the 863 recipe's one layer (B = 16, F =
+# 201, 1 -> 16, (11, 5), stride 2, clamp(0, 20))
+EPILOGUE_CASES = [("flagship", 8, 200, torch.bfloat16),
+                  ("flagship", 8, 392, torch.bfloat16),
+                  ("flagship", 128, 288, torch.bfloat16),
+                  ("flagship", 128, 392, torch.bfloat16),
+                  ("flagship", 8, 200, torch.float32),
+                  ("863", 16, 400, torch.bfloat16)]
+
+
+def _epilogue_stack(recipe, card):
+    from ctc_pytorch_tpu_torch.models.cnn import CNNStack
+
+    if recipe == "863":
+        cfg = CNNConfig(add_cnn=True, layers=1, channel=[(1, 16)],
+                        kernel_size=[(11, 5)], stride=[(2, 2)],
+                        padding=[(0, 0)], activation_function="hardtanh")
+        f = 201
+    else:
+        cfg = CNNConfig(add_cnn=True, layers=2, channel=[(1, 32), (32, 32)],
+                        kernel_size=[(3, 3), (3, 3)], stride=[(1, 2), (2, 2)],
+                        padding=[(1, 1), (1, 1)])
+        f = 243
+    gen = torch.Generator().manual_seed(11)
+    stack = CNNStack(cfg)
+    for layer in stack:
+        layer.reset_parameters(gen)
+        with torch.no_grad():
+            layer.bn.scale.uniform_(0.5, 1.5, generator=gen)
+            layer.bn.bias.uniform_(-0.3, 0.3, generator=gen)
+            layer.bn.mean.uniform_(-0.2, 0.2, generator=gen)
+            layer.bn.var.uniform_(0.5, 2.0, generator=gen)
+    return stack.to(card), f
+
+
+def _epilogue_step(stack, x, dtype, tv, em, w, train):
+    """The stack's output, every leaf's gradient and the buffers after one
+    call and a backward of ``sum(y * w)``."""
+    stack.train(train)
+    stack.zero_grad(set_to_none=True)
+    y = stack(x, dtype, t_valid=tv, example_mask=em)
+    (y.float() * w).sum().backward()
+    grads = {n: p.grad.float().clone() for n, p in stack.named_parameters()}
+    bufs = {n: v.clone() for n, v in stack.named_buffers()}
+    return y.float(), grads, bufs
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("recipe,b,t,dtype", EPILOGUE_CASES)
+def test_conv_epilogue_matches_the_plain_twin_on_the_card(
+        card, monkeypatch, recipe, b, t, dtype, train):
+    """The fused route against the plain twin, both on the card, at the
+    cells' shapes: outputs within a few roundings of the plane's dtype (the
+    statistics' sums run in another order, which moves a value across a
+    rounding edge now and then, and the second layer carries that on),
+    every leaf's gradient within 1e-2 of its largest entry in bf16 (1e-4
+    in fp32; the conv biases under BN, rounding alone, against their
+    layer's weight gradient), the running buffers within 1e-5."""
+    from ctc_pytorch_tpu_torch.ops import conv_epilogue as ce
+
+    stack, f = _epilogue_stack(recipe, card)
+    gen = torch.Generator().manual_seed(b * t)
+    x = torch.randn(b, 1, t, f, generator=gen).to(card)
+    if recipe == "863":
+        x = x * 8  # some values past the clamp's 20
+    em = torch.ones(b, device=card)
+    em[-1] = 0.0  # a repeat-padded row
+    tv = torch.tensor(t - 7, dtype=torch.int32, device=card)
+    with torch.no_grad():
+        t_out = stack.eval()(x, dtype, t_valid=tv).shape
+    start = {n: v.clone() for n, v in stack.state_dict().items()}
+    w = torch.randn(t_out, generator=gen).to(card)
+    before = dict(ce.launches_route)
+    got = _epilogue_step(stack, x, dtype, tv, em, w, train)
+    torch.cuda.synchronize()
+    layers = len(stack)
+    assert ce.launches_route == dict(
+        before, fused_fwd=before["fused_fwd"] + layers,
+        fused_bwd=before["fused_bwd"] + layers)
+    stack.load_state_dict(start)
+    monkeypatch.setattr(ce, "fused_route", lambda *a, **k: False)
+    want = _epilogue_step(stack, x, dtype, tv, em, w, train)
+    bf16 = dtype == torch.bfloat16
+    err = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1.0)).max()
+    print(f"{recipe} B={b} T={t} {dtype} train={train}: output "
+          f"{err.item():.3g}", end="")
+    assert err.item() <= (2.0 ** -5 if bf16 else 1e-5)
+    tol = 1e-2 if bf16 else 1e-4
+    for name, value in want[1].items():
+        ref = want[1][name[:-1] + "w"] if name.endswith(".b") else value
+        e = ((got[1][name] - value).abs().max() / ref.abs().max()).item()
+        print(f", {name} {e:.3g}", end="")
+        assert e <= tol, name
+    print()
+    for name, value in want[2].items():
+        e = (got[2][name] - value).abs().max().item()
+        assert e <= 1e-5 * max(1.0, value.abs().max().item()), name
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_conv_epilogue_replays_in_a_captured_graph(card, train):
+    """The flagship's CNN at B=8, T=200 forward and backward (train) or
+    forward (eval), captured through ``train/graphs.py`` and replayed: the
+    replay equals the eager call bit for bit (no float atomics), and the
+    route counter adds a replay's layer calls."""
+    stack, f = _epilogue_stack("flagship", card)
+    stack.train(train)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 1, 200, f, generator=gen).to(card)
+    em = torch.ones(8, device=card)
+    em[5] = 0.0
+    tv = torch.tensor(190, dtype=torch.int32, device=card)
+    params = list(stack.parameters())
+
+    def call():
+        if not train:
+            with torch.no_grad():
+                return (stack(x, torch.bfloat16, t_valid=tv),)
+        y = stack(x, torch.bfloat16, t_valid=tv, example_mask=em)
+        grads = torch.autograd.grad(y.float().square().sum(), params)
+        return (y.detach(), *grads)  # no autograd graph outlives the call
+
+    err, eager, left, replay = chip_smoke.captured_vs_eager(call)
+    route = ({"fused_fwd": 2, "fused_bwd": 2} if train else {"fused_fwd": 2})
+    assert eager == {("conv_epilogue", "launches_route"): route}
+    assert err == 0.0 and not left and replay == eager
