@@ -172,14 +172,24 @@ printed line; any failure ends the run with a nonzero exit and no result:
     without (the recompute), every other kernel as often; the eager steps'
     peak memory and time both ways; then ``ctc_forward_score`` through
     ``ctc_fwd_kernel`` against its twin, an impossible alignment scoring
-    exactly ``NEG_INF``.
+    exactly ``NEG_INF``;
+18. DeepSpeech2 (``phase_ds2``): ``recipes/librispeech/ds2_config.yaml`` at
+    its published widths (CNN 1->32->32, 5 x BiLSTM(1024) with biases,
+    packed, directions summed, 29 classes, bf16) on a B=64 batch of unequal
+    lengths cut to T=400 (T' = 200): an eval step and a train step from one
+    seeded state through the kernels and through the plain twins, within
+    ``DS2_REL_TOL``; every recurrence launch on the grid, the serial steps
+    (``launches_steps``) and the packed, summed layer calls (``rnn_io``)
+    counted.  Phase 3 holds the same kernels at the cell's longest bucket
+    (T' = 1200, B = 64, H = 1024, bf16) against their twins.
 
-Ten model paths are driven: the flagship (phases 4 and 5), the 863 model
+Eleven model paths are driven: the flagship (phases 4 and 5), the 863 model
 with the GRU cell (phase 6), the tanh model (phase 7), the unidirectional
 flagship (phase 8), the mfcc_39 model (phase 11), the waveform model (phase
 12), the flagship through ``cli.run`` (phase 13), the two 863 LSTM recipes
-(phase 14) and the flagship data parallel (phase 15); phase 17 drives the
-waveform recipe, the flagship and the 863 GRU model again with remat.
+(phase 14), the flagship data parallel (phase 15) and DeepSpeech2 (phase
+18); phase 17 drives the waveform recipe, the flagship and the 863 GRU
+model again with remat.
 
 Every profiled device time counts kernels, copies and sets only
 (``device_activity``), not the user annotations that ``torch.profiler``
@@ -212,6 +222,7 @@ RECIPE_863 = ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf"  # rnn_type set h
 RECIPE_MFCC = ROOT / "recipes" / "timit" / "mfcc_39_config.yaml"
 RECIPE_WAVE = ROOT / "recipes" / "timit" / "waveform_config.yaml"
 RECIPE_PIPELINE = RECIPE  # phase 13's recipe, driven through cli.run
+RECIPE_DS2 = ROOT / "recipes" / "librispeech" / "ds2_config.yaml"  # phase 18
 # phase 14: the 863 LSTM recipes as shipped -> (features, dimension)
 RECIPES_863_LSTM = {
     ROOT / "recipes" / "my_863" / "cnn_lstm_ctc.conf": ("spectrum", 201),
@@ -954,6 +965,11 @@ def phase_gru_vs_plain() -> dict:
 # directions: LSTM H <= 872 at B <= 16, 528 at B = 128; GRU H <= 672 at B =
 # 128), and wider H the grid branch.  The card's pytest cases
 # (tests/test_torch_cuda.py) run the same list.
+# DeepSpeech2's recurrence (recipes/librispeech/ds2_config.yaml, the
+# ds2_librispeech-train_b64 cell): H = 1024 at B = 64 on bf16 streams and
+# T' = 1200, its longest bucket, past every cluster and wide bound: the grid
+# backward here, the grid training forward and eval op in DS2_FWD_CASES
+DS2_HOIST_CASES = [("lstm", 1200, 64, 1024, "bf16", 2, "grid")]
 HOIST_CASES = [
     ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
     ("gru", 95, 128, 256, "bf16", 2, "cluster"),  # 863 bench shape
@@ -1038,19 +1054,20 @@ HOIST_CASES = [
     ("lstm", 3, 16, 1056, "fp32", 1, "wide_fp32"),
     ("lstm", 20, 24, 384, "fp32", 2, "cluster16_fp32"),
     ("gru", 20, 24, 256, "fp32", 2, "cluster16_fp32"),
-]
+] + DS2_HOIST_CASES
 # HOIST_CASES entries whose gx phase 3 scales (by their first six fields)
 HOIST_SCALE = {("lstm", 20, 24, 384, "fp32", 2): 8.0,
                ("gru", 20, 24, 256, "fp32", 2): 8.0}
 
 
-def phase_hoist_vs_plain() -> dict:
-    """The LSTM's and GRU's backward in its two launches: the pre-pass
-    kernel's planes against its twin's (fp32 sums in another order: FP32_TOL
-    in both stream dtypes), the serial kernel on the twin's planes against
-    the serial twin, and the whole backward against the whole twin (the
-    backward tolerances), with the branch the launcher reported.  Returns
-    the worst error per cell, kernel and dtype."""
+def phase_hoist_vs_plain(cases=HOIST_CASES) -> dict:
+    """The LSTM's and GRU's backward in its two launches at ``cases`` (of
+    ``HOIST_CASES``): the pre-pass kernel's planes against its twin's (fp32
+    sums in another order: FP32_TOL in both stream dtypes), the serial
+    kernel on the twin's planes against the serial twin, and the whole
+    backward against the whole twin (the backward tolerances), with the
+    branch the launcher reported.  Returns the worst error per cell, kernel
+    and dtype, and each case's (``by_case``)."""
     import torch
 
     _, train_ops, _ = port_ops()
@@ -1058,7 +1075,10 @@ def phase_hoist_vs_plain() -> dict:
     worst = {f"{cell}_{k}": {"fp32": 0.0, "bf16": 0.0}
              for cell in ("lstm", "gru") for k in ("prepass", "serial", "bwd")}
     by_branch: dict = {}  # (cell, serial branch) -> worst serial and whole
-    for i, (cell, t, b, h, name, ndir, branch) in enumerate(HOIST_CASES):
+    by_case: dict = {}
+    for case in cases:
+        cell, t, b, h, name, ndir, branch = case
+        i = HOIST_CASES.index(case)
         bf16 = name == "bf16"
         gates, mod = (4, train_ops) if cell == "lstm" else (3, gru_train_ops)
         scale = HOIST_SCALE.get((cell, t, b, h, name, ndir), 1.0)
@@ -1112,7 +1132,8 @@ def phase_hoist_vs_plain() -> dict:
             worst[f"{cell}_{key}"][name] = max(worst[f"{cell}_{key}"][name], err)
         at = by_branch.setdefault(f"{cell}:{took[0]}", {})
         at[name] = max(at.get(name, 0.0), errs["serial"], errs["bwd"])
-    worst["by_branch"] = by_branch
+        by_case[case] = {"branch": took[0], **errs, "held": held}
+    worst["by_branch"], worst["by_case"] = by_branch, by_case
     return worst
 
 
@@ -1128,6 +1149,8 @@ def phase_hoist_vs_plain() -> dict:
 # (csrc/fwd_wide.cuh) to its bound (two directions: LSTM H <= 776 at B <=
 # 16, GRU H <= 1056 at B <= 64), then the grid.  The card's pytest cases
 # (tests/test_torch_cuda.py) run the same list.
+DS2_FWD_CASES = [("lstm_train", 1200, 64, 1024, "bf16", 2, "grid"),
+                 ("lstm_eval", 1200, 64, 1024, "bf16", 2, "grid")]
 FWD_CASES = [
     ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
     ("lstm_train", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
@@ -1198,7 +1221,7 @@ FWD_CASES = [
     ("lstm_eval", 6, 8, 777, "fp32", 2, "grid"),
     ("gru", 4, 4, 1056, "fp32", 2, "wide_fp32"),
     ("gru", 4, 4, 1057, "fp32", 2, "grid"),
-]
+] + DS2_FWD_CASES
 
 
 def cluster_branch_counts() -> dict:
@@ -1254,11 +1277,12 @@ def check_fp32_bwd_branch(what: str, took: dict, launches: int,
               f"pre-passes launched prepass_tf32_kernel")
 
 
-def phase_fwd_vs_plain() -> dict:
-    """Each LSTM and GRU forward kernel against its plain twin on every
-    branch of FWD_CASES, with the branch the library reported: ys (and the
-    LSTM training forward's cs, as tight) within FP32_TOL, or BF16_TOL with
-    bf16 streams.  Returns the worst error per kernel and dtype."""
+def phase_fwd_vs_plain(cases=FWD_CASES) -> dict:
+    """Each LSTM and GRU forward kernel against its plain twin at ``cases``
+    (of FWD_CASES, every branch), with the branch the library reported: ys
+    (and the LSTM training forward's cs, as tight) within FP32_TOL, or
+    BF16_TOL with bf16 streams.  Returns the worst error per kernel and
+    dtype, and each case's (``by_case``)."""
     import torch
 
     lstm_ops, train_ops, _ = port_ops()
@@ -1266,7 +1290,10 @@ def phase_fwd_vs_plain() -> dict:
     worst = {k: {"fp32": 0.0, "bf16": 0.0}
              for k in ("lstm_eval", "lstm_train", "gru_eval", "gru_train")}
     by_branch: dict = {}  # (kernel, branch) -> worst error, both dtypes
-    for i, (kernel, t, b, h, name, ndir, branch) in enumerate(FWD_CASES):
+    by_case: dict = {}
+    for case in cases:
+        kernel, t, b, h, name, ndir, branch = case
+        i = FWD_CASES.index(case)
         bf16 = name == "bf16"
         gates = 3 if kernel == "gru" else 4
         gx, w_hh, _ = recurrence_inputs(
@@ -1306,7 +1333,9 @@ def phase_fwd_vs_plain() -> dict:
             worst[key][name] = max(worst[key][name], err)
             at = by_branch.setdefault(f"{key}:{took[0]}", {})
             at[name] = max(at.get(name, 0.0), err)
-    worst["by_branch"] = by_branch
+            by_case.setdefault(case, {})[key] = {"branch": took[0],
+                                                 "max_abs_err": err}
+    worst["by_branch"], worst["by_case"] = by_branch, by_case
     return worst
 
 
@@ -6494,6 +6523,138 @@ def phase_remat(smi: str, device: str = "cuda") -> dict:
     out["counts"] = total
     return out
 
+# phase 18's DeepSpeech2 batch: the cell's B = 64 rows of unequal lengths
+# cut to DS2_T input frames (T' = DS2_T / 2)
+DS2_B, DS2_T = 64, 400
+# phase 18, kernels against twins on bf16 streams: the norm of the
+# difference over the twins' norm, of the eval log-probs on the valid
+# frames, of the first gradient over every leaf, and the loss's relative
+# gap; a kernel that computes another function reads ~1
+DS2_REL_TOL = 0.03
+
+
+def ds2_batch(spec, seed: int, device: str = "cuda") -> tuple:
+    """Phase 18's batch on the card, ``(feats, frac, labels, label_lens,
+    mask)``: ``DS2_B`` rows of features from a seed, lengths spread evenly
+    from ``DS2_T / 2`` to ``DS2_T`` (even), 0.14 labels a frame, the
+    shortest row repeat-padded (mask 0)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b, t = DS2_B, DS2_T
+    frames = torch.linspace(t // 2, t, b).round().long() // 2 * 2
+    feats = torch.randn(b, t, spec.rnn_input_size, generator=gen)
+    feats *= (torch.arange(t)[None, :, None] < frames[:, None, None])
+    lab_len = (0.14 * frames).round().long()
+    labels = torch.randint(2, spec.num_class, (b, int(lab_len.max())),
+                           generator=gen)
+    mask = torch.ones(b)
+    mask[0] = 0.0
+    return tuple(x.to(device) for x in (feats, frames / t, labels, lab_len,
+                                        mask))
+
+
+def phase_ds2(smi: str, device: str = "cuda") -> dict:
+    """Phase 18: DeepSpeech2 (``RECIPE_DS2``) at its published widths on
+    ``ds2_batch``: from one seeded state, an eval step (``eval_step``, the
+    dev pass's call) and a train step (``train_step``) through the kernels
+    and through the plain twins.  The eval log-probs on the valid frames,
+    the loss and the first gradient (Adam's first moment) agree within
+    ``DS2_REL_TOL``; the kernels' run launches every recurrence on the grid
+    (eval op, training forward and backward, one a layer), counts ``T'`` a
+    launch in ``launches_steps`` and a packed, summed layer call a layer
+    each way in ``rnn_io``'s counters, every counter zeroed just before."""
+    import torch
+
+    from ctc_pytorch_tpu_torch.config import load_config
+    from ctc_pytorch_tpu_torch.models.ctc_model import ModelSpec
+    from ctc_pytorch_tpu_torch.ops import launch_counts as counters
+    from ctc_pytorch_tpu_torch.train.loop import eval_step, train_step
+    from ctc_pytorch_tpu_torch.train.state import create_train_state
+
+    cfg = load_config(RECIPE_DS2)
+    spec = ModelSpec.from_config(cfg, num_class=cfg.output_class_dim)
+    layers, t_out = spec.rnn_layers, DS2_T // 2
+    print(f"[18/18] DeepSpeech2: {RECIPE_DS2.relative_to(ROOT)} at its "
+          f"published widths ({layers} x BiLSTM({spec.rnn_hidden_size}), "
+          f"biased, packed, summed; {spec.compute_dtype}), B={DS2_B}, "
+          f"T={DS2_T}: an eval step and a train step through the kernels and "
+          f"the plain twins ({smi})")
+    batch = ds2_batch(spec, 18, device)
+
+    def run():
+        state = create_train_state(spec, cfg.init_lr, cfg.weight_decay,
+                                   cfg.grad_clip, seed=cfg.seed, device=device)
+        _, _, sizes, log_probs = eval_step(state, spec, *batch)
+        loss, _, _ = train_step(state, spec, *batch)
+        beta1 = state.optimizer.param_groups[0]["betas"][0]
+        grad = torch.cat([state.optimizer.state[p]["exp_avg"].flatten()
+                          for p in state.optimizer.param_groups[0]["params"]])
+        sync()
+        return log_probs.float(), float(loss), grad / (1 - beta1), sizes
+
+    zero_counts()
+    before = counters.read()
+    lp, loss, grad, sizes = run()
+    moved = counters.diff(counters.read(), before)
+    check_counts(launch_counts(), {"lstm_bidir": layers,
+                                   "lstm_bidir_train_fwd": layers,
+                                   "lstm_bidir_train_bwd": layers,
+                                   "ctc_alpha": 2, "ctc_beta": 1,
+                                   **epilogue_want(spec, 1, 1)},
+                 "DeepSpeech2 eval and train step")
+    want = {("lstm_bidir", "launches_fwd_branch"): {"grid": layers},
+            ("lstm_bidir", "launches_steps"): {"fwd": layers * t_out},
+            ("lstm_bidir_train", "launches_fwd_branch"): {"grid": layers},
+            ("lstm_bidir_train", "launches_bwd_branch"): {"grid": layers},
+            ("lstm_bidir_train", "launches_steps"): {"fwd": layers * t_out,
+                                                     "bwd": layers * t_out},
+            ("rnn_io", "launches_mask"): {"gate": 2 * layers},
+            ("rnn_io", "launches_merge"): {"sum": 2 * layers}}
+    for key, n in want.items():
+        check(moved.get(key) == n,
+              f"DeepSpeech2: {key} moved {moved.get(key)}, expected {n}")
+    with plain_twins():
+        lp_p, loss_p, grad_p, _ = run()
+    valid = ((torch.arange(lp.shape[0], device=device)[:, None] < sizes)
+             & (batch[4] > 0))[..., None]
+
+    def rel(got, want) -> float:
+        return float((got - want).double().norm() / want.double().norm())
+
+    errs = {"log_probs": rel(lp * valid, lp_p * valid),
+            "loss": abs(loss - loss_p) / abs(loss_p),
+            "first_grad": rel(grad, grad_p)}
+    check(all(torch.isfinite(x).all().item() for x in (lp, grad))
+          and math.isfinite(loss), "DeepSpeech2: a non-finite kernel output")
+    launches = {f"{k[0]}.{k[1]}": v for k, v in moved.items()}
+    print(f"  kernels against twins: eval log-probs {errs['log_probs']:.3g}, "
+          f"loss {loss:.6g} against {loss_p:.6g} ({errs['loss']:.3g}), first "
+          f"gradient {errs['first_grad']:.3g} of the twins' norms (tol "
+          f"{DS2_REL_TOL}); T' {int(sizes.max())}; launches {launches}")
+    check(int(sizes.max()) == t_out, f"DeepSpeech2: T' {int(sizes.max())}")
+    for key, err in errs.items():
+        check(err <= DS2_REL_TOL,
+              f"DeepSpeech2: the kernels' {key} disagrees with the twins'")
+    return {"shape": {"B": DS2_B, "T": DS2_T, "T_out": t_out,
+                      "H": spec.rnn_hidden_size, "layers": layers},
+            "rel_err_vs_plain": errs, "launches": launches}
+
+
+def ds2_table_errors(errs_fwd: dict, errs_hoist: dict) -> dict:
+    """Phase 3's errors at DeepSpeech2's recurrence shape, by kernel."""
+    (train_fwd, eval_fwd), (bwd,) = DS2_FWD_CASES, DS2_HOIST_CASES
+    _, t, b, h, name, ndir, _ = bwd
+    shape = f"T'={t} B={b} H={h} {name} ndir={ndir}"
+    return {"lstm_bidir": {"shape": shape,
+                           **errs_fwd["by_case"][eval_fwd]["lstm_eval"]},
+            "lstm_bidir_train_fwd": {
+                "shape": shape, **errs_fwd["by_case"][train_fwd]["lstm_train"]},
+            "lstm_bidir_train_bwd": {
+                "shape": shape, **{k: v for k, v in errs_hoist["by_case"][
+                    bwd].items() if k != "held"},
+                "held_of_max_abs_want_1": errs_hoist["by_case"][bwd]["held"]}}
+
 
 def main() -> int:
     import torch
@@ -6514,7 +6675,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/17] device: {smi} | torch {torch.__version__} "
+    print(f"[1/18] device: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {torch.cuda.device_count()} visible")
 
     t0 = time.perf_counter()
@@ -6524,7 +6685,7 @@ def main() -> int:
     # and the parent forms of the redesigned branches, which phase 9 times
     parents = parent_libraries()
     build_all(libraries + parents)
-    print(f"[2/17] build: {', '.join(lib.source.name for lib in libraries)} and "
+    print(f"[2/18] build: {', '.join(lib.source.name for lib in libraries)} and "
           f"the parent forms ({PARENT_DEFINE}) of "
           f"{', '.join(lib.source.name for lib in parents)} for sm_90a, one "
           f"nvcc each, in {time.perf_counter() - t0:.2f} s")
@@ -6536,7 +6697,7 @@ def main() -> int:
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"  ptxas {lib.source.name}:", ln.strip())
 
-    print("[3/17] kernel vs plain on the card")
+    print("[3/18] kernel vs plain on the card")
     errs_eval = phase_lstm_eval_vs_plain()
     errs_train = phase_lstm_train_vs_plain()
     errs_ctc = phase_ctc_vs_plain()
@@ -6549,28 +6710,28 @@ def main() -> int:
     graph_branches = phase_graphs_vs_eager()
     errs_epilogue = phase_conv_epilogue_vs_plain(recipe_config())
 
-    print("[4/17] TIMIT decode slice: flagship stage-4 greedy decode")
+    print("[4/18] TIMIT decode slice: flagship stage-4 greedy decode")
     decode_launches, spec, model = phase_decode_slice()
 
-    print("[5/17] TIMIT training slice: flagship stage-2 trainer, one epoch")
+    print("[5/18] TIMIT training slice: flagship stage-2 trainer, one epoch")
     train_counts = phase_train_slice(spec)
 
-    print("[6/17] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
+    print("[6/18] 863 slice: CNN + 4 x BiGRU(256), one epoch in acc mode with "
           "dev_over_train, then stage-4 greedy and beam decodes")
     counts_863, decode_launches_863, spec_863, model_863, beam_863 = (
         phase_863_slice(smi))
 
-    print("[7/17] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
+    print("[7/18] tanh slice: flagship recipe with rnn_type nn.RNN, CNN + 4 x "
           "BiRNN(384), one epoch, then stage-4 greedy decode")
     (counts_tanh, decode_launches_tanh, cfg_tanh, spec_tanh, model_tanh,
      branches_tanh) = phase_tanh_slice()
 
-    print("[8/17] unidirectional slice: flagship recipe with bidirectional "
+    print("[8/18] unidirectional slice: flagship recipe with bidirectional "
           "False, CNN + 4 x LSTM(384), one epoch, then stage-4 greedy decode")
     counts_uni, decode_launches_uni, cfg_uni, spec_uni, model_uni = (
         phase_unidir_slice())
 
-    print(f"[9/17] times ({smi})")
+    print(f"[9/18] times ({smi})")
     cfg, cfg_863 = recipe_config(), recipe_config_863()
     bench = {**times_lstm(80, 128, 384, torch.bfloat16, "TIMIT bench shape"),
              **times_ctc(80, 128, spec.num_class, 48, "TIMIT bench shape"),
@@ -6628,38 +6789,38 @@ def main() -> int:
     prepass_tf32 = times_prepass_tf32(smi)
     epilogue_times = times_conv_epilogue(cfg, smi)
 
-    print(f"[10/17] fused vs streaming: one epoch at drop_out 0 through the "
+    print(f"[10/18] fused vs streaming: one epoch at drop_out 0 through the "
           f"eager run_epoch and the graphed run_epoch_single ({smi})")
     fused_vs_streaming = [
         phase_fused_vs_streaming(cfg, spec, "flagship CNN+BiLSTM(384)", smi),
         phase_fused_vs_streaming(cfg_863, spec_863, "863 CNN+BiGRU(256)", smi)]
 
-    print(f"[11/17] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
+    print(f"[11/18] mfcc_39 slice: 39-d MFCC, 4 x BiLSTM(256), stage 3, one "
           f"fused epoch, stage 4 with Beam and BeamDevice ({smi})")
     mfcc = phase_mfcc39_slice(smi)
 
-    print(f"[12/17] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
+    print(f"[12/18] waveform slice: recipes/timit/waveform_config.yaml, stage 1 "
           f"on the card, stage 3, one fused epoch with the frontend in the "
           f"step, stage 4 with Greedy and BeamDevice, Recognizer and "
           f"StreamingRecognizer ({smi})")
     wave = phase_waveform_slice(smi)
 
-    print(f"[13/17] pipeline: stages 0-4 of the flagship recipe through "
+    print(f"[13/18] pipeline: stages 0-4 of the flagship recipe through "
           f"cli.run on a synthetic TIMIT tree, profile: True, then "
           f"cli.visualize and cli.import_torch ({smi})")
     pipeline = phase_pipeline_slice(smi)
 
-    print(f"[14/17] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
+    print(f"[14/18] 863 LSTM recipes as shipped: cnn_lstm_ctc.conf and "
           f"lstm_ctc.conf from text dumps, one fused epoch each through "
           f"cli.train.train, stage 4, fp32 kernels vs twins ({smi})")
     lstm_863 = phase_863_lstm_slice(smi)
 
-    print(f"[15/17] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
+    print(f"[15/18] data parallel: the flagship's step on {DP_WORLD} gloo ranks "
           f"on the card, one NCCL rank from graphs, cli.train --data-parallel, "
           f"the sharded stage-4 search and the mesh Recognizer ({smi})")
     dp = phase_data_parallel(smi, spec)
 
-    print(f"[16/17] fp32 streams on the redesigned branches: the 863 GRU "
+    print(f"[16/18] fp32 streams on the redesigned branches: the 863 GRU "
           f"model's step at B=8 (cluster16_fp32) and its decode forward at "
           f"B=128, the flagship's, the 863 GRU model's and the tanh model's "
           f"fp32 steps at B=128 (wide_fp32 forwards and backwards), the tanh "
@@ -6667,11 +6828,13 @@ def main() -> int:
     fp32_streams = phase_fp32_streams(cfg_863, spec_863, cfg, spec, cfg_tanh,
                                       spec_tanh, smi)
 
-    print(f"[17/17] remat: the waveform recipe (graphed epoch and an eager "
+    print(f"[17/18] remat: the waveform recipe (graphed epoch and an eager "
           f"step at B=128), the flagship (graphed epoch and an eager step at "
           f"B=8) and the 863 GRU model (eager step at B=16) with remat: true "
           f"against remat: false, then ctc_forward_score ({smi})")
     remat = phase_remat(smi)
+
+    ds2 = phase_ds2(smi)
 
     # launches of every kernel on each model path: its fit and its decode
     def path(counts, eval_kernel, decode):
@@ -6972,6 +7135,9 @@ def main() -> int:
         "bound_ms_recipe_batch": at_recipe["bound_ms"],
         "times": epilogue_times})
     by_name = {k["name"]: k for k in kernels}
+    for name, at in ds2_table_errors(errs_fwd, errs_hoist).items():
+        by_name[name]["ds2_shape"] = at
+        by_name[name]["launches_ds2_phase"] = ds2["launches"]
     by_name["lstm_bidir"]["flagship_decode_forward_b128"] = redesigned[
         "flagship_decode_forward_b128"]
     for fwd, train_fwd, at_bench, at_recipe in (
@@ -7000,7 +7166,8 @@ def main() -> int:
                                         if k != "counts"},
                       "fp32_streams": fp32_streams,
                       "remat": {k: v for k, v in remat.items()
-                                if k != "counts"}}))
+                                if k != "counts"},
+                      "ds2": ds2}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

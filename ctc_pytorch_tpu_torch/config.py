@@ -111,6 +111,11 @@ class CNNConfig:
         return f
 
 
+# the port's model keys that the JAX package has not: written out only
+# where they differ from these defaults
+PORT_ONLY_DEFAULTS = {"rnn_merge": "concat", "rnn_bias": False}
+
+
 @dataclass
 class Config:
     """Flat config mirroring ``timit/conf/ctc_config.yaml`` keys."""
@@ -191,6 +196,14 @@ class Config:
     bidirectional: bool = True
     batch_norm: bool = True
     drop_out: float = 0.2
+    # DeepSpeech2's recurrent layers (deepspeech.pytorch ``BatchRNN``):
+    # 'sum' adds the two directions' outputs, so the next layer takes H
+    # features, not 2H; ``rnn_bias`` gives each direction's LSTM cell the
+    # bias b_ih + b_hh, with packed-sequence semantics over the batch's
+    # lengths (models/rnn.py).  Left out of ``to_dict`` at these defaults,
+    # so the recipes' manifests are the JAX package's.
+    rnn_merge: str = "concat"
+    rnn_bias: bool = False
 
     # cnn
     cnn: CNNConfig = field(default_factory=CNNConfig)
@@ -306,6 +319,9 @@ class Config:
             v = cnn[pk]
             cnn[pk] = "None" if not v else str([tuple(p) for p in v])
         d.update({f"cnn_{k}" if k in d else k: v for k, v in cnn.items()})
+        for key, default in PORT_ONLY_DEFAULTS.items():
+            if d[key] == default:
+                del d[key]
         return d
 
     @classmethod

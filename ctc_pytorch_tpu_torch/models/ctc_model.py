@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ctc_pytorch_tpu_torch.config import CNNConfig, Config
+from ctc_pytorch_tpu_torch.config import PORT_ONLY_DEFAULTS, CNNConfig, Config
 from ctc_pytorch_tpu_torch.models.cnn import CNNStack
 from ctc_pytorch_tpu_torch.models.layers import BatchNorm, Linear
 from ctc_pytorch_tpu_torch.models.rnn import RNNStack
@@ -50,6 +50,10 @@ class ModelSpec:
     # 'batchmax' | 'padded' | 'valid': what the padding region does to BN
     # (see ctc_pytorch_tpu/models/ctc_model.py:54-67 and config.py)
     pad_dynamics: str = "batchmax"
+    # 'concat' | 'sum': how a layer's two directions join (models/rnn.py)
+    rnn_merge: str = "concat"
+    # LSTM cells with a bias, packed over the batch's lengths
+    rnn_bias: bool = False
 
     def __post_init__(self):
         if self.pad_dynamics not in ("batchmax", "padded", "valid"):
@@ -79,11 +83,16 @@ class ModelSpec:
                             and cfg.pad_dynamics == "batchmax")
                 else cfg.pad_dynamics
             ),
+            rnn_merge=cfg.rnn_merge,
+            rnn_bias=bool(cfg.rnn_bias),
         )
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d["cnn"] = dataclasses.asdict(self.cnn)
+        for key, default in PORT_ONLY_DEFAULTS.items():
+            if d[key] == default:
+                del d[key]
         return d
 
     @classmethod
@@ -118,6 +127,13 @@ class ModelSpec:
     @property
     def dirs(self) -> int:
         return 2 if self.bidirectional else 1
+
+    @property
+    def rnn_out(self) -> int:
+        """Features out of a recurrent layer: H with summed directions,
+        else ``dirs`` * H."""
+        return self.rnn_hidden_size * (1 if self.rnn_merge == "sum"
+                                       else self.dirs)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -170,8 +186,9 @@ class CTCModel(nn.Module):
             cell=spec.rnn_cell, input_size=spec.rnn_in_after_cnn,
             hidden_size=spec.rnn_hidden_size, num_layers=spec.rnn_layers,
             bidirectional=spec.bidirectional, batch_norm=spec.batch_norm,
+            merge=spec.rnn_merge, bias=spec.rnn_bias,
         )
-        fc_in = spec.dirs * spec.rnn_hidden_size
+        fc_in = spec.rnn_out
         self.fc_bn = BatchNorm(fc_in) if spec.batch_norm else None
         self.fc = Linear(fc_in, spec.num_class)
         self.eval()  # built in eval mode; train mode is asked for explicitly
@@ -212,7 +229,9 @@ class CTCModel(nn.Module):
         (``models/rnn.py``).
 
         ``lengths``: (B,) valid frames at the recurrent layers' input, for
-        packed-sequence semantics there (``models/rnn.py``).
+        packed-sequence semantics there (``models/rnn.py``).  A model with
+        ``rnn_bias`` takes them from ``frac`` where they are not given: the
+        output lengths of ``input_sizes``.
 
         ``group``: the data-parallel group of a rank's share of a global
         batch: the batch max and the train-mode BN statistics are the global
@@ -263,6 +282,11 @@ class CTCModel(nn.Module):
                 bn_mask = bn_mask & (example_mask > 0)[None, :]
             bn_mask = bn_mask.float()
 
+        if lengths is None and spec.rnn_bias and frac is not None:
+            # biased cells are packed: each utterance's recurrence spans the
+            # frames its CTC loss reads
+            lengths = CTCModel.input_sizes(spec, frac, x.shape[1], t_rnn,
+                                           batch_max=bmax)
         out = self.rnns(out, cd, bn_mask, lengths=lengths, drop_rate=drop,
                         generator=generator, group=group, remat=spec.remat)
         t, b, h = out.shape

@@ -65,15 +65,23 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
 
 
 def matmul_stream(a: torch.Tensor, b: torch.Tensor, compute_dtype: torch.dtype,
-                  stream_dtype: torch.dtype) -> torch.Tensor:
+                  stream_dtype: torch.dtype,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``a @ b`` with operands rounded to ``compute_dtype``, fp32 sums and the
     result in ``stream_dtype``: ``dot_general(..., preferred_element_type=
     stream_dtype)``, the recurrent layers' input projection.  The stream dtype
-    is ``compute_dtype`` or fp32 (``models/rnn.py:stream_dtype_for``)."""
+    is ``compute_dtype`` or fp32 (``models/rnn.py:stream_dtype_for``).
+    ``bias`` (fp32, ``b``'s columns), for a 2-D ``a``: added before the one
+    rounding to the stream dtype (the GEMM's epilogue, the bias rounded to
+    ``compute_dtype`` as an operand) where that is ``compute_dtype``, else
+    added to the fp32 result."""
     a, b = a.to(compute_dtype), b.to(compute_dtype)
     if stream_dtype == compute_dtype:
+        if bias is not None:
+            return torch.addmm(bias.to(compute_dtype), a, b)
         return torch.matmul(a, b)
-    return matmul_f32(a, b, compute_dtype)
+    out = matmul_f32(a, b, compute_dtype)
+    return out if bias is None else out + bias
 
 
 def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: torch.Tensor):

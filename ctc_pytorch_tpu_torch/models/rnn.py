@@ -1,5 +1,6 @@
 """Recurrent stack: bias-free LSTM, GRU or tanh-RNN layers, bidirectional
-or not, with BN between.
+or not, with BN between; or DeepSpeech2's layers: biased LSTM cells, packed,
+their two directions summed.
 
 Counterpart of ``ctc_pytorch_tpu/models/rnn.py:254-511`` on the path the
 JAX package takes with ``use_pallas_rnn`` (the eval kernels in stage 4, the
@@ -37,6 +38,18 @@ trainable ones in stage 2):
   zeroed before the projection and the padded rows of the output after the
   recurrence; the kernels do not change.  With one direction this is the
   JAX package's ``_scan_direction`` followed by its mask;
+- DeepSpeech2's ``BatchRNN`` (deepspeech.pytorch ``model.py``), with no
+  JAX counterpart: ``bias`` gives each direction one bias ``b (4H)``, the
+  sum of ``nn.LSTM``'s ``b_ih`` and ``b_hh``, folded into the input
+  projection (cuBLAS's bias epilogue with bf16 streams, one add with fp32
+  ones); the kernels stay bias-free.  With ``lengths`` the biased layer is
+  packed by its gates, not by zeroed rows (``ops/rnn_io.py``, route
+  ``gate``): the input gate is shut on every padded frame, so the state
+  stays exactly zero there.  ``merge="sum"`` adds the two directions'
+  outputs (``ops/rnn_io.py``), so the layer gives H features and the next
+  layer's BN and projection take H.  Both are fixed when the layer is built;
+  at their defaults (``concat``, no bias) the layer runs the ops it ran
+  before them;
 - in train mode each layer's output goes through dropout (``rnn.py:447``);
 - with ``remat`` (the config's ``remat``) each layer in train mode runs
   under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
@@ -84,6 +97,7 @@ from ctc_pytorch_tpu_torch.ops import lstm_bidir as lstm_ops
 from ctc_pytorch_tpu_torch.ops import lstm_bidir_train as lstm_train_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir as rnn_ops
 from ctc_pytorch_tpu_torch.ops import rnn_bidir_train as rnn_train_ops
+from ctc_pytorch_tpu_torch.ops import rnn_io
 from ctc_pytorch_tpu_torch.parallel.mesh import DataGroup
 
 # per cell: (gates, eval recurrence, trainable recurrence)
@@ -104,33 +118,53 @@ def stream_dtype_for(compute_dtype: torch.dtype, b: int) -> torch.dtype:
 
 
 class Direction(nn.Module):
-    def __init__(self, input_size: int, hidden_size: int, gates: int = 4):
+    def __init__(self, input_size: int, hidden_size: int, gates: int = 4,
+                 bias: bool = False):
         super().__init__()
         self.w_ih = nn.Parameter(torch.empty(input_size, gates * hidden_size))
         self.w_hh = nn.Parameter(torch.empty(hidden_size, gates * hidden_size))
+        # b_ih + b_hh of nn.LSTM, gates in its order
+        self.b = (nn.Parameter(torch.empty(gates * hidden_size)) if bias
+                  else None)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """torch nn.LSTM / nn.GRU / nn.RNN default: U(-1/sqrt(H), 1/sqrt(H))."""
+        """torch nn.LSTM / nn.GRU / nn.RNN default: U(-1/sqrt(H), 1/sqrt(H));
+        the bias is the sum of two such draws, as b_ih + b_hh."""
         bound = 1.0 / math.sqrt(self.w_hh.shape[0])
         with torch.no_grad():
             self.w_ih.uniform_(-bound, bound, generator=gen)
             self.w_hh.uniform_(-bound, bound, generator=gen)
+            if self.b is not None:
+                self.b.uniform_(-bound, bound, generator=gen)
+                self.b.add_(torch.empty_like(self.b).uniform_(
+                    -bound, bound, generator=gen))
 
 
 class RNNLayer(nn.Module):
     """BatchRNN: optional feature BN -> LSTM, GRU or tanh RNN, over both
-    directions (``fwd`` and ``bwd``) or the forward one alone."""
+    directions (``fwd`` and ``bwd``) or the forward one alone, joined side
+    by side or (``merge="sum"``) added; ``bias``: biased LSTM cells."""
 
     def __init__(self, input_size: int, hidden_size: int, batch_norm: bool,
-                 cell: str = "lstm", bidirectional: bool = True):
+                 cell: str = "lstm", bidirectional: bool = True,
+                 merge: str = "concat", bias: bool = False):
         super().__init__()
         if cell not in CELLS:
             raise ValueError(f"unknown cell {cell!r}: one of {sorted(CELLS)}")
+        if bias and cell != "lstm":
+            raise ValueError("biased cells are the LSTM's: a padded frame "
+                             "is shut by its input gate")
+        if merge not in ("concat", "sum") or (merge == "sum"
+                                              and not bidirectional):
+            raise ValueError(f"merge {merge!r}: 'concat', or 'sum' of two "
+                             "directions")
         self.hidden_size = hidden_size
+        self.merge = merge
+        self.biased = bias
         gates, self.eval_op, self.train_op = CELLS[cell]
-        self.fwd = Direction(input_size, hidden_size, gates)
-        self.bwd = (Direction(input_size, hidden_size, gates) if bidirectional
-                    else None)
+        self.fwd = Direction(input_size, hidden_size, gates, bias)
+        self.bwd = (Direction(input_size, hidden_size, gates, bias)
+                    if bidirectional else None)
         self.bn = BatchNorm(input_size) if batch_norm else None
 
     @property
@@ -171,20 +205,29 @@ class RNNLayer(nn.Module):
             x = self.bn(x, bn_mask, group, update=update_bn)
         t_len, b, f = x.shape
         valid = None
+        mask = "none"  # the packed mask (ops/rnn_io.py), counted a call
         if lengths is not None:
             valid = (torch.arange(t_len, device=x.device)[:, None]
-                     < lengths.to(x.device)[None, :]).to(x.dtype)[..., None]
-            x = x * valid
+                     < lengths.to(x.device)[None, :])
+            mask = "gate" if self.biased else "rows"
+        rnn_io.launches_mask[mask] += 1
+        vm = None if valid is None else valid.to(x.dtype)[..., None]
+        if mask == "rows":
+            x = x * vm
         sd = stream_dtype_for(compute_dtype, b)
         dirs = self.directions
         w_cat = torch.cat([d.w_ih for d in dirs], dim=1)
-        gx = matmul_stream(x.reshape(t_len * b, f), w_cat, compute_dtype, sd)
+        bias = torch.cat([d.b for d in dirs]) if self.biased else None
+        gx = matmul_stream(x.reshape(t_len * b, f), w_cat, compute_dtype, sd,
+                           bias)
         w_hh = torch.stack([d.w_hh for d in dirs]).float()
         gx = gx.reshape(t_len, b, -1)
-        out = (self.train_op(gx, w_hh).float() if self.training
-               else self.eval_op(gx, w_hh))
-        if valid is not None:
-            out = out * valid
+        if mask == "gate":
+            gx = rnn_io.shut_input_gate(gx, valid, len(dirs))
+        op = self.train_op if self.training else self.eval_op
+        out = rnn_io.merge(op(gx, w_hh), self.merge, len(dirs), self.training)
+        if vm is not None:
+            out = out * vm
         return out
 
 
@@ -193,11 +236,13 @@ class RNNStack(nn.ModuleList):
     A list, so checkpoint paths read ``rnns.{i}.fwd.w_ih``."""
 
     def __init__(self, *, cell: str, input_size: int, hidden_size: int,
-                 num_layers: int, bidirectional: bool, batch_norm: bool):
-        dirs = 2 if bidirectional else 1
+                 num_layers: int, bidirectional: bool, batch_norm: bool,
+                 merge: str = "concat", bias: bool = False):
+        out = hidden_size if merge == "sum" or not bidirectional else \
+            2 * hidden_size
         super().__init__(
-            RNNLayer(input_size if i == 0 else dirs * hidden_size, hidden_size,
-                     batch_norm and i > 0, cell, bidirectional)
+            RNNLayer(input_size if i == 0 else out, hidden_size,
+                     batch_norm and i > 0, cell, bidirectional, merge, bias)
             for i in range(num_layers)
         )
 

@@ -64,6 +64,8 @@ LIBRARY = KernelLibrary(
 launches = 0
 # the same launches by the branch the library reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
+# serial time steps of those launches (T a launch)
+launches_steps = {"fwd": 0}
 
 
 def gru_gates(pre: torch.Tensor, hh: torch.Tensor
@@ -130,6 +132,7 @@ def gru_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     ys, branch = launch_forward(gx, w_hh)
     launches += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += ys.shape[0]
     return ys
 
 

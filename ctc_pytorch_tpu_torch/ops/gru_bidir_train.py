@@ -96,6 +96,9 @@ launches_bwd = 0
 # forward and serial launches by the branch the launcher reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
+# serial time steps of those launches, forward and backward apart (T a
+# launch; the backward's pre-pass has none)
+launches_steps = {"fwd": 0, "bwd": 0}
 
 
 def dw_hh(ys: torch.Tensor, dgx: torch.Tensor, dhhn: torch.Tensor,
@@ -189,6 +192,7 @@ def gru_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     ys, branch = gru_ops.launch_forward(gx, w_hh)
     launches_fwd += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += ys.shape[0]
     return ys
 
 
@@ -244,6 +248,7 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h
         _raise(lib, err, "gru_bidir_train backward", t_len, b, h)
     launches_bwd += 1
     launches_bwd_branch[BRANCHES[branch.value]] += 1
+    launches_steps["bwd"] += t_len
     return dgx, dhhn
 
 

@@ -4,7 +4,10 @@ Each op module counts its kernel launches in Python, where its launcher runs:
 ``launches``, ``launches_fwd``, ``launches_bwd_prepass``, ``launches_bwd``,
 ``launches_alpha``, ``launches_beta`` (ints) and ``launches_fwd_branch``,
 ``launches_bwd_branch`` (dicts by branch), ``launches_route`` (the conv
-epilogue's layer calls, a dict by route).  Under a captured CUDA graph a
+epilogue's layer calls, a dict by route), ``launches_steps`` (the serial
+time steps of the recurrence launches, a dict by pass) and ``rnn_io``'s
+``launches_mask`` and ``launches_merge`` (a recurrent layer's calls, dicts
+by route).  Under a captured CUDA graph a
 launcher runs once, at capture, and every replay launches the same kernels
 without Python.  So a captured graph keeps the counts that its capture added
 (``diff``), the capture's own additions are taken back (``restore``), and
@@ -18,7 +21,8 @@ import importlib
 from typing import Dict, Tuple
 
 MODULES = ("conv_epilogue", "ctc_loss", "gru_bidir", "gru_bidir_train",
-           "lstm_bidir", "lstm_bidir_train", "rnn_bidir", "rnn_bidir_train")
+           "lstm_bidir", "lstm_bidir_train", "rnn_bidir", "rnn_bidir_train",
+           "rnn_io")
 
 Counts = Dict[Tuple[str, str], object]
 

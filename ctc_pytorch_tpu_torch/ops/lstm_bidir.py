@@ -58,6 +58,8 @@ LIBRARY = KernelLibrary(
 launches = 0
 # the same launches by the branch the library reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
+# serial time steps of those launches (T a launch)
+launches_steps = {"fwd": 0}
 
 
 def lstm_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -100,6 +102,7 @@ def lstm_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
                                 h, ndir, [(ndir, b, h)])
     launches += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += t_len
     return ys
 
 

@@ -112,6 +112,9 @@ launches_bwd = 0
 # forward and serial launches by the branch the launcher reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 launches_bwd_branch = dict.fromkeys(BRANCHES, 0)
+# serial time steps of those launches, forward and backward apart (T a
+# launch; the backward's pre-pass has none)
+launches_steps = {"fwd": 0, "bwd": 0}
 
 
 def _gates(pre: torch.Tensor):
@@ -181,7 +184,10 @@ def lstm_bidir_train_bwd_prepass_plain(gx, w_hh, ys, cs) -> torch.Tensor:
     acc = _acc_dtype(gx.dtype)
     w = w_hh.to(gx.dtype).to(acc)
     h_prev, c_prev = shifted(ys, ndir, acc), shifted(cs, ndir, acc)
-    pre = per_direction(gx, ndir).to(acc) + torch.matmul(h_prev, w[:, None])
+    # one product a direction over every (step, row): a broadcast of w over
+    # the steps would copy it T times
+    pre = per_direction(gx, ndir).to(acc) + torch.bmm(
+        h_prev.flatten(1, 2), w).view(*h_prev.shape[:3], -1)
     i, f, g, o = _gates(pre)
     tc = torch.tanh(per_direction(cs, ndir).to(acc))
     return torch.stack([
@@ -256,6 +262,7 @@ def lstm_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor
                                 t_len, b, h, ndir, [(ndir, b, h)])
     launches_fwd += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += t_len
     return ys, cs
 
 
@@ -304,6 +311,7 @@ def _launch_serial(lib, planes, hp, w, dy, ndir, h) -> torch.Tensor:
         _raise(lib, err, "lstm_bidir_train backward", t_len, b, h)
     launches_bwd += 1
     launches_bwd_branch[BRANCHES[branch.value]] += 1
+    launches_steps["bwd"] += t_len
     return dgx
 
 

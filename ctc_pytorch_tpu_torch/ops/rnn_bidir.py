@@ -65,6 +65,8 @@ LIBRARY = KernelLibrary(
 launches = 0
 # the same launches by the branch the library reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
+# serial time steps of those launches (T a launch)
+launches_steps = {"fwd": 0}
 
 
 def rnn_bidir_plain(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -120,6 +122,7 @@ def rnn_bidir_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     ys, branch = launch_forward(gx, w_hh)
     launches += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += ys.shape[0]
     return ys
 
 

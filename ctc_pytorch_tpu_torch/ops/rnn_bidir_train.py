@@ -77,6 +77,9 @@ launches_bwd = 0
 # the same launches by the branch the library reported
 launches_fwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
 launches_bwd_branch = dict.fromkeys(FWD_BRANCHES, 0)
+# serial time steps of those launches, forward and backward apart (T a
+# launch)
+launches_steps = {"fwd": 0, "bwd": 0}
 
 
 def rnn_bidir_train_backward_plain(w_hh: torch.Tensor, ys: torch.Tensor,
@@ -113,6 +116,7 @@ def rnn_bidir_train_cuda(gx: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     ys, branch = rnn_ops.launch_forward(gx, w_hh)
     launches_fwd += 1
     launches_fwd_branch[branch] += 1
+    launches_steps["fwd"] += ys.shape[0]
     return ys
 
 
@@ -161,6 +165,7 @@ def rnn_bidir_train_backward_cuda(w_hh: torch.Tensor, ys: torch.Tensor,
                            f"ndir={ndir}")
     launches_bwd += 1
     launches_bwd_branch[FWD_BRANCHES[branch.value]] += 1
+    launches_steps["bwd"] += t_len
     return dgx
 
 

@@ -13,6 +13,9 @@ with dots is its ``state_dict`` key in ``CTCModel``.  For the flagship:
 - model_state: ``cnn[i].bn.{mean,var}``, ``fc_bn.{count,mean,var}``,
   ``rnns[i].bn.{count,mean,var}`` (``rnns[0]`` has no BN, so no leaves).
 
+A model with ``rnn_bias`` (DeepSpeech2's cells; the port's alone) adds
+``rnns[i].{bwd,fwd}.b`` before each direction's weights.
+
 ``opt_state`` is the JAX package's optimizer tree flattened (``state.py:32-44``:
 the hyperparameter-injected Adam, whatever clip or decay stands before it):
 ``count``, ``b1``, ``b2``, ``eps``, ``eps_root``, ``learning_rate``, Adam's own
@@ -56,7 +59,8 @@ def _trees(spec: ModelSpec) -> Tuple[dict, dict]:
             state["cnn"].append(s)
     params["rnns"], state["rnns"] = [], []
     for i in range(spec.rnn_layers):
-        p = {d: {"w_ih": None, "w_hh": None}
+        leaves = ("b", "w_ih", "w_hh") if spec.rnn_bias else ("w_ih", "w_hh")
+        p = {d: dict.fromkeys(leaves)
              for d in (("fwd", "bwd") if spec.bidirectional else ("fwd",))}
         s = {}
         if spec.batch_norm and i > 0:
