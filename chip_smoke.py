@@ -80,7 +80,8 @@ printed line; any failure ends the run with a nonzero exit and no result:
    flagship's B=8 step on the device; the wide forward branch, the wide
    backward (pre-pass and serial chain apart and together, with cuDNN's
    backward), the tanh cell's fp32 forward and backward on the wide branch
-   (with cuDNN's) and the GRU's fp32 backward cluster against the grid they
+   (with cuDNN's), the GRU's fp32 backward cluster and the LSTM training
+   forward's bf16 wide form at DeepSpeech2's shape against the grid they
    replaced, and the flagship's B=128 decode forward with its eval
    forwards on either (``times_redesigned``); the flagship's CNN stack,
    forward and backward, through the conv epilogue's kernels and its twin
@@ -178,7 +179,8 @@ printed line; any failure ends the run with a nonzero exit and no result:
     packed, directions summed, 29 classes, bf16) on a B=64 batch of unequal
     lengths cut to T=400 (T' = 200): an eval step and a train step from one
     seeded state through the kernels and through the plain twins, within
-    ``DS2_REL_TOL``; every recurrence launch on the grid, the serial steps
+    ``DS2_REL_TOL``; the eval op and the serial backward on the grid, the
+    training forward on the wide branch's bf16 form, the serial steps
     (``launches_steps``) and the packed, summed layer calls (``rnn_io``)
     counted.  Phase 3 holds the same kernels at the cell's longest bucket
     (T' = 1200, B = 64, H = 1024, bf16) against their twins.
@@ -967,8 +969,10 @@ def phase_gru_vs_plain() -> dict:
 # (tests/test_torch_cuda.py) run the same list.
 # DeepSpeech2's recurrence (recipes/librispeech/ds2_config.yaml, the
 # ds2_librispeech-train_b64 cell): H = 1024 at B = 64 on bf16 streams and
-# T' = 1200, its longest bucket, past every cluster and wide bound: the grid
-# backward here, the grid training forward and eval op in DS2_FWD_CASES
+# T' = 1200, its longest bucket, past every cluster bound: the grid
+# backward here (past the wide backward's fp32-only branch); in
+# DS2_FWD_CASES the training forward on the wide branch's bf16 form and the
+# eval op (fp32 products, past the fp32 wide bound) on the grid
 DS2_HOIST_CASES = [("lstm", 1200, 64, 1024, "bf16", 2, "grid")]
 HOIST_CASES = [
     ("lstm", 80, 128, 384, "bf16", 2, "cluster"),  # TIMIT bench shape
@@ -1147,9 +1151,12 @@ def phase_hoist_vs_plain(cases=HOIST_CASES) -> dict:
 # where all its clusters fit at once (15 clusters of 8 one-CTA-per-SM
 # blocks).  fp32 products that no cluster holds take the wide branch
 # (csrc/fwd_wide.cuh) to its bound (two directions: LSTM H <= 776 at B <=
-# 16, GRU H <= 1056 at B <= 64), then the grid.  The card's pytest cases
-# (tests/test_torch_cuda.py) run the same list.
-DS2_FWD_CASES = [("lstm_train", 1200, 64, 1024, "bf16", 2, "grid"),
+# 16, GRU H <= 1056 at B <= 64), then the grid; bf16 products of the gated
+# cells take its bf16 form, wide_bf16, to its bound (two directions: LSTM H
+# <= 1056 at B <= 16, 1208 at B = 64, 792 at B = 128; GRU H <= 1352 at B <=
+# 16, 1584 at B = 64, 792 at B = 128), then the grid.  The card's pytest
+# cases (tests/test_torch_cuda.py) run the same list.
+DS2_FWD_CASES = [("lstm_train", 1200, 64, 1024, "bf16", 2, "wide_bf16"),
                  ("lstm_eval", 1200, 64, 1024, "bf16", 2, "grid")]
 FWD_CASES = [
     ("lstm_eval", 100, 8, 384, "fp32", 2, "cluster16_fp32"),  # TIMIT recipe
@@ -1181,12 +1188,12 @@ FWD_CASES = [
     ("lstm_eval", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
     ("lstm_eval", 6, 8, 417, "fp32", 2, "wide_fp32"),
     ("lstm_train", 6, 16, 432, "bf16", 2, "cluster16"),
-    ("lstm_train", 6, 16, 433, "bf16", 2, "grid"),
-    ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),  # 32 rows: H <= 384
+    ("lstm_train", 6, 16, 433, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 6, 128, 392, "bf16", 2, "wide_bf16"),  # 32 rows: H <= 384
     ("gru", 6, 16, 496, "bf16", 2, "cluster16"),
-    ("gru", 6, 16, 497, "bf16", 1, "grid"),
+    ("gru", 6, 16, 497, "bf16", 1, "wide_bf16"),
     ("gru", 6, 128, 448, "bf16", 2, "cluster32"),
-    ("gru", 6, 128, 449, "bf16", 2, "grid"),
+    ("gru", 6, 128, 449, "bf16", 2, "wide_bf16"),
     ("gru", 6, 8, 416, "fp32", 2, "cluster16_fp32"),
     ("gru", 4, 4, 528, "fp32", 2, "wide_fp32"),
     # the 863 LSTM recipes at B=16 on bf16 streams (phase 14): the training
@@ -1221,6 +1228,24 @@ FWD_CASES = [
     ("lstm_eval", 6, 8, 777, "fp32", 2, "grid"),
     ("gru", 4, 4, 1056, "fp32", 2, "wide_fp32"),
     ("gru", 4, 4, 1057, "fp32", 2, "grid"),
+    # the wide branch's bf16 form: the GRU past its 32-row cluster's bound,
+    # B not a multiple of 16 at DeepSpeech2's H, and each side of its
+    # bounds, the grid past them: the LSTM at B = 64 (H / 8 odd: the last
+    # k-step is half), B = 16 and B = 128, the GRU at B = 16, 64 and 128
+    ("gru", 12, 128, 512, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 12, 60, 1024, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 4, 64, 1208, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 4, 64, 1209, "bf16", 2, "grid"),
+    ("lstm_train", 4, 16, 1056, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 4, 16, 1057, "bf16", 2, "grid"),
+    ("lstm_train", 4, 128, 792, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 4, 128, 793, "bf16", 2, "grid"),
+    ("gru", 4, 16, 1352, "bf16", 2, "wide_bf16"),
+    ("gru", 4, 16, 1353, "bf16", 2, "grid"),
+    ("gru", 4, 64, 1584, "bf16", 2, "wide_bf16"),
+    ("gru", 4, 64, 1585, "bf16", 2, "grid"),
+    ("gru", 4, 128, 792, "bf16", 2, "wide_bf16"),
+    ("gru", 4, 128, 793, "bf16", 2, "grid"),
 ] + DS2_FWD_CASES
 
 
@@ -1280,9 +1305,10 @@ def check_fp32_bwd_branch(what: str, took: dict, launches: int,
 def phase_fwd_vs_plain(cases=FWD_CASES) -> dict:
     """Each LSTM and GRU forward kernel against its plain twin at ``cases``
     (of FWD_CASES, every branch), with the branch the library reported: ys
-    (and the LSTM training forward's cs, as tight) within FP32_TOL, or
+    (and the LSTM training forward's cs, in units of max(|want|, 1): a cell
+    state past 1 carries bf16's relative rounding) within FP32_TOL, or
     BF16_TOL with bf16 streams.  Returns the worst error per kernel and
-    dtype, and each case's (``by_case``)."""
+    dtype, and each case's (``by_case``, with the largest |cs|)."""
     import torch
 
     lstm_ops, train_ops, _ = port_ops()
@@ -1320,11 +1346,17 @@ def phase_fwd_vs_plain(cases=FWD_CASES) -> dict:
             took = [k for k, v in mod.launches_fwd_branch.items() if v]
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            err = max(max_err(g, w) for g, w in zip(got, want))
+            err = max_err(got[0], want[0])
+            cs_max = None
+            if len(got) == 2:  # cs
+                err = max(err, scaled_err(got[1], want[1]))
+                cs_max = want[1].float().abs().max().item()
             print(f"  {key} forward T={t} B={b} H={h} ndir={ndir} {name}: "
                   f"branch {'+'.join(took)} (want {branch}); "
                   f"{'ys, cs' if len(got) == 2 else 'ys'} max_abs_err "
-                  f"{err:.3g} (tol {tol})")
+                  f"{err:.3g} (tol {tol})"
+                  + (f"; largest |cs| {cs_max:.4g}" if cs_max is not None
+                     else ""))
             check(all(torch.isfinite(g.float()).all().item() for g in got),
                   f"non-finite {key} forward output {where}")
             check(len(took) == 1 and took[0].startswith(branch),
@@ -1335,6 +1367,8 @@ def phase_fwd_vs_plain(cases=FWD_CASES) -> dict:
             at[name] = max(at.get(name, 0.0), err)
             by_case.setdefault(case, {})[key] = {"branch": took[0],
                                                  "max_abs_err": err}
+            if cs_max is not None:
+                by_case[case][key]["cs_max_abs"] = cs_max
     worst["by_branch"], worst["by_case"] = by_branch, by_case
     return worst
 
@@ -1560,11 +1594,16 @@ GRAPH_CASES = [
     ("rnn_bwd", 100, 8, 384, "fp32", 2, "cluster16_fp32"),
     ("rnn_bwd", 80, 128, 384, "bf16", 2, "cluster16"),
     ("rnn_bwd", 80, 128, 384, "fp32", 2, "wide_fp32"),
-    # the wide branch at B = 64, the GRU's fp32 cluster backward, and the
-    # forward's grid (bf16 products past the 32-row cluster's bound)
+    # the wide branch at B = 64, the GRU's fp32 cluster backward, the
+    # forward's bf16 wide form (bf16 products past the 32-row cluster's
+    # bound; DeepSpeech2's shape) and its grid past that form's bound
     ("lstm_eval", 80, 64, 384, "fp32", 2, "wide_fp32"),
     ("gru_bwd", 95, 8, 256, "fp32", 2, "cluster16_fp32"),
-    ("lstm_train", 6, 128, 392, "bf16", 2, "grid"),
+    ("lstm_train", 6, 128, 392, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 100, 64, 1024, "bf16", 2, "wide_bf16"),
+    ("gru_train", 12, 128, 512, "bf16", 2, "wide_bf16"),
+    ("lstm_train", 4, 128, 793, "bf16", 2, "grid"),
+    ("gru_train", 4, 16, 1353, "bf16", 2, "grid"),
     # the wide backward at B = 64, and the backwards' grid past its bound
     ("lstm_bwd", 80, 64, 384, "fp32", 2, "wide_fp32"),
     ("lstm_bwd", 6, 128, 529, "fp32", 2, "grid"),
@@ -4916,6 +4955,75 @@ def on_parent(fn):
     return run
 
 
+# The wide branch's bf16 form against its parent form, the grid (phase 9):
+# (op, T', B, H) on bf16 streams: the LSTM training forward at
+# DeepSpeech2's longest bucket, the GRU's training forward past its 32-row
+# cluster's bound
+WIDE_BF16_TIMES = [("lstm_train", 1200, 64, 1024), ("gru", 95, 128, 512)]
+
+
+def times_wide_bf16(smi: str) -> dict:
+    """The LSTM's and GRU's training forwards on ``wide_bf16`` at
+    ``WIDE_BF16_TIMES`` against the grid (``tools/parent_forms.py``) and
+    cuDNN's bf16 forward in turns, with the bound and the twin; both forms'
+    outputs held against each other (the sums differ in order and
+    rounding).  Each entry carries ``branch`` = ``wide_bf16``."""
+    import torch
+
+    _, train_ops, _ = port_ops()
+    gru_ops, gru_train_ops = port_gru_ops()
+    out = {}
+    for op, t, b, h in WIDE_BF16_TIMES:
+        gru = op == "gru"
+        gx, w, _ = recurrence_inputs(t, b, h, torch.bfloat16, seed=7,
+                                     gates=3 if gru else 4)
+        kern, plain, counts = (
+            (gru_train_ops.gru_bidir_train_cuda, gru_ops.gru_bidir_plain,
+             gru_train_ops.launches_fwd_branch) if gru else
+            (train_ops.lstm_bidir_train_cuda, train_ops.lstm_bidir_train_plain,
+             train_ops.launches_fwd_branch))
+        net = (torch.nn.GRU if gru else torch.nn.LSTM)(
+            2 * h, h, bias=False, bidirectional=True).cuda().to(torch.bfloat16)
+        x = torch.randn(t, b, 2 * h, device="cuda", dtype=torch.bfloat16)
+        before = dict(counts)
+        with torch.no_grad():
+            res = turns({"new": lambda: kern(gx, w),
+                         "grid": on_parent(lambda: kern(gx, w)),
+                         "library": lambda: net(x)}, reps=3)
+            new, grid = kern(gx, w), on_parent(lambda: kern(gx, w))()
+            plain_ms = cuda_ms(lambda: plain(gx, w), reps=2)
+        new = new if isinstance(new, tuple) else (new,)
+        grid = grid if isinstance(grid, tuple) else (grid,)
+        took = sorted(k for k, v in counts.items() if v != before[k])
+        check(took == ["grid", "wide_bf16"],
+              f"{op} at B={b} H={h} bf16: the timed launches took {took}")
+        bound = recurrence_bound(gx, w, n_planes=1 if gru else 2,
+                                 n_products=1, bf16_products=True)
+        key = f"{op}_{t}_{b}_{h}_bf16"
+        out[key] = {
+            "branch": "wide_bf16",
+            "ms": res["new"][0], "ms_rounds": res["new"][1],
+            "grid_ms": res["grid"][0], "grid_ms_rounds": res["grid"][1],
+            "library_ms": res["library"][0],
+            "library_ms_rounds": res["library"][1], "plain_ms": plain_ms,
+            "us_a_step": 1e3 * res["new"][0] / t,
+            "grid_us_a_step": 1e3 * res["grid"][0] / t,
+            "max_abs_vs_grid": max(max_err(n, g) for n, g in zip(new, grid)),
+            **bound}
+        r = out[key]
+        print(f"  {key} ({smi}): wide_bf16 {r['ms']:.4f} ms "
+              f"{[round(v, 4) for v in r['ms_rounds']]} ({r['us_a_step']:.2f} "
+              f"us a step); grid {r['grid_ms']:.4f} "
+              f"{[round(v, 4) for v in r['grid_ms_rounds']]} "
+              f"({r['grid_us_a_step']:.2f} us a step); cuDNN bf16 "
+              f"{r['library_ms']:.4f}; twin {r['plain_ms']:.4f}; bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}; grid / wide "
+              f"{r['grid_ms'] / r['ms']:.2f}x; "
+              f"{'ys' if gru else 'ys, cs'} against the grid's "
+              f"{r['max_abs_vs_grid']:.3g}")
+    return out
+
+
 def times_wide_backward(smi: str) -> dict:
     """The wide backward (``csrc/bwd_wide.cuh``) at ``WIDE_BWD_TIMES``
     against the grid and cuDNN in turns: the pre-pass, the serial chain on
@@ -5082,8 +5190,10 @@ def times_redesigned(spec, model, smi: str) -> dict:
     tensor-core bound), the LSTM's and GRU's fp32 backward on
     ``wide_fp32`` (``times_wide_backward``), the GRU backward's fp32 serial
     chain on ``cluster16_fp32`` at (95, 8, 256) alone and with its pre-pass
-    (cuDNN's fp32 backward beside it), and the flagship's B=128 decode
-    forward with its eval forwards on the wide branch and on the grid."""
+    (cuDNN's fp32 backward beside it), the LSTM training forward's bf16
+    form ``wide_bf16`` at DeepSpeech2's shape (``times_wide_bf16``), and
+    the flagship's B=128 decode forward with its eval forwards on the wide
+    branch and on the grid."""
     import torch
 
     lstm_ops, train_ops, _ = port_ops()
@@ -5160,6 +5270,7 @@ def times_redesigned(spec, model, smi: str) -> dict:
               f"{r['grid_ms'] / r['ms']:.2f}x")
 
     out.update(times_wide_backward(smi))
+    out.update(times_wide_bf16(smi))
 
     # the GRU backward on fp32 streams at B = 8 (the 863 model over two
     # data-parallel ranks): the serial chain's cluster against the grid
@@ -5242,7 +5353,8 @@ DECODE_SEEDS = (0, 1, 2)
 # multiple of 16; the LSTM's and GRU's backward serial chains (the wide
 # backward, csrc/bwd_wide.cuh) at B = 128 and at a B that is not a multiple
 # of 16; the tanh cell's forward and backward (csrc/fwd_wide.cuh) at B = 128
-# and B = 130; launches a run
+# and B = 130; the bf16 form (wide_bf16) of the LSTM training forward at
+# DeepSpeech2's width and of the GRU at B = 130; launches a run
 WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
                   ("lstm_eval", 95, 128, 384, "bf16"),
                   ("lstm_train", 80, 128, 384, "fp32"),
@@ -5253,7 +5365,9 @@ WIDE_NAN_CASES = [("lstm_eval", 95, 128, 384, "fp32"),
                   ("gru_bwd", 95, 130, 256, "fp32"),
                   ("rnn", 80, 128, 384, "fp32"), ("rnn", 80, 130, 384, "fp32"),
                   ("rnn_bwd", 80, 128, 384, "fp32"),
-                  ("rnn_bwd", 80, 130, 384, "fp32")]
+                  ("rnn_bwd", 80, 130, 384, "fp32"),
+                  ("lstm_train", 80, 64, 1024, "bf16"),
+                  ("gru", 40, 130, 512, "bf16")]
 WIDE_NAN_LAUNCHES = 25
 
 
@@ -5369,8 +5483,12 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
     bf16 = int(dtype == torch.bfloat16)
     ys = torch.empty(t, b, 2 * h, dtype=dtype, device="cuda")
     outs = [ys] + ([torch.empty_like(ys)] if op == "lstm_train" else [])
-    n_hx, n_flags = _build.wide_scratch_sizes(b, h, 2)
-    hx = torch.empty(n_hx, dtype=torch.float32, device="cuda")
+    # the gated cells' bf16 products take the bf16 form, its buffer bf16
+    wide = ("wide_bf16" if name == "bf16" and op in ("lstm_train", "gru")
+            else "wide_fp32")
+    n_hx, n_flags = _build.wide_scratch_sizes(b, h, 2, wide == "wide_bf16")
+    hx = torch.empty(n_hx, device="cuda", dtype=torch.bfloat16
+                     if wide == "wide_bf16" else torch.float32)
     flags = torch.empty(n_flags, dtype=torch.int32, device="cuda")
     branch = ctypes.c_int(-1)
     if op == "rnn_bwd":  # the backward of the twin's ys; dgx into ys
@@ -5388,7 +5506,7 @@ def wide_nan_launches(op: str, t: int, b: int, h: int, name: str,
             *args, *[o.data_ptr() for o in outs],
             hx.data_ptr(), flags.data_ptr(), t, b, h, -(-b // 4) * 4, 2, bf16,
             torch.cuda.current_stream().cuda_stream, ctypes.byref(branch))
-        check(err == 0 and _build.FWD_BRANCHES[branch.value] == "wide_fp32",
+        check(err == 0 and _build.FWD_BRANCHES[branch.value] == wide,
               f"{op} at ({t}, {b}, {h}) {name}: launch {err}, branch "
               f"{branch.value}")
 
@@ -6560,8 +6678,9 @@ def phase_ds2(smi: str, device: str = "cuda") -> dict:
     dev pass's call) and a train step (``train_step``) through the kernels
     and through the plain twins.  The eval log-probs on the valid frames,
     the loss and the first gradient (Adam's first moment) agree within
-    ``DS2_REL_TOL``; the kernels' run launches every recurrence on the grid
-    (eval op, training forward and backward, one a layer), counts ``T'`` a
+    ``DS2_REL_TOL``; the kernels' run launches the eval op and the
+    training backward on the grid and the training forward on the wide
+    branch's bf16 form (``wide_bf16``), one a layer each, counts ``T'`` a
     launch in ``launches_steps`` and a packed, summed layer call a layer
     each way in ``rnn_io``'s counters, every counter zeroed just before."""
     import torch
@@ -6605,7 +6724,7 @@ def phase_ds2(smi: str, device: str = "cuda") -> dict:
                  "DeepSpeech2 eval and train step")
     want = {("lstm_bidir", "launches_fwd_branch"): {"grid": layers},
             ("lstm_bidir", "launches_steps"): {"fwd": layers * t_out},
-            ("lstm_bidir_train", "launches_fwd_branch"): {"grid": layers},
+            ("lstm_bidir_train", "launches_fwd_branch"): {"wide_bf16": layers},
             ("lstm_bidir_train", "launches_bwd_branch"): {"grid": layers},
             ("lstm_bidir_train", "launches_steps"): {"fwd": layers * t_out,
                                                      "bwd": layers * t_out},
@@ -7054,10 +7173,12 @@ def main() -> int:
                  **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
                  "shape": key}
-        # every timed shape of the same op: its name up to the first number
+        # every timed shape of the same op on this branch: its name up to
+        # the first number (the bf16 form's timings have rows of their own)
         op_key = re.match(r"\D+", key).group(0)
         entry["times"] = {k: v for k, v in redesigned.items()
-                          if re.match(r"\D+", k).group(0) == op_key}
+                          if re.match(r"\D+", k).group(0) == op_key
+                          and v.get("branch") != "wide_bf16"}
         if branch == "wide_fp32":
             # its product runs in 3xTF32 on the tensor cores: beside the
             # fp32 bound, the bound of that work at the tensor cores' rate
@@ -7070,6 +7191,48 @@ def main() -> int:
             for k in ("serial_ms", "grid_serial_ms", "prepass_ms", "grid_ms",
                       "serial_bound_ms", "library_ms_bf16"):
                 entry[k] = at[k]
+        kernels.append(entry)
+    # the wide branch's bf16 form, one entry a cell: its launches on the
+    # main paths (phase 18's DeepSpeech2 step; no recipe's GRU is that wide,
+    # so the GRU's are phase 3's cases), its worst error against the twins
+    # in phase 3 (bf16 streams), its times against the grid and cuDNN
+    ds2_fwd = ds2["launches"].get("lstm_bidir_train.launches_fwd_branch", {})
+    for (name, ops, source_ops, replaces, key, err_keys) in (
+            ("lstm_bidir_train_fwd_wide_bf16", ("lstm_bidir_train_fwd",),
+             ("lstm_train",), tpu + "lstm_pallas_train_v2.py:438 _fwd_pallas "
+             "(lstm_scan_train_v2), bf16 streams where no bf16 cluster holds "
+             "the shape (DeepSpeech2's H = 1024 at B = 64)",
+             "lstm_train_1200_64_1024_bf16", ["lstm_train:wide_bf16"]),
+            ("gru_bidir_wide_bf16", ("gru_bidir", "gru_bidir_train_fwd"),
+             ("gru_eval", "gru_train"), tpu + "gru_pallas_v2.py:352 "
+             "_fwd_pallas, bf16 streams where no bf16 cluster holds the shape",
+             "gru_95_128_512_bf16", ["gru_eval:wide_bf16",
+                                     "gru_train:wide_bf16"])):
+        at = redesigned[key]
+        launches = branch_launches(ops, "wide_bf16")
+        if name.startswith("lstm"):
+            launches_ds2 = ds2_fwd.get("wide_bf16", 0)
+            check(launches_ds2 > 0, f"phase 18 never launched {name}")
+            launches += launches_ds2
+        cases = sum(1 for v in errs_fwd["by_case"].values()
+                    for k in source_ops if v.get(k, {}).get("branch")
+                    == "wide_bf16")
+        check(cases > 0, f"no card case launched {name}")
+        entry = {"name": name, "route": "cuda", "source": wide,
+                 "kernel": "fwd_wide_kernel<Cell, __nv_bfloat16, true>",
+                 "replaces": replaces, "launches": launches,
+                 "launches_card_cases": cases,
+                 "max_abs_err": max(errs_fwd["by_branch"].get(k, {}).get(
+                     "bf16", 0.0) for k in err_keys),
+                 **{k: at[k] for k in ("ms", "grid_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "us_a_step",
+                                       "grid_us_a_step", "max_abs_vs_grid")},
+                 "shape": key,
+                 "times": {k: v for k, v in redesigned.items()
+                           if v.get("branch") == "wide_bf16"
+                           and k.startswith(key.split("_")[0])}}
+        if name.startswith("lstm"):
+            entry["launches_ds2_phase"] = launches_ds2
         kernels.append(entry)
     # the fp32 pre-pass, one entry a cell: its launches on the main paths
     # (the phases' counts, and phase 16's fp32 steps), its worst error

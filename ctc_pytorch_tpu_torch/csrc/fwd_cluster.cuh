@@ -108,8 +108,13 @@
 // fwd_wide.cuh (kFwdWide: a persistent cooperative kernel, weights
 // resident across every SM, the product on the tensor cores in 3xTF32, h
 // (the tanh backward: dpre) exchanged through L2 under per-block step
-// flags) where its resident weights fit; otherwise the grid kernel.  The
-// entry points report the branch they launched.
+// flags) where its resident weights fit; otherwise the grid kernel.  Where
+// bf16 products find no cluster (LSTM H > 432, GRU H > 496, or more
+// clusters than the card holds: DeepSpeech2's H = 1024 at B = 64), the
+// gated cells take the wide kernel's bf16 form (kFwdWideBf16: weights
+// resident as bf16, mma.sync m16n8k16, h exchanged as bf16) where its
+// weights fit, and the grid past that; the tanh cell and its backward keep
+// the grid there.  The entry points report the branch they launched.
 
 #pragma once
 
@@ -150,7 +155,8 @@ enum FwdBranch {
   kFwdMma16 = 1,
   kFwdMma32 = 2,
   kFwdFma16 = 3,
-  kFwdWide = 4
+  kFwdWide = 4,      // wide_fp32
+  kFwdWideBf16 = 5   // wide_bf16
 };
 
 // 32 bits into the shared memory of CTA `rank` of the cluster, at the
@@ -937,7 +943,9 @@ const void* fma1_kernel_for(int ksn) {
 
 // The forward's branch for the shape on the current device (FwdBranch).
 // Products on bf16 operands (kRound with bf16 streams) take the mma
-// kernel, 16 rows a cluster where all clusters fit, else 32; fp32 products
+// kernel, 16 rows a cluster where all clusters fit, else 32, else (the
+// gated cells) the wide kernel's bf16 form where its shape holds and its
+// CTAs are all resident; fp32 products
 // take the fma kernel (fma1_kernel for the one-gate cells) where all its
 // 16-row clusters fit, else the wide kernel where its shape holds and its
 // CTAs are all resident; every other shape the grid.  The tanh backward
@@ -978,6 +986,13 @@ cudaError_t fwd_branch(int B, int H, int ndir, int* branch) {
             (B + 31) / 32, ndir, m2.threads, m2.smem, &fit);
         if (err != cudaSuccess) return err;
         if (fit) taken = kFwdMma32;
+      }
+    }
+    if constexpr (Cell::kGates > 1) {
+      if (taken == kFwdGrid && !kParentBranches) {
+        err = wide_fits<Cell, S, kRound>(B, H, ndir, &fit);
+        if (err != cudaSuccess) return err;
+        if (fit) taken = kFwdWideBf16;
       }
     }
   } else {

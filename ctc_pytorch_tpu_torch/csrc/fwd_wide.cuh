@@ -1,12 +1,19 @@
-// The wide-batch branch of the fp32-product recurrences for Hopper
-// (sm_90a): the LSTM eval forward at every stream dtype, the LSTM training
-// forward on fp32 streams (which also writes cs), the GRU forward on fp32
-// streams, and the tanh cell's forward and backward on fp32 streams, where
-// the fp32 cluster kernels (fwd_fma_kernel, fma1_kernel, fwd_cluster.cuh)
-// cannot place all their clusters at once: B >= 64 at H = 384 for the gated
-// cells, where 8 or 16 clusters of 16 one-CTA-per-SM blocks are more than
-// the card holds, and B >= 113 for the tanh cell with two directions (16 or
-// more clusters of 8), and H past those clusters' resident bounds.
+// The wide-batch branch of the recurrences for Hopper (sm_90a), in two
+// forms of one kernel:
+//   wide_fp32 (fp32 products): the LSTM eval forward at every stream dtype,
+//     the LSTM training forward on fp32 streams (which also writes cs), the
+//     GRU forward on fp32 streams, and the tanh cell's forward and backward
+//     on fp32 streams, where the fp32 cluster kernels (fwd_fma_kernel,
+//     fma1_kernel, fwd_cluster.cuh) cannot place all their clusters at
+//     once: B >= 64 at H = 384 for the gated cells, where 8 or 16 clusters
+//     of 16 one-CTA-per-SM blocks are more than the card holds, and B >=
+//     113 for the tanh cell with two directions (16 or more clusters of 8),
+//     and H past those clusters' resident bounds;
+//   wide_bf16 (bf16 products, fwd_wide_kernel<Cell, __nv_bfloat16, true>):
+//     the LSTM training forward and the GRU forward on bf16 streams where
+//     neither bf16 cluster of fwd_mma_kernel holds the shape (LSTM H > 432,
+//     GRU H > 496, or B too wide for their clusters): DeepSpeech2's H =
+//     1024 at B = 64.  See "bf16 products" below.
 // fwd_cluster.cuh includes this header after its cells (cell_fwd,
 // step_time) and stamps; its launcher (fwd_branch) chooses the branch.
 //
@@ -129,7 +136,8 @@
 // 24, RB = 32, KS = 2: 128 CTAs of 12 warps, 147 KB of weights + 48 KB of
 // partials; B = 64: RB = 16, KS = 4, 128 CTAs; the GRU at (B = 128, H =
 // 256): Uc = 32, RB = 16, KS = 2, 128 CTAs of 8 warps, 98 KB + 24 KB.
-// Shared memory is 4 G Uc Hk bytes of weights (Hk = H rounded up to 8) and,
+// Shared memory is E G Uc Hk bytes of weights (E = 4 for fp32 products, 2
+// for bf16; Hk = H rounded up to 8) and,
 // where KS > 1, 1024 G KS groups bytes of partials (groups = the CTA's
 // m-tiles x unit blocks); a launch asks for at least 116 KB so that two
 // CTAs never share an SM.  Bound (the largest H that has a shape), on a
@@ -141,6 +149,49 @@
 // bound (chosen without the staging, which is taken where it fits) with
 // two directions H <= 1752 at B <= 16, 1584 at B = 64, 792 at B = 128, with
 // one direction H <= 2288 at B <= 16.  Past it the grid.
+//
+// bf16 products (wide_bf16).  The LSTM training forward and the GRU on
+// bf16 streams round w_hh (the caller does) and each h to bf16 before the
+// product and sum in fp32 (fwd_cluster.cuh): one bf16 mma.sync m16n8k16
+// with fp32 sums forms the same products (each exact in fp32) where fp32
+// products need three TF32 passes a k-step of 8; the tensor core adds them
+// in its own order and with its own rounding, not with fp32 adds rounded
+// to nearest, so the sums differ from the twin's in their last bits.  So
+// this form keeps the layout, the
+// exchange protocol, the flags, the gate math and the stores of the fp32
+// one, and changes three things:
+//   the weights are resident as bf16 (converted on load from the caller's
+//     fp32 copy, exactly), in the order of the m16n8k16 B fragments: per
+//     (unit block, gate, k-step of 16) lane 4 g + c holds the packed pairs
+//     (k = 2 c, 2 c + 1) and (2 c + 8, 2 c + 9) of column g, one 8-byte
+//     load; where H / 8 is odd the last k-step holds its first half alone
+//     (one 4-byte word a lane, the second B register zero), so that the
+//     weights take 2 G Uc Hk bytes as the shape search counts them;
+//   the exchange buffer holds h as bf16 in the A-fragment order of a
+//     k-step of 16 (lane 4 g + c: rows g, g + 8 x units (2 c, 2 c + 1), then
+//     (2 c + 8, 2 c + 9)), one 16-byte L2 load a lane a k-step: half the
+//     bytes of the fp32 exchange, and exact, since h is rounded to bf16
+//     before the product anyway.  The writer warp of 8-unit block j owns
+//     lane l's words (2 (j % 2), 2 (j % 2) + 1) of k-step j / 2, one 8-byte
+//     store a lane (KS = 1); the flags stay one an 8-unit block, and a
+//     reader of k-step kb waits for blocks 2 kb and 2 kb + 1 (where H / 8
+//     is odd the last k-step's second half has no writer: the reader zeroes
+//     it, so an unwritten buffer never reaches the sums);
+//   the product is one mma.sync a gate a k-step of 16, with eight k-steps
+//     of h in flight a warp (kWideDepth) and each k-step's B fragments read
+//     from shared memory one k-step ahead, before the next load of h (whose
+//     memory clobber no shared load may cross; the depth and the read
+//     ahead were tuned at DeepSpeech2's shape, PERF.md §6).
+// The k-steps are summed in a fixed order, as in the fp32 form, so that a
+// graph replay equals the eager call bit for bit; the sums differ from
+// the cluster kernel's and the twin's in their order and rounding.
+// DeepSpeech2 (B = 64, H = 1024, two directions): Uc = 16, RB = 64, KS = 1,
+// 64 unit blocks x 1 row block x 2 directions = 128 CTAs of 8 warps, 131,072
+// bytes of weights a CTA; a step moves 16 rows x 1024 x 2 bytes of h into
+// each warp, 32 MiB over the card.  Bound (two directions): LSTM H <= 1056
+// at B <= 16, 1208 at B = 64, 792 at B = 128; GRU H <= 1352 at B <= 16,
+// 1584 at B = 64, 792 at B = 128; with one direction LSTM H <= 1560, GRU H
+// <= 2112 at B <= 16.  Past it the grid.
 
 #pragma once
 
@@ -150,6 +201,14 @@ namespace {
 // primitives are bwd_wide.cuh's, which bwd_hoist.cuh includes
 constexpr int kWideDepth = 8;  // k-steps of h in flight a warp
 
+// whether the wide kernel's products are bf16 (wide_bf16): bf16 streams
+// whose h is rounded before the product
+template <typename S, bool kRound>
+constexpr bool kWideBf16 = kRound && std::is_same<S, __nv_bfloat16>::value;
+// bytes of a resident weight
+template <typename S, bool kRound>
+constexpr int kWideWeightBytes = kWideBf16<S, kRound> ? 2 : 4;
+
 struct WideShape {
   int uc, nj, rb, nr, ks, warps, nks;
   size_t smem;  // what the CTA uses; a launch asks for kWideMinSmem at least
@@ -158,8 +217,10 @@ struct WideShape {
 };
 
 // The wide branch's shape for G gates, H, B and ndir on a card of `sms` SMs
-// (see the header); ok is false where no shape holds.
-inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
+// with weights of `wbytes` bytes (see the header); ok is false where no
+// shape holds.
+inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms,
+                            int wbytes) {
   WideShape best{0, 0, 0, 0, 0, 0, (H + 7) / 8, 0, false, false};
   const int bp = (B + 15) / 16 * 16;
   long best_work = 0;
@@ -174,7 +235,7 @@ inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
       while (ks < 4 && groups * ks < 8 && groups * ks * 2 <= kWideMaxWarps &&
              ks * 2 <= best.nks)
         ks *= 2;
-      const size_t smem = (size_t)4 * gates * uc * 8 * best.nks +
+      const size_t smem = (size_t)wbytes * gates * uc * 8 * best.nks +
                           (size_t)1024 * gates * (ks > 1 ? ks : 0) * groups;
       if (smem > (size_t)kMaxSmem) continue;
       const long work = (long)rb * uc;
@@ -196,7 +257,8 @@ inline WideShape wide_shape(int gates, int H, int B, int ndir, int sms) {
 }
 
 // CTA (units blockIdx.x, rows blockIdx.y, direction blockIdx.z); see the
-// header.  hx: the exchange buffer [2][ndir][nmt][nks][32][4] fp32; flags:
+// header.  hx: the exchange buffer, fp32 [2][ndir][nmt][nks][32][4] (bf16
+// products: bf16 [2][ndir][nmt][ceil(nks / 2)][32][8]); flags:
 // [ndir][nmt][nks] int32, zero at the launch.  cs: the LSTM training
 // forward's cell states, else null.  The tanh backward (TanhBwdCell) reads
 // dy as gx and the saved ys as y_in (null for every forward cell) and
@@ -209,26 +271,38 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
                     int H, int ndir, int uc, int rb, int ks, int stage) {
   constexpr int G = Cell::kGates;
   constexpr int NI = kInPlanes<Cell>;
+  constexpr bool kBf = kWideBf16<S, kRound>;  // bf16 products
+  static_assert(!kBf || (G > 1 && !kBackward<Cell>), "bf16: the gated cells");
   extern __shared__ float4 wide_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
   const int d = blockIdx.z;
   const int own0 = blockIdx.x * uc;
+  // nks: 8-unit blocks (the flags; the fp32 product's k-steps); nkp: the
+  // product's k-steps (bf16: 16 units each)
   const int nks = (H + 7) / 8, nmt = (B + 15) / 16, nub = uc / 8;
+  const int nkp = kBf ? (nks + 1) / 2 : nks;
   const int groups = rb / 16 * nub;
   const size_t gh = (size_t)G * H;
-  float2* ws = reinterpret_cast<float2*>(wide_smem);  // [nub][G][nks][32]
+  // fp32: [nub][G][nks][32] float2; bf16: [nub][G][nks][32] 4-byte words
+  // (a k-step of 16 is words 64 kb + 2 lane, + 1; the odd last one 64 kb +
+  // lane)
+  float2* ws = reinterpret_cast<float2*>(wide_smem);
+  const unsigned* wb = reinterpret_cast<const unsigned*>(wide_smem);
   // [2][groups][ks][4 G][32]: each k split's sums (ks > 1)
-  float* part = reinterpret_cast<float*>(ws + (size_t)nub * G * nks * 32);
+  float* part = reinterpret_cast<float*>(wide_smem) +
+                (size_t)nub * G * nks * 32 * (kBf ? 1 : 2);
 
   // resident: read along the units (coalesced; the backward's rows of w_hh
-  // along k), stored as the B fragments: lane 4 g + c holds (k = 8 kb + c,
-  // 8 kb + c + 4) of column g of n-tile (unit block, gate q); zero past H in
-  // both.  Column q H + unit is w_hh[d][k][q H + unit], the backward's
-  // w_hh[d][unit][k] (a column of w_hh^T).
+  // along k), stored as the B fragments: fp32, lane 4 g + c holds (k = 8 kb
+  // + c, 8 kb + c + 4) of column g of n-tile (unit block, gate q); bf16, the
+  // pairs of the header; zero past H in both.  Column q H + unit is
+  // w_hh[d][k][q H + unit], the backward's w_hh[d][unit][k] (a column of
+  // w_hh^T).
   {
     const int hk = 8 * nks, n_w = G * hk * uc, nthreads = blockDim.x;
     float* wf = reinterpret_cast<float*>(ws);
+    unsigned short* wh = reinterpret_cast<unsigned short*>(wide_smem);
     auto coords = [&](int idx, int& u, int& k, int& q) {
       q = idx / (uc * hk);
       if constexpr (kBackward<Cell>) {
@@ -259,8 +333,17 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
         if (idx >= n_w) continue;
         int u, k, q;
         coords(idx, u, k, q);
-        wf[((((size_t)(u >> 3) * G + q) * nks + (k >> 3)) * 32 + 4 * (u & 7) +
-            (k & 3)) * 2 + ((k >> 2) & 1)] = v[i];
+        const size_t row = ((size_t)(u >> 3) * G + q) * nks * 32;
+        if constexpr (kBf) {
+          // k-step kb = k / 16, its half k / 8 % 2, lane 4 unit + k % 8 / 2
+          const int kb = k >> 4, ln = 4 * (u & 7) + ((k & 7) >> 1);
+          const size_t word =
+              row + 64 * kb + (2 * kb + 1 < nks ? 2 * ln + ((k >> 3) & 1) : ln);
+          wh[2 * word + (k & 1)] = bf16_bits(v[i]);
+        } else {
+          wf[((row + (size_t)(k >> 3) * 32 + 4 * (u & 7) + (k & 3)) * 2 +
+              ((k >> 2) & 1))] = v[i];
+        }
       }
     }
   }
@@ -269,16 +352,19 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
   // the warp's (m-tile, unit block, k split); a group past B or H is idle
   const int grp = warp / ks, kh = warp % ks;
   const int mt = blockIdx.y * (rb / 16) + grp / nub;
-  const int kb_own = blockIdx.x * nub + grp % nub;  // its unit block, a k-step
+  const int kb_own = blockIdx.x * nub + grp % nub;  // its unit block
   const bool live = mt < nmt && 8 * kb_own < H;
-  const int kpw = (nks + ks - 1) / ks;
-  const int k0 = min(nks, kh * kpw), k1 = min(nks, k0 + kpw);
+  const int kpw = (nkp + ks - 1) / ks;
+  const int k0 = min(nkp, kh * kpw), k1 = min(nkp, k0 + kpw);
+  // the flags of its k-steps: of the 8-unit blocks they cover
+  const int f0 = kBf ? 2 * k0 : k0, f1 = kBf ? min(nks, 2 * k1) : k1;
   int* fl = flags + ((size_t)d * nmt + mt) * nks;
-  auto block4 = [&](int par, int kb) {  // the float4s of (m-tile, k-step)
+  auto block4 = [&](int par, int kb) {  // the 16 bytes a lane of (m-tile, k-step)
     return reinterpret_cast<float4*>(hx) +
-           ((((size_t)par * ndir + d) * nmt + mt) * nks + kb) * 32;
+           ((((size_t)par * ndir + d) * nmt + mt) * nkp + kb) * 32;
   };
   const float2* wq = ws + (size_t)(grp % nub) * G * nks * 32 + lane;
+  const unsigned* wbq = wb + (size_t)(grp % nub) * G * nks * 32;
   float* pp = part + (size_t)grp * ks * 4 * G * 32 + lane;
   const size_t part_par = (size_t)groups * ks * 4 * G * 32;
   // the one-gate cell's staged h: [2][rb / 16][nks][32] float4, the A
@@ -330,6 +416,34 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
         mma_tf32(acc[q], ah, bl0, bl1);
         mma_tf32(acc[q], ah, bh0, bh1);
       }
+    };
+    // the bf16 product's B fragments of k-step kb for the G gates (the
+    // second register zero in a half k-step), and one k-step of 16: h of 16
+    // rows x 16 units (its second half zero past the last 8-unit block)
+    // times the G n-tiles
+    auto bfrag = [&](unsigned (*bf)[2], int kb) {
+      const bool full = 2 * kb + 1 < nks;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const unsigned* r =
+            wbq + (size_t)q * nks * 32 + 64 * kb + (full ? 2 * lane : lane);
+        if (full) {
+          const uint2 bv = *reinterpret_cast<const uint2*>(r);
+          bf[q][0] = bv.x;
+          bf[q][1] = bv.y;
+        } else {
+          bf[q][0] = r[0];
+          bf[q][1] = 0u;
+        }
+      }
+    };
+    auto kstep_bf16 = [&](const float4& v, const unsigned (*bf)[2], int kb) {
+      const bool full = 2 * kb + 1 < nks;
+      const unsigned a[4] = {__float_as_uint(v.x), __float_as_uint(v.y),
+                             full ? __float_as_uint(v.z) : 0u,
+                             full ? __float_as_uint(v.w) : 0u};
+#pragma unroll
+      for (int q = 0; q < G; ++q) mma_bf16(acc[q], a, bf[q][0], bf[q][1]);
     };
     auto split4 = [](const float4& v, unsigned* ah, unsigned* al) {
       split_tf32(v.x, ah[0], al[0]);
@@ -385,23 +499,51 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
     } else if (live && s > 0 && k0 < k1) {  // h_{-1} = 0: no product at s = 0
       // h_{s-1} of every k-step of the split is published: each of the KS
       // writers of a block adds one to its flag a step
-      wait_flags(fl + k0, k1 - k0, ks * s, lane);
+      wait_flags(fl + f0, f1 - f0, ks * s, lane);
       FWD_STAMP(0)  // the flags
       const float4* src = block4((s + 1) & 1, 0) + lane;
       float4 ring[kWideDepth];
 #pragma unroll
       for (int i = 0; i < kWideDepth; ++i)
         if (k0 + i < k1) ring[i] = ld_exchange(src + (size_t)(k0 + i) * 32);
-      for (int kb0 = k0; kb0 < k1; kb0 += kWideDepth) {
+      if constexpr (kBf) {
+        // each k-step's B fragments are read a k-step ahead, before the next
+        // load of h (whose memory clobber no shared load may cross), and
+        // the whole chunks of kWideDepth k-steps run unpredicated
+        unsigned bq[G][2], bn[G][2];
+        bfrag(bq, k0);
+        auto step = [&](float4& slot, int kb) {
+          const float4 v = slot;
+          if (kb + 1 < k1) bfrag(bn, kb + 1);
+          if (kb + kWideDepth < k1)
+            slot = ld_exchange(src + (size_t)(kb + kWideDepth) * 32);
+          kstep_bf16(v, bq, kb);
 #pragma unroll
-        for (int i = 0; i < kWideDepth; ++i) {
-          const int kb = kb0 + i;
-          if (kb < k1) {
-            unsigned ah[4], al[4];
-            split4(ring[i], ah, al);
-            if (kb + kWideDepth < k1)
-              ring[i] = ld_exchange(src + (size_t)(kb + kWideDepth) * 32);
-            kstep(ah, al, kb);
+          for (int q = 0; q < G; ++q) {
+            bq[q][0] = bn[q][0];
+            bq[q][1] = bn[q][1];
+          }
+        };
+        int kb0 = k0;
+        for (; kb0 + kWideDepth <= k1; kb0 += kWideDepth) {
+#pragma unroll
+          for (int i = 0; i < kWideDepth; ++i) step(ring[i], kb0 + i);
+        }
+#pragma unroll
+        for (int i = 0; i < kWideDepth; ++i)
+          if (kb0 + i < k1) step(ring[i], kb0 + i);
+      } else {
+        for (int kb0 = k0; kb0 < k1; kb0 += kWideDepth) {
+#pragma unroll
+          for (int i = 0; i < kWideDepth; ++i) {
+            const int kb = kb0 + i;
+            if (kb < k1) {
+              unsigned ah[4], al[4];
+              split4(ring[i], ah, al);
+              if (kb + kWideDepth < k1)
+                ring[i] = ld_exchange(src + (size_t)(kb + kWideDepth) * 32);
+              kstep(ah, al, kb);
+            }
           }
         }
       }
@@ -448,16 +590,35 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
     }
     FWD_STAMP(3)  // the gate math
     if (s + 1 < T) {
-      // h_s into the buffer: unit 2 c + jj of the block is the A fragment's
-      // column (2 c + jj) % 4 of half c / 2, row g + 8 e its element e of
-      // that half; each of the KS splits adds one to the block's flag
-      float* dst = reinterpret_cast<float*>(block4(s & 1, kb_own));
+      if constexpr (kBf) {
+        // h_s into the buffer as bf16: pair p = 2 e + jj of the block is
+        // half jj of word 2 (kb_own % 2) + e of lane 4 g + c's 16 bytes of
+        // k-step kb_own / 2 (the header)
+        unsigned* dst = reinterpret_cast<unsigned*>(block4(s & 1, kb_own >> 1) +
+                                                    lane) +
+                        2 * (kb_own & 1);
+        if (np == 4) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(
+              pack2_bf16(hxv[0], hxv[1], 2), pack2_bf16(hxv[2], hxv[3], 2));
+        } else if (np == 2) {
+          dst[p0 >> 1] = pack2_bf16(hxv[0], hxv[1], 2);
+        } else {
+          reinterpret_cast<unsigned short*>(dst + (p0 >> 1))[p0 & 1] =
+              bf16_bits(hxv[0]);
+        }
+      } else {
+        // h_s into the buffer: unit 2 c + jj of the block is the A
+        // fragment's column (2 c + jj) % 4 of half c / 2, row g + 8 e its
+        // element e of that half
+        float* dst = reinterpret_cast<float*>(block4(s & 1, kb_own));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i >= np) break;
-        const int p = p0 + i, e = p >> 1, jj = p & 1;
-        dst[(4 * g + ((2 * c + jj) & 3)) * 4 + e + 2 * (c >> 1)] = hxv[i];
+        for (int i = 0; i < 4; ++i) {
+          if (i >= np) break;
+          const int p = p0 + i, e = p >> 1, jj = p & 1;
+          dst[(4 * g + ((2 * c + jj) & 3)) * 4 + e + 2 * (c >> 1)] = hxv[i];
+        }
       }
+      // each of the KS splits adds one to the block's flag
       __threadfence();
       __syncwarp();
       if (lane == 0) red_release_add(fl + kb_own, 1);
@@ -480,6 +641,10 @@ __global__ void __launch_bounds__(32 * kWideMaxWarps, 1)
 inline size_t wide_hx_floats(int B, int H, int ndir) {
   return (size_t)2 * ndir * ((B + 15) / 16 * 16) * ((H + 7) / 8 * 8);
 }
+// the bf16 products' exchange buffer (bf16 elements): H rounded up to 16
+inline size_t wide_hx_bf16(int B, int H, int ndir) {
+  return (size_t)2 * ndir * ((B + 15) / 16 * 16) * ((H + 15) / 16 * 16);
+}
 inline size_t wide_flag_ints(int B, int H, int ndir) {
   return (size_t)ndir * ((B + 15) / 16) * ((H + 7) / 8);
 }
@@ -497,7 +662,8 @@ cudaError_t wide_fits(int B, int H, int ndir, bool* fit) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return err;
-  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms);
+  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms,
+                                  kWideWeightBytes<S, kRound>);
   if (!coop || !ws.ok) return cudaSuccess;
   const void* kernel = reinterpret_cast<const void*>(fwd_wide_kernel<Cell, S, kRound>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -526,7 +692,8 @@ cudaError_t launch_fwd_wide(const void* gx, const void* w, void* ys, void* cs,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms);
+  const WideShape ws = wide_shape(Cell::kGates, H, B, ndir, sms,
+                                  kWideWeightBytes<S, kRound>);
   if (!ws.ok) return cudaErrorInvalidValue;
   err = cudaMemsetAsync(flags, 0, wide_flag_ints(B, H, ndir) * sizeof(int),
                         stream);

@@ -58,7 +58,8 @@ extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0 the
 // grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster, 4
-// the wide branch (FwdBranch).  Returns a cudaError_t.
+// the wide branch on fp32 streams, 5 on bf16 streams (FwdBranch).  Returns a
+// cudaError_t.
 int gru_bidir_fwd_branch(int B, int H, int ndir, int bf16, int* branch) {
   return (int)(bf16 ? fwd_branch<GruCell, __nv_bfloat16, true>(B, H, ndir, branch)
                     : fwd_branch<GruCell, float, true>(B, H, ndir, branch));
@@ -82,11 +83,13 @@ int gru_bidir_forward(const void* gx, const void* w_hh, void* ys, void* hbuf,
     if (!hbuf || !hcarry) return (int)cudaErrorInvalidValue;
     err = gru_forward(gx, w_hh, ys, hbuf, hcarry, T, B, H, ldh, ndir, bf16,
                       stream);
-  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
-    err = bf16 ? cudaErrorInvalidValue
+  } else if (plan == kFwdWide || plan == kFwdWideBf16) {
+    // wide_fp32 on fp32 streams, wide_bf16 on bf16 streams
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    err = bf16 ? launch_fwd_wide<GruCell, __nv_bfloat16, true>(
+                     gx, w_hh, ys, nullptr, hbuf, hcarry, T, B, H, ndir, st)
                : launch_fwd_wide<GruCell, float, true>(
-                     gx, w_hh, ys, nullptr, hbuf, hcarry, T, B, H, ndir,
-                     static_cast<cudaStream_t>(stream));
+                     gx, w_hh, ys, nullptr, hbuf, hcarry, T, B, H, ndir, st);
   } else {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     err = bf16 ? launch_fwd_cluster<GruCell, __nv_bfloat16, true>(

@@ -10,12 +10,17 @@
 // Forward: gx (T, B, 8H) in the stream type S, w_hh (2, H, 4H) fp32
 // (already rounded to S by the caller) -> ys (T, B, 2H) and the cell states
 // cs (T, B, 2H), both in S.  The carries are fp32; with bf16 streams h
-// enters the next step's product as ys holds it.  Two branches, chosen by
-// the launcher and reported: the cluster branch of fwd_cluster.cuh (bf16
-// streams: the tensor-core kernel, 16 or 32 batch rows a cluster; fp32
-// streams: the fp32 kernel, 16 rows a cluster of up to 16 CTAs), and the
-// grid kernel of lstm_fwd.cuh with kTrain = true for the shapes no cluster
-// holds (the eval kernel's design, lstm_bidir.cu, plus one more plane).
+// enters the next step's product as ys holds it.  Three kinds of branch,
+// chosen by the launcher and reported: the cluster branch of
+// fwd_cluster.cuh (bf16 streams: the tensor-core kernel, 16 or 32 batch rows
+// a cluster; fp32 streams: the fp32 kernel, 16 rows a cluster of up to 16
+// CTAs), the wide branch of fwd_wide.cuh where no cluster holds the shape
+// (one persistent CTA an SM, weights resident, h exchanged through L2
+// under step flags: wide_fp32 on fp32 streams, 3xTF32 products; wide_bf16
+// on bf16 streams, bf16 mma.sync m16n8k16, DeepSpeech2's H = 1024 at B =
+// 64), and the grid kernel of lstm_fwd.cuh with kTrain = true past the wide
+// branch's bound (the eval kernel's design, lstm_bidir.cu, plus one more
+// plane).
 //
 // Backward: the hoisted form of the JAX kernel (_lstm_prepass and its
 // step), in two launches; bwd_hoist.cuh holds the design notes and the two
@@ -261,7 +266,8 @@ extern "C" {
 
 // The forward's branch for this shape on the current device: *branch 0
 // the grid, 1 or 2 the bf16 cluster of 16 or 32 rows, 3 the fp32 cluster,
-// 4 the wide branch (FwdBranch).  Returns a cudaError_t.
+// 4 the wide branch on fp32 streams, 5 on bf16 streams (FwdBranch).
+// Returns a cudaError_t.
 int lstm_bidir_train_fwd_branch(int B, int H, int ndir, int bf16,
                                 int* branch) {
   return (int)(bf16
@@ -274,7 +280,8 @@ int lstm_bidir_train_fwd_branch(int B, int H, int ndir, int bf16,
 // or 2.  The scratch, by branch (null for the clusters): the grid's hbuf
 // (ndir, 2, H, ldh) with ldh >= B a multiple of 4, and cbuf (ndir, B, H),
 // both fp32 zeros; the wide branch's exchange buffer as hbuf and its step
-// flags as cbuf (lstm_bidir.cu says their sizes).  *branch: the branch
+// flags as cbuf (lstm_bidir.cu says their sizes; on bf16 streams the buffer
+// is bf16, wide_hx_bf16 elements).  *branch: the branch
 // launched, as lstm_bidir_train_fwd_branch numbers them.  Returns a
 // cudaError_t; 0 means launched.
 int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
@@ -295,8 +302,10 @@ int lstm_bidir_train_forward(const void* gx, const void* w_hh, void* ys,
                                               B, H, ldh, ndir, st)
                : launch<float, true>(gx, w_hh, ys, cs, hbuf, cbuf, T, B, H,
                                      ldh, ndir, st);
-  } else if (plan == kFwdWide) {  // fp32 streams only: bf16 rounds the product
-    err = bf16 ? cudaErrorInvalidValue
+  } else if (plan == kFwdWide || plan == kFwdWideBf16) {
+    // wide_fp32 on fp32 streams, wide_bf16 on bf16 streams
+    err = bf16 ? launch_fwd_wide<LstmCell, __nv_bfloat16, true>(
+                     gx, w_hh, ys, cs, hbuf, cbuf, T, B, H, ndir, st)
                : launch_fwd_wide<LstmCell, float, true>(
                      gx, w_hh, ys, cs, hbuf, cbuf, T, B, H, ndir, st);
   } else {

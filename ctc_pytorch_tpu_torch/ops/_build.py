@@ -32,19 +32,25 @@ BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32", "wide_fp32")
 # the forward kernels' branches (csrc/fwd_cluster.cuh FwdBranch), which the
 # tanh cell's backward takes too: the cooperative grid, the bf16
 # tensor-core clusters of 16 or 32 batch rows, the fp32 cluster of 16
-# rows, and the wide-batch fp32 branch (csrc/fwd_wide.cuh: one CTA an SM,
-# 3xTF32 on the tensor cores, h exchanged through L2 under step flags)
+# rows, and the wide-batch branch (csrc/fwd_wide.cuh: one CTA an SM, h
+# exchanged through L2 under step flags) with fp32 products (3xTF32 on the
+# tensor cores) and with bf16 products (the gated cells on bf16 streams past
+# the bf16 clusters: bf16 mma.sync, h exchanged as bf16)
 FWD_BRANCHES = ("grid", "cluster16", "cluster32", "cluster16_fp32",
-                "wide_fp32")
+                "wide_fp32", "wide_bf16")
 
 
-def wide_scratch_sizes(b: int, h: int, ndir: int) -> Tuple[int, int]:
-    """``(floats, ints)`` of the wide branch's scratch (``csrc/fwd_wide.cuh``
-    ``wide_hx_floats``, ``wide_flag_ints``): the exchange buffer, two steps
-    of h in the mma's fragment order over B and H rounded up to 16 and 8,
-    and one step flag per (direction, 16 rows, 8 units)."""
+def wide_scratch_sizes(b: int, h: int, ndir: int,
+                       bf16: bool = False) -> Tuple[int, int]:
+    """``(elements, ints)`` of the wide branch's scratch
+    (``csrc/fwd_wide.cuh`` ``wide_hx_floats``, ``wide_hx_bf16``,
+    ``wide_flag_ints``): the exchange buffer, two steps of h in the mma's
+    fragment order over B and H rounded up to 16 and 8 (fp32; ``bf16``, the
+    bf16 products' buffer: H rounded up to 16), and one step flag per
+    (direction, 16 rows, 8 units)."""
     mt, kb = -(-b // 16), -(-h // 8)
-    return 2 * ndir * 16 * mt * 8 * kb, ndir * mt * kb
+    unit = 16 * -(-kb // 2) if bf16 else 8 * kb
+    return 2 * ndir * 16 * mt * unit, ndir * mt * kb
 
 
 def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
@@ -55,9 +61,9 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
     ``<prefix>_fwd_branch`` first and makes the grid branch's zeroed fp32
     scratch (the h double buffer ``(ndir, 2, H, ldh)``, then
     ``scratch_shapes``, at most one, else a null pointer) only for it, and
-    the wide branch's exchange buffer and step flags
-    (``wide_scratch_sizes``; the library zeroes the flags on the stream)
-    only for that one.  Returns the branch launched (``FWD_BRANCHES``);
+    the wide branches' exchange buffer (fp32, or bf16 for ``wide_bf16``)
+    and step flags (``wide_scratch_sizes``; the library zeroes the flags on
+    the stream) only for those.  Returns the branch launched (``FWD_BRANCHES``);
     raises if the launch failed."""
     import torch
 
@@ -73,9 +79,11 @@ def launch_forward(lib, prefix: str, gx, w, outs, t_len: int, b: int, h: int,
         scratch += [torch.zeros(*s, dtype=torch.float32, device=gx.device)
                     for s in scratch_shapes]
         ptrs = [x.data_ptr() for x in scratch] + [None] * (2 - len(scratch))
-    elif err == 0 and FWD_BRANCHES[branch.value] == "wide_fp32":
-        n_hx, n_flags = wide_scratch_sizes(b, h, ndir)
-        scratch = [torch.empty(n_hx, dtype=torch.float32, device=gx.device),
+    elif err == 0 and FWD_BRANCHES[branch.value].startswith("wide"):
+        wide_bf16 = FWD_BRANCHES[branch.value] == "wide_bf16"
+        n_hx, n_flags = wide_scratch_sizes(b, h, ndir, wide_bf16)
+        scratch = [torch.empty(n_hx, device=gx.device, dtype=torch.bfloat16
+                               if wide_bf16 else torch.float32),
                    torch.empty(n_flags, dtype=torch.int32, device=gx.device)]
         ptrs = [x.data_ptr() for x in scratch]
     if err == 0:

@@ -18,14 +18,17 @@ stay apart (``n = tanh(gx_n + r * hh_n)``), ``z * h`` uses the fp32 carry, and
 On this card the work is bound by its bytes with bf16 streams (both operands
 of the product are bf16 values, which the tensor cores multiply) and by fp32
 operations with fp32 streams; ``csrc/gru_bidir.cu`` counts both.  The kernel
-has two branches, which the library chooses by shape and reports
+has three kinds of branch, which the library chooses by shape and reports
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it, h exchanged in distributed
 shared memory and the step product on the tensor cores with bf16 streams
 (``csrc/fwd_cluster.cuh``); with fp32 streams where those clusters do not
 all fit (B = 128), the wide branch (``wide_fp32``, ``csrc/fwd_wide.cuh``:
 one CTA an SM, 3xTF32 on the tensor cores, h exchanged through L2 under
-step flags, H <= 1056); or one cooperative grid with a grid barrier per
+step flags, H <= 1056), and with bf16 streams past the clusters' bound
+(H > 496, or B = 128 past H = 448) its bf16 form (``wide_bf16``: ``w_hh``
+resident as bf16, bf16 ``mma.sync`` m16n8k16, h exchanged as bf16, H <=
+1352 at B <= 16); or one cooperative grid with a grid barrier per
 time step where neither holds the shape.  Any T >= 1, B >= 1 and H run,
 with no padding.
 

@@ -28,7 +28,8 @@ belong to the caller's ``torch.matmul``.
 
 The forward's branches are the eval op's, counted here by the branch the
 library reported (``launches_fwd_branch``; with fp32 streams at B = 128 the
-wide branch, ``wide_fp32``).  The serial chain has four branches, which
+wide branch, ``wide_fp32``, and with bf16 streams past the bf16 clusters'
+bound its bf16 form, ``wide_bf16``).  The serial chain has four branches, which
 the launcher chooses by shape and reports (``launches_bwd_branch``): with
 bf16 streams and H <= 480 a thread-block cluster per (direction, 16 or 32
 batch rows) runs its step product on the tensor cores and exchanges it in

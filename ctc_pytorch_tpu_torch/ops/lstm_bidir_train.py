@@ -46,10 +46,13 @@ branches of its own, chosen and reported the same way
 (``launches_fwd_branch``): a thread-block cluster per direction and 16 or 32
 batch rows with ``w_hh`` resident across it and h exchanged in distributed
 shared memory, its step product on the tensor cores with bf16 streams and
-on CUDA cores in fp32 with fp32 streams (``csrc/fwd_cluster.cuh``); with fp32
-streams where those clusters do not all fit (B = 128), the wide branch
-(``wide_fp32``, ``csrc/fwd_wide.cuh``: one CTA an SM, the product in 3xTF32
-on the tensor cores, h exchanged through L2 under step flags); or the
+on CUDA cores in fp32 with fp32 streams (``csrc/fwd_cluster.cuh``); where
+those clusters do not hold the shape, the wide branch (``csrc/fwd_wide.cuh``:
+one CTA an SM, ``w_hh`` resident, h exchanged through L2 under step flags):
+``wide_fp32`` on fp32 streams (B = 128; the product in 3xTF32 on the tensor
+cores) and ``wide_bf16`` on bf16 streams (H past the bf16 clusters' bound,
+DeepSpeech2's H = 1024 at B = 64: ``w_hh`` resident as bf16, the product
+in bf16 ``mma.sync`` m16n8k16 with fp32 sums, h exchanged as bf16); or the
 cooperative grid where neither holds the shape.  With bf16 streams the products' operands
 are bf16 values, so the card's limit for the work is its bytes; with fp32
 streams it is the fp32 operations.  Any T >= 1, B >= 1 and H run, with no

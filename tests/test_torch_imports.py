@@ -174,7 +174,7 @@ def test_kernel_modules_build_nothing_at_import():
                         (lstm_bidir_train.LIBRARY, "lstm_bidir_train")):
         assert {f"{prefix}_fwd_branch", f"{prefix}_forward"} <= set(lib.functions)
     assert _build.FWD_BRANCHES == ("grid", "cluster16", "cluster32",
-                                   "cluster16_fp32", "wide_fp32")
+                                   "cluster16_fp32", "wide_fp32", "wide_bf16")
 
 
 def test_gru_kernel_modules_build_nothing_at_import():

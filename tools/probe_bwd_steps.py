@@ -8,12 +8,15 @@ backward (``bwd_wide_kernel`` in ``csrc/bwd_wide.cuh``) at the fp32 bench
 shapes and the LSTM's grid backward (``lstm_bidir_bwd_kernel`` in
 ``csrc/lstm_bidir_train.cu``) beside it, the forward kernels
 (``fwd_mma_kernel``, ``fwd_fma_kernel``, ``fma1_kernel`` in
-``csrc/fwd_cluster.cuh``, ``fwd_wide_kernel`` in ``csrc/fwd_wide.cuh``) at
+``csrc/fwd_cluster.cuh``, ``fwd_wide_kernel`` in ``csrc/fwd_wide.cuh``,
+fp32 and bf16 products, the latter at DeepSpeech2's training forward) at
 the main paths' and bench shapes, for the LSTM, the GRU and the tanh cell
 forward and backward (the tanh cell's on the wide branch too, fp32 at the
 bench shape), and the grid forward (``csrc/lstm_fwd.cuh``) at the bench
 shape: the cycles a step spends in each phase, and the clusters the
-card holds at once.
+card holds at once; then, built without the stamps, the bf16 wide form
+(``wide_bf16``) timed in turns beside the 32-row cluster that the launcher
+takes at the TIMIT bench shape.
 
     python3 tools/probe_bwd_steps.py
 
@@ -94,8 +97,10 @@ void run_fwd(int T, int B, int H, const char* what) {
     return;
   }
   void *hx = nullptr, *flags = nullptr;
-  if (branch == kFwdWide) {
-    cudaMalloc(&hx, wide_hx_floats(B, H, ndir) * 4);
+  const bool wide = branch == kFwdWide || branch == kFwdWideBf16;
+  if (wide) {
+    cudaMalloc(&hx, branch == kFwdWideBf16 ? wide_hx_bf16(B, H, ndir) * 2
+                                           : wide_hx_floats(B, H, ndir) * 4);
     cudaMalloc(&flags, wide_flag_ints(B, H, ndir) * 4);
   }
   void* c = std::is_same<Cell, LstmCell>::value && kRound ? cs : nullptr;
@@ -108,12 +113,17 @@ void run_fwd(int T, int B, int H, const char* what) {
     cudaEventCreate(&a);
     cudaEventCreate(&b);
     cudaEventRecord(a);
-    const cudaError_t err =
-        branch == kFwdWide
-            ? launch_fwd_wide<Cell, S, kRound>(gx, w, ys, c, hx, flags, T, B,
-                                               H, ndir, 0, y_in)
-            : launch_fwd_cluster<Cell, S, kRound>(branch, gx, w, ys, c, T, B,
-                                                  H, ndir, 0, y_in);
+    cudaError_t err;
+    if constexpr (kWideBf16<S, kRound> && Cell::kGates == 1) {
+      // the one-gate cell has no bf16 wide form: its clusters or the grid
+      err = launch_fwd_cluster<Cell, S, kRound>(branch, gx, w, ys, c, T, B, H,
+                                                ndir, 0, y_in);
+    } else {
+      err = wide ? launch_fwd_wide<Cell, S, kRound>(gx, w, ys, c, hx, flags,
+                                                    T, B, H, ndir, 0, y_in)
+                 : launch_fwd_cluster<Cell, S, kRound>(branch, gx, w, ys, c,
+                                                       T, B, H, ndir, 0, y_in);
+    }
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     float ms = 0.f;
@@ -428,6 +438,11 @@ int main() {
   run_fwd<LstmCell, float, false>(80, 64, 384, "lstm eval T=80 B=64 H=384 fp32");
   run_fwd<LstmCell, float, true>(80, 128, 384, "lstm train T=80 B=128 H=384 fp32");
   run_fwd<GruCell, float, true>(95, 128, 256, "gru T=95 B=128 H=256 fp32");
+  printf("forward, the wide branch's bf16 form (branch 5)\n");
+  run_fwd<LstmCell, __nv_bfloat16, true>(1200, 64, 1024,
+                                         "lstm train T=1200 B=64 H=1024 bf16");
+  run_fwd<GruCell, __nv_bfloat16, true>(95, 128, 512,
+                                        "gru T=95 B=128 H=512 bf16");
   printf("grid forward\n");
   run_grid<float, false>(80, 128, 384, "lstm eval T=80 B=128 H=384 fp32");
   run_grid<__nv_bfloat16, false>(80, 128, 384, "lstm eval T=80 B=128 H=384 bf16");
@@ -449,6 +464,72 @@ int main() {
 """
 
 
+# The bf16 form of the wide forward beside the launcher's own branch (the
+# 32-row cluster) at the TIMIT bench shape, built without the stamps:
+# median of five launches each, in turns
+TURNS = r"""
+#include "fwd_cluster.cuh"
+#include <algorithm>
+#include <cstdio>
+
+template <class Cell>
+void turns(int T, int B, int H, const char* what) {
+  using S = __nv_bfloat16;
+  const int G = Cell::kGates, ndir = 2;
+  const size_t n_gx = (size_t)T * B * ndir * G * H, n_y = (size_t)T * B * ndir * H;
+  void *gx, *ys, *cs, *hx, *flags;
+  float* w;
+  cudaMalloc(&gx, n_gx * sizeof(S));
+  cudaMalloc(&ys, n_y * sizeof(S));
+  cudaMalloc(&cs, n_y * sizeof(S));
+  cudaMalloc(&w, (size_t)ndir * H * G * H * 4);
+  cudaMemset(gx, 0, n_gx * sizeof(S));
+  cudaMemset(w, 0, (size_t)ndir * H * G * H * 4);
+  cudaMalloc(&hx, wide_hx_bf16(B, H, ndir) * 2);
+  cudaMalloc(&flags, wide_flag_ints(B, H, ndir) * 4);
+  void* c = std::is_same<Cell, LstmCell>::value ? cs : nullptr;
+  int branch = 0;
+  bool fit = false;
+  fwd_branch<Cell, S, true>(B, H, ndir, &branch);
+  wide_fits<Cell, S, true>(B, H, ndir, &fit);
+  if (branch == kFwdGrid || !fit) {
+    printf("%s: branch %d, wide_bf16 fits %d: no turns\n", what, branch, fit);
+    return;
+  }
+  float ms[2][5];
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  cudaError_t err = cudaSuccess;
+  for (int rep = -1; rep < 5; ++rep) {  // rep -1 warms both up
+    for (int k = 0; k < 2; ++k) {
+      cudaEventRecord(a);
+      const cudaError_t e =
+          k == 0 ? launch_fwd_cluster<Cell, S, true>(branch, gx, w, ys, c, T, B,
+                                                     H, ndir, 0)
+                 : launch_fwd_wide<Cell, S, true>(gx, w, ys, c, hx, flags, T, B,
+                                                  H, ndir, 0);
+      if (e != cudaSuccess) err = e;
+      cudaEventRecord(b);
+      cudaEventSynchronize(b);
+      if (rep >= 0) cudaEventElapsedTime(&ms[k][rep], a, b);
+    }
+  }
+  for (int k = 0; k < 2; ++k) std::sort(ms[k], ms[k] + 5);
+  printf("%s: branch %d %.4f ms (%.2f us a step), wide_bf16 %.4f ms (%.2f us "
+         "a step), wide / branch %.3f (%s)\n", what, branch, ms[0][2],
+         1e3 * ms[0][2] / T, ms[1][2], 1e3 * ms[1][2] / T, ms[1][2] / ms[0][2],
+         cudaGetErrorString(err != cudaSuccess ? err : cudaGetLastError()));
+}
+
+int main() {
+  turns<LstmCell>(80, 128, 384, "lstm train T=80 B=128 H=384 bf16");
+  turns<GruCell>(95, 128, 448, "gru T=95 B=128 H=448 bf16");
+  return 0;
+}
+"""
+
+
 def main() -> int:
     out = BUILD_DIR / "probes"
     out.mkdir(parents=True, exist_ok=True)
@@ -464,6 +545,13 @@ def main() -> int:
     print("wide backward phases:", ", ".join(WIDE_BWD_PHASES))
     print("grid backward phases:", ", ".join(GRID_BWD_PHASES))
     print("grid forward phases:", ", ".join(GRID_PHASES))
+    subprocess.run([str(exe)], check=True)
+    cu, exe = out / "wide_bf16_turns.cu", out / "wide_bf16_turns"
+    cu.write_text(TURNS)
+    subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", f"-I{CSRC}", "-o", str(exe), str(cu)],
+                   check=True)
+    print("the bf16 wide form beside the 32-row cluster, no stamps:")
     subprocess.run([str(exe)], check=True)
     return 0
 

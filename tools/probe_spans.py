@@ -10,7 +10,9 @@ kept), prints the result line, and reduces the same events by
 ranges that the profiler draws on the device's timeline.  A tree without
 the spans (``--root``) gives the result line and no reduction;
 ``--no-spans`` turns the tree's spans off (each then returns its null
-context, as without a profiler), to time what they cost under one.
+context, as without a profiler), to time what they cost under one.  The
+report also gives the recurrence launches of the window by the branch
+each took (``launches_fwd_branch``, ``launches_bwd_branch``).
 
     python3 tools/probe_spans.py --workload timit_lstm-train_b8 \\
         --seed 2230000001 [--root <tree>] [--label <name>] [--no-spans]
@@ -72,6 +74,18 @@ def main() -> int:
         return summarize(events)
 
     kind.summarize = keep
+    # the port's launch counters as the kind reads them, the last two
+    # around the traced window
+    from gpubench import program
+
+    readings = []
+    read_launches = program.read_launches
+
+    def reading():
+        readings.append(read_launches())
+        return readings[-1]
+
+    program.read_launches = reading
     outcome = kind.run(job)
     (events,) = kept
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -93,7 +107,15 @@ def main() -> int:
         "device_drawn_ctc_kept": sum(map(device_activity, drawn)),
         "device_drawn_ctc_user_annotation": sum(
             bool(getattr(ev, "is_user_annotation", False)) for ev in drawn),
-        "program_spans": None}
+        "program_spans": None,
+        "window_launches_by_branch": None}
+    if len(readings) >= 2:
+        from ctc_pytorch_tpu_torch.ops import launch_counts
+
+        moved = launch_counts.diff(readings[-1], readings[-2])
+        report["window_launches_by_branch"] = {
+            f"{mod}.{name}": v for (mod, name), v in moved.items()
+            if name.endswith("_branch")}
     got = program_spans.reduce(events, outcome.layers.steps)
     if got is not None:
         per_step = {n: got.per_step_ms(s) for n, s in got.seconds.items()}
